@@ -1,0 +1,101 @@
+"""View-of-Delft sample decoding (part of a copy of
+``cmflow_tpu/data/vod.py``: the constants, :func:`decode_sample` and
+:func:`_sample_indices`).
+
+A raw sample is the ujson dict written by the reference's preprocessing
+(preprocess/utils/get_flow_samples.py:162-175): features are columns
+[4, 3, 3] of the 7-column radar points (v_r, RCS, RCS); val/test use gt
+labels and mask, train uses pseudo labels, mask and optical-flow info;
+``trans`` is the inverse of the stored odometry transform; training draws
+exactly ``num_points`` per cloud, eval keeps full clouds.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+
+from cmflow_tpu_torch.data.schema import Sample
+
+# VoD radar sensor resolution (dataset/vod.py:21-24)
+VOD_RADAR_RES = {
+    "r_res": 0.2,
+    "theta_res": 1.5 * np.pi / 180,
+    "phi_res": 1.5 * np.pi / 180,
+}
+
+# VoD radar->camera calibration (dataset/vod_radar_calib.txt — dataset
+# metadata, not code): camera projection P and extrinsic radar->camera.
+VOD_CAMERA_PROJECTION = np.array(
+    [[1495.468642, 0.0, 961.272442, 0.0],
+     [0.0, 1495.468642, 624.89592, 0.0],
+     [0.0, 0.0, 1.0, 0.0]], dtype=np.float32)
+
+VOD_T_CAMERA_RADAR = np.array(
+    [[-0.013857, -0.9997468, 0.01772762, 0.05283124],
+     [0.10934269, -0.01913807, -0.99381983, 0.98100483],
+     [0.99390751, -0.01183297, 0.1095802, 1.44445002],
+     [0.0, 0.0, 0.0, 1.0]], dtype=np.float32)
+
+VOD_INTERVAL = 0.10  # seconds between frames (dataset/vod.py:29)
+
+
+def decode_sample(
+    data: Dict, partition: str, *, eval_mode: bool, num_points: int,
+    rng: Optional[np.random.Generator] = None,
+) -> Sample:
+    """Turn one raw ujson dict into a Sample (dataset/vod.py:49-124)."""
+    data_1 = np.asarray(data["pc1"], np.float32)
+    data_2 = np.asarray(data["pc2"], np.float32)
+
+    pos_1 = data_1[:, 0:3]
+    pos_2 = data_2[:, 0:3]
+    feature_1 = data_1[:, [4, 3, 3]]
+    feature_2 = data_2[:, [4, 3, 3]]
+
+    if partition in ("test", "val", "train_anno"):
+        labels = np.asarray(data["gt_labels"], np.float32)
+        mask = np.asarray(data["gt_mask"], np.float32)
+        opt_flow = np.zeros((pos_1.shape[0], 2), np.float32)
+        radar_u = np.zeros(pos_1.shape[0], np.float32)
+        radar_v = np.zeros(pos_1.shape[0], np.float32)
+    else:
+        labels = np.asarray(data["pse_labels"], np.float32)
+        mask = np.asarray(data["pse_mask"], np.float32)
+        opt_info = data["opt_info"]
+        opt_flow = np.asarray(opt_info["opt_flow"], np.float32)
+        radar_u = np.asarray(opt_info["radar_u"], np.float32)
+        radar_v = np.asarray(opt_info["radar_v"], np.float32)
+
+    trans = np.linalg.inv(np.asarray(data["trans"])).astype(np.float32)
+
+    if not eval_mode:
+        if rng is None:
+            raise ValueError("training-mode decoding needs an rng")
+        idx1 = _sample_indices(pos_1.shape[0], num_points, rng)
+        idx2 = _sample_indices(pos_2.shape[0], num_points, rng)
+        pos_1, feature_1 = pos_1[idx1], feature_1[idx1]
+        pos_2, feature_2 = pos_2[idx2], feature_2[idx2]
+        radar_u, radar_v = radar_u[idx1], radar_v[idx1]
+        opt_flow = opt_flow[idx1]
+        labels, mask = labels[idx1], mask[idx1]
+
+    n1, n2 = pos_1.shape[0], pos_2.shape[0]
+    return {
+        "pc1": pos_1, "pc2": pos_2, "ft1": feature_1, "ft2": feature_2,
+        "trans": trans, "labels": labels, "mask": mask.astype(np.float32),
+        "interval": np.float32(VOD_INTERVAL),
+        "radar_u": radar_u, "radar_v": radar_v, "opt_flow": opt_flow,
+        "valid1": np.ones(n1, bool), "valid2": np.ones(n2, bool),
+    }
+
+
+def _sample_indices(npts: int, num_points: int,
+                    rng: np.random.Generator) -> np.ndarray:
+    """Random fixed-size sampling with duplicate-padding
+    (dataset/vod.py:98-111)."""
+    if npts < num_points:
+        extra = rng.choice(npts, num_points - npts, replace=True)
+        return np.concatenate([np.arange(npts), extra])
+    return rng.choice(npts, num_points, replace=False)

@@ -1,0 +1,233 @@
+"""Port parity: neighbour search, point ops and the row gather of
+``cmflow_tpu_torch.ops`` against the JAX package on the CPU.
+
+On CPU tensors the port's wrappers run their kernels' plain PyTorch
+versions.  They are held to the Pallas kernels run in interpret mode
+(``ball_query_multi``, ``knn_pallas``, ``mxu_group_points``) and to the XLA
+references (``_ball_query_xla``, ``_knn_xla``, the vmap gather).
+Tolerance: none.  Indices and gathered rows must be bit-identical, because
+both sides compute squared distances in the same float32 operation order
+and a gather copies.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cmflow_tpu.ops import pointops as jpo
+from cmflow_tpu.ops.fused import mxu_group_points
+from cmflow_tpu.ops.neighbors import ball_query_multi as jax_ball_query_multi
+from cmflow_tpu.ops.neighbors import knn_pallas
+from cmflow_tpu_torch.ops import fused, neighbors, pointops
+
+RADII = (2.0, 4.0, 8.0, 16.0)
+KS = (4, 8, 16, 32)
+SIZES = (128, 256, 384)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    torch.set_num_threads(1)
+
+
+@pytest.fixture
+def rs():
+    return np.random.RandomState(7)
+
+
+def cloud(rs, b, n, scale=20.0):
+    return (rs.rand(b, n, 3) * scale).astype(np.float32)
+
+
+def valid_mask(rs, b, n):
+    """Random holes plus an all-invalid tail, as padding gives."""
+    real = np.array([n - n // 4 - 3 * i for i in range(b)])
+    return (rs.rand(b, n) > 0.2) & (np.arange(n)[None, :] < real[:, None])
+
+
+def t(x):
+    return torch.from_numpy(np.asarray(x))
+
+
+def j(x):
+    return None if x is None else jnp.asarray(x)
+
+
+def assert_same(got, want):
+    got = got.numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    want = np.asarray(want)
+    assert got.dtype == want.dtype, (got.dtype, want.dtype)
+    np.testing.assert_array_equal(got, want)
+
+
+class TestSquareDistance:
+    @pytest.mark.parametrize("n", SIZES)
+    def test_bitwise(self, rs, n):
+        q, p = cloud(rs, 2, n // 2), cloud(rs, 2, n)
+        valid = valid_mask(rs, 2, n)
+        assert_same(pointops.square_distance(t(q), t(p)),
+                    jpo.square_distance(j(q), j(p)))
+        assert_same(pointops.masked_square_distance(t(q), t(p), t(valid)),
+                    jpo.masked_square_distance(j(q), j(p), j(valid)))
+
+
+class TestBallQuery:
+    @pytest.mark.parametrize("masked", [False, True])
+    @pytest.mark.parametrize("n", SIZES)
+    def test_all_scales(self, rs, n, masked):
+        b = 2
+        p = cloud(rs, b, n)
+        valid = valid_mask(rs, b, n) if masked else None
+        got = neighbors.ball_query_multi(RADII, KS, t(p), t(p),
+                                         None if valid is None else t(valid))
+        pallas = jax_ball_query_multi(RADII, KS, j(p), j(p), True,
+                                      points_valid=j(valid))
+        for r, k, g, pk in zip(RADII, KS, got, pallas):
+            assert g.shape == (b, n, k)
+            assert_same(g, pk)
+            assert_same(g, jpo._ball_query_xla(r, k, j(p), j(p), j(valid)))
+        # one radius per call, as the model calls it
+        for r, k, g in zip(RADII, KS, got):
+            assert_same(pointops.ball_query(
+                r, k, t(p), t(p), None if valid is None else t(valid)), g.numpy())
+
+    def test_query_ne_points(self, rs):
+        p, q = cloud(rs, 2, 256), cloud(rs, 2, 128, scale=25.0)
+        got = neighbors.ball_query_multi((3.0, 6.0), (8, 16), t(p), t(q))
+        want = jax_ball_query_multi((3.0, 6.0), (8, 16), j(p), j(q), True)
+        for g, w in zip(got, want):
+            assert_same(g, w)
+
+    def test_empty_balls_and_far_queries(self, rs):
+        p = cloud(rs, 2, 256, scale=200.0)
+        (got,) = neighbors.ball_query_multi((0.5,), (8,), t(p), t(p))
+        (want,) = jax_ball_query_multi((0.5,), (8,), j(p), j(p), True)
+        assert_same(got, want)
+        far = p + 1e4
+        (got,) = neighbors.ball_query_multi((1.0,), (4,), t(p), t(far))
+        assert (got.numpy() == 0).all()
+        assert_same(got, jpo._ball_query_xla(1.0, 4, j(p), j(far)))
+
+    def test_all_invalid_cloud(self, rs):
+        p = cloud(rs, 1, 128)
+        valid = np.zeros((1, 128), bool)
+        (got,) = neighbors.ball_query_multi((16.0,), (8,), t(p), t(p), t(valid))
+        assert (got.numpy() == 0).all()
+        assert_same(got, jpo._ball_query_xla(16.0, 8, j(p), j(p), j(valid)))
+
+    def test_duplicate_points(self, rs):
+        base = cloud(rs, 1, 32)
+        p = np.tile(base, (1, 8, 1))  # 256 points, every one eight times
+        got = neighbors.ball_query_multi(RADII, KS, t(p), t(p))
+        want = jax_ball_query_multi(RADII, KS, j(p), j(p), True)
+        for g, w in zip(got, want):
+            assert_same(g, w)
+
+    def test_more_slots_than_points(self, rs):
+        p = cloud(rs, 2, 16, scale=4.0)
+        got = pointops.ball_query(3.0, 32, t(p), t(p))
+        assert_same(got, jpo._ball_query_xla(3.0, 32, j(p), j(p)))
+
+
+class TestKnn:
+    @pytest.mark.parametrize("masked", [False, True])
+    @pytest.mark.parametrize("n", SIZES)
+    def test_matches_topk(self, rs, n, masked):
+        q, p = cloud(rs, 2, n), cloud(rs, 2, n)
+        valid = valid_mask(rs, 2, n) if masked else None
+        got = pointops.knn(8, t(q), t(p), None if valid is None else t(valid))
+        assert got.shape == (2, n, 8)
+        assert_same(got, knn_pallas(8, j(q), j(p), True, points_valid=j(valid)))
+        assert_same(got, jpo._knn_xla(8, j(q), j(p), j(valid)))
+
+    def test_ties_prefer_lower_index(self):
+        base = np.array([[[0.0, 0, 0], [1, 0, 0], [1, 0, 0], [2, 0, 0]]],
+                        np.float32)
+        p = np.tile(base, (1, 32, 1))  # 128 points, many exact ties
+        got = neighbors.knn(8, t(p), t(p))
+        assert_same(got, knn_pallas(8, j(p), j(p), True))
+        assert_same(got, jpo._knn_xla(8, j(p), j(p)))
+
+    def test_fewer_valid_points_than_k(self, rs):
+        # invalid points sit at BIG and fill the tail in index order
+        q, p = cloud(rs, 2, 128), cloud(rs, 2, 256)
+        valid = np.arange(256)[None, :] < np.array([[5], [256]])
+        got = neighbors.knn(8, t(q), t(p), t(valid))
+        assert_same(got, knn_pallas(8, j(q), j(p), True, points_valid=j(valid)))
+
+    @pytest.mark.parametrize("k", [1, 3, 16])
+    def test_other_k(self, rs, k):
+        q, p = cloud(rs, 1, 128), cloud(rs, 1, 128)
+        assert_same(neighbors.knn(k, t(q), t(p)), jpo._knn_xla(k, j(q), j(p)))
+
+    def test_knn_with_dists(self, rs):
+        q, p = cloud(rs, 2, 128), cloud(rs, 2, 256)
+        valid = valid_mask(rs, 2, 256)
+        d, idx = pointops.knn_with_dists(8, t(q), t(p), t(valid))
+        jd, jidx = jpo.knn_with_dists(8, j(q), j(p), j(valid))
+        assert_same(idx, jidx)
+        assert_same(d, jd)
+
+
+def bf16_exact(rs, shape):
+    """float32 values with at most 15 significant bits, which the one-hot
+    hi/lo bf16 gather of the JAX kernel reproduces exactly."""
+    return (rs.randint(-2 ** 14, 2 ** 14, shape) / 64.0).astype(np.float32)
+
+
+class TestGather:
+    @pytest.mark.parametrize("c", [3, 32, 512])
+    @pytest.mark.parametrize("n", SIZES)
+    def test_group_points(self, rs, n, c):
+        b, s, k = 2, 64, 8
+        pts = rs.randn(b, n, c).astype(np.float32)
+        idx = rs.randint(0, n, (b, s, k)).astype(np.int32)
+        got = pointops.group_points(t(pts), t(idx))
+        assert got.shape == (b, s, k, c)
+        assert_same(got, jpo.group_points(j(pts), j(idx)))
+
+    @pytest.mark.parametrize("c", [3, 32])
+    def test_matches_pallas_gather(self, rs, c):
+        b, n, s, k = 2, 256, 128, 4
+        pts = bf16_exact(rs, (b, n, c))
+        idx = rs.randint(0, n, (b, s, k)).astype(np.int32)
+        idx[0, :4, 0] = [-1, n, n + 7, -100]  # outside [0, N): zero rows
+        got = pointops.group_points(t(pts), t(idx))
+        assert_same(got, mxu_group_points(j(pts), j(idx), True))
+        assert (got[0, :4, 0].numpy() == 0).all()
+
+    def test_gather_points(self, rs):
+        pts = rs.randn(2, 128, 5).astype(np.float32)
+        idx = rs.randint(0, 128, (2, 40)).astype(np.int32)
+        assert_same(pointops.gather_points(t(pts), t(idx)),
+                    jpo.gather_points(j(pts), j(idx)))
+
+
+class TestWrappers:
+    def test_cpu_runs_plain_versions_without_launches(self, rs):
+        before = (neighbors.ball_query_multi.launches, neighbors.knn.launches,
+                  fused.gather_rows.launches)
+        p = t(cloud(rs, 1, 128))
+        idx = pointops.ball_query(4.0, 8, p, p)
+        pointops.group_points(p, idx)
+        pointops.knn(8, p, p)
+        assert (neighbors.ball_query_multi.launches, neighbors.knn.launches,
+                fused.gather_rows.launches) == before
+        assert_same(idx, neighbors.ball_query_multi_plain(
+            (4.0,), (8,), p, p)[0].numpy())
+
+    def test_rejects_bad_inputs(self, rs):
+        p = t(cloud(rs, 1, 128))
+        with pytest.raises(TypeError):
+            fused.gather_rows(p, torch.zeros((1, 4), dtype=torch.int64))
+        with pytest.raises(TypeError):
+            neighbors.knn(8, p.double(), p.double())
+        with pytest.raises(ValueError):
+            neighbors.ball_query_multi((1.0,) * 5, (4,) * 5, p, p)
+        with pytest.raises(ValueError):
+            neighbors.knn(129, p, p)
+        with pytest.raises(ValueError):
+            neighbors.knn(8, p[:, :, :2], p[:, :, :2])
+        with pytest.raises(ValueError):
+            neighbors.knn(8, p.to("meta"), p.to("meta"))

@@ -6,26 +6,41 @@
 Run from the repository root on a machine with a CUDA GPU and nvcc.  Steps:
 
 1. print the card's name and power limit (nvidia-smi);
-2. build every CUDA kernel of ``cmflow_tpu_torch/csrc`` with nvcc, timed;
-3. for each kernel, at every shape the CMFlow eval forward gives it (B=16 at
-   the 256 bucket, and the padded 384 bucket with valid masks), require an
-   exact match with its plain PyTorch version and time the kernel, the plain
-   version and, where one exists, a single PyTorch call computing the same
-   function (CUDA events, warmed, averaged over many launches);
-4. serve four requests of synthetic frames (decoded, padded to their bucket,
-   collated; B=16: three at the 256 bucket, one at the 384 bucket) through
-   ``make_eval_step`` with a full-width CMFlow whose weights come from a
-   seeded generator and whose BatchNorm statistics are seeded random; require
-   the kernels' launch counts per forward (ball query 12, kNN 2, gather 16),
-   finite outputs, and agreement of the first request with the same forward
-   on the CPU (plain versions): stat_cls and sf_agg atol 1e-4, pre_trans atol
-   5e-4, motion masks agreeing on >= 99% of valid points;
-5. print one JSON line per kernel shape and per request, then the
-   ``{"kernels": [...]}`` summary, then ``{"ok": true, "device": ...}`` last.
+2. build every CUDA kernel of ``cmflow_tpu_torch/csrc`` with nvcc, one
+   process per source, all at once, timed;
+3. for each kernel, at every shape the two eval routes give it (B=16 at the
+   256 bucket, and the padded 384 bucket with valid masks), hold it to its
+   plain PyTorch version on the same inputs: the ball query, kNN and the
+   gather exactly; the fused kernels (sa encoder, cost volume, propagation
+   encoder) to a max abs error of 1e-4 and of 1e-5 times the output's
+   largest magnitude, since they sum float32 products in another order.
+   Time the kernel, the plain version and, where one exists, a single
+   PyTorch call computing the same function (CUDA events, warmed, averaged
+   over many launches); for the cost volume and the propagation encoder
+   also cuBLAS float32 on the same products alone, a yardstick the port
+   never calls;
+4. serve four requests of synthetic frames (decoded, padded to their
+   bucket, collated; B=16: three at the 256 bucket, one at the 384 bucket)
+   through ``make_eval_step`` with a full-width CMFlow whose weights come
+   from a seeded generator and whose BatchNorm statistics are seeded random.
+   On the card the step takes the fused engine; require its launches per
+   forward (ball query 2, kNN 2, sa encoder 2, cost volume 1 + 1,
+   propagation encoder 4, gather 0), finite outputs, and agreement of the
+   first request with the same forward on the CPU and with the card's
+   module route: stat_cls and sf_agg atol 1e-4, pre_trans atol 5e-4, motion
+   masks agreeing on >= 99% of valid points (compared on valid points);
+5. serve one request per bucket on the module route (``fused="off"``):
+   launches per forward ball query 12, kNN 2, gather 16, the first request
+   held to the CPU at the same bars;
+6. print one JSON line per kernel shape and per request, then the
+   ``{"kernels": [...]}`` summary, then ``{"ok": true, "device": ...}``
+   last.
 
-Any failed check raises, so the exit code is non-zero and the last line is
-not printed.  Without a CUDA device, or run from anywhere but the root of a
-checkout (with ``cmflow_tpu_torch`` beside it), it exits with code 1 at once.
+Every launch counter is set to 0 just before each served forward and read
+just after it.  Any failed check raises, so the exit code is non-zero and
+the last line is not printed.  Without a CUDA device, or run from anywhere
+but the root of a checkout (with ``cmflow_tpu_torch`` beside it), it exits
+with code 1 at once.
 """
 
 from __future__ import annotations
@@ -44,9 +59,9 @@ import torch
 import cmflow_tpu_torch
 from cmflow_tpu_torch.data.synthetic import make_request
 from cmflow_tpu_torch.evaluation import metrics
-from cmflow_tpu_torch.models import build_model
+from cmflow_tpu_torch.models import build_model, inference
 from cmflow_tpu_torch.native import build
-from cmflow_tpu_torch.nn.blocks import BatchNorm
+from cmflow_tpu_torch.nn.blocks import BatchNorm, masked_global_max
 from cmflow_tpu_torch.ops import fused, neighbors
 from cmflow_tpu_torch.train.steps import make_eval_step
 
@@ -59,9 +74,25 @@ F32_FLOP_PER_S = 67e12
 # cross term, the -2 scale, 2 sums, the clamp and the comparison
 PAIR_FLOPS = 10
 BARS = {"flow": 1e-4, "cls": 1e-4, "trans": 5e-4, "agree": 0.99}
-LAUNCHES_PER_FORWARD = {"ball_query": 12, "knn": 2, "gather": 16}
+# the fused kernels against their plain versions: max abs error, and max
+# abs error over the output's largest magnitude
+FUSED_ATOL, FUSED_RTOL = 1e-4, 1e-5
 WRAPPERS = {"ball_query": neighbors.ball_query_multi, "knn": neighbors.knn,
-            "gather": fused.gather_rows}
+            "gather": fused.gather_rows,
+            "mse": fused.fused_multi_scale_encoder,
+            "cv": fused.cost_volume_p2p, "cv_agg": fused.cost_volume_agg,
+            "plf": fused.fused_point_local_feature}
+EXACT = ("ball_query", "knn", "gather")
+LAUNCHES = {
+    "fused": {"ball_query": 2, "knn": 2, "gather": 0, "mse": 2, "cv": 1,
+              "cv_agg": 1, "plf": 4},
+    "module": {"ball_query": 12, "knn": 2, "gather": 16, "mse": 0, "cv": 0,
+               "cv_agg": 0, "plf": 0},
+}
+# the route whose forward each kernel's summary row describes
+SUMMARY_PATH = {"ball_query": "fused", "knn": "fused", "gather": "module",
+                "mse": "fused", "cv": "fused", "cv_agg": "fused",
+                "plf": "fused"}
 SOURCES = {
     "ball_query": ("cmflow_tpu_torch/csrc/neighbors.cu",
                    "cmflow_tpu/ops/neighbors.py:64"),
@@ -69,6 +100,12 @@ SOURCES = {
             "cmflow_tpu/ops/neighbors.py:101"),
     "gather": ("cmflow_tpu_torch/csrc/gather.cu",
                "cmflow_tpu/ops/fused.py:519"),
+    "mse": ("cmflow_tpu_torch/csrc/mse.cu", "cmflow_tpu/ops/fused.py:260"),
+    "cv": ("cmflow_tpu_torch/csrc/cost_volume.cu",
+           "cmflow_tpu/ops/fused.py:688"),
+    "cv_agg": ("cmflow_tpu_torch/csrc/cost_volume.cu",
+               "cmflow_tpu/ops/fused.py:772"),
+    "plf": ("cmflow_tpu_torch/csrc/plf.cu", "cmflow_tpu/ops/fused.py:55"),
 }
 
 
@@ -103,34 +140,46 @@ def bound_ms(nbytes: float, flops: float):
                                        else "operations")
 
 
+def numel(tensors) -> int:
+    return sum(t.numel() for t in tensors)
+
+
 # ---------------------------------------------------------------------------
 # kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def max_err(a, b) -> float:
+def errors(a, b):
+    """(max abs error, largest magnitude of the plain output)."""
     if isinstance(a, tuple):
-        return max(max_err(x, y) for x, y in zip(a, b))
-    return float((a.double() - b.double()).abs().max())
+        pairs = [errors(x, y) for x, y in zip(a, b)]
+        return max(p[0] for p in pairs), max(p[1] for p in pairs)
+    return (float((a.double() - b.double()).abs().max()),
+            float(b.double().abs().max()))
 
 
-def ball_scan_pairs(r: float, k: int, pc, valid) -> int:
-    """(query, point) pairs the scan visits: up to the k-th hit, or all N."""
+def ball_scan_pairs(radii, ks, pc, valid) -> int:
+    """(query, point) pairs the scan visits: until every radius holds its K
+    hits, or all N."""
     d = neighbors.square_distance(pc, pc)
-    hit = (d < neighbors.radius_sq(r)) & valid[:, None, :]
-    full = hit.cumsum(-1) >= k
     n = pc.shape[1]
-    stop = torch.where(full.any(-1), full.float().argmax(-1) + 1, n)
+    stop = torch.zeros(d.shape[:2], dtype=torch.long, device=pc.device)
+    for r, k in zip(radii, ks):
+        hit = (d < neighbors.radius_sq(r)) & valid[:, None, :]
+        full = hit.cumsum(-1) >= k
+        stop = torch.maximum(stop, torch.where(
+            full.any(-1), full.float().argmax(-1) + 1, n))
     return int(stop.sum())
 
 
-def kernel_cases(req: dict, dev, gen: torch.Generator):
-    """Every (kernel, shape) the eval forward of one request launches, with
-    its multiplicity per forward, the kernel call, its plain version, a
-    library call (or None), and the bytes and operations of the function."""
-    pc1 = torch.as_tensor(req["pc1"], device=dev)
-    pc2 = torch.as_tensor(req["pc2"], device=dev)
-    v1 = torch.as_tensor(req["valid1"], device=dev)
-    v2 = torch.as_tensor(req["valid2"], device=dev)
+def request_tensors(req: dict, dev):
+    return [torch.as_tensor(req[k], device=dev)
+            for k in ("pc1", "pc2", "ft1", "ft2", "valid1", "valid2")]
+
+
+def module_cases(req: dict, dev, gen: torch.Generator):
+    """The shapes only the module route launches: the ball query one radius
+    at a time, and the gathers of ``group_points``."""
+    pc1, pc2, _, _, v1, v2 = request_tensors(req, dev)
     b, n, _ = pc1.shape
     cloud_bytes = b * n * (3 * 4 + 1)
     radii, ks = (2.0, 4.0, 8.0, 16.0), (4, 8, 16, 32)
@@ -140,28 +189,17 @@ def kernel_cases(req: dict, dev, gen: torch.Generator):
         (idx,) = neighbors.ball_query_multi((r,), (k,), pc1, pc1, v1)
         ball_idx[k] = idx
         cases.append(dict(
-            kernel="ball_query", shape=f"B={b} N={n} r={r} K={k} masked",
+            kernel="ball_query", path="module",
+            shape=f"B={b} N={n} r={r} K={k} masked",
             mult=3,  # sa encoder on pc1 and pc2, propagation encoder on pc1
             run=lambda r=r, k=k: neighbors.ball_query_multi(
                 (r,), (k,), pc1, pc1, v1),
             plain=lambda r=r, k=k: neighbors.ball_query_multi_plain(
                 (r,), (k,), pc1, pc1, v1),
-            library=None,
             nbytes=cloud_bytes + b * n * k * 4,
-            flops=PAIR_FLOPS * ball_scan_pairs(r, k, pc1, v1)))
-    knn_idx = {}
-    for name, pts, valid in (("pc1->pc2", pc2, v2), ("pc1->pc1", pc1, v1)):
-        knn_idx[name] = neighbors.knn(8, pc1, pts, valid)
-        dist = neighbors.masked_square_distance(pc1, pts, valid)
-        cases.append(dict(
-            kernel="knn", shape=f"B={b} N={n} k=8 {name} masked", mult=1,
-            run=lambda pts=pts, valid=valid: neighbors.knn(8, pc1, pts, valid),
-            plain=lambda pts=pts, valid=valid: neighbors.knn_plain(
-                8, pc1, pts, valid),
-            library=lambda dist=dist: torch.topk(dist, 8, largest=False),
-            nbytes=(cloud_bytes * (1 if pts is pc1 else 2)
-                    + b * n * 8 * 4),
-            flops=PAIR_FLOPS * b * n * n))
+            flops=PAIR_FLOPS * ball_scan_pairs((r,), (k,), pc1, v1)))
+    knn_idx = {"pc1->pc2": neighbors.knn(8, pc1, pc2, v2),
+               "pc1->pc1": neighbors.knn(8, pc1, pc1, v1)}
 
     def gather_case(c, idx, mult, what):
         pts = torch.randn((b, n, c), generator=gen).to(dev)
@@ -170,8 +208,8 @@ def kernel_cases(req: dict, dev, gen: torch.Generator):
         rows = torch.arange(b, device=dev)[:, None]
         m = flat.shape[1]
         cases.append(dict(
-            kernel="gather", shape=f"B={b} N={n} M={m} C={c} ({what})",
-            mult=mult,
+            kernel="gather", path="module",
+            shape=f"B={b} N={n} M={m} C={c} ({what})", mult=mult,
             run=lambda: fused.gather_rows(pts, flat),
             plain=lambda: fused.gather_rows_plain(pts, flat),
             library=lambda: pts[rows, flat_long],
@@ -179,47 +217,171 @@ def kernel_cases(req: dict, dev, gen: torch.Generator):
 
     for k in ks:
         gather_case(32, ball_idx[k], 2, f"sa encoder K={k}")
-        gather_case(512, ball_idx[k], 1 if k != 8 else 3,
-                    f"propagation encoder K={k}"
-                    + (" and cost volume" if k == 8 else ""))
-    gather_case(3, knn_idx["pc1->pc2"], 2, "cost volume xyz k=8")
+        gather_case(512, ball_idx[k], 1, f"propagation encoder K={k}")
+    for name, idx in knn_idx.items():
+        gather_case(3, idx, 1, f"cost volume xyz k=8 {name}")
+        gather_case(512, idx, 1, f"cost volume features k=8 {name}")
     return cases
 
 
-def check_kernels(requests, dev, gen):
-    per_forward = {}  # kernel -> sums over one forward at the first bucket
-    for ri, req in enumerate(requests):
-        for case in kernel_cases(req, dev, gen):
-            got, want = case["run"](), case["plain"]()
-            torch.cuda.synchronize()
-            err = max_err(got, want)
-            require(err == 0.0, f"{case['kernel']} {case['shape']}: kernel "
-                                f"and plain version differ by {err}")
-            row = dict(kernel=case["kernel"], shape=case["shape"],
-                       kernel_ms=cuda_ms(case["run"], 50),
-                       plain_ms=cuda_ms(case["plain"], 10),
-                       library_ms=(cuda_ms(case["library"], 20)
-                                   if case["library"] else None),
-                       max_abs_err=err)
-            row["bound_ms"], row["bound_by"] = bound_ms(case["nbytes"],
-                                                        case["flops"])
-            row["launches_per_forward"] = case["mult"]
-            emit(row)
-            if ri:
-                continue
-            acc = per_forward.setdefault(case["kernel"], dict(
-                ms=0.0, plain_ms=0.0, library_ms=0.0, nbytes=0.0, flops=0.0,
-                max_abs_err=0.0, has_library=True))
-            acc["ms"] += case["mult"] * row["kernel_ms"]
-            acc["plain_ms"] += case["mult"] * row["plain_ms"]
-            acc["nbytes"] += case["mult"] * case["nbytes"]
-            acc["flops"] += case["mult"] * case["flops"]
-            acc["max_abs_err"] = max(acc["max_abs_err"], err)
-            if row["library_ms"] is None:
-                acc["has_library"] = False
-            else:
-                acc["library_ms"] += case["mult"] * row["library_ms"]
-    return per_forward
+def fused_cases(model, req: dict, dev):
+    """Every shape of the fused route's forward on this request, with the
+    model's packed weights and the forward's own intermediates as inputs;
+    the kNN shapes are shared with the module route."""
+    pc1, pc2, ft1, ft2, v1, v2 = request_tensors(req, dev)
+    b, n, _ = pc1.shape
+    cfg = model.trunk.cfg
+    radii, ks = tuple(cfg.sa_radii), tuple(cfg.sa_nsamples)
+    rows = b * n
+    cloud_bytes = rows * (3 * 4 + 1)
+    cases = []
+
+    def yardstick(k, widths):
+        """cuBLAS float32 on the kernel's products alone, on gathered rows
+        of its shape (the values do not matter for the time)."""
+        xs = [torch.randn((rows * k, c), device=dev) for c in widths[:-1]]
+        ws = [torch.randn((c, o), device=dev)
+              for c, o in zip(widths[:-1], widths[1:])]
+        return lambda: [x @ w for x, w in zip(xs, ws)]
+
+    idx = {}
+    for name, pc, v in (("pc1", pc1, v1), ("pc2", pc2, v2)):
+        idx[name] = inference._ball_query_all(radii, ks, pc, v)
+        cases.append(dict(
+            kernel="ball_query", path="fused",
+            shape=f"B={b} N={n} all radii K={ks} {name} masked", mult=1,
+            run=lambda pc=pc, v=v: neighbors.ball_query_multi(
+                radii, ks, pc, pc, v),
+            plain=lambda pc=pc, v=v: neighbors.ball_query_multi_plain(
+                radii, ks, pc, pc, v),
+            nbytes=cloud_bytes + rows * sum(ks) * 4,
+            flops=PAIR_FLOPS * ball_scan_pairs(radii, ks, pc, v)))
+    knn2 = neighbors.knn(8, pc1, pc2, v2)
+    knn1 = neighbors.knn(8, pc1, pc1, v1)
+    for name, pts, valid in (("pc1->pc2", pc2, v2), ("pc1->pc1", pc1, v1)):
+        dist = neighbors.masked_square_distance(pc1, pts, valid)
+        cases.append(dict(
+            kernel="knn", path="fused", shape=f"B={b} N={n} k=8 {name} masked",
+            mult=1,
+            run=lambda pts=pts, valid=valid: neighbors.knn(8, pc1, pts, valid),
+            plain=lambda pts=pts, valid=valid: neighbors.knn_plain(
+                8, pc1, pts, valid),
+            library=lambda dist=dist: torch.topk(dist, 8, largest=False),
+            nbytes=cloud_bytes * (1 if pts is pc1 else 2) + rows * 8 * 4,
+            flops=PAIR_FLOPS * b * n * n))
+
+    mse = model.trunk.mse_layer
+    packed, _ = fused.mse_narrow_params_from_variables(mse)
+    c1, c2, c3 = fused.MSE_WIDTHS
+    s_cnt = len(ks)
+    for name, pc, ft in (("pc1", pc1, ft1), ("pc2", pc2, ft2)):
+        cases.append(dict(
+            kernel="mse", path="fused",
+            shape=f"B={b} N={n} K={ks} {name} masked", mult=1,
+            run=lambda pc=pc, ft=ft, i=idx[name]:
+                fused.fused_multi_scale_encoder(ft, i, pc, packed),
+            plain=lambda pc=pc, ft=ft, i=idx[name]:
+                fused.fused_multi_scale_encoder_plain(ft, i, pc, packed),
+            nbytes=4 * (rows * (6 + sum(ks) + s_cnt * c3)
+                        + numel(packed[0] + packed[1] + packed[2:])),
+            # the folded first layer, then the chain per (query, neighbour)
+            flops=2 * (rows * s_cnt * c1 * 9
+                       + rows * sum(ks) * (c1 * c2 + c2 * c3))))
+
+    f1 = inference._mse_fused(mse, pc1, ft1, v1, idx["pc1"])
+    f2 = inference._mse_fused(mse, pc2, ft2, v2, idx["pc2"])
+    g1, g2 = masked_global_max(f1, v1), masked_global_max(f2, v2)
+    fc = model.trunk.fc_layer
+    d = cfg.fc_inch
+    f1t = inference._fanin_dot((f1, g1), fc.w0[:d])
+    f2t = inference._fanin_dot((f2, g2), fc.w0[d:2 * d])
+    dense, wn1, wn2 = fused.cv_params_from_variables(fc)
+    f1c, f2c, z1, z2, zq = fused.cost_volume_folds(
+        f1t, f2t, pc1, pc2, dense[0], wn1[0], wn2[0])
+    c, k, h = fused.CV_WIDTH, fc.nsample, fused.WEIGHTNET_HIDDEN
+    cv_args = (f1c, f2c, knn2, z1, z2, dense[1:], wn1[1:])
+    cases.append(dict(
+        kernel="cv", path="fused", shape=f"B={b} N={n} C={c} k={k} masked",
+        mult=1, run=lambda: fused.cost_volume_p2p(*cv_args),
+        plain=lambda: fused.cost_volume_p2p_plain(*cv_args),
+        cublas=yardstick(k, (c, c, c)),
+        nbytes=4 * (rows * (3 * c + k + 2 * h) + numel(dense[1:] + wn1[1:])),
+        flops=2 * rows * k * (2 * c * c + h * h + h * c)))
+    p2p = fused.cost_volume_p2p(*cv_args)
+    agg_args = (p2p, knn1, zq, wn2[1:])
+    cases.append(dict(
+        kernel="cv_agg", path="fused", shape=f"B={b} N={n} C={c} k={k} masked",
+        mult=1, run=lambda: fused.cost_volume_agg(*agg_args),
+        plain=lambda: fused.cost_volume_agg_plain(*agg_args),
+        nbytes=4 * (rows * (2 * c + k + h) + numel(wn2[1:])),
+        flops=2 * rows * k * (h * h + h * c + c)))
+    cor = fused.cost_volume_agg(*agg_args)
+
+    parts = (ft1, f1, g1, cor)
+    w1, w2, w3 = fused.PLF_WIDTHS
+    for s, scale in enumerate(inference._scales(model.trunk.mse_layer2)):
+        chain, feat_w, _ = fused.plf_params_from_variables(scale)
+        feat_tx = inference._fanin_dot(parts, feat_w)
+        kk = ks[s]
+        plf_args = (feat_tx, idx["pc1"][s], pc1, chain)
+        cases.append(dict(
+            kernel="plf", path="fused", shape=f"B={b} N={n} K={kk} masked",
+            mult=1, run=lambda a=plf_args: fused.fused_point_local_feature(*a),
+            plain=lambda a=plf_args:
+                fused.fused_point_local_feature_plain(*a),
+            cublas=yardstick(kk, fused.PLF_WIDTHS),
+            nbytes=4 * (rows * (w1 + kk + 3 + w3) + numel(chain)),
+            # the folded first layer, then the chain per (query, neighbour)
+            flops=2 * (rows * w1 * 6 + rows * kk * (w1 * w2 + w2 * w3))))
+    return cases
+
+
+def check_kernels(cases, first: bool, per_forward: dict) -> None:
+    """Hold each case to its plain version, time it, print it, and sum the
+    first request's cases per forward of their route into ``per_forward``."""
+    for case in cases:
+        name = case["kernel"]
+        got, want = case["run"](), case["plain"]()
+        torch.cuda.synchronize()
+        err, scale = errors(got, want)
+        if name in EXACT:
+            require(err == 0.0, f"{name} {case['shape']}: kernel and plain "
+                                f"version differ by {err}")
+        else:
+            require(err <= FUSED_ATOL and err <= FUSED_RTOL * scale,
+                    f"{name} {case['shape']}: kernel and plain version "
+                    f"differ by {err} at a largest magnitude of {scale}")
+        library = case.get("library")
+        cublas = case.get("cublas")
+        row = dict(kernel=name, path=case["path"], shape=case["shape"],
+                   kernel_ms=cuda_ms(case["run"], 50),
+                   plain_ms=cuda_ms(case["plain"], 10),
+                   library_ms=cuda_ms(library, 20) if library else None,
+                   max_abs_err=err)
+        if name not in EXACT:
+            row["plain_max_abs"] = scale
+        if cublas:
+            row["cublas_products_ms"] = cuda_ms(cublas, 20)
+        row["bound_ms"], row["bound_by"] = bound_ms(case["nbytes"],
+                                                    case["flops"])
+        row["launches_per_forward"] = case["mult"]
+        emit(row)
+        if not first or case["path"] != SUMMARY_PATH[name]:
+            continue
+        acc = per_forward.setdefault(name, dict(
+            ms=0.0, plain_ms=0.0, library_ms=0.0, cublas_products_ms=0.0,
+            nbytes=0.0, flops=0.0, max_abs_err=0.0, has_library=True))
+        mult = case["mult"]
+        acc["ms"] += mult * row["kernel_ms"]
+        acc["plain_ms"] += mult * row["plain_ms"]
+        acc["cublas_products_ms"] += mult * row.get("cublas_products_ms", 0.0)
+        acc["nbytes"] += mult * case["nbytes"]
+        acc["flops"] += mult * case["flops"]
+        acc["max_abs_err"] = max(acc["max_abs_err"], err)
+        if row["library_ms"] is None:
+            acc["has_library"] = False
+        else:
+            acc["library_ms"] += mult * row["library_ms"]
 
 
 # ---------------------------------------------------------------------------
@@ -228,8 +390,9 @@ def check_kernels(requests, dev, gen):
 
 def randomize_batchnorm(model, step, req, gen: torch.Generator) -> None:
     """Seeded random BatchNorm statistics on the scale of the activations:
-    on one calibration forward, each BatchNorm takes the mean and variance
-    of its input, perturbed by random factors, and a random affine."""
+    on one calibration forward of the module route, each BatchNorm takes
+    the mean and variance of its input, perturbed by random factors, and a
+    random affine."""
 
     def uniform(shape, lo, hi):
         return (lo + (hi - lo) * torch.rand(shape, generator=gen))
@@ -262,29 +425,31 @@ def frame_metrics(req: dict, out) -> dict:
     return res
 
 
-def compare_with_cpu(model, req, out) -> dict:
-    cpu_model = copy.deepcopy(model).to("cpu")
-    ref = make_eval_step("cmflow", cpu_model)(req)
+def compare(req, out, ref, what: str) -> dict:
+    """Hold ``out`` to ``ref`` at the bars, on the valid points."""
     (sf, cls, trans, mask), (rsf, rcls, rtrans, rmask) = (
         [x.cpu().numpy() for x in o] for o in (out, ref))
     valid = req["valid1"]
-    same = mask == rmask
+    same = (mask == rmask) & valid
     res = dict(
-        cls_max_abs_err=float(np.abs(cls - rcls).max()),
+        cls_max_abs_err=float(np.abs(cls - rcls)[valid].max()),
         trans_max_abs_err=float(np.abs(trans - rtrans).max()),
         flow_max_abs_err=float(np.abs(sf - rsf)[same].max()),
-        mask_agreement=float(same[valid].mean()))
-    require(res["cls_max_abs_err"] <= BARS["cls"], f"stat_cls vs CPU: {res}")
+        mask_agreement=float((mask == rmask)[valid].mean()))
+    require(res["cls_max_abs_err"] <= BARS["cls"], f"stat_cls {what}: {res}")
     require(res["trans_max_abs_err"] <= BARS["trans"],
-            f"pre_trans vs CPU: {res}")
-    require(res["flow_max_abs_err"] <= BARS["flow"], f"sf_agg vs CPU: {res}")
-    require(res["mask_agreement"] >= BARS["agree"], f"mask vs CPU: {res}")
+            f"pre_trans {what}: {res}")
+    require(res["flow_max_abs_err"] <= BARS["flow"], f"sf_agg {what}: {res}")
+    require(res["mask_agreement"] >= BARS["agree"], f"mask {what}: {res}")
     return res
 
 
-def serve(model, step, requests) -> dict:
+def serve(route: str, step, requests, checks) -> dict:
+    """Serve ``requests`` through ``step``, counting each kernel's launches
+    per forward; ``checks(req, out)`` returns the first request's
+    comparisons."""
     launches = {k: 0 for k in WRAPPERS}
-    cpu_check = None
+    want = LAUNCHES[route]
     for i, req in enumerate(requests):
         for fn in WRAPPERS.values():
             fn.launches = 0
@@ -294,23 +459,22 @@ def serve(model, step, requests) -> dict:
         torch.cuda.synchronize()
         latency = time.perf_counter() - t0
         counts = {k: fn.launches for k, fn in WRAPPERS.items()}
-        require(counts == LAUNCHES_PER_FORWARD,
-                f"request {i}: launches {counts}, want {LAUNCHES_PER_FORWARD}")
+        require(counts == want,
+                f"{route} request {i}: launches {counts}, want {want}")
         for k in launches:
             launches[k] += counts[k]
         b, n = req["pc1"].shape[:2]
         sf, cls, trans, mask = out
         require(sf.shape == (b, n, 3) and cls.shape == (b, n)
                 and trans.shape == (b, 4, 4) and mask.shape == (b, n),
-                f"request {i}: output shapes")
+                f"{route} request {i}: output shapes")
         require(all(bool(torch.isfinite(x).all()) for x in (sf, cls, trans)),
-                f"request {i}: non-finite output")
-        row = dict(request=i, batch=int(b), bucket=int(n),
+                f"{route} request {i}: non-finite output")
+        row = dict(route=route, request=i, batch=int(b), bucket=int(n),
                    latency_ms=1e3 * latency, frames_per_s=b / latency,
                    launches=counts, **frame_metrics(req, out))
         if i == 0:
-            cpu_check = compare_with_cpu(model, req, out)
-            row["vs_cpu"] = cpu_check
+            row.update(checks(req, out))
         emit(row)
     return launches
 
@@ -332,6 +496,7 @@ def main() -> int:
         check=True, capture_output=True, text=True).stdout.strip()
     print(card, flush=True)
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
 
     t0 = time.perf_counter()
     libs = build.build()
@@ -345,23 +510,59 @@ def main() -> int:
     gen = torch.Generator().manual_seed(SEED)
 
     model = build_model("cmflow", device=dev, seed=SEED)
+    module_step = make_eval_step("cmflow", model, fused="off")
+    randomize_batchnorm(model, module_step,
+                        make_request(SEED + 99, B, (200, 256)), gen)
     step = make_eval_step("cmflow", model)
-    randomize_batchnorm(model, step, make_request(SEED + 99, B, (200, 256)),
-                        gen)
+    require(step.fused, "make_eval_step on the card must take the fused "
+                        "engine")
+    cpu_model = copy.deepcopy(model).to("cpu")
 
-    per_forward = check_kernels([requests[0], requests[3]], dev, gen)
-    launches = serve(model, step, requests)
+    t0 = time.perf_counter()
+    per_forward = {}
+    with torch.no_grad():
+        for ri, req in enumerate((requests[0], requests[3])):
+            check_kernels(fused_cases(model, req, dev), ri == 0, per_forward)
+            check_kernels(module_cases(req, dev, gen), ri == 0, per_forward)
+    emit(dict(kernel_phase_s=time.perf_counter() - t0))
+
+    def fused_checks(req, out):
+        return dict(
+            vs_cpu=compare(req, out, make_eval_step(
+                "cmflow", cpu_model, fused="on")(req), "fused vs CPU"),
+            vs_module_route=compare(req, out, module_step(req),
+                                    "fused vs module route"))
+
+    def module_checks(req, out):
+        return dict(vs_cpu=compare(req, out, make_eval_step(
+            "cmflow", cpu_model, fused="off")(req), "module vs CPU"))
+
+    t0 = time.perf_counter()
+    launches = serve("fused", step, requests, fused_checks)
+    launches_module = serve("module", module_step,
+                            [requests[0], requests[3]], module_checks)
+    emit(dict(serve_phase_s=time.perf_counter() - t0))
 
     kernels = []
     for name, acc in per_forward.items():
         source, replaces = SOURCES[name]
+        path = SUMMARY_PATH[name]
         bms, bby = bound_ms(acc["nbytes"], acc["flops"])
-        kernels.append(dict(
+        entry = dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=launches[name], max_abs_err=acc["max_abs_err"],
-            ms=acc["ms"], plain_ms=acc["plain_ms"], bound_ms=bms,
-            bound_by=bby,
-            library_ms=acc["library_ms"] if acc["has_library"] else None))
+            launches=(launches if path == "fused" else launches_module)[name],
+            max_abs_err=acc["max_abs_err"], ms=acc["ms"],
+            plain_ms=acc["plain_ms"], bound_ms=bms, bound_by=bby,
+            library_ms=acc["library_ms"] if acc["has_library"] else None,
+            path=path)
+        if acc["cublas_products_ms"]:
+            entry["cublas_products_ms"] = acc["cublas_products_ms"]
+        kernels.append(entry)
+    require(sorted(k["name"] for k in kernels) == sorted(WRAPPERS),
+            "a kernel is missing from the summary")
+    require(all(k["launches"] > 0 for k in kernels),
+            "a kernel was not launched on its route")
+    emit(dict(total_s=time.perf_counter() - t_start))
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,235 @@
+"""The fused CMFlow serving engine.
+
+Counterpart of ``cmflow_tpu/models/inference.py`` (``cmflow_infer``,
+``cmflow_infer_many``): an eval forward computed from the port's ``CMFlow``
+module, with the same outputs as ``CMFlow.forward(..., train=False)`` up to
+float32 reassociation, but with every encoder scale and the cost volume run
+by the fused kernels of :mod:`cmflow_tpu_torch.ops.fused`, so the
+``[B, N, K, C]`` neighbourhood tensors of the module route never reach
+device memory.  One forward launches: the ball query twice (all four radii
+per cloud; pc1's result serves both encoders), kNN twice, the sa encoder
+(K3) twice, the cost volume (K4a, K4b) once each and the propagation
+encoder (K5) once per scale.
+
+BatchNorm running statistics fold into per-channel affines, which is exact
+in eval mode.  The packing reads the module's current weights on every
+call.  The per-point tails (mlp2, the heads) and the Kabsch stay plain
+PyTorch: their tensors are ``[B, N, C]``.  Float32 only.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+
+from cmflow_tpu_torch.geometry import se3
+from cmflow_tpu_torch.nn.blocks import masked_global_max
+from cmflow_tpu_torch.ops import neighbors, pointops
+from cmflow_tpu_torch.ops.fused import (
+    cv_params_from_variables,
+    fold_bn_affine,
+    fused_cost_volume,
+    fused_multi_scale_encoder,
+    fused_point_local_feature,
+    mse_narrow_params_from_variables,
+    plf_params_from_variables,
+)
+
+Tensor = torch.Tensor
+Parts = Sequence[Tensor]
+
+
+def _kernel(linear) -> Tensor:
+    return linear.weight.t()
+
+
+def _fanin_dot(parts: Parts, w: Tensor) -> Tensor:
+    """``concat(parts, -1) @ w`` without building the concatenation.
+
+    ``parts`` are ``[B, N, Ci]`` tensors or ``[B, Ci]`` terms broadcast over
+    the points (global features), whose product is O(B) work; ``w``'s rows
+    are sliced per part.  Equal to the concatenated product up to float32
+    reassociation across the row blocks."""
+    out = None
+    row = 0
+    for p in parts:
+        c = p.shape[-1]
+        term = p @ w[row:row + c]
+        row += c
+        if p.dim() == 2:
+            term = term[:, None, :]
+        out = term if out is None else out + term
+    if row != w.shape[0]:
+        raise ValueError(f"parts are {row} wide, the weight has "
+                         f"{w.shape[0]} rows")
+    return out
+
+
+def _parts_width(parts: Parts) -> int:
+    return sum(p.shape[-1] for p in parts)
+
+
+def _ball_query_all(radii: Sequence[float], nsamples: Sequence[int],
+                    xyz: Tensor, valid: Optional[Tensor]) -> List[Tensor]:
+    """Every scale's ball query in one launch."""
+    return list(neighbors.ball_query_multi(tuple(radii), tuple(nsamples),
+                                           xyz, xyz, valid))
+
+
+def _scales(mse) -> list:
+    return [getattr(mse, f"scale_{i}") for i in range(mse.scales)]
+
+
+def _mse_fused(mse, xyz: Tensor, feats, valid: Optional[Tensor],
+               idx_list: Optional[List[Tensor]] = None) -> Tensor:
+    """A ``MultiScaleEncoder`` through the fused kernels, then its plain
+    mlp2 tail.
+
+    A narrow encoder (first layer under 128 wide: the sa encoder) runs all
+    scales in one K3 launch and the mlp2 tails as one block-diagonal chain;
+    a wide one (the propagation encoder) runs K5 once per scale.  ``feats``
+    is one tensor or a tuple of fan-in parts (see :func:`_fanin_dot`);
+    ``idx_list`` shares ball queries already made on ``xyz``."""
+    scales = _scales(mse)
+    if idx_list is None:
+        idx_list = _ball_query_all([s.radius for s in scales],
+                                   [s.nsample for s in scales], xyz, valid)
+    parts = tuple(feats) if isinstance(feats, (tuple, list)) else (feats,)
+    if scales[0].w0.shape[1] < 128:
+        if len(parts) != 1:
+            raise ValueError("the narrow encoder takes one feature tensor")
+        packed, mlp2_bd = mse_narrow_params_from_variables(mse)
+        h = fused_multi_scale_encoder(parts[0], idx_list, xyz, packed)
+        for w, s, b in mlp2_bd:
+            h = torch.relu((h @ w) * s + b)
+        return h
+    outs = []
+    for scale, idx in zip(scales, idx_list):
+        chain, feat_w, mlp2 = plf_params_from_variables(scale)
+        h = fused_point_local_feature(_fanin_dot(parts, feat_w), idx, xyz,
+                                      chain)
+        for w, s, b in mlp2:
+            h = torch.relu((h @ w) * s + b)
+        outs.append(h)
+    return torch.cat(outs, dim=-1)
+
+
+def _cost_volume(fc, xyz1: Tensor, xyz2: Tensor, f1_parts: Parts,
+                 f2_parts: Parts, valid1: Optional[Tensor],
+                 valid2: Optional[Tensor]) -> Tensor:
+    """``FeatureCorrelator`` eval forward through K4a and K4b; the features
+    come as fan-in parts (local, global broadcast)."""
+    d1, d2 = _parts_width(f1_parts), _parts_width(f2_parts)
+    knn2 = pointops.knn(fc.nsample, xyz1, xyz2, valid2)
+    knn1 = pointops.knn(fc.nsample, xyz1, xyz1, valid1)
+    f1t = _fanin_dot(f1_parts, fc.w0[:d1])
+    f2t = _fanin_dot(f2_parts, fc.w0[d1:d1 + d2])
+    dense, wn1, wn2 = cv_params_from_variables(fc)
+    return fused_cost_volume(f1t, f2t, knn2, xyz1, knn1, xyz2,
+                             dense=dense, wn1=wn1, wn2=wn2)
+
+
+def _head(head, x_parts: Parts) -> Tensor:
+    """A ``FlowHead`` / ``MotionHead`` chain with folded BatchNorm, before
+    any sigmoid; the input comes as fan-in parts."""
+    x = None
+    for i in range(head.mlp.depth):
+        sc, bi = fold_bn_affine(getattr(head.mlp, f"bn_{i}"))
+        w = _kernel(getattr(head.mlp, f"dense_{i}"))
+        h = _fanin_dot(x_parts, w) if x is None else x @ w
+        x = torch.relu(h * sc + bi)
+    return x @ _kernel(head.out)
+
+
+def _heads_joint(fp, mp, x_parts: Parts) -> Tuple[Tensor, Tensor]:
+    """The flow and motion heads as one chain: first-layer kernels stacked
+    by columns, the rest block-diagonal (the channel blocks stay apart
+    through the affines and ReLUs).  Returns ``(flow [B,N,3],
+    logit [B,N,1])``."""
+    x = None
+    for i in range(fp.mlp.depth):
+        wa = _kernel(getattr(fp.mlp, f"dense_{i}"))
+        wb = _kernel(getattr(mp.mlp, f"dense_{i}"))
+        w = torch.cat([wa, wb], dim=1) if i == 0 else torch.block_diag(wa, wb)
+        sa, ba = fold_bn_affine(getattr(fp.mlp, f"bn_{i}"))
+        sb, bb = fold_bn_affine(getattr(mp.mlp, f"bn_{i}"))
+        h = _fanin_dot(x_parts, w) if x is None else x @ w
+        x = torch.relu(h * torch.cat([sa, sb]) + torch.cat([ba, bb]))
+    out = x @ torch.block_diag(_kernel(fp.out), _kernel(mp.out))
+    c_fp = fp.out.out_features
+    return out[..., :c_fp], out[..., c_fp:]
+
+
+def _trunk(trunk, pc1: Tensor, pc2: Tensor, ft1: Tensor, ft2: Tensor,
+           valid1: Optional[Tensor], valid2: Optional[Tensor]) -> Tensor:
+    cfg = trunk.cfg
+    # the sa and propagation encoders query the same cloud with the same
+    # radii: one ball query serves both
+    idx1 = _ball_query_all(cfg.sa_radii, cfg.sa_nsamples, pc1, valid1)
+    f1 = _mse_fused(trunk.mse_layer, pc1, ft1, valid1, idx_list=idx1)
+    f2 = _mse_fused(trunk.mse_layer, pc2, ft2, valid2)
+    g1 = masked_global_max(f1, valid1)
+    g2 = masked_global_max(f2, valid2)
+    cor = _cost_volume(trunk.fc_layer, pc1, pc2, (f1, g1), (f2, g2),
+                       valid1, valid2)
+    # the module route's embedding concat([ft1, f1, g1, cor]) enters the
+    # propagation encoder as fan-in parts
+    return _mse_fused(trunk.mse_layer2, pc1, (ft1, f1, g1, cor), valid1,
+                      idx_list=idx1)
+
+
+def _check_dtype(compute_dtype: torch.dtype) -> None:
+    if compute_dtype != torch.float32:
+        raise NotImplementedError(
+            f"compute_dtype {compute_dtype} is not ported yet: the fused "
+            f"engine runs float32 only (bf16 is ROADMAP Queue 1 item 3)")
+
+
+@torch.no_grad()
+def cmflow_infer(model, pc1: Tensor, pc2: Tensor, ft1: Tensor, ft2: Tensor,
+                 valid1: Optional[Tensor] = None,
+                 valid2: Optional[Tensor] = None,
+                 compute_dtype: torch.dtype = torch.float32
+                 ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """Fused CMFlow eval forward of ``model`` (a port ``CMFlow``): the
+    outputs of ``model(pc1, pc2, ft1, ft2, None, False, valid1, valid2)``,
+    ``(sf_agg [B,N,3], stat_cls [B,N], pre_trans [B,4,4], mask [B,N])``.
+    The Kabsch takes the polar solver, as the JAX engine does."""
+    _check_dtype(compute_dtype)
+    prop = _trunk(model.trunk, pc1, pc2, ft1, ft2, valid1, valid2)
+    g = masked_global_max(prop, valid1)
+    output, logit = _heads_joint(model.fp, model.mp, (prop, g))
+    stat_cls = torch.sigmoid(logit)[..., 0]
+
+    mask = stat_cls > model.stat_thres
+    if valid1 is not None:
+        mask = mask & valid1
+
+    w = stat_cls + 1e-4
+    if valid1 is not None:
+        w = w * valid1
+    w = w / w.sum(dim=1, keepdim=True)
+    pre_trans = se3.weighted_kabsch(pc1, pc1 + output, w, centroid="sum",
+                                    reflect="row", solver="polar")
+
+    sf_rg = se3.rigid_to_flow(pc1, pre_trans)
+    sf_agg = torch.where(mask[..., None], sf_rg, output)
+    return sf_agg, stat_cls, pre_trans, mask
+
+
+def cmflow_infer_many(model, pc1: Tensor, pc2: Tensor, ft1: Tensor,
+                      ft2: Tensor, valid1: Optional[Tensor] = None,
+                      valid2: Optional[Tensor] = None,
+                      compute_dtype: torch.dtype = torch.float32
+                      ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """:func:`cmflow_infer` over a macro-batch: inputs stacked
+    ``[S, B, N, ...]``, outputs stacked the same way."""
+    _check_dtype(compute_dtype)
+    outs = []
+    for i in range(pc1.shape[0]):
+        outs.append(cmflow_infer(
+            model, pc1[i], pc2[i], ft1[i], ft2[i],
+            None if valid1 is None else valid1[i],
+            None if valid2 is None else valid2[i]))
+    return tuple(torch.stack(o) for o in zip(*outs))

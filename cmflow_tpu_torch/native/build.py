@@ -2,9 +2,10 @@
 
 Each ``cmflow_tpu_torch/csrc/<name>.cu`` compiles on its own into a shared
 library with a plain C interface, ``build/kernels/<name>-<hash>.so`` under the
-repository root.  The hash covers the source and the compiler flags, so a
-library is rebuilt exactly when its source changes.  Sources build at first
-use; :func:`build` compiles several at once, one ``nvcc`` process each.
+repository root.  The hash covers the source, every shared header
+(``csrc/*.cuh``) and the compiler flags, so a library is rebuilt whenever
+what it is compiled from changes.  Sources build at first use; :func:`build`
+compiles several at once, one ``nvcc`` process each.
 
 Every exported entry point takes device pointers, sizes and the CUDA stream
 and returns a ``cudaError_t`` from ``cudaGetLastError()`` right after its
@@ -55,6 +56,8 @@ def library_path(name: str) -> Path:
     """Where the library of ``csrc/<name>.cu`` lives for its current source."""
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 

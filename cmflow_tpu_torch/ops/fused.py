@@ -1,14 +1,39 @@
-"""Row gather behind ``group_points``, with its plain PyTorch version.
+"""The fused serving kernels and the row gather, each beside its plain
+PyTorch version, and the parameter packers of the fused engine.
 
-Counterpart of ``cmflow_tpu/ops/fused.py::mxu_gather_rows`` /
-``mxu_group_points`` (forward only).  A CUDA tensor goes to the kernel in
-``csrc/gather.cu``; a CPU tensor goes to :func:`gather_rows_plain`.  An index
-outside ``[0, N)`` gives a zero row, as the JAX package's one-hot gather does.
+Counterpart of ``cmflow_tpu/ops/fused.py``:
+
+* :func:`gather_rows`: ``mxu_gather_rows`` / ``mxu_group_points`` forward
+  (K6, ``csrc/gather.cu``);
+* :func:`fused_multi_scale_encoder`: ``_mse_kernel`` (K3, ``csrc/mse.cu``);
+* :func:`fused_point_local_feature`: ``_plf_kernel`` (K5, ``csrc/plf.cu``);
+* :func:`fused_cost_volume`: ``_cv_kernel`` then ``_cv_agg_kernel``, here
+  :func:`cost_volume_p2p` and :func:`cost_volume_agg` (K4a, K4b,
+  ``csrc/cost_volume.cu``).
+
+Each wrapper sends a CUDA tensor to its kernel and a CPU tensor to its plain
+version (``*_plain``), which gathers with ``torch.gather``, runs the chain
+with ``torch.matmul`` and the folded affines, and reduces with ``amax`` or
+``sum``.  An index outside ``[0, N)`` gathers a zero row, as the JAX
+package's one-hot gather does.
+
+What the JAX kernels do only for the TPU is not ported: the one-hot MXU
+gathers with their hi/lo bf16 splits, the k-major index layouts and the
+stacked block-diagonal scale packing.  Here a gather is a load.  The algebra
+is: BatchNorm running statistics fold into per-channel affines
+(:func:`fold_bn_affine`), and the first grouped layer folds its offset term
+into the gathered base (``gather(f) + (xyz[idx] - xyz_t) @ W ==
+gather(f + xyz @ W) - xyz_t @ W``).
+
+The packers read the port's modules (``nn/blocks.py``), which
+``models/convert.py`` fills from flax variables.  Dense kernels come out
+``[in, out]``, as the flax trees hold them.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import List, Sequence, Tuple
 
 import torch
 
@@ -18,10 +43,87 @@ Tensor = torch.Tensor
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_MAX_SCALES = 4
 _SIGNATURES = {
-    "cmflow_gather_rows": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "gather": {"cmflow_gather_rows": (_P, _P, _P, _I, _I, _I, _I, _I, _P)},
+    "mse": {"cmflow_mse": (_P, ctypes.POINTER(ctypes.c_void_p),
+                           ctypes.POINTER(ctypes.c_int), _I, _P, _P, _P,
+                           _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P)},
+    "plf": {"cmflow_plf": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                           _P, _I, _I, _I, _I, _P)},
+    "cost_volume": {
+        "cmflow_cv_p2p": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                          _P, _P, _P, _P, _I, _I, _I, _I, _P),
+        "cmflow_cv_agg": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                          _I, _P),
+    },
 }
 
+# widths the CUDA kernels are written for (the CMFlow sa encoder, the
+# propagation encoder and the cost volume); the plain versions take any
+MSE_WIDTHS = (32, 32, 64)
+PLF_WIDTHS = (512, 256, 64)
+CV_WIDTH = 512
+WEIGHTNET_HIDDEN = 8
+MAX_K = 32
+
+
+# ---------------------------------------------------------------------------
+# shared checks
+# ---------------------------------------------------------------------------
+
+def _stream(t: Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _on_card(what: str, floats: Sequence[Tensor],
+             ints: Sequence[Tensor] = ()) -> bool:
+    """Check dtypes and devices; True for CUDA tensors (the kernel), False
+    for CPU tensors (the plain version)."""
+    dev = floats[0].device
+    for t in floats:
+        if t.dtype != torch.float32:
+            raise TypeError(f"{what}: need float32 tensors, got {t.dtype}")
+    for t in ints:
+        if t.dtype != torch.int32:
+            raise TypeError(f"{what}: need int32 indices, got {t.dtype}")
+    if any(t.device != dev for t in (*floats, *ints)):
+        raise ValueError(f"{what}: every tensor must share one device")
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {dev}")
+    return True
+
+
+def _check_kernel_args(what: str, tensors: Sequence[Tensor]) -> None:
+    """The tensors a kernel reads by pointer: contiguous, and 16-byte
+    aligned (the kernels read float4s)."""
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{what}: the CUDA kernel takes contiguous tensors")
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{what}: the CUDA kernel needs 16-byte aligned "
+                         f"tensors")
+
+
+def _group(points: Tensor, idx: Tensor) -> Tensor:
+    """``[B, N, C]`` by ``[B, S, K]`` -> ``[B, S, K, C]``, plain."""
+    b, s, k = idx.shape
+    return gather_rows_plain(points, idx.reshape(b, s * k)).reshape(
+        b, s, k, points.shape[-1])
+
+
+def _relu_affine(x: Tensor, s: Tensor, b: Tensor) -> Tensor:
+    return torch.relu(x * s + b)
+
+
+def _leaky(x: Tensor) -> Tensor:
+    return torch.where(x > 0, x, 0.1 * x)
+
+
+# ---------------------------------------------------------------------------
+# K6: row gather
+# ---------------------------------------------------------------------------
 
 def gather_rows_plain(points: Tensor, idx: Tensor) -> Tensor:
     """Plain version of :func:`gather_rows`."""
@@ -61,13 +163,431 @@ def gather_rows(points: Tensor, idx: Tensor) -> Tensor:
     out = torch.empty((b, m, c), dtype=points.dtype, device=points.device)
     vec4 = (c % 4 == 0 and points.data_ptr() % 16 == 0
             and out.data_ptr() % 16 == 0)
-    lib = build.load("gather", _SIGNATURES)
+    lib = build.load("gather", _SIGNATURES["gather"])
     code = lib.cmflow_gather_rows(
         points.data_ptr(), idx.data_ptr(), out.data_ptr(), b, n, m, c,
-        int(vec4), torch.cuda.current_stream(points.device).cuda_stream)
+        int(vec4), _stream(points))
     build.check(lib, code, "gather_rows")
     gather_rows.launches += 1
     return out
 
 
 gather_rows.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# parameter packers
+# ---------------------------------------------------------------------------
+
+def _kernel(linear) -> Tensor:
+    """A ``Linear``'s weight as the flax kernel ``[in, out]``."""
+    return linear.weight.t().contiguous()
+
+
+def fold_bn_affine(bn) -> Tuple[Tensor, Tensor]:
+    """Eval-mode BatchNorm as a per-channel ``(scale, bias)``:
+    ``s = gamma * rsqrt(var + eps)``, ``b = beta - mean * s``."""
+    s = bn.weight * torch.rsqrt(bn.running_var + bn.eps)
+    return s, bn.bias - bn.running_mean * s
+
+
+def plf_params_from_variables(plf) -> Tuple[Tuple[Tensor, ...], Tensor,
+                                            List[Tuple[Tensor, ...]]]:
+    """One ``PointLocalFeature`` scale as ``(chain, feat_w, mlp2)``.
+
+    ``chain = (wrel, s0, b0, w1, s1, b1, ...)`` feeds
+    :func:`fused_point_local_feature`; ``feat_w = w0[3:]`` is the per-point
+    feature transform; ``mlp2`` is ``[(w, s, b), ...]`` for the per-point
+    tail."""
+    chain = [plf.w0[:3].contiguous(), *fold_bn_affine(plf.bn0)]
+    if plf.mlp is not None:
+        for i in range(plf.mlp.depth):
+            chain.append(_kernel(getattr(plf.mlp, f"dense_{i}")))
+            chain += fold_bn_affine(getattr(plf.mlp, f"bn_{i}"))
+    mlp2 = [(_kernel(getattr(plf.mlp2, f"dense_{i}")),
+             *fold_bn_affine(getattr(plf.mlp2, f"bn_{i}")))
+            for i in range(plf.mlp2.depth)]
+    return tuple(chain), plf.w0[3:], mlp2
+
+
+def mse_narrow_params_from_variables(mse) -> Tuple[tuple, list]:
+    """A narrow ``MultiScaleEncoder`` (3-layer sa mlp) for
+    :func:`fused_multi_scale_encoder`.
+
+    Returns ``(packed, mlp2_bd)``: ``packed = (w0rel tuple, w0feat tuple,
+    s0, b0, w1 [S, C1, C2], s1, b1, w2 [S, C2, C3], s2, b2)`` with the
+    affines concatenated over scales, and ``mlp2_bd = [(w, s, b), ...]``
+    with block-diagonal ``w``, so the per-point tail runs all scales in one
+    product per layer.  The JAX package packs ``w1``/``w2`` block-diagonally
+    too, for its MXU; the CUDA kernel runs each scale on its own, so they
+    are stacked here (the JAX blocks are their diagonal blocks)."""
+    parts = [[] for _ in range(10)]
+    mlp2_layers = None
+    for i in range(mse.scales):
+        chain, feat_w, mlp2 = plf_params_from_variables(
+            getattr(mse, f"scale_{i}"))
+        if len(chain) != 9:
+            raise ValueError("the narrow path expects a 3-layer sa mlp")
+        for slot, p in zip(parts, (chain[0], feat_w) + chain[1:]):
+            slot.append(p)
+        if mlp2_layers is None:
+            mlp2_layers = [[] for _ in mlp2]
+        for layer, wsb in zip(mlp2_layers, mlp2):
+            layer.append(wsb)
+    w0rel, w0feat, s0, b0, w1, s1, b1, w2, s2, b2 = parts
+    packed = (tuple(w0rel), tuple(w0feat), torch.cat(s0), torch.cat(b0),
+              torch.stack(w1), torch.cat(s1), torch.cat(b1),
+              torch.stack(w2), torch.cat(s2), torch.cat(b2))
+    mlp2_bd = [(torch.block_diag(*[w for w, _, _ in layer]),
+                torch.cat([s for _, s, _ in layer]),
+                torch.cat([b for _, _, b in layer]))
+               for layer in mlp2_layers]
+    return packed, mlp2_bd
+
+
+def cv_params_from_variables(fc) -> Tuple[tuple, tuple, tuple]:
+    """A ``FeatureCorrelator`` as ``(dense, wn1, wn2)``:
+    ``dense = (wd, b0, w1, b1, w2, b2)``, the offset block of the first
+    layer and the two LeakyReLU layers; ``wn1``/``wn2 = (w0, b0, w1, b1,
+    w2, b2)``, the WeightNets."""
+    d_off = fc.w0.shape[0] - 3
+    dense = (fc.w0[d_off:].contiguous(), fc.b0,
+             _kernel(fc.mlp.dense_0), fc.mlp.dense_0.bias,
+             _kernel(fc.mlp.dense_1), fc.mlp.dense_1.bias)
+
+    def wn(q):
+        return tuple(t for i in range(3)
+                     for t in (_kernel(getattr(q, f"dense_{i}")),
+                               getattr(q, f"dense_{i}").bias))
+
+    return dense, wn(fc.weightnet1), wn(fc.weightnet2)
+
+
+def center_xyz(xyz: Tensor) -> Tensor:
+    """Subtract each cloud's mean over all N points, padding included.  The
+    centre cancels exactly in ``gather(base) - off``; it keeps the folded
+    terms at the scene's extent rather than at absolute coordinates."""
+    return xyz - xyz.mean(dim=1, keepdim=True)
+
+
+def make_plf_base(feat_tx: Tensor, xyz: Tensor, wrel: Tensor) -> Tensor:
+    """``feat_tx + xyz @ wrel`` in float32."""
+    return feat_tx + xyz @ wrel
+
+
+def make_mse_base(feats: Tensor, xyz: Tensor, w0rel_list: Sequence[Tensor],
+                  w0feat_list: Sequence[Tensor]) -> Tensor:
+    """``[B, N, S*C1]``: channel block s holds scale s's folded first layer
+    ``feats @ w0f_s + xyz @ w0r_s``.  (The JAX package stacks the blocks
+    along rows, ``[B, S*N, C1c]`` with zeros off the diagonal, for its
+    one-hot gather; summing its row blocks gives this tensor.)"""
+    return torch.cat([feats @ wf + xyz @ wr
+                      for wr, wf in zip(w0rel_list, w0feat_list)], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# K3: the narrow multi-scale encoder
+# ---------------------------------------------------------------------------
+
+def fused_multi_scale_encoder_plain(feats: Tensor, idx_list: Sequence[Tensor],
+                                    xyz: Tensor, packed: tuple) -> Tensor:
+    """Plain version of :func:`fused_multi_scale_encoder`."""
+    w0rel, w0feat, s0, b0, w1, s1, b1, w2, s2, b2 = packed
+    xyz_c = center_xyz(xyz)
+    base = make_mse_base(feats, xyz_c, w0rel, w0feat)
+    c1, c2, c3 = w1.shape[1], w1.shape[2], w2.shape[2]
+    outs = []
+    for s, idx in enumerate(idx_list):
+        r1, r2, r3 = (slice(s * c, (s + 1) * c) for c in (c1, c2, c3))
+        x = (_group(base[..., r1], idx)
+             - (xyz_c @ w0rel[s])[:, :, None, :])
+        x = _relu_affine(x, s0[r1], b0[r1])
+        x = _relu_affine(x @ w1[s], s1[r2], b1[r2])
+        x = _relu_affine(x @ w2[s], s2[r3], b2[r3])
+        outs.append(torch.amax(x, dim=2))
+    return torch.cat(outs, dim=-1)
+
+
+def fused_multi_scale_encoder(feats: Tensor, idx_list: Sequence[Tensor],
+                              xyz: Tensor, packed: tuple) -> Tensor:
+    """All scales of a narrow ``MultiScaleEncoder``, before mlp2: per scale
+    s, gather ``feats @ w0f_s + xyz_c @ w0r_s`` at the ball indices, minus
+    ``xyz_c @ w0r_s`` of the query, then three [affine -> ReLU -> Dense]
+    layers and the max over that scale's ``K_s`` neighbours.
+
+    Args:
+      feats: ``[B, N, Cf]`` float32 per-point features.
+      idx_list: per scale, ``[B, N, K_s]`` int32 ball-query indices.
+      xyz: ``[B, N, 3]`` float32 coordinates.
+      packed: from :func:`mse_narrow_params_from_variables`.
+    Returns:
+      ``[B, N, S*C3]``, channel blocks in scale order.
+    """
+    w0rel, w0feat, s0, b0, w1, s1, b1, w2, s2, b2 = packed
+    flat = [*w0rel, *w0feat, s0, b0, w1, s1, b1, w2, s2, b2]
+    if not _on_card("fused_multi_scale_encoder", [feats, xyz, *flat],
+                    list(idx_list)):
+        return fused_multi_scale_encoder_plain(feats, idx_list, xyz, packed)
+    b, n, _ = xyz.shape
+    s_cnt = len(idx_list)
+    if tuple(w1.shape[1:]) + (w2.shape[2],) != MSE_WIDTHS:
+        raise ValueError(f"the CUDA kernel takes widths {MSE_WIDTHS}, got "
+                         f"{tuple(w1.shape[1:]) + (w2.shape[2],)}")
+    ks = [i.shape[2] for i in idx_list]
+    if not 1 <= s_cnt <= _MAX_SCALES or not all(1 <= k <= MAX_K for k in ks):
+        raise ValueError(f"the CUDA kernel takes 1..{_MAX_SCALES} scales of "
+                         f"K in [1, {MAX_K}], got K={ks}")
+    if any(tuple(i.shape[:2]) != (b, n) for i in idx_list):
+        raise ValueError("every idx must be [B, N, K_s]")
+    xyz_c = center_xyz(xyz).contiguous()
+    base = make_mse_base(feats, xyz_c, w0rel, w0feat)
+    w0r = torch.cat(list(w0rel), dim=1)
+    _check_kernel_args("fused_multi_scale_encoder",
+                       [base, xyz_c, w0r, s0, b0, w1, s1, b1, w2, s2, b2,
+                        *idx_list])
+    out = torch.empty((b, n, s_cnt * MSE_WIDTHS[2]), dtype=torch.float32,
+                      device=xyz.device)
+    lib = build.load("mse", _SIGNATURES["mse"])
+    code = lib.cmflow_mse(
+        base.data_ptr(),
+        (ctypes.c_void_p * s_cnt)(*[i.data_ptr() for i in idx_list]),
+        (ctypes.c_int * s_cnt)(*ks), s_cnt, xyz_c.data_ptr(),
+        w0r.data_ptr(), s0.data_ptr(), b0.data_ptr(), w1.data_ptr(),
+        s1.data_ptr(), b1.data_ptr(), w2.data_ptr(), s2.data_ptr(),
+        b2.data_ptr(), out.data_ptr(), b, n, _stream(xyz))
+    build.check(lib, code, "fused_multi_scale_encoder")
+    fused_multi_scale_encoder.launches += 1
+    return out
+
+
+fused_multi_scale_encoder.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K5: one propagation-encoder scale
+# ---------------------------------------------------------------------------
+
+def fused_point_local_feature_plain(feat_tx: Tensor, idx: Tensor, xyz: Tensor,
+                                    params: Sequence[Tensor]) -> Tensor:
+    """Plain version of :func:`fused_point_local_feature`."""
+    wrel = params[0]
+    xyz_c = center_xyz(xyz)
+    base = make_plf_base(feat_tx, xyz_c, wrel)
+    x = _group(base, idx) - (xyz_c @ wrel)[:, :, None, :]
+    x = _relu_affine(x, params[1], params[2])
+    for i in range(3, len(params), 3):
+        w, s, b = params[i:i + 3]
+        x = _relu_affine(x @ w, s, b)
+    return torch.amax(x, dim=2)
+
+
+def fused_point_local_feature(feat_tx: Tensor, idx: Tensor, xyz: Tensor,
+                              params: Sequence[Tensor]) -> Tensor:
+    """Grouped mlp and max-pool over ball-query neighbourhoods, before mlp2.
+
+    Args:
+      feat_tx: ``[B, N, C1]`` per-point features after the factored first
+        layer's feature transform (``features @ w0[3:]``).
+      idx: ``[B, N, K]`` int32 ball-query indices.
+      xyz: ``[B, N, 3]`` coordinates.
+      params: ``(wrel, s0, b0, w1, s1, b1, ...)`` from
+        :func:`plf_params_from_variables`.
+    Returns:
+      ``[B, N, C_last]``.
+    """
+    params = list(params)
+    if not _on_card("fused_point_local_feature", [feat_tx, xyz, *params],
+                    [idx]):
+        return fused_point_local_feature_plain(feat_tx, idx, xyz, params)
+    b, n, c1 = feat_tx.shape
+    k = idx.shape[2]
+    widths = (c1,) + tuple(w.shape[1] for w in params[3::3])
+    if widths != PLF_WIDTHS:
+        raise ValueError(f"the CUDA kernel takes a {PLF_WIDTHS} chain, got "
+                         f"{widths}")
+    if tuple(idx.shape[:2]) != (b, n) or not 1 <= k <= 2 * MAX_K:
+        raise ValueError(f"idx must be [B, N, K] with K <= {2 * MAX_K}, "
+                         f"got {tuple(idx.shape)}")
+    wrel, s0, b0, w1, s1, b1, w2, s2, b2 = params
+    xyz_c = center_xyz(xyz).contiguous()
+    base = make_plf_base(feat_tx, xyz_c, wrel).contiguous()
+    _check_kernel_args("fused_point_local_feature",
+                       [base, idx, xyz_c, *params])
+    out = torch.empty((b, n, PLF_WIDTHS[2]), dtype=torch.float32,
+                      device=xyz.device)
+    lib = build.load("plf", _SIGNATURES["plf"])
+    code = lib.cmflow_plf(
+        base.data_ptr(), idx.data_ptr(), xyz_c.data_ptr(), wrel.data_ptr(),
+        s0.data_ptr(), b0.data_ptr(), w1.data_ptr(), s1.data_ptr(),
+        b1.data_ptr(), w2.data_ptr(), s2.data_ptr(), b2.data_ptr(),
+        out.data_ptr(), b, n, k, c1, _stream(xyz))
+    build.check(lib, code, "fused_point_local_feature")
+    fused_point_local_feature.launches += 1
+    return out
+
+
+fused_point_local_feature.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K4a + K4b: the cost volume
+# ---------------------------------------------------------------------------
+
+def _weightnet_tail(z: Tensor, wn: Sequence[Tensor]) -> Tensor:
+    """WeightNet after its first product: ``z = d @ w0``, then
+    ReLU(z + b0) -> Dense -> ReLU -> Dense -> ReLU."""
+    b0, w1, b1, w2, b2 = wn
+    h = torch.relu(z + b0)
+    h = torch.relu(h @ w1 + b1)
+    return torch.relu(h @ w2 + b2)
+
+
+def cost_volume_p2p_plain(f1c: Tensor, f2c: Tensor, idx: Tensor, z1: Tensor,
+                          z2: Tensor, dense: Sequence[Tensor],
+                          wn: Sequence[Tensor]) -> Tensor:
+    """Plain version of :func:`cost_volume_p2p`."""
+    b0, w1, b1, w2, b2 = dense
+    x = _leaky((f1c[:, :, None, :] + _group(f2c, idx)) + b0)
+    x = _leaky(x @ w1 + b1)
+    x = _leaky(x @ w2 + b2)
+    w = _weightnet_tail(_group(z2, idx) - z1[:, :, None, :], wn)
+    return torch.sum(w * x, dim=2)
+
+
+def cost_volume_p2p(f1c: Tensor, f2c: Tensor, idx: Tensor, z1: Tensor,
+                    z2: Tensor, dense: Sequence[Tensor],
+                    wn: Sequence[Tensor]) -> Tensor:
+    """Point-to-patch cost (the first half of ``FeatureCorrelator``), with
+    the offsets folded: for each frame-2 neighbour ``j = idx[i, k]``,
+    ``x = LeakyReLU(f1c[i] + f2c[j] + b0)`` through two LeakyReLU(0.1)
+    Dense layers, weighted by the WeightNet of ``z2[j] - z1[i]`` and summed
+    over k.
+
+    Args:
+      f1c / f2c: ``[B, N, C]`` folded frame-1 / frame-2 features.
+      idx: ``[B, N, K]`` int32 frame-2 kNN indices.
+      z1 / z2: ``[B, N, H]`` the WeightNet's first product of the centred
+        frame-1 / frame-2 coordinates.
+      dense: ``(b0, w1, b1, w2, b2)``.
+      wn: the WeightNet after its first product, ``(b0, w1, b1, w2, b2)``.
+    Returns:
+      ``[B, N, C]``.
+    """
+    dense, wn = list(dense), list(wn)
+    if not _on_card("cost_volume_p2p", [f1c, f2c, z1, z2, *dense, *wn],
+                    [idx]):
+        return cost_volume_p2p_plain(f1c, f2c, idx, z1, z2, dense, wn)
+    b, n, c = f1c.shape
+    k = idx.shape[2]
+    _check_cv(b, n, c, k, idx, z1, wn)
+    if f2c.shape != f1c.shape or z2.shape != z1.shape:
+        raise ValueError("frame 2 must have frame 1's shapes")
+    _check_kernel_args("cost_volume_p2p",
+                       [f1c, f2c, idx, z1, z2, *dense, *wn])
+    out = torch.empty((b, n, c), dtype=torch.float32, device=f1c.device)
+    lib = build.load("cost_volume", _SIGNATURES["cost_volume"])
+    code = lib.cmflow_cv_p2p(
+        f1c.data_ptr(), f2c.data_ptr(), idx.data_ptr(), z1.data_ptr(),
+        z2.data_ptr(), *[t.data_ptr() for t in dense],
+        *[t.data_ptr() for t in wn], out.data_ptr(), b, n, k, c,
+        _stream(f1c))
+    build.check(lib, code, "cost_volume_p2p")
+    cost_volume_p2p.launches += 1
+    return out
+
+
+cost_volume_p2p.launches = 0
+
+
+def cost_volume_agg_plain(p2p: Tensor, idx: Tensor, zq: Tensor,
+                          wn: Sequence[Tensor]) -> Tensor:
+    """Plain version of :func:`cost_volume_agg`."""
+    w = _weightnet_tail(_group(zq, idx) - zq[:, :, None, :], wn)
+    return torch.sum(w * _group(p2p, idx), dim=2)
+
+
+def cost_volume_agg(p2p: Tensor, idx: Tensor, zq: Tensor,
+                    wn: Sequence[Tensor]) -> Tensor:
+    """Patch-to-patch aggregation (the second half of
+    ``FeatureCorrelator``): ``out[i] = sum_k WeightNet(zq[j] - zq[i]) *
+    p2p[j]`` over the frame-1 neighbours ``j = idx[i, k]``.
+
+    Args:
+      p2p: ``[B, N, C]`` point-to-patch cost.
+      idx: ``[B, N, K]`` int32 frame-1 kNN indices.
+      zq: ``[B, N, H]`` the WeightNet's first product of the centred
+        frame-1 coordinates.
+      wn: the WeightNet after its first product, ``(b0, w1, b1, w2, b2)``.
+    Returns:
+      ``[B, N, C]``.
+    """
+    wn = list(wn)
+    if not _on_card("cost_volume_agg", [p2p, zq, *wn], [idx]):
+        return cost_volume_agg_plain(p2p, idx, zq, wn)
+    b, n, c = p2p.shape
+    k = idx.shape[2]
+    _check_cv(b, n, c, k, idx, zq, wn)
+    _check_kernel_args("cost_volume_agg", [p2p, idx, zq, *wn])
+    out = torch.empty((b, n, c), dtype=torch.float32, device=p2p.device)
+    lib = build.load("cost_volume", _SIGNATURES["cost_volume"])
+    code = lib.cmflow_cv_agg(
+        p2p.data_ptr(), idx.data_ptr(), zq.data_ptr(),
+        *[t.data_ptr() for t in wn], out.data_ptr(), b, n, k, c,
+        _stream(p2p))
+    build.check(lib, code, "cost_volume_agg")
+    cost_volume_agg.launches += 1
+    return out
+
+
+cost_volume_agg.launches = 0
+
+
+def _check_cv(b: int, n: int, c: int, k: int, idx: Tensor, z: Tensor,
+              wn: Sequence[Tensor]) -> None:
+    h = WEIGHTNET_HIDDEN
+    if c != CV_WIDTH or tuple(z.shape) != (b, n, h) or wn[3].shape != (h, c):
+        raise ValueError(f"the CUDA kernels take C={CV_WIDTH} and a "
+                         f"WeightNet {h}->{h}->{CV_WIDTH}, got C={c}, "
+                         f"z {tuple(z.shape)}, w2 {tuple(wn[3].shape)}")
+    if tuple(idx.shape[:2]) != (b, n) or not 1 <= k <= MAX_K:
+        raise ValueError(f"idx must be [B, N, K] with K <= {MAX_K}, got "
+                         f"{tuple(idx.shape)}")
+
+
+def fused_cost_volume(f1t: Tensor, f2t: Tensor, idx2: Tensor, xyz1: Tensor,
+                      idx1: Tensor, xyz2: Tensor, *,
+                      dense: Sequence[Tensor], wn1: Sequence[Tensor],
+                      wn2: Sequence[Tensor]) -> Tensor:
+    """``FeatureCorrelator`` eval forward: point-to-patch
+    (:func:`cost_volume_p2p`), then patch-to-patch
+    (:func:`cost_volume_agg`); the ``[B, N, C]`` point-to-patch cost goes
+    through device memory between the two.
+
+    Args:
+      f1t / f2t: ``[B, N, C]`` transformed features (``f @ w0[:d1]`` /
+        ``f @ w0[d1:d1+d2]``).
+      idx2: frame-2 kNN indices ``[B, N, K]``; idx1: frame-1 (self) kNN.
+      xyz1 / xyz2: ``[B, N, 3]`` coordinates.
+      dense / wn1 / wn2: from :func:`cv_params_from_variables`.
+    Returns:
+      ``[B, N, C]`` aggregated cost volume.
+    """
+    f1c, f2c, z1, z2, zq = cost_volume_folds(f1t, f2t, xyz1, xyz2,
+                                             dense[0], wn1[0], wn2[0])
+    p2p = cost_volume_p2p(f1c, f2c, idx2, z1, z2, dense[1:], wn1[1:])
+    return cost_volume_agg(p2p, idx1, zq, wn2[1:])
+
+
+def cost_volume_folds(f1t: Tensor, f2t: Tensor, xyz1: Tensor, xyz2: Tensor,
+                      wd: Tensor, wn1_w0: Tensor, wn2_w0: Tensor
+                      ) -> Tuple[Tensor, ...]:
+    """The kernels' folded inputs ``(f1c, f2c, z1, z2, zq)``:
+    ``f1c = f1t - x1c @ wd``, ``f2c = f2t + x2c @ wd``,
+    ``z1 = x1c @ wn1_w0``, ``z2 = x2c @ wn1_w0``, ``zq = x1c @ wn2_w0``,
+    with both clouds centred on the mean of frame 1 over all N (padding
+    included).  The direction ``xyz2[j] - xyz1[i]`` is unchanged by any
+    shared shift, so the folds are exact."""
+    ctr = xyz1.mean(dim=1, keepdim=True)
+    x1c, x2c = xyz1 - ctr, xyz2 - ctr
+    return (f1t - x1c @ wd, f2t + x2c @ wd, x1c @ wn1_w0, x2c @ wn1_w0,
+            x1c @ wn2_w0)

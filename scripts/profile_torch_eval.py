@@ -1,22 +1,26 @@
 #!/usr/bin/env python3
-"""Where the time of the port's CMFlow eval forward goes, on one GPU.
+"""Where the time of the port's CMFlow eval forward goes, on one GPU, on
+both routes: the fused serving engine and the module route.
 
     python scripts/profile_torch_eval.py
 
-Builds a full-width CMFlow (seeded weights), serves one request of
+Builds a full-width CMFlow (seeded weights) and serves one request of
 ``BATCH`` synthetic frames at the 256-point bucket (the request
 ``chip_smoke.py`` serves there, from ``synthetic.make_request``) through
-``make_eval_step``, and traces ``ITERS`` warmed forwards with
-``torch.profiler``.  Prints the host wall time per forward, the device busy
-share (summed kernel time over wall time; one stream, so kernels do not
-overlap), device time by group (the port's kernels, matrix products, the
-rest), and the top kernels by device time.  Needs a CUDA device; exits with
-code 1 without one.
+``make_eval_step`` with ``fused="on"`` and with ``fused="off"``.  For each
+route: the request latency and frames/s over ``TIMED`` warmed forwards
+without the profiler (host clock, each forward ending in a synchronise), then
+``ITERS`` forwards traced with ``torch.profiler``: host wall time per
+forward, device busy share (summed kernel time over wall time; one stream,
+so kernels do not overlap), device time by group (the port's kernels, matrix
+products, the rest), and the top kernels by device time.  Needs a CUDA
+device; exits with code 1 without one.
 """
 
 from __future__ import annotations
 
 import json
+import subprocess
 import sys
 import time
 from pathlib import Path
@@ -34,24 +38,31 @@ from cmflow_tpu_torch.train.steps import make_eval_step  # noqa: E402
 BATCH = 16
 SEED = 0
 ITERS = 5
+TIMED = 20
 # device-side names of the port's kernels and of cuBLAS products
 GROUPS = (("ball_query", ("ball_query_kernel",)),
           ("knn", ("knn_kernel",)),
           ("gather", ("gather_rows_kernel",)),
+          ("mse", ("mse_kernel",)),
+          ("cv", ("cv_p2p_kernel",)),
+          ("cv_agg", ("cv_agg_kernel",)),
+          ("plf", ("plf_kernel",)),
           ("matmul", ("gemm", "gemv", "sm90_xmma", "cutlass")))
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("needs a CUDA device", file=sys.stderr)
-        return 1
-
-    model = build_model("cmflow", seed=SEED)
-    step = make_eval_step("cmflow", model)
-    req = make_request(SEED, BATCH, (200, 256))
+def profile_route(model, req, fused: str) -> None:
+    step = make_eval_step("cmflow", model, fused=fused)
     for _ in range(3):
         step(req)
     torch.cuda.synchronize()
+    latencies = []
+    for _ in range(TIMED):
+        t0 = time.perf_counter()
+        step(req)
+        torch.cuda.synchronize()
+        latencies.append(time.perf_counter() - t0)
+    latencies.sort()
+    median = latencies[len(latencies) // 2]
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -69,21 +80,44 @@ def main() -> int:
     device_ms = sum(ms for _, ms, _ in rows)
     groups = {name: 0.0 for name, _ in GROUPS}
     groups["other"] = 0.0
-    for key, ms, _ in rows:
+    launches = 0
+    for key, ms, count in rows:
         low = key.lower()
         name = next((g for g, pats in GROUPS if any(p in low for p in pats)),
                     "other")
         groups[name] += ms
+        launches += count
     print(json.dumps(dict(
-        device=torch.cuda.get_device_name(0), batch=BATCH,
-        bucket=req["pc1"].shape[1], wall_ms_per_forward=wall_ms,
+        route=fused, device=torch.cuda.get_device_name(0), batch=BATCH,
+        bucket=req["pc1"].shape[1],
+        latency_ms_median=1e3 * median, latency_ms_min=1e3 * latencies[0],
+        latency_ms_max=1e3 * latencies[-1],
+        frames_per_s_median=BATCH / median,
+        profiled_wall_ms_per_forward=wall_ms,
         device_ms_per_forward=device_ms,
         device_busy_share=device_ms / wall_ms,
-        device_ms_by_group=groups)))
+        kernels_per_forward=launches / ITERS,
+        device_ms_by_group=groups)), flush=True)
     rows.sort(key=lambda r: -r[1])
-    for key, ms, count in rows[:20]:
-        print(json.dumps(dict(kernel=key[:90], device_ms_per_forward=ms,
-                              calls_per_forward=count / ITERS)))
+    for key, ms, count in rows[:12]:
+        print(json.dumps(dict(route=fused, kernel=key[:90],
+                              device_ms_per_forward=ms,
+                              calls_per_forward=count / ITERS)), flush=True)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("needs a CUDA device", file=sys.stderr)
+        return 1
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip(),
+        flush=True)
+    model = build_model("cmflow", seed=SEED)
+    req = make_request(SEED, BATCH, (200, 256))
+    for fused in ("on", "off"):
+        profile_route(model, req, fused)
     return 0
 
 

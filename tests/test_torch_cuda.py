@@ -5,21 +5,28 @@ Run them on a machine with an NVIDIA GPU and nvcc:
     python -m pytest -m cuda tests/test_torch_cuda.py
 
 Without a CUDA device every test here skips (the check is made inside the
-``dev`` fixture, when a test runs).  Tolerance: none.  The kernels compute
-squared distances in the plain versions' float32 operation order and a
-gather copies, so indices and rows must be bit-identical.
+``dev`` fixture, when a test runs).  Tolerance for the neighbour searches and
+the gather: none.  They compute squared distances in the plain versions'
+float32 operation order and a gather copies, so indices and rows must be
+bit-identical.  The fused kernels (sa encoder, propagation encoder, cost
+volume) sum their float32 products in another order than the plain
+versions' ``torch.matmul``: they are held to a max abs error of 1e-4 and of
+1e-5 times the output's largest magnitude.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from cmflow_tpu_torch.nn import blocks
 from cmflow_tpu_torch.ops import fused, neighbors, pointops
 
 pytestmark = pytest.mark.cuda
 
 RADII = (2.0, 4.0, 8.0, 16.0)
 KS = (4, 8, 16, 32)
+FUSED_ATOL = 1e-4
+FUSED_RTOL = 1e-5  # of the output's largest magnitude
 
 
 @pytest.fixture
@@ -130,3 +137,160 @@ def test_rejects_non_contiguous(dev, rs):
     pt = p.transpose(0, 1).contiguous().transpose(0, 1)
     with pytest.raises(ValueError, match="contiguous"):
         neighbors.knn(8, pt, pt)
+
+
+# ---------------------------------------------------------------------------
+# the fused kernels
+# ---------------------------------------------------------------------------
+
+def near(got, want):
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    err = float((got.double() - want.double()).abs().max())
+    scale = float(want.abs().max())
+    assert scale > 0.1, scale  # not degenerate
+    assert err <= FUSED_ATOL and err <= FUSED_RTOL * scale, (err, scale)
+
+
+def seeded(module, dev, seed):
+    """``module`` with seeded weights and BatchNorm statistics near the
+    identity (activations stay of order one, as in the model), on ``dev``."""
+    gen = torch.Generator().manual_seed(seed)
+    blocks.init_parameters(module, gen)
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, blocks.BatchNorm):
+                m.weight.uniform_(0.7, 1.3, generator=gen)
+                m.bias.uniform_(-0.2, 0.2, generator=gen)
+                m.running_mean.uniform_(-0.1, 0.1, generator=gen)
+                m.running_var.uniform_(0.5, 2.0, generator=gen)
+    return module.to(dev)
+
+
+# (B, N, masked): the two buckets of the serving path with padding, and a
+# size that is a multiple of no tile
+SHAPES = [(16, 256, True), (16, 384, True), (3, 200, False)]
+
+
+def clouds(rs, b, n, masked, dev):
+    pc = cloud(rs, b, n, dev)
+    valid = valid_mask(rs, b, n, dev) if masked else None
+    if masked:
+        valid[-1] = False  # an element with no valid point: all-zero balls
+    return pc, valid
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_mse_kernel(dev, rs, shape):
+    b, n, masked = shape
+    pc, valid = clouds(rs, b, n, masked, dev)
+    # channel-strided, as the decoded and collated batch gives its features
+    feats = torch.from_numpy(rs.randn(b, 3, n).astype(np.float32)).to(
+        dev).transpose(1, 2)
+    mse = seeded(blocks.MultiScaleEncoder(RADII, KS, 3, (32, 32, 64),
+                                          (64, 64, 64)), dev, 1)
+    idx = list(neighbors.ball_query_multi(RADII, KS, pc, pc, valid))
+    with torch.no_grad():
+        packed, _ = fused.mse_narrow_params_from_variables(mse)
+        before = fused.fused_multi_scale_encoder.launches
+        got = fused.fused_multi_scale_encoder(feats, idx, pc, packed)
+        assert fused.fused_multi_scale_encoder.launches == before + 1
+        near(got, fused.fused_multi_scale_encoder_plain(feats, idx, pc,
+                                                        packed))
+        # one scale per launch, every K_s
+        for s in range(len(KS)):
+            one = (packed[0][s:s + 1], packed[1][s:s + 1]) + tuple(
+                p.reshape(len(KS), -1)[s] if p.dim() == 1 else p[s:s + 1]
+                for p in packed[2:])
+            near(fused.fused_multi_scale_encoder(feats, idx[s:s + 1], pc, one),
+                 got[..., 64 * s:64 * (s + 1)])
+
+
+@pytest.mark.parametrize("k", KS)
+@pytest.mark.parametrize("shape", SHAPES[1:])
+def test_plf_kernel(dev, rs, shape, k):
+    b, n, masked = shape
+    pc, valid = clouds(rs, b, n, masked, dev)
+    plf = seeded(blocks.PointLocalFeature(RADII[KS.index(k)], k, 1027,
+                                          (512, 256, 64), (64, 64, 64)),
+                 dev, 2)
+    feat_tx = torch.from_numpy(rs.randn(b, n, 512).astype(np.float32)).to(dev)
+    (idx,) = neighbors.ball_query_multi((RADII[KS.index(k)],), (k,), pc, pc,
+                                        valid)
+    with torch.no_grad():
+        chain, _, _ = fused.plf_params_from_variables(plf)
+        before = fused.fused_point_local_feature.launches
+        got = fused.fused_point_local_feature(feat_tx, idx, pc, chain)
+        assert fused.fused_point_local_feature.launches == before + 1
+        near(got, fused.fused_point_local_feature_plain(feat_tx, idx, pc,
+                                                        chain))
+
+
+def cost_volume_inputs(rs, shape, dev):
+    b, n, masked = shape
+    pc1, v1 = clouds(rs, b, n, masked, dev)
+    pc2, v2 = clouds(rs, b, n, masked, dev)
+    fc = seeded(blocks.FeatureCorrelator(8, 512, 512, (512, 512, 512)),
+                dev, 3)
+    f = [torch.from_numpy(rs.randn(b, n, 512).astype(np.float32)).to(dev)
+         for _ in range(2)]
+    with torch.no_grad():
+        dense, wn1, wn2 = fused.cv_params_from_variables(fc)
+    idx2 = neighbors.knn(8, pc1, pc2, v2)
+    idx1 = neighbors.knn(8, pc1, pc1, v1)
+    z = [torch.from_numpy(rs.randn(b, n, 8).astype(np.float32)).to(dev)
+         for _ in range(2)]
+    return f, idx1, idx2, z, dense, wn1, wn2
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_cost_volume_kernels(dev, rs, shape):
+    f, idx1, idx2, z, dense, wn1, wn2 = cost_volume_inputs(rs, shape, dev)
+    with torch.no_grad():
+        before = (fused.cost_volume_p2p.launches,
+                  fused.cost_volume_agg.launches)
+        p2p = fused.cost_volume_p2p(f[0], f[1], idx2, z[0], z[1], dense[1:],
+                                    wn1[1:])
+        near(p2p, fused.cost_volume_p2p_plain(f[0], f[1], idx2, z[0], z[1],
+                                              dense[1:], wn1[1:]))
+        agg = fused.cost_volume_agg(p2p, idx1, z[0], wn2[1:])
+        near(agg, fused.cost_volume_agg_plain(p2p, idx1, z[0], wn2[1:]))
+        assert (fused.cost_volume_p2p.launches,
+                fused.cost_volume_agg.launches) == (before[0] + 1,
+                                                    before[1] + 1)
+
+
+def test_fused_kernels_zero_rows_out_of_range(dev, rs):
+    """An index outside [0, N) gathers a zero row, as in the plain
+    versions (and the JAX package's one-hot gather)."""
+    shape = (2, 200, False)
+    f, idx1, idx2, z, dense, wn1, wn2 = cost_volume_inputs(rs, shape, dev)
+    for idx in (idx1, idx2):
+        idx[0, :3, 0] = torch.tensor([-1, 200, 1000], dtype=torch.int32)
+    with torch.no_grad():
+        near(fused.cost_volume_p2p(f[0], f[1], idx2, z[0], z[1], dense[1:],
+                                   wn1[1:]),
+             fused.cost_volume_p2p_plain(f[0], f[1], idx2, z[0], z[1],
+                                         dense[1:], wn1[1:]))
+        near(fused.cost_volume_agg(f[0], idx1, z[0], wn2[1:]),
+             fused.cost_volume_agg_plain(f[0], idx1, z[0], wn2[1:]))
+        plf = seeded(blocks.PointLocalFeature(4.0, 8, 1027, (512, 256, 64),
+                                              (64, 64, 64)), dev, 4)
+        chain, _, _ = fused.plf_params_from_variables(plf)
+        pc = cloud(rs, 2, 200, dev)
+        idx = neighbors.ball_query_multi((4.0,), (8,), pc, pc)[0]
+        idx[1, -3:, 2] = torch.tensor([-5, 200, 4096], dtype=torch.int32)
+        near(fused.fused_point_local_feature(f[0], idx, pc, chain),
+             fused.fused_point_local_feature_plain(f[0], idx, pc, chain))
+
+
+def test_fused_kernels_reject_other_widths(dev, rs):
+    plf = seeded(blocks.PointLocalFeature(4.0, 8, 64, (128, 64, 32),
+                                          (32, 32, 32)), dev, 5)
+    pc = cloud(rs, 2, 64, dev)
+    idx = neighbors.ball_query_multi((4.0,), (8,), pc, pc)[0]
+    feat_tx = torch.zeros((2, 64, 128), device=dev)
+    with torch.no_grad():
+        chain, _, _ = fused.plf_params_from_variables(plf)
+        with pytest.raises(ValueError, match="chain"):
+            fused.fused_point_local_feature(feat_tx, idx, pc, chain)

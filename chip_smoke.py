@@ -32,12 +32,30 @@ Run from the repository root on a machine with a CUDA GPU and nvcc.  Steps:
 5. serve one request per bucket on the module route (``fused="off"``):
    launches per forward ball query 12, kNN 2, gather 16, the first request
    held to the CPU at the same bars;
-6. print one JSON line per kernel shape and per request, then the
-   ``{"kernels": [...]}`` summary, then ``{"ok": true, "device": ...}``
-   last.
+6. hold the gather's backward (K7) to its plain version at every shape the
+   train step gives it (B=16, N=256: the sa encoder's C=32 and the
+   propagation encoder's C=512 at K = 4, 8, 16, 32, the cost volume's C=512
+   at k=8, the smoothness loss's C=3 at k=8) within 1e-5 of the output's
+   largest magnitude, and to itself bit for bit across two runs; time it,
+   the plain version and ``index_add_`` on the card, a yardstick the port
+   never calls;
+7. train: a full-width CMFlow with seeded random weights takes train steps
+   (``make_train_step``) on one synthetic B=16, N=256 batch
+   (``make_train_batch``, VoD calibration).  The first step is taken on the
+   card and on a CPU copy of the model and compared: loss items rtol 1e-4,
+   BatchNorm statistics atol 1e-5, parameters after the Adam step atol
+   5e-3, each gradient leaf within a relative L2 error of 3e-2 and the whole
+   gradient within 1e-2 (a max over neighbours makes single gradient
+   entries jump with float32 rounding; see tests/test_torch_train.py).
+   Twelve steps in all, each with its launches (ball query 12, kNN 2,
+   gather 17, gather backward 15, the fused kernels 0), finite loss items,
+   its wall time and frames/s; the last Loss below the first;
+8. print one JSON line per kernel shape, per request and per train step,
+   then the ``{"kernels": [...]}`` summary, then ``{"ok": true, "device":
+   ...}`` last.
 
-Every launch counter is set to 0 just before each served forward and read
-just after it.  Any failed check raises, so the exit code is non-zero and
+Every launch counter is set to 0 just before each served forward and each
+train step and read just after it.  Any failed check raises, so the exit code is non-zero and
 the last line is not printed.  Without a CUDA device, or run from anywhere
 but the root of a checkout (with ``cmflow_tpu_torch`` beside it), it exits
 with code 1 at once.
@@ -57,13 +75,17 @@ import numpy as np
 import torch
 
 import cmflow_tpu_torch
-from cmflow_tpu_torch.data.synthetic import make_request
+from cmflow_tpu_torch.data.synthetic import make_request, make_train_batch
+from cmflow_tpu_torch.data.vod import VOD_CAMERA_PROJECTION, VOD_T_CAMERA_RADAR
 from cmflow_tpu_torch.evaluation import metrics
+from cmflow_tpu_torch.losses import radar_loss
 from cmflow_tpu_torch.models import build_model, inference
+from cmflow_tpu_torch.models.convert import export_flax_variables
 from cmflow_tpu_torch.native import build
 from cmflow_tpu_torch.nn.blocks import BatchNorm, masked_global_max
 from cmflow_tpu_torch.ops import fused, neighbors
-from cmflow_tpu_torch.train.steps import make_eval_step
+from cmflow_tpu_torch.train.state import create_train_state
+from cmflow_tpu_torch.train.steps import make_eval_step, make_train_step
 
 B = 16
 SEED = 0
@@ -77,22 +99,38 @@ BARS = {"flow": 1e-4, "cls": 1e-4, "trans": 5e-4, "agree": 0.99}
 # the fused kernels against their plain versions: max abs error, and max
 # abs error over the output's largest magnitude
 FUSED_ATOL, FUSED_RTOL = 1e-4, 1e-5
+# the gather's backward against its plain version (index_add_, which sums
+# in another order on the card): max abs error over the largest magnitude
+GATHER_BWD_RTOL = 1e-5
+# train step, card against CPU (tests/test_torch_train.py): loss items
+# relative, BatchNorm statistics and parameters after the step absolute,
+# gradients relative L2 per leaf and over the whole gradient
+TRAIN_BARS = {"loss_rtol": 1e-4, "stats_atol": 1e-5, "params_atol": 5e-3,
+              "grad_leaf_l2": 3e-2, "grad_l2": 1e-2}
+TRAIN_STEPS = 12
 WRAPPERS = {"ball_query": neighbors.ball_query_multi, "knn": neighbors.knn,
             "gather": fused.gather_rows,
             "mse": fused.fused_multi_scale_encoder,
             "cv": fused.cost_volume_p2p, "cv_agg": fused.cost_volume_agg,
-            "plf": fused.fused_point_local_feature}
+            "plf": fused.fused_point_local_feature,
+            "gather_bwd": fused.gather_rows_backward}
 EXACT = ("ball_query", "knn", "gather")
 LAUNCHES = {
     "fused": {"ball_query": 2, "knn": 2, "gather": 0, "mse": 2, "cv": 1,
-              "cv_agg": 1, "plf": 4},
+              "cv_agg": 1, "plf": 4, "gather_bwd": 0},
     "module": {"ball_query": 12, "knn": 2, "gather": 16, "mse": 0, "cv": 0,
-               "cv_agg": 0, "plf": 0},
+               "cv_agg": 0, "plf": 0, "gather_bwd": 0},
+    # per train step: the module route's forward, one more gather in the
+    # smoothness loss, and the backward of every gather whose rows need a
+    # gradient (sa encoder 8, cost volume 2, propagation encoder 4,
+    # smoothness 1; not the cost volume's xyz gathers)
+    "train": {"ball_query": 12, "knn": 2, "gather": 17, "mse": 0, "cv": 0,
+              "cv_agg": 0, "plf": 0, "gather_bwd": 15},
 }
 # the route whose forward each kernel's summary row describes
 SUMMARY_PATH = {"ball_query": "fused", "knn": "fused", "gather": "module",
                 "mse": "fused", "cv": "fused", "cv_agg": "fused",
-                "plf": "fused"}
+                "plf": "fused", "gather_bwd": "train"}
 SOURCES = {
     "ball_query": ("cmflow_tpu_torch/csrc/neighbors.cu",
                    "cmflow_tpu/ops/neighbors.py:64"),
@@ -106,6 +144,8 @@ SOURCES = {
     "cv_agg": ("cmflow_tpu_torch/csrc/cost_volume.cu",
                "cmflow_tpu/ops/fused.py:772"),
     "plf": ("cmflow_tpu_torch/csrc/plf.cu", "cmflow_tpu/ops/fused.py:55"),
+    "gather_bwd": ("cmflow_tpu_torch/csrc/gather.cu",
+                   "cmflow_tpu/ops/fused.py:579"),
 }
 
 
@@ -336,6 +376,45 @@ def fused_cases(model, req: dict, dev):
     return cases
 
 
+def gather_bwd_cases(batch: dict, dev, gen: torch.Generator):
+    """K7 at every shape of the train step, on this batch's own neighbour
+    indices and seeded random cotangents."""
+    pc1 = torch.as_tensor(batch["pc1"], device=dev)
+    pc2 = torch.as_tensor(batch["pc2"], device=dev)
+    b, n, _ = pc1.shape
+    radii, ks = (2.0, 4.0, 8.0, 16.0), (4, 8, 16, 32)
+    d = neighbors.square_distance(pc1, pc1)
+    smooth = torch.sort(d, dim=-1, stable=True).indices[..., 1:9]
+    shapes = [(c, ks[i], neighbors.ball_query_multi((r,), (k,), pc1, pc1)[0],
+               mult, what)
+              for i, (r, k) in enumerate(zip(radii, ks))
+              for c, mult, what in ((32, 2, "sa encoder"),
+                                    (512, 1, "propagation encoder"))]
+    shapes += [(512, 8, neighbors.knn(8, pc1, pc2), 1,
+                "cost volume pc1->pc2"),
+               (512, 8, neighbors.knn(8, pc1, pc1), 1,
+                "cost volume pc1->pc1"),
+               (3, 8, smooth.to(torch.int32), 1, "smoothness loss")]
+    cases = []
+    for c, k, idx, mult, what in shapes:
+        flat = idx.reshape(b, -1).contiguous()
+        m = flat.shape[1]
+        g = torch.randn((b, m, c), generator=gen).to(dev)
+        rows = (flat.long() + n * torch.arange(b, device=dev)[:, None]
+                ).reshape(-1)
+        g_rows = g.reshape(b * m, c)
+        cases.append(dict(
+            kernel="gather_bwd", path="train",
+            shape=f"B={b} N={n} M={m} C={c} ({what} K={k})", mult=mult,
+            run=lambda g=g, flat=flat: fused.gather_rows_backward(g, flat, n),
+            plain=lambda g=g, flat=flat: fused.gather_rows_backward_plain(
+                g, flat, n),
+            library=lambda rows=rows, g_rows=g_rows, c=c: torch.zeros(
+                (b * n, c), device=dev).index_add_(0, rows, g_rows),
+            nbytes=4 * (b * m * c + b * m + b * n * c), flops=b * m * c))
+    return cases
+
+
 def check_kernels(cases, first: bool, per_forward: dict) -> None:
     """Hold each case to its plain version, time it, print it, and sum the
     first request's cases per forward of their route into ``per_forward``."""
@@ -347,6 +426,14 @@ def check_kernels(cases, first: bool, per_forward: dict) -> None:
         if name in EXACT:
             require(err == 0.0, f"{name} {case['shape']}: kernel and plain "
                                 f"version differ by {err}")
+        elif name == "gather_bwd":
+            require(err <= GATHER_BWD_RTOL * scale,
+                    f"{name} {case['shape']}: kernel and plain version "
+                    f"differ by {err} at a largest magnitude of {scale}")
+            again = case["run"]()
+            torch.cuda.synchronize()
+            require(torch.equal(got, again), f"{name} {case['shape']}: two "
+                                             f"runs differ")
         else:
             require(err <= FUSED_ATOL and err <= FUSED_RTOL * scale,
                     f"{name} {case['shape']}: kernel and plain version "
@@ -479,6 +566,105 @@ def serve(route: str, step, requests, checks) -> dict:
     return launches
 
 
+def leaves(tree, prefix=""):
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            yield from leaves(value, f"{prefix}{key}/")
+        else:
+            yield prefix + key, value
+
+
+def compare_train_step(items, cpu_items, model, cpu_model) -> dict:
+    """Hold the card's first train step to the CPU's at TRAIN_BARS."""
+    res = {}
+    loss_err = max(abs(float(items[k]) - float(cpu_items[k]))
+                   / abs(float(cpu_items[k])) for k in cpu_items)
+    res["loss_max_rel_err"] = loss_err
+    grads = dict(leaves(export_flax_variables(model, grads=True)))
+    cpu_grads = dict(leaves(export_flax_variables(cpu_model, grads=True)))
+    leaf_l2 = {k: float(np.linalg.norm(grads[k] - w) / np.linalg.norm(w))
+               for k, w in cpu_grads.items()}
+    num = sum(float(np.sum((grads[k] - w) ** 2)) for k, w in cpu_grads.items())
+    den = sum(float(np.sum(w ** 2)) for w in cpu_grads.values())
+    leaf_max = {k: float(np.abs(grads[k] - w).max() / np.abs(w).max())
+                for k, w in cpu_grads.items()}
+    res["grad_leaf_l2_max"] = max(leaf_l2.values())
+    res["grad_l2"] = (num / den) ** 0.5
+    res["grad_leaf_max_over_max"] = max(leaf_max.values())
+    res["grad_leaves_within_1e-3_of_max"] = sum(
+        v <= 1e-3 for v in leaf_max.values())
+    res["grad_leaves"] = len(leaf_max)
+    after = dict(leaves(export_flax_variables(model)))
+    cpu_after = dict(leaves(export_flax_variables(cpu_model)))
+    res["stats_max_abs_err"] = max(float(np.abs(after[k] - w).max())
+                                   for k, w in cpu_after.items()
+                                   if k.startswith("batch_stats/"))
+    res["params_max_abs_err"] = max(float(np.abs(after[k] - w).max())
+                                    for k, w in cpu_after.items()
+                                    if k.startswith("params/"))
+    require(loss_err <= TRAIN_BARS["loss_rtol"], f"train loss items: {res}")
+    require(res["grad_leaf_l2_max"] <= TRAIN_BARS["grad_leaf_l2"]
+            and res["grad_l2"] <= TRAIN_BARS["grad_l2"],
+            f"train gradients: {res}, worst leaves "
+            f"{sorted(leaf_l2.items(), key=lambda kv: -kv[1])[:5]}")
+    require(res["stats_max_abs_err"] <= TRAIN_BARS["stats_atol"],
+            f"train BatchNorm statistics: {res}")
+    require(res["params_max_abs_err"] <= TRAIN_BARS["params_atol"],
+            f"train parameters: {res}")
+    return res
+
+
+def train(dev, batch: dict) -> dict:
+    """Train steps on the card from seeded weights, the first one held to
+    the same step on the CPU; returns the launches summed over the steps."""
+    model = build_model("cmflow", device=dev, seed=SEED + 1)
+    cpu_model = copy.deepcopy(model).to("cpu")
+    state = create_train_state(model)
+    step = make_train_step("cmflow", model, VOD_CAMERA_PROJECTION,
+                           VOD_T_CAMERA_RADAR)
+    t0 = time.perf_counter()
+    cpu_items = make_train_step("cmflow", cpu_model, VOD_CAMERA_PROJECTION,
+                                VOD_T_CAMERA_RADAR)(
+        create_train_state(cpu_model), batch)
+    cpu_s = time.perf_counter() - t0
+    b = batch["pc1"].shape[0]
+    want = LAUNCHES["train"]
+    launches = {k: 0 for k in WRAPPERS}
+    losses = []
+    for i in range(TRAIN_STEPS):
+        for fn in WRAPPERS.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        items = step(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: fn.launches for k, fn in WRAPPERS.items()}
+        require(counts == want,
+                f"train step {i}: launches {counts}, want {want}")
+        for k in launches:
+            launches[k] += counts[k]
+        values = {k: float(v) for k, v in items.items()}
+        require(sorted(values) == sorted(radar_loss.LOSS_ITEMS["cmflow"]),
+                f"train step {i}: loss items {sorted(values)}")
+        require(all(np.isfinite(v) for v in values.values()),
+                f"train step {i}: non-finite loss items {values}")
+        losses.append(values["Loss"])
+        row = dict(route="train", step=i, batch=int(b),
+                   num_points=int(batch["pc1"].shape[1]),
+                   step_ms=1e3 * wall, frames_per_s=b / wall,
+                   launches=counts, **values)
+        if i == 0:
+            row["vs_cpu"] = compare_train_step(items, cpu_items, model,
+                                               cpu_model)
+            row["cpu_step_s"] = cpu_s
+        emit(row)
+    require(losses[-1] < losses[0],
+            f"train: the last Loss {losses[-1]} is not below the first "
+            f"{losses[0]}")
+    return launches
+
+
 def main() -> int:
     # the kernels must build from this checkout's sources, not from a copy
     # of the package installed elsewhere
@@ -543,6 +729,15 @@ def main() -> int:
                             [requests[0], requests[3]], module_checks)
     emit(dict(serve_phase_s=time.perf_counter() - t0))
 
+    t0 = time.perf_counter()
+    batch = make_train_batch(SEED, B, 256)
+    with torch.no_grad():
+        check_kernels(gather_bwd_cases(batch, dev, gen), True, per_forward)
+    launches_train = train(dev, batch)
+    emit(dict(train_phase_s=time.perf_counter() - t0))
+    by_path = {"fused": launches, "module": launches_module,
+               "train": launches_train}
+
     kernels = []
     for name, acc in per_forward.items():
         source, replaces = SOURCES[name]
@@ -550,7 +745,7 @@ def main() -> int:
         bms, bby = bound_ms(acc["nbytes"], acc["flops"])
         entry = dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=(launches if path == "fused" else launches_module)[name],
+            launches=by_path[path][name],
             max_abs_err=acc["max_abs_err"], ms=acc["ms"],
             plain_ms=acc["plain_ms"], bound_ms=bms, bound_by=bby,
             library_ms=acc["library_ms"] if acc["has_library"] else None,

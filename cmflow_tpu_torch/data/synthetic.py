@@ -1,6 +1,7 @@
 """Synthetic radar scene-flow scene generator (``make_scene`` of
-``cmflow_tpu/data/synthetic.py``, copied), and ``make_request``, which
-batches its scenes into one served request.
+``cmflow_tpu/data/synthetic.py``, copied); ``make_request``, which batches
+its scenes into one served request, and ``make_train_batch``, which batches
+them into one training batch.
 
 Produces physically consistent frame pairs in the exact on-disk ujson
 schema of the reference preprocessing output
@@ -157,3 +158,18 @@ def make_request(seed: int, batch: int, n_range) -> Dict:
     bucket = schema.bucket_size(max(max(s["pc1"].shape[0], s["pc2"].shape[0])
                                     for s in samples))
     return schema.collate([schema.pad_to(s, bucket) for s in samples])
+
+
+def make_train_batch(seed: int, batch: int, num_points: int) -> Dict:
+    """One training batch: ``batch`` scenes of ``num_points + 16`` points
+    per frame (as the JAX package's train tests draw them), decoded as the
+    train split (pseudo labels, optical flow, exactly ``num_points`` per
+    cloud) and stacked, without valid masks."""
+    rng = np.random.default_rng(seed)
+    n = num_points + 16
+    samples = [decode_sample(make_scene(rng, n1=n, n2=n, moving_fraction=0.25),
+                             "train", eval_mode=False, num_points=num_points,
+                             rng=rng)
+               for _ in range(batch)]
+    return {k: np.stack([s[k] for s in samples]) for k in samples[0]
+            if k not in ("valid1", "valid2")}

@@ -1,1 +1,1 @@
-"""SE(3) geometry."""
+"""SE(3) and camera geometry."""

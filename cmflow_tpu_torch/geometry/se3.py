@@ -1,9 +1,12 @@
-"""SE(3) geometry: batched weighted Kabsch, rigid flow, transforms.
+"""SE(3) geometry: batched weighted Kabsch, rigid flow, transforms, KDE
+density.
 
-Counterpart of ``cmflow_tpu/geometry/se3.py`` (forward only).  One function
-covers the reference's three Kabsch variants through its ``centroid`` and
-``reflect`` modes; see :func:`weighted_kabsch`.  The 3x3 SVDs and
-determinants go to ``torch.linalg``.
+Counterpart of ``cmflow_tpu/geometry/se3.py``.  One function covers the
+reference's three Kabsch variants through its ``centroid`` and ``reflect``
+modes; see :func:`weighted_kabsch`.  The 3x3 SVDs and determinants go to
+``torch.linalg``; the SVD's derivative is the JAX package's regularised rule
+(:class:`_SVD3`), not ``torch.linalg.svd``'s, which is inf/NaN at equal
+singular values.
 """
 
 from __future__ import annotations
@@ -13,6 +16,46 @@ from typing import Optional
 import torch
 
 Tensor = torch.Tensor
+
+
+class _SVD3(torch.autograd.Function):
+    """Batched 3x3 SVD ``h = u @ diag(s) @ vh`` with a regularised
+    derivative (``_svd3`` of the JAX package, ``se3.py:33-75``).
+
+    The JAX package defines the JVP: the standard SVD differential with the
+    resolvent ``1 / (s_j^2 - s_i^2)`` replaced by ``f = d / (d^2 + eps)``,
+    ``d = s_j^2 - s_i^2`` and ``eps = (1e-8 max s^2 + 1e-18)^2``, exact for
+    well separated singular values and finite where they meet (H = 0
+    included).  The backward here is that JVP's transpose:
+
+        dp = u^T dh v,  du = u (f * (dp s_j + s_i dp^T)),
+        dv = v (f * (s_i dp + dp^T s_j)),  ds = diag(dp)
+
+    gives, with ``mu = f * (u^T gu)`` and ``mv = f * (v^T gv)``,
+
+        gh = u (s_j (mu + mu^T) + s_i (mv + mv^T) + diag(gs)) vh.
+    """
+
+    @staticmethod
+    def forward(ctx, h: Tensor):
+        u, s, vh = torch.linalg.svd(h)
+        ctx.save_for_backward(u, s, vh)
+        return u, s, vh
+
+    @staticmethod
+    def backward(ctx, gu: Tensor, gs: Tensor, gvh: Tensor) -> Tensor:
+        u, s, vh = ctx.saved_tensors
+        s2 = s * s
+        d = s2[..., None, :] - s2[..., :, None]  # d[i, j] = s_j^2 - s_i^2
+        smax2 = torch.amax(s2, dim=-1, keepdim=True)[..., None]
+        eps = (1e-8 * smax2 + 1e-18) ** 2
+        f = d / (d * d + eps)
+        mu = f * (u.transpose(-1, -2) @ gu)
+        mv = f * (vh @ gvh.transpose(-1, -2))
+        p = ((mu + mu.transpose(-1, -2)) * s[..., None, :]
+             + s[..., :, None] * (mv + mv.transpose(-1, -2))
+             + torch.diag_embed(gs))
+        return u @ p @ vh
 
 
 def _cof3(x: Tensor) -> Tensor:
@@ -71,8 +114,9 @@ def weighted_kabsch(
         reference does), ``"col"`` (the textbook third column) or ``"none"``.
       solver: ``"svd"``, or ``"polar"`` (Newton polar iteration; ``row`` and
         ``none`` only).  On the ``svd`` route with ``row``/``none`` the
-        rotation is taken from the polar factor wherever that factor is
-        orthogonal to 1e-2, as the JAX package does.
+        rotation's value is taken from the polar factor wherever that factor
+        is orthogonal to 1e-2, and its gradient from the SVD's regularised
+        derivative, as the JAX package does.
     Returns:
       ``[B, 4, 4]`` homogeneous transforms.
     """
@@ -110,7 +154,7 @@ def weighted_kabsch(
             flip = torch.where(torch.linalg.det(h) < 0, -1.0, 1.0).to(a.dtype)
             r = _flip_row2(r, flip)
     elif solver == "svd":
-        u, _, vh = torch.linalg.svd(h)
+        u, _, vh = _SVD3.apply(h)
         v = vh.transpose(-1, -2)
         ut = u.transpose(-1, -2)
         flip = torch.where(torch.linalg.det(v @ ut) < 0, -1.0, 1.0).to(a.dtype)
@@ -123,17 +167,20 @@ def weighted_kabsch(
             raise ValueError(f"unknown reflect mode {reflect!r}")
         r = v @ ut
         if reflect in ("row", "none"):
-            # value from the polar factor, which is accurate where the SVD
-            # may not be, unless H is (near) singular and the Newton
-            # iterate is not orthogonal
-            rp = polar3(h).transpose(-1, -2)
-            if reflect == "row":
-                hflip = torch.where(torch.linalg.det(h) < 0, -1.0, 1.0)
-                rp = _flip_row2(rp, hflip.to(a.dtype))
-            eye = torch.eye(3, dtype=rp.dtype, device=rp.device)
-            orth_err = torch.amax(
-                (rp.transpose(-1, -2) @ rp - eye).abs(), dim=(-2, -1))
-            r = torch.where((orth_err < 1e-2)[:, None, None], rp, r)
+            # straight through: the value from the polar factor, which is
+            # accurate where the SVD may not be (unless H is (near) singular
+            # and the Newton iterate is not orthogonal), the gradient from
+            # the SVD
+            with torch.no_grad():
+                rp = polar3(h).transpose(-1, -2)
+                if reflect == "row":
+                    hflip = torch.where(torch.linalg.det(h) < 0, -1.0, 1.0)
+                    rp = _flip_row2(rp, hflip.to(a.dtype))
+                eye = torch.eye(3, dtype=rp.dtype, device=rp.device)
+                orth_err = torch.amax(
+                    (rp.transpose(-1, -2) @ rp - eye).abs(), dim=(-2, -1))
+                rv = torch.where((orth_err < 1e-2)[:, None, None], rp, r)
+            r = r + (rv - r).detach()
     else:
         raise ValueError(f"unknown solver {solver!r}")
     t = centroid_b - torch.einsum("bij,bj->bi", r, centroid_a)
@@ -159,3 +206,14 @@ def apply_transform(pc: Tensor, trans: Tensor) -> Tensor:
     r = trans[:, :3, :3]
     t = trans[:, :3, 3]
     return torch.einsum("bij,bnj->bni", r, pc) + t[:, None, :]
+
+
+def kde_density(xyz1: Tensor, xyz2: Tensor, bandwidth: float = 1.0) -> Tensor:
+    """Gaussian KDE density ``[B, N]`` of each query point of ``xyz1``
+    ``[B, N, 3]`` with respect to ``xyz2`` ``[B, M, 3]``: the mean over
+    ``xyz2`` of ``exp(-d^2 / (2 h^2)) / (2.5 h)`` (utils/util.py:172-182)."""
+    from cmflow_tpu_torch.ops.pointops import square_distance
+
+    g = torch.exp(-square_distance(xyz1, xyz2)
+                  / (2.0 * bandwidth * bandwidth)) / (2.5 * bandwidth)
+    return torch.mean(g, dim=-1)

@@ -1,4 +1,4 @@
-"""CMFlow — per-pair cross-modal radar scene-flow model, eval forward.
+"""CMFlow — per-pair cross-modal radar scene-flow model.
 
 Counterpart of ``cmflow_tpu/models/cmflow.py``: trunk, flow and motion
 heads, the ego-motion weighted Kabsch and the rigid refinement of static
@@ -21,7 +21,6 @@ from cmflow_tpu_torch.models.backbone import (
 from cmflow_tpu_torch.nn.blocks import (
     FlowHead,
     MotionHead,
-    check_eval,
     masked_global_max,
 )
 
@@ -46,21 +45,21 @@ class CMFlow(nn.Module):
                 valid1: Optional[Tensor] = None,
                 valid2: Optional[Tensor] = None
                 ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
-        # eval only: inference takes the predicted probabilities, never
-        # label_m (cmflow.py:180-185)
-        check_eval(train)
         prop = self.trunk(pc1, pc2, feature1, feature2, train, valid1, valid2)
         final = concat_global(prop, masked_global_max(prop, valid1))
         output = self.fp(final, train)  # [B, N, 3] initial flow
         stat_cls = self.mp(final, train)  # [B, N] static probability
 
-        mask = stat_cls > self.stat_thres
+        # training takes the pseudo motion label for the ego-motion head,
+        # inference the predicted probabilities (cmflow.py:180-185)
+        scores = label_m if train and label_m is not None else stat_cls
+        mask = scores > self.stat_thres
         if valid1 is not None:
             mask = mask & valid1
 
         # ego-motion head: scores to normalised weights, then weighted
         # Kabsch on (pc1 -> pc1 + flow), cmflow.py:96-110
-        w = stat_cls + 1e-4
+        w = scores + 1e-4
         if valid1 is not None:
             w = w * valid1
         w = w / w.sum(dim=1, keepdim=True)

@@ -12,7 +12,8 @@ fills a model whose submodules carry the flax names:
   -> ``running_mean``/``running_var``.
 
 A key with no counterpart, a shape that differs, or a parameter or buffer
-left unfilled is an error.
+left unfilled is an error.  :func:`export_flax_variables` is the inverse:
+it gives the same tree for the port's values, or for their gradients.
 """
 
 from __future__ import annotations
@@ -85,3 +86,39 @@ def load_flax_variables(model: nn.Module,
     missing = sorted(set(state) - filled)
     if missing:
         raise KeyError(f"left unfilled by the flax variables: {missing}")
+
+
+def export_flax_variables(model: nn.Module, grads: bool = False
+                          ) -> Dict[str, Dict[str, Any]]:
+    """The inverse of :func:`load_flax_variables`: ``model``'s parameters
+    and BatchNorm statistics as a flax ``{"params", "batch_stats"}`` tree of
+    float32 numpy arrays.  With ``grads=True``, the ``params`` tree holds
+    each parameter's ``.grad`` (zeros where it has none) and there is no
+    ``batch_stats``."""
+    inverse = {(mtype, name): (collection, leaf, transpose)
+               for (mtype, collection, leaf), (name, transpose)
+               in _RULES.items()}
+    tree: Dict[str, Dict[str, Any]] = {"params": {}}
+    if not grads:
+        tree["batch_stats"] = {}
+    named = dict(model.named_parameters())
+    if not grads:
+        named.update(model.named_buffers())
+    for key, tensor in named.items():
+        module_path, _, name = key.rpartition(".")
+        module = model.get_submodule(module_path)
+        rule = inverse.get((type(module), name))
+        if rule is None:
+            raise KeyError(f"{key}: no flax counterpart")
+        collection, leaf, transpose = rule
+        if grads:
+            tensor = (tensor.grad if tensor.grad is not None
+                      else torch.zeros_like(tensor))
+        array = tensor.detach().to("cpu", torch.float32).numpy().copy()
+        if transpose:
+            array = array.T.copy()
+        node = tree[collection]
+        for part in module_path.split(".") if module_path else ():
+            node = node.setdefault(part, {})
+        node[leaf] = array
+    return tree

@@ -1,4 +1,4 @@
-"""Neural building blocks, eval mode, channels-last.
+"""Neural building blocks, channels-last.
 
 Counterpart of ``cmflow_tpu/nn/blocks.py``.  Every 1x1 convolution of the
 reference is a ``Linear`` over the trailing channel axis.  Submodules carry
@@ -6,9 +6,9 @@ the flax names (``dense_0``, ``bn_0``, ``w0``, ...), so that
 :mod:`cmflow_tpu_torch.models.convert` maps a flax variable tree onto them
 path by path.
 
-Only the eval forward is ported: :class:`BatchNorm` raises on
-``train=True`` (train-mode BatchNorm waits for the CMFlow train step,
-ROADMAP Queue 1, slice 3).
+Every forward takes ``train``: :class:`BatchNorm` then normalises with the
+batch statistics and updates its running statistics, as flax's
+``BatchNorm(use_running_average=False, momentum=0.9)`` does.
 
 The factored first layers of :class:`PointLocalFeature` and
 :class:`FeatureCorrelator` keep the JAX package's algebra: the first layer is
@@ -29,15 +29,6 @@ from cmflow_tpu_torch.ops import pointops
 
 Tensor = torch.Tensor
 
-_TRAIN_MSG = ("train-mode forward is not ported yet: train-mode BatchNorm "
-              "comes with the CMFlow train step (ROADMAP Queue 1, slice 3)")
-
-
-def check_eval(train: bool) -> None:
-    if train:
-        raise NotImplementedError(_TRAIN_MSG)
-
-
 def init_uniform_(t: Tensor, fan_in: int, generator: torch.Generator) -> None:
     """PyTorch's default Conv2d/Linear init, ``U(-1/sqrt(fan_in), +)`` for
     weights and biases alike (kaiming-uniform with a=sqrt(5))."""
@@ -47,8 +38,18 @@ def init_uniform_(t: Tensor, fan_in: int, generator: torch.Generator) -> None:
 
 
 class BatchNorm(nn.Module):
-    """Channels-last BatchNorm with running statistics, eval mode, in the
-    flax order: ``(x - mean) * (rsqrt(var + eps) * scale) + bias``."""
+    """Channels-last BatchNorm with running statistics, in the flax order:
+    ``(x - mean) * (rsqrt(var + eps) * scale) + bias``.
+
+    Eval mode takes the running statistics.  Train mode takes the statistics
+    of the batch over every axis but the last (the ``B*N*K`` rows of a
+    grouped chain), the variance biased and computed as flax 0.12 does
+    (``use_fast_variance``): ``max(E[x^2] - E[x]^2, 0)``; the gradient flows
+    through both.  It then updates ``running = momentum * running +
+    (1 - momentum) * batch`` with the same biased variance (flax momentum
+    0.9; ``F.batch_norm`` would feed the unbiased variance in)."""
+
+    MOMENTUM = 0.9
 
     def __init__(self, num_features: int, eps: float = 1e-5):
         super().__init__()
@@ -59,9 +60,19 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
 
     def forward(self, x: Tensor, train: bool) -> Tensor:
-        check_eval(train)
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return (x - self.running_mean) * mul + self.bias
+        if not train:
+            mean, var = self.running_mean, self.running_var
+        else:
+            axes = tuple(range(x.dim() - 1))
+            mean = x.mean(dim=axes)
+            var = torch.clamp_min((x * x).mean(dim=axes) - mean * mean, 0.0)
+            with torch.no_grad():
+                m = self.MOMENTUM
+                self.running_mean.copy_(m * self.running_mean
+                                        + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean) * mul + self.bias
 
 
 class PointwiseMLP(nn.Module):

@@ -5,6 +5,8 @@ Counterpart of ``cmflow_tpu/ops/fused.py``:
 
 * :func:`gather_rows`: ``mxu_gather_rows`` / ``mxu_group_points`` forward
   (K6, ``csrc/gather.cu``);
+* :func:`gather_rows_backward`: ``_gather_bwd_kernel``, the backward of
+  ``mxu_group_points`` (K7, ``csrc/gather.cu``);
 * :func:`fused_multi_scale_encoder`: ``_mse_kernel`` (K3, ``csrc/mse.cu``);
 * :func:`fused_point_local_feature`: ``_plf_kernel`` (K5, ``csrc/plf.cu``);
 * :func:`fused_cost_volume`: ``_cv_kernel`` then ``_cv_agg_kernel``, here
@@ -45,7 +47,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _MAX_SCALES = 4
 _SIGNATURES = {
-    "gather": {"cmflow_gather_rows": (_P, _P, _P, _I, _I, _I, _I, _I, _P)},
+    "gather": {"cmflow_gather_rows": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+               "cmflow_gather_rows_backward": (_P, _P, _P, _I, _I, _I, _I,
+                                               _I, _P)},
     "mse": {"cmflow_mse": (_P, ctypes.POINTER(ctypes.c_void_p),
                            ctypes.POINTER(ctypes.c_int), _I, _P, _P, _P,
                            _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P)},
@@ -173,6 +177,67 @@ def gather_rows(points: Tensor, idx: Tensor) -> Tensor:
 
 
 gather_rows.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K7: the row gather's backward
+# ---------------------------------------------------------------------------
+
+# widest row the K7 kernel takes on its float4 path (16 float4 registers a
+# lane); a quarter of it on the scalar path
+GATHER_BWD_MAX_C = 2048
+
+
+def gather_rows_backward_plain(g: Tensor, idx: Tensor, n: int) -> Tensor:
+    """Plain version of :func:`gather_rows_backward`: one ``index_add_``
+    over the flattened batch, which on the CPU adds the rows in ascending
+    ``m``."""
+    b, m, c = g.shape
+    inside = (idx >= 0) & (idx < n)
+    base = n * torch.arange(b, device=idx.device)[:, None]
+    out = torch.zeros((b * n, c), dtype=g.dtype, device=g.device)
+    out.index_add_(0, (idx.long() + base)[inside], g[inside])
+    return out.view(b, n, c)
+
+
+def gather_rows_backward(g: Tensor, idx: Tensor, n: int) -> Tensor:
+    """The transpose of :func:`gather_rows`:
+    ``out[b, j] = sum of g[b, m] over every m with idx[b, m] == j``.
+
+    Deterministic on the card: each output row is summed in ascending ``m``
+    by one warp, with no atomics.
+
+    Args:
+      g: ``[B, M, C]`` float32 cotangent rows.
+      idx: ``[B, M]`` int32; an index outside ``[0, N)`` contributes nothing.
+      n: ``N``, the number of rows of the gathered tensor.
+    Returns:
+      ``[B, N, C]`` float32.
+    """
+    if g.dim() != 3 or idx.shape != g.shape[:2] or n < 1:
+        raise ValueError(f"need g [B, M, C], idx [B, M] and n >= 1, got "
+                         f"{tuple(g.shape)}, {tuple(idx.shape)} and {n}")
+    if not _on_card("gather_rows_backward", (g,), (idx,)):
+        return gather_rows_backward_plain(g, idx, n)
+    b, m, c = g.shape
+    vec4 = c % 4 == 0 and g.data_ptr() % 16 == 0
+    if c > (GATHER_BWD_MAX_C if vec4 else GATHER_BWD_MAX_C // 4):
+        raise ValueError(f"gather_rows_backward: C={c} is wider than the "
+                         f"kernel takes")
+    if not (g.is_contiguous() and idx.is_contiguous()):
+        raise ValueError("gather_rows_backward: the CUDA kernel takes "
+                         "contiguous tensors")
+    out = torch.empty((b, n, c), dtype=g.dtype, device=g.device)
+    lib = build.load("gather", _SIGNATURES["gather"])
+    code = lib.cmflow_gather_rows_backward(
+        g.data_ptr(), idx.data_ptr(), out.data_ptr(), b, n, m, c, int(vec4),
+        _stream(g))
+    build.check(lib, code, "gather_rows_backward")
+    gather_rows_backward.launches += 1
+    return out
+
+
+gather_rows_backward.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -3,7 +3,9 @@
 Counterpart of ``cmflow_tpu/ops/pointops.py``.  Neighbour searches go
 through :mod:`cmflow_tpu_torch.ops.neighbors` and gathers through
 :mod:`cmflow_tpu_torch.ops.fused`, whose wrappers launch the CUDA kernels
-on CUDA tensors and run the plain PyTorch versions on CPU tensors.  An
+on CUDA tensors and run the plain PyTorch versions on CPU tensors.  Gathers
+are differentiable in the points, as the JAX package's ``mxu_group_points``:
+forward K6 (``gather_rows``), backward K7 (``gather_rows_backward``).  An
 optional boolean ``valid`` mask marks real (non-padding) points; padded
 points are excluded from every neighbourhood.
 """
@@ -15,7 +17,7 @@ from typing import Optional, Tuple
 import torch
 
 from cmflow_tpu_torch.ops import neighbors
-from cmflow_tpu_torch.ops.fused import gather_rows
+from cmflow_tpu_torch.ops.fused import gather_rows, gather_rows_backward
 from cmflow_tpu_torch.ops.neighbors import (  # noqa: F401  (re-exported)
     masked_square_distance,
     square_distance,
@@ -52,15 +54,35 @@ def ball_query(radius: float, nsample: int, points: Tensor, query: Tensor,
     return idx
 
 
+class _GatherRows(torch.autograd.Function):
+    """``gather_rows`` with ``gather_rows_backward`` as its backward; the
+    indices take no gradient."""
+
+    @staticmethod
+    def forward(ctx, points: Tensor, idx: Tensor) -> Tensor:
+        ctx.save_for_backward(idx)
+        ctx.n = points.shape[1]
+        return gather_rows(points, idx)
+
+    @staticmethod
+    def backward(ctx, grad: Tensor):
+        if not ctx.needs_input_grad[0]:
+            return None, None
+        (idx,) = ctx.saved_tensors
+        # autograd may hand over a stride-0 expanded cotangent (the
+        # gradient of a sum); the kernel reads contiguous rows
+        return gather_rows_backward(grad.contiguous(), idx, ctx.n), None
+
+
 def group_points(points: Tensor, idx: Tensor) -> Tensor:
     """Gather per-neighbourhood features: ``[B, N, C]`` by ``[B, S, K]``
     int32 -> ``[B, S, K, C]``."""
     b, s, k = idx.shape
-    flat = gather_rows(points, idx.reshape(b, s * k))
+    flat = _GatherRows.apply(points, idx.reshape(b, s * k))
     return flat.reshape(b, s, k, points.shape[2])
 
 
 def gather_points(points: Tensor, idx: Tensor) -> Tensor:
     """Gather points by index: ``[B, N, C]`` by ``[B, S]`` int32 ->
     ``[B, S, C]``."""
-    return gather_rows(points, idx)
+    return _GatherRows.apply(points, idx)

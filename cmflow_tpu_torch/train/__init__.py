@@ -1,1 +1,1 @@
-"""Eval step (the train step is not ported yet)."""
+"""Train and eval steps, optimizer and train state, pseudo labels."""

@@ -11,7 +11,10 @@ float32 operation order and a gather copies, so indices and rows must be
 bit-identical.  The fused kernels (sa encoder, propagation encoder, cost
 volume) sum their float32 products in another order than the plain
 versions' ``torch.matmul``: they are held to a max abs error of 1e-4 and of
-1e-5 times the output's largest magnitude.
+1e-5 times the output's largest magnitude.  The gather's backward (K7) sums
+rows in ascending index order, the plain version's ``index_add_`` on the card
+in any order: it is held to 1e-5 of the output's largest magnitude, and to
+itself bit for bit across runs.
 """
 
 import numpy as np
@@ -130,6 +133,75 @@ def test_gather_unaligned_rows(dev, rs):
     assert pts.is_contiguous() and pts.data_ptr() % 16 != 0
     idx = torch.from_numpy(rs.randint(0, 64, (2, 50)).astype(np.int32)).to(dev)
     same(fused.gather_rows(pts, idx), fused.gather_rows_plain(pts, idx))
+
+
+# (S, K, C): the train step's grouped gathers at N=256 (sa encoder C=32,
+# propagation encoder and cost volume C=512, smoothness loss C=3) and a
+# width the float4 path does not take
+GATHER_BWD_CASES = [(256, k, 32) for k in KS] + [(256, k, 512) for k in KS] + [
+    (256, 8, 3), (256, 8, 512), (100, 7, 30)]
+
+
+def bwd_inputs(rs, dev, b, n, s, k, c):
+    g = torch.from_numpy(rs.randn(b, s * k, c).astype(np.float32)).to(dev)
+    idx = torch.from_numpy(rs.randint(0, n, (b, s * k)).astype(np.int32)).to(dev)
+    return g, idx
+
+
+def near_plain(got, want):
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    err = float((got.double() - want.double()).abs().max())
+    assert err <= 1e-5 * float(want.abs().max()), err
+
+
+@pytest.mark.parametrize("case", GATHER_BWD_CASES)
+def test_gather_backward(dev, rs, case):
+    s, k, c = case
+    b, n = 16, 256
+    g, idx = bwd_inputs(rs, dev, b, n, s, k, c)
+    before = fused.gather_rows_backward.launches
+    got = fused.gather_rows_backward(g, idx, n)
+    assert fused.gather_rows_backward.launches == before + 1
+    near_plain(got, fused.gather_rows_backward_plain(g, idx, n))
+    again = fused.gather_rows_backward(g, idx, n)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)  # deterministic: no atomics
+
+
+def test_gather_backward_out_of_range_and_empty_rows(dev, rs):
+    b, n, s, k, c = 2, 64, 40, 8, 32
+    g, idx = bwd_inputs(rs, dev, b, n, s, k, c)
+    idx[0, :5] = torch.tensor([-1, n, n + 9, -100, 4096], dtype=torch.int32)
+    idx[idx == 3] = 2  # row 3 named by no index
+    got = fused.gather_rows_backward(g, idx, n)
+    near_plain(got, fused.gather_rows_backward_plain(g, idx, n))
+    assert (got[:, 3] == 0).all()
+    # more index rows than the kernel stages in shared memory at once
+    g, idx = bwd_inputs(rs, dev, 2, 300, 300, 32, 64)
+    near_plain(fused.gather_rows_backward(g, idx, 300),
+               fused.gather_rows_backward_plain(g, idx, 300))
+
+
+def test_group_points_autograd_on_card(dev, rs):
+    """Forward K6, backward K7, only for the input that needs a gradient;
+    a stride-0 expanded cotangent (the gradient of a sum) is made
+    contiguous, not refused."""
+    b, n, s, k, c = 4, 256, 256, 16, 512
+    pts = torch.from_numpy(rs.randn(b, n, c).astype(np.float32)).to(dev)
+    idx = torch.from_numpy(rs.randint(0, n, (b, s, k)).astype(np.int32)).to(dev)
+    p = pts.clone().requires_grad_(True)
+    before = (fused.gather_rows.launches, fused.gather_rows_backward.launches)
+    pointops.group_points(p, idx).sum().backward()
+    assert (fused.gather_rows.launches,
+            fused.gather_rows_backward.launches) == (before[0] + 1,
+                                                     before[1] + 1)
+    counts = torch.zeros((b, n), device=dev).scatter_add_(
+        1, idx.reshape(b, -1).long(), torch.ones((b, s * k), device=dev))
+    torch.cuda.synchronize()
+    assert torch.equal(p.grad, counts[..., None].expand(b, n, c))
+    pointops.group_points(pts, idx)  # needs no gradient: no K7
+    assert fused.gather_rows_backward.launches == before[1] + 1
 
 
 def test_rejects_non_contiguous(dev, rs):

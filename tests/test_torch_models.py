@@ -21,7 +21,10 @@ from cmflow_tpu.models import build_model as jax_build_model
 from cmflow_tpu.nn import blocks as jblocks
 from cmflow_tpu_torch.geometry import se3
 from cmflow_tpu_torch.models import build_model
-from cmflow_tpu_torch.models.convert import load_flax_variables
+from cmflow_tpu_torch.models.convert import (
+    export_flax_variables,
+    load_flax_variables,
+)
 from cmflow_tpu_torch.nn import blocks
 
 BARS = {"flow": 1e-4, "cls": 1e-4, "trans": 5e-4, "agree": 0.99}
@@ -186,10 +189,6 @@ class TestBlocks:
             port(t(x), False).detach().numpy(),
             np.asarray(mod.apply(v, jnp.asarray(x), False)), atol=1e-5)
 
-    def test_train_mode_raises(self):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            blocks.PointwiseMLP(4, (4,))(torch.zeros(1, 2, 4), True)
-
 
 # ---------------------------------------------------------------------------
 # CMFlow eval forward
@@ -252,6 +251,36 @@ class TestCMFlowForward:
         assert agree >= BARS["agree"], agree
         same = gmask == mask
         np.testing.assert_allclose(gsf[same], sf[same], atol=BARS["flow"])
+
+    def test_train_mode_matches_flax(self, jax_cmflow):
+        """The train-mode forward (batch statistics, the pseudo label as the
+        ego-motion scores) and the BatchNorm statistics it leaves."""
+        rs = np.random.RandomState(13)
+        args = frame_pair(rs, 2, 128)
+        label_m = (rs.rand(2, 128) > 0.3).astype(np.float32)
+        model, v = jax_cmflow
+        want, mut = model.apply(v, *map(jnp.asarray, args),
+                                jnp.asarray(label_m), True,
+                                mutable=["batch_stats"])
+        sf, cls, trans, mask = (np.asarray(x) for x in want)
+        port = build_model("cmflow", device="cpu", seed=2)
+        load_flax_variables(port, numpy_tree(v))
+        with torch.no_grad():
+            got = port(*map(t, args), t(label_m), True)
+        gsf, gcls, gtrans, gmask = (x.numpy() for x in got)
+        np.testing.assert_array_equal(gmask, label_m > 0.5)
+        np.testing.assert_array_equal(gmask, mask)
+        np.testing.assert_allclose(gcls, cls, atol=BARS["cls"])
+        np.testing.assert_allclose(gtrans, trans, atol=BARS["trans"])
+        np.testing.assert_allclose(gsf, sf, atol=BARS["flow"])
+        stats = export_flax_variables(port)["batch_stats"]
+        want_stats = numpy_tree(mut["batch_stats"])
+        for path, a in jax.tree_util.tree_flatten_with_path(want_stats)[0]:
+            got_leaf = stats
+            for key in path:
+                got_leaf = got_leaf[key.key]
+            np.testing.assert_allclose(got_leaf, a, rtol=0, atol=1e-5,
+                                       err_msg=jax.tree_util.keystr(path))
 
     def test_convert_rejects_unknown_and_missing_keys(self, jax_cmflow):
         v = numpy_tree(jax_cmflow[1])

@@ -1,5 +1,5 @@
-"""Port parity: neighbour search, point ops and the row gather of
-``cmflow_tpu_torch.ops`` against the JAX package on the CPU.
+"""Port parity: neighbour search, point ops, the row gather and its
+backward of ``cmflow_tpu_torch.ops`` against the JAX package on the CPU.
 
 On CPU tensors the port's wrappers run their kernels' plain PyTorch
 versions.  They are held to the Pallas kernels run in interpret mode
@@ -7,9 +7,14 @@ versions.  They are held to the Pallas kernels run in interpret mode
 references (``_ball_query_xla``, ``_knn_xla``, the vmap gather).
 Tolerance: none.  Indices and gathered rows must be bit-identical, because
 both sides compute squared distances in the same float32 operation order
-and a gather copies.
+and a gather copies.  The gather's backward (K7) sums cotangent rows: on
+values with at most 15 significant bits (which the JAX kernel's hi/lo bf16
+one-hot products carry exactly, and whose sums float32 holds exactly) it is
+bit-identical too; on normal values it is held to 1e-5 of the output's
+largest magnitude (the one-hot products keep ~16 bits of each term).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -204,6 +209,98 @@ class TestGather:
                     jpo.gather_points(j(pts), j(idx)))
 
 
+def jax_gather_grad(pts, idx, cot):
+    """``jax.grad`` of ``sum(group_points(p, idx) * cot)`` through the Pallas
+    gather in interpret mode, whose backward is ``_gather_bwd_kernel``."""
+    return np.asarray(jax.grad(
+        lambda p: jnp.sum(mxu_group_points(p, j(idx), True) * j(cot)))(j(pts)))
+
+
+def port_gather_grad(pts, idx, cot):
+    """The same through the port's autograd ``group_points``."""
+    p = t(pts).requires_grad_(True)
+    (pointops.group_points(p, t(idx)) * t(cot)).sum().backward()
+    return p.grad
+
+
+# (B, N, S, K, C): tests/test_fused.py's backward shapes (square and odd row
+# counts, the propagation encoder's C=512) and the train step's widths
+BWD_SHAPES = [(2, 64, 64, 8, 3), (2, 64, 64, 8, 32), (2, 64, 64, 8, 128),
+              (2, 64, 37, 9, 7), (2, 40, 40, 5, 3), (1, 128, 128, 4, 512),
+              (2, 64, 64, 32, 32)]
+
+
+class TestGatherBackward:
+    @pytest.mark.parametrize("shape", BWD_SHAPES)
+    def test_matches_pallas_backward(self, rs, shape):
+        b, n, s, k, c = shape
+        pts = rs.randn(b, n, c).astype(np.float32)
+        idx = rs.randint(0, n, (b, s, k)).astype(np.int32)
+        idx[0, :3, 0] = [-1, n, n + 5]  # outside [0, N): contribute nothing
+        exact = bf16_exact(rs, (b, s, k, c))
+        got = port_gather_grad(pts, idx, exact)
+        assert got.shape == (b, n, c)
+        assert_same(got, jax_gather_grad(pts, idx, exact))
+        cot = rs.randn(b, s, k, c).astype(np.float32)
+        got = port_gather_grad(pts, idx, cot).numpy()
+        want = jax_gather_grad(pts, idx, cot)
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=1e-5 * np.abs(want).max())
+
+    def test_plain_version(self, rs):
+        """Rows outside [0, N) drop out; a row named by no index is zero;
+        every row is the sum of its cotangent rows."""
+        b, n, m, c = 2, 16, 200, 5
+        g = t(rs.randn(b, m, c).astype(np.float32))
+        idx = rs.randint(-3, n + 3, (b, m)).astype(np.int32)
+        idx[:, idx[0] == 7] = 8  # nothing lands on row 7 of element 0
+        idx[1, idx[1] == 7] = 8
+        got = fused.gather_rows_backward(g, t(idx), n)
+        want = np.zeros((b, n, c), np.float64)
+        for bi in range(b):
+            for mi in range(m):
+                if 0 <= idx[bi, mi] < n:
+                    want[bi, idx[bi, mi]] += g[bi, mi].double().numpy()
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+        assert (got[:, 7] == 0).all()
+
+    def test_group_points_backward_matches_torch_gather(self, rs):
+        b, n, s, k, c = 2, 50, 30, 6, 9
+        pts = rs.randn(b, n, c).astype(np.float32)
+        idx = rs.randint(0, n, (b, s, k)).astype(np.int32)
+        cot = t(rs.randn(b, s, k, c).astype(np.float32))
+        p1 = t(pts).requires_grad_(True)
+        (pointops.group_points(p1, t(idx)) * cot).sum().backward()
+        p2 = t(pts).requires_grad_(True)
+        flat = t(idx).long().reshape(b, s * k, 1).expand(b, s * k, c)
+        (torch.gather(p2, 1, flat).reshape(b, s, k, c) * cot).sum().backward()
+        np.testing.assert_allclose(p1.grad.numpy(), p2.grad.numpy(),
+                                   rtol=1e-6, atol=1e-6)
+        # a stride-0 expanded cotangent (the gradient of a plain sum)
+        p3 = t(pts).requires_grad_(True)
+        pointops.gather_points(p3, t(idx[:, :, 0])).sum().backward()
+        counts = np.zeros((b, n))
+        for bi in range(b):
+            np.add.at(counts[bi], idx[bi, :, 0], 1)
+        np.testing.assert_array_equal(
+            p3.grad.numpy(), np.repeat(counts[..., None], c, -1))
+
+    def test_no_backward_without_grad(self, rs):
+        """Gathers of tensors that need no gradient (the cost volume's xyz)
+        record nothing, and the wrappers count no launch on the CPU."""
+        before = (fused.gather_rows.launches,
+                  fused.gather_rows_backward.launches)
+        xyz = t(cloud(rs, 1, 64))
+        w = torch.ones(3, requires_grad=True)
+        idx = pointops.knn(8, xyz, xyz)
+        grouped = pointops.group_points(xyz, idx)
+        assert grouped.grad_fn is None
+        (pointops.group_points(xyz * w, idx).sum()).backward()
+        assert w.grad is not None
+        assert (fused.gather_rows.launches,
+                fused.gather_rows_backward.launches) == before
+
+
 class TestWrappers:
     def test_cpu_runs_plain_versions_without_launches(self, rs):
         before = (neighbors.ball_query_multi.launches, neighbors.knn.launches,
@@ -223,6 +320,13 @@ class TestWrappers:
             fused.gather_rows(p, torch.zeros((1, 4), dtype=torch.int64))
         with pytest.raises(TypeError):
             neighbors.knn(8, p.double(), p.double())
+        g = torch.zeros((1, 4, 3))
+        with pytest.raises(TypeError):
+            fused.gather_rows_backward(g, torch.zeros((1, 4), dtype=torch.int64),
+                                       8)
+        with pytest.raises(ValueError):
+            fused.gather_rows_backward(g, torch.zeros((1, 5), dtype=torch.int32),
+                                       8)
         with pytest.raises(ValueError):
             neighbors.ball_query_multi((1.0,) * 5, (4,) * 5, p, p)
         with pytest.raises(ValueError):

@@ -13,12 +13,23 @@ Run from the repository root on a machine with a CUDA GPU and nvcc.  Steps:
    plain PyTorch version on the same inputs: the ball query, kNN and the
    gather exactly; the fused kernels (sa encoder, cost volume, propagation
    encoder) to a max abs error of 1e-4 and of 1e-5 times the output's
-   largest magnitude, since they sum float32 products in another order.
+   largest magnitude, since they sum float32 products in another order,
+   and the cost volume's and the propagation encoder's tensor-core kernels
+   to themselves bit for bit across two runs.
    Time the kernel, the plain version and, where one exists, a single
-   PyTorch call computing the same function (CUDA events, warmed, averaged
-   over many launches); for the cost volume and the propagation encoder
-   also cuBLAS float32 on the same products alone, a yardstick the port
-   never calls;
+   PyTorch call computing the same function, by their device time: the
+   kernels' own durations from ``torch.profiler`` over warmed calls, so
+   that the host's time to issue a short kernel does not count.  A
+   kernel's time is its own; beside it stand the device time of every
+   kernel its wrapper launches (the folds and weight packing included)
+   and the CUDA-event time of back-to-back wrapper calls, in the summary
+   where they differ from it by more than 10%.  For the cost volume
+   and the propagation encoder also cuBLAS float32 on the same products
+   alone, a yardstick the port never calls, and a second bound for their
+   tensor-core arithmetic (3xTF32: three TF32 products per product);
+   count their tensor-core instructions (``HGMMA``) in the built
+   libraries' SASS (``cuobjdump``) beside registers, spills and shared
+   memory from the ``ptxas -v`` logs, and require some;
 4. serve four requests of synthetic frames (decoded, padded to their
    bucket, collated; B=16: three at the 256 bucket, one at the 384 bucket)
    through ``make_eval_step`` with a full-width CMFlow whose weights come
@@ -65,14 +76,19 @@ from __future__ import annotations
 
 import copy
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
+import warnings
 
 from pathlib import Path
 
 import numpy as np
 import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
 
 import cmflow_tpu_torch
 from cmflow_tpu_torch.data.synthetic import make_request, make_train_batch
@@ -92,6 +108,11 @@ SEED = 0
 # published peaks of one H100 SXM (NVIDIA data sheet), used for the bounds
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+TF32_FLOP_PER_S = 495e12  # dense, tensor cores
+# kernels that compute their float32 products as three TF32 tensor-core
+# products each (csrc/tc_gemm.cuh), and their device functions
+TC_KERNELS = {"cv": ("cost_volume", "cv_p2p_kernel"),
+              "plf": ("plf", "plf_kernel")}
 # float32 operations per (query, point) pair: 3 products and 2 sums for the
 # cross term, the -2 scale, 2 sums, the clamp and the comparison
 PAIR_FLOPS = 10
@@ -128,6 +149,12 @@ LAUNCHES = {
               "cv_agg": 0, "plf": 0, "gather_bwd": 15},
 }
 # the route whose forward each kernel's summary row describes
+# each wrapper's kernel as the profiler names it
+DEVICE_NAMES = {"ball_query": "ball_query_kernel", "knn": "knn_kernel",
+                "gather": "gather_rows_kernel", "mse": "mse_kernel",
+                "cv": "cv_p2p_kernel", "cv_agg": "cv_agg_kernel",
+                "plf": "plf_kernel",
+                "gather_bwd": "gather_rows_backward_kernel"}
 SUMMARY_PATH = {"ball_query": "fused", "knn": "fused", "gather": "module",
                 "mse": "fused", "cv": "fused", "cv_agg": "fused",
                 "plf": "fused", "gather_bwd": "train"}
@@ -158,8 +185,10 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def cuda_ms(fn, iters: int) -> float:
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
+def event_ms(fn, iters: int) -> float:
+    """Milliseconds between CUDA events around ``iters`` back-to-back
+    calls of ``fn``, over ``iters``: where a call's device work is shorter
+    than the host's time to issue it, this times the host."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -173,11 +202,81 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(nbytes: float, flops: float):
+def device_ms(fn, iters: int, kernel: str = "") -> tuple:
+    """Device time of one call of ``fn``, from ``torch.profiler``'s CUDA
+    activity over ``iters`` warmed calls: (the summed durations of the
+    kernels whose names hold ``kernel``, of every kernel it launches)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+    total = sum(e.self_device_time_total for e in events)
+    own = sum(e.self_device_time_total for e in events if kernel in e.key)
+    require(own > 0, f"the profiler saw no device time of {kernel!r}")
+    return own / 1e3 / iters, total / 1e3 / iters
+
+
+def bound_ms(nbytes: float, flops: float, peak: float = F32_FLOP_PER_S):
+    """The least time for moving ``nbytes`` and doing ``flops`` at
+    ``peak``: (milliseconds, which of the two bounds it)."""
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / F32_FLOP_PER_S
+    t_ops = flops / peak
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def bounds(name: str, nbytes: float, flops: float) -> dict:
+    """The bound of a kernel's work at its arithmetic's peak, with the
+    float32 bound beside it for the tensor-core kernels."""
+    if name not in TC_KERNELS:
+        ms, by = bound_ms(nbytes, flops)
+        return dict(bound_ms=ms, bound_by=by)
+    ms, by = bound_ms(nbytes, 3 * flops, TF32_FLOP_PER_S)
+    f32, f32_by = bound_ms(nbytes, flops)
+    return dict(bound_ms=ms, bound_by=by, bound_arith="3xTF32",
+                bound_f32_ms=f32, bound_f32_by=f32_by)
+
+
+def shares(row: dict, ms: float) -> dict:
+    """Each bound over the kernel's time."""
+    out = dict(share_of_bound=row["bound_ms"] / ms)
+    if "bound_f32_ms" in row:
+        out["share_of_f32_bound"] = row["bound_f32_ms"] / ms
+    return out
+
+
+def sass_report(libs: dict) -> dict:
+    """For each tensor-core kernel: its HGMMA (wgmma) and FFMA instructions
+    in the SASS of its built library, and its registers, spills and shared
+    memory from the library's ptxas log."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    report = {}
+    for name, (lib, fn) in TC_KERNELS.items():
+        sass = subprocess.run([tool, "-sass", str(libs[lib])], check=True,
+                              capture_output=True, text=True).stdout
+        body = next(part for part in sass.split("Function : ")[1:]
+                    if fn in part.splitlines()[0])
+        log = libs[lib].with_suffix(".log").read_text()
+        props = next(part for part in
+                     log.split("Compiling entry function")[1:]
+                     if fn in part.splitlines()[0])
+        regs, smem = re.search(r"Used (\d+) registers.*?(\d+) bytes smem",
+                               props).groups()
+        spill = re.search(r"(\d+) bytes spill stores", props).group(1)
+        report[name] = dict(
+            function=fn, hgmma=body.count("HGMMA"),
+            ffma=len(re.findall(r"\bFFMA\b", body)), registers=int(regs),
+            spill_store_bytes=int(spill), static_smem_bytes=int(smem))
+        require(report[name]["hgmma"] > 0,
+                f"{fn}: no tensor-core (HGMMA) instruction in its SASS")
+    return report
 
 
 def numel(tensors) -> int:
@@ -430,36 +529,42 @@ def check_kernels(cases, first: bool, per_forward: dict) -> None:
             require(err <= GATHER_BWD_RTOL * scale,
                     f"{name} {case['shape']}: kernel and plain version "
                     f"differ by {err} at a largest magnitude of {scale}")
-            again = case["run"]()
-            torch.cuda.synchronize()
-            require(torch.equal(got, again), f"{name} {case['shape']}: two "
-                                             f"runs differ")
         else:
             require(err <= FUSED_ATOL and err <= FUSED_RTOL * scale,
                     f"{name} {case['shape']}: kernel and plain version "
                     f"differ by {err} at a largest magnitude of {scale}")
+        if name == "gather_bwd" or name in TC_KERNELS:
+            again = case["run"]()
+            torch.cuda.synchronize()
+            require(torch.equal(got, again), f"{name} {case['shape']}: two "
+                                             f"runs differ")
         library = case.get("library")
         cublas = case.get("cublas")
+        own, wrapper = device_ms(case["run"], 20, DEVICE_NAMES[name])
         row = dict(kernel=name, path=case["path"], shape=case["shape"],
-                   kernel_ms=cuda_ms(case["run"], 50),
-                   plain_ms=cuda_ms(case["plain"], 10),
-                   library_ms=cuda_ms(library, 20) if library else None,
+                   kernel_ms=own, wrapper_device_ms=wrapper,
+                   kernel_event_ms=event_ms(case["run"], 50),
+                   plain_ms=device_ms(case["plain"], 5)[1],
+                   library_ms=device_ms(library, 10)[1] if library else None,
                    max_abs_err=err)
         if name not in EXACT:
             row["plain_max_abs"] = scale
         if cublas:
-            row["cublas_products_ms"] = cuda_ms(cublas, 20)
-        row["bound_ms"], row["bound_by"] = bound_ms(case["nbytes"],
-                                                    case["flops"])
+            row["cublas_products_ms"] = device_ms(cublas, 10)[1]
+        row.update(bounds(name, case["nbytes"], case["flops"]))
+        row.update(shares(row, row["kernel_ms"]))
         row["launches_per_forward"] = case["mult"]
         emit(row)
         if not first or case["path"] != SUMMARY_PATH[name]:
             continue
         acc = per_forward.setdefault(name, dict(
-            ms=0.0, plain_ms=0.0, library_ms=0.0, cublas_products_ms=0.0,
-            nbytes=0.0, flops=0.0, max_abs_err=0.0, has_library=True))
+            ms=0.0, wrapper_ms=0.0, event_ms=0.0, plain_ms=0.0,
+            library_ms=0.0, cublas_products_ms=0.0, nbytes=0.0, flops=0.0,
+            max_abs_err=0.0, has_library=True))
         mult = case["mult"]
         acc["ms"] += mult * row["kernel_ms"]
+        acc["wrapper_ms"] += mult * row["wrapper_device_ms"]
+        acc["event_ms"] += mult * row["kernel_event_ms"]
         acc["plain_ms"] += mult * row["plain_ms"]
         acc["cublas_products_ms"] += mult * row.get("cublas_products_ms", 0.0)
         acc["nbytes"] += mult * case["nbytes"]
@@ -688,6 +793,8 @@ def main() -> int:
     libs = build.build()
     emit(dict(build_s=time.perf_counter() - t0,
               libraries=sorted(p.name for p in libs.values())))
+    sass = sass_report(libs)
+    emit(dict(sass=sass))
 
     requests = [make_request(SEED + i, B, (200, 256)) for i in range(3)]
     requests.append(make_request(SEED + 3, B, (300, 384)))
@@ -742,16 +849,22 @@ def main() -> int:
     for name, acc in per_forward.items():
         source, replaces = SOURCES[name]
         path = SUMMARY_PATH[name]
-        bms, bby = bound_ms(acc["nbytes"], acc["flops"])
         entry = dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=by_path[path][name],
             max_abs_err=acc["max_abs_err"], ms=acc["ms"],
-            plain_ms=acc["plain_ms"], bound_ms=bms, bound_by=bby,
+            plain_ms=acc["plain_ms"],
+            **bounds(name, acc["nbytes"], acc["flops"]),
             library_ms=acc["library_ms"] if acc["has_library"] else None,
             path=path)
+        entry.update(shares(entry, acc["ms"]))
+        for key in ("wrapper_ms", "event_ms"):
+            if abs(acc[key] - acc["ms"]) > 0.1 * acc["ms"]:
+                entry[key] = acc[key]
         if acc["cublas_products_ms"]:
             entry["cublas_products_ms"] = acc["cublas_products_ms"]
+        if name in TC_KERNELS:
+            entry["sass"] = sass[name]
         kernels.append(entry)
     require(sorted(k["name"] for k in kernels) == sorted(WRAPPERS),
             "a kernel is missing from the summary")

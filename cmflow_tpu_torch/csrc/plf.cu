@@ -11,53 +11,70 @@
 // where base[j] = feat_tx[j] + xyz_c[j] @ wrel is folded outside.
 //
 // What bounds it: operations.  147,456 multiply-adds per row; at B=16,
-// N=256 the four scales (K = 4, 8, 16, 32) hold 245,760 rows, 72.5 GFLOP,
-// 1.08 ms at the float32 peak of 67 TFLOP/s, while the bytes that must move
-// (base in, out back) take a few microseconds.  Evaluated layer by layer the
-// [B,N,K,512] tensor between the gather and W1 would be 268 MB at K=32; this
-// kernel never writes it.
+// N=256 the four scales (K = 4, 8, 16, 32) hold 245,760 rows, 72.5 GFLOP.
+// On the tensor cores in 3xTF32 (three TF32 products per product, see
+// tc_gemm.cuh) that is 0.44 ms at the dense TF32 peak of 495 TFLOP/s; the
+// bytes that must move (base in, out back) take a few microseconds, but the
+// split weights (1.2 MB) stream from L2 once per block.  Evaluated layer by
+// layer the [B,N,K,512] tensor between the gather and W1 would be 268 MB at
+// K=32; this kernel never writes it.
 //
-// Design: a gather-GEMM with a max-pool epilogue.  A block of 256 threads
-// takes 64 rows made of whole queries (64/K of them), so the max over K
-// closes inside the block.  It gathers base rows, applies the offset, the
-// affine and the ReLU, and keeps x0 [64, 512] in shared memory (128 KB).  W1
-// (512 KB) cannot stay resident: it streams through a 32 KB slab, 32 rows at
-// a time, against register tiles of 8x8 outputs per thread (block_gemm.cuh);
-// then x1 [64, 256] overwrites x0 and W2 streams the same way into 4x4
-// tiles.  x2 goes to shared memory for the max over each query's K rows.
-// All arithmetic is float32 FFMA; no tensor cores (see block_gemm.cuh).
-// 160 KB of dynamic shared memory needs cudaFuncSetAttribute, and a launch
-// refused for it never runs, so the entry point returns cudaGetLastError().
+// Design: a gather-GEMM with a max-pool epilogue on wgmma (tc_gemm.cuh).  A
+// block takes 128 rows made of whole queries (128/K of them), so the max
+// over K closes inside the block: two consumer warpgroups of 64 rows each,
+// and a producer warpgroup (registers handed to the consumers with
+// setmaxnreg) one thread of which streams the packed weights (W1 then W2,
+// TF32 hi and lo, ops/fused.py::tc_weights) through a ring of five 32 KB
+// stages with cp.async.bulk, completed on mbarriers, while the tensor cores
+// work.  Every weight byte read from L2 serves 128 rows.
+// - x0 never exists in memory: each thread gathers four consecutive
+//   channels of its two rows per float4 load, applies the offset, the
+//   affine and the ReLU, and splits them into the A fragments of two k8
+//   steps in registers.
+// - x1 [64, 256] of a warpgroup stays in 128 registers a thread (the
+//   tensor cores sum each stage into 64 more, 128 columns at a time, which
+//   the CUDA cores add in: tc::promote); after the affine and ReLU they are
+//   the A fragments of the 256 -> 64 product as they stand.
+// - x2 goes through shared memory for the max over each query's K rows.
+// All sums are float32.  ~200 KB of dynamic shared memory needs
+// cudaFuncSetAttribute, and a launch refused for it never runs, so the entry
+// point returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "block_gemm.cuh"
+#include "tc_gemm.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kRows = 64;  // (query, neighbour) rows per block
+namespace tc = cmflow::tc;
+
+constexpr int kConsumers = 256;             // two warpgroups
+constexpr int kThreads = kConsumers + 128;  // and a producer warpgroup
+constexpr int kRows = 128;                 // (query, neighbour) rows per block
 constexpr int kC1 = 512;
 constexpr int kC2 = 256;
 constexpr int kC3 = 64;
-constexpr int kSlabFloats = 32 * kC2;  // 32 rows of W1, 128 rows of W2
-constexpr size_t kSmemBytes = (size_t)(kRows * kC1 + kSlabFloats) * 4;
+constexpr int kStageBytes = 32768;
+constexpr int kStages = 5;
+constexpr int kChunks1 = kC1 / 16;  // W1 stages: 16 channels, 2 k8 steps
+constexpr int kChunks2 = kC2 / 64;  // W2 stages: 64 channels, 8 k8 steps
+constexpr int kX2Stride = kC3 + 8;  // padded rows of x2
+constexpr size_t kSmemBytes =
+    (size_t)kStages * kStageBytes + (size_t)kRows * kX2Stride * 4;
+static_assert(2 * 16 * kC2 * 4 == kStageBytes, "a W1 stage: 16 rows, hi, lo");
+static_assert(2 * 64 * kC3 * 4 == kStageBytes, "a W2 stage: 64 rows, hi, lo");
+// floats of each half (hi, lo) of the packed weights
+constexpr int kPackHalf = kC1 * kC2 + kC2 * kC3;
+using WeightRing = tc::Ring<kStages, kStageBytes>;
 
-// GEMM1: 8 rows x 8 columns per thread; GEMM2: 4 x 4
-constexpr int kTm1 = 8, kNv1 = 2;
-constexpr int kTm2 = 4, kNv2 = 1;
-static_assert((kThreads / cmflow::TileMap<kC2, kNv1>::TX) * kTm1 == kRows,
-              "GEMM1 tiles must cover the rows");
-static_assert((kThreads / cmflow::TileMap<kC3, kNv2>::TX) * kTm2 == kRows,
-              "GEMM2 tiles must cover the rows");
+__device__ __forceinline__ float relu_affine(float x, float s, float b) {
+  return fmaxf(fmaf(x, s, b), 0.0f);
+}
 
-__device__ __forceinline__ float4 relu_affine4(float4 x, float4 s, float4 b) {
-  return make_float4(fmaxf(fmaf(x.x, s.x, b.x), 0.0f),
-                     fmaxf(fmaf(x.y, s.y, b.y), 0.0f),
-                     fmaxf(fmaf(x.z, s.z, b.z), 0.0f),
-                     fmaxf(fmaf(x.w, s.w, b.w), 0.0f));
+__device__ __forceinline__ float4 load_or_zero(const float4* p, int i) {
+  return p ? __ldg(p + i) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
@@ -66,19 +83,19 @@ __global__ void __launch_bounds__(kThreads, 1)
                const float* __restrict__ xyz,   // [B*N, 3], centred
                const float* __restrict__ wrel,  // [3, kC1]
                const float* __restrict__ s0, const float* __restrict__ b0,
-               const float* __restrict__ w1,    // [kC1, kC2]
+               const float* __restrict__ wpack,  // tc_weights
                const float* __restrict__ s1, const float* __restrict__ b1,
-               const float* __restrict__ w2,    // [kC2, kC3]
                const float* __restrict__ s2, const float* __restrict__ b2,
-               float* __restrict__ out,         // [B*N, kC3]
+               float* __restrict__ out,  // [B*N, kC3]
                int total, int n, int k) {
-  extern __shared__ float4 smem4[];
-  float* act = reinterpret_cast<float*>(smem4);  // x0, then x1 and x2
-  float* slab = act + kRows * kC1;
-  float* x2s = act + kRows * kC2;  // beside x1
-  __shared__ int row_j[kRows];     // neighbour row in base, or -1
-  __shared__ int row_q[kRows];     // query, or -1 for an unused row
+  extern __shared__ __align__(128) char smem[];
+  float* x2s = reinterpret_cast<float*>(smem + kStages * kStageBytes);
+  __shared__ int row_j[kRows];  // neighbour row in base, or -1
+  __shared__ int row_q[kRows];  // query, or -1 for an unused row
   __shared__ float row_xyz[kRows][3];
+  __shared__ __align__(8) uint64_t full[kStages];
+  __shared__ __align__(8) uint64_t empty[kStages];
+  const WeightRing ring{smem, full, empty};
 
   const int qpb = kRows / k;  // whole queries per block
   const int q0 = blockIdx.x * qpb;
@@ -101,85 +118,152 @@ __global__ void __launch_bounds__(kThreads, 1)
     row_xyz[r][1] = y;
     row_xyz[r][2] = z;
   }
+  if (threadIdx.x == 0) ring.init(kConsumers / 32);
   __syncthreads();
 
-  // gather and first layer: x0 = ReLU((base[j] - xyz_c[q] @ wrel) * s0 + b0)
-  {
-    constexpr int C4 = kC1 / 4;
-    const float4* base4 = reinterpret_cast<const float4*>(base);
-    const float4* wr4 = reinterpret_cast<const float4*>(wrel);
-    const float4* s04 = reinterpret_cast<const float4*>(s0);
-    const float4* b04 = reinterpret_cast<const float4*>(b0);
-    float4* act4 = smem4;
-    for (int e = threadIdx.x; e < kRows * C4; e += kThreads) {
-      const int r = e / C4, c = e % C4;
-      float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      if (row_q[r] >= 0) {
-        const int j = row_j[r];
-        const float4 g = j >= 0 ? __ldg(base4 + (int64_t)j * C4 + c) : v;
-        const float x = row_xyz[r][0], y = row_xyz[r][1], z = row_xyz[r][2];
-        const float4 r0 = __ldg(wr4 + c), r1 = __ldg(wr4 + C4 + c),
-                     r2 = __ldg(wr4 + 2 * C4 + c);
-        const float4 off = make_float4(
-            fmaf(z, r2.x, fmaf(y, r1.x, x * r0.x)),
-            fmaf(z, r2.y, fmaf(y, r1.y, x * r0.y)),
-            fmaf(z, r2.z, fmaf(y, r1.z, x * r0.z)),
-            fmaf(z, r2.w, fmaf(y, r1.w, x * r0.w)));
-        v = relu_affine4(make_float4(g.x - off.x, g.y - off.y, g.z - off.z,
-                                     g.w - off.w),
-                         __ldg(s04 + c), __ldg(b04 + c));
-      }
-      act4[e] = v;
+  if (threadIdx.x >= kConsumers) {  // the producer warpgroup: one thread
+    tc::producer_registers();
+    if (threadIdx.x == kConsumers) {
+      ring.produce(reinterpret_cast<const char*>(wpack),
+                   reinterpret_cast<const char*>(wpack + kPackHalf),
+                   kChunks1 + kChunks2);
     }
+    return;
+  }
+  tc::consumer_registers();
+
+  // the thread's two rows: ra in the upper, rb in the lower half of its
+  // warp's 16 (tc_gemm.cuh, fragment layouts)
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int ra = 64 * wg + 16 * warp + g, rb = ra + 8;
+  constexpr int C4 = kC1 / 4;
+  const bool va = row_q[ra] >= 0, vb = row_q[rb] >= 0;
+  const float4* base4 = reinterpret_cast<const float4*>(base);
+  const float4* pa =
+      va && row_j[ra] >= 0 ? base4 + (int64_t)row_j[ra] * C4 : nullptr;
+  const float4* pb =
+      vb && row_j[rb] >= 0 ? base4 + (int64_t)row_j[rb] * C4 : nullptr;
+  const float xa = row_xyz[ra][0], ya = row_xyz[ra][1], za = row_xyz[ra][2];
+  const float xb = row_xyz[rb][0], yb = row_xyz[rb][1], zb = row_xyz[rb][2];
+  const float4* wr4 = reinterpret_cast<const float4*>(wrel);
+  const float4* s04 = reinterpret_cast<const float4*>(s0);
+  const float4* b04 = reinterpret_cast<const float4*>(b0);
+
+  // x1 = x0 @ W1.  Stage c holds k8 steps 2c and 2c+1: their hi tiles
+  // (8 KB each), then their lo tiles.  Step 2c + e, position p is channel
+  // 16c + 4*(p%4) + 2e + p/4, so the channels 16c + 4t .. +3 a thread loads
+  // as one float4 are its A values of both steps.  The tensor cores sum each
+  // stage's products for 128 columns at a time in `part`, which is then
+  // added to `acc` (tc::promote).
+  float acc[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.0f;
+  float part[64];
+  for (int c = 0; c < kChunks1; ++c) {
+    const int c4 = 4 * c + t;
+    const float4 ga = load_or_zero(pa, c4), gb = load_or_zero(pb, c4);
+    const float4 r0 = __ldg(wr4 + c4), r1 = __ldg(wr4 + C4 + c4),
+                 r2 = __ldg(wr4 + 2 * C4 + c4);
+    const float4 s = __ldg(s04 + c4), b = __ldg(b04 + c4);
+    float xa4[4] = {ga.x, ga.y, ga.z, ga.w}, xb4[4] = {gb.x, gb.y, gb.z, gb.w};
+    const float rr0[4] = {r0.x, r0.y, r0.z, r0.w};
+    const float rr1[4] = {r1.x, r1.y, r1.z, r1.w};
+    const float rr2[4] = {r2.x, r2.y, r2.z, r2.w};
+    const float ss[4] = {s.x, s.y, s.z, s.w}, bb[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float offa = fmaf(za, rr2[e], fmaf(ya, rr1[e], xa * rr0[e]));
+      const float offb = fmaf(zb, rr2[e], fmaf(yb, rr1[e], xb * rr0[e]));
+      xa4[e] = va ? relu_affine(xa4[e] - offa, ss[e], bb[e]) : 0.0f;
+      xb4[e] = vb ? relu_affine(xb4[e] - offb, ss[e], bb[e]) : 0.0f;
+    }
+    const tc::Split a0 = tc::split4(xa4[0], xb4[0], xa4[1], xb4[1]);
+    const tc::Split a1 = tc::split4(xa4[2], xb4[2], xa4[3], xb4[3]);
+    const uint32_t st = ring.acquire(c);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {  // columns 128h .. 128h + 127
+      tc::fence();
+      tc::mma3(part, a0, st + 4096 * h, st + 16384 + 4096 * h, 0);
+      tc::mma3(part, a1, st + 8192 + 4096 * h, st + 24576 + 4096 * h, 1);
+      tc::commit();
+      tc::wait_all();
+      tc::fence_regs(part);
+      if (h == 0) {
+        tc::promote<0>(acc, part);
+      } else {
+        tc::promote<64>(acc, part);
+      }
+    }
+    ring.release(c);
   }
 
-  // x1 = ReLU((x0 @ W1) * s1 + b1), written over x0
-  {
-    using Map = cmflow::TileMap<kC2, kNv1>;
-    float acc[kTm1][4 * kNv1] = {};
-    cmflow::block_gemm<kThreads, kC2, kTm1, kNv1, kSlabFloats / kC2>(
-        act, kC1, kC1, w1, slab, acc);
-    const int row0 = Map::ty() * kTm1;
+  // x1 = ReLU(acc * s1 + b1), in place: acc[4j + e] is column 8j + 2t + e%2
 #pragma unroll
-    for (int v = 0; v < kNv1; ++v) {
-      const int c = Map::col(v);
-      const float4 s = __ldg(reinterpret_cast<const float4*>(s1 + c));
-      const float4 b = __ldg(reinterpret_cast<const float4*>(b1 + c));
-#pragma unroll
-      for (int i = 0; i < kTm1; ++i) {
-        *reinterpret_cast<float4*>(act + (row0 + i) * kC2 + c) = relu_affine4(
-            make_float4(acc[i][4 * v], acc[i][4 * v + 1], acc[i][4 * v + 2],
-                        acc[i][4 * v + 3]),
-            s, b);
-      }
-    }
+  for (int j = 0; j < kC2 / 8; ++j) {
+    const int col = 8 * j + 2 * t;
+    const float2 s = __ldg(reinterpret_cast<const float2*>(s1 + col));
+    const float2 b = __ldg(reinterpret_cast<const float2*>(b1 + col));
+    acc[4 * j] = relu_affine(acc[4 * j], s.x, b.x);
+    acc[4 * j + 1] = relu_affine(acc[4 * j + 1], s.y, b.y);
+    acc[4 * j + 2] = relu_affine(acc[4 * j + 2], s.x, b.x);
+    acc[4 * j + 3] = relu_affine(acc[4 * j + 3], s.y, b.y);
   }
 
-  // x2 = ReLU((x1 @ W2) * s2 + b2), beside x1
-  {
-    using Map = cmflow::TileMap<kC3, kNv2>;
-    float acc[kTm2][4 * kNv2] = {};
-    cmflow::block_gemm<kThreads, kC3, kTm2, kNv2, kSlabFloats / kC3>(
-        act, kC2, kC2, w2, slab, acc);
-    const int row0 = Map::ty() * kTm2;
-    const int c = Map::col(0);
-    const float4 s = __ldg(reinterpret_cast<const float4*>(s2 + c));
-    const float4 b = __ldg(reinterpret_cast<const float4*>(b2 + c));
+  // x2 = x1 @ W2.  Stage c holds k8 steps 8c .. 8c+7: their hi tiles (2 KB
+  // each), then their lo tiles.  Step j, position p is channel
+  // 8j + 2*(p%4) + p/4, the columns 8j + 2t (p = t) and 8j + 2t + 1
+  // (p = t + 4) the thread already holds.  Two steps at a time are summed in
+  // `part2`, then added to `acc2`.
+  float acc2[32];
 #pragma unroll
-    for (int i = 0; i < kTm2; ++i) {
-      *reinterpret_cast<float4*>(x2s + (row0 + i) * kC3 + c) = relu_affine4(
-          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]), s, b);
+  for (int i = 0; i < 32; ++i) acc2[i] = 0.0f;
+  float part2[32];
+#pragma unroll
+  for (int c = 0; c < kChunks2; ++c) {
+    const uint32_t st = ring.acquire(kChunks1 + c);
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const int j = 8 * c + jj;
+      const tc::Split a = tc::split4(acc[4 * j], acc[4 * j + 2],
+                                     acc[4 * j + 1], acc[4 * j + 3]);
+      tc::fence();
+      tc::mma3(part2, a, st + 2048 * jj, st + 16384 + 2048 * jj, jj % 2);
+      if (jj % 2 == 1) {
+        tc::commit();
+        tc::wait_all();
+        tc::fence_regs(part2);
+        tc::promote<0>(acc2, part2);
+      }
     }
+    ring.release(kChunks1 + c);
   }
-  __syncthreads();
+
+  // x2 = ReLU(acc2 * s2 + b2) into shared memory
+#pragma unroll
+  for (int j = 0; j < kC3 / 8; ++j) {
+    const int col = 8 * j + 2 * t;
+    const float2 s = __ldg(reinterpret_cast<const float2*>(s2 + col));
+    const float2 b = __ldg(reinterpret_cast<const float2*>(b2 + col));
+    *reinterpret_cast<float2*>(x2s + ra * kX2Stride + col) =
+        make_float2(relu_affine(acc2[4 * j], s.x, b.x),
+                    relu_affine(acc2[4 * j + 1], s.y, b.y));
+    *reinterpret_cast<float2*>(x2s + rb * kX2Stride + col) =
+        make_float2(relu_affine(acc2[4 * j + 2], s.x, b.x),
+                    relu_affine(acc2[4 * j + 3], s.y, b.y));
+  }
+  tc::consumer_sync<kConsumers>();
 
   // max over each query's k rows
-  for (int e = threadIdx.x; e < qpb * kC3; e += kThreads) {
+  for (int e = threadIdx.x; e < qpb * kC3; e += kConsumers) {
     const int qi = e / kC3, c = e % kC3;
     const int q = q0 + qi;
     if (q >= total) continue;
     float m = -INFINITY;
-    for (int kk = 0; kk < k; ++kk) m = fmaxf(m, x2s[(qi * k + kk) * kC3 + c]);
+    for (int kk = 0; kk < k; ++kk) {
+      m = fmaxf(m, x2s[(qi * k + kk) * kX2Stride + c]);
+    }
     out[(int64_t)q * kC3 + c] = m;
   }
 }
@@ -188,12 +272,13 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 extern "C" {
 
-// base [B,N,512] f32, idx [B,N,k] int32 (1 <= k <= 64), xyz [B,N,3] centred,
-// wrel [3,512], s0/b0 [512], w1 [512,256], s1/b1 [256], w2 [256,64],
+// base [B,N,512] f32, idx [B,N,k] int32 (1 <= k <= 128), xyz [B,N,3]
+// centred, wrel [3,512], s0/b0 [512], wpack from tc_weights (W1 [512,256]
+// and W2 [256,64], split and ordered for the tensor cores), s1/b1 [256],
 // s2/b2 [64], out [B,N,64]; c1 must be 512.  Returns a cudaError_t.
 int cmflow_plf(const void* base, const void* idx, const void* xyz,
                const void* wrel, const void* s0, const void* b0,
-               const void* w1, const void* s1, const void* b1, const void* w2,
+               const void* wpack, const void* s1, const void* b1,
                const void* s2, const void* b2, void* out, int b, int n, int k,
                int c1, void* stream) {
   if (c1 != kC1 || k < 1 || k > kRows || n < 1) {
@@ -212,10 +297,9 @@ int cmflow_plf(const void* base, const void* idx, const void* xyz,
       static_cast<const float*>(base), static_cast<const int*>(idx),
       static_cast<const float*>(xyz), static_cast<const float*>(wrel),
       static_cast<const float*>(s0), static_cast<const float*>(b0),
-      static_cast<const float*>(w1), static_cast<const float*>(s1),
-      static_cast<const float*>(b1), static_cast<const float*>(w2),
-      static_cast<const float*>(s2), static_cast<const float*>(b2),
-      static_cast<float*>(out), total, n, k);
+      static_cast<const float*>(wpack), static_cast<const float*>(s1),
+      static_cast<const float*>(b1), static_cast<const float*>(s2),
+      static_cast<const float*>(b2), static_cast<float*>(out), total, n, k);
   return (int)cudaGetLastError();
 }
 

@@ -29,7 +29,10 @@ gather(f + xyz @ W) - xyz_t @ W``).
 
 The packers read the port's modules (``nn/blocks.py``), which
 ``models/convert.py`` fills from flax variables.  Dense kernels come out
-``[in, out]``, as the flax trees hold them.
+``[in, out]``, as the flax trees hold them.  K4a and K5 run their two
+products on the tensor cores in 3xTF32 (``csrc/tc_gemm.cuh``); their
+wrappers split those weights into TF32 hi and lo parts and lay them out for
+the kernels on every call (:func:`tc_weights`).
 """
 
 from __future__ import annotations
@@ -54,10 +57,10 @@ _SIGNATURES = {
                            ctypes.POINTER(ctypes.c_int), _I, _P, _P, _P,
                            _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P)},
     "plf": {"cmflow_plf": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                           _P, _I, _I, _I, _I, _P)},
+                           _I, _I, _I, _I, _P)},
     "cost_volume": {
         "cmflow_cv_p2p": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                          _P, _P, _P, _P, _I, _I, _I, _I, _P),
+                          _P, _P, _P, _I, _I, _I, _I, _P),
         "cmflow_cv_agg": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                           _I, _P),
     },
@@ -328,6 +331,57 @@ def cv_params_from_variables(fc) -> Tuple[tuple, tuple, tuple]:
     return dense, wn(fc.weightnet1), wn(fc.weightnet2)
 
 
+# ---------------------------------------------------------------------------
+# weights for the tensor-core kernels (K4a, K5)
+# ---------------------------------------------------------------------------
+
+def tf32_split(x: Tensor) -> Tuple[Tensor, Tensor]:
+    """``x = hi + lo`` to about 2^-22 of ``|x|``: ``hi`` is ``x`` rounded to
+    TF32 (10 mantissa bits), to nearest with ties away from zero, as
+    ``cvt.rna.tf32.f32`` rounds; ``lo`` is the rest, rounded the same way.
+    Both are float32 with the 13 low mantissa bits zero.  (For finite ``x``:
+    adding half a TF32 unit to the bits and clearing the low 13 carries into
+    the exponent where it must.)"""
+
+    def rna(v: Tensor) -> Tensor:
+        bits = v.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+    hi = rna(x)
+    return hi, rna(x - hi)
+
+
+def _tc_operand(w: Tensor, from_rows: bool) -> Tensor:
+    """A dense kernel ``w [cin, cout]`` as the B operand of the wgmma
+    kernels, ``[cin / 8, cout * 8]``: per k8 step one tile in the layout of
+    ``csrc/tc_gemm.cuh`` (element ``(n, p)`` at
+    ``((n // 8 * 2 + p // 4) * 8 + n % 8) * 4 + p % 4``).  The rows follow
+    the kernels' K order: with ``from_rows``, step ``2q + e`` position ``p``
+    is channel ``16q + 4*(p%4) + 2e + p//4`` (A made from a float4 of a
+    gathered row); otherwise step ``s`` position ``p`` is channel
+    ``8s + 2*(p%4) + p//4`` (A taken from a previous product's
+    accumulator)."""
+    cin, cout = w.shape
+    if from_rows:  # (q, i, e, h, ng, r) -> (q, e, ng, h, r, i)
+        v = w.reshape(cin // 16, 4, 2, 2, cout // 8, 8).permute(
+            0, 2, 4, 3, 5, 1)
+    else:  # (s, i, h, ng, r) -> (s, ng, h, r, i)
+        v = w.reshape(cin // 8, 4, 2, cout // 8, 8).permute(0, 3, 2, 4, 1)
+    return v.reshape(cin // 8, cout * 8)
+
+
+def tc_weights(w1: Tensor, w2: Tensor) -> Tensor:
+    """Two chained products as the one array that K5 (``csrc/plf.cu``, w1
+    ``[512, 256]``, w2 ``[256, 64]``) and K4a (``csrc/cost_volume.cu``, both
+    ``[512, 512]``) stream in order: the TF32 hi parts (:func:`tf32_split`)
+    of ``w1``, whose A is made from gathered rows, and of ``w2``, whose A
+    is the first product (:func:`_tc_operand`), then their lo parts in the
+    same order."""
+    hi, lo = tf32_split(torch.cat((_tc_operand(w1, True).flatten(),
+                                   _tc_operand(w2, False).flatten())))
+    return torch.cat((hi, lo))
+
+
 def center_xyz(xyz: Tensor) -> Tensor:
     """Subtract each cloud's mean over all N points, padding included.  The
     centre cancels exactly in ``gather(base) - off``; it keeps the folded
@@ -476,16 +530,18 @@ def fused_point_local_feature(feat_tx: Tensor, idx: Tensor, xyz: Tensor,
     wrel, s0, b0, w1, s1, b1, w2, s2, b2 = params
     xyz_c = center_xyz(xyz).contiguous()
     base = make_plf_base(feat_tx, xyz_c, wrel).contiguous()
+    wpack = tc_weights(w1, w2)
     _check_kernel_args("fused_point_local_feature",
-                       [base, idx, xyz_c, *params])
+                       [base, idx, xyz_c, wrel, s0, b0, wpack, s1, b1, s2,
+                        b2])
     out = torch.empty((b, n, PLF_WIDTHS[2]), dtype=torch.float32,
                       device=xyz.device)
     lib = build.load("plf", _SIGNATURES["plf"])
     code = lib.cmflow_plf(
         base.data_ptr(), idx.data_ptr(), xyz_c.data_ptr(), wrel.data_ptr(),
-        s0.data_ptr(), b0.data_ptr(), w1.data_ptr(), s1.data_ptr(),
-        b1.data_ptr(), w2.data_ptr(), s2.data_ptr(), b2.data_ptr(),
-        out.data_ptr(), b, n, k, c1, _stream(xyz))
+        s0.data_ptr(), b0.data_ptr(), wpack.data_ptr(), s1.data_ptr(),
+        b1.data_ptr(), s2.data_ptr(), b2.data_ptr(), out.data_ptr(), b, n,
+        k, c1, _stream(xyz))
     build.check(lib, code, "fused_point_local_feature")
     fused_point_local_feature.launches += 1
     return out
@@ -547,15 +603,17 @@ def cost_volume_p2p(f1c: Tensor, f2c: Tensor, idx: Tensor, z1: Tensor,
     _check_cv(b, n, c, k, idx, z1, wn)
     if f2c.shape != f1c.shape or z2.shape != z1.shape:
         raise ValueError("frame 2 must have frame 1's shapes")
+    b0, w1, b1, w2, b2 = dense
+    wpack = tc_weights(w1, w2)
     _check_kernel_args("cost_volume_p2p",
-                       [f1c, f2c, idx, z1, z2, *dense, *wn])
+                       [f1c, f2c, idx, z1, z2, b0, wpack, b1, b2, *wn])
     out = torch.empty((b, n, c), dtype=torch.float32, device=f1c.device)
     lib = build.load("cost_volume", _SIGNATURES["cost_volume"])
     code = lib.cmflow_cv_p2p(
         f1c.data_ptr(), f2c.data_ptr(), idx.data_ptr(), z1.data_ptr(),
-        z2.data_ptr(), *[t.data_ptr() for t in dense],
-        *[t.data_ptr() for t in wn], out.data_ptr(), b, n, k, c,
-        _stream(f1c))
+        z2.data_ptr(), b0.data_ptr(), wpack.data_ptr(), b1.data_ptr(),
+        b2.data_ptr(), *[t.data_ptr() for t in wn], out.data_ptr(), b, n, k,
+        c, _stream(f1c))
     build.check(lib, code, "cost_volume_p2p")
     cost_volume_p2p.launches += 1
     return out

@@ -10,8 +10,11 @@ the gather: none.  They compute squared distances in the plain versions'
 float32 operation order and a gather copies, so indices and rows must be
 bit-identical.  The fused kernels (sa encoder, propagation encoder, cost
 volume) sum their float32 products in another order than the plain
-versions' ``torch.matmul``: they are held to a max abs error of 1e-4 and of
-1e-5 times the output's largest magnitude.  The gather's backward (K7) sums
+versions' ``torch.matmul``, the propagation encoder's and the cost volume's
+as three TF32 tensor-core products each (3xTF32, ``csrc/tc_gemm.cuh``;
+``tests/test_torch_tf32.py`` gives the argument on the CPU): they are held
+to a max abs error of 1e-4 and of 1e-5 times the output's largest
+magnitude, and to themselves bit for bit across two launches.  The gather's backward (K7) sums
 rows in ascending index order, the plain version's ``index_add_`` on the card
 in any order: it is held to 1e-5 of the output's largest magnitude, and to
 itself bit for bit across runs.
@@ -279,7 +282,7 @@ def test_mse_kernel(dev, rs, shape):
 
 
 @pytest.mark.parametrize("k", KS)
-@pytest.mark.parametrize("shape", SHAPES[1:])
+@pytest.mark.parametrize("shape", SHAPES)
 def test_plf_kernel(dev, rs, shape, k):
     b, n, masked = shape
     pc, valid = clouds(rs, b, n, masked, dev)
@@ -296,6 +299,49 @@ def test_plf_kernel(dev, rs, shape, k):
         assert fused.fused_point_local_feature.launches == before + 1
         near(got, fused.fused_point_local_feature_plain(feat_tx, idx, pc,
                                                         chain))
+
+
+def same_twice(fn):
+    """``fn()`` twice on the same inputs gives the same bits; returns the
+    first result."""
+    got, again = fn(), fn()
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    return got
+
+
+# neighbour counts that leave part of the kernels' row tiles empty: K5 takes
+# 128 rows per block (whole queries), K4a 64
+@pytest.mark.parametrize("k", [1, 3, 33, 64])
+@pytest.mark.parametrize("shape", [(16, 256, True), (3, 200, False)])
+def test_plf_kernel_partial_tiles(dev, rs, shape, k):
+    b, n, _ = shape
+    pc = cloud(rs, b, n, dev)
+    plf = seeded(blocks.PointLocalFeature(8.0, k, 1027, (512, 256, 64),
+                                          (64, 64, 64)), dev, 6)
+    feat_tx = torch.from_numpy(rs.randn(b, n, 512).astype(np.float32)).to(dev)
+    # random neighbours, some outside [0, N): those gather a zero row
+    idx = torch.from_numpy(rs.randint(-2, n + 2, (b, n, k)).astype(
+        np.int32)).to(dev)
+    with torch.no_grad():
+        chain, _, _ = fused.plf_params_from_variables(plf)
+        got = same_twice(lambda: fused.fused_point_local_feature(
+            feat_tx, idx, pc, chain))
+        near(got, fused.fused_point_local_feature_plain(feat_tx, idx, pc,
+                                                        chain))
+
+
+@pytest.mark.parametrize("k", [1, 5, 32])
+def test_cost_volume_p2p_partial_tiles(dev, rs, k):
+    shape = (16, 256, True)
+    f, _, _, z, dense, wn1, _ = cost_volume_inputs(rs, shape, dev)
+    pc1, _ = clouds(rs, *shape, dev)
+    pc2, v2 = clouds(rs, *shape, dev)
+    idx2 = neighbors.knn(k, pc1, pc2, v2)
+    args = (f[0], f[1], idx2, z[0], z[1], dense[1:], wn1[1:])
+    with torch.no_grad():
+        got = same_twice(lambda: fused.cost_volume_p2p(*args))
+        near(got, fused.cost_volume_p2p_plain(*args))
 
 
 def cost_volume_inputs(rs, shape, dev):

@@ -14,8 +14,8 @@ Run from the repository root on a machine with a CUDA GPU and nvcc.  Steps:
    gather exactly; the fused kernels (sa encoder, cost volume, propagation
    encoder) to a max abs error of 1e-4 and of 1e-5 times the output's
    largest magnitude, since they sum float32 products in another order,
-   and the cost volume's and the propagation encoder's tensor-core kernels
-   to themselves bit for bit across two runs.
+   and the tensor-core kernels (sa encoder, the cost volume's first,
+   propagation encoder) to themselves bit for bit across two runs.
    Time the kernel, the plain version and, where one exists, a single
    PyTorch call computing the same function, by their device time: the
    kernels' own durations from ``torch.profiler`` over warmed calls, so
@@ -25,9 +25,10 @@ Run from the repository root on a machine with a CUDA GPU and nvcc.  Steps:
    and the CUDA-event time of back-to-back wrapper calls, in the summary
    where they differ from it by more than 10%.  For the cost volume
    and the propagation encoder also cuBLAS float32 on the same products
-   alone, a yardstick the port never calls, and a second bound for their
-   tensor-core arithmetic (3xTF32: three TF32 products per product);
-   count their tensor-core instructions (``HGMMA``) in the built
+   alone, a yardstick the port never calls.  For the three tensor-core
+   kernels a second bound for their arithmetic (3xTF32: three TF32
+   products per product); count their tensor-core instructions (``HGMMA``
+   for ``wgmma``, ``HMMA`` for the sa encoder's ``mma.sync``) in the built
    libraries' SASS (``cuobjdump``) beside registers, spills and shared
    memory from the ``ptxas -v`` logs, and require some;
 4. serve four requests of synthetic frames (decoded, padded to their
@@ -49,7 +50,8 @@ Run from the repository root on a machine with a CUDA GPU and nvcc.  Steps:
    at k=8, the smoothness loss's C=3 at k=8) within 1e-5 of the output's
    largest magnitude, and to itself bit for bit across two runs; time it,
    the plain version and ``index_add_`` on the card, a yardstick the port
-   never calls;
+   never calls; hold the ball query to its plain version at the train
+   step's shapes (one radius per launch, no masks) and time it;
 7. train: a full-width CMFlow with seeded random weights takes train steps
    (``make_train_step``) on one synthetic B=16, N=256 batch
    (``make_train_batch``, VoD calibration).  The first step is taken on the
@@ -62,8 +64,10 @@ Run from the repository root on a machine with a CUDA GPU and nvcc.  Steps:
    gather 17, gather backward 15, the fused kernels 0), finite loss items,
    its wall time and frames/s; the last Loss below the first;
 8. print one JSON line per kernel shape, per request and per train step,
-   then the ``{"kernels": [...]}`` summary, then ``{"ok": true, "device":
-   ...}`` last.
+   one per route of a kernel measured on several (the ball query: fused 2
+   launches per forward, module 12, train step 12; also under its
+   summary's ``by_route``), then the ``{"kernels": [...]}`` summary, then
+   ``{"ok": true, "device": ...}`` last.
 
 Every launch counter is set to 0 just before each served forward and each
 train step and read just after it.  Any failed check raises, so the exit code is non-zero and
@@ -110,9 +114,11 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 TF32_FLOP_PER_S = 495e12  # dense, tensor cores
 # kernels that compute their float32 products as three TF32 tensor-core
-# products each (csrc/tc_gemm.cuh), and their device functions
-TC_KERNELS = {"cv": ("cost_volume", "cv_p2p_kernel"),
-              "plf": ("plf", "plf_kernel")}
+# products each (csrc/tc_gemm.cuh): their library, device function and
+# tensor-core instruction in SASS (HGMMA for wgmma, HMMA for mma.sync)
+TC_KERNELS = {"cv": ("cost_volume", "cv_p2p_kernel", "HGMMA"),
+              "plf": ("plf", "plf_kernel", "HGMMA"),
+              "mse": ("mse", "mse_kernel", "HMMA")}
 # float32 operations per (query, point) pair: 3 products and 2 sums for the
 # cross term, the -2 scale, 2 sums, the clamp and the comparison
 PAIR_FLOPS = 10
@@ -148,13 +154,13 @@ LAUNCHES = {
     "train": {"ball_query": 12, "knn": 2, "gather": 17, "mse": 0, "cv": 0,
               "cv_agg": 0, "plf": 0, "gather_bwd": 15},
 }
-# the route whose forward each kernel's summary row describes
 # each wrapper's kernel as the profiler names it
 DEVICE_NAMES = {"ball_query": "ball_query_kernel", "knn": "knn_kernel",
                 "gather": "gather_rows_kernel", "mse": "mse_kernel",
                 "cv": "cv_p2p_kernel", "cv_agg": "cv_agg_kernel",
                 "plf": "plf_kernel",
                 "gather_bwd": "gather_rows_backward_kernel"}
+# the route whose forward (train step) each kernel's summary describes
 SUMMARY_PATH = {"ball_query": "fused", "knn": "fused", "gather": "module",
                 "mse": "fused", "cv": "fused", "cv_agg": "fused",
                 "plf": "fused", "gather_bwd": "train"}
@@ -253,12 +259,12 @@ def shares(row: dict, ms: float) -> dict:
 
 
 def sass_report(libs: dict) -> dict:
-    """For each tensor-core kernel: its HGMMA (wgmma) and FFMA instructions
-    in the SASS of its built library, and its registers, spills and shared
-    memory from the library's ptxas log."""
+    """For each tensor-core kernel: its tensor-core (HGMMA or HMMA) and FFMA
+    instructions in the SASS of its built library, and its registers,
+    spills and shared memory from the library's ptxas log."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     report = {}
-    for name, (lib, fn) in TC_KERNELS.items():
+    for name, (lib, fn, tc_op) in TC_KERNELS.items():
         sass = subprocess.run([tool, "-sass", str(libs[lib])], check=True,
                               capture_output=True, text=True).stdout
         body = next(part for part in sass.split("Function : ")[1:]
@@ -270,12 +276,13 @@ def sass_report(libs: dict) -> dict:
         regs, smem = re.search(r"Used (\d+) registers.*?(\d+) bytes smem",
                                props).groups()
         spill = re.search(r"(\d+) bytes spill stores", props).group(1)
+        count = len(re.findall(rf"\b{tc_op}\b", body))
         report[name] = dict(
-            function=fn, hgmma=body.count("HGMMA"),
+            function=fn, **{tc_op.lower(): count},
             ffma=len(re.findall(r"\bFFMA\b", body)), registers=int(regs),
             spill_store_bytes=int(spill), static_smem_bytes=int(smem))
-        require(report[name]["hgmma"] > 0,
-                f"{fn}: no tensor-core (HGMMA) instruction in its SASS")
+        require(count > 0,
+                f"{fn}: no tensor-core ({tc_op}) instruction in its SASS")
     return report
 
 
@@ -514,9 +521,31 @@ def gather_bwd_cases(batch: dict, dev, gen: torch.Generator):
     return cases
 
 
+def train_ball_cases(batch: dict, dev):
+    """K1 at the train step's shapes: one radius per launch, unmasked, on
+    pc1 (sa and propagation encoders) and pc2 (sa encoder)."""
+    cases = []
+    for name, mult in (("pc1", 2), ("pc2", 1)):
+        pc = torch.as_tensor(batch[name], device=dev)
+        b, n, _ = pc.shape
+        valid = torch.ones((b, n), dtype=torch.bool, device=dev)
+        for r, k in zip((2.0, 4.0, 8.0, 16.0), (4, 8, 16, 32)):
+            cases.append(dict(
+                kernel="ball_query", path="train",
+                shape=f"B={b} N={n} r={r} K={k} {name}", mult=mult,
+                run=lambda pc=pc, r=r, k=k: neighbors.ball_query_multi(
+                    (r,), (k,), pc, pc),
+                plain=lambda pc=pc, r=r, k=k:
+                    neighbors.ball_query_multi_plain((r,), (k,), pc, pc),
+                nbytes=b * n * 3 * 4 + b * n * k * 4,
+                flops=PAIR_FLOPS * ball_scan_pairs((r,), (k,), pc, valid)))
+    return cases
+
+
 def check_kernels(cases, first: bool, per_forward: dict) -> None:
     """Hold each case to its plain version, time it, print it, and sum the
-    first request's cases per forward of their route into ``per_forward``."""
+    first request's cases per forward or step of their route into
+    ``per_forward[(kernel, route)]``."""
     for case in cases:
         name = case["kernel"]
         got, want = case["run"](), case["plain"]()
@@ -555,9 +584,9 @@ def check_kernels(cases, first: bool, per_forward: dict) -> None:
         row.update(shares(row, row["kernel_ms"]))
         row["launches_per_forward"] = case["mult"]
         emit(row)
-        if not first or case["path"] != SUMMARY_PATH[name]:
+        if not first:
             continue
-        acc = per_forward.setdefault(name, dict(
+        acc = per_forward.setdefault((name, case["path"]), dict(
             ms=0.0, wrapper_ms=0.0, event_ms=0.0, plain_ms=0.0,
             library_ms=0.0, cublas_products_ms=0.0, nbytes=0.0, flops=0.0,
             max_abs_err=0.0, has_library=True))
@@ -840,15 +869,19 @@ def main() -> int:
     batch = make_train_batch(SEED, B, 256)
     with torch.no_grad():
         check_kernels(gather_bwd_cases(batch, dev, gen), True, per_forward)
+        check_kernels(train_ball_cases(batch, dev), True, per_forward)
     launches_train = train(dev, batch)
     emit(dict(train_phase_s=time.perf_counter() - t0))
     by_path = {"fused": launches, "module": launches_module,
                "train": launches_train}
 
     kernels = []
-    for name, acc in per_forward.items():
+    for name in WRAPPERS:
         source, replaces = SOURCES[name]
         path = SUMMARY_PATH[name]
+        require((name, path) in per_forward,
+                f"{name}: no case on its route {path}")
+        acc = per_forward[(name, path)]
         entry = dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=by_path[path][name],
@@ -865,9 +898,19 @@ def main() -> int:
             entry["cublas_products_ms"] = acc["cublas_products_ms"]
         if name in TC_KERNELS:
             entry["sass"] = sass[name]
+        # the kernel on each route measured: per forward (per train step)
+        routes = {p: a for (n, p), a in per_forward.items() if n == name}
+        if len(routes) > 1:
+            entry["by_route"] = {
+                p: dict(launches_per_forward=LAUNCHES[p][name],
+                        launches=by_path[p][name], ms=a["ms"],
+                        plain_ms=a["plain_ms"],
+                        **bounds(name, a["nbytes"], a["flops"]))
+                for p, a in routes.items()}
+            for p, r in entry["by_route"].items():
+                r.update(shares(r, r["ms"]))
+                emit(dict(kernel=name, route=p, **r))
         kernels.append(entry)
-    require(sorted(k["name"] for k in kernels) == sorted(WRAPPERS),
-            "a kernel is missing from the summary")
     require(all(k["launches"] > 0 for k in kernels),
             "a kernel was not launched on its route")
     emit(dict(total_s=time.perf_counter() - t_start))

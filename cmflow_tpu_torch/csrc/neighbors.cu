@@ -7,21 +7,26 @@
 // What bounds it: neither kernel moves many bytes (a [B,N,3] cloud in, a
 // [B,S,K] index block out), and the pairwise distance work is small too
 // (~10 float operations per (query, point) pair).  At the model's sizes
-// (B=16, N=S<=512) the launch and the serial scan over N inside each thread
-// dominate; the roofline bound is well under a microsecond.
+// (B=16, N=S<=512) the roofline bound is well under a microsecond; what
+// costs is latency: staging the cloud, and the scan over N.
 //
 // Design: one block per (batch element, tile of queries).  The block stages
 // the whole cloud in shared memory as (x, y, z, |p|^2) float4s plus a valid
-// byte (N <= 2048 -> 34 KB), and each thread owns one query and scans the
-// points in index order.  Every thread of a warp reads the same point at the
-// same step, so the shared-memory loads are broadcasts.
-//  * Ball query: the scan order is the output order, so slot k of a radius
-//    is simply its (k+1)-th hit; no prefix sum or sort is needed.  All radii
-//    are filled in the same scan, which stops once every radius is full.
-//  * kNN: each thread keeps its K best (d^2, j) pairs sorted in registers
-//    (K is a template parameter, so the insertion loop unrolls) and inserts
-//    only on a strictly smaller key, so ties keep the lower index
-//    (lax.top_k semantics).
+// byte (N <= 2048 -> 34 KB), every thread loading points, then scans it.
+//  * Ball query: one warp per query, lanes over 32 consecutive points, 8
+//    queries (warps) per block sharing the staged cloud: at N = 256 a
+//    query takes 8 steps, and B=16, S=256 is 4,096 warps.  Per step and
+//    radius a ballot of the hits gives each hitting lane its slot, the
+//    count so far plus the hits of the lanes below it, so slot k is still
+//    the (k+1)-th hit in index order with no sort, and the hits of a step
+//    are stored to consecutive slots.  All radii fill in the same scan,
+//    which stops (warp-uniformly) once every radius is full; the lanes then
+//    fill the empty slots with the first hit, or 0.
+//  * kNN: one thread per query, 32 per block, scanning the points in index
+//    order (each read is a broadcast).  Each keeps its K best (d^2, j) pairs
+//    sorted in registers (K is a template parameter, so the insertion loop
+//    unrolls) and inserts only on a strictly smaller key, so ties keep the
+//    lower index (lax.top_k semantics).
 //
 // Squared distances must be bit-identical to the plain PyTorch version and to
 // the JAX package: cross = (x*x' + y*y') + z*z', d = max((-2*cross + q2) + p2,
@@ -34,7 +39,8 @@
 namespace {
 
 constexpr float kBig = 1e10f;   // distance of an invalid point (pointops._BIG)
-constexpr int kThreads = 32;    // queries per block
+constexpr int kThreads = 32;    // kNN: queries per block
+constexpr int kBallWarps = 8;   // ball query: queries per block
 constexpr int kMaxScales = 4;   // radii per ball-query launch
 constexpr int kMaxPoints = 2048;
 
@@ -71,50 +77,63 @@ __device__ void stage_cloud(const float* __restrict__ points,
   __syncthreads();
 }
 
-__global__ void ball_query_kernel(const float* __restrict__ points,
-                                  const float* __restrict__ query,
-                                  const uint8_t* __restrict__ valid, int n,
-                                  int s, Scales sc) {
+__global__ void __launch_bounds__(kBallWarps * 32)
+    ball_query_kernel(const float* __restrict__ points,
+                      const float* __restrict__ query,
+                      const uint8_t* __restrict__ valid, int n, int s,
+                      Scales sc) {
   extern __shared__ float4 smem[];
   float4* sp = smem;
   uint8_t* sv = reinterpret_cast<uint8_t*>(smem + n);
   const int b = blockIdx.y;
   stage_cloud(points, valid, b, n, sp, sv);
 
-  const int q = blockIdx.x * blockDim.x + threadIdx.x;
+  // q is the same on every lane of the warp, so the exit is uniform
+  const int q = blockIdx.x * kBallWarps + threadIdx.x / 32;
   if (q >= s) return;
+  const int lane = threadIdx.x % 32;
+  const unsigned below = (1u << lane) - 1u;  // the lanes before this one
   const int64_t row = (int64_t)b * s + q;
   const float qx = query[row * 3], qy = query[row * 3 + 1],
               qz = query[row * 3 + 2];
   const float q2 = norm2(qx, qy, qz);
 
+  // per radius, the same on every lane: hits so far (at most K), first hit
   int cnt[kMaxScales];
   int first[kMaxScales];
-  int open = 0;  // radii not yet full
 #pragma unroll
   for (int t = 0; t < kMaxScales; ++t) {
     cnt[t] = 0;
     first[t] = 0;
-    if (t < sc.count && sc.k[t] > 0) ++open;
   }
 
-  for (int j = 0; j < n && open > 0; ++j) {
-    if (!sv[j]) continue;
-    const float d = sqdist(qx, qy, qz, q2, sp[j]);
+  for (int j0 = 0; j0 < n; j0 += 32) {
+    const int j = j0 + lane;
+    const bool live = j < n && sv[j];
+    const float d = live ? sqdist(qx, qy, qz, q2, sp[j]) : kBig;
+    bool open = false;
 #pragma unroll
     for (int t = 0; t < kMaxScales; ++t) {
-      if (t < sc.count && cnt[t] < sc.k[t] && d < sc.r2[t]) {
-        if (cnt[t] == 0) first[t] = j;
-        sc.out[t][row * sc.k[t] + cnt[t]] = j;
-        if (++cnt[t] == sc.k[t]) --open;
+      if (t < sc.count && cnt[t] < sc.k[t]) {
+        const unsigned hits = __ballot_sync(0xffffffffu, live && d < sc.r2[t]);
+        if (hits != 0u) {
+          if (cnt[t] == 0) first[t] = j0 + __ffs(hits) - 1;
+          const int slot = cnt[t] + __popc(hits & below);
+          if (((hits >> lane) & 1u) && slot < sc.k[t]) {
+            sc.out[t][row * sc.k[t] + slot] = j;
+          }
+          cnt[t] = min(cnt[t] + __popc(hits), sc.k[t]);
+        }
+        open |= cnt[t] < sc.k[t];
       }
     }
+    if (!open) break;
   }
   // empty slots repeat the first hit; an empty ball gives all zeros
 #pragma unroll
   for (int t = 0; t < kMaxScales; ++t) {
     if (t < sc.count) {
-      for (int k = cnt[t]; k < sc.k[t]; ++k) {
+      for (int k = cnt[t] + lane; k < sc.k[t]; k += 32) {
         sc.out[t][row * sc.k[t] + k] = first[t];
       }
     }
@@ -213,8 +232,8 @@ int cmflow_ball_query(const void* points, const void* query, const void* valid,
     sc.k[t] = t < count ? ks[t] : 0;
     sc.out[t] = t < count ? static_cast<int*>(outs[t]) : nullptr;
   }
-  const dim3 grid((s + kThreads - 1) / kThreads, b);
-  ball_query_kernel<<<grid, kThreads, cloud_smem_bytes(n),
+  const dim3 grid((s + kBallWarps - 1) / kBallWarps, b);
+  ball_query_kernel<<<grid, kBallWarps * 32, cloud_smem_bytes(n),
                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(points), static_cast<const float*>(query),
       static_cast<const uint8_t*>(valid), n, s, sc);

@@ -29,17 +29,19 @@ gather(f + xyz @ W) - xyz_t @ W``).
 
 The packers read the port's modules (``nn/blocks.py``), which
 ``models/convert.py`` fills from flax variables.  Dense kernels come out
-``[in, out]``, as the flax trees hold them.  K4a and K5 run their two
-products on the tensor cores in 3xTF32 (``csrc/tc_gemm.cuh``); their
-wrappers split those weights into TF32 hi and lo parts and lay them out for
-the kernels on every call (:func:`tc_weights`).
+``[in, out]``, as the flax trees hold them.  K3, K4a and K5 run their
+products on the tensor cores in 3xTF32 (``csrc/tc_gemm.cuh``).  The K4a and
+K5 wrappers split those weights into TF32 hi and lo parts and lay them out
+for the kernels on every call (:func:`tc_weights`); the K3 wrapper lays its
+weights out in float32 (:func:`mse_tc_weights`) and the kernel splits them.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import List, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from cmflow_tpu_torch.native import build
@@ -48,14 +50,15 @@ Tensor = torch.Tensor
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_MAX_SCALES = 4
+_L = ctypes.c_longlong
 _SIGNATURES = {
     "gather": {"cmflow_gather_rows": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
                "cmflow_gather_rows_backward": (_P, _P, _P, _I, _I, _I, _I,
                                                _I, _P)},
-    "mse": {"cmflow_mse": (_P, ctypes.POINTER(ctypes.c_void_p),
-                           ctypes.POINTER(ctypes.c_int), _I, _P, _P, _P,
-                           _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P)},
+    "mse": {"cmflow_mse": (_P, _P, _L, _L, _L, _I, _P,
+                           ctypes.POINTER(ctypes.c_void_p),
+                           ctypes.POINTER(ctypes.c_int), _I, _P, _P, _I, _I,
+                           _P)},
     "plf": {"cmflow_plf": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                            _I, _I, _I, _I, _P)},
     "cost_volume": {
@@ -69,6 +72,8 @@ _SIGNATURES = {
 # widths the CUDA kernels are written for (the CMFlow sa encoder, the
 # propagation encoder and the cost volume); the plain versions take any
 MSE_WIDTHS = (32, 32, 64)
+MSE_MAX_SCALES = 8
+MSE_MAX_FEATS = 5  # the sa encoder's first layer: 3 + Cf inputs, at most 8
 PLF_WIDTHS = (512, 256, 64)
 CV_WIDTH = 512
 WEIGHTNET_HIDDEN = 8
@@ -382,6 +387,87 @@ def tc_weights(w1: Tensor, w2: Tensor) -> Tensor:
     return torch.cat((hi, lo))
 
 
+# K3's B fragments per scale (csrc/mse.cu): (k8 steps, n8 tiles) of its
+# three products, and floats per scale of the packed image (a pair per
+# fragment slot, then the six affines)
+MSE_PRODUCTS = ((1, 4), (4, 4), (4, 8))
+MSE_IMAGE = 2 * 32 * sum(s * t for s, t in MSE_PRODUCTS) + 2 * (
+    MSE_WIDTHS[0] + MSE_WIDTHS[1] + MSE_WIDTHS[2])
+_MSE_INDEX: Dict[tuple, Tuple[Tensor, Tensor]] = {}
+
+
+def _mse_fragment_channels(product: int) -> np.ndarray:
+    """``[steps, tiles, 32, 3]``: for each mma.sync B fragment slot of
+    ``product`` (0, 1, 2) in K3, the input channels of its two values
+    ``b0``, ``b1`` and their output column.  Lane ``(g, t)`` holds
+    ``(k = t, n = g)`` and ``(k = t + 4, n = g)`` of each tile; position
+    ``p`` of step ``j`` is input channel ``p`` in the first product (its
+    input row gathered as it lies), and channel ``8j + 2(p%4) + p//4`` in the
+    others, whose A is the previous product's accumulator."""
+    steps, tiles = MSE_PRODUCTS[product]
+    j, nt, lane = np.meshgrid(np.arange(steps), np.arange(tiles),
+                              np.arange(32), indexing="ij")
+    g, t = lane // 4, lane % 4
+    if product == 0:
+        k0, k1 = t, t + 4
+    else:
+        k0, k1 = 8 * j + 2 * t, 8 * j + 2 * t + 1
+    return np.stack([k0, k1, 8 * nt + g], axis=-1)
+
+
+def _mse_image_index(s_cnt: int, cf: int) -> np.ndarray:
+    """``[S, MSE_IMAGE]`` positions in the flat concatenation of
+    :func:`mse_tc_weights` (its last element is a zero)."""
+    c1, c2, c3 = MSE_WIDTHS
+    off_feat = 3 * c1 * s_cnt
+    off_w1 = off_feat + cf * c1 * s_cnt
+    off_w2 = off_w1 + s_cnt * c1 * c2
+    off_aff = off_w2 + s_cnt * c2 * c3
+    zero = off_aff + 2 * s_cnt * (c1 + c2 + c3)
+    out = np.empty((s_cnt, MSE_IMAGE), np.int64)
+    for s in range(s_cnt):
+        slots = []
+        ch = _mse_fragment_channels(0).reshape(-1, 3)
+        k, col = ch[:, :2], ch[:, 2:]
+        slots.append(np.where(
+            k < 3, s * 3 * c1 + k * c1 + col,
+            np.where(k < 3 + cf, off_feat + s * cf * c1 + (k - 3) * c1 + col,
+                     zero)))
+        for product, (off, cin, cout) in ((1, (off_w1, c1, c2)),
+                                          (2, (off_w2, c2, c3))):
+            ch = _mse_fragment_channels(product).reshape(-1, 3)
+            slots.append(off + s * cin * cout + ch[:, :2] * cout + ch[:, 2:])
+        aff = []
+        at = off_aff
+        for width in (c1, c1, c2, c2, c3, c3):  # s0, b0, s1, b1, s2, b2
+            aff.append(at + s * width + np.arange(width))
+            at += s_cnt * width
+        out[s] = np.concatenate([x.reshape(-1) for x in slots] + aff)
+    return out
+
+
+def mse_tc_weights(packed: tuple) -> Tensor:
+    """The weights of every scale of K3 (``csrc/mse.cu``) as one float32
+    ``[S, MSE_IMAGE]`` image: per scale, the ``(b0, b1)`` pair of each
+    mma.sync B fragment slot of its three products (first layer ``[w0r_s;
+    w0f_s]`` zero-padded to 8 rows, then ``w1_s``, then ``w2_s``; slot order
+    and channels by :func:`_mse_fragment_channels`), then ``s0, b0, s1, b1,
+    s2, b2`` of the scale.  Two launches: one concatenation, one gather.
+    The kernel splits the weights into TF32 hi and lo parts as it stages
+    them."""
+    w0rel, w0feat, s0, b0, w1, s1, b1, w2, s2, b2 = packed
+    s_cnt, cf = len(w0rel), w0feat[0].shape[0]
+    key = (s_cnt, cf, w1.device)
+    if key not in _MSE_INDEX:
+        _MSE_INDEX[key] = (
+            torch.from_numpy(_mse_image_index(s_cnt, cf)).to(w1.device),
+            torch.zeros(1, dtype=w1.dtype, device=w1.device))
+    index, zero = _MSE_INDEX[key]
+    flat = torch.cat([t.reshape(-1) for t in (*w0rel, *w0feat, w1, w2, s0,
+                                              b0, s1, b1, s2, b2)] + [zero])
+    return flat[index]
+
+
 def center_xyz(xyz: Tensor) -> Tensor:
     """Subtract each cloud's mean over all N points, padding included.  The
     centre cancels exactly in ``gather(base) - off``; it keeps the folded
@@ -432,10 +518,12 @@ def fused_multi_scale_encoder(feats: Tensor, idx_list: Sequence[Tensor],
     """All scales of a narrow ``MultiScaleEncoder``, before mlp2: per scale
     s, gather ``feats @ w0f_s + xyz_c @ w0r_s`` at the ball indices, minus
     ``xyz_c @ w0r_s`` of the query, then three [affine -> ReLU -> Dense]
-    layers and the max over that scale's ``K_s`` neighbours.
+    layers and the max over that scale's ``K_s`` neighbours.  (The kernel
+    forms the first layer of each row itself, from the gathered point and
+    features; see ``csrc/mse.cu``.)
 
     Args:
-      feats: ``[B, N, Cf]`` float32 per-point features.
+      feats: ``[B, N, Cf]`` float32 per-point features, any strides.
       idx_list: per scale, ``[B, N, K_s]`` int32 ball-query indices.
       xyz: ``[B, N, 3]`` float32 coordinates.
       packed: from :func:`mse_narrow_params_from_variables`.
@@ -449,31 +537,38 @@ def fused_multi_scale_encoder(feats: Tensor, idx_list: Sequence[Tensor],
         return fused_multi_scale_encoder_plain(feats, idx_list, xyz, packed)
     b, n, _ = xyz.shape
     s_cnt = len(idx_list)
+    cf = feats.shape[2]
     if tuple(w1.shape[1:]) + (w2.shape[2],) != MSE_WIDTHS:
         raise ValueError(f"the CUDA kernel takes widths {MSE_WIDTHS}, got "
                          f"{tuple(w1.shape[1:]) + (w2.shape[2],)}")
     ks = [i.shape[2] for i in idx_list]
-    if not 1 <= s_cnt <= _MAX_SCALES or not all(1 <= k <= MAX_K for k in ks):
-        raise ValueError(f"the CUDA kernel takes 1..{_MAX_SCALES} scales of "
-                         f"K in [1, {MAX_K}], got K={ks}")
+    if (not 1 <= s_cnt <= MSE_MAX_SCALES or len(w0rel) != s_cnt
+            or not all(1 <= k <= MAX_K for k in ks)):
+        raise ValueError(f"the CUDA kernel takes 1..{MSE_MAX_SCALES} scales "
+                         f"of K in [1, {MAX_K}], got K={ks} and "
+                         f"{len(w0rel)} scales of weights")
+    if tuple(feats.shape[:2]) != (b, n) or cf > MSE_MAX_FEATS:
+        raise ValueError(f"the CUDA kernel takes feats [B, N, Cf] with Cf <= "
+                         f"{MSE_MAX_FEATS}, got {tuple(feats.shape)}")
     if any(tuple(i.shape[:2]) != (b, n) for i in idx_list):
         raise ValueError("every idx must be [B, N, K_s]")
-    xyz_c = center_xyz(xyz).contiguous()
-    base = make_mse_base(feats, xyz_c, w0rel, w0feat)
-    w0r = torch.cat(list(w0rel), dim=1)
-    _check_kernel_args("fused_multi_scale_encoder",
-                       [base, xyz_c, w0r, s0, b0, w1, s1, b1, w2, s2, b2,
-                        *idx_list])
+    if not all(i.is_contiguous() for i in idx_list):
+        raise ValueError("fused_multi_scale_encoder: the CUDA kernel takes "
+                         "contiguous indices")
+    # the kernel reads xyz, ctr and the indices by scalar loads; the image
+    # is fresh, so aligned for its float2 loads
+    xyz = xyz.contiguous()
+    ctr = xyz.mean(dim=1)
+    image = mse_tc_weights(packed)
     out = torch.empty((b, n, s_cnt * MSE_WIDTHS[2]), dtype=torch.float32,
                       device=xyz.device)
     lib = build.load("mse", _SIGNATURES["mse"])
     code = lib.cmflow_mse(
-        base.data_ptr(),
+        xyz.data_ptr(), feats.data_ptr(), *feats.stride(), cf,
+        ctr.data_ptr(),
         (ctypes.c_void_p * s_cnt)(*[i.data_ptr() for i in idx_list]),
-        (ctypes.c_int * s_cnt)(*ks), s_cnt, xyz_c.data_ptr(),
-        w0r.data_ptr(), s0.data_ptr(), b0.data_ptr(), w1.data_ptr(),
-        s1.data_ptr(), b1.data_ptr(), w2.data_ptr(), s2.data_ptr(),
-        b2.data_ptr(), out.data_ptr(), b, n, _stream(xyz))
+        (ctypes.c_int * s_cnt)(*ks), s_cnt, image.data_ptr(),
+        out.data_ptr(), b, n, _stream(xyz))
     build.check(lib, code, "fused_multi_scale_encoder")
     fused_multi_scale_encoder.launches += 1
     return out

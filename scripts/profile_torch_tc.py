@@ -1,17 +1,30 @@
 #!/usr/bin/env python3
-"""The tensor-core kernels K5 (``csrc/plf.cu``) and K4a
-(``csrc/cost_volume.cu::cv_p2p_kernel``) across neighbour counts, on one GPU.
+"""The tensor-core kernels K5 (``csrc/plf.cu``), K4a
+(``csrc/cost_volume.cu::cv_p2p_kernel``) and K3 (``csrc/mse.cu``) across
+neighbour counts, on one GPU.
 
-    python scripts/profile_torch_tc.py
+    python scripts/profile_torch_tc.py [TREE]
 
-At B=16, N=256, with seeded full-width weights and random features and
-neighbour indices (some outside [0, N), which gather a zero row), for K5 at
-k in {1, 3, 4, 8, 16, 32, 33, 64} and K4a at k in {1, 5, 8, 32}: the
-kernel's max abs error against its plain version and the output's largest
-magnitude (the bars are 1e-4 and 1e-5 of it), whether two launches give the
-same bits, the kernel's own device time and that of cuBLAS float32 on the
-same products alone (``torch.profiler``, 20 warmed calls), and the bound of
-its arithmetic in 3xTF32 at 495 TFLOP/s.  One JSON line per case.  Needs a
+``TREE`` is the root of a checkout whose ``cmflow_tpu_torch`` is imported
+and built (default: this script's own), so that one machine can time two
+versions of the kernels in turns, e.g. a parent commit unpacked beside the
+repository: ``parent, this, this, parent``.  The wrappers' signatures are
+the same in both.
+
+At B=16, N=256, with seeded full-width weights and random features:
+- K5 at k in {1, 3, 4, 8, 16, 32, 33, 64} and K4a at k in {1, 5, 8, 32},
+  on random neighbour indices (some outside [0, N), which gather a zero
+  row): the kernel's own device time, cuBLAS float32 on the same products
+  alone, and the bound of its arithmetic in 3xTF32 at 495 TFLOP/s;
+- K3 on the ball-query indices of a random 20 m cloud, all four scales
+  (K = 4, 8, 16, 32) in one launch as the fused route calls it, then each
+  scale alone: the kernel's own device time and its wrapper's (every kernel
+  the call launches), beside the bounds of its arithmetic in float32 at 67
+  TFLOP/s and in 3xTF32 at 495.
+Each case also gives the kernel's max abs error against its plain version
+and the output's largest magnitude (the bars are 1e-4 and 1e-5 of it) and
+whether two launches give the same bits.  Device times from
+``torch.profiler`` over 20 warmed calls.  One JSON line per case.  Needs a
 CUDA device; exits with code 1 without one.
 """
 
@@ -28,14 +41,18 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+TREE = Path(sys.argv[1] if len(sys.argv) > 1
+            else Path(__file__).resolve().parents[1]).resolve()
+sys.path.insert(0, str(TREE))
 
 from cmflow_tpu_torch.nn import blocks  # noqa: E402
-from cmflow_tpu_torch.ops import fused  # noqa: E402
+from cmflow_tpu_torch.ops import fused, neighbors  # noqa: E402
 
 B, N = 16, 256
 ITERS = 20
 TF32_FLOP_PER_S = 495e12
+F32_FLOP_PER_S = 67e12
+RADII, KS = (2.0, 4.0, 8.0, 16.0), (4, 8, 16, 32)
 
 
 def seeded(module, seed: int, dev):
@@ -51,9 +68,9 @@ def seeded(module, seed: int, dev):
     return module.to(dev)
 
 
-def device_ms(fn, kernel: str = "") -> float:
-    """Summed durations of the kernels of one ``fn()`` whose names hold
-    ``kernel``."""
+def device_ms(fn, kernel: str = "") -> tuple:
+    """(summed durations of the kernels of one ``fn()`` whose names hold
+    ``kernel``, of all its kernels)."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -63,26 +80,45 @@ def device_ms(fn, kernel: str = "") -> float:
             for _ in range(ITERS):
                 fn()
             torch.cuda.synchronize()
-        return sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and kernel in e.key
-                   ) / 1e3 / ITERS
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+    own = sum(e.self_device_time_total for e in events if kernel in e.key)
+    total = sum(e.self_device_time_total for e in events)
+    return own / 1e3 / ITERS, total / 1e3 / ITERS
+
+
+def checks(run, plain) -> dict:
+    got, again, want = run(), run(), plain()
+    torch.cuda.synchronize()
+    return dict(max_abs_err=float((got.double() - want.double()).abs().max()),
+                plain_max_abs=float(want.abs().max()),
+                same_bits=bool(torch.equal(got, again)))
 
 
 def case(name, k, run, plain, widths, kernel, dev):
-    got, again, want = run(), run(), plain()
-    torch.cuda.synchronize()
     rows = B * N * k
     xs = [torch.randn((rows, c), device=dev) for c in widths[:-1]]
     ws = [torch.randn((c, o), device=dev)
           for c, o in zip(widths[:-1], widths[1:])]
     flops = 2 * rows * sum(c * o for c, o in zip(widths[:-1], widths[1:]))
     print(json.dumps(dict(
-        kernel=name, k=k,
-        max_abs_err=float((got.double() - want.double()).abs().max()),
-        plain_max_abs=float(want.abs().max()),
-        same_bits=bool(torch.equal(got, again)),
-        kernel_ms=device_ms(run, kernel),
-        cublas_products_ms=device_ms(lambda: [x @ w for x, w in zip(xs, ws)]),
+        kernel=name, k=k, **checks(run, plain),
+        kernel_ms=device_ms(run, kernel)[0],
+        cublas_products_ms=device_ms(
+            lambda: [x @ w for x, w in zip(xs, ws)])[1],
+        bound_3xtf32_ms=1e3 * 3 * flops / TF32_FLOP_PER_S)), flush=True)
+
+
+def mse_case(ks, run, plain):
+    c1, c2, c3 = fused.MSE_WIDTHS
+    # the first layer per point (3 + 3 inputs) and the query's offset, then
+    # the chain per (query, neighbour) row, as chip_smoke.py counts it
+    flops = 2 * B * N * (len(ks) * c1 * 9 + sum(ks) * (c1 * c2 + c2 * c3))
+    own, wrapper = device_ms(run, "mse_kernel")
+    print(json.dumps(dict(
+        kernel="mse", k=list(ks), **checks(run, plain), kernel_ms=own,
+        wrapper_device_ms=wrapper,
+        bound_f32_ms=1e3 * flops / F32_FLOP_PER_S,
         bound_3xtf32_ms=1e3 * 3 * flops / TF32_FLOP_PER_S)), flush=True)
 
 
@@ -95,6 +131,8 @@ def main() -> int:
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip(),
         flush=True)
+    print(json.dumps(dict(tree=str(TREE), package=fused.__file__)),
+          flush=True)
     dev = torch.device("cuda")
     rs = np.random.RandomState(0)
 
@@ -126,6 +164,26 @@ def main() -> int:
             case("cv", k, lambda: fused.cost_volume_p2p(*args),
                  lambda: fused.cost_volume_p2p_plain(*args), (512,) * 3,
                  "cv_p2p_kernel", dev)
+
+        mse = seeded(blocks.MultiScaleEncoder(RADII, KS, 3, (32, 32, 64),
+                                              (64, 64, 64)), 1, dev)
+        packed, _ = fused.mse_narrow_params_from_variables(mse)
+        feats = randn(B, 3, N).transpose(1, 2)  # strided, as collated
+        idx = list(neighbors.ball_query_multi(RADII, KS, pc, pc))
+        mse_case(KS, lambda: fused.fused_multi_scale_encoder(
+                     feats, idx, pc, packed),
+                 lambda: fused.fused_multi_scale_encoder_plain(
+                     feats, idx, pc, packed))
+        for s, k in enumerate(KS):
+            one = (packed[0][s:s + 1], packed[1][s:s + 1]) + tuple(
+                p.reshape(len(KS), -1)[s] if p.dim() == 1 else p[s:s + 1]
+                for p in packed[2:])
+            sub = idx[s:s + 1]
+            mse_case((k,), lambda one=one, sub=sub:
+                     fused.fused_multi_scale_encoder(feats, sub, pc, one),
+                     lambda one=one, sub=sub:
+                     fused.fused_multi_scale_encoder_plain(feats, sub, pc,
+                                                           one))
     return 0
 
 

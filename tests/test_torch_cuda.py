@@ -10,11 +10,12 @@ the gather: none.  They compute squared distances in the plain versions'
 float32 operation order and a gather copies, so indices and rows must be
 bit-identical.  The fused kernels (sa encoder, propagation encoder, cost
 volume) sum their float32 products in another order than the plain
-versions' ``torch.matmul``, the propagation encoder's and the cost volume's
-as three TF32 tensor-core products each (3xTF32, ``csrc/tc_gemm.cuh``;
-``tests/test_torch_tf32.py`` gives the argument on the CPU): they are held
-to a max abs error of 1e-4 and of 1e-5 times the output's largest
-magnitude, and to themselves bit for bit across two launches.  The gather's backward (K7) sums
+versions' ``torch.matmul``, the sa encoder's, the propagation encoder's and
+the cost volume's first kernel's as three TF32 tensor-core products each
+(3xTF32, ``csrc/tc_gemm.cuh``; ``tests/test_torch_tf32.py`` gives the
+argument on the CPU): they are held to a max abs error of 1e-4 and of 1e-5
+times the output's largest magnitude, and to themselves bit for bit across
+two launches.  The gather's backward (K7) sums
 rows in ascending index order, the plain version's ``index_add_`` on the card
 in any order: it is held to 1e-5 of the output's largest magnitude, and to
 itself bit for bit across runs.
@@ -87,6 +88,35 @@ def test_ball_query_edge_cases(dev, rs):
     for args in (((0.5,), (8,), p, p, None), ((1.0,), (4,), p, far, None),
                  (RADII, KS, dup, dup, None), ((16.0,), (8,), p, p, none_valid),
                  ((3.0,), (32,), small, small, None)):
+        got = neighbors.ball_query_multi(*args)
+        for g, w in zip(got, neighbors.ball_query_multi_plain(*args)):
+            same(g, w)
+
+
+# (N, S): clouds that fill no 32-point step, and queries that are not the
+# cloud, fewer or more of them
+@pytest.mark.parametrize("n, s", [(200, 200), (383, 383), (256, 100),
+                                  (200, 383)])
+def test_ball_query_ragged(dev, rs, n, s):
+    p = cloud(rs, 4, n, dev)
+    q = p[:, :s].contiguous() if s <= n else cloud(rs, 4, s, dev)
+    v = valid_mask(rs, 4, n, dev)
+    for args in ((RADII, KS, p, q, v), (RADII, KS, p, q, None),
+                 ((16.0, 30.0), (40, 64), p, q, v)):
+        got = neighbors.ball_query_multi(*args)
+        for g, w in zip(got, neighbors.ball_query_multi_plain(*args)):
+            same(g, w)
+
+
+def test_ball_query_ragged_edge_cases(dev, rs):
+    n = 383
+    p, q = cloud(rs, 2, n, dev), cloud(rs, 2, 100, dev)
+    none_valid = torch.zeros((2, n), dtype=torch.bool, device=dev)
+    dup = cloud(rs, 1, 29, dev).repeat(2, 13, 1)  # 377 points, 13 of each
+    for args in ((RADII, KS, p, q, none_valid),  # empty balls
+                 (RADII, KS, dup, dup, None),
+                 ((1.0,), (64,), dup, dup[:, :50].contiguous(), None),
+                 ((0.3, 1.0), (32, 64), p, q, None)):  # never full
         got = neighbors.ball_query_multi(*args)
         for g, w in zip(got, neighbors.ball_query_multi_plain(*args)):
             same(g, w)
@@ -308,6 +338,64 @@ def same_twice(fn):
     torch.cuda.synchronize()
     assert torch.equal(got, again)
     return got
+
+
+def strided_feats(rs, b, n, dev):
+    """``[B, N, 3]`` features, channel-strided as the collated batch gives
+    them."""
+    return torch.from_numpy(rs.randn(b, 3, n).astype(np.float32)).to(
+        dev).transpose(1, 2)
+
+
+def mse_packed(dev, ks, seed):
+    radii = tuple(2.0 * (i + 1) for i in range(len(ks)))
+    mse = seeded(blocks.MultiScaleEncoder(radii, ks, 3, (32, 32, 64),
+                                          (64, 64, 64)), dev, seed)
+    with torch.no_grad():
+        packed, _ = fused.mse_narrow_params_from_variables(mse)
+    return packed
+
+
+# K3 pads each query's rows to a power of two and takes 32-row tiles: K
+# that are not powers of two, five scales in one launch, and row counts that
+# fill no tile; two launches give the same bits
+@pytest.mark.parametrize("shape", [(3, 200), (16, 256)])
+def test_mse_kernel_ragged_k(dev, rs, shape):
+    b, n = shape
+    ks = (1, 3, 5, 17, 32)
+    pc = cloud(rs, b, n, dev)
+    feats = strided_feats(rs, b, n, dev)
+    packed = mse_packed(dev, ks, 7)
+    idx = [torch.from_numpy(rs.randint(0, n, (b, n, k)).astype(
+        np.int32)).to(dev) for k in ks]
+    with torch.no_grad():
+        before = fused.fused_multi_scale_encoder.launches
+        got = same_twice(lambda: fused.fused_multi_scale_encoder(
+            feats, idx, pc, packed))
+        assert fused.fused_multi_scale_encoder.launches == before + 2
+        near(got, fused.fused_multi_scale_encoder_plain(feats, idx, pc,
+                                                        packed))
+
+
+def test_mse_kernel_out_of_range_rows(dev, rs):
+    """An index outside [0, N) gathers a zero row of the plain version's
+    folded base (the point at the cloud's centroid, no features), in any
+    slot of a query, and in every slot of one."""
+    b, n = 2, 200
+    pc = cloud(rs, b, n, dev)
+    feats = strided_feats(rs, b, n, dev)
+    packed = mse_packed(dev, KS, 8)
+    idx = list(neighbors.ball_query_multi(RADII, KS, pc, pc))
+    for s, k in enumerate(KS):
+        idx[s][0, :4, 0] = torch.tensor([-1, n, n + 7, -100],
+                                        dtype=torch.int32)
+        idx[s][1, 5, :] = -1
+        idx[s][1, 6, k - 1] = n
+    with torch.no_grad():
+        got = same_twice(lambda: fused.fused_multi_scale_encoder(
+            feats, idx, pc, packed))
+        near(got, fused.fused_multi_scale_encoder_plain(feats, idx, pc,
+                                                        packed))
 
 
 # neighbour counts that leave part of the kernels' row tiles empty: K5 takes

@@ -1,19 +1,20 @@
-"""The precision argument of the tensor-core kernels K5 (``csrc/plf.cu``)
-and K4a (``csrc/cost_volume.cu``), on the CPU.
+"""The precision argument of the tensor-core kernels K5 (``csrc/plf.cu``),
+K4a (``csrc/cost_volume.cu``) and K3 (``csrc/mse.cu``), on the CPU.
 
-Both kernels compute their float32 products as three TF32 products (3xTF32,
+The kernels compute their float32 products as three TF32 products (3xTF32,
 ``csrc/tc_gemm.cuh``): each operand is split into ``hi = tf32(x)`` and
 ``lo = tf32(x - hi)``, rounded to nearest with ties away from zero as
 ``cvt.rna.tf32.f32`` rounds, and ``x @ w`` becomes
 ``lo @ w_hi + hi @ w_lo + hi @ w_hi``.  Here a plain emulation of that
 arithmetic, written in this file and used by nothing in the package, runs
 K5's and K4a's full-width chains (512 -> 256 -> 64 and 512 -> 512 -> 512)
-and is held to the plain float32 versions at the kernels' bars (1e-4 abs
-and 1e-5 of the output's largest magnitude).  A single TF32 product per
-product misses the relative bar: the margin is printed and checked.  The
-weights' split and the order in which ``ops/fused.py::tc_weights`` lays
-them out for the kernels are held to this emulation and to the kernels'
-index arithmetic.
+and K3's (the first layer formed from each gathered point, 8 -> 32 -> 32 ->
+64, four scales) and is held to the plain float32 versions at the kernels'
+bars (1e-4 abs and 1e-5 of the output's largest magnitude).  A single TF32
+product per product misses the relative bar: the margin is printed and
+checked.  The weights' split and the order in which
+``ops/fused.py::tc_weights`` and ``mse_tc_weights`` lay them out for the
+kernels are held to this emulation and to the kernels' index arithmetic.
 
 The emulation sums in float64: it models what the split drops (``lo @
 w_lo`` and the rounding of ``lo``), not the tensor cores' own rounding of
@@ -162,6 +163,66 @@ def test_tc_weights_layout(widths):
     assert (n1 * 4) % 32768 == 0 and (n2 * 4) % 16384 == 0
 
 
+RADII = (2.0, 4.0, 8.0, 16.0)
+KS = (4, 8, 16, 32)
+
+
+def seeded_mse(seed, cf=3):
+    mse = seeded(blocks.MultiScaleEncoder(RADII, KS, cf, (32, 32, 64),
+                                          (64, 64, 64)), seed)
+    with torch.no_grad():
+        packed, _ = fused.mse_narrow_params_from_variables(mse)
+    return packed
+
+
+def first_layer(packed, s):
+    """Scale s's first layer as K3 multiplies by it: ``[w0r; w0f]`` with
+    zero rows up to 8."""
+    w = torch.cat((packed[0][s], packed[1][s]))
+    return torch.cat((w, w.new_zeros(8 - w.shape[0], w.shape[1])))
+
+
+@pytest.mark.parametrize("cf", [3, 5])
+def test_mse_weights_layout(cf):
+    """``mse_tc_weights`` holds, per scale, the (b0, b1) pair of each
+    mma.sync B fragment slot of K3's three products, read here as
+    csrc/mse.cu reads them (slot (step, tile, lane) at
+    ``(step * tiles + tile) * 32 + lane``; lane (g, t) holds rows t and
+    t + 4 of column g of the tile; the first product's rows in channel
+    order, the others' in the accumulator's order), then the affines."""
+    packed = seeded_mse(47, cf)
+    with torch.no_grad():
+        image = fused.mse_tc_weights(packed).numpy()
+        layers = [[first_layer(packed, s), packed[4][s], packed[7][s]]
+                  for s in range(len(KS))]
+    s_cnt = len(KS)
+    assert image.shape == (s_cnt, fused.MSE_IMAGE) == (s_cnt, 3584)
+    for s in range(s_cnt):
+        want = layers[s]
+        at = 0
+        for product, (steps, tiles) in enumerate(((1, 4), (4, 4), (4, 8))):
+            cin, cout = want[product].shape
+            got = np.full((cin, cout), np.nan, np.float32)
+            for j in range(steps):
+                for nt in range(tiles):
+                    for lane in range(32):
+                        g, t = lane // 4, lane % 4
+                        for e, p in enumerate((t, t + 4)):
+                            k = p if product == 0 else kernel_channel(
+                                j, p, False)
+                            got[k, 8 * nt + g] = image[s, at + e]
+                        at += 2
+            assert np.array_equal(got, want[product].numpy()), product
+        aff = image[s, at:]
+        c = (32, 32, 32, 32, 64, 64)
+        for i, (vec, width) in enumerate(zip((2, 3, 5, 6, 8, 9), c)):
+            lo = sum(c[:i])
+            assert np.array_equal(
+                aff[lo:lo + width],
+                packed[vec][s * width:(s + 1) * width].numpy())
+        assert at + sum(c) == fused.MSE_IMAGE
+
+
 # ---------------------------------------------------------------------------
 # the chains: 3xTF32 meets the bars, one TF32 product does not
 # ---------------------------------------------------------------------------
@@ -236,6 +297,57 @@ def test_plf_chain_3xtf32_meets_bars(plf_case):
     assert scale > 0.1
     assert err <= FUSED_ATOL and err <= FUSED_RTOL * scale
     assert err1 > FUSED_RTOL * scale  # why the kernels do not use one
+
+
+@pytest.fixture(scope="module")
+def mse_case():
+    rs = np.random.RandomState(48)
+    b, n = 2, 96
+    xyz = torch.from_numpy((rs.rand(b, n, 3) * 20).astype(np.float32))
+    feats = torch.from_numpy(rs.randn(b, n, 3).astype(np.float32))
+    idx = list(neighbors.ball_query_multi_plain(RADII, KS, xyz, xyz))
+    idx[1][0, :3, 0] = torch.tensor([-1, n, n + 5], dtype=torch.int32)
+    return feats, idx, xyz, seeded_mse(49)
+
+
+def mse_emulated(feats, idx_list, xyz, packed, mm):
+    """``fused_multi_scale_encoder_plain`` as csrc/mse.cu computes it, its
+    products taken by ``mm``: each query's K rows padded to the next power
+    of two with its first neighbour, the first layer of each row from
+    ``[xyz[j] - xyz[i], feats[j], 0, 0]`` (the cloud's centroid with zero
+    features for an index outside [0, N)), then the chain and the max."""
+    _, _, s0, b0, _, s1, b1, _, s2, b2 = packed
+    b, n, cf = feats.shape
+    ctr = xyz.mean(dim=1, keepdim=True)
+    outs = []
+    for s, idx in enumerate(idx_list):
+        k = idx.shape[2]
+        p = 1 << (k - 1).bit_length()
+        idx = torch.cat([idx, idx[..., :1].expand(b, n, p - k)], dim=-1)
+        inside = (idx >= 0) & (idx < n)
+        pts = torch.where(inside[..., None], fused._group(xyz, idx),
+                          ctr[:, :, None])
+        v = torch.cat([pts - xyz[:, :, None], fused._group(feats, idx),
+                       feats.new_zeros(b, n, p, 8 - 3 - cf)], dim=-1)
+        r1, r2, r3 = (slice(s * c, (s + 1) * c) for c in (32, 32, 64))
+        x = v.reshape(-1, 8)
+        x = torch.relu(mm(x, first_layer(packed, s)) * s0[r1] + b0[r1])
+        x = torch.relu(mm(x, packed[4][s]) * s1[r2] + b1[r2])
+        x = torch.relu(mm(x, packed[7][s]) * s2[r3] + b2[r3])
+        outs.append(torch.amax(x.reshape(b, n, p, -1), dim=2))
+    return torch.cat(outs, dim=-1)
+
+
+def test_mse_chain_3xtf32_meets_bars(mse_case):
+    with torch.no_grad():
+        want = fused.fused_multi_scale_encoder_plain(*mse_case)
+        err, scale = margins(mse_emulated(*mse_case, mm3), want)
+        err1, _ = margins(mse_emulated(*mse_case, mm1), want)
+    print(f"K3: 3xTF32 {err:.3g}, one TF32 product {err1:.3g}, at a largest "
+          f"magnitude of {scale:.3g}; relative bar {FUSED_RTOL * scale:.3g}")
+    assert scale > 0.1
+    assert err <= FUSED_ATOL and err <= FUSED_RTOL * scale
+    assert err1 > FUSED_RTOL * scale
 
 
 def test_cv_chain_3xtf32_meets_bars(cv_case):

@@ -20,7 +20,9 @@ Run from the repository root on a machine with a CUDA GPU and nvcc.  Steps:
    PyTorch call computing the same function, by their device time: the
    kernels' own durations from ``torch.profiler`` over warmed calls, so
    that the host's time to issue a short kernel does not count.  A
-   kernel's time is its own; beside it stand the device time of every
+   kernel's time is its own (the gather's backward: its three kernels, the
+   CSR build, the piece sum and the combine, each also on its own); beside
+   it stand the device time of every
    kernel its wrapper launches (the folds and weight packing included)
    and the CUDA-event time of back-to-back wrapper calls, in the summary
    where they differ from it by more than 10%.  For the cost volume
@@ -50,8 +52,12 @@ Run from the repository root on a machine with a CUDA GPU and nvcc.  Steps:
    at k=8, the smoothness loss's C=3 at k=8) within 1e-5 of the output's
    largest magnitude, and to itself bit for bit across two runs; time it,
    the plain version and ``index_add_`` on the card, a yardstick the port
-   never calls; hold the ball query to its plain version at the train
-   step's shapes (one radius per launch, no masks) and time it;
+   never calls; hold its CSR build (``gather_rows_csr``) to its plain
+   version exactly at the same shapes; hold the ball query to its plain
+   version at the train step's shapes (one radius per launch, no masks) and
+   time it.  Hold the ball query and kNN exactly to their plain versions at
+   one B=16 cloud of 4,096 points, masked and not (two staged tiles; not
+   timed);
 7. train: a full-width CMFlow with seeded random weights takes train steps
    (``make_train_step``) on one synthetic B=16, N=256 batch
    (``make_train_batch``, VoD calibration).  The first step is taken on the
@@ -154,12 +160,16 @@ LAUNCHES = {
     "train": {"ball_query": 12, "knn": 2, "gather": 17, "mse": 0, "cv": 0,
               "cv_agg": 0, "plf": 0, "gather_bwd": 15},
 }
-# each wrapper's kernel as the profiler names it
-DEVICE_NAMES = {"ball_query": "ball_query_kernel", "knn": "knn_kernel",
-                "gather": "gather_rows_kernel", "mse": "mse_kernel",
-                "cv": "cv_p2p_kernel", "cv_agg": "cv_agg_kernel",
-                "plf": "plf_kernel",
-                "gather_bwd": "gather_rows_backward_kernel"}
+# each wrapper's kernels as the profiler names them
+DEVICE_NAMES = {"ball_query": ("ball_query_kernel",), "knn": ("knn_kernel",),
+                "gather": ("gather_rows_kernel",), "mse": ("mse_kernel",),
+                "cv": ("cv_p2p_kernel",), "cv_agg": ("cv_agg_kernel",),
+                "plf": ("plf_kernel",),
+                "gather_bwd": ("gather_rows_backward_csr_kernel",
+                               "gather_rows_backward_sum_kernel",
+                               "gather_rows_backward_combine_kernel")}
+# one cloud above the 2048 points the neighbour kernels stage at a time
+LARGE_N = 4096
 # the route whose forward (train step) each kernel's summary describes
 SUMMARY_PATH = {"ball_query": "fused", "knn": "fused", "gather": "module",
                 "mse": "fused", "cv": "fused", "cv_agg": "fused",
@@ -208,25 +218,59 @@ def event_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int, kernel: str = "") -> tuple:
+PROFILE_TRIES = 6  # windows traced before device_ms gives up
+SENTINEL = "spin_kernel"  # torch.cuda._sleep's kernel
+
+
+def device_ms(fn, iters: int, kernels=("",), per_call: int = 0) -> tuple:
     """Device time of one call of ``fn``, from ``torch.profiler``'s CUDA
     activity over ``iters`` warmed calls: (the summed durations of the
-    kernels whose names hold ``kernel``, of every kernel it launches)."""
+    kernels whose names hold one of ``kernels``, of every kernel it
+    launches, {each of ``kernels``: its own}).
+
+    The profiler now and then records only part of a window's kernels, or
+    none; it drops the first most often, so each window starts with a
+    throwaway kernel.  A window counts only if it recorded each of
+    ``kernels`` ``iters * per_call`` times (``per_call``: the launches of
+    each a call makes), or, without ``per_call``, every kernel a multiple
+    of ``iters`` times.  A rejected window is printed to stderr and traced
+    again after a pause that doubles, up to ``PROFILE_TRIES`` windows; then
+    this raises."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore")
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        events = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA]
-    total = sum(e.self_device_time_total for e in events)
-    own = sum(e.self_device_time_total for e in events if kernel in e.key)
-    require(own > 0, f"the profiler saw no device time of {kernel!r}")
-    return own / 1e3 / iters, total / 1e3 / iters
+    for t in range(PROFILE_TRIES):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                # the profiler often drops a window's first kernel: let it
+                # be this one, which is left out below
+                torch.cuda._sleep(1)
+                torch.cuda.synchronize()
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+            events = [e for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA
+                      and SENTINEL not in e.key]
+        if per_call:
+            whole = all(sum(e.count for e in events if k in e.key)
+                        == iters * per_call for k in kernels)
+        else:
+            whole = bool(events) and all(e.count % iters == 0
+                                         for e in events)
+        if whole:
+            total = sum(e.self_device_time_total for e in events)
+            parts = {k: sum(e.self_device_time_total for e in events
+                            if k in e.key) / 1e3 / iters for k in kernels}
+            return sum(parts.values()), total / 1e3 / iters, parts
+        print(json.dumps(dict(profiler_window_rejected=dict(
+            kernels=list(kernels), iters=iters, per_call=per_call, window=t,
+            counts={e.key[:80]: e.count for e in events}))),
+            file=sys.stderr, flush=True)
+        time.sleep(0.1 * 2 ** t)
+    raise RuntimeError(f"the profiler recorded no whole window of "
+                       f"{kernels!r} in {PROFILE_TRIES} tries")
 
 
 def bound_ms(nbytes: float, flops: float, peak: float = F32_FLOP_PER_S):
@@ -515,6 +559,8 @@ def gather_bwd_cases(batch: dict, dev, gen: torch.Generator):
             run=lambda g=g, flat=flat: fused.gather_rows_backward(g, flat, n),
             plain=lambda g=g, flat=flat: fused.gather_rows_backward_plain(
                 g, flat, n),
+            csr=lambda flat=flat: fused.gather_rows_csr(flat, n),
+            csr_plain=lambda flat=flat: fused.gather_rows_csr_plain(flat, n),
             library=lambda rows=rows, g_rows=g_rows, c=c: torch.zeros(
                 (b * n, c), device=dev).index_add_(0, rows, g_rows),
             nbytes=4 * (b * m * c + b * m + b * n * c), flops=b * m * c))
@@ -542,6 +588,25 @@ def train_ball_cases(batch: dict, dev):
     return cases
 
 
+def check_large_cloud(dev, gen: torch.Generator) -> None:
+    """K1 (all four radii) and K2 (k=8, both masks) at one B=16 cloud of
+    LARGE_N points, which the kernels stage in two tiles, held exactly to
+    their plain versions; not part of any route's time."""
+    pc = (60.0 * torch.rand((B, LARGE_N, 3), generator=gen)).to(dev)
+    valid = (torch.rand((B, LARGE_N), generator=gen) > 0.2).to(dev)
+    radii, ks = (2.0, 4.0, 8.0, 16.0), (4, 8, 16, 32)
+    for v in (None, valid):
+        got = neighbors.ball_query_multi(radii, ks, pc, pc, v)
+        want = neighbors.ball_query_multi_plain(radii, ks, pc, pc, v)
+        require(all(torch.equal(a, b) for a, b in zip(got, want)),
+                f"ball_query at N={LARGE_N}: kernel and plain version differ")
+        require(torch.equal(neighbors.knn(8, pc, pc, v),
+                            neighbors.knn_plain(8, pc, pc, v)),
+                f"knn at N={LARGE_N}: kernel and plain version differ")
+    emit(dict(large_cloud=dict(batch=B, num_points=LARGE_N,
+                               ball_query="exact", knn="exact")))
+
+
 def check_kernels(cases, first: bool, per_forward: dict) -> None:
     """Hold each case to its plain version, time it, print it, and sum the
     first request's cases per forward or step of their route into
@@ -567,15 +632,26 @@ def check_kernels(cases, first: bool, per_forward: dict) -> None:
             torch.cuda.synchronize()
             require(torch.equal(got, again), f"{name} {case['shape']}: two "
                                              f"runs differ")
+        if "csr" in case:  # K7's first kernel alone, exactly
+            for a, b in zip(case["csr"](), case["csr_plain"]()):
+                require(torch.equal(a, b), f"{name} {case['shape']}: "
+                                           f"gather_rows_csr and its plain "
+                                           f"version differ")
         library = case.get("library")
         cublas = case.get("cublas")
-        own, wrapper = device_ms(case["run"], 20, DEVICE_NAMES[name])
+        before = WRAPPERS[name].launches
+        case["run"]()
+        per_call = WRAPPERS[name].launches - before
+        own, wrapper, parts = device_ms(case["run"], 20, DEVICE_NAMES[name],
+                                        per_call)
         row = dict(kernel=name, path=case["path"], shape=case["shape"],
                    kernel_ms=own, wrapper_device_ms=wrapper,
                    kernel_event_ms=event_ms(case["run"], 50),
                    plain_ms=device_ms(case["plain"], 5)[1],
                    library_ms=device_ms(library, 10)[1] if library else None,
                    max_abs_err=err)
+        if len(parts) > 1:
+            row["kernel_parts_ms"] = parts
         if name not in EXACT:
             row["plain_max_abs"] = scale
         if cublas:
@@ -846,6 +922,7 @@ def main() -> int:
         for ri, req in enumerate((requests[0], requests[3])):
             check_kernels(fused_cases(model, req, dev), ri == 0, per_forward)
             check_kernels(module_cases(req, dev, gen), ri == 0, per_forward)
+        check_large_cloud(dev, gen)
     emit(dict(kernel_phase_s=time.perf_counter() - t0))
 
     def fused_checks(req, out):

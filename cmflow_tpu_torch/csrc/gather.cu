@@ -30,20 +30,45 @@
 // stream, M = S*K, is the largest: 268 MB at B=16, S=256, K=32, C=512), the
 // index once, and writes [B, N, C]; one add per cotangent element.
 //
-// Design: deterministic, with no atomics, so that a train step gives the same
-// bits every run.  Each output row belongs to one warp, which sums its rows
-// in registers in ascending m, a fixed order (the order of a sequential
-// index_add_).  A block of 16 warps owns 16 consecutive output rows of one
-// batch element and stages that element's indices through shared memory, 4096
-// at a time.  Each warp scans them 32 at a time with one ballot (lane j tests
-// index m0 + j against its row), then walks the set bits in ascending order,
-// loading up to four matching cotangent rows before adding them, so that the
-// loads are in flight together.  Lanes run over channels: a float4 each when
-// C is a multiple of 4 and the pointers are 16-byte aligned, so a C=512 row is
-// one 2 KB coalesced read per warp.  Every cotangent row is read by exactly
-// one warp; the indices are read once per block from L2.  An index outside
-// [0, N) matches no row and contributes nothing, the transpose of the zero
-// row the forward writes for it.
+// Design: deterministic, with no atomics in any sum, so that a train step
+// gives the same bits every run, and balanced however the indices are skewed
+// (the ball query names low indices far more often: at K=32 one row of 256
+// is named 203 times, and ~100 never).  Three launches:
+//  1. CSR build (gather_rows_backward_csr_kernel, also cmflow_gather_rows_csr):
+//     a counting sort of each element's indices by row, stable in m, one
+//     block per element.  Out-of-range indices go to a discard bin past row
+//     N-1.  Each warp takes a contiguous range of m, counts its entries per
+//     row (shared-memory atomics: a count does not depend on order), then,
+//     32 at a time, finds the lanes naming each lane's row (32 shuffles);
+//     an entry's rank among them (popc of the lower lanes) plus the warp's
+//     running count of that row gives its place.  Per (warp, row) counts,
+//     scanned over the warps of each row and then over the rows, give every
+//     warp's first position in each row: offsets [B, N+1] and order [B, M],
+//     the m of each sorted position.  No position comes from the return
+//     value of an atomic.  The counts lie in shared memory up to 25,599
+//     rows (one warp; 32 warps up to 1,550 rows), and above that in a
+//     device scratch buffer that the caller sizes, with 8 warps, so N has
+//     no limit.
+//  2. Sum (gather_rows_backward_sum_kernel): the sorted in-range entries are
+//     cut into pieces of 32, one warp each, so every warp has the same work
+//     whatever the rows' lengths.  A warp loads its piece's m and rows, finds
+//     where rows change with one ballot, and sums each row's run in sorted
+//     order.  A row that lies whole in the piece is written to out; a row
+//     that begins in an earlier piece or goes on in a later one is written
+//     to a partial slot of the piece (slot 0: the row it began with, slot
+//     1: the row it ends with).  For narrow rows (up to 16 elements of T) the
+//     warp splits into groups of G lanes, lanes over a row's elements; piece
+//     entry i belongs to group i % (32 / G), all of a group's entries are
+//     loaded at once, each group sums its entries of a run in ascending i,
+//     and the groups combine by a fixed xor-shuffle tree, so all 32 lanes
+//     carry data.  Wider rows take all 32 lanes, up to 64 elements of T a
+//     warp (a C=512 piece is two warps), and stream through the piece eight
+//     rows at a time, adding in sorted order.
+//  3. Combine (gather_rows_backward_combine_kernel): every row that spans
+//     pieces adds its partials in piece order (its first piece's slot 1,
+//     then slot 0 of each later one); a row that no index names is zeroed.
+// Whichever row a warp meets, the order of every sum follows from the
+// indices alone, so two runs give the same bits.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -105,95 +130,385 @@ __device__ __forceinline__ void add_to(float4& acc, float4 v) {
   acc.w += v.w;
 }
 
-constexpr int kBwdWarps = 16;    // output rows per block, one warp each
-constexpr int kBwdTile = 4096;   // indices staged in shared memory at a time
-constexpr int kBwdBatch = 4;     // matching rows loaded before they are added
-constexpr int kBwdMaxVpl = 16;   // elements of T per lane: C <= 512 * 4 * 4
+__device__ __forceinline__ float shfl_xor(float v, int off) {
+  return __shfl_xor_sync(0xffffffffu, v, off);
+}
 
-// T is float or float4; c counts elements of T in a row; VPL elements of T
-// per lane cover it (VPL * 32 >= c).
-template <typename T, int VPL>
-__global__ void __launch_bounds__(kBwdWarps * 32)
-gather_rows_backward_kernel(const T* __restrict__ g,
-                            const int* __restrict__ idx,
-                            T* __restrict__ out, int n, int m, int c) {
-  __shared__ int sidx[kBwdTile];
-  const int b = blockIdx.y;
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kBwdWarps + (threadIdx.x >> 5);
+__device__ __forceinline__ float4 shfl_xor(float4 v, int off) {
+  return make_float4(shfl_xor(v.x, off), shfl_xor(v.y, off),
+                     shfl_xor(v.z, off), shfl_xor(v.w, off));
+}
+
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kCsrMaxWarps = 32;
+constexpr int kCsrGlobalWarps = 8;       // counts in device scratch
+constexpr int kCsrMaxSmem = 200 * 1024;  // of the SM's 227 KB a block may use
+constexpr int kCsrSteps = 8;             // 32-entry steps loaded together
+constexpr int kPiece = 32;               // sorted entries per warp of the sum
+constexpr int kSumWarps = 4;             // pieces per block of the sum
+constexpr int kSumBatch = 8;             // rows in flight, wide sum warp
+constexpr int kBwdMaxElems = 512;        // elements of T per row: C <= 512 * 4
+
+// the bin of an index: its row, or n (discarded) outside [0, n)
+__device__ __forceinline__ int bin_of(int j, int n) {
+  return (j >= 0 && j < n) ? j : n;
+}
+
+// One block per batch element; blockDim.x / 32 warps.  Its counts, (warps +
+// 1) * (n + 1) ints, lie in dynamic shared memory when scratch is null, else
+// in scratch, that many ints per element.
+__global__ void __launch_bounds__(kCsrMaxWarps * 32)
+gather_rows_backward_csr_kernel(const int* __restrict__ idx,
+                                int* __restrict__ offsets,
+                                int* __restrict__ order,
+                                int* __restrict__ scratch, int n, int m) {
+  extern __shared__ int csr_smem[];
+  __shared__ int wsum[32];
+  const int bins = n + 1;
+  const int warps = blockDim.x / 32;
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const unsigned below = (1u << lane) - 1u;
+  const int b = blockIdx.x;
+  int* wc = scratch ? scratch + (int64_t)b * (warps + 1) * bins
+                    : csr_smem;   // [warps][bins]
+  int* start = wc + warps * bins;  // [bins]
   const int* ib = idx + (int64_t)b * m;
-  const T* gb = g + (int64_t)b * m * c;
+  int* ob = offsets + (int64_t)b * bins;
+  int* rb = order + (int64_t)b * m;
+  const int span = (m + warps - 1) / warps;
+  const int lo = min(w * span, m), hi = min(lo + span, m);
+  int* mine = wc + w * bins;
 
-  T acc[VPL];
-#pragma unroll
-  for (int v = 0; v < VPL; ++v) acc[v] = zero<T>();
-
-  for (int m0 = 0; m0 < m; m0 += kBwdTile) {
-    const int len = min(kBwdTile, m - m0);
-    __syncthreads();  // the previous tile is no longer read
-    for (int i = threadIdx.x; i < len; i += blockDim.x) {
-      sidx[i] = __ldg(ib + m0 + i);
-    }
-    __syncthreads();
-    if (row >= n) continue;  // warp-uniform: the whole warp has this row
-    for (int s = 0; s < len; s += 32) {
-      const int j = s + lane;
-      unsigned hits = __ballot_sync(0xffffffffu, j < len && sidx[j] == row);
-      while (hits) {
-        int pos[kBwdBatch];
-#pragma unroll
-        for (int q = 0; q < kBwdBatch; ++q) {
-          pos[q] = hits ? __ffs(hits) - 1 : -1;  // ascending m
-          hits &= hits - 1;
-        }
-        T val[kBwdBatch][VPL];
-#pragma unroll
-        for (int q = 0; q < kBwdBatch; ++q) {
-          const T* src = gb + (int64_t)(m0 + s + max(pos[q], 0)) * c;
-#pragma unroll
-          for (int v = 0; v < VPL; ++v) {
-            const int col = lane + 32 * v;
-            val[q][v] = (pos[q] >= 0 && col < c) ? __ldg(src + col) : zero<T>();
-          }
-        }
-#pragma unroll
-        for (int q = 0; q < kBwdBatch; ++q) {
-          if (pos[q] < 0) break;
-#pragma unroll
-          for (int v = 0; v < VPL; ++v) add_to(acc[v], val[q][v]);
-        }
-      }
-    }
+  for (int i = tid; i < warps * bins; i += blockDim.x) wc[i] = 0;
+  __syncthreads();
+  // 1. each warp counts its range's entries per bin (a count does not
+  // depend on the order of the adds)
+  for (int j = lo + lane; j < hi; j += 32) {
+    atomicAdd(mine + bin_of(__ldg(ib + j), n), 1);
   }
-  if (row >= n) return;
-  T* dst = out + ((int64_t)b * n + row) * c;
+  __syncthreads();
+  // 2. per bin, each warp's count becomes the count of the warps before it;
+  // the bin's total goes to start
+  for (int r = tid; r < bins; r += blockDim.x) {
+    int run = 0;
+    for (int v = 0; v < warps; ++v) {
+      const int t = wc[v * bins + r];
+      wc[v * bins + r] = run;
+      run += t;
+    }
+    start[r] = run;
+  }
+  __syncthreads();
+  // 3. exclusive scan of the totals over the bins: each thread a run of
+  // bins, a shuffle scan over the threads of a warp, then over the warps
+  const int per = (bins + blockDim.x - 1) / blockDim.x;
+  const int r0 = min(tid * per, bins), r1 = min(r0 + per, bins);
+  int local = 0;
+  for (int r = r0; r < r1; ++r) local += start[r];
+  int inc = local;
 #pragma unroll
-  for (int v = 0; v < VPL; ++v) {
-    const int col = lane + 32 * v;
-    if (col < c) dst[col] = acc[v];
+  for (int off = 1; off < 32; off <<= 1) {
+    const int t = __shfl_up_sync(kFull, inc, off);
+    if (lane >= off) inc += t;
+  }
+  if (lane == 31) wsum[w] = inc;
+  __syncthreads();
+  if (w == 0) {
+    const int x = lane < warps ? wsum[lane] : 0;
+    int y = x;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int t = __shfl_up_sync(kFull, y, off);
+      if (lane >= off) y += t;
+    }
+    if (lane < warps) wsum[lane] = y - x;
+  }
+  __syncthreads();
+  int run = wsum[w] + inc - local;
+  for (int r = r0; r < r1; ++r) {
+    const int t = start[r];
+    start[r] = run;
+    ob[r] = run;
+    run += t;
+  }
+  __syncthreads();
+  // 4. every warp's first position in each bin
+  for (int r = tid; r < bins; r += blockDim.x) {
+    for (int v = 0; v < warps; ++v) wc[v * bins + r] += start[r];
+  }
+  __syncthreads();
+  // 5. each warp walks its range again, 32 entries a step, the bins of
+  // kCsrSteps steps loaded together: an entry goes to the warp's next
+  // position in its bin plus its rank among the lanes before it with the
+  // same bin.  The lanes with its bin come from 32 broadcasts:
+  // __match_any_sync took ~1 us a step when the 32 bins differ, as a ball
+  // query's do (NVIDIA H100 80GB HBM3, 700 W).  An idle lane takes a bin of
+  // its own.
+  for (int j0 = lo; j0 < hi; j0 += 32 * kCsrSteps) {
+    int bin[kCsrSteps];
+#pragma unroll
+    for (int u = 0; u < kCsrSteps; ++u) {
+      const int j = j0 + 32 * u + lane;
+      bin[u] = j < hi ? bin_of(__ldg(ib + j), n) : -1 - lane;
+    }
+#pragma unroll
+    for (int u = 0; u < kCsrSteps; ++u) {
+      if (j0 + 32 * u >= hi) break;  // warp-uniform
+      unsigned peers = 0u;
+#pragma unroll
+      for (int l = 0; l < 32; ++l) {
+        peers |= (__shfl_sync(kFull, bin[u], l) == bin[u] ? 1u : 0u) << l;
+      }
+      if (bin[u] >= 0) {
+        rb[mine[bin[u]] + __popc(peers & below)] = j0 + 32 * u + lane;
+      }
+      __syncwarp();
+      if (bin[u] >= 0 && (peers & below) == 0u) mine[bin[u]] += __popc(peers);
+      __syncwarp();
+    }
   }
 }
 
-template <typename T>
-cudaError_t launch_backward(const void* g, const void* idx, void* out, int b,
-                            int n, int m, int c, cudaStream_t stream) {
-  const dim3 grid((unsigned)((n + kBwdWarps - 1) / kBwdWarps), (unsigned)b);
-  const dim3 block(kBwdWarps * 32);
-  const T* gt = static_cast<const T*>(g);
-  const int* it = static_cast<const int*>(idx);
-  T* ot = static_cast<T*>(out);
-  const int vpl = (c + 31) / 32;
-  if (vpl <= 1) {
-    gather_rows_backward_kernel<T, 1><<<grid, block, 0, stream>>>(gt, it, ot, n, m, c);
-  } else if (vpl <= 2) {
-    gather_rows_backward_kernel<T, 2><<<grid, block, 0, stream>>>(gt, it, ot, n, m, c);
-  } else if (vpl <= 4) {
-    gather_rows_backward_kernel<T, 4><<<grid, block, 0, stream>>>(gt, it, ot, n, m, c);
-  } else if (vpl <= 8) {
-    gather_rows_backward_kernel<T, 8><<<grid, block, 0, stream>>>(gt, it, ot, n, m, c);
-  } else {
-    gather_rows_backward_kernel<T, kBwdMaxVpl><<<grid, block, 0, stream>>>(gt, it, ot, n, m, c);
+// T is float or float4; c counts elements of T in a row.  G lanes take a
+// row (G < 32: one element each, 32 / G groups; G = 32: VPL elements each,
+// and `slices` warps share a piece, each taking 32 * VPL elements of the
+// rows).
+template <typename T, int G, int VPL>
+__global__ void __launch_bounds__(kSumWarps * 32)
+gather_rows_backward_sum_kernel(const T* __restrict__ g,
+                                const int* __restrict__ idx,
+                                const int* __restrict__ offsets,
+                                const int* __restrict__ order,
+                                T* __restrict__ out, T* __restrict__ part,
+                                int n, int m, int c, int pieces, int slices) {
+  const int b = blockIdx.y;
+  const int w = blockIdx.x * kSumWarps + threadIdx.x / 32;  // warp-uniform
+  const int p = w / slices;
+  const int lane = threadIdx.x & 31;
+  const int* ob = offsets + (int64_t)b * (n + 1);
+  const int total = __ldg(ob + n);  // in-range entries
+  const int s = p * kPiece;
+  if (p >= pieces || s >= total) return;
+  const int cnt = min(kPiece, total - s);
+  const int e = s + cnt;
+  const T* gb = g + (int64_t)b * m * c;
+
+  // lane i: the m and the row of piece entry i
+  int mi = 0, ri = -1;
+  if (lane < cnt) {
+    mi = __ldg(order + (int64_t)b * m + s + lane);
+    ri = __ldg(idx + (int64_t)b * m + mi);
   }
+  const int prev = __shfl_up_sync(kFull, ri, 1);
+  // the first entry of each run of one row
+  const unsigned starts =
+      __ballot_sync(kFull, lane < cnt && (lane == 0 || ri != prev));
+  const int r_first = __shfl_sync(kFull, ri, 0);
+  const int r_last = __shfl_sync(kFull, ri, cnt - 1);
+  const bool head_open = __ldg(ob + r_first) < s;    // began before the piece
+  const bool tail_open = __ldg(ob + r_last + 1) > e;  // goes on after it
+  T* const slot0 = part + ((int64_t)b * pieces + p) * 2 * c;
+
+  // where the run [lo, hi) of row r goes
+  auto dest = [&](int lo, int hi, int r) -> T* {
+    const bool first = lo == 0 && head_open;
+    if (!first && !(hi == cnt && tail_open)) {
+      return out + ((int64_t)b * n + r) * c;
+    }
+    return first ? slot0 : slot0 + c;
+  };
+
+  if constexpr (G < 32) {
+    constexpr int NG = 32 / G;      // groups
+    constexpr int PER = kPiece / NG;  // entries per group
+    const int q = lane / G, u = lane % G;
+    T val[PER];
+#pragma unroll
+    for (int t = 0; t < PER; ++t) {
+      const int i = q + NG * t;
+      const int src = __shfl_sync(kFull, mi, i);
+      val[t] = (i < cnt && u < c) ? __ldg(gb + (int64_t)src * c + u)
+                                  : zero<T>();
+    }
+    unsigned rest = starts;
+    while (rest) {
+      const int lo = __ffs(rest) - 1;
+      rest &= rest - 1;
+      const int hi = rest ? __ffs(rest) - 1 : cnt;
+      T acc = zero<T>();
+#pragma unroll
+      for (int t = 0; t < PER; ++t) {
+        const int i = q + NG * t;
+        if (i >= lo && i < hi) add_to(acc, val[t]);
+      }
+#pragma unroll
+      for (int off = G; off < 32; off <<= 1) add_to(acc, shfl_xor(acc, off));
+      T* dst = dest(lo, hi, __shfl_sync(kFull, ri, lo));
+      if (q == 0 && u < c) dst[u] = acc;
+    }
+  } else {
+    constexpr int BATCH = kSumBatch;
+    const int c0 = (w % slices) * 32 * VPL;  // this warp's first element
+    T acc[VPL];
+#pragma unroll
+    for (int v = 0; v < VPL; ++v) acc[v] = zero<T>();
+    int lo = 0;  // first entry of the run being summed
+    for (int i0 = 0; i0 < cnt; i0 += BATCH) {
+      T val[BATCH][VPL];
+#pragma unroll
+      for (int t = 0; t < BATCH; ++t) {
+        const int i = i0 + t;
+        const T* src = gb + (int64_t)__shfl_sync(kFull, mi, min(i, 31)) * c;
+#pragma unroll
+        for (int v = 0; v < VPL; ++v) {
+          const int col = c0 + lane + 32 * v;
+          val[t][v] = (i < cnt && col < c) ? __ldg(src + col) : zero<T>();
+        }
+      }
+#pragma unroll
+      for (int t = 0; t < BATCH; ++t) {
+        const int i = i0 + t;
+        if (i >= cnt) break;
+        if (i > lo && ((starts >> i) & 1u)) {  // a new run: store the last
+          T* dst = dest(lo, i, __shfl_sync(kFull, ri, lo));
+#pragma unroll
+          for (int v = 0; v < VPL; ++v) {
+            const int col = c0 + lane + 32 * v;
+            if (col < c) dst[col] = acc[v];
+            acc[v] = zero<T>();
+          }
+          lo = i;
+        }
+#pragma unroll
+        for (int v = 0; v < VPL; ++v) add_to(acc[v], val[t][v]);
+      }
+    }
+    T* dst = dest(lo, cnt, __shfl_sync(kFull, ri, lo));
+#pragma unroll
+    for (int v = 0; v < VPL; ++v) {
+      const int col = c0 + lane + 32 * v;
+      if (col < c) dst[col] = acc[v];
+    }
+  }
+}
+
+// One thread per element of T of out: a row no index names is zeroed, a row
+// that spans pieces sums its partials in piece order; every other row was
+// written by the sum kernel.
+template <typename T>
+__global__ void gather_rows_backward_combine_kernel(
+    const int* __restrict__ offsets, const T* __restrict__ part,
+    T* __restrict__ out, int n, int c, int pieces, int64_t total) {
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; e < total;
+       e += stride) {
+    const int64_t row = e / c;  // b * n + r
+    const int col = (int)(e - row * c);
+    const int64_t b = row / n;
+    const int* ob = offsets + b * (n + 1) + (row - b * n);
+    const int a = __ldg(ob), z = __ldg(ob + 1);
+    if (a == z) {
+      out[e] = zero<T>();
+      continue;
+    }
+    const int p0 = a / kPiece, p1 = (z - 1) / kPiece;
+    if (p0 == p1) continue;
+    const T* pb = part + b * pieces * 2 * c + col;
+    T acc = __ldg(pb + ((int64_t)p0 * 2 + 1) * c);
+    for (int p = p0 + 1; p <= p1; ++p) add_to(acc, __ldg(pb + (int64_t)p * 2 * c));
+    out[e] = acc;
+  }
+}
+
+// The CSR build's block size for n rows and m entries, at most one warp per
+// 32 entries: as many warps as fit in shared memory, or, if not even one
+// does, kCsrGlobalWarps with the counts in device scratch (*in_scratch).
+int csr_warps(int n, int m, bool* in_scratch) {
+  const int fit = kCsrMaxSmem / (int)sizeof(int) / (n + 1) - 1;
+  const int want = m > 32 ? (m + 31) / 32 : 1;
+  *in_scratch = fit < 1;
+  return min(*in_scratch ? kCsrGlobalWarps : min(fit, kCsrMaxWarps), want);
+}
+
+// scratch: null, or csr_scratch_ints(n, m) ints per element when that is
+// not 0
+int64_t csr_scratch_ints(int n, int m) {
+  bool in_scratch;
+  const int warps = csr_warps(n, m, &in_scratch);
+  return in_scratch ? (int64_t)(warps + 1) * (n + 1) : 0;
+}
+
+cudaError_t launch_csr(const int* idx, int* offsets, int* order, int* scratch,
+                       int b, int n, int m, cudaStream_t stream) {
+  bool in_scratch;
+  const int warps = csr_warps(n, m, &in_scratch);
+  if (in_scratch) {
+    if (scratch == nullptr) return cudaErrorInvalidValue;
+    gather_rows_backward_csr_kernel<<<b, warps * 32, 0, stream>>>(
+        idx, offsets, order, scratch, n, m);
+    return cudaGetLastError();
+  }
+  const int smem = (warps + 1) * (n + 1) * (int)sizeof(int);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        gather_rows_backward_csr_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  gather_rows_backward_csr_kernel<<<b, warps * 32, smem, stream>>>(
+      idx, offsets, order, nullptr, n, m);
+  return cudaGetLastError();
+}
+
+template <typename T, int G, int VPL>
+void launch_sum(const void* g, const int* idx, const int* offsets,
+                const int* order, void* out, void* part, int b, int n, int m,
+                int c, int pieces, int slices, cudaStream_t stream) {
+  const int warps = pieces * slices;
+  const dim3 grid((unsigned)((warps + kSumWarps - 1) / kSumWarps), (unsigned)b);
+  gather_rows_backward_sum_kernel<T, G, VPL><<<grid, kSumWarps * 32, 0, stream>>>(
+      static_cast<const T*>(g), idx, offsets, order, static_cast<T*>(out),
+      static_cast<T*>(part), n, m, c, pieces, slices);
+}
+
+template <typename T>
+cudaError_t launch_backward(const void* g, const int* idx, int* offsets,
+                            int* order, int* scratch, void* part, void* out,
+                            int b, int n, int m, int c, cudaStream_t stream) {
+  cudaError_t err = launch_csr(idx, offsets, order, scratch, b, n, m, stream);
+  if (err != cudaSuccess) return err;
+  const int pieces = (m + kPiece - 1) / kPiece;
+  if (pieces > 0) {
+    // narrow rows: lane groups of the least power of two >= c; wide rows:
+    // warps of 64 elements each (one each up to 32), so that a C=512 piece
+    // is two warps with 8 rows of 1 KB in flight each
+    int slices = 1;
+    auto sum = &launch_sum<T, 32, 2>;
+    if (c <= 1) {
+      sum = &launch_sum<T, 1, 1>;
+    } else if (c <= 2) {
+      sum = &launch_sum<T, 2, 1>;
+    } else if (c <= 4) {
+      sum = &launch_sum<T, 4, 1>;
+    } else if (c <= 8) {
+      sum = &launch_sum<T, 8, 1>;
+    } else if (c <= 16) {
+      sum = &launch_sum<T, 16, 1>;
+    } else if (c <= 32) {
+      sum = &launch_sum<T, 32, 1>;
+    } else {
+      slices = (c + 63) / 64;
+    }
+    sum(g, idx, offsets, order, out, part, b, n, m, c, pieces, slices, stream);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  const int64_t total = (int64_t)b * n * c;
+  int64_t blocks = (total + kThreads - 1) / kThreads;
+  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+  gather_rows_backward_combine_kernel<T><<<(unsigned)blocks, kThreads, 0, stream>>>(
+      offsets, static_cast<const T*>(part), static_cast<T*>(out), n, c,
+      pieces, total);
   return cudaGetLastError();
 }
 
@@ -221,22 +536,56 @@ int cmflow_gather_rows(const void* points, const void* idx, void* out, int b,
   return (int)err;
 }
 
+// The int32 scratch the CSR build of n rows and m entries needs per batch
+// element, for the scratch argument below: 0 when its counts fit in shared
+// memory (scratch may then be null); -1 past 2^31 - 1.
+int cmflow_gather_rows_csr_scratch(int n, int m) {
+  const int64_t ints = n < 1 || m < 0 ? 0 : csr_scratch_ints(n, m);
+  return ints > 0x7fffffff ? -1 : (int)ints;
+}
+
+// The CSR form of each element's indices: offsets [B,N+1] int32 (row r's
+// entries are sorted positions [offsets[r], offsets[r+1]); offsets[N] counts
+// the in-range entries) and order [B,M] int32 (the m of each sorted position,
+// out-of-range indices last), stable in m.  scratch: [B, S] int32, S from
+// cmflow_gather_rows_csr_scratch.  Returns a cudaError_t.
+int cmflow_gather_rows_csr(const void* idx, void* offsets, void* order,
+                           void* scratch, int b, int n, int m, void* stream) {
+  if (n < 1 || m < 0) return (int)cudaErrorInvalidValue;
+  if (b == 0) return (int)cudaSuccess;
+  return (int)launch_csr(static_cast<const int*>(idx),
+                         static_cast<int*>(offsets), static_cast<int*>(order),
+                         static_cast<int*>(scratch), b, n, m,
+                         static_cast<cudaStream_t>(stream));
+}
+
 // g [B,M,C] f32, idx [B,M] int32, out [B,N,C] f32, every row of out written.
-// vec4 != 0 asks for the float4 path: C % 4 == 0 and g and out 16-byte
-// aligned.  C may be at most 512 (scalar path) or 2048 (float4 path).
-// Returns a cudaError_t.
-int cmflow_gather_rows_backward(const void* g, const void* idx, void* out,
-                                int b, int n, int m, int c, int vec4,
-                                void* stream) {
+// Scratch: offsets [B,N+1] and order [B,M] int32, the CSR build's scratch
+// as above, part [B, ceil(M/32), 2, C] f32.  vec4 != 0 asks for the float4
+// path: C % 4 == 0 and g, part and out 16-byte aligned.  C may be at most
+// 512 (scalar path) or 2048 (float4 path).  Three launches; returns a
+// cudaError_t.
+int cmflow_gather_rows_backward(const void* g, const void* idx, void* offsets,
+                                void* order, void* scratch, void* part,
+                                void* out, int b, int n, int m, int c,
+                                int vec4, void* stream) {
   if (n < 1 || c < 1 || m < 0 || (vec4 && c % 4 != 0)) {
     return (int)cudaErrorInvalidValue;
   }
   const int elems = vec4 ? c / 4 : c;
-  if ((elems + 31) / 32 > kBwdMaxVpl) return (int)cudaErrorInvalidValue;
+  if (elems > kBwdMaxElems) return (int)cudaErrorInvalidValue;
   if (b == 0) return (int)cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (vec4) return (int)launch_backward<float4>(g, idx, out, b, n, m, elems, st);
-  return (int)launch_backward<float>(g, idx, out, b, n, m, elems, st);
+  const int* it = static_cast<const int*>(idx);
+  int* of = static_cast<int*>(offsets);
+  int* od = static_cast<int*>(order);
+  int* sc = static_cast<int*>(scratch);
+  if (vec4) {
+    return (int)launch_backward<float4>(g, it, of, od, sc, part, out, b, n, m,
+                                        elems, st);
+  }
+  return (int)launch_backward<float>(g, it, of, od, sc, part, out, b, n, m,
+                                     elems, st);
 }
 
 const char* cmflow_error_string(int code) {

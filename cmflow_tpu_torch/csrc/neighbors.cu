@@ -10,23 +10,30 @@
 // (B=16, N=S<=512) the roofline bound is well under a microsecond; what
 // costs is latency: staging the cloud, and the scan over N.
 //
-// Design: one block per (batch element, tile of queries).  The block stages
-// the whole cloud in shared memory as (x, y, z, |p|^2) float4s plus a valid
-// byte (N <= 2048 -> 34 KB), every thread loading points, then scans it.
-//  * Ball query: one warp per query, lanes over 32 consecutive points, 8
-//    queries (warps) per block sharing the staged cloud: at N = 256 a
-//    query takes 8 steps, and B=16, S=256 is 4,096 warps.  Per step and
-//    radius a ballot of the hits gives each hitting lane its slot, the
-//    count so far plus the hits of the lanes below it, so slot k is still
-//    the (k+1)-th hit in index order with no sort, and the hits of a step
-//    are stored to consecutive slots.  All radii fill in the same scan,
-//    which stops (warp-uniformly) once every radius is full; the lanes then
-//    fill the empty slots with the first hit, or 0.
-//  * kNN: one thread per query, 32 per block, scanning the points in index
-//    order (each read is a broadcast).  Each keeps its K best (d^2, j) pairs
-//    sorted in registers (K is a template parameter, so the insertion loop
-//    unrolls) and inserts only on a strictly smaller key, so ties keep the
-//    lower index (lax.top_k semantics).
+// Design: one block per (batch element, 8 queries), one warp per query.  The
+// block stages the cloud in shared memory as (x, y, z, |p|^2) float4s plus a
+// valid byte, every thread loading points, in tiles of at most 2048 points
+// (34 KB), so N is not limited; then each warp scans the tile.  Both kernels
+// scan in index order, so what a warp holds carries from tile to tile.  The
+// ball query stages and scans a cloud of one tile (the model's) without the
+// loop.
+//  * Ball query: lanes over 32 consecutive points: at N = 256 a query takes
+//    8 steps, and B=16, S=256 is 4,096 warps.  Per step and radius a ballot
+//    of the hits gives each hitting lane its slot, the count so far plus the
+//    hits of the lanes below it, so slot k is still the (k+1)-th hit in index
+//    order with no sort, and the hits of a step are stored to consecutive
+//    slots.  All radii fill in the same scan, which stops (warp-uniformly)
+//    once every radius is full; the block stops staging tiles once every
+//    warp has stopped.  The lanes then fill the empty slots with the first
+//    hit, or 0.
+//  * kNN: lane l scans the points j = l (mod 32) in ascending j and keeps
+//    its own K best (d^2, j) pairs sorted in registers (K is a template
+//    parameter, so the insertion unrolls), inserting only on a strictly
+//    smaller d^2: since j only grows within a lane, its list is ordered by
+//    (d^2, j).  Then k rounds of a warp-wide (d^2, j) argmin over the lanes'
+//    heads (five xor shuffles) pop the k best in order: ascending d^2, ties
+//    to the lower index (lax.top_k semantics).  Lane t keeps slots t and
+//    t + 32 and the warp stores them together.
 //
 // Squared distances must be bit-identical to the plain PyTorch version and to
 // the JAX package: cross = (x*x' + y*y') + z*z', d = max((-2*cross + q2) + p2,
@@ -39,10 +46,9 @@
 namespace {
 
 constexpr float kBig = 1e10f;   // distance of an invalid point (pointops._BIG)
-constexpr int kThreads = 32;    // kNN: queries per block
-constexpr int kBallWarps = 8;   // ball query: queries per block
+constexpr int kWarps = 8;       // queries per block, one warp each
 constexpr int kMaxScales = 4;   // radii per ball-query launch
-constexpr int kMaxPoints = 2048;
+constexpr int kTile = 2048;     // points staged in shared memory at a time
 
 struct Scales {
   int count;
@@ -63,39 +69,73 @@ __device__ __forceinline__ float sqdist(float qx, float qy, float qz,
   return fmaxf(__fadd_rn(__fadd_rn(__fmul_rn(-2.0f, cross), q2), p.w), 0.0f);
 }
 
-// Stage cloud b as (x, y, z, |p|^2) plus its valid flags; every thread of the
-// block must call it.
-__device__ void stage_cloud(const float* __restrict__ points,
-                            const uint8_t* __restrict__ valid, int b, int n,
-                            float4* sp, uint8_t* sv) {
-  for (int j = threadIdx.x; j < n; j += blockDim.x) {
-    const float* p = points + ((int64_t)b * n + j) * 3;
+// Stage points [t0, t0 + len) of cloud b as (x, y, z, |p|^2) plus their
+// valid flags; every thread of the block must call it.
+__device__ void stage_tile(const float* __restrict__ points,
+                           const uint8_t* __restrict__ valid, int b, int n,
+                           int t0, int len, float4* sp, uint8_t* sv) {
+  for (int i = threadIdx.x; i < len; i += blockDim.x) {
+    const int64_t j = (int64_t)b * n + t0 + i;
+    const float* p = points + j * 3;
     const float x = p[0], y = p[1], z = p[2];
-    sp[j] = make_float4(x, y, z, norm2(x, y, z));
-    sv[j] = valid ? valid[(int64_t)b * n + j] : 1;
+    sp[i] = make_float4(x, y, z, norm2(x, y, z));
+    sv[i] = valid ? valid[j] : 1;
   }
-  __syncthreads();
 }
 
-__global__ void __launch_bounds__(kBallWarps * 32)
+// One warp scans staged points [0, len), which are points t0 + i of the
+// cloud, for its query; cnt and first carry from tile to tile.  Returns
+// whether a radius still has room (the same on every lane).
+__device__ __forceinline__ bool ball_scan_tile(
+    const float4* sp, const uint8_t* sv, int t0, int len, float qx, float qy,
+    float qz, float q2, int64_t row, const Scales& sc, int (&cnt)[kMaxScales],
+    int (&first)[kMaxScales]) {
+  const int lane = threadIdx.x % 32;
+  const unsigned below = (1u << lane) - 1u;  // the lanes before this one
+  for (int j0 = 0; j0 < len; j0 += 32) {
+    const int i = j0 + lane;
+    const bool live = i < len && sv[i];
+    const float d = live ? sqdist(qx, qy, qz, q2, sp[i]) : kBig;
+    bool room = false;
+#pragma unroll
+    for (int t = 0; t < kMaxScales; ++t) {
+      if (t < sc.count && cnt[t] < sc.k[t]) {
+        const unsigned hits = __ballot_sync(0xffffffffu, live && d < sc.r2[t]);
+        if (hits != 0u) {
+          if (cnt[t] == 0) first[t] = t0 + j0 + __ffs(hits) - 1;
+          const int slot = cnt[t] + __popc(hits & below);
+          if (((hits >> lane) & 1u) && slot < sc.k[t]) {
+            sc.out[t][row * sc.k[t] + slot] = t0 + i;
+          }
+          cnt[t] = min(cnt[t] + __popc(hits), sc.k[t]);
+        }
+        room |= cnt[t] < sc.k[t];
+      }
+    }
+    if (!room) return false;
+  }
+  return true;
+}
+
+__global__ void __launch_bounds__(kWarps * 32)
     ball_query_kernel(const float* __restrict__ points,
                       const float* __restrict__ query,
                       const uint8_t* __restrict__ valid, int n, int s,
                       Scales sc) {
   extern __shared__ float4 smem[];
   float4* sp = smem;
-  uint8_t* sv = reinterpret_cast<uint8_t*>(smem + n);
+  uint8_t* sv = reinterpret_cast<uint8_t*>(smem + min(n, kTile));
   const int b = blockIdx.y;
-  stage_cloud(points, valid, b, n, sp, sv);
-
-  // q is the same on every lane of the warp, so the exit is uniform
-  const int q = blockIdx.x * kBallWarps + threadIdx.x / 32;
-  if (q >= s) return;
+  // q is the same on every lane of the warp, so every branch on it is uniform
+  const int q = blockIdx.x * kWarps + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const unsigned below = (1u << lane) - 1u;  // the lanes before this one
   const int64_t row = (int64_t)b * s + q;
-  const float qx = query[row * 3], qy = query[row * 3 + 1],
-              qz = query[row * 3 + 2];
+  float qx = 0.0f, qy = 0.0f, qz = 0.0f;
+  if (q < s) {
+    qx = query[row * 3];
+    qy = query[row * 3 + 1];
+    qz = query[row * 3 + 2];
+  }
   const float q2 = norm2(qx, qy, qz);
 
   // per radius, the same on every lane: hits so far (at most K), first hit
@@ -107,28 +147,28 @@ __global__ void __launch_bounds__(kBallWarps * 32)
     first[t] = 0;
   }
 
-  for (int j0 = 0; j0 < n; j0 += 32) {
-    const int j = j0 + lane;
-    const bool live = j < n && sv[j];
-    const float d = live ? sqdist(qx, qy, qz, q2, sp[j]) : kBig;
-    bool open = false;
-#pragma unroll
-    for (int t = 0; t < kMaxScales; ++t) {
-      if (t < sc.count && cnt[t] < sc.k[t]) {
-        const unsigned hits = __ballot_sync(0xffffffffu, live && d < sc.r2[t]);
-        if (hits != 0u) {
-          if (cnt[t] == 0) first[t] = j0 + __ffs(hits) - 1;
-          const int slot = cnt[t] + __popc(hits & below);
-          if (((hits >> lane) & 1u) && slot < sc.k[t]) {
-            sc.out[t][row * sc.k[t] + slot] = j;
-          }
-          cnt[t] = min(cnt[t] + __popc(hits), sc.k[t]);
-        }
-        open |= cnt[t] < sc.k[t];
+  // open: this warp's query still has a radius with room.  A cloud of one
+  // tile takes a path of its own: the tile loop cost ~20% at N=256 (NVIDIA
+  // H100 80GB HBM3, 700 W).  Above one tile, the barrier before a later
+  // tile also stops the block once no warp is open.
+  bool open = q < s;
+  if (n <= kTile) {
+    stage_tile(points, valid, b, n, 0, n, sp, sv);
+    __syncthreads();
+    if (open) ball_scan_tile(sp, sv, 0, n, qx, qy, qz, q2, row, sc, cnt, first);
+  } else {
+    for (int t0 = 0; t0 < n; t0 += kTile) {
+      if (t0 > 0 && !__syncthreads_or(open)) break;  // t0 is block-uniform
+      const int len = min(kTile, n - t0);
+      stage_tile(points, valid, b, n, t0, len, sp, sv);
+      __syncthreads();
+      if (open) {
+        open = ball_scan_tile(sp, sv, t0, len, qx, qy, qz, q2, row, sc, cnt,
+                              first);
       }
     }
-    if (!open) break;
   }
+  if (q >= s) return;
   // empty slots repeat the first hit; an empty ball gives all zeros
 #pragma unroll
   for (int t = 0; t < kMaxScales; ++t) {
@@ -144,39 +184,22 @@ __device__ __forceinline__ bool key_less(float da, int ja, float db, int jb) {
   return da < db || (da == db && ja < jb);
 }
 
+// This lane's points of staged tile [0, len), which are points t0 + i of
+// the cloud (t0 a multiple of 32, so they are j = lane mod 32), into its
+// list of the KMAX best keys, ascending (d^2, index).
 template <int KMAX>
-__global__ void knn_kernel(const float* __restrict__ points,
-                           const float* __restrict__ query,
-                           const uint8_t* __restrict__ valid, int n, int s,
-                           int k, int* __restrict__ out) {
-  extern __shared__ float4 smem[];
-  float4* sp = smem;
-  uint8_t* sv = reinterpret_cast<uint8_t*>(smem + n);
-  const int b = blockIdx.y;
-  stage_cloud(points, valid, b, n, sp, sv);
-
-  const int q = blockIdx.x * blockDim.x + threadIdx.x;
-  if (q >= s) return;
-  const int64_t row = (int64_t)b * s + q;
-  const float qx = query[row * 3], qy = query[row * 3 + 1],
-              qz = query[row * 3 + 2];
-  const float q2 = norm2(qx, qy, qz);
-
-  // the KMAX best keys in ascending (d^2, index) order; the first k of them
-  // are the k best, since k <= KMAX
-  float bd[KMAX];
-  int bj[KMAX];
-#pragma unroll
-  for (int t = 0; t < KMAX; ++t) {
-    bd[t] = __int_as_float(0x7f800000);  // +inf
-    bj[t] = 0x7fffffff;
-  }
-  for (int j = 0; j < n; ++j) {
-    const float d = sv[j] ? sqdist(qx, qy, qz, q2, sp[j]) : kBig;
+__device__ __forceinline__ void knn_scan_tile(const float4* sp,
+                                              const uint8_t* sv, int t0,
+                                              int len, float qx, float qy,
+                                              float qz, float q2,
+                                              float (&bd)[KMAX],
+                                              int (&bj)[KMAX]) {
+  for (int i = threadIdx.x % 32; i < len; i += 32) {
+    const float d = sv[i] ? sqdist(qx, qy, qz, q2, sp[i]) : kBig;
     // j exceeds every index held, so only a strictly smaller d enters
     if (d < bd[KMAX - 1]) {
       float cd = d;
-      int cj = j;
+      int cj = t0 + i;
 #pragma unroll
       for (int t = 0; t < KMAX; ++t) {
         if (key_less(cd, cj, bd[t], bj[t])) {
@@ -190,22 +213,94 @@ __global__ void knn_kernel(const float* __restrict__ points,
       }
     }
   }
-#pragma unroll
-  for (int t = 0; t < KMAX; ++t) {
-    if (t < k) out[row * k + t] = bj[t];
-  }
 }
 
-size_t cloud_smem_bytes(int n) {
-  return (size_t)n * sizeof(float4) + (size_t)n * sizeof(uint8_t);
+template <int KMAX>
+__global__ void __launch_bounds__(kWarps * 32)
+    knn_kernel(const float* __restrict__ points,
+               const float* __restrict__ query,
+               const uint8_t* __restrict__ valid, int n, int s, int k,
+               int* __restrict__ out) {
+  extern __shared__ float4 smem[];
+  float4* sp = smem;
+  uint8_t* sv = reinterpret_cast<uint8_t*>(smem + min(n, kTile));
+  const int b = blockIdx.y;
+  const int q = blockIdx.x * kWarps + threadIdx.x / 32;  // warp-uniform
+  const int lane = threadIdx.x % 32;
+  const int64_t row = (int64_t)b * s + q;
+  float qx = 0.0f, qy = 0.0f, qz = 0.0f;
+  if (q < s) {
+    qx = query[row * 3];
+    qy = query[row * 3 + 1];
+    qz = query[row * 3 + 2];
+  }
+  const float q2 = norm2(qx, qy, qz);
+
+  // this lane's KMAX best keys among its points, ascending (d^2, index)
+  float bd[KMAX];
+  int bj[KMAX];
+#pragma unroll
+  for (int t = 0; t < KMAX; ++t) {
+    bd[t] = __int_as_float(0x7f800000);  // +inf
+    bj[t] = 0x7fffffff;
+  }
+  for (int t0 = 0; t0 < n; t0 += kTile) {
+    const int len = min(kTile, n - t0);
+    if (t0 > 0) __syncthreads();  // the previous tile is no longer read
+    stage_tile(points, valid, b, n, t0, len, sp, sv);
+    __syncthreads();
+    if (q < s) knn_scan_tile<KMAX>(sp, sv, t0, len, qx, qy, qz, q2, bd, bj);
+  }
+  if (q >= s) return;
+
+  // k rounds: the least head over the lanes is the next neighbour; the lane
+  // that held it (j = lane mod 32) pops it.  k <= N, so a real key wins
+  // every round.
+  int slot_lo = 0, slot_hi = 0;  // slots lane and lane + 32
+  for (int t = 0; t < k; ++t) {
+    float d = bd[0];
+    int j = bj[0];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const float od = __shfl_xor_sync(0xffffffffu, d, off);
+      const int oj = __shfl_xor_sync(0xffffffffu, j, off);
+      if (key_less(od, oj, d, j)) {
+        d = od;
+        j = oj;
+      }
+    }
+    if (lane == (t & 31)) {
+      if (t < 32) {
+        slot_lo = j;
+      } else {
+        slot_hi = j;
+      }
+    }
+    if (lane == (j & 31)) {
+#pragma unroll
+      for (int u = 0; u + 1 < KMAX; ++u) {
+        bd[u] = bd[u + 1];
+        bj[u] = bj[u + 1];
+      }
+      bd[KMAX - 1] = __int_as_float(0x7f800000);
+      bj[KMAX - 1] = 0x7fffffff;
+    }
+  }
+  if (lane < k) out[row * k + lane] = slot_lo;
+  if (lane + 32 < k) out[row * k + lane + 32] = slot_hi;
+}
+
+size_t tile_smem_bytes(int n) {
+  const size_t tile = (size_t)(n < kTile ? n : kTile);
+  return tile * sizeof(float4) + tile * sizeof(uint8_t);
 }
 
 template <int KMAX>
 cudaError_t launch_knn(const float* points, const float* query,
                        const uint8_t* valid, int b, int n, int s, int k,
                        int* out, cudaStream_t stream) {
-  const dim3 grid((s + kThreads - 1) / kThreads, b);
-  knn_kernel<KMAX><<<grid, kThreads, cloud_smem_bytes(n), stream>>>(
+  const dim3 grid((s + kWarps - 1) / kWarps, b);
+  knn_kernel<KMAX><<<grid, kWarps * 32, tile_smem_bytes(n), stream>>>(
       points, query, valid, n, s, k, out);
   return cudaGetLastError();
 }
@@ -221,7 +316,7 @@ extern "C" {
 int cmflow_ball_query(const void* points, const void* query, const void* valid,
                       int b, int n, int s, int count, const float* radii2,
                       const int* ks, void* const* outs, void* stream) {
-  if (count < 1 || count > kMaxScales || n < 1 || n > kMaxPoints) {
+  if (count < 1 || count > kMaxScales || n < 1) {
     return (int)cudaErrorInvalidValue;
   }
   if (b == 0 || s == 0) return (int)cudaSuccess;
@@ -232,8 +327,8 @@ int cmflow_ball_query(const void* points, const void* query, const void* valid,
     sc.k[t] = t < count ? ks[t] : 0;
     sc.out[t] = t < count ? static_cast<int*>(outs[t]) : nullptr;
   }
-  const dim3 grid((s + kBallWarps - 1) / kBallWarps, b);
-  ball_query_kernel<<<grid, kBallWarps * 32, cloud_smem_bytes(n),
+  const dim3 grid((s + kWarps - 1) / kWarps, b);
+  ball_query_kernel<<<grid, kWarps * 32, tile_smem_bytes(n),
                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(points), static_cast<const float*>(query),
       static_cast<const uint8_t*>(valid), n, s, sc);
@@ -244,7 +339,7 @@ int cmflow_ball_query(const void* points, const void* query, const void* valid,
 // index.  Returns a cudaError_t.
 int cmflow_knn(const void* points, const void* query, const void* valid,
                int b, int n, int s, int k, void* out, void* stream) {
-  if (k < 1 || k > 64 || k > n || n > kMaxPoints) {
+  if (k < 1 || k > 64 || k > n) {
     return (int)cudaErrorInvalidValue;
   }
   if (b == 0 || s == 0) return (int)cudaSuccess;

@@ -6,7 +6,9 @@ Counterpart of ``cmflow_tpu/ops/fused.py``:
 * :func:`gather_rows`: ``mxu_gather_rows`` / ``mxu_group_points`` forward
   (K6, ``csrc/gather.cu``);
 * :func:`gather_rows_backward`: ``_gather_bwd_kernel``, the backward of
-  ``mxu_group_points`` (K7, ``csrc/gather.cu``);
+  ``mxu_group_points`` (K7, ``csrc/gather.cu``: a CSR build,
+  :func:`gather_rows_csr`, then a sum over fixed pieces of the sorted
+  indices);
 * :func:`fused_multi_scale_encoder`: ``_mse_kernel`` (K3, ``csrc/mse.cu``);
 * :func:`fused_point_local_feature`: ``_plf_kernel`` (K5, ``csrc/plf.cu``);
 * :func:`fused_cost_volume`: ``_cv_kernel`` then ``_cv_agg_kernel``, here
@@ -53,8 +55,10 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIGNATURES = {
     "gather": {"cmflow_gather_rows": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
-               "cmflow_gather_rows_backward": (_P, _P, _P, _I, _I, _I, _I,
-                                               _I, _P)},
+               "cmflow_gather_rows_csr_scratch": (_I, _I),
+               "cmflow_gather_rows_csr": (_P, _P, _P, _P, _I, _I, _I, _P),
+               "cmflow_gather_rows_backward": (_P, _P, _P, _P, _P, _P, _P,
+                                               _I, _I, _I, _I, _I, _P)},
     "mse": {"cmflow_mse": (_P, _P, _L, _L, _L, _I, _P,
                            ctypes.POINTER(ctypes.c_void_p),
                            ctypes.POINTER(ctypes.c_int), _I, _P, _P, _I, _I,
@@ -191,9 +195,11 @@ gather_rows.launches = 0
 # K7: the row gather's backward
 # ---------------------------------------------------------------------------
 
-# widest row the K7 kernel takes on its float4 path (16 float4 registers a
-# lane); a quarter of it on the scalar path
+# widest row the K7 kernels take on their float4 path (512 float4s); a
+# quarter of it on the scalar path
 GATHER_BWD_MAX_C = 2048
+# sorted entries per warp of K7's sum kernel (``csrc/gather.cu::kPiece``)
+GATHER_BWD_PIECE = 32
 
 
 def gather_rows_backward_plain(g: Tensor, idx: Tensor, n: int) -> Tensor:
@@ -208,12 +214,77 @@ def gather_rows_backward_plain(g: Tensor, idx: Tensor, n: int) -> Tensor:
     return out.view(b, n, c)
 
 
+def gather_rows_csr_plain(idx: Tensor, n: int) -> Tuple[Tensor, Tensor]:
+    """Plain version of :func:`gather_rows_csr`: a stable sort of each
+    element's bins (the row, or ``n`` outside ``[0, n)``) and their counts'
+    prefix sums."""
+    b, m = idx.shape
+    key = torch.where((idx >= 0) & (idx < n), idx.long(), n)
+    order = torch.sort(key, dim=-1, stable=True).indices.to(torch.int32)
+    counts = torch.zeros((b, n + 1), dtype=torch.long, device=idx.device)
+    counts.scatter_add_(1, key, torch.ones_like(key))
+    offsets = torch.zeros((b, n + 1), dtype=torch.int32, device=idx.device)
+    offsets[:, 1:] = counts[:, :n].cumsum(-1)
+    return offsets, order
+
+
+def _csr_scratch(lib, what: str, idx: Tensor, n: int) -> Tensor:
+    """The CSR build's device scratch for its counts: ``[B, S]`` int32, S
+    from the library (0 where they fit in shared memory)."""
+    if not idx.is_contiguous():
+        raise ValueError(f"{what}: the CUDA kernel takes contiguous tensors")
+    b, m = idx.shape
+    ints = lib.cmflow_gather_rows_csr_scratch(n, m)
+    if ints < 0:
+        raise ValueError(f"{what}: N={n}, M={m} needs more scratch than the "
+                         f"CSR build indexes")
+    return torch.empty((b, ints), dtype=torch.int32, device=idx.device)
+
+
+def gather_rows_csr(idx: Tensor, n: int) -> Tuple[Tensor, Tensor]:
+    """The indices of :func:`gather_rows_backward` sorted by row: K7's first
+    kernel on its own.
+
+    Args:
+      idx: ``[B, M]`` int32.
+      n: ``N``, the number of rows.
+    Returns:
+      ``offsets [B, N+1]`` int32: row ``r``'s entries are the sorted
+      positions ``offsets[b, r] .. offsets[b, r+1] - 1``, and ``offsets[b,
+      N]`` counts the indices inside ``[0, N)``; ``order [B, M]`` int32: the
+      ``m`` at each sorted position, ascending ``m`` within a row, the
+      indices outside ``[0, N)`` last.
+    """
+    if idx.dim() != 2 or n < 1:
+        raise ValueError(f"need idx [B, M] and n >= 1, got "
+                         f"{tuple(idx.shape)} and {n}")
+    if idx.dtype != torch.int32:
+        raise TypeError(f"gather_rows_csr: need int32 indices, got "
+                        f"{idx.dtype}")
+    if idx.device.type == "cpu":
+        return gather_rows_csr_plain(idx, n)
+    if idx.device.type != "cuda":
+        raise ValueError(f"gather_rows_csr: unsupported device {idx.device}")
+    lib = build.load("gather", _SIGNATURES["gather"])
+    scratch = _csr_scratch(lib, "gather_rows_csr", idx, n)
+    b, m = idx.shape
+    offsets = torch.empty((b, n + 1), dtype=torch.int32, device=idx.device)
+    order = torch.empty((b, m), dtype=torch.int32, device=idx.device)
+    code = lib.cmflow_gather_rows_csr(
+        idx.data_ptr(), offsets.data_ptr(), order.data_ptr(),
+        scratch.data_ptr(), b, n, m, _stream(idx))
+    build.check(lib, code, "gather_rows_csr")
+    return offsets, order
+
+
 def gather_rows_backward(g: Tensor, idx: Tensor, n: int) -> Tensor:
     """The transpose of :func:`gather_rows`:
     ``out[b, j] = sum of g[b, m] over every m with idx[b, m] == j``.
 
-    Deterministic on the card: each output row is summed in ascending ``m``
-    by one warp, with no atomics.
+    Deterministic on the card: the indices are sorted by row (stable in
+    ``m``, :func:`gather_rows_csr`), each warp sums 32 sorted entries in a
+    fixed order, and rows that span several warps add their parts in order;
+    no atomics.  Three launches, no sync with the host.
 
     Args:
       g: ``[B, M, C]`` float32 cotangent rows.
@@ -232,14 +303,21 @@ def gather_rows_backward(g: Tensor, idx: Tensor, n: int) -> Tensor:
     if c > (GATHER_BWD_MAX_C if vec4 else GATHER_BWD_MAX_C // 4):
         raise ValueError(f"gather_rows_backward: C={c} is wider than the "
                          f"kernel takes")
-    if not (g.is_contiguous() and idx.is_contiguous()):
+    if not g.is_contiguous():
         raise ValueError("gather_rows_backward: the CUDA kernel takes "
                          "contiguous tensors")
-    out = torch.empty((b, n, c), dtype=g.dtype, device=g.device)
     lib = build.load("gather", _SIGNATURES["gather"])
+    scratch = _csr_scratch(lib, "gather_rows_backward", idx, n)
+    dev = g.device
+    out = torch.empty((b, n, c), dtype=g.dtype, device=dev)
+    offsets = torch.empty((b, n + 1), dtype=torch.int32, device=dev)
+    order = torch.empty((b, m), dtype=torch.int32, device=dev)
+    pieces = -(-m // GATHER_BWD_PIECE)
+    part = torch.empty((b, max(pieces, 1), 2, c), dtype=g.dtype, device=dev)
     code = lib.cmflow_gather_rows_backward(
-        g.data_ptr(), idx.data_ptr(), out.data_ptr(), b, n, m, c, int(vec4),
-        _stream(g))
+        g.data_ptr(), idx.data_ptr(), offsets.data_ptr(), order.data_ptr(),
+        scratch.data_ptr(), part.data_ptr(), out.data_ptr(), b, n, m, c,
+        int(vec4), _stream(g))
     build.check(lib, code, "gather_rows_backward")
     gather_rows_backward.launches += 1
     return out

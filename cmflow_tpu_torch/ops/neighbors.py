@@ -1,8 +1,10 @@
 """Neighbour search: multi-radius ball query and exact kNN.
 
 Each function is a wrapper around a CUDA kernel (``csrc/neighbors.cu``) with
-its plain PyTorch version beside it.  A CUDA tensor goes to the kernel; a CPU
-tensor goes to the plain version.  Both compute squared distances in the same
+its plain PyTorch version beside it.  The kernels stage the cloud through
+shared memory in tiles of 2048 points, so a cloud may have any size.  A
+CUDA tensor goes to the kernel; a CPU tensor goes to the plain version.
+Both compute squared distances in the same
 float32 operation order as the JAX package (``cross = (x*x' + y*y') + z*z'``,
 ``d = max((-2*cross + q2) + p2, 0)``), so their neighbour indices are
 bit-identical to each other and to ``cmflow_tpu.ops.pointops``.
@@ -26,8 +28,6 @@ Tensor = torch.Tensor
 
 # A finite "infinity" for masked squared distances (pointops._BIG).
 BIG = 1e10
-# The kernels stage a whole cloud in shared memory.
-MAX_POINTS = 2048
 MAX_RADII = 4
 MAX_K = 64
 
@@ -135,9 +135,6 @@ def _check_cloud(points: Tensor, query: Tensor,
     if points.device.type == "cuda":
         if not all(t.is_contiguous() for t in tensors):
             raise ValueError("the CUDA kernels take contiguous tensors")
-        if points.shape[1] > MAX_POINTS:
-            raise ValueError(f"the CUDA kernels take at most {MAX_POINTS} "
-                             f"points, got {points.shape[1]}")
     elif points.device.type != "cpu":
         raise ValueError(f"unsupported device {points.device}")
 

@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""The tensor-core kernels K5 (``csrc/plf.cu``), K4a
+"""The hand-written kernels off the routes' timing, one at a time, on one
+GPU: the tensor-core kernels K5 (``csrc/plf.cu``), K4a
 (``csrc/cost_volume.cu::cv_p2p_kernel``) and K3 (``csrc/mse.cu``) across
-neighbour counts, on one GPU.
+neighbour counts, then the neighbour kernels K1 and K2 and the gather's
+backward K7 at the train step's shapes.
 
     python scripts/profile_torch_tc.py [TREE]
 
@@ -21,11 +23,24 @@ At B=16, N=256, with seeded full-width weights and random features:
   scale alone: the kernel's own device time and its wrapper's (every kernel
   the call launches), beside the bounds of its arithmetic in float32 at 67
   TFLOP/s and in 3xTF32 at 495.
+On one synthetic train batch (``make_train_batch``, B=16, N=256), as
+``chip_smoke.py`` takes it:
+- K7 at the train step's 15 shapes (sa encoder C=32 and propagation encoder
+  C=512 on the ball query's indices at K = 4, 8, 16, 32; the cost volume's
+  C=512 on kNN indices; the smoothness loss's C=3), seeded random
+  cotangents: every kernel the wrapper launches, and ``index_add_`` on the
+  same rows, a yardstick the port never calls; summed per train step with
+  the launches per step;
+- K1 one radius per launch, as the train step calls it (r = 2, 4, 8, 16,
+  K = 4, 8, 16, 32 on pc1), and all four radii in one launch, as the fused
+  route calls it; K2 at k=8, pc1 -> pc2 and pc1 -> pc1.
 Each case also gives the kernel's max abs error against its plain version
-and the output's largest magnitude (the bars are 1e-4 and 1e-5 of it) and
+and the output's largest magnitude (exact for K1 and K2; K3-K5 within 1e-4
+and 1e-5 of it; K7 within 1e-5 of it); the tensor-core kernels and K7 also
 whether two launches give the same bits.  Device times from
-``torch.profiler`` over 20 warmed calls.  One JSON line per case.  Needs a
-CUDA device; exits with code 1 without one.
+``torch.profiler`` over 20 warmed calls, each window checked for every
+launch (see :func:`device_ms`).  One JSON line per case, then the sums.
+Needs a CUDA device; exits with code 1 without one.
 """
 
 from __future__ import annotations
@@ -33,6 +48,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import time
 import warnings
 from pathlib import Path
 
@@ -45,11 +61,14 @@ TREE = Path(sys.argv[1] if len(sys.argv) > 1
             else Path(__file__).resolve().parents[1]).resolve()
 sys.path.insert(0, str(TREE))
 
+from cmflow_tpu_torch.data.synthetic import make_train_batch  # noqa: E402
 from cmflow_tpu_torch.nn import blocks  # noqa: E402
 from cmflow_tpu_torch.ops import fused, neighbors  # noqa: E402
 
 B, N = 16, 256
 ITERS = 20
+PROFILE_TRIES = 6  # windows traced before device_ms gives up
+SENTINEL = "spin_kernel"  # torch.cuda._sleep's kernel
 TF32_FLOP_PER_S = 495e12
 F32_FLOP_PER_S = 67e12
 RADII, KS = (2.0, 4.0, 8.0, 16.0), (4, 8, 16, 32)
@@ -68,23 +87,55 @@ def seeded(module, seed: int, dev):
     return module.to(dev)
 
 
-def device_ms(fn, kernel: str = "") -> tuple:
+def device_ms(fn, kernel: str = "", wrapper=None) -> tuple:
     """(summed durations of the kernels of one ``fn()`` whose names hold
-    ``kernel``, of all its kernels)."""
+    ``kernel``, of all its kernels), over ``ITERS`` warmed calls.
+
+    The profiler now and then records only part of a window's kernels, or
+    none; it drops the first most often, so each window starts with a
+    throwaway kernel.  A window counts only if it recorded every kernel a
+    multiple of ``ITERS`` times and, given the ``wrapper`` whose launch
+    counter ``fn`` moves, each kernel whose name holds ``kernel`` ``ITERS``
+    times per launch of a call (and at least one such).  A rejected window
+    is printed to stderr and traced again after a pause that doubles, up
+    to ``PROFILE_TRIES`` windows; then this raises."""
     for _ in range(3):
         fn()
+    per_call = 0
+    if wrapper is not None:
+        before = wrapper.launches
+        fn()
+        per_call = wrapper.launches - before
     torch.cuda.synchronize()
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore")
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(ITERS):
-                fn()
-            torch.cuda.synchronize()
-        events = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA]
-    own = sum(e.self_device_time_total for e in events if kernel in e.key)
-    total = sum(e.self_device_time_total for e in events)
-    return own / 1e3 / ITERS, total / 1e3 / ITERS
+    for t in range(PROFILE_TRIES):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                # the profiler often drops a window's first kernel: let it
+                # be this one, which is left out below
+                torch.cuda._sleep(1)
+                torch.cuda.synchronize()
+                for _ in range(ITERS):
+                    fn()
+                torch.cuda.synchronize()
+            events = [e for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA
+                      and SENTINEL not in e.key]
+        named = [e for e in events if kernel in e.key]
+        whole = bool(named) and all(e.count % ITERS == 0 for e in events)
+        if per_call:
+            whole = whole and all(e.count == ITERS * per_call for e in named)
+        if whole:
+            own = sum(e.self_device_time_total for e in named)
+            total = sum(e.self_device_time_total for e in events)
+            return own / 1e3 / ITERS, total / 1e3 / ITERS
+        print(json.dumps(dict(profiler_window_rejected=dict(
+            kernel=kernel, per_call=per_call, window=t,
+            counts={e.key[:80]: e.count for e in events}))),
+            file=sys.stderr, flush=True)
+        time.sleep(0.1 * 2 ** t)
+    raise RuntimeError(f"the profiler recorded no whole window of "
+                       f"{kernel!r} in {PROFILE_TRIES} tries")
 
 
 def checks(run, plain) -> dict:
@@ -95,7 +146,7 @@ def checks(run, plain) -> dict:
                 same_bits=bool(torch.equal(got, again)))
 
 
-def case(name, k, run, plain, widths, kernel, dev):
+def case(name, k, run, plain, widths, kernel, wrapper, dev):
     rows = B * N * k
     xs = [torch.randn((rows, c), device=dev) for c in widths[:-1]]
     ws = [torch.randn((c, o), device=dev)
@@ -103,7 +154,7 @@ def case(name, k, run, plain, widths, kernel, dev):
     flops = 2 * rows * sum(c * o for c, o in zip(widths[:-1], widths[1:]))
     print(json.dumps(dict(
         kernel=name, k=k, **checks(run, plain),
-        kernel_ms=device_ms(run, kernel)[0],
+        kernel_ms=device_ms(run, kernel, wrapper)[0],
         cublas_products_ms=device_ms(
             lambda: [x @ w for x, w in zip(xs, ws)])[1],
         bound_3xtf32_ms=1e3 * 3 * flops / TF32_FLOP_PER_S)), flush=True)
@@ -114,12 +165,84 @@ def mse_case(ks, run, plain):
     # the first layer per point (3 + 3 inputs) and the query's offset, then
     # the chain per (query, neighbour) row, as chip_smoke.py counts it
     flops = 2 * B * N * (len(ks) * c1 * 9 + sum(ks) * (c1 * c2 + c2 * c3))
-    own, wrapper = device_ms(run, "mse_kernel")
+    own, wrapper = device_ms(run, "mse_kernel",
+                             fused.fused_multi_scale_encoder)
     print(json.dumps(dict(
         kernel="mse", k=list(ks), **checks(run, plain), kernel_ms=own,
         wrapper_device_ms=wrapper,
         bound_f32_ms=1e3 * flops / F32_FLOP_PER_S,
         bound_3xtf32_ms=1e3 * 3 * flops / TF32_FLOP_PER_S)), flush=True)
+
+
+def err(got, want) -> float:
+    if isinstance(got, tuple):
+        return max(err(a, b) for a, b in zip(got, want))
+    return float((got.double() - want.double()).abs().max())
+
+
+def train_batch_cases(dev) -> None:
+    """K7, K1 and K2 at the train step's shapes; then their sums per train
+    step."""
+    batch = make_train_batch(0, B, N)
+    pc1 = torch.as_tensor(batch["pc1"], device=dev)
+    pc2 = torch.as_tensor(batch["pc2"], device=dev)
+    gen = torch.Generator().manual_seed(0)
+    sums = {"K7": 0.0, "K7 index_add_": 0.0, "K1 train": 0.0}
+
+    ball = [neighbors.ball_query_multi((r,), (k,), pc1, pc1)[0]
+            for r, k in zip(RADII, KS)]
+    smooth = torch.sort(neighbors.square_distance(pc1, pc1), dim=-1,
+                        stable=True).indices[..., 1:9].to(torch.int32)
+    shapes = [(32, ball[i], 2, f"sa encoder K={k}") for i, k in enumerate(KS)]
+    shapes += [(512, ball[i], 1, f"propagation encoder K={k}")
+               for i, k in enumerate(KS)]
+    shapes += [(512, neighbors.knn(8, pc1, pc2), 1, "cost volume pc1->pc2"),
+               (512, neighbors.knn(8, pc1, pc1), 1, "cost volume pc1->pc1"),
+               (3, smooth, 1, "smoothness loss")]
+    for c, idx, mult, what in shapes:
+        flat = idx.reshape(B, -1).contiguous()
+        m = flat.shape[1]
+        g = torch.randn((B, m, c), generator=gen).to(dev)
+        rows = (flat.long() + N * torch.arange(B, device=dev)[:, None]
+                ).reshape(-1)
+        g_rows = g.reshape(B * m, c)
+        run = lambda: fused.gather_rows_backward(g, flat, N)  # noqa: E731
+        ms = device_ms(run, "gather_rows_backward",
+                       fused.gather_rows_backward)[0]
+        lib = device_ms(lambda: torch.zeros((B * N, c), device=dev)
+                        .index_add_(0, rows, g_rows))[1]
+        sums["K7"] += mult * ms
+        sums["K7 index_add_"] += mult * lib
+        print(json.dumps(dict(
+            kernel="K7", shape=f"M={m} C={c} ({what})",
+            launches_per_step=mult, ms=ms, index_add_ms=lib,
+            **checks(run, lambda: fused.gather_rows_backward_plain(
+                g, flat, N)))), flush=True)
+    for r, k in zip(RADII, KS):
+        run = lambda r=r, k=k: neighbors.ball_query_multi(  # noqa: E731
+            (r,), (k,), pc1, pc1)
+        ms = device_ms(run, "ball_query_kernel",
+                       neighbors.ball_query_multi)[0]
+        sums["K1 train"] += 3 * ms  # sa encoder on pc1 and pc2, propagation
+        print(json.dumps(dict(
+            kernel="K1", shape=f"r={r} K={k}", launches_per_step=3, ms=ms,
+            max_abs_err=err(run(), neighbors.ball_query_multi_plain(
+                (r,), (k,), pc1, pc1)))), flush=True)
+    run = lambda: neighbors.ball_query_multi(RADII, KS, pc1, pc1)  # noqa: E731
+    print(json.dumps(dict(
+        kernel="K1", shape=f"all radii K={KS}",
+        ms=device_ms(run, "ball_query_kernel", neighbors.ball_query_multi)[0],
+        max_abs_err=err(run(), neighbors.ball_query_multi_plain(
+            RADII, KS, pc1, pc1)))), flush=True)
+    for name, pts in (("pc1->pc2", pc2), ("pc1->pc1", pc1)):
+        run = lambda pts=pts: neighbors.knn(8, pc1, pts)  # noqa: E731
+        print(json.dumps(dict(
+            kernel="K2", shape=f"k=8 {name}",
+            ms=device_ms(run, "knn_kernel", neighbors.knn)[0],
+            max_abs_err=err(run(), neighbors.knn_plain(8, pc1, pts)))),
+            flush=True)
+    print(json.dumps(dict(tree=str(TREE), per_train_step_ms=sums)),
+          flush=True)
 
 
 def main() -> int:
@@ -153,7 +276,8 @@ def main() -> int:
                  lambda: fused.fused_point_local_feature(f1, idx, pc, chain),
                  lambda: fused.fused_point_local_feature_plain(f1, idx, pc,
                                                                chain),
-                 fused.PLF_WIDTHS, "plf_kernel", dev)
+                 fused.PLF_WIDTHS, "plf_kernel",
+                 fused.fused_point_local_feature, dev)
         fc = seeded(blocks.FeatureCorrelator(8, 512, 512, (512, 512, 512)),
                     3, dev)
         dense, wn1, _ = fused.cv_params_from_variables(fc)
@@ -163,7 +287,7 @@ def main() -> int:
             args = (f1, f2, idx, z1, z2, dense[1:], wn1[1:])
             case("cv", k, lambda: fused.cost_volume_p2p(*args),
                  lambda: fused.cost_volume_p2p_plain(*args), (512,) * 3,
-                 "cv_p2p_kernel", dev)
+                 "cv_p2p_kernel", fused.cost_volume_p2p, dev)
 
         mse = seeded(blocks.MultiScaleEncoder(RADII, KS, 3, (32, 32, 64),
                                               (64, 64, 64)), 1, dev)
@@ -184,6 +308,7 @@ def main() -> int:
                      lambda one=one, sub=sub:
                      fused.fused_multi_scale_encoder_plain(feats, sub, pc,
                                                            one))
+    train_batch_cases(dev)
     return 0
 
 

@@ -16,9 +16,11 @@ the cost volume's first kernel's as three TF32 tensor-core products each
 argument on the CPU): they are held to a max abs error of 1e-4 and of 1e-5
 times the output's largest magnitude, and to themselves bit for bit across
 two launches.  The gather's backward (K7) sums
-rows in ascending index order, the plain version's ``index_add_`` on the card
-in any order: it is held to 1e-5 of the output's largest magnitude, and to
-itself bit for bit across runs.
+each row's cotangents in a fixed order of its own (32 sorted entries a warp,
+``csrc/gather.cu``), the plain version's ``index_add_`` on the card in any
+order: it is held to 1e-5 of the output's largest magnitude, and to itself
+bit for bit across runs; its CSR build (``gather_rows_csr``) is integer work
+and is held to its plain version exactly.
 """
 
 import numpy as np
@@ -181,6 +183,15 @@ def bwd_inputs(rs, dev, b, n, s, k, c):
     return g, idx
 
 
+def same_twice(fn):
+    """``fn()`` twice on the same inputs gives the same bits; returns the
+    first result."""
+    got, again = fn(), fn()
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    return got
+
+
 def near_plain(got, want):
     torch.cuda.synchronize()
     assert got.dtype == want.dtype and got.shape == want.shape
@@ -235,6 +246,102 @@ def test_group_points_autograd_on_card(dev, rs):
     assert torch.equal(p.grad, counts[..., None].expand(b, n, c))
     pointops.group_points(pts, idx)  # needs no gradient: no K7
     assert fused.gather_rows_backward.launches == before[1] + 1
+
+
+# K7 on the worst skew: every index names row 0 (M = 8192, C = 512), so one
+# row spans 256 warps' pieces; and every row width the kernel's lane groups
+# take (C=3 and 4: groups of 4 and 1 lanes; 32: groups of 8; 512 and 2048:
+# the whole warp), with M not a multiple of the 32-entry piece
+@pytest.mark.parametrize("c", [3, 4, 32, 512, 2048])
+def test_gather_backward_widths_and_worst_skew(dev, rs, c):
+    b, n = 4, 256
+    for m in (1000, 8192):
+        g = torch.from_numpy(rs.randn(b, m, c).astype(np.float32)).to(dev)
+        idx = torch.from_numpy(rs.randint(0, n, (b, m)).astype(np.int32)).to(dev)
+        if m == 8192:
+            idx[:2] = 0
+        got = same_twice(lambda: fused.gather_rows_backward(g, idx, n))
+        near_plain(got, fused.gather_rows_backward_plain(g, idx, n))
+        if m == 8192:
+            assert (got[:2, 1:] == 0).all()
+
+
+def skewed_indices(rs, dev, b, n, m):
+    """Indices in [-2, N + 2), a third of them on row 0, row 3 never."""
+    idx = rs.randint(-2, n + 2, (b, m)).astype(np.int32)
+    idx[:, rs.rand(m) < 0.3] = 0
+    idx[idx == 3] = 4
+    return torch.from_numpy(idx).to(dev)
+
+
+# (B, N, M): the train step's sizes, M not a multiple of 32, an empty index,
+# more rows than entries, N large enough that fewer warps fit, the most rows
+# whose counts fit in shared memory, and from one row more on, counts in
+# device scratch
+@pytest.mark.parametrize("shape", [(16, 256, 8192), (16, 256, 1024),
+                                   (3, 200, 1001), (2, 64, 0), (2, 5000, 300),
+                                   (1, 20000, 9000), (1, 25599, 700),
+                                   (2, 25600, 9000), (3, 60000, 8192)])
+def test_gather_rows_csr(dev, rs, shape):
+    b, n, m = shape
+    idx = skewed_indices(rs, dev, b, n, m)
+    got = fused.gather_rows_csr(idx, n)
+    want = fused.gather_rows_csr_plain(idx, n)
+    for g, w in zip(got, want):
+        same(g, w)
+    if m:  # the whole backward on the same indices, in C=4 rows
+        g = torch.from_numpy(rs.randn(b, m, 4).astype(np.float32)).to(dev)
+        near_plain(same_twice(lambda: fused.gather_rows_backward(g, idx, n)),
+                   fused.gather_rows_backward_plain(g, idx, n))
+
+
+def test_gather_backward_empty_index(dev, rs):
+    g = torch.zeros((2, 0, 32), device=dev)
+    idx = torch.zeros((2, 0), dtype=torch.int32, device=dev)
+    got = fused.gather_rows_backward(g, idx, 64)
+    torch.cuda.synchronize()
+    assert got.shape == (2, 64, 32) and (got == 0).all()
+
+
+def knn_clouds(rs, dev, case):
+    """The CPU design test's clouds (tests/test_torch_kernel_designs.py):
+    exact ties, an invalid tail with 5 valid points, N not a multiple of 32
+    with duplicate points."""
+    if case == "ties":
+        base = torch.tensor([[0.0, 0, 0], [1, 0, 0], [1, 0, 0], [2, 0, 0]])
+        p = base.repeat(2, 50, 1).to(dev)
+        return p[:, :128].contiguous(), p, None
+    if case == "invalid_tail":
+        p = cloud(rs, 2, 200, dev)
+        v = torch.arange(200, device=dev)[None, :] < torch.tensor(
+            [[5], [150]], device=dev)
+        return cloud(rs, 2, 128, dev), p, v
+    p = cloud(rs, 2, 77, dev)
+    p[:, 40:60] = p[:, 10:30]
+    return p[:, :64].contiguous(), p, None
+
+
+@pytest.mark.parametrize("k", [1, 8, 33, 64])
+@pytest.mark.parametrize("case", ["ties", "invalid_tail", "ragged"])
+def test_knn_merge_cases(dev, rs, case, k):
+    q, p, v = knn_clouds(rs, dev, case)
+    same(neighbors.knn(k, q, p, v), neighbors.knn_plain(k, q, p, v))
+
+
+# clouds above the 2048 points staged at a time: the scans carry from tile
+# to tile
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("n", [2049, 4096])
+def test_neighbors_above_one_tile(dev, rs, n, masked):
+    p = cloud(rs, 4, n, dev, scale=60.0)
+    v = valid_mask(rs, 4, n, dev) if masked else None
+    q = p[:, ::7].contiguous()
+    for k in (8, 64):
+        same(neighbors.knn(k, q, p, v), neighbors.knn_plain(k, q, p, v))
+    for args in ((RADII, KS, p, q, v), ((30.0, 60.0), (64, 64), p, q, v)):
+        got = neighbors.ball_query_multi(*args)
+        for g, w in zip(got, neighbors.ball_query_multi_plain(*args)):
+            same(g, w)
 
 
 def test_rejects_non_contiguous(dev, rs):
@@ -329,15 +436,6 @@ def test_plf_kernel(dev, rs, shape, k):
         assert fused.fused_point_local_feature.launches == before + 1
         near(got, fused.fused_point_local_feature_plain(feat_tx, idx, pc,
                                                         chain))
-
-
-def same_twice(fn):
-    """``fn()`` twice on the same inputs gives the same bits; returns the
-    first result."""
-    got, again = fn(), fn()
-    torch.cuda.synchronize()
-    assert torch.equal(got, again)
-    return got
 
 
 def strided_feats(rs, b, n, dev):

@@ -1,0 +1,365 @@
+"""The designs of K7 (the gather's backward, ``csrc/gather.cu``) and K2 (kNN,
+``csrc/neighbors.cu::knn_kernel``), modelled on the CPU.
+
+The CUDA kernels run only on the card (``tests/test_torch_cuda.py``).  Here
+numpy models written in this file, used by nothing in the package, follow
+their arithmetic step by step and are held to the JAX package and to the
+port's plain versions:
+
+* (a) the CSR build, ``gather_rows_csr``: its plain version, and a model of
+  the kernel's ranks (per-warp ranges of m, lanes with equal bins ranked by
+  lane, per-(warp, bin) counts scanned over warps and then bins), against a
+  numpy stable argsort, on the skewed ball-query indices of a train batch,
+  with out-of-range indices and rows that no index names.  Exact.
+* (b) the piecewise sum: pieces of ``GATHER_BWD_PIECE`` sorted entries, runs
+  of one row summed by lane groups in the kernel's order and combined by
+  its xor tree, rows that span pieces added from their partials in piece
+  order.  Held to the JAX ``mxu_group_points`` backward in interpret mode:
+  bit-identical on cotangents with at most 15 significant bits (whose sums
+  float32 holds exactly, as ``tests/test_torch_ops.py`` argues), within
+  1e-5 of the largest magnitude on normal ones.  Every output row must be
+  written exactly once.
+* (c) K2's lane lists and warp merge: lane l keeps the k best (d^2, j) of
+  its points j = l (mod 32), inserting on a strictly smaller d^2; k rounds of
+  a butterfly argmin over the lanes' heads pop them.  Bit-identical to
+  ``knn_plain`` and to ``knn_pallas(interpret=True)`` with exact ties, an
+  invalid tail, fewer valid points than k, N not a multiple of 32.
+
+And the lifted point limit: the port's ``knn`` and ``ball_query_multi`` at
+N=2500 against ``cmflow_tpu.ops.pointops`` (its XLA route on the CPU).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cmflow_tpu.ops import pointops as jpo
+from cmflow_tpu.ops.fused import mxu_group_points
+from cmflow_tpu.ops.neighbors import knn_pallas
+from cmflow_tpu_torch.data.synthetic import make_train_batch
+from cmflow_tpu_torch.ops import fused, neighbors
+
+L = fused.GATHER_BWD_PIECE
+F32 = np.float32
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    torch.set_num_threads(1)
+
+
+@pytest.fixture
+def rs():
+    return np.random.RandomState(11)
+
+
+def t(x):
+    return torch.from_numpy(np.asarray(x))
+
+
+def j(x):
+    return None if x is None else jnp.asarray(x)
+
+
+def bf16_exact(rs, shape):
+    """float32 values with at most 15 significant bits."""
+    return (rs.randint(-2 ** 14, 2 ** 14, shape) / 64.0).astype(F32)
+
+
+def ball_indices(b, n, radius, k):
+    """The ball query's indices on pc1 of a train batch: low indices are
+    named far more often than high ones."""
+    pc = t(make_train_batch(0, b, n)["pc1"])
+    (idx,) = neighbors.ball_query_multi((radius,), (k,), pc, pc)
+    return idx.numpy().reshape(b, -1)
+
+
+def with_edges(idx, n):
+    """Some indices outside [0, N), and row 3 named by no index."""
+    idx = idx.copy()
+    idx[idx == 3] = 2
+    idx[0, :4] = [-1, n, n + 9, -100]
+    idx[-1, -3:] = [n, -2, 4 * n]
+    return idx
+
+
+# ---------------------------------------------------------------------------
+# (a) the CSR build
+# ---------------------------------------------------------------------------
+
+def csr_reference(idx, n):
+    """offsets and order from a numpy stable argsort of the bins."""
+    bins = np.where((idx >= 0) & (idx < n), idx, n)
+    order = np.argsort(bins, axis=-1, kind="stable").astype(np.int32)
+    counts = np.stack([np.bincount(r, minlength=n + 1) for r in bins])
+    offsets = np.zeros((idx.shape[0], n + 1), np.int32)
+    offsets[:, 1:] = np.cumsum(counts[:, :n], axis=-1)
+    return offsets, order
+
+
+def csr_model(idx, n, warps):
+    """The kernel's CSR build: warp w takes a contiguous range of m, 32 at a
+    time; an entry's place is its warp's first position in its bin, plus
+    the warp's earlier entries of that bin, plus the lanes below it in the
+    same step with its bin."""
+    b, m = idx.shape
+    bins = np.where((idx >= 0) & (idx < n), idx, n)
+    span = -(-m // warps)
+    offsets = np.zeros((b, n + 1), np.int32)
+    order = np.full((b, m), -1, np.int32)
+    for bi in range(b):
+        ranges = [(min(w * span, m), min(w * span + span, m))
+                  for w in range(warps)]
+        wc = np.zeros((warps, n + 1), np.int64)
+        for w, (lo, hi) in enumerate(ranges):
+            np.add.at(wc[w], bins[bi, lo:hi], 1)
+        before = np.cumsum(wc, axis=0) - wc          # warps before, per bin
+        total = wc.sum(0)
+        start = np.cumsum(total) - total               # bins before
+        offsets[bi] = start
+        first = before + start[None, :]
+        for w, (lo, hi) in enumerate(ranges):
+            run = first[w].copy()
+            for j0 in range(lo, hi, 32):
+                step = bins[bi, j0:min(j0 + 32, hi)]
+                for lane, bin_ in enumerate(step):
+                    rank = int((step[:lane] == bin_).sum())
+                    order[bi, run[bin_] + rank] = j0 + lane
+                np.add.at(run, step, 1)
+    return offsets, order
+
+
+@pytest.mark.parametrize("radius, k", [(16.0, 32), (8.0, 16), (2.0, 4)])
+def test_csr_plain_on_skewed_indices(radius, k):
+    b, n = 4, 256
+    idx = with_edges(ball_indices(b, n, radius, k), n)
+    counts = np.bincount(idx[(idx >= 0) & (idx < n)], minlength=n)
+    assert counts.max() > 4 * counts[counts > 0].mean()  # skewed
+    got = fused.gather_rows_csr(t(idx), n)
+    want = csr_reference(idx, n)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(g.numpy(), w)
+    off = want[0]
+    assert (off[:, 3] == off[:, 4]).all()  # the empty row
+
+
+@pytest.mark.parametrize("warps, m", [(32, 8192), (7, 1000), (1, 77), (5, 3)])
+def test_csr_kernel_model(rs, warps, m):
+    n = 64
+    idx = rs.randint(-3, n + 3, (2, m)).astype(np.int32)
+    idx[:, rs.rand(m) < 0.3] = 0  # one heavy row
+    idx[idx == 9] = 10            # and an empty one
+    got = csr_model(idx, n, warps)
+    for g, w in zip(got, csr_reference(idx, n)):
+        np.testing.assert_array_equal(g, w)
+
+
+# ---------------------------------------------------------------------------
+# (b) the piecewise sum
+# ---------------------------------------------------------------------------
+
+def group_lanes(elems):
+    """Lanes that take one row: the least power of two >= elems, up to 32."""
+    g = 1
+    while g < elems and g < 32:
+        g *= 2
+    return g
+
+
+def piecewise_sum(g, idx, n, vec4):
+    """K7's sum and combine on the CSR form of ``idx``, in the kernels'
+    order, in float32."""
+    b, m, c = g.shape
+    offsets, order = csr_reference(idx, n)
+    groups = 32 // group_lanes(c // 4 if vec4 else c)
+    pieces = -(-m // L)
+    out = np.full((b, n, c), np.nan, F32)
+    part = np.full((b, max(pieces, 1), 2, c), np.nan, F32)
+    writes = np.zeros((b, n), np.int64)
+    for bi in range(b):
+        total = offsets[bi, n]
+        for p in range(pieces):
+            s = p * L
+            if s >= total:
+                continue
+            cnt = min(L, total - s)
+            ms = order[bi, s:s + cnt]
+            rows = idx[bi, ms]
+            head_open = offsets[bi, rows[0]] < s
+            tail_open = offsets[bi, rows[-1] + 1] > s + cnt
+            starts = [i for i in range(cnt) if i == 0 or rows[i] != rows[i - 1]]
+            for lo, hi in zip(starts, starts[1:] + [cnt]):
+                acc = [np.zeros(c, F32) for _ in range(groups)]
+                for i in range(lo, hi):  # entry i belongs to group i % groups
+                    acc[i % groups] = acc[i % groups] + g[bi, ms[i]]
+                h = 1
+                while h < groups:  # the xor-shuffle tree
+                    acc = [acc[q] + acc[q ^ h] for q in range(groups)]
+                    h *= 2
+                first = lo == 0 and head_open
+                if first or (hi == cnt and tail_open):
+                    part[bi, p, 0 if first else 1] = acc[0]
+                else:
+                    out[bi, rows[lo]] = acc[0]
+                    writes[bi, rows[lo]] += 1
+    for bi in range(b):
+        for r in range(n):
+            a, z = offsets[bi, r], offsets[bi, r + 1]
+            if a == z:
+                out[bi, r] = 0.0
+            elif a // L != (z - 1) // L:
+                acc = part[bi, a // L, 1]
+                for p in range(a // L + 1, (z - 1) // L + 1):
+                    acc = acc + part[bi, p, 0]
+                out[bi, r] = acc
+            else:
+                continue
+            writes[bi, r] += 1
+    assert (writes == 1).all()  # every row written exactly once
+    assert not np.isnan(out).any()
+    return out
+
+
+def jax_gather_grad(n, idx, cot):
+    """``jax.grad`` through the Pallas gather in interpret mode, whose
+    backward is ``_gather_bwd_kernel``; ``idx`` [B, M], ``cot`` [B, M, C]."""
+    b, m, c = cot.shape
+    pts = jnp.zeros((b, n, c), jnp.float32)
+    return np.asarray(jax.grad(lambda p: jnp.sum(
+        mxu_group_points(p, j(idx)[:, :, None], True)[:, :, 0] * j(cot)))(pts))
+
+
+# (C, vec4): the smoothness loss's C=3 (groups of 4 lanes), a single float4
+# (32 groups of one lane), the sa encoder's C=32 on the float4 path (groups
+# of 8) and on the scalar path (the whole warp), a row of 32 float4s
+SUM_WIDTHS = [(3, False), (4, True), (32, True), (32, False), (128, True)]
+
+
+@pytest.mark.parametrize("c, vec4", SUM_WIDTHS)
+def test_piecewise_sum_on_skewed_indices(rs, c, vec4):
+    b, n = 2, 128
+    idx = with_edges(ball_indices(b, n, 8.0, 16), n)  # M = 2048
+    exact = bf16_exact(rs, idx.shape + (c,))
+    got = piecewise_sum(exact, idx, n, vec4)
+    np.testing.assert_array_equal(got, jax_gather_grad(n, idx, exact))
+    cot = rs.randn(*idx.shape, c).astype(F32)
+    got = piecewise_sum(cot, idx, n, vec4)
+    want = jax_gather_grad(n, idx, cot)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * np.abs(want).max())
+    plain = fused.gather_rows_backward(t(cot), t(idx), n).numpy()
+    np.testing.assert_allclose(got, plain, rtol=0,
+                               atol=1e-5 * np.abs(plain).max())
+
+
+@pytest.mark.parametrize("c, vec4", [(3, False), (32, True), (128, True)])
+def test_piecewise_sum_one_row_named_by_every_m(rs, c, vec4):
+    """Every m names row 5 (M = 300, not a multiple of the piece): the row
+    spans ten pieces and is added from their partials; every other row is
+    zero."""
+    b, n, m = 2, 40, 300
+    idx = np.full((b, m), 5, np.int32)
+    idx[1, 7] = n  # one index outside [0, N)
+    exact = bf16_exact(rs, (b, m, c))
+    got = piecewise_sum(exact, idx, n, vec4)
+    np.testing.assert_array_equal(got, jax_gather_grad(n, idx, exact))
+    assert (np.delete(got, 5, axis=1) == 0).all()
+    cot = rs.randn(b, m, c).astype(F32)
+    got = piecewise_sum(cot, idx, n, vec4)
+    want = jax_gather_grad(n, idx, cot)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * np.abs(want).max())
+
+
+# ---------------------------------------------------------------------------
+# (c) K2: lane lists and the warp merge
+# ---------------------------------------------------------------------------
+
+def knn_model(k, dist):
+    """K2 on the squared distances ``dist`` [Q, N] (float32, invalid points
+    at BIG), vectorised over queries and lanes."""
+    q, n = dist.shape
+    kmax = next(x for x in (8, 16, 32, 64) if k <= x)
+    inf, none = np.float32(np.inf), np.iinfo(np.int32).max
+    bd = np.full((q, 32, kmax), inf, F32)
+    bj = np.full((q, 32, kmax), none, np.int64)
+    lanes = np.arange(32)
+    for j0 in range(0, n, 32):
+        jj = j0 + lanes
+        live = jj < n
+        cd = np.where(live[None, :], dist[:, np.minimum(jj, n - 1)], inf)
+        cj = np.broadcast_to(jj, (q, 32)).copy()
+        enter = live[None, :] & (cd < bd[..., -1])  # strictly smaller only
+        for slot in range(kmax):
+            less = enter & ((cd < bd[..., slot])
+                            | ((cd == bd[..., slot]) & (cj < bj[..., slot])))
+            td, tj = bd[..., slot].copy(), bj[..., slot].copy()
+            bd[..., slot] = np.where(less, cd, td)
+            bj[..., slot] = np.where(less, cj, tj)
+            cd, cj = np.where(less, td, cd), np.where(less, tj, cj)
+    out = np.zeros((q, k), np.int64)
+    rows = np.arange(q)
+    for slot in range(k):
+        d, jw = bd[..., 0].copy(), bj[..., 0].copy()
+        for off in (16, 8, 4, 2, 1):  # the butterfly argmin
+            od, oj = d[:, lanes ^ off], jw[:, lanes ^ off]
+            less = (od < d) | ((od == d) & (oj < jw))
+            d, jw = np.where(less, od, d), np.where(less, oj, jw)
+        assert (jw == jw[:, :1]).all()  # every lane agrees
+        win = jw[:, 0]
+        out[:, slot] = win
+        lane = win % 32
+        bd[rows, lane, :-1] = bd[rows, lane, 1:].copy()
+        bj[rows, lane, :-1] = bj[rows, lane, 1:].copy()
+        bd[rows, lane, -1], bj[rows, lane, -1] = inf, none
+    return out.astype(np.int32)
+
+
+def knn_case(rs, case):
+    """(query [B,S,3], points [B,N,3], valid [B,N] or None)."""
+    if case == "ties":  # four distinct points, each 50 times: exact ties
+        base = np.array([[0.0, 0, 0], [1, 0, 0], [1, 0, 0], [2, 0, 0]], F32)
+        p = np.tile(base, (2, 50, 1))
+        return p[:, :128].copy(), p, None
+    if case == "invalid_tail":  # N=200; element 0 has 5 valid points
+        p = (rs.rand(2, 200, 3) * 20).astype(F32)
+        v = np.arange(200)[None, :] < np.array([[5], [150]])
+        v[1, rs.rand(200) < 0.2] = False
+        return (rs.rand(2, 128, 3) * 20).astype(F32), p, v
+    p = (rs.rand(2, 77, 3) * 20).astype(F32)  # N not a multiple of 32
+    p[:, 40:60] = p[:, 10:30]                # duplicate points
+    return p[:, :64].copy(), p, None
+
+
+@pytest.mark.parametrize("k", [1, 8, 33, 64])
+@pytest.mark.parametrize("case", ["ties", "invalid_tail", "ragged"])
+def test_knn_lane_lists_and_merge(rs, case, k):
+    q, p, v = knn_case(rs, case)
+    b, s, _ = q.shape
+    dist = neighbors.masked_square_distance(
+        t(q), t(p), None if v is None else t(v)).numpy()
+    got = knn_model(k, dist.reshape(b * s, -1)).reshape(b, s, k)
+    want = neighbors.knn_plain(k, t(q), t(p), None if v is None else t(v))
+    np.testing.assert_array_equal(got, want.numpy())
+    np.testing.assert_array_equal(
+        got, knn_pallas(k, j(q), j(p), True, points_valid=j(v)))
+
+
+# ---------------------------------------------------------------------------
+# clouds above the kernels' tile of 2048 points
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_neighbors_above_2048_points(rs, masked):
+    n = 2500
+    p = (rs.rand(1, n, 3) * 40).astype(F32)
+    q = p[:, ::20].copy()  # 125 queries
+    v = (rs.rand(1, n) > 0.2) if masked else None
+    tv = None if v is None else t(v)
+    got = neighbors.knn(8, t(q), t(p), tv)
+    np.testing.assert_array_equal(got.numpy(), jpo.knn(8, j(q), j(p), j(v)))
+    for r, k in ((2.0, 16), (4.0, 32)):
+        (got,) = neighbors.ball_query_multi((r,), (k,), t(p), t(q), tv)
+        np.testing.assert_array_equal(
+            got.numpy(), jpo.ball_query(r, k, j(p), j(q), j(v)))

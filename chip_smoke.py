@@ -15,7 +15,8 @@ Run from the repository root on a machine with a CUDA GPU and nvcc.  Steps:
    encoder) to a max abs error of 1e-4 and of 1e-5 times the output's
    largest magnitude, since they sum float32 products in another order,
    and the tensor-core kernels (sa encoder, the cost volume's first,
-   propagation encoder) to themselves bit for bit across two runs.
+   propagation encoder) and the cost volume's second to themselves bit for
+   bit across two runs.
    Time the kernel, the plain version and, where one exists, a single
    PyTorch call computing the same function, by their device time: the
    kernels' own durations from ``torch.profiler`` over warmed calls, so
@@ -57,7 +58,9 @@ Run from the repository root on a machine with a CUDA GPU and nvcc.  Steps:
    version at the train step's shapes (one radius per launch, no masks) and
    time it.  Hold the ball query and kNN exactly to their plain versions at
    one B=16 cloud of 4,096 points, masked and not (two staged tiles; not
-   timed);
+   timed), and the cost volume's second kernel to its plain version and to
+   itself bit for bit at one B=16, N=384 cloud with k=33, past the first
+   kernel's K <= 32, masked, some indices out of range (not timed);
 7. train: a full-width CMFlow with seeded random weights takes train steps
    (``make_train_step``) on one synthetic B=16, N=256 batch
    (``make_train_batch``, VoD calibration).  The first step is taken on the
@@ -148,6 +151,8 @@ WRAPPERS = {"ball_query": neighbors.ball_query_multi, "knn": neighbors.knn,
             "plf": fused.fused_point_local_feature,
             "gather_bwd": fused.gather_rows_backward}
 EXACT = ("ball_query", "knn", "gather")
+# held to themselves bit for bit across two runs
+SAME_BITS = ("gather_bwd", "cv_agg", *TC_KERNELS)
 LAUNCHES = {
     "fused": {"ball_query": 2, "knn": 2, "gather": 0, "mse": 2, "cv": 1,
               "cv_agg": 1, "plf": 4, "gather_bwd": 0},
@@ -607,6 +612,35 @@ def check_large_cloud(dev, gen: torch.Generator) -> None:
                                ball_query="exact", knn="exact")))
 
 
+def check_cv_agg_any_k(model, dev, gen: torch.Generator) -> None:
+    """K4b at one B=16, N=384 cloud with k=33 neighbours, past K4a's
+    K <= 32: masked kNN indices, three of them out of range, seeded p2p and
+    zq, the model's WeightNet; held to its plain version and to itself bit
+    for bit; not part of any route's time."""
+    n, k = 384, 33
+    pc = (20.0 * torch.rand((B, n, 3), generator=gen)).to(dev)
+    valid = (torch.rand((B, n), generator=gen) > 0.2).to(dev)
+    idx = neighbors.knn(k, pc, pc, valid)
+    idx[0, :3, 0] = torch.tensor([-1, n, 4096], dtype=torch.int32,
+                                 device=dev)
+    p2p = torch.randn((B, n, fused.CV_WIDTH), generator=gen).to(dev)
+    zq = torch.randn((B, n, fused.WEIGHTNET_HIDDEN), generator=gen).to(dev)
+    wn = fused.cv_params_from_variables(model.trunk.fc_layer)[2][1:]
+    got = fused.cost_volume_agg(p2p, idx, zq, wn)
+    again = fused.cost_volume_agg(p2p, idx, zq, wn)
+    want = fused.cost_volume_agg_plain(p2p, idx, zq, wn)
+    torch.cuda.synchronize()
+    err, scale = errors(got, want)
+    require(err <= FUSED_ATOL and err <= FUSED_RTOL * scale,
+            f"cv_agg at N={n} k={k}: kernel and plain version differ by "
+            f"{err} at a largest magnitude of {scale}")
+    require(torch.equal(got, again), f"cv_agg at N={n} k={k}: two runs "
+                                     f"differ")
+    emit(dict(cv_agg_any_k=dict(batch=B, num_points=n, k=k,
+                                max_abs_err=err, plain_max_abs=scale,
+                                same_bits=True)))
+
+
 def check_kernels(cases, first: bool, per_forward: dict) -> None:
     """Hold each case to its plain version, time it, print it, and sum the
     first request's cases per forward or step of their route into
@@ -627,7 +661,7 @@ def check_kernels(cases, first: bool, per_forward: dict) -> None:
             require(err <= FUSED_ATOL and err <= FUSED_RTOL * scale,
                     f"{name} {case['shape']}: kernel and plain version "
                     f"differ by {err} at a largest magnitude of {scale}")
-        if name == "gather_bwd" or name in TC_KERNELS:
+        if name in SAME_BITS:
             again = case["run"]()
             torch.cuda.synchronize()
             require(torch.equal(got, again), f"{name} {case['shape']}: two "
@@ -923,6 +957,7 @@ def main() -> int:
             check_kernels(fused_cases(model, req, dev), ri == 0, per_forward)
             check_kernels(module_cases(req, dev, gen), ri == 0, per_forward)
         check_large_cloud(dev, gen)
+        check_cv_agg_any_k(model, dev, gen)
     emit(dict(kernel_phase_s=time.perf_counter() - t0))
 
     def fused_checks(req, out):

@@ -38,18 +38,35 @@
 //   second product, and its 512-wide last layer per column; w * x2 goes over
 //   x1 for the sum over each query's k rows.
 //
-// cv_agg_kernel: out[i] = sum over frame-1 neighbours j of
-// WeightNet2(zq[j] - zq[i]) * p2p[j].
-// What bounds it: bytes.  It reads p2p once per neighbour from L2 but needs
-// it from device memory once: 8 MB in and 8 MB out at B=16, N=256 (~0.005
-// ms); its arithmetic (8x512 weights per row) is small.
-// Design: one warp per query, lanes over channels in float4s; the WeightNet's
-// 8-wide layers are recomputed by every lane (tiny), its last layer per
-// channel.
+// cv_agg_kernel: out[i] = sum over frame-1 neighbours j = idx[i, k] of
+// WeightNet2(zq[j] - zq[i]) * p2p[j], any k >= 1.
+// What bounds it: bytes, with its arithmetic close behind.  It needs p2p
+// from device memory once: 8 MB in and 8 MB out at B=16, N=256, k=8 (~0.005
+// ms at 3.35 TB/s); the WeightNet's last layer is 8 multiply-adds per
+// (query, neighbour, channel), 134 M at that shape (~0.004 ms at the float32
+// peak).  Each neighbour's 2 KB row is read once per query that names it,
+// 64 MB from L2 at that shape.
+// Design: a block of 256 threads takes kAggQ queries of one batch element;
+// a thread owns one float4 column of the 512 channels for the queries
+// tid / 128, +2, ...  It holds its columns of the last layer (8 float4)
+// and its bias in registers for the whole block; the 8-wide layers sit in
+// shared memory.  The neighbours go in chunks of kAggKc: one thread per
+// (query, neighbour) loads the index and both zq rows and computes the
+// 8-wide hidden layer once, into shared memory, beside the neighbour's row
+// number.  Then each thread streams the p2p columns of its queries'
+// neighbours into its own cells of a shared-memory ring with cp.async, one
+// query ahead of its sum (a warp's copy is 512 contiguous bytes), so that
+// no register waits on a load, and adds w * p2p[j] neighbour by neighbour.
+// Chunks bound shared memory, so k has no limit.  The sums run in the
+// plain function's orders: over k ascending, and each 8-term dot over m
+// ascending, as fused multiply-adds from zero; no atomics, so reruns give
+// the same bits.  What holds it (scripts/profile_torch_cv_agg.py): the
+// instructions of the sum, not the loads; leaving out the p2p reads saves
+// ~5%, leaving out the last layer ~30%.
 //
-// All sums are float32.  The point-to-patch kernel's 224 KB of dynamic
-// shared memory needs cudaFuncSetAttribute; a refused launch never runs, so
-// each entry point returns cudaGetLastError().
+// All sums are float32.  The kernels' dynamic shared memory (224 KB and
+// 64 KB) needs cudaFuncSetAttribute; a refused launch never runs, so each
+// entry point returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -62,7 +79,7 @@ namespace tc = cmflow::tc;
 
 constexpr int kC = 512;
 constexpr int kH = 8;        // WeightNet hidden width
-constexpr int kMaxK = 32;    // neighbours per query the kernels take
+constexpr int kMaxK = 32;    // neighbours per query cv_p2p_kernel takes
 constexpr int kP2pConsumers = 256;  // two warpgroups
 constexpr int kP2pThreads = kP2pConsumers + 128;  // and a producer warpgroup
 constexpr int kP2pRows = 64;  // (query, neighbour) rows per block
@@ -97,24 +114,6 @@ __device__ __forceinline__ void weightnet_hidden(
     for (int m = 0; m < kH; ++m) t = fmaf(a[m], __ldg(w1 + m * kH + o), t);
     h[o] = fmaxf(t + __ldg(b1 + o), 0.0f);
   }
-}
-
-// the WeightNet's last layer for the four channels c..c+3
-__device__ __forceinline__ float4 weightnet_out(
-    const float* h, const float* __restrict__ w2, const float* __restrict__ b2,
-    int c) {
-  float4 t = __ldg(reinterpret_cast<const float4*>(b2 + c));
-  float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-#pragma unroll
-  for (int m = 0; m < kH; ++m) {
-    const float4 w = __ldg(reinterpret_cast<const float4*>(w2 + m * kC + c));
-    acc.x = fmaf(h[m], w.x, acc.x);
-    acc.y = fmaf(h[m], w.y, acc.y);
-    acc.z = fmaf(h[m], w.z, acc.z);
-    acc.w = fmaf(h[m], w.w, acc.w);
-  }
-  return make_float4(fmaxf(acc.x + t.x, 0.0f), fmaxf(acc.y + t.y, 0.0f),
-                     fmaxf(acc.z + t.z, 0.0f), fmaxf(acc.w + t.w, 0.0f));
 }
 
 struct WeightNet {  // after its first product: (b0, w1, b1, w2, b2)
@@ -340,56 +339,191 @@ __global__ void __launch_bounds__(kP2pThreads, 1)
   }
 }
 
-constexpr int kAggWarps = 8;
+constexpr int kAggThreads = 256;
+constexpr int kAggQ = 16;   // queries of a block, all of one batch element
+constexpr int kAggKc = 8;   // neighbours per chunk
+constexpr int kAggDepth = 2;  // queries in the ring of each thread's rows
+constexpr size_t kAggSmemBytes =
+    (size_t)kAggDepth * kAggKc * kAggThreads * 16;
+constexpr int kAggSlots = kAggThreads / (kC / 4);  // queries worked at once
+constexpr int kAggPairs = kAggQ * kAggKc;  // (query, neighbour) of a chunk
+static_assert(kAggPairs <= kAggThreads, "a thread per pair of a chunk");
+static_assert(kAggQ % kAggSlots == 0, "whole query slots");
+static_assert(kAggKc % 4 == 0, "a chunk's rows in int4s");
 
-__global__ void __launch_bounds__(kAggWarps * 32)
+// weightnet_hidden with (b0, w1, b1) in shared memory as 20 float4s
+__device__ __forceinline__ void weightnet_hidden_shared(
+    const float (&d)[kH], const float4* wn_s, float (&h)[kH]) {
+  const float4 b0a = wn_s[0], b0b = wn_s[1];
+  const float b0[kH] = {b0a.x, b0a.y, b0a.z, b0a.w,
+                        b0b.x, b0b.y, b0b.z, b0b.w};
+  float t[kH];
+#pragma unroll
+  for (int o = 0; o < kH; ++o) t[o] = 0.0f;
+#pragma unroll
+  for (int m = 0; m < kH; ++m) {
+    const float a = fmaxf(d[m] + b0[m], 0.0f);
+    const float4 wa = wn_s[2 + 2 * m], wb = wn_s[3 + 2 * m];
+    const float w[kH] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
+#pragma unroll
+    for (int o = 0; o < kH; ++o) t[o] = fmaf(a, w[o], t[o]);
+  }
+  const float4 b1a = wn_s[18], b1b = wn_s[19];
+  const float b1[kH] = {b1a.x, b1a.y, b1a.z, b1a.w,
+                        b1b.x, b1b.y, b1b.z, b1b.w};
+#pragma unroll
+  for (int o = 0; o < kH; ++o) h[o] = fmaxf(t[o] + b1[o], 0.0f);
+}
+
+__device__ __forceinline__ float4 fma4(float4 a, float4 b, float4 c) {
+  return make_float4(fmaf(a.x, b.x, c.x), fmaf(a.y, b.y, c.y),
+                     fmaf(a.z, b.z, c.z), fmaf(a.w, b.w, c.w));
+}
+
+// a 16-byte copy from device to shared memory that the issuing thread
+// waits for itself (cp.async.wait_group); `bytes` 0 writes zeros
+__device__ __forceinline__ void copy16(uint32_t dst, const void* src,
+                                       int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void copy_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most `kPending` of the thread's copy groups are in flight
+template <int kPending>
+__device__ __forceinline__ void copy_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+__global__ void __launch_bounds__(kAggThreads, 2)
     cv_agg_kernel(const float* __restrict__ p2p,  // [B*N, kC]
                   const int* __restrict__ idx,    // [B*N, k]
                   const float* __restrict__ zq,   // [B*N, kH]
-                  WeightNet wn, float* __restrict__ out, int total, int n,
-                  int k) {
+                  WeightNet wn, float* __restrict__ out, int n, int k,
+                  int tiles) {
   constexpr int C4 = kC / 4;
-  constexpr int kPerLane = C4 / 32;
-  const int q = blockIdx.x * kAggWarps + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (q >= total) return;  // the same on every lane of the warp
-  const int64_t bn0 = (int64_t)(q / n) * n;
-  const float4* p4 = reinterpret_cast<const float4*>(p2p);
-  float zi[kH];
+  constexpr int kPer = kAggQ / kAggSlots;  // queries of a thread
+  extern __shared__ float4 g_s[];  // [kAggDepth][kAggKc][kAggThreads]
+  __shared__ float4 h_s[kAggPairs][2];  // each pair's hidden layer
+  __shared__ float4 wn_s[2 * kH / 4 + kH * kH / 4];  // b0, w1, b1
+  // its neighbour's row in p2p, -1 outside [0, N)
+  __shared__ __align__(16) int j_s[kAggPairs];
+  const uint32_t ring = tc::smem_addr(g_s) + 16 * threadIdx.x;
+
+  const int tid = threadIdx.x;
+  const int64_t row0 = (int64_t)(blockIdx.x / tiles) * n;
+  const int i0 = (blockIdx.x % tiles) * kAggQ;
+  const int c4 = tid % C4, slot = tid / C4;
+  if (tid < 2 * kH / 4 + kH * kH / 4) {  // read after the first barrier
+    const float* src = tid < 2 ? wn.b0 + 4 * tid
+                       : tid < 18 ? wn.w1 + 4 * (tid - 2)
+                                  : wn.b1 + 4 * (tid - 18);
+    wn_s[tid] = __ldg(reinterpret_cast<const float4*>(src));
+  }
+  float4 w2r[kH];
 #pragma unroll
-  for (int m = 0; m < kH; ++m) zi[m] = zq[(int64_t)q * kH + m];
-  float4 acc[kPerLane];
+  for (int m = 0; m < kH; ++m) {
+    w2r[m] = __ldg(reinterpret_cast<const float4*>(wn.w2 + m * kC) + c4);
+  }
+  const float4 b2r = __ldg(reinterpret_cast<const float4*>(wn.b2) + c4);
+  const float4* p4 = reinterpret_cast<const float4*>(p2p) + c4;
+  const float4* z4 = reinterpret_cast<const float4*>(zq);
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+
+  float4 acc[kPer];
 #pragma unroll
-  for (int v = 0; v < kPerLane; ++v) acc[v] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  for (int kk = 0; kk < k; ++kk) {
-    const int jj = idx[(int64_t)q * k + kk];
-    const bool inside = jj >= 0 && jj < n;
-    const int64_t j = bn0 + (inside ? jj : 0);
-    float d[kH], h[kH];
-#pragma unroll
-    for (int m = 0; m < kH; ++m) {
-      d[m] = (inside ? zq[j * kH + m] : 0.0f) - zi[m];
+  for (int s = 0; s < kPer; ++s) acc[s] = zero;
+  float4* o4 = reinterpret_cast<float4*>(out);
+  for (int k0 = 0; k0 < k; k0 += kAggKc) {
+    __syncthreads();  // wn_s written, the last chunk's h_s and j_s read
+    if (tid < kAggPairs) {
+      const int i = i0 + tid / kAggKc, kk = k0 + tid % kAggKc;
+      int j = -1;
+      float h[kH] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+      if (i < n && kk < k) {
+        const int jj = __ldg(idx + (row0 + i) * k + kk);
+        const bool inside = jj >= 0 && jj < n;
+        const float4 zi0 = __ldg(z4 + 2 * (row0 + i));
+        const float4 zi1 = __ldg(z4 + 2 * (row0 + i) + 1);
+        const float4 zj0 = inside ? __ldg(z4 + 2 * (row0 + jj)) : zero;
+        const float4 zj1 = inside ? __ldg(z4 + 2 * (row0 + jj) + 1) : zero;
+        const float d[kH] = {zj0.x - zi0.x, zj0.y - zi0.y, zj0.z - zi0.z,
+                             zj0.w - zi0.w, zj1.x - zi1.x, zj1.y - zi1.y,
+                             zj1.z - zi1.z, zj1.w - zi1.w};
+        weightnet_hidden_shared(d, wn_s, h);
+        if (inside) j = (int)(row0 + jj);
+      }
+      h_s[tid][0] = make_float4(h[0], h[1], h[2], h[3]);
+      h_s[tid][1] = make_float4(h[4], h[5], h[6], h[7]);
+      j_s[tid] = j;
     }
-    weightnet_hidden(d, wn.b0, wn.w1, wn.b1, h);
+    __syncthreads();
+    // Each thread copies the p2p columns it alone will read into its own
+    // cells of a ring of kAggDepth queries, kAggDepth - 1 queries ahead of
+    // its sum, so that the rows stream in while it computes.
+    const int kn = min(kAggKc, k - k0);
+    const bool last = k0 + kAggKc >= k;
+    auto fetch = [&](int s) {  // query s's rows into ring stage s % kAggDepth
+      if (s < kPer) {
+        const int4* rows = reinterpret_cast<const int4*>(
+            j_s + (slot + kAggSlots * s) * kAggKc);
 #pragma unroll
-    for (int v = 0; v < kPerLane; ++v) {
-      const int c4 = lane + 32 * v;
-      const float4 w = weightnet_out(h, wn.w2, wn.b2, 4 * c4);
-      const float4 g = inside ? __ldg(p4 + j * C4 + c4)
-                              : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      acc[v].x = fmaf(w.x, g.x, acc[v].x);
-      acc[v].y = fmaf(w.y, g.y, acc[v].y);
-      acc[v].z = fmaf(w.z, g.z, acc[v].z);
-      acc[v].w = fmaf(w.w, g.w, acc[v].w);
+        for (int kk = 0; kk < kAggKc; kk += 4) {
+          const int4 r4 = rows[kk / 4];  // -1 past kn and past N
+          const int r[4] = {r4.x, r4.y, r4.z, r4.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            copy16(ring + ((s % kAggDepth) * kAggKc + kk + e) *
+                              (kAggThreads * 16),
+                   p4 + (size_t)(unsigned)max(r[e], 0) * C4,
+                   r[e] >= 0 ? 16 : 0);
+          }
+        }
+      }
+      copy_commit();  // an empty group past kPer keeps the count
+    };
+#pragma unroll
+    for (int s = 0; s + 1 < kAggDepth; ++s) fetch(s);
+#pragma unroll
+    for (int s = 0; s < kPer; ++s) {
+      fetch(s + kAggDepth - 1);
+      copy_wait<kAggDepth - 1>();  // query s's rows have landed
+      const int qi = slot + kAggSlots * s;
+      if (i0 + qi >= n) continue;  // the same on every lane of a warp
+      const float4* g = g_s + (s % kAggDepth) * kAggKc * kAggThreads + tid;
+      // no branch inside a step of 4, so that the steps' products overlap
+#pragma unroll 4
+      for (int kk = 0; kk < kn; ++kk) {
+        const float4 ha = h_s[qi * kAggKc + kk][0];
+        const float4 hb = h_s[qi * kAggKc + kk][1];
+        const float h[kH] = {ha.x, ha.y, ha.z, ha.w, hb.x, hb.y, hb.z, hb.w};
+        float4 t = zero;
+#pragma unroll
+        for (int m = 0; m < kH; ++m) {
+          t = fma4(make_float4(h[m], h[m], h[m], h[m]), w2r[m], t);
+        }
+        const float4 w = make_float4(
+            fmaxf(t.x + b2r.x, 0.0f), fmaxf(t.y + b2r.y, 0.0f),
+            fmaxf(t.z + b2r.z, 0.0f), fmaxf(t.w + b2r.w, 0.0f));
+        acc[s] = fma4(w, g[kk * kAggThreads], acc[s]);
+      }
+      // a whole sum goes out at once, under the next query's work
+      if (last) o4[(row0 + i0 + qi) * C4 + c4] = acc[s];
     }
   }
-  float4* o4 = reinterpret_cast<float4*>(out);
-#pragma unroll
-  for (int v = 0; v < kPerLane; ++v) o4[(int64_t)q * C4 + lane + 32 * v] = acc[v];
 }
 
-bool valid_shape(int b, int n, int k, int c) {
+bool valid_p2p_shape(int b, int n, int k, int c) {
   return c == kC && n >= 1 && b >= 0 && k >= 1 && k <= kMaxK;
+}
+
+bool valid_agg_shape(int b, int n, int k, int c) {  // rows fit an int
+  return c == kC && n >= 1 && b >= 0 && k >= 1 &&
+         (int64_t)b * n <= 0x7fffffff;
 }
 
 }  // namespace
@@ -407,7 +541,7 @@ int cmflow_cv_p2p(const void* f1c, const void* f2c, const void* idx,
                   const void* wb0, const void* ww1, const void* wb1,
                   const void* ww2, const void* wb2, void* out, int b, int n,
                   int k, int c, void* stream) {
-  if (!valid_shape(b, n, k, c)) return (int)cudaErrorInvalidValue;
+  if (!valid_p2p_shape(b, n, k, c)) return (int)cudaErrorInvalidValue;
   const int total = b * n;
   if (total == 0) return (int)cudaSuccess;
   cudaError_t err = cudaFuncSetAttribute(
@@ -431,25 +565,29 @@ int cmflow_cv_p2p(const void* f1c, const void* f2c, const void* idx,
   return (int)cudaGetLastError();
 }
 
-// p2p [B,N,512], idx [B,N,k] int32 (1 <= k <= 32), zq [B,N,8], the WeightNet
+// p2p [B,N,512], idx [B,N,k] int32 (k >= 1), zq [B,N,8], the WeightNet
 // after its first product as above, out [B,N,512].  Returns a cudaError_t.
 int cmflow_cv_agg(const void* p2p, const void* idx, const void* zq,
                   const void* wb0, const void* ww1, const void* wb1,
                   const void* ww2, const void* wb2, void* out, int b, int n,
                   int k, int c, void* stream) {
-  if (!valid_shape(b, n, k, c)) return (int)cudaErrorInvalidValue;
-  const int total = b * n;
-  if (total == 0) return (int)cudaSuccess;
+  if (!valid_agg_shape(b, n, k, c)) return (int)cudaErrorInvalidValue;
+  if (b == 0) return (int)cudaSuccess;
+  const int tiles = (n + kAggQ - 1) / kAggQ;  // b * tiles <= b * n fits
+  cudaError_t err = cudaFuncSetAttribute(
+      cv_agg_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kAggSmemBytes);
+  if (err != cudaSuccess) return (int)err;
   const WeightNet wn{static_cast<const float*>(wb0),
                      static_cast<const float*>(ww1),
                      static_cast<const float*>(wb1),
                      static_cast<const float*>(ww2),
                      static_cast<const float*>(wb2)};
-  cv_agg_kernel<<<(total + kAggWarps - 1) / kAggWarps, kAggWarps * 32, 0,
+  cv_agg_kernel<<<b * tiles, kAggThreads, kAggSmemBytes,
                   static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(p2p), static_cast<const int*>(idx),
-      static_cast<const float*>(zq), wn, static_cast<float*>(out), total, n,
-      k);
+      static_cast<const float*>(zq), wn, static_cast<float*>(out), n, k,
+      tiles);
   return (int)cudaGetLastError();
 }
 

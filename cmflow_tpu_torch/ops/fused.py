@@ -81,7 +81,7 @@ MSE_MAX_FEATS = 5  # the sa encoder's first layer: 3 + Cf inputs, at most 8
 PLF_WIDTHS = (512, 256, 64)
 CV_WIDTH = 512
 WEIGHTNET_HIDDEN = 8
-MAX_K = 32
+MAX_K = 32  # K3 and K4a (K5: twice it); K4b takes any K
 
 
 # ---------------------------------------------------------------------------
@@ -810,7 +810,7 @@ def cost_volume_agg(p2p: Tensor, idx: Tensor, zq: Tensor,
 
     Args:
       p2p: ``[B, N, C]`` point-to-patch cost.
-      idx: ``[B, N, K]`` int32 frame-1 kNN indices.
+      idx: ``[B, N, K]`` int32 frame-1 kNN indices, any K >= 1.
       zq: ``[B, N, H]`` the WeightNet's first product of the centred
         frame-1 coordinates.
       wn: the WeightNet after its first product, ``(b0, w1, b1, w2, b2)``.
@@ -822,7 +822,7 @@ def cost_volume_agg(p2p: Tensor, idx: Tensor, zq: Tensor,
         return cost_volume_agg_plain(p2p, idx, zq, wn)
     b, n, c = p2p.shape
     k = idx.shape[2]
-    _check_cv(b, n, c, k, idx, zq, wn)
+    _check_cv_agg(b, n, c, k, idx, zq, wn)
     _check_kernel_args("cost_volume_agg", [p2p, idx, zq, *wn])
     out = torch.empty((b, n, c), dtype=torch.float32, device=p2p.device)
     lib = build.load("cost_volume", _SIGNATURES["cost_volume"])
@@ -838,14 +838,24 @@ def cost_volume_agg(p2p: Tensor, idx: Tensor, zq: Tensor,
 cost_volume_agg.launches = 0
 
 
-def _check_cv(b: int, n: int, c: int, k: int, idx: Tensor, z: Tensor,
-              wn: Sequence[Tensor]) -> None:
+def _check_cv_agg(b: int, n: int, c: int, k: int, idx: Tensor, z: Tensor,
+                  wn: Sequence[Tensor]) -> None:
+    """The shapes K4b takes: C=512, a WeightNet 8->8->512, any K >= 1."""
     h = WEIGHTNET_HIDDEN
     if c != CV_WIDTH or tuple(z.shape) != (b, n, h) or wn[3].shape != (h, c):
         raise ValueError(f"the CUDA kernels take C={CV_WIDTH} and a "
                          f"WeightNet {h}->{h}->{CV_WIDTH}, got C={c}, "
                          f"z {tuple(z.shape)}, w2 {tuple(wn[3].shape)}")
-    if tuple(idx.shape[:2]) != (b, n) or not 1 <= k <= MAX_K:
+    if tuple(idx.shape[:2]) != (b, n) or k < 1:
+        raise ValueError(f"idx must be [B, N, K] with K >= 1, got "
+                         f"{tuple(idx.shape)}")
+
+
+def _check_cv(b: int, n: int, c: int, k: int, idx: Tensor, z: Tensor,
+              wn: Sequence[Tensor]) -> None:
+    """The shapes K4a takes: K4b's, with K <= MAX_K."""
+    _check_cv_agg(b, n, c, k, idx, z, wn)
+    if k > MAX_K:
         raise ValueError(f"idx must be [B, N, K] with K <= {MAX_K}, got "
                          f"{tuple(idx.shape)}")
 

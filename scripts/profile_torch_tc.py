@@ -22,7 +22,13 @@ At B=16, N=256, with seeded full-width weights and random features:
   (K = 4, 8, 16, 32) in one launch as the fused route calls it, then each
   scale alone: the kernel's own device time and its wrapper's (every kernel
   the call launches), beside the bounds of its arithmetic in float32 at 67
-  TFLOP/s and in 3xTF32 at 495.
+  TFLOP/s and in 3xTF32 at 495;
+- K4b (``csrc/cost_volume.cu::cv_agg_kernel``) at N=256 and at the padded
+  N=384 bucket, k=8, on masked kNN indices of a random cloud, as the fused
+  route calls it: the kernel's own device time beside its bound (bytes at
+  3.35 TB/s, operations at 67 TFLOP/s, as ``chip_smoke.py`` counts them)
+  and a digest of its output's bits, so that two trees' outputs on the
+  same inputs can be compared.
 On one synthetic train batch (``make_train_batch``, B=16, N=256), as
 ``chip_smoke.py`` takes it:
 - K7 at the train step's 15 shapes (sa encoder C=32 and propagation encoder
@@ -45,6 +51,7 @@ Needs a CUDA device; exits with code 1 without one.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import subprocess
 import sys
@@ -71,6 +78,7 @@ PROFILE_TRIES = 6  # windows traced before device_ms gives up
 SENTINEL = "spin_kernel"  # torch.cuda._sleep's kernel
 TF32_FLOP_PER_S = 495e12
 F32_FLOP_PER_S = 67e12
+HBM_BYTES_PER_S = 3.35e12
 RADII, KS = (2.0, 4.0, 8.0, 16.0), (4, 8, 16, 32)
 
 
@@ -172,6 +180,37 @@ def mse_case(ks, run, plain):
         wrapper_device_ms=wrapper,
         bound_f32_ms=1e3 * flops / F32_FLOP_PER_S,
         bound_3xtf32_ms=1e3 * 3 * flops / TF32_FLOP_PER_S)), flush=True)
+
+
+def cv_agg_cases(dev) -> None:
+    """K4b at the fused route's two buckets, k=8."""
+    rs = np.random.RandomState(7)
+    c, h, k = fused.CV_WIDTH, fused.WEIGHTNET_HIDDEN, 8
+    fc = seeded(blocks.FeatureCorrelator(8, 512, 512, (512, 512, 512)),
+                3, dev)
+    _, _, wn2 = fused.cv_params_from_variables(fc)
+    wn = wn2[1:]
+    for n in (256, 384):
+        pc = torch.from_numpy((rs.rand(B, n, 3) * 20).astype(
+            np.float32)).to(dev)
+        valid = torch.from_numpy(rs.rand(B, n) > 0.2).to(dev)
+        idx = neighbors.knn(k, pc, pc, valid)
+        p2p = torch.from_numpy(rs.randn(B, n, c).astype(np.float32)).to(dev)
+        zq = torch.from_numpy(rs.randn(B, n, h).astype(np.float32)).to(dev)
+        rows = B * n
+        nbytes = 4 * (rows * (2 * c + k + h) + sum(t.numel() for t in wn))
+        flops = 2 * rows * k * (h * h + h * c + c)
+        bound = 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S)
+        run = lambda: fused.cost_volume_agg(p2p, idx, zq, wn)  # noqa: E731
+        ms = device_ms(run, "cv_agg_kernel", fused.cost_volume_agg)[0]
+        out = run()
+        torch.cuda.synchronize()
+        print(json.dumps(dict(
+            kernel="K4b", shape=f"B={B} N={n} k={k} masked", ms=ms,
+            bound_ms=bound, share_of_bound=bound / ms,
+            digest=hashlib.sha1(out.cpu().numpy().tobytes()).hexdigest(),
+            **checks(run, lambda: fused.cost_volume_agg_plain(
+                p2p, idx, zq, wn)))), flush=True)
 
 
 def err(got, want) -> float:
@@ -308,6 +347,7 @@ def main() -> int:
                      lambda one=one, sub=sub:
                      fused.fused_multi_scale_encoder_plain(feats, sub, pc,
                                                            one))
+        cv_agg_cases(dev)
     train_batch_cases(dev)
     return 0
 

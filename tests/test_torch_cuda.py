@@ -564,6 +564,28 @@ def test_cost_volume_kernels(dev, rs, shape):
                                                     before[1] + 1)
 
 
+@pytest.mark.parametrize("k", [1, 5, 8, 17, 32, 33, 64])
+@pytest.mark.parametrize("b", [1, 16])
+@pytest.mark.parametrize("n", [200, 256, 384, 1000])
+def test_cost_volume_agg_any_k(dev, rs, n, b, k):
+    """K4b takes any K (chunks of neighbours, a ragged last query tile):
+    masked kNN indices, three out of range, against its plain version, the
+    same bits on two launches, one launch a call."""
+    pc, valid = cloud(rs, b, n, dev), valid_mask(rs, b, n, dev)
+    idx = neighbors.knn(k, pc, pc, valid)
+    idx[0, :3, 0] = torch.tensor([-1, n, 4096], dtype=torch.int32)
+    p2p = torch.from_numpy(rs.randn(b, n, 512).astype(np.float32)).to(dev)
+    zq = torch.from_numpy(rs.randn(b, n, 8).astype(np.float32)).to(dev)
+    fc = seeded(blocks.FeatureCorrelator(8, 512, 512, (512, 512, 512)),
+                dev, 3)
+    with torch.no_grad():
+        wn = fused.cv_params_from_variables(fc)[2][1:]
+        before = fused.cost_volume_agg.launches
+        got = same_twice(lambda: fused.cost_volume_agg(p2p, idx, zq, wn))
+        assert fused.cost_volume_agg.launches == before + 2
+        near(got, fused.cost_volume_agg_plain(p2p, idx, zq, wn))
+
+
 def test_fused_kernels_zero_rows_out_of_range(dev, rs):
     """An index outside [0, N) gathers a zero row, as in the plain
     versions (and the JAX package's one-hot gather)."""

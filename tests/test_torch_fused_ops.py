@@ -285,6 +285,36 @@ def test_cost_volume_matches_pallas(correlator):
     close(got, want)
 
 
+@pytest.mark.parametrize("k", [1, 5, 33])
+def test_cost_volume_matches_pallas_any_k(correlator, k):
+    """Both halves at K other than the model's 8, past K4a's K <= 32 on the
+    card too: C=64, B=2, N=64, masked clouds, against the Pallas kernels in
+    interpret mode (which unroll by the largest of 8, 4, 2, 1 dividing K)."""
+    e = correlator
+    rs = np.random.RandomState(40 + k)
+    xyz1 = cloud(rs, 2, 64)
+    xyz2 = xyz1 + (rs.randn(2, 64, 3) * 0.3).astype(np.float32)
+    # features of 10x the fixture's scale: at k=1 the sum has one term
+    p1 = (rs.randn(2, 64, 24) * 10.0).astype(np.float32)
+    p2 = (rs.randn(2, 64, 24) * 10.0).astype(np.float32)
+    v1, v2 = valid_mask(rs, 2, 64), valid_mask(rs, 2, 64)
+    idx2 = jpo.knn(k, j(xyz1), j(xyz2), j(v2))
+    idx1 = jpo.knn(k, j(xyz1), j(xyz1), j(v1))
+    w0 = e["v"]["params"]["w0"]
+    dense, wn1, wn2 = jfused.cv_params_from_variables(e["v"]["params"])
+    want = jfused.fused_cost_volume(
+        j(p1) @ w0[:24], j(p2) @ w0[24:48], idx2, j(xyz1), idx1, j(xyz2),
+        True, dense=dense, wn1=wn1, wn2=wn2)
+    pdense, pwn1, pwn2 = fused.cv_params_from_variables(e["port"])
+    pw0 = e["port"].w0
+    with torch.no_grad():
+        got = fused.fused_cost_volume(
+            t(p1) @ pw0[:24], t(p2) @ pw0[24:48], t(idx2), t(xyz1), t(idx1),
+            t(xyz2), dense=pdense, wn1=pwn1, wn2=pwn2)
+    assert got.shape == (2, 64, 64) and np.abs(np.asarray(want)).max() > 0.1
+    close(got, want)
+
+
 def test_cost_volume_matches_module(correlator):
     """``_cost_volume`` (the kNN, the fan-in products and K4) against the
     port's module forward and flax."""
@@ -307,6 +337,26 @@ def test_cv_packer_matches_jax(correlator):
         assert len(g) == len(w) == 6
         for a, b in zip(g, w):
             close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("k", [1, 32, 33, 64])
+def test_cost_volume_shape_checks(k):
+    """K4b's check takes any K >= 1; K4a's still stops at MAX_K."""
+    b, n, c, h = 2, 5, fused.CV_WIDTH, fused.WEIGHTNET_HIDDEN
+    idx = torch.zeros((b, n, k), dtype=torch.int32)
+    z = torch.zeros((b, n, h))
+    wn = [torch.zeros(h), torch.zeros((h, h)), torch.zeros(h),
+          torch.zeros((h, c)), torch.zeros(c)]
+    fused._check_cv_agg(b, n, c, k, idx, z, wn)
+    if k <= fused.MAX_K:
+        fused._check_cv(b, n, c, k, idx, z, wn)
+    else:
+        with pytest.raises(ValueError, match=f"K <= {fused.MAX_K}"):
+            fused._check_cv(b, n, c, k, idx, z, wn)
+    with pytest.raises(ValueError, match="K >= 1"):
+        fused._check_cv_agg(b, n, c, 0, idx[..., :0], z, wn)
+    with pytest.raises(ValueError, match=f"C={c}"):
+        fused._check_cv_agg(b, n, 64, k, idx, z, wn)
 
 
 # ---------------------------------------------------------------------------

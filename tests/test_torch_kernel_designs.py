@@ -25,9 +25,20 @@ port's plain versions:
   ``knn_plain`` and to ``knn_pallas(interpret=True)`` with exact ties, an
   invalid tail, fewer valid points than k, N not a multiple of 32.
 
+* (d) K4b's schedule (``csrc/cost_volume.cu::cv_agg_kernel``): blocks of
+  ``kAggQ`` queries of one batch element (a ragged last tile), neighbours in
+  chunks of ``kAggKc``, the WeightNet's hidden layer once per (query,
+  neighbour), each thread's queries ``tid / 128``, +2, ..., and the sum over
+  k ascending, with the constants read from the CUDA source.  Held to
+  ``cost_volume_agg_plain`` at k = 1, 8, 40, with indices outside [0, N)
+  (-1, N, 4096), within 1e-4 and 1e-5 of the largest magnitude; every
+  output row written exactly once.
+
 And the lifted point limit: the port's ``knn`` and ``ball_query_multi`` at
 N=2500 against ``cmflow_tpu.ops.pointops`` (its XLA route on the CPU).
 """
+
+import re
 
 import jax
 import jax.numpy as jnp
@@ -39,6 +50,7 @@ from cmflow_tpu.ops import pointops as jpo
 from cmflow_tpu.ops.fused import mxu_group_points
 from cmflow_tpu.ops.neighbors import knn_pallas
 from cmflow_tpu_torch.data.synthetic import make_train_batch
+from cmflow_tpu_torch.native import build
 from cmflow_tpu_torch.ops import fused, neighbors
 
 L = fused.GATHER_BWD_PIECE
@@ -344,6 +356,88 @@ def test_knn_lane_lists_and_merge(rs, case, k):
     np.testing.assert_array_equal(got, want.numpy())
     np.testing.assert_array_equal(
         got, knn_pallas(k, j(q), j(p), True, points_valid=j(v)))
+
+
+# ---------------------------------------------------------------------------
+# (d) K4b: query tiles, neighbour chunks, the hidden layer once per pair
+# ---------------------------------------------------------------------------
+
+def cv_agg_constant(name):
+    src = (build.CSRC / "cost_volume.cu").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+
+def cv_agg_model(p2p, idx, zq, wn):
+    """K4b on numpy float32 arrays, block by block as the kernel runs, its
+    threads' channels vectorised: (out, how often each row was written)."""
+    threads = cv_agg_constant("kAggThreads")
+    q_tile, kc = cv_agg_constant("kAggQ"), cv_agg_constant("kAggKc")
+    b0, w1, b1, w2, b2 = wn
+    bsz, n, c = p2p.shape
+    k, h = idx.shape[2], zq.shape[2]
+    slots = threads // (c // 4)
+    assert q_tile * kc <= threads and q_tile % slots == 0
+    out = np.full(p2p.shape, np.nan, F32)
+    writes = np.zeros((bsz, n), np.int64)
+    tiles = -(-n // q_tile)
+    for blk in range(bsz * tiles):
+        e, i0 = blk // tiles, (blk % tiles) * q_tile
+        acc = np.zeros((q_tile, c), F32)
+        for k0 in range(0, k, kc):
+            # a thread per (query, neighbour) of the chunk
+            h_s = np.zeros((q_tile, kc, h), F32)
+            j_s = np.full((q_tile, kc), -1)
+            for qi in range(q_tile):
+                for kk in range(kc):
+                    i = i0 + qi
+                    if i >= n or k0 + kk >= k:
+                        continue
+                    jj = idx[e, i, k0 + kk]
+                    inside = 0 <= jj < n
+                    d = (zq[e, jj] if inside else np.zeros(h, F32)) - zq[e, i]
+                    a = np.maximum(d + b0, F32(0))
+                    hid = np.zeros(h, F32)
+                    for m in range(h):  # ascending m
+                        hid = hid + a[m] * w1[m]
+                    h_s[qi, kk] = np.maximum(hid + b1, F32(0))
+                    j_s[qi, kk] = jj if inside else -1
+            kn = min(kc, k - k0)
+            for s in range(q_tile // slots):
+                for slot in range(slots):
+                    qi = slot + slots * s
+                    if i0 + qi >= n:
+                        continue
+                    g = [p2p[e, j] if j >= 0 else np.zeros(c, F32)
+                         for j in j_s[qi]]
+                    for kk in range(kn):  # ascending k
+                        t_ = np.zeros(c, F32)
+                        for m in range(h):
+                            t_ = t_ + h_s[qi, kk, m] * w2[m]
+                        acc[qi] = acc[qi] + np.maximum(t_ + b2, F32(0)) * g[kk]
+        for qi in range(q_tile):
+            if i0 + qi < n:
+                out[e, i0 + qi] = acc[qi]
+                writes[e, i0 + qi] += 1
+    return out, writes
+
+
+@pytest.mark.parametrize("k", [1, 8, 40])
+def test_cv_agg_schedule(rs, k):
+    b, n, c, h = 2, 37, fused.CV_WIDTH, fused.WEIGHTNET_HIDDEN
+    assert n % cv_agg_constant("kAggQ")  # a ragged last tile
+    p2p = rs.randn(b, n, c).astype(F32)
+    zq = rs.randn(b, n, h).astype(F32)
+    idx = rs.randint(0, n, (b, n, k)).astype(np.int32)
+    idx[0, :3, 0] = [-1, n, 4096]
+    idx[1, -1, -1] = -7
+    wn = [(rs.randn(*shape) * 0.5).astype(F32)
+          for shape in ((h,), (h, h), (h,), (h, c), (c,))]
+    got, writes = cv_agg_model(p2p, idx, zq, wn)
+    assert (writes == 1).all()
+    want = fused.cost_volume_agg_plain(t(p2p), t(idx), t(zq),
+                                       [t(w) for w in wn]).numpy()
+    err, scale = np.abs(got - want).max(), np.abs(want).max()
+    assert scale > 0.1 and err <= 1e-4 and err <= 1e-5 * scale, (err, scale)
 
 
 # ---------------------------------------------------------------------------

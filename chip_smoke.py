@@ -72,14 +72,34 @@ Run from the repository root on a machine with a CUDA GPU and nvcc.  Steps:
    Twelve steps in all, each with its launches (ball query 12, kNN 2,
    gather 17, gather backward 15, the fused kernels 0), finite loss items,
    its wall time and frames/s; the last Loss below the first;
-8. print one JSON line per kernel shape, per request and per train step,
+8. run the experiment loop through its CLI (``cmflow_tpu_torch.cli.main``,
+   in-process, ``configs/cmflow.yaml``, full width) on a synthetic tree in a
+   temporary directory (``write_synthetic_dataset``: train 64, val 32, test
+   32 frames of 200-319 points): train 2 epochs at B=16, N=256, each with a
+   validation pass at the config's ``eval_batch_size`` of 64 (one batch of
+   32 frames and 32 repeated lanes, int16 wire); require the launches of
+   exactly 8 train steps on the module route (ball query, kNN, gather,
+   gather backward) and 2 fused forwards (ball query, kNN, sa encoder, cost
+   volume, propagation encoder), finite losses and metrics in
+   ``metrics.jsonl``; restore ``models/best`` and require the saved bits;
+   resume one epoch from ``models/last`` (``--load_checkpoint``) and require
+   the step count, Adam's steps and the learning rate to go on from the
+   saved ones; evaluate ``--save_res`` from ``best`` and require one result
+   file per test frame and 14 finite means; then on one B=64 test batch as
+   the loop forms it hold each fused kernel to its plain version (timed
+   by CUDA events around back-to-back calls), the device metric battery to the host battery on the same
+   predictions (atol 1e-4), and the fused route to the module route on the
+   card at the serving bars; print the loop's own train frames/s, eval ms
+   per frame and peak memory beside the card's name and power limit;
+9. print one JSON line per kernel shape, per request and per train step,
    one per route of a kernel measured on several (the ball query: fused 2
    launches per forward, module 12, train step 12; also under its
-   summary's ``by_route``), then the ``{"kernels": [...]}`` summary, then
+   summary's ``by_route``), then the ``{"kernels": [...]}`` summary (each
+   kernel also with its launches in each CLI run), then
    ``{"ok": true, "device": ...}`` last.
 
-Every launch counter is set to 0 just before each served forward and each
-train step and read just after it.  Any failed check raises, so the exit code is non-zero and
+Every launch counter is set to 0 just before each served forward, each
+train step and each CLI run, and read just after it.  Any failed check raises, so the exit code is non-zero and
 the last line is not printed.  Without a CUDA device, or run from anywhere
 but the root of a checkout (with ``cmflow_tpu_torch`` beside it), it exits
 with code 1 at once.
@@ -89,10 +109,12 @@ from __future__ import annotations
 
 import copy
 import json
+import os
 import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -104,17 +126,25 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 import cmflow_tpu_torch
-from cmflow_tpu_torch.data.synthetic import make_request, make_train_batch
+from cmflow_tpu_torch.cli import main as cli
+from cmflow_tpu_torch.data import BatchLoader, VodDataset
+from cmflow_tpu_torch.data.synthetic import (
+    make_request,
+    make_train_batch,
+    write_synthetic_dataset,
+)
 from cmflow_tpu_torch.data.vod import VOD_CAMERA_PROJECTION, VOD_T_CAMERA_RADAR
-from cmflow_tpu_torch.evaluation import metrics
+from cmflow_tpu_torch.evaluation import device_metrics, metrics
 from cmflow_tpu_torch.losses import radar_loss
 from cmflow_tpu_torch.models import build_model, inference
 from cmflow_tpu_torch.models.convert import export_flax_variables
 from cmflow_tpu_torch.native import build
 from cmflow_tpu_torch.nn.blocks import BatchNorm, masked_global_max
 from cmflow_tpu_torch.ops import fused, neighbors
+from cmflow_tpu_torch.train import loop
 from cmflow_tpu_torch.train.state import create_train_state
 from cmflow_tpu_torch.train.steps import make_eval_step, make_train_step
+from cmflow_tpu_torch.utils.config import load_config
 
 B = 16
 SEED = 0
@@ -641,36 +671,45 @@ def check_cv_agg_any_k(model, dev, gen: torch.Generator) -> None:
                                 same_bits=True)))
 
 
+def hold_to_plain(case) -> tuple:
+    """Hold one case's kernel to its plain version at its bar (and to
+    itself bit for bit where it must be); returns (max abs error, the plain
+    output's largest magnitude)."""
+    name = case["kernel"]
+    got, want = case["run"](), case["plain"]()
+    torch.cuda.synchronize()
+    err, scale = errors(got, want)
+    if name in EXACT:
+        require(err == 0.0, f"{name} {case['shape']}: kernel and plain "
+                            f"version differ by {err}")
+    elif name == "gather_bwd":
+        require(err <= GATHER_BWD_RTOL * scale,
+                f"{name} {case['shape']}: kernel and plain version "
+                f"differ by {err} at a largest magnitude of {scale}")
+    else:
+        require(err <= FUSED_ATOL and err <= FUSED_RTOL * scale,
+                f"{name} {case['shape']}: kernel and plain version "
+                f"differ by {err} at a largest magnitude of {scale}")
+    if name in SAME_BITS:
+        again = case["run"]()
+        torch.cuda.synchronize()
+        require(torch.equal(got, again), f"{name} {case['shape']}: two "
+                                         f"runs differ")
+    if "csr" in case:  # K7's first kernel alone, exactly
+        for a, b in zip(case["csr"](), case["csr_plain"]()):
+            require(torch.equal(a, b), f"{name} {case['shape']}: "
+                                       f"gather_rows_csr and its plain "
+                                       f"version differ")
+    return err, scale
+
+
 def check_kernels(cases, first: bool, per_forward: dict) -> None:
     """Hold each case to its plain version, time it, print it, and sum the
     first request's cases per forward or step of their route into
     ``per_forward[(kernel, route)]``."""
     for case in cases:
         name = case["kernel"]
-        got, want = case["run"](), case["plain"]()
-        torch.cuda.synchronize()
-        err, scale = errors(got, want)
-        if name in EXACT:
-            require(err == 0.0, f"{name} {case['shape']}: kernel and plain "
-                                f"version differ by {err}")
-        elif name == "gather_bwd":
-            require(err <= GATHER_BWD_RTOL * scale,
-                    f"{name} {case['shape']}: kernel and plain version "
-                    f"differ by {err} at a largest magnitude of {scale}")
-        else:
-            require(err <= FUSED_ATOL and err <= FUSED_RTOL * scale,
-                    f"{name} {case['shape']}: kernel and plain version "
-                    f"differ by {err} at a largest magnitude of {scale}")
-        if name in SAME_BITS:
-            again = case["run"]()
-            torch.cuda.synchronize()
-            require(torch.equal(got, again), f"{name} {case['shape']}: two "
-                                             f"runs differ")
-        if "csr" in case:  # K7's first kernel alone, exactly
-            for a, b in zip(case["csr"](), case["csr_plain"]()):
-                require(torch.equal(a, b), f"{name} {case['shape']}: "
-                                           f"gather_rows_csr and its plain "
-                                           f"version differ")
+        err, scale = hold_to_plain(case)
         library = case.get("library")
         cublas = case.get("cublas")
         before = WRAPPERS[name].launches
@@ -909,6 +948,206 @@ def train(dev, batch: dict) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the experiment loop through the CLI
+# ---------------------------------------------------------------------------
+
+# the synthetic tree of the CLI phase (default n_range, 200-319 points), the
+# train batch and epochs; validation and eval run at the config's
+# eval_batch_size (64): one batch of 32 frames and 32 repeated lanes
+CLI_PARTS = {"train": 64, "val": 32, "test": 32}
+CLI_BATCH = 16
+CLI_EPOCHS = 2
+CLI_CONFIG = "configs/cmflow.yaml"
+# the device metric battery (float32) against the host one (float64) on the
+# same predictions
+METRICS_ATOL = 1e-4
+# the kernels each route of the loop must launch
+CLI_KERNELS = {"train": ("ball_query", "knn", "gather", "gather_bwd"),
+               "fused": ("ball_query", "knn", "mse", "cv", "cv_agg", "plf")}
+
+
+def run_cli(args, steps: int, val_batches: int) -> dict:
+    """``cli.main(args)`` with every launch counter set to 0 just before and
+    read just after; requires the launches of ``steps`` train steps (module
+    route) and ``val_batches`` fused forwards, nothing else."""
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    rc = cli.main(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: fn.launches for k, fn in WRAPPERS.items()}
+    require(rc == 0, f"cli {args}: exit code {rc}")
+    want = {k: steps * LAUNCHES["train"][k]
+            + val_batches * LAUNCHES["fused"][k] for k in WRAPPERS}
+    require(counts == want, f"cli {args}: launches {counts}, want {want}")
+    for route, n in (("train", steps), ("fused", val_batches)):
+        require(n == 0 or all(counts[k] > 0 for k in CLI_KERNELS[route]),
+                f"cli {args}: a kernel of the {route} route was not launched")
+    return dict(wall_s=wall, launches=counts)
+
+
+def read_log(exp: str) -> dict:
+    """The loop's own numbers from its run.log."""
+    text = open(os.path.join(exp, "run.log")).read()
+    return dict(
+        train_frames_per_s=[float(x) for x in re.findall(
+            r"mean train loss: \S+ \(\d+ steps, \S+s, (\S+) frames/s\)",
+            text)],
+        eval_ms_per_frame=[float(x) for x in re.findall(
+            r"###The inference speed is (\S+)ms per frame###", text)],
+        means={k: float(v) for k, v in re.findall(
+            r"###The mean (.+?): (\S+)###", text)},
+        peak_memory_mb=[float(x) for x in re.findall(
+            r"Max memory allocation: (\S+)MB", text)])
+
+
+def require_finite_rows(path: str, phases) -> list:
+    rows = [json.loads(line) for line in open(path)]
+    require([r["phase"] for r in rows] == list(phases),
+            f"{path}: phases {[r['phase'] for r in rows]}")
+    for r in rows:
+        values = {k: v for k, v in r.items()
+                  if k not in ("epoch", "phase", "ts")}
+        require(values and all(np.isfinite(v) for v in values.values()),
+                f"{path}: a loss or metric is not finite: {r}")
+    return rows
+
+
+def checkpoint_bits_equal(model, path: str) -> None:
+    saved = torch.load(path, map_location="cpu", weights_only=True)["model"]
+    state = model.state_dict()
+    require(sorted(saved) == sorted(state), f"{path}: state_dict keys")
+    for k, v in saved.items():
+        require(torch.equal(state[k].cpu(), v),
+                f"{path}: {k} restored with other bits")
+
+
+def loop_batch_checks(model, root: str, dev) -> dict:
+    """One B=64 eval batch of the test split as the loop forms it (pinned
+    buckets, repeated lanes, the int16 wire): each fused kernel at its
+    shapes against its plain version, the device metric battery against the
+    host one on the same predictions, and the fused route against the
+    module route."""
+    cfg = load_config(CLI_CONFIG)
+    ds = VodDataset(root, cfg.eval_split, cfg.num_points, eval_mode=True,
+                    log=lambda text: None)
+    batch = next(iter(BatchLoader(
+        ds, cfg.eval_batch_size, pad_bucket=cfg.num_points,
+        pad_buckets=loop._pinned_buckets(cfg), num_workers=0,
+        pad_batch=True)))
+    host = {k: v for k, v in batch.items()
+            if k not in ("radar_u", "radar_v", "opt_flow")}
+    x = loop.upload_eval_batch(
+        loop.pack_eval_batch(host, cfg.eval_wire, pin=True), dev)
+    b, n = x["pc1"].shape[:2]
+    require(b == cfg.eval_batch_size and not bool(x["lane_valid"].all()),
+            f"loop batch: B={b}, lanes {int(x['lane_valid'].sum())}")
+    with torch.no_grad():
+        for case in fused_cases(model, x, dev):
+            err, scale = hold_to_plain(case)
+            emit(dict(kernel=case["kernel"], path="cli", shape=case["shape"],
+                      max_abs_err=err, plain_max_abs=scale,
+                      kernel_event_ms=event_ms(case["run"], 20)))
+    step = make_eval_step("cmflow", model)
+    require(step.fused, "the loop's eval step on the card must be fused")
+    out = step(x)
+    pred_f, _, pred_t, pred_m = out
+    vec = device_metrics.frame_metrics(
+        x["pc1"], pred_f, x["labels"], x["mask"], x["valid1"], x["trans"],
+        pred_t, pred_m).cpu().numpy()
+    h = {k: v.cpu().numpy() for k, v in x.items()}
+    keep = h["lane_valid"] & (h["valid1"].sum(1) > 0)
+    f, t, m = (o.cpu().numpy()[keep] for o in (pred_f, pred_t, pred_m))
+    v = h["valid1"][keep]
+    want = {**metrics.eval_scene_flow_batch(h["pc1"][keep], f,
+                                            h["labels"][keep],
+                                            h["mask"][keep], v),
+            **metrics.eval_motion_seg_batch(m.astype(np.float32),
+                                            h["mask"][keep], v),
+            **metrics.eval_trans_rpe_batch(h["trans"][keep], t)}
+    err = {k: float(np.abs(vec[keep, j] - want[k]).max())
+           for j, k in enumerate(device_metrics.METRIC_KEYS)}
+    require(max(err.values()) <= METRICS_ATOL,
+            f"device metrics against the host battery: {err}")
+    req = {"valid1": h["valid1"]}
+    vs_module = compare(req, out, make_eval_step("cmflow", model,
+                                                 fused="off")(x),
+                        "loop batch: fused vs module route")
+    return dict(batch=int(b), bucket=int(n),
+                real_lanes=int(h["lane_valid"].sum()),
+                device_metrics_max_abs_err=err, vs_module_route=vs_module)
+
+
+def cli_phase(dev, card: str) -> dict:
+    """Train, resume and evaluate through ``cmflow_tpu_torch.cli.main`` on a
+    synthetic tree in a temporary directory, at full width on the card."""
+    steps_per_epoch = CLI_PARTS["train"] // CLI_BATCH
+    with tempfile.TemporaryDirectory() as tmp:
+        root, ck = os.path.join(tmp, "data"), os.path.join(tmp, "checkpoints")
+        write_synthetic_dataset(root, CLI_PARTS, seed=SEED)
+        common = ["--config", CLI_CONFIG, "--dataset_path", root,
+                  "--checkpoints_dir", ck, "--num_workers", "0"]
+        train_args = ["--batch_size", str(CLI_BATCH)]
+
+        runs = {"train": run_cli(
+            common + train_args + ["--exp_name", "train", "--epochs",
+                                   str(CLI_EPOCHS)],
+            CLI_EPOCHS * steps_per_epoch, CLI_EPOCHS)}
+        exp = os.path.join(ck, "train")
+        require_finite_rows(os.path.join(exp, "metrics.jsonl"),
+                            ["train", "val"] * CLI_EPOCHS)
+        best, last = (os.path.join(exp, "models", k) for k in ("best", "last"))
+
+        model = build_model("cmflow", dev)
+        loop.restore_checkpoint(best, create_train_state(model))
+        checkpoint_bits_equal(model, best)
+
+        saved = torch.load(last, map_location="cpu", weights_only=True)
+        runs["resume"] = run_cli(
+            common + train_args + ["--exp_name", "resume", "--epochs", "1",
+                                   "--load_checkpoint", "--model_path", last],
+            steps_per_epoch, 1)
+        resumed = torch.load(os.path.join(ck, "resume", "models", "last"),
+                             map_location="cpu", weights_only=True)
+        cfg = load_config(CLI_CONFIG)
+        step = saved["step"] + steps_per_epoch
+        require(resumed["step"] == step,
+                f"resume: step {resumed['step']}, want {step}")
+        require(all(float(s["step"]) == step
+                    for s in resumed["optimizer"]["state"].values()),
+                f"resume: Adam's steps do not continue from {saved['step']}")
+        lr = cfg.lr * cfg.decay_rate ** (step // (cfg.decay_epochs
+                                                  * steps_per_epoch))
+        got_lr = resumed["optimizer"]["param_groups"][0]["lr"]
+        require(got_lr == lr, f"resume: lr {got_lr}, want {lr}")
+        require_finite_rows(os.path.join(ck, "resume", "metrics.jsonl"),
+                            ["train", "val"])
+
+        runs["eval"] = run_cli(common + ["--exp_name", "eval", "--eval",
+                                         "--save_res", "--model_path", best],
+                               0, 1)
+        results = os.path.join(ck, "eval", "results")
+        dumps = [f for _, _, fs in os.walk(results) for f in fs]
+        require(len(dumps) == CLI_PARTS["test"],
+                f"eval --save_res wrote {len(dumps)} result files, want "
+                f"{CLI_PARTS['test']}")
+        numbers = {k: read_log(os.path.join(ck, k))
+                   for k in ("train", "resume", "eval")}
+        require(all(np.isfinite(v) for v in numbers["eval"]["means"].values())
+                and len(numbers["eval"]["means"]) == 14,
+                f"eval means: {numbers['eval']['means']}")
+        batch = loop_batch_checks(model, root, dev)
+    return dict(card=card, runs=runs, resume=dict(step=step, lr=got_lr),
+                loop_batch=batch,
+                train_frames_per_s=numbers["train"]["train_frames_per_s"],
+                val_ms_per_frame=numbers["train"]["eval_ms_per_frame"],
+                eval_ms_per_frame=numbers["eval"]["eval_ms_per_frame"],
+                eval_peak_memory_mb=numbers["eval"]["peak_memory_mb"],
+                eval_means=numbers["eval"]["means"])
+
+
 def main() -> int:
     # the kernels must build from this checkout's sources, not from a copy
     # of the package installed elsewhere
@@ -984,6 +1223,11 @@ def main() -> int:
         check_kernels(train_ball_cases(batch, dev), True, per_forward)
     launches_train = train(dev, batch)
     emit(dict(train_phase_s=time.perf_counter() - t0))
+
+    t0 = time.perf_counter()
+    cli_run = cli_phase(dev, card)
+    emit(dict(cli=cli_run))
+    emit(dict(cli_phase_s=time.perf_counter() - t0))
     by_path = {"fused": launches, "module": launches_module,
                "train": launches_train}
 
@@ -1010,6 +1254,8 @@ def main() -> int:
             entry["cublas_products_ms"] = acc["cublas_products_ms"]
         if name in TC_KERNELS:
             entry["sass"] = sass[name]
+        entry["cli_launches"] = {k: r["launches"][name]
+                                 for k, r in cli_run["runs"].items()}
         # the kernel on each route measured: per forward (per train step)
         routes = {p: a for (n, p), a in per_forward.items() if n == name}
         if len(routes) > 1:

@@ -1,2 +1,21 @@
-"""Sample schema, VoD sample decoding and the synthetic scene generator
+"""Datasets, batch loader, sample schema and the synthetic scene generator
 (copies of the JAX-free host modules of ``cmflow_tpu/data``)."""
+
+from cmflow_tpu_torch.data.loader import BatchLoader
+from cmflow_tpu_torch.data.vod import VodDataset
+
+
+def _not_ported(name: str, item: str):
+    def build(*args, **kwargs):
+        raise NotImplementedError(
+            f"dataset {name!r} is not ported yet (ROADMAP Queue 1, {item})")
+    return build
+
+
+DATASET_REGISTRY = {
+    "vodDataset": VodDataset,
+    "vodClipDataset": _not_ported("vodClipDataset", "item 4"),
+    "vodPackedDataset": _not_ported("vodPackedDataset", "item 8"),
+}
+
+__all__ = ["BatchLoader", "DATASET_REGISTRY", "VodDataset"]

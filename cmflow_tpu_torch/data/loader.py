@@ -1,0 +1,157 @@
+"""Host-side batch loader with background prefetch.
+
+Counterpart of ``cmflow_tpu/data/loader.py`` (the reference's
+``torch.utils.data.DataLoader(num_workers=8)``, main.py:203-208): a thread
+pool decodes json samples while the previous batch is on the device, and
+batches come out as stacked numpy arrays.  Given the same dataset, seed and
+settings it yields the JAX loader's batches bit for bit (at
+``num_workers=0``; with workers the dataset's shared subsample generator is
+drawn in thread order).  Moving a batch to the device is the caller's.
+
+The JAX loader's ``plan`` mode (lane-batched temporal evaluation) comes
+with CMFlow_T (ROADMAP Queue 1, item 4).
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from typing import Iterator, List, Optional
+
+import numpy as np
+
+from cmflow_tpu_torch.data.schema import Sample, bucket_size, collate, pad_to
+
+
+class BatchLoader:
+    """Iterate dict-batches over a dataset with optional shuffling,
+    drop-last, static-bucket padding, and background prefetch."""
+
+    def __init__(
+        self,
+        dataset,
+        batch_size: int,
+        shuffle: bool = False,
+        drop_last: bool = False,
+        pad_bucket: Optional[int] = None,
+        pad_multiple: int = 128,
+        pad_buckets: Optional[List[int]] = None,
+        num_workers: int = 8,
+        prefetch: int = 2,
+        seed: int = 1234,
+        pad_batch: bool = False,
+    ):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self.pad_bucket = pad_bucket
+        self.pad_multiple = pad_multiple
+        # explicit closed bucket set (ascending): every batch pads to one of
+        # these N values and nothing else; a frame larger than the top
+        # bucket fails loudly
+        self.pad_buckets = sorted(pad_buckets) if pad_buckets else None
+        self.num_workers = num_workers
+        self.prefetch = prefetch
+        self.pad_batch = pad_batch
+        self._rng = np.random.default_rng(seed)
+
+    def __len__(self) -> int:
+        n = len(self.dataset)
+        if self.drop_last:
+            return n // self.batch_size
+        return (n + self.batch_size - 1) // self.batch_size
+
+    def _indices(self) -> np.ndarray:
+        idx = np.arange(len(self.dataset))
+        if self.shuffle:
+            self._rng.shuffle(idx)
+        return idx
+
+    def _make_batch(self, indices: List[int]) -> Sample:
+        samples = [self.dataset[i] for i in indices]
+        if self.pad_buckets is not None:
+            n_max = max(
+                max(s["pc1"].shape[-2], s["pc2"].shape[-2]) for s in samples
+            )
+            fits = [b for b in self.pad_buckets if b >= n_max]
+            if not fits:
+                raise ValueError(
+                    f"batch needs N={n_max} points but the pinned eval "
+                    f"bucket set is {self.pad_buckets}; raise eval_buckets")
+            samples = [pad_to(s, fits[0]) for s in samples]
+        elif self.pad_bucket is not None:
+            # shared static bucket across the batch: the max real count
+            # rounded up, so the kernels see few distinct shapes
+            n_max = max(
+                max(s["pc1"].shape[-2], s["pc2"].shape[-2]) for s in samples
+            )
+            n = max(self.pad_bucket,
+                    bucket_size(n_max, self.pad_multiple, self.pad_bucket))
+            samples = [pad_to(s, n) for s in samples]
+        n_real = len(samples)
+        if self.pad_batch and n_real < self.batch_size:
+            # pad the batch dimension with repeats of the last sample so a
+            # short final batch keeps the batch's shape; "lane_valid" marks
+            # the real lanes for the consumer
+            samples = samples + [samples[-1]] * (self.batch_size - n_real)
+        batch = collate(samples)
+        if self.pad_batch:
+            lane = np.zeros(len(samples), bool)
+            lane[:n_real] = True
+            batch["lane_valid"] = lane
+        return batch
+
+    def __iter__(self) -> Iterator[Sample]:
+        idx = self._indices()
+        batches = [
+            idx[i: i + self.batch_size]
+            for i in range(0, len(idx), self.batch_size)
+        ]
+        if self.drop_last:
+            batches = [b for b in batches if len(b) == self.batch_size]
+        jobs = [list(b) for b in batches]
+
+        if self.num_workers <= 0:
+            for arg in jobs:
+                yield self._make_batch(arg)
+            return
+
+        q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
+        stop = threading.Event()
+
+        def producer():
+            try:
+                with ThreadPoolExecutor(self.num_workers) as pool:
+                    # bounded in-flight window: keeps decoded-batch memory
+                    # at O(workers + prefetch), not O(epoch)
+                    window = self.num_workers + self.prefetch
+                    pending = []
+                    for arg in jobs:
+                        pending.append(pool.submit(self._make_batch, arg))
+                        if len(pending) < window:
+                            continue
+                        if stop.is_set():
+                            return
+                        q.put(("item", pending.pop(0).result()))
+                    for f in pending:
+                        if stop.is_set():
+                            return
+                        q.put(("item", f.result()))
+                q.put(("done", None))
+            except BaseException as e:  # forward to the consumer; a dead
+                q.put(("error", e))     # producer must never strand q.get()
+
+        t = threading.Thread(target=producer, daemon=True)
+        t.start()
+        try:
+            while True:
+                kind, item = q.get()
+                if kind == "error":
+                    raise item
+                if kind == "done":
+                    break
+                yield item
+        finally:
+            stop.set()

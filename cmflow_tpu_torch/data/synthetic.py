@@ -1,7 +1,7 @@
-"""Synthetic radar scene-flow scene generator (``make_scene`` of
-``cmflow_tpu/data/synthetic.py``, copied); ``make_request``, which batches
-its scenes into one served request, and ``make_train_batch``, which batches
-them into one training batch.
+"""Synthetic radar scene-flow scene generator (``make_scene`` and
+``write_synthetic_dataset`` of ``cmflow_tpu/data/synthetic.py``, copied);
+``make_request``, which batches its scenes into one served request, and
+``make_train_batch``, which batches them into one training batch.
 
 Produces physically consistent frame pairs in the exact on-disk ujson
 schema of the reference preprocessing output
@@ -21,6 +21,8 @@ license-gated) View-of-Delft download:
 
 from __future__ import annotations
 
+import json
+import os
 from typing import Dict
 
 import numpy as np
@@ -143,6 +145,33 @@ def make_scene(
             "radar_v": uv1[:, 1].tolist(),
         },
     }
+
+
+def write_synthetic_dataset(
+    root: str,
+    partitions: Dict[str, int],
+    clips_per_partition: int = 2,
+    seed: int = 0,
+    n_range=(200, 320),
+    **scene_kwargs,
+) -> None:
+    """Materialize a synthetic dataset tree mirroring the VoD layout:
+    ``<root>/<partition>/delft_<i>/<j>_<j+1>.json``."""
+    rng = np.random.default_rng(seed)
+    for partition, n_samples in partitions.items():
+        per_clip = max(1, n_samples // clips_per_partition)
+        idx = 0
+        for c in range(clips_per_partition):
+            clip_dir = os.path.join(root, partition, f"delft_{c + 1}")
+            os.makedirs(clip_dir, exist_ok=True)
+            for j in range(per_clip):
+                n1 = int(rng.integers(*n_range))
+                n2 = int(rng.integers(*n_range))
+                scene = make_scene(rng, n1=n1, n2=n2, **scene_kwargs)
+                path = os.path.join(clip_dir, f"{idx:05d}_{idx + 1:05d}.json")
+                with open(path, "w") as f:
+                    json.dump(scene, f)
+                idx += 1
 
 
 def make_request(seed: int, batch: int, n_range) -> Dict:

@@ -1,6 +1,12 @@
-"""View-of-Delft sample decoding (part of a copy of
-``cmflow_tpu/data/vod.py``: the constants, :func:`decode_sample` and
-:func:`_sample_indices`).
+"""View-of-Delft preprocessed scene-flow dataset reader (a copy of
+``cmflow_tpu/data/vod.py`` but for ``VodClipDataset``, which comes with
+CMFlow_T, ROADMAP Queue 1, item 4).
+
+Reads ``<root>/<partition>/<clip>/<i>_<j>.json``; only clips named
+``delft_*`` contribute samples (vod.py:43-44).  The samples are read with
+Python's ``json``, as the reference reads them; the JAX package's C++ sample
+codec (ROADMAP Queue 1, item 8) parses straight to float32, so its ``trans``
+can differ from this reader's in the last bit.
 
 A raw sample is the ujson dict written by the reference's preprocessing
 (preprocess/utils/get_flow_samples.py:162-175): features are columns
@@ -12,7 +18,9 @@ exactly ``num_points`` per cloud, eval keeps full clouds.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import json
+import os
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -39,6 +47,35 @@ VOD_T_CAMERA_RADAR = np.array(
      [0.0, 0.0, 0.0, 1.0]], dtype=np.float32)
 
 VOD_INTERVAL = 0.10  # seconds between frames (dataset/vod.py:29)
+
+
+def _list_clips(root: str) -> List[str]:
+    """Clip directories in numeric order, skipping entries that are not
+    ``name_N`` directories (a stray file or oddly named dir must not crash
+    listing — dataset/vod.py:38 sorts blindly and would)."""
+    clips = []
+    for entry in os.listdir(root):
+        if not os.path.isdir(os.path.join(root, entry)):
+            continue
+        parts = entry.split("_")
+        if len(parts) < 2 or not parts[-1].isdigit():
+            continue
+        clips.append(entry)
+    return sorted(clips, key=lambda x: int(x.split("_")[-1]))
+
+
+def _list_samples(clip_path: str) -> List[str]:
+    names = sorted(
+        os.listdir(clip_path),
+        key=lambda x: int(x.split("/")[-1].split("_")[0]),
+    )
+    return [os.path.join(clip_path, n) for n in names]
+
+
+def load_sample_file(path: str) -> Dict:
+    """Load a raw sample json."""
+    with open(path, "rb") as f:
+        return json.load(f)
 
 
 def decode_sample(
@@ -99,3 +136,58 @@ def _sample_indices(npts: int, num_points: int,
         extra = rng.choice(npts, num_points - npts, replace=True)
         return np.concatenate([np.arange(npts), extra])
     return rng.choice(npts, num_points, replace=False)
+
+
+class VodDataset:
+    """Per-pair dataset (dataset/vod.py equivalent).
+
+    ``_rng`` draws the training subsamples in item order; the loader's
+    prefetch threads share it, so only ``num_workers=0`` reproduces a draw
+    order (as in the JAX package)."""
+
+    def __init__(
+        self,
+        root: str,
+        partition: str = "train",
+        num_points: int = 256,
+        eval_mode: bool = False,
+        seed: int = 1234,
+        log=print,
+    ):
+        self.num_points = num_points
+        self.eval_mode = eval_mode
+        self.partition = partition
+        self.root = os.path.join(root, partition)
+        self.res = dict(VOD_RADAR_RES)
+        self.camera_projection_matrix = VOD_CAMERA_PROJECTION
+        self.t_camera_radar = VOD_T_CAMERA_RADAR
+        self.interval = VOD_INTERVAL
+        self._rng = np.random.default_rng(seed)
+
+        self.samples: List[str] = []
+        self.clips_info: List[Dict] = []
+        for clip in _list_clips(self.root):
+            # the reference appends clips_info for *every* clip but samples
+            # only for delft_* ones (dataset/vod.py:39-45); filter both so
+            # clips_info ranges always match self.samples
+            if clip[:5] != "delft":
+                continue
+            samples = _list_samples(os.path.join(self.root, clip))
+            if eval_mode:
+                self.clips_info.append({
+                    "clip_name": clip,
+                    "index": [len(self.samples),
+                              len(self.samples) + len(samples)],
+                })
+            self.samples.extend(samples)
+        log(f"{partition} : {len(self.samples)}")
+
+    def __len__(self) -> int:
+        return len(self.samples)
+
+    def __getitem__(self, index: int) -> Sample:
+        data = load_sample_file(self.samples[index])
+        return decode_sample(
+            data, self.partition, eval_mode=self.eval_mode,
+            num_points=self.num_points, rng=self._rng,
+        )

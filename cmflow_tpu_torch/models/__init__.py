@@ -15,18 +15,19 @@ _NOT_PORTED = {
 }
 
 
-def build_model(name: str, device: DeviceLike = None,
-                seed: int = 0) -> torch.nn.Module:
+def build_model(name: str, device: DeviceLike = None, seed: int = 0,
+                stat_thres: float = 0.5) -> torch.nn.Module:
     """Build a model by registry name, its weights drawn from a
     ``torch.Generator`` seeded with ``seed``, in eval mode on ``device``
-    (``None`` is the GPU; pass ``"cpu"`` for the CPU)."""
+    (``None`` is the GPU; pass ``"cpu"`` for the CPU).  ``stat_thres`` is
+    CMFlow's static-probability threshold (the config's ``stat_thres``)."""
     name = name.lower()
     if name in _NOT_PORTED:
         raise NotImplementedError(_NOT_PORTED[name])
     if name != "cmflow":
         raise KeyError(f"unknown model {name!r}; have ['cmflow']")
     dev = resolve_device(device)
-    model = CMFlow()
+    model = CMFlow(stat_thres=stat_thres)
     init_parameters(model, torch.Generator().manual_seed(seed))
     return model.to(dev).eval()
 

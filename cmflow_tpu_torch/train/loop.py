@@ -1,0 +1,505 @@
+"""Experiment loop: epoch loops, evaluation, checkpoint and resume.
+
+Counterpart of ``cmflow_tpu/train/loop.py`` for the frame-pair models
+(main.py:51-170, main_util.py:93-206): full train-state checkpoints for a
+true resume, ``metrics.jsonl`` rows, and evaluation at static padded shapes
+with the metric battery on the device.
+
+The host feed:
+* training batches go to the card from pinned host memory with
+  non-blocking copies (pinned only when the device is CUDA);
+* evaluation batches keep the JAX package's ``eval_wire``: with ``int16``
+  (the default) each float32 field with >= 32 values per frame is quantized
+  on the host to a per-frame scale ``max|x| / 32767`` (``round``, then
+  ``clip`` to +-32767), uploaded as int16 and dequantized on the device as
+  ``q * scale`` in float32, the JAX unpack's numbers; ``float32`` is
+  lossless.
+
+Neither loop reads the device per step: the train loss items are summed on
+the device and read once per epoch, and without ``save_res`` the metrics are
+summed on the device and read once per evaluation pass.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import queue
+import threading
+import time
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from cmflow_tpu_torch.data import DATASET_REGISTRY, BatchLoader
+from cmflow_tpu_torch.evaluation import device_metrics as dmet
+from cmflow_tpu_torch.evaluation import metrics as ev
+from cmflow_tpu_torch.losses.radar_loss import LOSS_ITEMS
+from cmflow_tpu_torch.models import build_model
+from cmflow_tpu_torch.train import steps as steplib
+from cmflow_tpu_torch.train.state import TrainState, create_train_state
+from cmflow_tpu_torch.utils.config import Config, config_device
+from cmflow_tpu_torch.utils.logging import (
+    IOStream,
+    MetricsWriter,
+    init_experiment_dir,
+)
+
+Tensor = torch.Tensor
+
+
+# --------------------------------------------------------------------------
+# checkpointing
+
+def save_checkpoint(path: str, state: TrainState) -> None:
+    """Full train-state checkpoint: the model's ``state_dict`` (parameters
+    and BatchNorm statistics), the optimizer's (Adam's moments and step), the
+    schedule's, and ``state.step``.  Written to a temporary file, then
+    renamed, so ``path`` always holds a whole checkpoint."""
+    payload = {
+        "model": state.model.state_dict(),
+        "optimizer": state.optimizer.state_dict(),
+        "scheduler": state.scheduler.state_dict(),
+        "step": state.step,
+    }
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    tmp = path + ".tmp"
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+
+
+def restore_checkpoint(path: str, state: TrainState) -> TrainState:
+    """Restore ``state`` in place from :func:`save_checkpoint`'s file, on the
+    model's device whichever device saved it: the tensors are read to the
+    host, ``load_state_dict`` copies the weights onto the model's device and
+    the optimizer casts Adam's moments to its parameters' device, keeping
+    its ``step`` counts on the host where ``torch.optim.Adam`` expects them.
+    The next step takes the saved run's next learning rate and Adam step."""
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    state.model.load_state_dict(payload["model"])
+    state.optimizer.load_state_dict(payload["optimizer"])
+    state.scheduler.load_state_dict(payload["scheduler"])
+    state.step = int(payload["step"])
+    return state
+
+
+# --------------------------------------------------------------------------
+# setup helpers
+
+def build_datasets(cfg: Config, textio) -> Tuple:
+    ds_cls = DATASET_REGISTRY[cfg.dataset]
+    kwargs = dict(num_points=cfg.num_points, log=textio.cprint,
+                  seed=cfg.seed)
+    if cfg.eval:
+        test = ds_cls(cfg.dataset_path, cfg.eval_split, eval_mode=True,
+                      **kwargs)
+        return None, None, test
+    train = ds_cls(cfg.dataset_path, cfg.train_set, eval_mode=False, **kwargs)
+    val = ds_cls(cfg.dataset_path, "val", eval_mode=True, **kwargs)
+    return train, val, None
+
+
+def _host_tensor(array: np.ndarray, pin: bool) -> Tensor:
+    t = torch.from_numpy(np.ascontiguousarray(array))
+    return t.pin_memory() if pin else t
+
+
+def quantize_int16(flat: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Per-row symmetric int16 quantization of a ``[B, L]`` float32 array:
+    ``(q [B, L] int16, scale [B, 1] float32)``, ``q * scale`` the value."""
+    max_abs = np.max(np.abs(flat), axis=1, keepdims=True)
+    scale = np.where(max_abs > 0, max_abs / 32767.0, 1.0).astype(np.float32)
+    q = np.clip(np.round(flat / scale), -32767, 32767).astype(np.int16)
+    return q, scale
+
+
+def pack_eval_batch(host: Dict[str, np.ndarray], wire: str,
+                    pin: bool) -> Dict:
+    """Host side of the eval wire: ``{key: (shape, tensors)}``, the tensors
+    ``(values,)`` or, for a field the ``int16`` wire quantizes, ``(q,
+    scale)``; pinned when ``pin``."""
+    packed = {}
+    for key in sorted(host):
+        v = np.asarray(host[key])
+        flat = v.reshape(v.shape[0], -1)
+        if wire == "int16" and v.dtype == np.float32 and flat.shape[1] >= 32:
+            parts = quantize_int16(flat)
+        else:
+            parts = (v,)
+        packed[key] = (v.shape, tuple(_host_tensor(p, pin) for p in parts))
+    return packed
+
+
+def upload_eval_batch(packed: Dict, device: torch.device) -> Dict[str, Tensor]:
+    """Device side of the eval wire: non-blocking copies, then ``q * scale``
+    in float32 for the quantized fields."""
+    out = {}
+    for key, (shape, tensors) in packed.items():
+        parts = [t.to(device, non_blocking=True) for t in tensors]
+        out[key] = (parts[0] if len(parts) == 1
+                    else (parts[0].float() * parts[1]).reshape(shape))
+    return out
+
+
+# --------------------------------------------------------------------------
+# evaluation
+
+def make_experiment_eval_step(cfg: Config, model):
+    """Build the experiment's eval step once, for every validation pass."""
+    return steplib.make_eval_step(cfg.model, model,
+                                  fused=cfg.fused_inference)
+
+
+def _pinned_buckets(cfg: Config):
+    """The closed eval shape set: cfg.eval_buckets filtered to
+    >= num_points, with num_points itself as the floor bucket.  None
+    disables pinning (falls back to open-ended pad_multiple rounding)."""
+    bs = [int(b) for b in (getattr(cfg, "eval_buckets", None) or ())
+          if int(b) >= int(cfg.num_points)]
+    if not bs:
+        return None
+    return sorted(set(bs + [int(cfg.num_points)]))
+
+
+def _host_prefetch(loader, prep, depth: int = 2):
+    """Load and pack batches in a worker thread, ``depth`` ahead of the
+    dispatch loop.  Yields ``(batch, packed, load_s, pack_s)`` in loader
+    order; worker exceptions re-raise in the consumer."""
+    q: queue.Queue = queue.Queue(maxsize=depth)
+
+    def work():
+        try:
+            t_mark = time.perf_counter()
+            for batch in loader:
+                t0 = time.perf_counter()
+                packed = prep(batch)
+                t1 = time.perf_counter()
+                q.put((batch, packed, t0 - t_mark, t1 - t0))
+                t_mark = time.perf_counter()
+            q.put(None)
+        except BaseException as e:  # noqa: BLE001 — surface in consumer
+            q.put(e)
+
+    threading.Thread(target=work, daemon=True).start()
+    while True:
+        item = q.get()
+        if item is None:
+            return
+        if isinstance(item, BaseException):
+            raise item
+        yield item
+
+
+def evaluate_frames(
+    cfg: Config, model, dataset, textio,
+    save_res_dir: Optional[str] = None,
+    eval_step=None,
+) -> Tuple[Dict, Dict, Dict]:
+    """Frame-pair evaluation (eval_one_epoch, main_util.py:93-206) at static
+    padded shapes: ``eval_batch_size`` frames a batch, padded to a pinned
+    bucket, a short last batch padded with repeated lanes.
+
+    Without ``save_res_dir`` the metrics are summed on the device and read
+    once per pass.  With it, each batch's predictions come to the host (one
+    batch behind the dispatch) for the host battery and the reference's
+    ``[3, N]`` JSON dumps.  Pass ``eval_step`` (from
+    :func:`make_experiment_eval_step`) when calling repeatedly."""
+    device = next(model.parameters()).device
+    pin = device.type == "cuda"
+    wire = cfg.eval_wire
+    if eval_step is None:
+        eval_step = make_experiment_eval_step(cfg, model)
+    batch_size = max(1, int(cfg.eval_batch_size))
+    loader = BatchLoader(
+        dataset, batch_size=batch_size, shuffle=False, drop_last=False,
+        pad_bucket=cfg.num_points, pad_multiple=cfg.eval_pad_multiple,
+        pad_buckets=_pinned_buckets(cfg), num_workers=cfg.num_workers,
+        pad_batch=True,
+    )
+
+    def prep(batch):
+        """Strip the loader's metadata and the pseudo-label inputs the eval
+        step never reads, attach the lane mask, and pack for the wire."""
+        host = {k: v for k, v in batch.items()
+                if not k.startswith("_")
+                and k not in ("radar_u", "radar_v", "opt_flow")}
+        host["lane_valid"] = np.asarray(batch["lane_valid"], bool)
+        return pack_eval_batch(host, wire, pin)
+
+    use_dev_metrics = save_res_dir is None
+    sf_metric = {k: 0.0 for k in
+                 ("rne", "50-50 rne", "mov_rne", "stat_rne", "sas", "ras",
+                  "epe", "accs", "accr")}
+    seg_metric = {"acc": 0.0, "miou": 0.0, "sen": 0.0}
+    pose_metric = {"RTE": 0.0, "RAE": 0.0}
+    num_pcs = 0
+
+    clip_of_frame = {}
+    for ci in dataset.clips_info or []:
+        for i in range(ci["index"][0], ci["index"][1]):
+            clip_of_frame[i] = ci["clip_name"]
+
+    def fetch(out):
+        """Start the copy of a batch's predictions to the host; returns
+        them with an event that marks the copy's end (None on the CPU)."""
+        pred_f, _, pred_t, pred_m = out
+        host = [x.to("cpu", non_blocking=True) for x in (pred_f, pred_m,
+                                                          pred_t)]
+        done = None
+        if device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record()
+        return host, done
+
+    def consume(batch, fetched):
+        """Fold one batch's host predictions into the host battery and
+        write its result dumps."""
+        nonlocal num_pcs
+        (pred_f, pred_m, pred_t), done = fetched
+        if done is not None:
+            done.synchronize()
+        pred_f, pred_m, pred_t = (x.numpy() for x in (pred_f, pred_m, pred_t))
+        valid = np.asarray(batch["valid1"], bool)
+        keep = (valid.sum(1) > 0) & np.asarray(batch["lane_valid"], bool)
+        sel = np.nonzero(keep)[0]
+        if sel.size:
+            res = ev.eval_scene_flow_batch(
+                batch["pc1"][sel], pred_f[sel], batch["labels"][sel],
+                batch["mask"][sel], valid[sel])
+            for k in sf_metric:
+                sf_metric[k] += float(np.sum(res[k]))
+            seg = ev.eval_motion_seg_batch(
+                pred_m[sel].astype(np.float32), batch["mask"][sel],
+                valid[sel])
+            for k in seg_metric:
+                seg_metric[k] += float(np.sum(seg[k]))
+            pose = ev.eval_trans_rpe_batch(batch["trans"][sel], pred_t[sel])
+            for k in pose_metric:
+                pose_metric[k] += float(np.sum(pose[k]))
+            num_pcs += int(sel.size)
+        for bi in sel:
+            bi = int(bi)
+            fidx = num_pcs - int(sel.size) + int(np.sum(sel < bi))
+            nv = int(valid[bi].sum())
+            clip = clip_of_frame.get(fidx, "clip_0")
+            cdir = os.path.join(save_res_dir, clip)
+            os.makedirs(cdir, exist_ok=True)
+            # reference stores [3, N] layouts (main_util.py:149-156)
+            out = {
+                "pc1": batch["pc1"][bi, :nv].T.tolist(),
+                "pc2": batch["pc2"][bi, :int(batch["valid2"][bi].sum())]
+                       .T.tolist(),
+                "pred_f": pred_f[bi, :nv].T.tolist(),
+                "pred_m": pred_m[bi, :nv].astype(float).tolist(),
+                "pred_t": pred_t[bi].astype(float).tolist(),
+            }
+            with open(os.path.join(cdir, f"{fidx}.json"), "w") as fo:
+                json.dump(out, fo)
+
+    msums = torch.zeros(len(dmet.METRIC_KEYS), device=device)
+    mcount = torch.zeros((), device=device)
+    pending = None  # one-deep dispatch/consume pipeline (save_res only)
+    t_load = t_pack = t_disp = t_cons = t_first = t_stall = 0.0
+    t_wall = time.perf_counter()
+    t_mark = t_wall
+    with torch.inference_mode():
+        for i, (batch, packed, load_s, pack_s) in enumerate(
+                _host_prefetch(loader, prep)):
+            t_now = time.perf_counter()
+            t_stall += t_now - t_mark  # main-thread wait on the prefetcher
+            t_load += load_s           # worker-thread time (overlapped)
+            t_pack += pack_s
+            dev = upload_eval_batch(packed, device)
+            out = eval_step(dev)
+            if use_dev_metrics:
+                pred_f, _, pred_t, pred_m = out
+                keep = dev["lane_valid"] & (dev["valid1"].sum(1) > 0)
+                vec = dmet.frame_metrics(
+                    dev["pc1"], pred_f, dev["labels"], dev["mask"],
+                    dev["valid1"], dev["trans"], pred_t, pred_m)
+                msums, mcount = dmet.accumulate(msums, mcount, vec, keep)
+            t_step = time.perf_counter() - t_now
+            if i == 0:
+                t_first = t_step
+            else:
+                t_disp += t_step
+            t_now = time.perf_counter()
+            if not use_dev_metrics:
+                if pending is not None:
+                    consume(*pending)
+                pending = (batch, fetch(out))
+            t_cons += time.perf_counter() - t_now
+            t_mark = time.perf_counter()
+        if pending is not None:
+            consume(*pending)
+        if use_dev_metrics:
+            # the one host read of the pass, which also ends it on the card
+            vec = torch.cat([msums, mcount[None]]).cpu().numpy()
+            num_pcs = int(vec[-1])
+            slots = dict(zip(dmet.METRIC_KEYS, vec[:-1]))
+            for d in (sf_metric, seg_metric, pose_metric):
+                for k in d:
+                    d[k] = float(slots[k])
+    infer_time = time.perf_counter() - t_wall
+
+    for d in (sf_metric, seg_metric, pose_metric):
+        for k in d:
+            d[k] /= max(num_pcs, 1)
+
+    textio.cprint(
+        "###The inference speed is %.3fms per frame###"
+        % (infer_time * 1000 / max(num_pcs, 1))
+    )
+    # "h2d" is the worker's share of the upload: quantizing and pinning;
+    # the non-blocking copies are issued with the dispatch
+    textio.cprint(
+        "eval wall breakdown: stall(load+upload wait) %.1fs  first-batch"
+        "(compile) %.1fs  dispatch %.1fs  consume(fetch+metrics) %.1fs  "
+        "total %.1fs  [prefetch worker: load %.1fs  h2d %.1fs]"
+        % (t_stall, t_first, t_disp, t_cons, infer_time, t_load, t_pack))
+    return sf_metric, seg_metric, pose_metric
+
+
+# --------------------------------------------------------------------------
+# training
+
+def train_experiment(cfg: Config, textio=None) -> Dict:
+    """Full training run (main.py:104-170).  Returns a summary dict."""
+    exp_dir = init_experiment_dir(cfg.checkpoints_dir, cfg.exp_name, cfg)
+    log = textio or IOStream(os.path.join(exp_dir, "run.log"))
+    metrics_out = MetricsWriter(os.path.join(exp_dir, "metrics.jsonl"))
+    try:
+        return _train(cfg, log, metrics_out, exp_dir)
+    finally:
+        metrics_out.close()
+        if textio is None:
+            log.close()
+
+
+def _train(cfg: Config, textio, metrics_out, exp_dir: str) -> Dict:
+    device = config_device(cfg)
+    pin = device.type == "cuda"
+    model = build_model(cfg.model, device, seed=cfg.seed,
+                        stat_thres=cfg.stat_thres)
+    train_ds, val_ds, _ = build_datasets(cfg, textio)
+    loader = BatchLoader(
+        train_ds, cfg.batch_size, shuffle=True, drop_last=True,
+        num_workers=cfg.num_workers, seed=cfg.seed,
+    )
+    state = create_train_state(
+        model, steps_per_epoch=len(loader), lr=cfg.lr,
+        weight_decay=cfg.weight_decay, decay_epochs=cfg.decay_epochs,
+        decay_rate=cfg.decay_rate)
+    if cfg.load_checkpoint and cfg.model_path:
+        restore_checkpoint(cfg.model_path, state)
+        textio.cprint(f"restored checkpoint from {cfg.model_path} (step "
+                      f"{state.step}, next lr "
+                      f"{state.optimizer.param_groups[0]['lr']})")
+
+    step_fn = steplib.make_train_step(
+        cfg.model, model, train_ds.camera_projection_matrix,
+        train_ds.t_camera_radar, cfg.vr_thres)
+    best_rne = np.inf
+    best_path = os.path.join(exp_dir, "models", "best")
+    item_keys = LOSS_ITEMS[cfg.model]
+    eval_step = make_experiment_eval_step(cfg, model)
+
+    for epoch in range(cfg.epochs):
+        textio.cprint(f"==== epoch {epoch} ====")
+        t0 = time.perf_counter()
+        # loss items are summed on the device and read once per epoch: a
+        # read per step would stall the host on the card every step
+        sums_dev = None
+        nb = 0
+        t_wait = t_steps = 0.0
+        batches = iter(loader)
+        while True:
+            t_a = time.perf_counter()
+            batch = next(batches, None)
+            t_b = time.perf_counter()
+            t_wait += t_b - t_a
+            if batch is None:
+                break
+            items = step_fn(state, {k: _host_tensor(v, pin)
+                                    for k, v in batch.items()
+                                    if k not in ("valid1", "valid2")})
+            vec = torch.stack([items[k] for k in item_keys])
+            sums_dev = vec if sums_dev is None else sums_dev + vec
+            nb += 1
+            t_steps += time.perf_counter() - t_b
+        # the one read of the epoch, after every step: the wall clock below
+        # spans the epoch's device work
+        t_a = time.perf_counter()
+        sums = (sums_dev.cpu().numpy() if sums_dev is not None
+                else np.zeros(len(item_keys)))
+        t_read = time.perf_counter() - t_a
+        dt = time.perf_counter() - t0
+        means = {k: float(sums[i]) / max(nb, 1)
+                 for i, k in enumerate(item_keys)}
+        textio.cprint(
+            f"mean train loss: {means['Loss']:.6f} "
+            f"({nb} steps, {dt:.1f}s, {nb * cfg.batch_size / dt:.1f} "
+            f"frames/s)"
+        )
+        # where the epoch's wall time went: waiting on the loader, issuing
+        # the steps (the host's share; the device runs behind it), and the
+        # one read, which waits for the device to finish
+        textio.cprint(
+            "train wall breakdown: load wait %.2fs  steps %.2fs  "
+            "final read %.2fs" % (t_wait, t_steps, t_read))
+        metrics_out.write({"epoch": epoch, "phase": "train", **means})
+
+        sf, seg, pose = evaluate_frames(cfg, model, val_ds, textio,
+                                        eval_step=eval_step)
+        textio.cprint(f"mean RNE score: {sf['rne']:.6f}")
+        metrics_out.write({"epoch": epoch, "phase": "val", **sf, **seg,
+                           **pose})
+
+        if sf["rne"] <= best_rne:
+            best_rne = sf["rne"]
+            save_checkpoint(best_path, state)
+            textio.cprint(f"best val score till now: {best_rne:.6f}")
+
+    save_checkpoint(os.path.join(exp_dir, "models", "last"), state)
+    textio.cprint(f"==== best RNE after {cfg.epochs} epochs: {best_rne} ====")
+    return {"best_rne": best_rne, "exp_dir": exp_dir}
+
+
+def eval_experiment(cfg: Config, textio=None) -> Dict:
+    """Evaluation run (main.py:51-69): restore ``cfg.model_path`` (or the
+    experiment's ``models/best``), or warn and evaluate the random init."""
+    exp_dir = init_experiment_dir(cfg.checkpoints_dir, cfg.exp_name, cfg)
+    log = textio or IOStream(os.path.join(exp_dir, "run.log"))
+    try:
+        return _eval(cfg, log, exp_dir)
+    finally:
+        if textio is None:
+            log.close()
+
+
+def _eval(cfg: Config, textio, exp_dir: str) -> Dict:
+    device = config_device(cfg)
+    model = build_model(cfg.model, device, seed=cfg.seed,
+                        stat_thres=cfg.stat_thres)
+    _, _, test_ds = build_datasets(cfg, textio)
+
+    ckpt = cfg.model_path or os.path.join(exp_dir, "models", "best")
+    if os.path.exists(ckpt):
+        restore_checkpoint(ckpt, create_train_state(model))
+        textio.cprint(f"restored checkpoint from {ckpt}")
+    else:
+        textio.cprint("WARNING: no checkpoint found, evaluating random init")
+
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    save_dir = os.path.join(exp_dir, "results") if cfg.save_res else None
+    sf, seg, pose = evaluate_frames(cfg, model, test_ds, textio,
+                                    save_res_dir=save_dir)
+    for d in (sf, seg, pose):
+        for k, v in d.items():
+            textio.cprint(f"###The mean {k}: {v}###")
+    if device.type == "cuda":
+        peak = torch.cuda.max_memory_allocated(device) / 1e6
+        textio.cprint(f"Max memory allocation: {peak:.1f}MB")
+    return {"sf": sf, "seg": seg, "pose": pose}

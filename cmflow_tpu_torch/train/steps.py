@@ -29,6 +29,12 @@ _TRAIN_INPUTS = ("pc1", "pc2", "ft1", "ft2", "trans", "labels", "mask",
                  "interval", "radar_u", "radar_v", "opt_flow")
 
 
+def _to_device(value, device: torch.device) -> Tensor:
+    """A batch field (numpy array or tensor) on ``device``; a tensor in
+    pinned host memory is copied without blocking the host."""
+    return torch.as_tensor(value).to(device, non_blocking=True)
+
+
 def _frame_loss(model: torch.nn.Module, x: Mapping[str, Tensor],
                 proj: Tensor, tcr: Tensor, vr_thres: float
                 ) -> Tuple[Tensor, Dict[str, Tensor]]:
@@ -59,7 +65,7 @@ def make_train_step(model_name: str, model: torch.nn.Module,
                                   Dict[str, Tensor]]:
     """Per-batch train step ``(state, batch) -> items`` for CMFlow.
 
-    The batch is a dict of arrays without valid masks, as
+    The batch is a dict of arrays or tensors without valid masks, as
     :func:`cmflow_tpu_torch.data.synthetic.make_train_batch` gives it.  The
     step moves it to the model's device, generates the pseudo labels, runs
     the forward with ``train=True`` (batch statistics; the BatchNorm running
@@ -84,8 +90,7 @@ def make_train_step(model_name: str, model: torch.nn.Module,
              ) -> Dict[str, Tensor]:
         if state.model is not model:
             raise ValueError("the train state holds another model")
-        x = {k: torch.as_tensor(np.asarray(batch[k])).to(device)
-             for k in _TRAIN_INPUTS}
+        x = {k: _to_device(batch[k], device) for k in _TRAIN_INPUTS}
         state.optimizer.zero_grad(set_to_none=True)
         loss, items = _frame_loss(model, x, proj, tcr, vr_thres)
         loss.backward()
@@ -105,8 +110,8 @@ def make_eval_step(model_name: str, model: torch.nn.Module,
     eval mode (main_util.py:139-142).
 
     The batch is a dict of arrays as :func:`cmflow_tpu_torch.data.schema.collate`
-    gives them, with ``valid1``/``valid2`` masks; the step moves the fields
-    it reads to the model's device.  ``fused`` picks the route: ``"on"`` the
+    gives them (or tensors), with ``valid1``/``valid2`` masks; the step moves
+    the fields it reads to the model's device.  ``fused`` picks the route: ``"on"`` the
     fused engine, ``"off"`` the module route, ``"auto"`` the fused engine
     when the model's parameters lie on a CUDA device and the module route
     otherwise (the JAX package's rule, with the card in the TPU's place).
@@ -120,9 +125,7 @@ def make_eval_step(model_name: str, model: torch.nn.Module,
     use_fused = device.type == "cuda" if fused == "auto" else fused == "on"
 
     def step(batch: Mapping[str, np.ndarray]):
-        x: Dict[str, Tensor] = {
-            k: torch.as_tensor(np.asarray(batch[k])).to(device)
-            for k in _INPUTS}
+        x = {k: _to_device(batch[k], device) for k in _INPUTS}
         args = (x["pc1"], x["pc2"], x["ft1"], x["ft2"])
         with torch.inference_mode():
             if use_fused:

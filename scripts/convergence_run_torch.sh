@@ -1,0 +1,66 @@
+#!/bin/bash
+# Synthetic convergence gate of the PyTorch port, the counterpart of
+# scripts/convergence_run.sh: train MODEL for EPOCHS epochs through
+# `python -m cmflow_tpu_torch.cli.main` on the same 320/48/16-sample
+# synthetic VoD-layout set (clips_per_partition=8, seed=5), then assert on
+# the best epoch's val RNE: below 0.6x the first epoch's, and at or below
+# the family's f32 bar (cmflow 0.105, raflow 0.160, cmflow_t 0.130).
+# Needs neither PyYAML nor matplotlib.  Runs on the GPU unless
+# PLATFORM=cpu.
+#
+#   scripts/convergence_run_torch.sh                  # cmflow, 24 epochs
+#   OUT=build/convergence_torch.jsonl scripts/convergence_run_torch.sh
+#
+# Env knobs: MODEL (only cmflow is ported), DS (dataset dir, default
+# build/conv_ds), EXP (exp name; default conv_torch_$MODEL), PLATFORM
+# (auto|cpu), EPOCHS, BATCH, OUT (copy of the run's metrics, first line the
+# run parameters).
+set -e
+MODEL=${MODEL:-cmflow}
+DS=${DS:-build/conv_ds}
+EXP=${EXP:-conv_torch_${MODEL}}
+PLATFORM=${PLATFORM:-auto}
+EPOCHS=${EPOCHS:-24}
+BATCH=${BATCH:-16}
+if [ ! -d "$DS" ]; then
+  python - <<PY
+from cmflow_tpu_torch.data.synthetic import write_synthetic_dataset
+write_synthetic_dataset("$DS", {"train": 320, "val": 48, "test": 16},
+                        clips_per_partition=8, seed=5)
+PY
+fi
+# MetricsWriter appends: set any earlier run's metrics aside so the gate
+# reads exactly one run
+if [ -f "checkpoints/$EXP/metrics.jsonl" ]; then
+  mv "checkpoints/$EXP/metrics.jsonl" \
+     "checkpoints/$EXP/metrics.$(date +%s).jsonl"
+fi
+python -m cmflow_tpu_torch.cli.main --config "configs/${MODEL}.yaml" \
+  --dataset_path "$DS" --exp_name "$EXP" --epochs "$EPOCHS" \
+  --batch_size "$BATCH" --platform "$PLATFORM"
+if [ -n "$OUT" ]; then
+  python - <<PY
+import json
+hdr = {"run": {"model": "$MODEL", "dtype": "float32",
+               "platform": "$PLATFORM", "epochs": int("$EPOCHS"),
+               "batch_size": int("$BATCH"), "dataset": "synthetic-320"}}
+with open("$OUT", "w") as f:
+    f.write(json.dumps(hdr) + "\n")
+    f.writelines(open("checkpoints/$EXP/metrics.jsonl"))
+print("wrote $OUT")
+PY
+fi
+python - <<PY
+import json
+# the same per-family absolute val-RNE bars as scripts/convergence_run.sh
+ABS = {"cmflow": 0.105, "raflow": 0.160, "cmflow_t": 0.130}
+rows = [json.loads(l) for l in open("checkpoints/$EXP/metrics.jsonl")]
+rnes = [r["rne"] for r in rows if "rne" in r]
+print("val RNE by epoch:", " ".join(f"{x:.4f}" for x in rnes))
+assert min(rnes) < 0.6 * rnes[0], \
+    f"no convergence: {rnes[0]} -> best {min(rnes)}"
+bar = ABS["$MODEL"]
+assert min(rnes) <= bar, \
+    f"plateaued above the absolute bar: min RNE {min(rnes):.4f} > {bar}"
+print(f"converged: val RNE {rnes[0]:.4f} -> {min(rnes):.4f} (bar {bar})")
+PY

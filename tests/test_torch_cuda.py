@@ -23,12 +23,20 @@ bit for bit across runs; its CSR build (``gather_rows_csr``) is integer work
 and is held to its plain version exactly.
 """
 
+import copy
+
 import numpy as np
 import pytest
 import torch
 
+from cmflow_tpu_torch.data.synthetic import make_request, make_train_batch
+from cmflow_tpu_torch.data.vod import VOD_CAMERA_PROJECTION, VOD_T_CAMERA_RADAR
+from cmflow_tpu_torch.models import CMFlow
 from cmflow_tpu_torch.nn import blocks
 from cmflow_tpu_torch.ops import fused, neighbors, pointops
+from cmflow_tpu_torch.train import loop
+from cmflow_tpu_torch.train.state import create_train_state
+from cmflow_tpu_torch.train.steps import make_eval_step, make_train_step
 
 pytestmark = pytest.mark.cuda
 
@@ -620,3 +628,80 @@ def test_fused_kernels_reject_other_widths(dev, rs):
         chain, _, _ = fused.plf_params_from_variables(plf)
         with pytest.raises(ValueError, match="chain"):
             fused.fused_point_local_feature(feat_tx, idx, pc, chain)
+
+
+# ---------------------------------------------------------------------------
+# the experiment loop: its eval batch of 64 frames on the fused route, and
+# checkpoints across devices
+# ---------------------------------------------------------------------------
+
+def assert_outputs_near(req, out, ref):
+    """The serving bars on the valid points: stat_cls and sf_agg (where the
+    masks agree) atol 1e-4, pre_trans atol 5e-4, masks agreeing on >= 99%."""
+    (sf, cls, trans, mask), (rsf, rcls, rtrans, rmask) = (
+        [x.cpu().numpy() for x in o] for o in (out, ref))
+    valid = req["valid1"]
+    assert np.abs(cls - rcls)[valid].max() <= 1e-4
+    assert np.abs(trans - rtrans).max() <= 5e-4
+    assert (mask == rmask)[valid].mean() >= 0.99
+    assert np.abs(sf - rsf)[(mask == rmask) & valid].max() <= 1e-4
+
+
+@pytest.mark.parametrize("bucket", [384, 512])
+def test_fused_route_batch_64(dev, bucket):
+    """The loop's default eval batch (B=64) in the 384 and 512 buckets: the
+    fused route on the card against the same route on the CPU (every
+    kernel's plain version) and against the module route on the card."""
+    req = make_request(bucket, 64, (bucket - 127, bucket))
+    assert req["pc1"].shape == (64, bucket, 3) and not req["valid1"].all()
+    model = seeded(CMFlow(), dev, 11).eval()
+    step = make_eval_step("cmflow", model)
+    assert step.fused
+    out = step(req)
+    assert all(bool(torch.isfinite(x).all()) for x in out[:3])
+    cpu = copy.deepcopy(model).to("cpu")
+    assert_outputs_near(req, out,
+                        make_eval_step("cmflow", cpu, fused="on")(req))
+    assert_outputs_near(req, out,
+                        make_eval_step("cmflow", model, fused="off")(req))
+
+
+def train_state(device, seed):
+    model = seeded(CMFlow(), device, seed).eval()
+    return create_train_state(model, steps_per_epoch=2)
+
+
+def state_bits(state):
+    opt = state.optimizer.state_dict()
+    return ({k: v.cpu() for k, v in state.model.state_dict().items()},
+            {(i, k): v.cpu() for i, s in opt["state"].items()
+             for k, v in s.items()}, state.scheduler.state_dict(), state.step)
+
+
+@pytest.mark.parametrize("order", ["card_to_cpu", "cpu_to_card"])
+def test_checkpoint_restores_across_devices(dev, tmp_path, order):
+    """A checkpoint saved on one device restores on the other bit for bit:
+    the weights and Adam's moments on the restoring model's device, Adam's
+    step counts on the host, and the restored state trains on."""
+    src, dst = ((dev, torch.device("cpu")) if order == "card_to_cpu"
+                else (torch.device("cpu"), dev))
+    batch = make_train_batch(0, 2, 64)
+    state = train_state(src, 3)
+    make_train_step("cmflow", state.model, VOD_CAMERA_PROJECTION,
+                    VOD_T_CAMERA_RADAR)(state, batch)
+    path = str(tmp_path / "last")
+    loop.save_checkpoint(path, state)
+    restored = loop.restore_checkpoint(path, train_state(dst, 4))
+    want, got = state_bits(state), state_bits(restored)
+    for a, b in zip(want[:2], got[:2]):
+        assert sorted(a) == sorted(b)
+        for k in a:
+            assert torch.equal(a[k], b[k]), k
+    assert want[2:] == got[2:]
+    for p in restored.model.parameters():
+        s = restored.optimizer.state[p]
+        assert s["exp_avg"].device.type == dst.type
+        assert s["step"].device.type == "cpu" and float(s["step"]) == 1.0
+    items = make_train_step("cmflow", restored.model, VOD_CAMERA_PROJECTION,
+                            VOD_T_CAMERA_RADAR)(restored, batch)
+    assert restored.step == 2 and np.isfinite(float(items["Loss"]))

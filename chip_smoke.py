@@ -91,7 +91,17 @@ Run from the repository root on a machine with a CUDA GPU and nvcc.  Steps:
    predictions (atol 1e-4), and the fused route to the module route on the
    card at the serving bars; print the loop's own train frames/s, eval ms
    per frame and peak memory beside the card's name and power limit;
-9. print one JSON line per kernel shape, per request and per train step,
+9. the other families, full width, B=16: RaFlow and CMFlow_T serve three
+   requests (CMFlow_T three frames with the carry and resets) on the fused
+   route, held to the module route and to the CPU at the serving bars;
+   RaFlow takes six train steps, the first held to the CPU at the train
+   bars; CMFlow_T takes a T=2 mini-clip step at learning rate 0 on one
+   frame twice, held to the CPU (items, running means, gradients), the same
+   step on two frames, its gradients held at the median leaf, then three
+   T=5 clip steps, the loss falling; the train paths' kernels held to their
+   plain versions at every frame's shapes; a CLI train, resume and eval
+   for each family with exact launch counts;
+10. print one JSON line per kernel shape, per request and per train step,
    one per route of a kernel measured on several (the ball query: fused 2
    launches per forward, module 12, train step 12; also under its
    summary's ``by_route``), then the ``{"kernels": [...]}`` summary (each
@@ -109,6 +119,7 @@ from __future__ import annotations
 
 import copy
 import json
+import math
 import os
 import re
 import shutil
@@ -127,7 +138,7 @@ from torch.profiler import ProfilerActivity, profile
 
 import cmflow_tpu_torch
 from cmflow_tpu_torch.cli import main as cli
-from cmflow_tpu_torch.data import BatchLoader, VodDataset
+from cmflow_tpu_torch.data import BatchLoader, VodClipDataset, VodDataset
 from cmflow_tpu_torch.data.synthetic import (
     make_request,
     make_train_batch,
@@ -143,7 +154,11 @@ from cmflow_tpu_torch.nn.blocks import BatchNorm, masked_global_max
 from cmflow_tpu_torch.ops import fused, neighbors
 from cmflow_tpu_torch.train import loop
 from cmflow_tpu_torch.train.state import create_train_state
-from cmflow_tpu_torch.train.steps import make_eval_step, make_train_step
+from cmflow_tpu_torch.train.steps import (
+    make_eval_step,
+    make_train_step,
+    make_train_step_seq,
+)
 from cmflow_tpu_torch.utils.config import load_config
 
 B = 16
@@ -234,6 +249,15 @@ def require(cond: bool, msg: str) -> None:
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def zero_counts() -> None:
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+
+
+def counts_now() -> dict:
+    return {k: fn.launches for k, fn in WRAPPERS.items()}
 
 
 def event_ms(fn, iters: int) -> float:
@@ -814,21 +838,21 @@ def compare(req, out, ref, what: str) -> dict:
     return res
 
 
-def serve(route: str, step, requests, checks) -> dict:
+def serve(route: str, step, requests, checks,
+          family: str = "cmflow") -> dict:
     """Serve ``requests`` through ``step``, counting each kernel's launches
     per forward; ``checks(req, out)`` returns the first request's
     comparisons."""
     launches = {k: 0 for k in WRAPPERS}
     want = LAUNCHES[route]
     for i, req in enumerate(requests):
-        for fn in WRAPPERS.values():
-            fn.launches = 0
+        zero_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = step(req)
         torch.cuda.synchronize()
         latency = time.perf_counter() - t0
-        counts = {k: fn.launches for k, fn in WRAPPERS.items()}
+        counts = counts_now()
         require(counts == want,
                 f"{route} request {i}: launches {counts}, want {want}")
         for k in launches:
@@ -840,8 +864,9 @@ def serve(route: str, step, requests, checks) -> dict:
                 f"{route} request {i}: output shapes")
         require(all(bool(torch.isfinite(x).all()) for x in (sf, cls, trans)),
                 f"{route} request {i}: non-finite output")
-        row = dict(route=route, request=i, batch=int(b), bucket=int(n),
-                   latency_ms=1e3 * latency, frames_per_s=b / latency,
+        row = dict(family=family, route=route, request=i, batch=int(b),
+                   bucket=int(n), latency_ms=1e3 * latency,
+                   frames_per_s=b / latency,
                    launches=counts, **frame_metrics(req, out))
         if i == 0:
             row.update(checks(req, out))
@@ -857,12 +882,11 @@ def leaves(tree, prefix=""):
             yield prefix + key, value
 
 
-def compare_train_step(items, cpu_items, model, cpu_model) -> dict:
-    """Hold the card's first train step to the CPU's at TRAIN_BARS."""
-    res = {}
-    loss_err = max(abs(float(items[k]) - float(cpu_items[k]))
-                   / abs(float(cpu_items[k])) for k in cpu_items)
-    res["loss_max_rel_err"] = loss_err
+def gradient_errors(model, cpu_model, res: dict) -> dict:
+    """The card's gradients against the CPU's: into ``res`` the worst and
+    the median leaf's relative L2 error, the whole gradient's, and the
+    largest error over each leaf's largest entry; returns each leaf's
+    relative L2 error."""
     grads = dict(leaves(export_flax_variables(model, grads=True)))
     cpu_grads = dict(leaves(export_flax_variables(cpu_model, grads=True)))
     leaf_l2 = {k: float(np.linalg.norm(grads[k] - w) / np.linalg.norm(w))
@@ -872,16 +896,33 @@ def compare_train_step(items, cpu_items, model, cpu_model) -> dict:
     leaf_max = {k: float(np.abs(grads[k] - w).max() / np.abs(w).max())
                 for k, w in cpu_grads.items()}
     res["grad_leaf_l2_max"] = max(leaf_l2.values())
+    res["grad_leaf_l2_median"] = float(np.median(list(leaf_l2.values())))
     res["grad_l2"] = (num / den) ** 0.5
     res["grad_leaf_max_over_max"] = max(leaf_max.values())
     res["grad_leaves_within_1e-3_of_max"] = sum(
         v <= 1e-3 for v in leaf_max.values())
     res["grad_leaves"] = len(leaf_max)
+    return leaf_l2
+
+
+def compare_train_step(items, cpu_items, model, cpu_model,
+                       stats=("mean", "var")) -> dict:
+    """Hold the card's first train step to the CPU's at TRAIN_BARS; of the
+    BatchNorm statistics, those named in ``stats`` (the others' error is
+    reported)."""
+    res = {}
+    loss_err = max(abs(float(items[k]) - float(cpu_items[k]))
+                   / abs(float(cpu_items[k])) for k in cpu_items)
+    res["loss_max_rel_err"] = loss_err
+    leaf_l2 = gradient_errors(model, cpu_model, res)
     after = dict(leaves(export_flax_variables(model)))
     cpu_after = dict(leaves(export_flax_variables(cpu_model)))
-    res["stats_max_abs_err"] = max(float(np.abs(after[k] - w).max())
-                                   for k, w in cpu_after.items()
-                                   if k.startswith("batch_stats/"))
+    for kind in ("mean", "var"):
+        res[f"stats_{kind}_max_abs_err"] = max(
+            float(np.abs(after[k] - w).max()) for k, w in cpu_after.items()
+            if k.startswith("batch_stats/") and k.endswith(kind))
+    res["stats_max_abs_err"] = max(res[f"stats_{kind}_max_abs_err"]
+                                   for kind in stats)
     res["params_max_abs_err"] = max(float(np.abs(after[k] - w).max())
                                     for k, w in cpu_after.items()
                                     if k.startswith("params/"))
@@ -915,14 +956,13 @@ def train(dev, batch: dict) -> dict:
     launches = {k: 0 for k in WRAPPERS}
     losses = []
     for i in range(TRAIN_STEPS):
-        for fn in WRAPPERS.values():
-            fn.launches = 0
+        zero_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         items = step(state, batch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = {k: fn.launches for k, fn in WRAPPERS.items()}
+        counts = counts_now()
         require(counts == want,
                 f"train step {i}: launches {counts}, want {want}")
         for k in launches:
@@ -971,13 +1011,12 @@ def run_cli(args, steps: int, val_batches: int) -> dict:
     """``cli.main(args)`` with every launch counter set to 0 just before and
     read just after; requires the launches of ``steps`` train steps (module
     route) and ``val_batches`` fused forwards, nothing else."""
-    for fn in WRAPPERS.values():
-        fn.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     rc = cli.main(args)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = {k: fn.launches for k, fn in WRAPPERS.items()}
+    counts = counts_now()
     require(rc == 0, f"cli {args}: exit code {rc}")
     want = {k: steps * LAUNCHES["train"][k]
             + val_batches * LAUNCHES["fused"][k] for k in WRAPPERS}
@@ -1024,6 +1063,17 @@ def checkpoint_bits_equal(model, path: str) -> None:
                 f"{path}: {k} restored with other bits")
 
 
+def upload_as_the_loop(batch: dict, cfg, dev) -> dict:
+    """A loader batch on the card as ``evaluate_frames`` sends it: the
+    loader's metadata and the pseudo-label inputs stripped, then the
+    config's eval wire."""
+    host = {k: v for k, v in batch.items()
+            if not k.startswith("_")
+            and k not in ("radar_u", "radar_v", "opt_flow")}
+    return loop.upload_eval_batch(
+        loop.pack_eval_batch(host, cfg.eval_wire, pin=True), dev)
+
+
 def loop_batch_checks(model, root: str, dev) -> dict:
     """One B=64 eval batch of the test split as the loop forms it (pinned
     buckets, repeated lanes, the int16 wire): each fused kernel at its
@@ -1037,10 +1087,7 @@ def loop_batch_checks(model, root: str, dev) -> dict:
         ds, cfg.eval_batch_size, pad_bucket=cfg.num_points,
         pad_buckets=loop._pinned_buckets(cfg), num_workers=0,
         pad_batch=True)))
-    host = {k: v for k, v in batch.items()
-            if k not in ("radar_u", "radar_v", "opt_flow")}
-    x = loop.upload_eval_batch(
-        loop.pack_eval_batch(host, cfg.eval_wire, pin=True), dev)
+    x = upload_as_the_loop(batch, cfg, dev)
     b, n = x["pc1"].shape[:2]
     require(b == cfg.eval_batch_size and not bool(x["lane_valid"].all()),
             f"loop batch: B={b}, lanes {int(x['lane_valid'].sum())}")
@@ -1148,6 +1195,367 @@ def cli_phase(dev, card: str) -> dict:
                 eval_means=numbers["eval"]["means"])
 
 
+# ---------------------------------------------------------------------------
+# RaFlow and CMFlow_T
+# ---------------------------------------------------------------------------
+
+FAMILY_SEED = {"raflow": SEED + 20, "cmflow_t": SEED + 30}
+SEQ_T = 5  # mini_clip_len of configs/cmflow_t.yaml
+SEQ_FRAMES = 3  # frames served with the carry
+FAMILY_TRAIN_STEPS = {"raflow": 6, "cmflow_t": 3}  # steps, clip steps
+GFEAT_ATOL = 1e-4
+FAMILY_CONFIG = {"raflow": "configs/raflow.yaml",
+                 "cmflow_t": "configs/cmflow_t.yaml"}
+# each family's synthetic tree for the CLI: {partition: (frames, clips)}.
+# CMFlow_T: 16 mini-clips of 5 (one clip batch), val and test in 8 clips,
+# so its evaluation runs 8 lanes
+FAMILY_TREE = {"raflow": {"train": (64, 2), "val": (32, 2), "test": (32, 2)},
+               "cmflow_t": {"train": (80, 1), "val": (48, 8),
+                            "test": (16, 8)}}
+
+
+def hold_cases(cases) -> int:
+    """Hold each case's kernel to its plain version, untimed; returns the
+    count of cases."""
+    with torch.no_grad():
+        for case in cases:
+            hold_to_plain(case)
+    return len(cases)
+
+
+def compare_raflow(req, out, ref, what: str) -> dict:
+    """RaFlow's ``(sf_agg, mask_s as float, pre_trans, mask_s)`` held to
+    ``ref`` at the serving bars, on the valid points."""
+    (sf, _, trans, mask), (rsf, _, rtrans, rmask) = (
+        [x.cpu().numpy() for x in o] for o in (out, ref))
+    valid = req["valid1"]
+    same = (mask == rmask) & valid
+    res = dict(trans_max_abs_err=float(np.abs(trans - rtrans).max()),
+               flow_max_abs_err=float(np.abs(sf - rsf)[same].max()),
+               mask_agreement=float((mask == rmask)[valid].mean()))
+    require(res["trans_max_abs_err"] <= BARS["trans"]
+            and res["flow_max_abs_err"] <= BARS["flow"]
+            and res["mask_agreement"] >= BARS["agree"], f"{what}: {res}")
+    return res
+
+
+def compare_temporal(req, out, ref, what: str) -> dict:
+    """CMFlow_T's five outputs: the serving bars, and the new carry."""
+    res = compare(req, out[:4], ref[:4], what)
+    res["gfeat_max_abs_err"] = float((out[4].cpu() - ref[4].cpu()).abs()
+                                     .max())
+    require(res["gfeat_max_abs_err"] <= GFEAT_ATOL, f"gfeat {what}: {res}")
+    return res
+
+
+def serve_raflow(dev, gen, requests) -> tuple:
+    """RaFlow with seeded weights and BatchNorm statistics through
+    ``make_eval_step`` on the fused route; its kernels held to their plain
+    versions at its first request; the first request held to the CPU and to
+    the module route."""
+    model = build_model("raflow", dev, seed=FAMILY_SEED["raflow"])
+    module_step = make_eval_step("raflow", model, fused="off")
+    randomize_batchnorm(model, module_step,
+                        make_request(SEED + 98, B, (200, 256)), gen)
+    step = make_eval_step("raflow", model)
+    require(step.fused, "raflow: make_eval_step on the card must be fused")
+    cpu_model = copy.deepcopy(model).to("cpu")
+    held = hold_cases(fused_cases(model, requests[0], dev))
+
+    def checks(req, out):
+        return dict(
+            vs_cpu=compare_raflow(req, out, make_eval_step(
+                "raflow", cpu_model, fused="on")(req), "raflow fused vs CPU"),
+            vs_module_route=compare_raflow(req, out, module_step(req),
+                                           "raflow fused vs module route"))
+
+    launches = serve("fused", step, requests, checks, family="raflow")
+    return launches, held
+
+
+def serve_cmflow_t(dev, gen, frames) -> tuple:
+    """CMFlow_T with seeded weights and BatchNorm statistics: SEQ_FRAMES
+    B=16 frames through ``make_eval_step`` on the fused route with the GRU
+    carry, every lane reset at frame 0 and lane 0 again at frame 2
+    (``cmflow_t_infer_seq``'s resets).  Each frame's launches; the first
+    frame held to the module route; every frame and the final carry held
+    to ``cmflow_t_infer_seq`` on the CPU and on the card."""
+    model = build_model("cmflow_t", dev, seed=FAMILY_SEED["cmflow_t"])
+    width = model.cfg.prop_width
+    module_step = make_eval_step("cmflow_t", model, fused="off")
+    zeros = torch.zeros((B, width), device=dev)
+    randomize_batchnorm(model, lambda req: module_step(req, zeros),
+                        make_request(SEED + 97, B, (200, 256)), gen)
+    step = make_eval_step("cmflow_t", model)
+    require(step.fused, "cmflow_t: make_eval_step on the card must be fused")
+    cpu_model = copy.deepcopy(model).to("cpu")
+    held = hold_cases(fused_cases(model, frames[0], dev))
+
+    reset = torch.zeros((SEQ_FRAMES, B), dtype=torch.bool)
+    reset[0] = True
+    reset[2, 0] = True
+    start = torch.full((B, width), 7.0)  # dropped by the first reset
+    gfeat = start.to(dev)
+    launches = {k: 0 for k in WRAPPERS}
+    outs = []
+    for t, req in enumerate(frames):
+        gfeat = loop.reset_lanes(gfeat, reset[t].to(dev))
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(req, gfeat)
+        torch.cuda.synchronize()
+        latency = time.perf_counter() - t0
+        counts = counts_now()
+        require(counts == LAUNCHES["fused"],
+                f"cmflow_t frame {t}: launches {counts}")
+        for k in launches:
+            launches[k] += counts[k]
+        require(out[4].shape == (B, width)
+                and all(bool(torch.isfinite(x).all())
+                        for x in (out[0], out[1], out[2], out[4])),
+                f"cmflow_t frame {t}: output shapes or non-finite values")
+        row = dict(family="cmflow_t", route="fused", frame=t, batch=B,
+                   bucket=int(req["pc1"].shape[1]), latency_ms=1e3 * latency,
+                   frames_per_s=B / latency, launches=counts,
+                   reset_lanes=int(reset[t].sum()),
+                   **frame_metrics(req, out[:4]))
+        if t == 0:
+            row["vs_module_route"] = compare_temporal(
+                req, out, module_step(req, gfeat), "cmflow_t fused vs module")
+        emit(row)
+        outs.append(out)
+        gfeat = out[4]
+
+    keys = ("pc1", "pc2", "ft1", "ft2", "valid1", "valid2")
+    stacked = {k: torch.stack([torch.as_tensor(r[k]) for r in frames])
+               for k in keys}
+    seq = {}
+    for name, m, d in (("card", model, dev), ("cpu", cpu_model, "cpu")):
+        (sf, cls, trans, mask), final = inference.cmflow_t_infer_seq(
+            m, *(stacked[k].to(d) for k in keys[:4]), start.to(d),
+            reset.to(d), stacked["valid1"].to(d), stacked["valid2"].to(d))
+        seq[name] = [(sf[t], cls[t], trans[t], mask[t],
+                      final if t == SEQ_FRAMES - 1 else outs[t][4])
+                     for t in range(SEQ_FRAMES)]
+    checks = {}
+    for name, ref in seq.items():
+        checks[name] = [compare_temporal(frames[t], outs[t], ref[t],
+                                         f"cmflow_t frame {t} vs {name} seq")
+                        for t in range(SEQ_FRAMES)]
+    emit(dict(family="cmflow_t", route="fused", sequence=SEQ_FRAMES,
+              vs_infer_seq_card=checks["card"],
+              vs_infer_seq_cpu=checks["cpu"]))
+    return launches, held
+
+
+def lr0_clip_steps(model, cpu_model, clip: dict) -> tuple:
+    """One mini-clip step at learning rate 0 on the card and on the CPU,
+    each model left with its last frame's gradients; the two steps' loss
+    items."""
+    return tuple(make_train_step_seq(m, VOD_CAMERA_PROJECTION,
+                                     VOD_T_CAMERA_RADAR)(
+        create_train_state(m, lr=0.0), clip) for m in (model, cpu_model))
+
+
+def train_family(name: str, dev, gen) -> tuple:
+    """Train steps of ``name`` on the card from seeded weights.
+
+    RaFlow: FAMILY_TRAIN_STEPS B=16, N=256 steps on one batch, the first
+    held to the same step on the CPU at TRAIN_BARS.  CMFlow_T: first a T=2
+    mini-clip step at learning rate 0 on the clip's first frame twice, held
+    to the CPU (loss items, running means, and the second frame's
+    gradients, which take the first frame's carry; the running variances
+    reported, see tests/test_torch_cmflow_t.py); then the same step on the
+    clip's first two frames, its second frame's gradients held at the
+    median leaf (the per-leaf bar) and the rest reported: there the loss is
+    not smooth at float32's scale, and two implementations' whole gradients
+    lie ~1.4e-2 apart (``python tests/test_torch_cmflow_t.py gradients``;
+    scripts/profile_torch_seq_grad_jitter.py).  Then FAMILY_TRAIN_STEPS
+    steps on one T=SEQ_T clip at the config's learning rate.  The kernels
+    of the backward are held to their plain versions at every frame's
+    shapes.  Returns the launches summed over the steps and the count of
+    kernel cases held."""
+    seed = FAMILY_SEED[name]
+    n_frames = SEQ_T if name == "cmflow_t" else 1
+    frames = [make_train_batch(seed + i, B, 256) for i in range(n_frames)]
+    held = sum(hold_cases(gather_bwd_cases(f, dev, gen)
+                          + train_ball_cases(f, dev)) for f in frames)
+    model = build_model(name, dev, seed=seed)
+    cpu_model = copy.deepcopy(model).to("cpu")
+    t0 = time.perf_counter()
+    if name == "raflow":
+        batch = frames[0]
+        state = create_train_state(model)
+        step = make_train_step(name, model, VOD_CAMERA_PROJECTION,
+                               VOD_T_CAMERA_RADAR)
+        cpu_items = make_train_step(name, cpu_model, VOD_CAMERA_PROJECTION,
+                                    VOD_T_CAMERA_RADAR)(
+            create_train_state(cpu_model), batch)
+        want = LAUNCHES["train"]
+        vs_cpu = None
+    else:
+        batch = {k: np.stack([f[k] for f in frames], axis=1)
+                 for k in frames[0]}
+        two = {k: np.repeat(v[:, :1], 2, axis=1) for k, v in batch.items()}
+        vs_cpu = compare_train_step(*lr0_clip_steps(model, cpu_model, two),
+                                    model, cpu_model, stats=("mean",))
+        # two distinct frames: the median leaf held, the rest reported
+        lr0_clip_steps(model, cpu_model,
+                       {k: v[:, :2] for k, v in batch.items()})
+        distinct = {}
+        leaf_l2 = gradient_errors(model, cpu_model, distinct)
+        vs_cpu["two_frames"] = distinct
+        require(distinct["grad_leaf_l2_median"] <= TRAIN_BARS["grad_leaf_l2"],
+                f"cmflow_t train gradients on two frames: {distinct}, worst "
+                f"leaves {sorted(leaf_l2.items(), key=lambda kv: -kv[1])[:5]}")
+        state = create_train_state(model)
+        step = make_train_step_seq(model, VOD_CAMERA_PROJECTION,
+                                   VOD_T_CAMERA_RADAR)
+        want = {k: SEQ_T * v for k, v in LAUNCHES["train"].items()}
+    cpu_s = time.perf_counter() - t0
+    launches = {k: 0 for k in WRAPPERS}
+    losses = []
+    for i in range(FAMILY_TRAIN_STEPS[name]):
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        items = step(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = counts_now()
+        require(counts == want, f"{name} train step {i}: launches {counts}, "
+                                f"want {want}")
+        for k in launches:
+            launches[k] += counts[k]
+        values = {k: float(v) for k, v in items.items()}
+        require(sorted(values) == sorted(radar_loss.LOSS_ITEMS[name])
+                and all(np.isfinite(v) for v in values.values()),
+                f"{name} train step {i}: loss items {values}")
+        losses.append(values["Loss"])
+        row = dict(family=name, route="train", step=i, batch=B,
+                   num_points=256, frames_per_step=B * n_frames,
+                   step_ms=1e3 * wall, frames_per_s=B * n_frames / wall,
+                   launches=counts, **values)
+        if i == 0:
+            row["vs_cpu"] = (compare_train_step(items, cpu_items, model,
+                                                cpu_model)
+                             if vs_cpu is None else vs_cpu)
+            row["cpu_s"] = cpu_s
+        emit(row)
+    require(losses[-1] < losses[0], f"{name} train: the last Loss "
+                                    f"{losses[-1]} is not below the first "
+                                    f"{losses[0]}")
+    return launches, held
+
+
+def lane_batch_checks(model, root: str, dev) -> dict:
+    """CMFlow_T's first evaluation batch as the loop forms it: one lane per
+    val clip (``build_clip_plan``), the int16 wire.  Each fused kernel at
+    its shapes against its plain version, and the fused route against the
+    module route from the reset carry."""
+    cfg = load_config(FAMILY_CONFIG["cmflow_t"])
+    ds = VodClipDataset(root, "val", cfg.num_points, eval_mode=True,
+                        update_len=cfg.update_len, log=lambda text: None)
+    lanes = min(cfg.eval_batch_size, len(ds.clips_info))
+    plan = loop.build_clip_plan(ds.clips_info, lanes, cfg.update_len)
+    batch = next(iter(BatchLoader(
+        ds, lanes, pad_bucket=cfg.num_points,
+        pad_buckets=loop._pinned_buckets(cfg), num_workers=0, plan=plan)))
+    x = upload_as_the_loop(batch, cfg, dev)
+    b, n = x["pc1"].shape[:2]
+    require(b == len(ds.clips_info) and bool(x["reset"].all()),
+            f"lane batch: B={b}, resets {x['reset'].tolist()}")
+    held = hold_cases(fused_cases(model, x, dev))
+    gfeat = loop.reset_lanes(torch.ones((b, model.cfg.prop_width),
+                                        device=dev), x["reset"])
+    out = make_eval_step("cmflow_t", model)(x, gfeat)
+    ref = make_eval_step("cmflow_t", model, fused="off")(x, gfeat)
+    vs_module = compare_temporal({"valid1": batch["valid1"]}, out, ref,
+                                 "lane batch: fused vs module route")
+    return dict(lanes=int(b), bucket=int(n), kernel_cases=held,
+                vs_module_route=vs_module)
+
+
+def family_cli_phase(name: str, dev) -> dict:
+    """Train (2 epochs), resume (1 epoch) and evaluate ``name`` through
+    ``cmflow_tpu_torch.cli.main`` on its synthetic tree (FAMILY_TREE) at
+    full width on the card, each run's launches required exactly."""
+    cfg = load_config(FAMILY_CONFIG[name])
+    parts = FAMILY_TREE[name]
+    temporal = name == "cmflow_t"
+    t_len = cfg.mini_clip_len if temporal else 1
+    train_frames, train_clips = parts["train"]
+    per_clip = train_frames // train_clips
+    batches = (train_clips * (per_clip // t_len) if temporal
+               else train_frames) // CLI_BATCH
+    steps_per_epoch = batches * t_len  # optimizer steps
+
+    def eval_batches(partition):
+        frames, clips = parts[partition]
+        if temporal:  # a lane per clip, as long as a clip
+            return frames // clips
+        return -(-frames // cfg.eval_batch_size)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root, ck = os.path.join(tmp, "data"), os.path.join(tmp, "checkpoints")
+        for i, (part, (frames, clips)) in enumerate(parts.items()):
+            write_synthetic_dataset(root, {part: frames},
+                                    clips_per_partition=clips, seed=SEED + i)
+        common = ["--config", FAMILY_CONFIG[name], "--dataset_path", root,
+                  "--checkpoints_dir", ck, "--num_workers", "0",
+                  "--batch_size", str(CLI_BATCH)]
+        runs = {"train": run_cli(
+            common + ["--exp_name", "train", "--epochs", str(CLI_EPOCHS)],
+            CLI_EPOCHS * steps_per_epoch, CLI_EPOCHS * eval_batches("val"))}
+        exp = os.path.join(ck, "train")
+        require_finite_rows(os.path.join(exp, "metrics.jsonl"),
+                            ["train", "val"] * CLI_EPOCHS)
+        best, last = (os.path.join(exp, "models", k) for k in ("best", "last"))
+        model = build_model(name, dev)
+        loop.restore_checkpoint(best, create_train_state(model))
+        checkpoint_bits_equal(model, best)
+        saved = torch.load(last, map_location="cpu", weights_only=True)
+        runs["resume"] = run_cli(
+            common + ["--exp_name", "resume", "--epochs", "1",
+                      "--load_checkpoint", "--model_path", last],
+            steps_per_epoch, eval_batches("val"))
+        resumed = torch.load(os.path.join(ck, "resume", "models", "last"),
+                             map_location="cpu", weights_only=True)
+        step = saved["step"] + steps_per_epoch
+        # the schedule counts batches (clip batches), one step per frame
+        lr = cfg.lr * cfg.decay_rate ** (step // (cfg.decay_epochs * batches))
+        got_lr = resumed["optimizer"]["param_groups"][0]["lr"]
+        require(resumed["step"] == step
+                and math.isclose(got_lr, lr, rel_tol=1e-12),
+                f"{name} resume: step {resumed['step']} lr {got_lr}, want "
+                f"{step} and {lr}")
+        require_finite_rows(os.path.join(ck, "resume", "metrics.jsonl"),
+                            ["train", "val"])
+        runs["eval"] = run_cli(common + ["--exp_name", "eval", "--eval",
+                                         "--save_res", "--model_path", best],
+                               0, eval_batches("test"))
+        dumps = [f for _, _, fs in os.walk(os.path.join(ck, "eval",
+                                                        "results"))
+                 for f in fs]
+        require(len(dumps) == parts["test"][0],
+                f"{name} eval --save_res wrote {len(dumps)} files")
+        numbers = {k: read_log(os.path.join(ck, k))
+                   for k in ("train", "resume", "eval")}
+        require(len(numbers["eval"]["means"]) == 14
+                and all(np.isfinite(v)
+                        for v in numbers["eval"]["means"].values()),
+                f"{name} eval means: {numbers['eval']['means']}")
+        lanes = lane_batch_checks(model, root, dev) if temporal else None
+    return dict(family=name, runs=runs, resume=dict(step=step, lr=got_lr),
+                lane_batch=lanes,
+                train_frames_per_s=numbers["train"]["train_frames_per_s"],
+                val_ms_per_frame=numbers["train"]["eval_ms_per_frame"],
+                eval_ms_per_frame=numbers["eval"]["eval_ms_per_frame"],
+                eval_peak_memory_mb=numbers["eval"]["peak_memory_mb"],
+                eval_means=numbers["eval"]["means"])
+
+
 def main() -> int:
     # the kernels must build from this checkout's sources, not from a copy
     # of the package installed elsewhere
@@ -1231,6 +1639,34 @@ def main() -> int:
     by_path = {"fused": launches, "module": launches_module,
                "train": launches_train}
 
+    # RaFlow and CMFlow_T: serving, training and the CLI, each path's
+    # counters set to 0 just before it and read just after
+    family_paths, held = {}, {}
+    t0 = time.perf_counter()
+    frames = [make_request(SEED + 50 + i, B, (200, 256))
+              for i in range(SEQ_FRAMES)]
+    family_paths["raflow_fused"], held["raflow_fused"] = serve_raflow(
+        dev, gen, frames)
+    family_paths["cmflow_t_fused"], held["cmflow_t_fused"] = serve_cmflow_t(
+        dev, gen, frames)
+    emit(dict(family_serve_phase_s=time.perf_counter() - t0))
+    for name, path in (("raflow", "raflow_train"),
+                       ("cmflow_t", "cmflow_t_seq_train")):
+        t0 = time.perf_counter()
+        family_paths[path], held[path] = train_family(name, dev, gen)
+        emit({f"{name}_train_phase_s": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    family_cli = {}
+    for name in FAMILY_CONFIG:
+        family_cli[name] = family_cli_phase(name, dev)
+        emit(dict(cli=family_cli[name], card=card))
+    emit(dict(family_cli_phase_s=time.perf_counter() - t0))
+    for path, counts in family_paths.items():
+        kind = "train" if path.endswith("train") else "fused"
+        require(all(counts[k] > 0 for k in CLI_KERNELS[kind]),
+                f"{path}: a kernel of its route was not launched: {counts}")
+    emit(dict(family_kernel_cases_held=held))
+
     kernels = []
     for name in WRAPPERS:
         source, replaces = SOURCES[name]
@@ -1256,6 +1692,12 @@ def main() -> int:
             entry["sass"] = sass[name]
         entry["cli_launches"] = {k: r["launches"][name]
                                  for k, r in cli_run["runs"].items()}
+        entry["family_launches"] = {p: c[name]
+                                    for p, c in family_paths.items()}
+        entry["family_cli_launches"] = {
+            f"{fam}_{k}": r["launches"][name]
+            for fam, run in family_cli.items()
+            for k, r in run["runs"].items()}
         # the kernel on each route measured: per forward (per train step)
         routes = {p: a for (n, p), a in per_forward.items() if n == name}
         if len(routes) > 1:

@@ -2,7 +2,7 @@
 (copies of the JAX-free host modules of ``cmflow_tpu/data``)."""
 
 from cmflow_tpu_torch.data.loader import BatchLoader
-from cmflow_tpu_torch.data.vod import VodDataset
+from cmflow_tpu_torch.data.vod import VodClipDataset, VodDataset
 
 
 def _not_ported(name: str, item: str):
@@ -14,8 +14,8 @@ def _not_ported(name: str, item: str):
 
 DATASET_REGISTRY = {
     "vodDataset": VodDataset,
-    "vodClipDataset": _not_ported("vodClipDataset", "item 4"),
+    "vodClipDataset": VodClipDataset,
     "vodPackedDataset": _not_ported("vodPackedDataset", "item 8"),
 }
 
-__all__ = ["BatchLoader", "DATASET_REGISTRY", "VodDataset"]
+__all__ = ["BatchLoader", "DATASET_REGISTRY", "VodClipDataset", "VodDataset"]

@@ -3,13 +3,11 @@
 Counterpart of ``cmflow_tpu/data/loader.py`` (the reference's
 ``torch.utils.data.DataLoader(num_workers=8)``, main.py:203-208): a thread
 pool decodes json samples while the previous batch is on the device, and
-batches come out as stacked numpy arrays.  Given the same dataset, seed and
-settings it yields the JAX loader's batches bit for bit (at
-``num_workers=0``; with workers the dataset's shared subsample generator is
-drawn in thread order).  Moving a batch to the device is the caller's.
-
-The JAX loader's ``plan`` mode (lane-batched temporal evaluation) comes
-with CMFlow_T (ROADMAP Queue 1, item 4).
+batches come out as stacked numpy arrays (``[T, ...]`` mini-clip samples
+stack to ``[B, T, ...]``).  Given the same dataset, seed and settings it
+yields the JAX loader's batches bit for bit (at ``num_workers=0``; with
+workers the dataset's shared subsample generator is drawn in thread order).
+Moving a batch to the device is the caller's.
 """
 
 from __future__ import annotations
@@ -41,6 +39,7 @@ class BatchLoader:
         prefetch: int = 2,
         seed: int = 1234,
         pad_batch: bool = False,
+        plan: Optional[List[dict]] = None,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -55,9 +54,17 @@ class BatchLoader:
         self.num_workers = num_workers
         self.prefetch = prefetch
         self.pad_batch = pad_batch
+        # an explicit batch plan (lane-batched temporal evaluation): each
+        # entry is {"indices": [dataset index per lane], "lane_valid":
+        # [bool per lane], "reset": [bool per lane]}; batches come in plan
+        # order, padded as any other, with "lane_valid", "reset" and
+        # "_frame_idx" attached
+        self.plan = plan
         self._rng = np.random.default_rng(seed)
 
     def __len__(self) -> int:
+        if self.plan is not None:
+            return len(self.plan)
         n = len(self.dataset)
         if self.drop_last:
             return n // self.batch_size
@@ -103,19 +110,29 @@ class BatchLoader:
             batch["lane_valid"] = lane
         return batch
 
+    def _make_plan_batch(self, entry: dict) -> Sample:
+        batch = self._make_batch(list(entry["indices"]))
+        batch["lane_valid"] = np.asarray(entry["lane_valid"], bool)
+        batch["reset"] = np.asarray(entry["reset"], bool)
+        batch["_frame_idx"] = np.asarray(entry["indices"], np.int64)
+        return batch
+
     def __iter__(self) -> Iterator[Sample]:
-        idx = self._indices()
-        batches = [
-            idx[i: i + self.batch_size]
-            for i in range(0, len(idx), self.batch_size)
-        ]
-        if self.drop_last:
-            batches = [b for b in batches if len(b) == self.batch_size]
-        jobs = [list(b) for b in batches]
+        if self.plan is not None:
+            jobs = [(self._make_plan_batch, e) for e in self.plan]
+        else:
+            idx = self._indices()
+            batches = [
+                idx[i: i + self.batch_size]
+                for i in range(0, len(idx), self.batch_size)
+            ]
+            if self.drop_last:
+                batches = [b for b in batches if len(b) == self.batch_size]
+            jobs = [(self._make_batch, list(b)) for b in batches]
 
         if self.num_workers <= 0:
-            for arg in jobs:
-                yield self._make_batch(arg)
+            for fn, arg in jobs:
+                yield fn(arg)
             return
 
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
@@ -128,8 +145,8 @@ class BatchLoader:
                     # at O(workers + prefetch), not O(epoch)
                     window = self.num_workers + self.prefetch
                     pending = []
-                    for arg in jobs:
-                        pending.append(pool.submit(self._make_batch, arg))
+                    for fn, arg in jobs:
+                        pending.append(pool.submit(fn, arg))
                         if len(pending) < window:
                             continue
                         if stop.is_set():

@@ -1,6 +1,6 @@
-"""View-of-Delft preprocessed scene-flow dataset reader (a copy of
-``cmflow_tpu/data/vod.py`` but for ``VodClipDataset``, which comes with
-CMFlow_T, ROADMAP Queue 1, item 4).
+"""View-of-Delft preprocessed scene-flow dataset readers (a copy of
+``cmflow_tpu/data/vod.py``): ``VodDataset`` for frame pairs and
+``VodClipDataset`` for CMFlow_T's mini-clips.
 
 Reads ``<root>/<partition>/<clip>/<i>_<j>.json``; only clips named
 ``delft_*`` contribute samples (vod.py:43-44).  The samples are read with
@@ -191,3 +191,76 @@ class VodDataset:
             data, self.partition, eval_mode=self.eval_mode,
             num_points=self.num_points, rng=self._rng,
         )
+
+
+class VodClipDataset:
+    """Temporal mini-clip dataset (dataset/vod_clip.py equivalent).
+
+    Training items are stacked mini-clips ``[T, ...]`` of ``mini_clip_len``
+    consecutive frames of one clip (a clip's last ``len % T`` frames are
+    left out); evaluation items are single frames in clip order, with
+    ``clips_info`` marking the clips (vod_clip.py:38-64).  ``_rng`` draws
+    the training subsamples, as in :class:`VodDataset`."""
+
+    def __init__(
+        self,
+        root: str,
+        partition: str = "train",
+        num_points: int = 256,
+        eval_mode: bool = False,
+        mini_clip_len: int = 5,
+        update_len: int = 5,
+        seed: int = 1234,
+        log=print,
+    ):
+        self.num_points = num_points
+        self.eval_mode = eval_mode
+        self.partition = partition
+        self.root = os.path.join(root, partition)
+        self.mini_clip_len = mini_clip_len
+        self.update_len = update_len
+        self.res = dict(VOD_RADAR_RES)
+        self.camera_projection_matrix = VOD_CAMERA_PROJECTION
+        self.t_camera_radar = VOD_T_CAMERA_RADAR
+        self.interval = VOD_INTERVAL
+        self._rng = np.random.default_rng(seed)
+
+        self.samples: List[str] = []
+        self.mini_samples: List[List[str]] = []
+        self.clips_info: List[Dict] = []
+        for clip in _list_clips(self.root):
+            # the same delft_* filter as VodDataset (vod_clip.py:30-64)
+            if clip[:5] != "delft":
+                continue
+            samples = _list_samples(os.path.join(self.root, clip))
+            if eval_mode:
+                self.clips_info.append({
+                    "clip_name": clip,
+                    "index": [len(self.samples),
+                              len(self.samples) + len(samples)],
+                })
+                self.samples.extend(samples)
+            else:
+                for i in range(len(samples) // mini_clip_len):
+                    st = i * mini_clip_len
+                    self.mini_samples.append(samples[st:st + mini_clip_len])
+        if eval_mode:
+            log(f"{partition} : {len(self.samples)} frames")
+        else:
+            log(f"{partition} : {len(self.mini_samples)} mini_clips")
+
+    def __len__(self) -> int:
+        return len(self.samples) if self.eval_mode else len(self.mini_samples)
+
+    def __getitem__(self, index: int) -> Sample:
+        if self.eval_mode:
+            return decode_sample(
+                load_sample_file(self.samples[index]), self.partition,
+                eval_mode=True, num_points=self.num_points, rng=self._rng)
+        frames = [
+            decode_sample(load_sample_file(p), self.partition,
+                          eval_mode=False, num_points=self.num_points,
+                          rng=self._rng)
+            for p in self.mini_samples[index]
+        ]
+        return {k: np.stack([f[k] for f in frames]) for k in frames[0]}

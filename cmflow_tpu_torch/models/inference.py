@@ -1,9 +1,10 @@
-"""The fused CMFlow serving engine.
+"""The fused serving engines of the three families.
 
 Counterpart of ``cmflow_tpu/models/inference.py`` (``cmflow_infer``,
-``cmflow_infer_many``): an eval forward computed from the port's ``CMFlow``
-module, with the same outputs as ``CMFlow.forward(..., train=False)`` up to
-float32 reassociation, but with every encoder scale and the cost volume run
+``raflow_infer``, ``cmflow_t_infer`` and their macro-batch and sequence
+forms): an eval forward computed from the port's module, with the same
+outputs as its ``forward(..., train=False)`` up to float32 reassociation,
+but with every encoder scale and the cost volume run
 by the fused kernels of :mod:`cmflow_tpu_torch.ops.fused`, so the
 ``[B, N, K, C]`` neighbourhood tensors of the module route never reach
 device memory.  One forward launches: the ball query twice (all four radii
@@ -24,6 +25,8 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from cmflow_tpu_torch.geometry import se3
+from cmflow_tpu_torch.models.cmflow_t import temporal_ego_motion
+from cmflow_tpu_torch.models.raflow import static_flow_refinement
 from cmflow_tpu_torch.nn.blocks import masked_global_max
 from cmflow_tpu_torch.ops import neighbors, pointops
 from cmflow_tpu_torch.ops.fused import (
@@ -218,6 +221,19 @@ def cmflow_infer(model, pc1: Tensor, pc2: Tensor, ft1: Tensor, ft2: Tensor,
     return sf_agg, stat_cls, pre_trans, mask
 
 
+def _infer_many(infer, model, per_batch: Sequence[Tensor],
+                valid1: Optional[Tensor], valid2: Optional[Tensor]
+                ) -> Tuple[Tensor, ...]:
+    """``infer`` over a macro-batch: each of ``per_batch`` and the masks
+    stacked ``[S, B, ...]``, the outputs stacked the same way."""
+    outs = []
+    for i in range(per_batch[0].shape[0]):
+        outs.append(infer(model, *(x[i] for x in per_batch),
+                          None if valid1 is None else valid1[i],
+                          None if valid2 is None else valid2[i]))
+    return tuple(torch.stack(o) for o in zip(*outs))
+
+
 def cmflow_infer_many(model, pc1: Tensor, pc2: Tensor, ft1: Tensor,
                       ft2: Tensor, valid1: Optional[Tensor] = None,
                       valid2: Optional[Tensor] = None,
@@ -226,10 +242,101 @@ def cmflow_infer_many(model, pc1: Tensor, pc2: Tensor, ft1: Tensor,
     """:func:`cmflow_infer` over a macro-batch: inputs stacked
     ``[S, B, N, ...]``, outputs stacked the same way."""
     _check_dtype(compute_dtype)
+    return _infer_many(cmflow_infer, model, (pc1, pc2, ft1, ft2), valid1,
+                       valid2)
+
+
+@torch.no_grad()
+def raflow_infer(model, pc1: Tensor, pc2: Tensor, ft1: Tensor, ft2: Tensor,
+                 interval: Tensor, valid1: Optional[Tensor] = None,
+                 valid2: Optional[Tensor] = None,
+                 compute_dtype: torch.dtype = torch.float32
+                 ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """Fused RaFlow eval forward of ``model`` (a port ``RaFlow``): the
+    outputs of ``model(pc1, pc2, ft1, ft2, interval, False, valid1,
+    valid2)``, ``(coarse_flow [B,N,3], sf_agg [B,N,3], pre_trans [B,4,4],
+    mask_s [B,N])``.  Both Kabsch fits take the polar solver, as the JAX
+    engine's do."""
+    _check_dtype(compute_dtype)
+    prop = _trunk(model.trunk, pc1, pc2, ft1, ft2, valid1, valid2)
+    output = _head(model.fp, (prop, masked_global_max(prop, valid1)))
+    sf_agg, pre_trans, mask_s = static_flow_refinement(
+        pc1, output, ft1[..., 0], interval, valid1, model.rigid_thres,
+        model.rigid_pcs, solver="polar")
+    return output, sf_agg, pre_trans, mask_s
+
+
+def raflow_infer_many(model, pc1: Tensor, pc2: Tensor, ft1: Tensor,
+                      ft2: Tensor, interval: Tensor,
+                      valid1: Optional[Tensor] = None,
+                      valid2: Optional[Tensor] = None,
+                      compute_dtype: torch.dtype = torch.float32
+                      ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """:func:`raflow_infer` over a macro-batch: inputs stacked
+    ``[S, B, ...]``, outputs stacked the same way."""
+    _check_dtype(compute_dtype)
+    return _infer_many(raflow_infer, model, (pc1, pc2, ft1, ft2, interval),
+                       valid1, valid2)
+
+
+def _gru_cell(gru, h: Tensor, x: Tensor) -> Tensor:
+    """The flax GRU cell of a ``GRUCell`` module, its six gate products as
+    two ``[B,C]@[C,3C]`` products (gate kernels stacked by columns; the
+    gates stay apart), as the JAX engine computes it."""
+    c = h.shape[-1]
+    gin = getattr(gru, "in")
+    wi = torch.cat([_kernel(gru.ir), _kernel(gru.iz), _kernel(gin)], dim=1)
+    bi = torch.cat([gru.ir.bias, gru.iz.bias, gin.bias])
+    wh = torch.cat([_kernel(gru.hr), _kernel(gru.hz), _kernel(gru.hn)],
+                   dim=1)
+    xi = x @ wi + bi
+    hh = h @ wh
+    r = torch.sigmoid(xi[:, :c] + hh[:, :c])
+    z = torch.sigmoid(xi[:, c:2 * c] + hh[:, c:2 * c])
+    n = torch.tanh(xi[:, 2 * c:] + r * (hh[:, 2 * c:] + gru.hn.bias))
+    return (1.0 - z) * n + z * h
+
+
+@torch.no_grad()
+def cmflow_t_infer(model, pc1: Tensor, pc2: Tensor, ft1: Tensor,
+                   ft2: Tensor, gfeat: Tensor,
+                   valid1: Optional[Tensor] = None,
+                   valid2: Optional[Tensor] = None,
+                   compute_dtype: torch.dtype = torch.float32
+                   ) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
+    """Fused CMFlow_T eval forward of ``model`` (a port ``CMFlowT``): the
+    outputs of ``model(pc1, pc2, ft1, ft2, None, False, gfeat, valid1,
+    valid2)``, ``(sf_agg, stat_cls, pre_trans, mask, gfeat_new [B,C])``,
+    the Kabsch on the polar solver."""
+    _check_dtype(compute_dtype)
+    prop = _trunk(model.trunk, pc1, pc2, ft1, ft2, valid1, valid2)
+    gfeat_new = _gru_cell(model.gru, gfeat, masked_global_max(prop, valid1))
+    output, logit = _heads_joint(model.fp, model.mp, (prop, gfeat_new))
+    stat_cls = torch.sigmoid(logit)[..., 0]
+    sf_agg, pre_trans, mask = temporal_ego_motion(
+        pc1, output, stat_cls, valid1, model.stat_thres, solver="polar")
+    return sf_agg, stat_cls, pre_trans, mask, gfeat_new
+
+
+def cmflow_t_infer_seq(model, pc1: Tensor, pc2: Tensor, ft1: Tensor,
+                       ft2: Tensor, gfeat0: Tensor, reset: Tensor,
+                       valid1: Optional[Tensor] = None,
+                       valid2: Optional[Tensor] = None,
+                       compute_dtype: torch.dtype = torch.float32
+                       ) -> Tuple[Tuple[Tensor, ...], Tensor]:
+    """:func:`cmflow_t_infer` over a frame sequence: inputs stacked
+    ``[T, B, ...]``; ``reset [T, B]`` zeroes a lane's GRU carry before frame
+    t where it is set (a clip start, or every ``update_len`` frames,
+    reference clip_util.py:226-233).  Each batch lane carries its own state.
+    Returns ``((sf, cls, trans, mask) stacked [T, ...], the final gfeat)``."""
+    _check_dtype(compute_dtype)
+    gfeat = gfeat0
     outs = []
-    for i in range(pc1.shape[0]):
-        outs.append(cmflow_infer(
-            model, pc1[i], pc2[i], ft1[i], ft2[i],
-            None if valid1 is None else valid1[i],
-            None if valid2 is None else valid2[i]))
-    return tuple(torch.stack(o) for o in zip(*outs))
+    for t in range(pc1.shape[0]):
+        gfeat = torch.where(reset[t][:, None] > 0, 0.0, gfeat)
+        *out, gfeat = cmflow_t_infer(
+            model, pc1[t], pc2[t], ft1[t], ft2[t], gfeat,
+            None if valid1 is None else valid1[t],
+            None if valid2 is None else valid2[t])
+        outs.append(out)
+    return tuple(torch.stack(o) for o in zip(*outs)), gfeat

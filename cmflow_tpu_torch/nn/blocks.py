@@ -256,6 +256,46 @@ class MotionHead(nn.Module):
         return torch.sigmoid(self.out(self.mlp(feat, train)))[..., 0]
 
 
+class GRUCell(nn.Module):
+    """flax's ``nn.GRUCell`` (the JAX package's CMFlow_T GRU): gate order r,
+    z, n; input Denses ``ir``, ``iz``, ``in`` with biases; hidden Denses
+    ``hr``, ``hz`` without bias and ``hn`` with its own bias, applied inside
+    ``r * (h @ W_hn + b_hn)``.  ``torch.nn.GRUCell`` keeps a hidden bias on
+    every gate, so it is not this function's parametrisation.
+
+    ``forward(h, x) -> h_new``, both ``[B, features]``."""
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.features = features
+        for name in ("ir", "iz", "in"):  # "in" is a keyword: add_module
+            self.add_module(name, nn.Linear(features, features))
+        self.hr = nn.Linear(features, features, bias=False)
+        self.hz = nn.Linear(features, features, bias=False)
+        self.hn = nn.Linear(features, features)
+
+    def init_(self, generator: torch.Generator) -> None:
+        """flax's initialisers: lecun-normal input kernels (a normal
+        truncated at two deviations, rescaled to variance ``1 / fan_in``),
+        orthogonal recurrent kernels, zero biases."""
+        std = math.sqrt(1.0 / self.features) / 0.87962566103423978
+        with torch.no_grad():
+            for name in ("ir", "iz", "in"):
+                lin = getattr(self, name)
+                nn.init.trunc_normal_(lin.weight, std=std, a=-2.0 * std,
+                                      b=2.0 * std, generator=generator)
+                lin.bias.zero_()
+            for lin in (self.hr, self.hz, self.hn):
+                nn.init.orthogonal_(lin.weight, generator=generator)
+            self.hn.bias.zero_()
+
+    def forward(self, h: Tensor, x: Tensor) -> Tensor:
+        r = torch.sigmoid(self.ir(x) + self.hr(h))
+        z = torch.sigmoid(self.iz(x) + self.hz(h))
+        n = torch.tanh(getattr(self, "in")(x) + r * self.hn(h))
+        return (1.0 - z) * n + z * h
+
+
 def masked_global_max(features: Tensor, valid: Optional[Tensor]) -> Tensor:
     """Max over points ``[B, N, C] -> [B, C]``, padded points excluded."""
     if valid is not None:
@@ -267,9 +307,16 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
     """Draw every weight of ``module`` from ``generator`` with PyTorch's
     default Conv2d/Linear recipe (the reference never applies its own
     ``weights_init``); BatchNorm starts at scale 1, bias 0, mean 0, var 1.
-    Modules are visited in registration order, so the draw is reproducible."""
+    Modules are visited in registration order, so the draw is reproducible.
+    A :class:`GRUCell` takes flax's initialisers (:meth:`GRUCell.init_`)."""
+    gru_parts = set()
     for m in module.modules():
-        if isinstance(m, nn.Linear):
+        if id(m) in gru_parts:
+            continue
+        if isinstance(m, GRUCell):
+            m.init_(generator)
+            gru_parts.update(id(c) for c in m.modules())
+        elif isinstance(m, nn.Linear):
             init_uniform_(m.weight, m.in_features, generator)
             if m.bias is not None:
                 init_uniform_(m.bias, m.in_features, generator)

@@ -1,9 +1,11 @@
 """Experiment loop: epoch loops, evaluation, checkpoint and resume.
 
-Counterpart of ``cmflow_tpu/train/loop.py`` for the frame-pair models
-(main.py:51-170, main_util.py:93-206): full train-state checkpoints for a
-true resume, ``metrics.jsonl`` rows, and evaluation at static padded shapes
-with the metric battery on the device.
+Counterpart of ``cmflow_tpu/train/loop.py`` for the three families
+(main.py:51-170, main_util.py:93-206; CMFlow_T's mini-clip training and
+clip-ordered evaluation, clip_util.py:20-301): full train-state checkpoints
+for a true resume, ``metrics.jsonl`` rows, and evaluation at static padded
+shapes with the metric battery on the device.  CMFlow_T's evaluation runs
+its clips side by side, one batch lane each (:func:`build_clip_plan`).
 
 The host feed:
 * training batches go to the card from pinned host memory with
@@ -91,6 +93,9 @@ def build_datasets(cfg: Config, textio) -> Tuple:
     ds_cls = DATASET_REGISTRY[cfg.dataset]
     kwargs = dict(num_points=cfg.num_points, log=textio.cprint,
                   seed=cfg.seed)
+    if cfg.dataset == "vodClipDataset":
+        kwargs.update(mini_clip_len=cfg.mini_clip_len,
+                      update_len=cfg.update_len)
     if cfg.eval:
         test = ds_cls(cfg.dataset_path, cfg.eval_split, eval_mode=True,
                       **kwargs)
@@ -98,6 +103,11 @@ def build_datasets(cfg: Config, textio) -> Tuple:
     train = ds_cls(cfg.dataset_path, cfg.train_set, eval_mode=False, **kwargs)
     val = ds_cls(cfg.dataset_path, "val", eval_mode=True, **kwargs)
     return train, val, None
+
+
+def _build_model(cfg: Config, device: torch.device) -> torch.nn.Module:
+    return build_model(cfg.model, device, seed=cfg.seed,
+                       stat_thres=cfg.stat_thres, rigid_thres=cfg.rigid_thres)
 
 
 def _host_tensor(array: np.ndarray, pin: bool) -> Tensor:
@@ -144,6 +154,47 @@ def upload_eval_batch(packed: Dict, device: torch.device) -> Dict[str, Tensor]:
 
 # --------------------------------------------------------------------------
 # evaluation
+
+def build_clip_plan(clips_info, lanes: int, update_len: int):
+    """Assign the eval clips to ``lanes`` parallel batch lanes (the JAX
+    package's clip-batched temporal evaluation).
+
+    The reference evaluates CMFlow_T frame by frame at B=1
+    (clip_util.py:182-301), since the GRU carry chains within a clip; clips
+    are independent, so L of them run side by side, one lane each, each
+    lane taking its clips back to back (each clip to the least loaded
+    lane).  A lane's reset flag reproduces the reference's schedule: frame
+    i resets where it starts a clip or ``i % update_len == 0`` (the global
+    frame index, as the B=1 walk counts it).  A lane out of frames repeats
+    its last one with ``lane_valid`` False and a reset.  Returns a
+    :class:`BatchLoader` plan."""
+    lane_seq = [[] for _ in range(lanes)]  # (frame index, reset) per lane
+    for ci in clips_info:
+        tgt = min(range(lanes), key=lambda j: len(lane_seq[j]))
+        s, e = ci["index"]
+        for i in range(s, e):
+            lane_seq[tgt].append((i, i == s or i % update_len == 0))
+    steps = max((len(sq) for sq in lane_seq), default=0)
+    plan = []
+    for t in range(steps):
+        idxs, valid, resets = [], [], []
+        for sq in lane_seq:
+            if t < len(sq):
+                i, r = sq[t]
+            else:
+                i, r = (sq[-1][0] if sq else 0), True
+            idxs.append(i)
+            valid.append(t < len(sq))
+            resets.append(r)
+        plan.append({"indices": idxs, "lane_valid": valid, "reset": resets})
+    return plan
+
+
+def reset_lanes(gfeat: Tensor, reset: Tensor) -> Tensor:
+    """Zero the GRU carry of the lanes whose frame opens a clip or an
+    update window (``reset [L]``, uploaded with the batch)."""
+    return torch.where(reset[:, None], 0.0, gfeat)
+
 
 def make_experiment_eval_step(cfg: Config, model):
     """Build the experiment's eval step once, for every validation pass."""
@@ -200,6 +251,14 @@ def evaluate_frames(
     padded shapes: ``eval_batch_size`` frames a batch, padded to a pinned
     bucket, a short last batch padded with repeated lanes.
 
+    CMFlow_T's evaluation (test_one_epoch_seq, clip_util.py:182-301) walks
+    each clip in order with the GRU carry, reset at clip starts and every
+    ``update_len`` frames.  With ``eval_batch_size > 1`` and the dataset's
+    ``clips_info``, ``min(eval_batch_size, clips)`` clips run as lanes of
+    one batch (:func:`build_clip_plan`), each lane's reset flag uploaded
+    with the batch; else one frame a batch, reset where frame ``i`` starts
+    a clip or ``i % update_len == 0``.
+
     Without ``save_res_dir`` the metrics are summed on the device and read
     once per pass.  With it, each batch's predictions come to the host (one
     batch behind the dispatch) for the host battery and the reference's
@@ -210,12 +269,19 @@ def evaluate_frames(
     wire = cfg.eval_wire
     if eval_step is None:
         eval_step = make_experiment_eval_step(cfg, model)
-    batch_size = max(1, int(cfg.eval_batch_size))
+    temporal = cfg.model == "cmflow_t"
+    lane_plan = None
+    if temporal and int(cfg.eval_batch_size) > 1 and dataset.clips_info:
+        batch_size = min(int(cfg.eval_batch_size), len(dataset.clips_info))
+        lane_plan = build_clip_plan(dataset.clips_info, batch_size,
+                                    cfg.update_len)
+    else:
+        batch_size = 1 if temporal else max(1, int(cfg.eval_batch_size))
     loader = BatchLoader(
         dataset, batch_size=batch_size, shuffle=False, drop_last=False,
         pad_bucket=cfg.num_points, pad_multiple=cfg.eval_pad_multiple,
         pad_buckets=_pinned_buckets(cfg), num_workers=cfg.num_workers,
-        pad_batch=True,
+        pad_batch=not temporal, plan=lane_plan,
     )
 
     def prep(batch):
@@ -224,7 +290,9 @@ def evaluate_frames(
         host = {k: v for k, v in batch.items()
                 if not k.startswith("_")
                 and k not in ("radar_u", "radar_v", "opt_flow")}
-        host["lane_valid"] = np.asarray(batch["lane_valid"], bool)
+        lane = batch.get("lane_valid")
+        host["lane_valid"] = (np.ones(host["pc1"].shape[0], bool)
+                              if lane is None else np.asarray(lane, bool))
         return pack_eval_batch(host, wire, pin)
 
     use_dev_metrics = save_res_dir is None
@@ -235,15 +303,17 @@ def evaluate_frames(
     pose_metric = {"RTE": 0.0, "RAE": 0.0}
     num_pcs = 0
 
+    clip_starts = set()
     clip_of_frame = {}
     for ci in dataset.clips_info or []:
+        clip_starts.add(ci["index"][0])
         for i in range(ci["index"][0], ci["index"][1]):
             clip_of_frame[i] = ci["clip_name"]
 
     def fetch(out):
         """Start the copy of a batch's predictions to the host; returns
         them with an event that marks the copy's end (None on the CPU)."""
-        pred_f, _, pred_t, pred_m = out
+        pred_f, _, pred_t, pred_m = out[:4]
         host = [x.to("cpu", non_blocking=True) for x in (pred_f, pred_m,
                                                           pred_t)]
         done = None
@@ -261,7 +331,10 @@ def evaluate_frames(
             done.synchronize()
         pred_f, pred_m, pred_t = (x.numpy() for x in (pred_f, pred_m, pred_t))
         valid = np.asarray(batch["valid1"], bool)
-        keep = (valid.sum(1) > 0) & np.asarray(batch["lane_valid"], bool)
+        keep = valid.sum(1) > 0
+        if "lane_valid" in batch:
+            keep &= np.asarray(batch["lane_valid"], bool)
+        frame_idx = batch.get("_frame_idx")  # lane-plan mode
         sel = np.nonzero(keep)[0]
         if sel.size:
             res = ev.eval_scene_flow_batch(
@@ -280,7 +353,8 @@ def evaluate_frames(
             num_pcs += int(sel.size)
         for bi in sel:
             bi = int(bi)
-            fidx = num_pcs - int(sel.size) + int(np.sum(sel < bi))
+            fidx = (int(frame_idx[bi]) if frame_idx is not None
+                    else num_pcs - int(sel.size) + int(np.sum(sel < bi)))
             nv = int(valid[bi].sum())
             clip = clip_of_frame.get(fidx, "clip_0")
             cdir = os.path.join(save_res_dir, clip)
@@ -299,6 +373,7 @@ def evaluate_frames(
 
     msums = torch.zeros(len(dmet.METRIC_KEYS), device=device)
     mcount = torch.zeros((), device=device)
+    gfeat = None  # CMFlow_T's GRU carry, one row per lane
     pending = None  # one-deep dispatch/consume pipeline (save_res only)
     t_load = t_pack = t_disp = t_cons = t_first = t_stall = 0.0
     t_wall = time.perf_counter()
@@ -311,9 +386,20 @@ def evaluate_frames(
             t_load += load_s           # worker-thread time (overlapped)
             t_pack += pack_s
             dev = upload_eval_batch(packed, device)
-            out = eval_step(dev)
+            if temporal:
+                if gfeat is None:
+                    gfeat = torch.zeros((dev["pc1"].shape[0],
+                                         model.cfg.prop_width), device=device)
+                if lane_plan is not None:
+                    gfeat = reset_lanes(gfeat, dev["reset"])
+                elif i in clip_starts or i % cfg.update_len == 0:
+                    gfeat = torch.zeros_like(gfeat)
+                out = eval_step(dev, gfeat)
+                gfeat = out[4]
+            else:
+                out = eval_step(dev)
             if use_dev_metrics:
-                pred_f, _, pred_t, pred_m = out
+                pred_f, _, pred_t, pred_m = out[:4]
                 keep = dev["lane_valid"] & (dev["valid1"].sum(1) > 0)
                 vec = dmet.frame_metrics(
                     dev["pc1"], pred_f, dev["labels"], dev["mask"],
@@ -380,9 +466,9 @@ def train_experiment(cfg: Config, textio=None) -> Dict:
 def _train(cfg: Config, textio, metrics_out, exp_dir: str) -> Dict:
     device = config_device(cfg)
     pin = device.type == "cuda"
-    model = build_model(cfg.model, device, seed=cfg.seed,
-                        stat_thres=cfg.stat_thres)
+    model = _build_model(cfg, device)
     train_ds, val_ds, _ = build_datasets(cfg, textio)
+    temporal = cfg.dataset == "vodClipDataset"
     loader = BatchLoader(
         train_ds, cfg.batch_size, shuffle=True, drop_last=True,
         num_workers=cfg.num_workers, seed=cfg.seed,
@@ -397,9 +483,19 @@ def _train(cfg: Config, textio, metrics_out, exp_dir: str) -> Dict:
                       f"{state.step}, next lr "
                       f"{state.optimizer.param_groups[0]['lr']})")
 
-    step_fn = steplib.make_train_step(
-        cfg.model, model, train_ds.camera_projection_matrix,
-        train_ds.t_camera_radar, cfg.vr_thres)
+    if temporal:
+        # one optimizer and schedule step per frame: the schedule, counted
+        # in clip batches above, decays mini_clip_len times per epoch, as
+        # the JAX package's does
+        step_fn = steplib.make_train_step_seq(
+            model, train_ds.camera_projection_matrix,
+            train_ds.t_camera_radar, cfg.vr_thres, model_name=cfg.model)
+    else:
+        step_fn = steplib.make_train_step(
+            cfg.model, model, train_ds.camera_projection_matrix,
+            train_ds.t_camera_radar, cfg.vr_thres)
+    frames_per_batch = cfg.batch_size * (cfg.mini_clip_len if temporal
+                                         else 1)
     best_rne = np.inf
     best_path = os.path.join(exp_dir, "models", "best")
     item_keys = LOSS_ITEMS[cfg.model]
@@ -439,7 +535,7 @@ def _train(cfg: Config, textio, metrics_out, exp_dir: str) -> Dict:
                  for i, k in enumerate(item_keys)}
         textio.cprint(
             f"mean train loss: {means['Loss']:.6f} "
-            f"({nb} steps, {dt:.1f}s, {nb * cfg.batch_size / dt:.1f} "
+            f"({nb} steps, {dt:.1f}s, {nb * frames_per_batch / dt:.1f} "
             f"frames/s)"
         )
         # where the epoch's wall time went: waiting on the loader, issuing
@@ -480,8 +576,7 @@ def eval_experiment(cfg: Config, textio=None) -> Dict:
 
 def _eval(cfg: Config, textio, exp_dir: str) -> Dict:
     device = config_device(cfg)
-    model = build_model(cfg.model, device, seed=cfg.seed,
-                        stat_thres=cfg.stat_thres)
+    model = _build_model(cfg, device)
     _, _, test_ds = build_datasets(cfg, textio)
 
     ckpt = cfg.model_path or os.path.join(exp_dir, "models", "best")

@@ -1,22 +1,32 @@
 """Train and eval steps.  Counterpart of ``cmflow_tpu/train/steps.py``:
 
-* :func:`make_train_step`, the per-batch CMFlow train step (reference
-  main_util.py:39-90): pseudo labels, the train-mode forward, the composite
-  loss, the backward through the K7 gather transposes, one Adam step;
-* :func:`make_eval_step`, with its two routes: the fused serving engine
-  (:func:`cmflow_tpu_torch.models.inference.cmflow_infer`) and the module
-  route (``CMFlow.forward(train=False)``).
+* :func:`make_train_step`, the per-batch train step of the frame-pair
+  models (reference main_util.py:39-90): for CMFlow pseudo labels, the
+  train-mode forward and the composite loss; for RaFlow the train-mode
+  forward and the self-supervised loss on its refined flow; then the
+  backward through the K7 gather transposes and one Adam step;
+* :func:`make_train_step_seq`, CMFlow_T's mini-clip step (reference
+  clip_util.py:34-66): one optimizer step per frame, the GRU carry
+  detached between frames;
+* :func:`make_eval_step`, with its two routes: the fused serving engines
+  (:mod:`cmflow_tpu_torch.models.inference`) and the module route
+  (``forward(train=False)``).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Mapping, Tuple
+from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
 from cmflow_tpu_torch.losses import radar_loss as rl
-from cmflow_tpu_torch.models.inference import cmflow_infer
+from cmflow_tpu_torch.models import MODEL_REGISTRY
+from cmflow_tpu_torch.models.inference import (
+    cmflow_infer,
+    cmflow_t_infer,
+    raflow_infer,
+)
 from cmflow_tpu_torch.train import labels as labelgen
 from cmflow_tpu_torch.train.state import TrainState
 
@@ -24,9 +34,11 @@ Tensor = torch.Tensor
 
 _INPUTS = ("pc1", "pc2", "ft1", "ft2", "valid1", "valid2")
 _FUSED = ("auto", "on", "off")
-# the fields of a training batch (data/synthetic.py::make_train_batch)
+# the fields of a training batch each model reads
+# (data/synthetic.py::make_train_batch)
 _TRAIN_INPUTS = ("pc1", "pc2", "ft1", "ft2", "trans", "labels", "mask",
                  "interval", "radar_u", "radar_v", "opt_flow")
+_RAFLOW_TRAIN_INPUTS = ("pc1", "pc2", "ft1", "ft2", "interval")
 
 
 def _to_device(value, device: torch.device) -> Tensor:
@@ -35,27 +47,69 @@ def _to_device(value, device: torch.device) -> Tensor:
     return torch.as_tensor(value).to(device, non_blocking=True)
 
 
-def _frame_loss(model: torch.nn.Module, x: Mapping[str, Tensor],
-                proj: Tensor, tcr: Tensor, vr_thres: float
-                ) -> Tuple[Tensor, Dict[str, Tensor]]:
-    """Pseudo labels, the train-mode forward and the composite loss of one
-    CMFlow batch (``_frame_loss`` of the JAX package).  Updates the
-    BatchNorm running statistics; returns ``(loss, items)``."""
+def _frame_loss(model_name: str, model: torch.nn.Module,
+                x: Mapping[str, Tensor], proj: Tensor, tcr: Tensor,
+                vr_thres: float, gfeat: Optional[Tensor] = None
+                ) -> Tuple[Tensor, Dict[str, Tensor], Optional[Tensor]]:
+    """The train-mode forward and loss of one frame pair (``_frame_loss``
+    of the JAX package): RaFlow's self-supervised loss on its refined flow,
+    or, for the cross-modal models, pseudo labels and the composite loss
+    (CMFlow_T from the carry ``gfeat``).  Updates the BatchNorm running
+    statistics; returns ``(loss, items, gfeat_new)``, ``gfeat_new`` None but
+    for CMFlow_T."""
     pc1, pc2, ft1, ft2 = x["pc1"], x["pc2"], x["ft1"], x["ft2"]
     vel1 = ft1[..., 0]
+    if model_name == "raflow":
+        _, sf_agg, _, _ = model(pc1, pc2, ft1, ft2, x["interval"], True)
+        loss, items = rl.radar_flow_loss("raflow", pc1, pc2, sf_agg, vel1)
+        return loss, items, None
     with torch.no_grad():
         dyn_mask = labelgen.extract_dynamic_from_fg(x["mask"], pc1, x["trans"],
                                                     x["labels"])
         mseg_rrv, _ = labelgen.mseg_label_rrv(pc1, x["trans"], vel1,
                                               x["interval"], vr_thres)
         mseg_gt = labelgen.merge_mseg_labels(mseg_rrv, dyn_mask)
-    pred_f, mseg_pre, pre_trans, _ = model(pc1, pc2, ft1, ft2, mseg_gt, True)
-    return rl.radar_flow_loss(
-        "cmflow", pc1, pc2, pred_f, vel1, gt_f=x["labels"],
+    if model_name == "cmflow":
+        pred_f, mseg_pre, pre_trans, _ = model(pc1, pc2, ft1, ft2, mseg_gt,
+                                               True)
+        gfeat_new = None
+    elif model_name == "cmflow_t":
+        pred_f, mseg_pre, pre_trans, _, gfeat_new = model(
+            pc1, pc2, ft1, ft2, mseg_gt, True, gfeat)
+    else:
+        raise ValueError(f"unknown model {model_name!r}")
+    loss, items = rl.radar_flow_loss(
+        model_name, pc1, pc2, pred_f, vel1, gt_f=x["labels"],
         pre_trans=pre_trans, mseg_pre=mseg_pre, gt_trans=x["trans"],
         mseg_gt=mseg_gt, dyn_mask=dyn_mask, radar_u=x["radar_u"],
         radar_v=x["radar_v"], opt=x["opt_flow"], projection=proj,
         t_camera_radar=tcr)
+    return loss, items, gfeat_new
+
+
+def _calib(model: torch.nn.Module, calib_projection: np.ndarray,
+           calib_t_camera_radar: np.ndarray
+           ) -> Tuple[torch.device, Tensor, Tensor]:
+    device = next(model.parameters()).device
+    proj = torch.as_tensor(np.asarray(calib_projection, np.float32),
+                           device=device)
+    tcr = torch.as_tensor(np.asarray(calib_t_camera_radar, np.float32),
+                          device=device)
+    return device, proj, tcr
+
+
+def _train_inputs(model_name: str) -> Tuple[str, ...]:
+    if model_name not in MODEL_REGISTRY:
+        raise ValueError(f"unknown model {model_name!r}")
+    return _RAFLOW_TRAIN_INPUTS if model_name == "raflow" else _TRAIN_INPUTS
+
+
+def _optimizer_step(state: TrainState, loss: Tensor) -> None:
+    """Backward, one optimizer step and one schedule step."""
+    loss.backward()
+    state.optimizer.step()
+    state.scheduler.step()
+    state.step += 1
 
 
 def make_train_step(model_name: str, model: torch.nn.Module,
@@ -63,74 +117,136 @@ def make_train_step(model_name: str, model: torch.nn.Module,
                     calib_t_camera_radar: np.ndarray, vr_thres: float = 0.3
                     ) -> Callable[[TrainState, Mapping[str, np.ndarray]],
                                   Dict[str, Tensor]]:
-    """Per-batch train step ``(state, batch) -> items`` for CMFlow.
+    """Per-batch train step ``(state, batch) -> items`` of a frame-pair
+    model, ``"cmflow"`` or ``"raflow"`` (CMFlow_T trains per frame of a
+    mini-clip: :func:`make_train_step_seq`).
 
     The batch is a dict of arrays or tensors without valid masks, as
     :func:`cmflow_tpu_torch.data.synthetic.make_train_batch` gives it.  The
-    step moves it to the model's device, generates the pseudo labels, runs
-    the forward with ``train=True`` (batch statistics; the BatchNorm running
-    statistics update), the composite loss and its backward, and takes one
-    optimizer step and one schedule step.  ``state`` (from
+    step moves the fields its model reads to the model's device, runs the
+    forward with ``train=True`` (batch statistics; the BatchNorm running
+    statistics update), the loss (:func:`_frame_loss`) and its backward,
+    and takes one optimizer step and one schedule step.  ``state`` (from
     :func:`cmflow_tpu_torch.train.state.create_train_state`) must hold
     ``model``; it is updated in place.  Returns the loss items, the keys of
-    ``LOSS_ITEMS["cmflow"]``, as detached 0-d tensors on the device."""
-    if model_name in ("raflow", "cmflow_t"):
-        raise NotImplementedError(
-            f"train step for {model_name!r} is not ported yet (ROADMAP "
-            f"Queue 1)")
-    if model_name != "cmflow":
-        raise ValueError(f"unknown model {model_name!r}")
-    device = next(model.parameters()).device
-    proj = torch.as_tensor(np.asarray(calib_projection, np.float32),
-                           device=device)
-    tcr = torch.as_tensor(np.asarray(calib_t_camera_radar, np.float32),
-                          device=device)
+    ``LOSS_ITEMS[model_name]``, as detached 0-d tensors on the device."""
+    keys = _train_inputs(model_name)
+    if model_name == "cmflow_t":
+        raise ValueError("cmflow_t trains per frame of a mini-clip: use "
+                         "make_train_step_seq")
+    device, proj, tcr = _calib(model, calib_projection, calib_t_camera_radar)
 
     def step(state: TrainState, batch: Mapping[str, np.ndarray]
              ) -> Dict[str, Tensor]:
         if state.model is not model:
             raise ValueError("the train state holds another model")
-        x = {k: _to_device(batch[k], device) for k in _TRAIN_INPUTS}
+        x = {k: _to_device(batch[k], device) for k in keys}
         state.optimizer.zero_grad(set_to_none=True)
-        loss, items = _frame_loss(model, x, proj, tcr, vr_thres)
-        loss.backward()
-        state.optimizer.step()
-        state.scheduler.step()
-        state.step += 1
-        return {k: items[k].detach() for k in rl.LOSS_ITEMS["cmflow"]}
+        loss, items, _ = _frame_loss(model_name, model, x, proj, tcr,
+                                     vr_thres)
+        _optimizer_step(state, loss)
+        return {k: items[k].detach() for k in rl.LOSS_ITEMS[model_name]}
+
+    return step
+
+
+def make_train_step_seq(model: torch.nn.Module,
+                        calib_projection: np.ndarray,
+                        calib_t_camera_radar: np.ndarray,
+                        vr_thres: float = 0.3, model_name: str = "cmflow_t"
+                        ) -> Callable[[TrainState, Mapping[str, np.ndarray]],
+                                      Dict[str, Tensor]]:
+    """Mini-clip train step ``(state, clip) -> items`` (reference
+    clip_util.py:34-66; ``make_train_step_seq`` of the JAX package).
+
+    The clip is a dict of ``[B, T, ...]`` arrays or tensors.  The step walks
+    its T frames in order: for each, the forward from the GRU carry (zeros
+    of ``prop_width`` at frame 0), the loss and its backward, one optimizer
+    step and one schedule step, then the carry detached for the next frame
+    (truncated back-propagation through time).  So a schedule built with
+    ``steps_per_epoch`` in clip batches decays T times as often per epoch,
+    as the JAX package's does.  A model without a carry (``"cmflow"``,
+    ``"raflow"``, as ``model_name`` picks the loss) takes the same per-frame
+    steps.  Returns each loss item's mean over the T frames, detached, on
+    the device."""
+    keys = _train_inputs(model_name)
+    device, proj, tcr = _calib(model, calib_projection, calib_t_camera_radar)
+    item_keys = rl.LOSS_ITEMS[model_name]
+
+    def step(state: TrainState, clip: Mapping[str, np.ndarray]
+             ) -> Dict[str, Tensor]:
+        if state.model is not model:
+            raise ValueError("the train state holds another model")
+        # frame-major [T, B, ...]: each frame's fields are contiguous, as
+        # the kernels take them
+        x = {k: _to_device(clip[k], device).transpose(0, 1).contiguous()
+             for k in keys}
+        t, b = x["pc1"].shape[:2]
+        gfeat = torch.zeros((b, model.cfg.prop_width), device=device)
+        sums = None
+        for i in range(t):
+            frame = {k: v[i] for k, v in x.items()}
+            state.optimizer.zero_grad(set_to_none=True)
+            loss, items, gfeat_new = _frame_loss(model_name, model, frame,
+                                                 proj, tcr, vr_thres, gfeat)
+            _optimizer_step(state, loss)
+            if gfeat_new is not None:
+                gfeat = gfeat_new.detach()
+            vec = torch.stack([items[k].detach() for k in item_keys])
+            sums = vec if sums is None else sums + vec
+        means = sums / t
+        return {k: means[j] for j, k in enumerate(item_keys)}
 
     return step
 
 
 def make_eval_step(model_name: str, model: torch.nn.Module,
-                   fused: str = "auto"
-                   ) -> Callable[[Mapping[str, np.ndarray]],
-                                 Tuple[Tensor, Tensor, Tensor, Tensor]]:
-    """Inference step ``batch -> (sf_agg, stat_cls, pre_trans, mask)`` in
-    eval mode (main_util.py:139-142).
+                   fused: str = "auto") -> Callable:
+    """Inference step in eval mode (main_util.py:139-142,
+    clip_util.py:226-233):
 
-    The batch is a dict of arrays as :func:`cmflow_tpu_torch.data.schema.collate`
-    gives them (or tensors), with ``valid1``/``valid2`` masks; the step moves
-    the fields it reads to the model's device.  ``fused`` picks the route: ``"on"`` the
-    fused engine, ``"off"`` the module route, ``"auto"`` the fused engine
-    when the model's parameters lie on a CUDA device and the module route
-    otherwise (the JAX package's rule, with the card in the TPU's place).
-    Only ``cmflow`` is ported."""
-    if model_name != "cmflow":
-        raise NotImplementedError(
-            f"eval step for {model_name!r} is not ported yet (ROADMAP Queue 1)")
+    * ``"cmflow"``: ``batch -> (sf_agg, stat_cls, pre_trans, mask)``;
+    * ``"raflow"``: ``batch -> (sf_agg, mask_s as float, pre_trans,
+      mask_s)``, reading the batch's ``interval`` too;
+    * ``"cmflow_t"``: ``(batch, gfeat) -> (sf_agg, stat_cls, pre_trans,
+      mask, gfeat_new)``, ``gfeat`` the GRU carry ``[B, prop_width]`` on
+      the model's device.
+
+    The batch is a dict of arrays as
+    :func:`cmflow_tpu_torch.data.schema.collate` gives them (or tensors),
+    with ``valid1``/``valid2`` masks; the step moves
+    the fields it reads to the model's device.  ``fused`` picks the route:
+    ``"on"`` the fused engine, ``"off"`` the module route, ``"auto"`` the
+    fused engine when the model's parameters lie on a CUDA device and the
+    module route otherwise (the JAX package's rule, with the card in the
+    TPU's place)."""
+    if model_name not in MODEL_REGISTRY:
+        raise ValueError(f"unknown model {model_name!r}")
     if fused not in _FUSED:
         raise ValueError(f"fused must be one of {_FUSED}, got {fused!r}")
     device = next(model.parameters()).device
     use_fused = device.type == "cuda" if fused == "auto" else fused == "on"
+    keys = _INPUTS + (("interval",) if model_name == "raflow" else ())
 
-    def step(batch: Mapping[str, np.ndarray]):
-        x = {k: _to_device(batch[k], device) for k in _INPUTS}
+    raflow = model_name == "raflow"
+    engine = {"cmflow": cmflow_infer, "raflow": raflow_infer,
+              "cmflow_t": cmflow_t_infer}[model_name]
+
+    def step(batch: Mapping[str, np.ndarray], *carry: Tensor):
+        x = {k: _to_device(batch[k], device) for k in keys}
         args = (x["pc1"], x["pc2"], x["ft1"], x["ft2"])
+        masks = (x["valid1"], x["valid2"])
         with torch.inference_mode():
             if use_fused:
-                return cmflow_infer(model, *args, x["valid1"], x["valid2"])
-            return model(*args, None, False, x["valid1"], x["valid2"])
+                extra = (x["interval"],) if raflow else ()
+                out = engine(model, *args, *extra, *carry, *masks)
+            else:
+                extra = (x["interval"],) if raflow else (None,)
+                out = model(*args, *extra, False, *carry, *masks)
+            if raflow:
+                _, sf_agg, pre_trans, mask_s = out
+                return sf_agg, mask_s.float(), pre_trans, mask_s
+            return out
 
     step.fused = use_fused
     return step

@@ -9,9 +9,16 @@
 # PLATFORM=cpu.
 #
 #   scripts/convergence_run_torch.sh                  # cmflow, 24 epochs
+#   MODEL=raflow EPOCHS=48 scripts/convergence_run_torch.sh
+#   MODEL=cmflow_t scripts/convergence_run_torch.sh   # mini-clips of 5
 #   OUT=build/convergence_torch.jsonl scripts/convergence_run_torch.sh
 #
-# Env knobs: MODEL (only cmflow is ported), DS (dataset dir, default
+# RaFlow's self-supervised loss needs more epochs: the JAX f32 run reached
+# 0.156 in 36 (scripts/convergence_run.sh:12-14).  CMFlow_T trains on
+# mini-clips (configs/cmflow_t.yaml: vodClipDataset), one optimizer step per
+# frame, and validates its clips side by side.
+#
+# Env knobs: MODEL (cmflow|raflow|cmflow_t), DS (dataset dir, default
 # build/conv_ds), EXP (exp name; default conv_torch_$MODEL), PLATFORM
 # (auto|cpu), EPOCHS, BATCH, OUT (copy of the run's metrics, first line the
 # run parameters).

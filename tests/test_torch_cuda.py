@@ -31,12 +31,18 @@ import torch
 
 from cmflow_tpu_torch.data.synthetic import make_request, make_train_batch
 from cmflow_tpu_torch.data.vod import VOD_CAMERA_PROJECTION, VOD_T_CAMERA_RADAR
-from cmflow_tpu_torch.models import CMFlow
+from cmflow_tpu_torch.models import CMFlow, CMFlowT, RaFlow
+from cmflow_tpu_torch.models.convert import export_flax_variables
+from cmflow_tpu_torch.models.inference import cmflow_t_infer_seq
 from cmflow_tpu_torch.nn import blocks
 from cmflow_tpu_torch.ops import fused, neighbors, pointops
 from cmflow_tpu_torch.train import loop
 from cmflow_tpu_torch.train.state import create_train_state
-from cmflow_tpu_torch.train.steps import make_eval_step, make_train_step
+from cmflow_tpu_torch.train.steps import (
+    make_eval_step,
+    make_train_step,
+    make_train_step_seq,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -705,3 +711,119 @@ def test_checkpoint_restores_across_devices(dev, tmp_path, order):
     items = make_train_step("cmflow", restored.model, VOD_CAMERA_PROJECTION,
                             VOD_T_CAMERA_RADAR)(restored, batch)
     assert restored.step == 2 and np.isfinite(float(items["Loss"]))
+
+
+# ---------------------------------------------------------------------------
+# RaFlow and CMFlow_T: their fused routes and train steps on the card
+# against the same on the CPU
+# ---------------------------------------------------------------------------
+
+def test_raflow_fused_route(dev):
+    """B=16 on the 256 bucket: the fused route on the card against the CPU's
+    and the card's module route: coarse-to-refined flow where the inlier
+    masks agree atol 1e-4, pre_trans 5e-4, masks agreeing on >= 99%."""
+    req = make_request(31, 16, (200, 256))
+    model = seeded(RaFlow(), dev, 12).eval()
+    step = make_eval_step("raflow", model)
+    assert step.fused
+    before = fused.cost_volume_agg.launches
+    out = step(req)
+    assert fused.cost_volume_agg.launches == before + 1
+    assert all(bool(torch.isfinite(x).all()) for x in out[:3])
+    cpu = copy.deepcopy(model).to("cpu")
+    valid = req["valid1"]
+    for ref in (make_eval_step("raflow", cpu, fused="on")(req),
+                make_eval_step("raflow", model, fused="off")(req)):
+        (sf, _, trans, mask), (rsf, _, rtrans, rmask) = (
+            [x.cpu().numpy() for x in o] for o in (out, ref))
+        assert np.abs(trans - rtrans).max() <= 5e-4
+        assert (mask == rmask)[valid].mean() >= 0.99
+        assert np.abs(sf - rsf)[(mask == rmask) & valid].max() <= 1e-4
+
+
+def test_cmflow_t_fused_sequence(dev):
+    """Three B=16 frames through ``cmflow_t_infer_seq`` with a reset of
+    lane 0 at frame 2, on the card against the CPU: the serving bars on
+    each frame, and the final carry atol 1e-4."""
+    reqs = [make_request(40 + t, 16, (200, 256)) for t in range(3)]
+    keys = ("pc1", "pc2", "ft1", "ft2", "valid1", "valid2")
+    stacked = {k: torch.stack([torch.as_tensor(r[k]) for r in reqs])
+               for k in keys}
+    reset = torch.zeros((3, 16), dtype=torch.bool)
+    reset[0] = True
+    reset[2, 0] = True
+    model = seeded(CMFlowT(), dev, 13).eval()
+    cpu = copy.deepcopy(model).to("cpu")
+    g0 = torch.zeros((16, 256))
+    out, gfinal = cmflow_t_infer_seq(
+        model, *(stacked[k].to(dev) for k in keys[:4]), g0.to(dev),
+        reset.to(dev), stacked["valid1"].to(dev), stacked["valid2"].to(dev))
+    ref, rfinal = cmflow_t_infer_seq(cpu, *(stacked[k] for k in keys[:4]),
+                                     g0, reset, stacked["valid1"],
+                                     stacked["valid2"])
+    for t, req in enumerate(reqs):
+        assert_outputs_near(req, [o[t] for o in out], [o[t] for o in ref])
+    assert float((gfinal.cpu() - rfinal).abs().max()) <= 1e-4
+
+
+def test_raflow_and_sequence_train_steps(dev):
+    """One RaFlow train step (B=16, N=256) and CMFlow_T T=2 mini-clip steps
+    at lr 0 on the card against the CPU: loss items rtol 1e-4, BatchNorm
+    running means atol 1e-5, RaFlow's parameters after its step atol 5e-3.
+    Gradients: RaFlow's, and CMFlow_T's second frame on the first frame
+    twice, within a relative L2 of 3e-2 per leaf and 1e-2 whole; CMFlow_T's
+    second frame on two frames at the median leaf (3e-2), where float32
+    rounding alone moves the whole gradient by ~1e-2
+    (tests/test_torch_cmflow_t.py)."""
+    batch = make_train_batch(5, 16, 256)
+    clips = {"first frame twice": {k: np.stack([v, v], axis=1)
+                                   for k, v in batch.items()},
+             "two frames": {k: np.stack([v, make_train_batch(6, 16, 256)[k]],
+                                        axis=1) for k, v in batch.items()}}
+    cases = [("raflow", None)] + [("cmflow_t", c) for c in clips]
+    for name, clip in cases:
+        runs = []
+        for device in (dev, torch.device("cpu")):
+            model = seeded(RaFlow() if name == "raflow" else CMFlowT(),
+                           torch.device("cpu"), 14).to(device)
+            if name == "raflow":
+                state = create_train_state(model)
+                items = make_train_step(name, model, VOD_CAMERA_PROJECTION,
+                                        VOD_T_CAMERA_RADAR)(state, batch)
+            else:
+                state = create_train_state(model, lr=0.0)
+                items = make_train_step_seq(model, VOD_CAMERA_PROJECTION,
+                                            VOD_T_CAMERA_RADAR)(
+                    state, clips[clip])
+            runs.append(({k: float(v) for k, v in items.items()},
+                         export_flax_variables(model),
+                         export_flax_variables(model, grads=True)))
+        (items, after, grads), (ritems, rafter, rgrads) = runs
+        for k, v in ritems.items():
+            assert abs(items[k] - v) <= 1e-4 * abs(v), (name, clip, k)
+        for path, want in _leaves(rafter):
+            got = dict(_leaves(after))[path]
+            if path.endswith("mean"):
+                assert np.abs(got - want).max() <= 1e-5, (name, clip, path)
+            if name == "raflow" and path.startswith("params"):
+                assert np.abs(got - want).max() <= 5e-3, (name, path)
+        got, want = dict(_leaves(grads)), dict(_leaves(rgrads))
+        assert all(np.isfinite(g).all() for g in got.values())
+        rel = {k: float(np.linalg.norm(got[k] - w) / np.linalg.norm(w))
+               for k, w in want.items()}
+        whole = float(np.sqrt(sum(np.sum((got[k] - w) ** 2)
+                                  for k, w in want.items())
+                              / sum(np.sum(w ** 2) for w in want.values())))
+        if clip == "two frames":
+            assert np.median(list(rel.values())) <= 3e-2, (rel, whole)
+        else:
+            bad = {k: v for k, v in rel.items() if not v <= 3e-2}
+            assert not bad and whole <= 1e-2, (name, clip, bad, whole)
+
+
+def _leaves(tree, prefix=""):
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            yield from _leaves(value, f"{prefix}{key}/")
+        else:
+            yield prefix + key, value

@@ -294,6 +294,10 @@ class TestCMFlowForward:
             load_flax_variables(model, partial)
 
     def test_unported_models_raise(self):
-        for name in ("raflow", "cmflow_t"):
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                build_model(name, device="cpu")
+        """All three families are ported; only an unknown name raises."""
+        from cmflow_tpu_torch.models import MODEL_REGISTRY
+
+        for name, cls in MODEL_REGISTRY.items():
+            assert type(build_model(name, device="cpu")) is cls
+        with pytest.raises(KeyError, match="unknown model"):
+            build_model("flownet", device="cpu")

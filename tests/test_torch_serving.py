@@ -110,8 +110,9 @@ class TestEvalStep:
                 == jmetrics.eval_trans_rpe(batch["trans"], trans))
 
     def test_unported_model_raises(self):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_eval_step("raflow", torch.nn.Linear(1, 1))
+        """All three families have an eval step; an unknown name raises."""
+        with pytest.raises(ValueError, match="unknown model"):
+            make_eval_step("flownet", torch.nn.Linear(1, 1))
 
 
 class TestDataCopies:

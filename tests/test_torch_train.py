@@ -329,9 +329,11 @@ class TestOptimizerAndApi:
 
     def test_step_api(self):
         model = build_model("cmflow", device="cpu")
-        for name in ("raflow", "cmflow_t"):
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                make_train_step(name, model, P, TCR)
+        assert callable(make_train_step("raflow", model, P, TCR))
+        with pytest.raises(ValueError, match="make_train_step_seq"):
+            make_train_step("cmflow_t", model, P, TCR)
+        with pytest.raises(ValueError, match="unknown model"):
+            make_train_step("flownet", model, P, TCR)
         step = make_train_step("cmflow", model, P, TCR)
         with pytest.raises(ValueError, match="another model"):
             step(create_train_state(build_model("cmflow", device="cpu")),

@@ -47,6 +47,19 @@ Run from the repository root on a machine with a CUDA GPU and nvcc.  Steps:
 5. serve one request per bucket on the module route (``fused="off"``):
    launches per forward ball query 12, kNN 2, gather 16, the first request
    held to the CPU at the same bars;
+5b. bf16 serving (``compute_dtype=torch.bfloat16``, the JAX package's
+   ``eval_compute_dtype: bfloat16``): hold the bf16 arms of the sa encoder,
+   both cost-volume kernels and the propagation encoder to their plain
+   versions at every shape of the bf16 forward (B=16, both buckets,
+   masked) within 1e-2 of the output's largest magnitude, and to
+   themselves bit for bit; time them as above, beside cuBLAS on bf16
+   operands with float32 sums on the cost volume's and the propagation
+   encoder's products, and bound them at the dense bf16 peak (989
+   TFLOP/s); require a tensor-core instruction of a bf16 type in their
+   SASS (``HGMMA.*BF16``, ``HMMA.*BF16``); measure, without a bar, how far
+   the bf16 forward of this model with random weights lies from its
+   float32 one (far, in JAX as here: ROADMAP Queue 3); time one whole
+   fused forward in each dtype (device time and CUDA operations);
 6. hold the gather's backward (K7) to its plain version at every shape the
    train step gives it (B=16, N=256: the sa encoder's C=32 and the
    propagation encoder's C=512 at K = 4, 8, 16, 32, the cost volume's C=512
@@ -85,12 +98,20 @@ Run from the repository root on a machine with a CUDA GPU and nvcc.  Steps:
    resume one epoch from ``models/last`` (``--load_checkpoint``) and require
    the step count, Adam's steps and the learning rate to go on from the
    saved ones; evaluate ``--save_res`` from ``best`` and require one result
-   file per test frame and 14 finite means; then on one B=64 test batch as
-   the loop forms it hold each fused kernel to its plain version (timed
-   by CUDA events around back-to-back calls), the device metric battery to the host battery on the same
-   predictions (atol 1e-4), and the fused route to the module route on the
-   card at the serving bars; print the loop's own train frames/s, eval ms
-   per frame and peak memory beside the card's name and power limit;
+   file per test frame and 14 finite means; evaluate ``best`` again with
+   ``--eval_compute_dtype bfloat16`` (the same launches on the kernels' bf16
+   arms), 14 finite means, its RNE within 5% of the float32 eval's; then on
+   one B=64 test batch as the loop forms it hold each fused kernel to its
+   plain version (timed by CUDA events around back-to-back calls), the
+   device metric battery to the host battery on the same predictions (atol
+   1e-4), and the fused route to the module route on the card at the
+   serving bars; print the loop's own train frames/s, eval ms per frame and
+   peak memory beside the card's name and power limit; serve three B=16
+   requests (256, 256, 384) in bf16 from the same checkpoint, launches
+   2/2/2/1/1/4 a forward, each held to its float32 forward on the card and
+   the first to the CPU's bf16 route at the JAX package's bf16 bars
+   (stat_cls 3e-2, pre_trans 1e-2, masks on >= 99% of the valid points,
+   sf_agg within 0.05 of max(|sf|, 1) where the masks agree);
 9. the other families, full width, B=16: RaFlow and CMFlow_T serve three
    requests (CMFlow_T three frames with the carry and resets) on the fused
    route, held to the module route and to the CPU at the serving bars;
@@ -100,12 +121,17 @@ Run from the repository root on a machine with a CUDA GPU and nvcc.  Steps:
    step on two frames, its gradients held at the median leaf, then three
    T=5 clip steps, the loss falling; the train paths' kernels held to their
    plain versions at every frame's shapes; a CLI train, resume and eval
-   for each family with exact launch counts;
+   for each family with exact launch counts; their bf16 arms held to their
+   plain versions at the first request, and each family's CLI checkpoint
+   serving three B=16 requests in bf16 as CMFlow's (CMFlow_T with its
+   carry);
 10. print one JSON line per kernel shape, per request and per train step,
    one per route of a kernel measured on several (the ball query: fused 2
    launches per forward, module 12, train step 12; also under its
    summary's ``by_route``), then the ``{"kernels": [...]}`` summary (each
-   kernel also with its launches in each CLI run), then
+   kernel also with its launches in each CLI run; the four bf16 arms as
+   rows of their own, ``mse.bf16``, ``cv.bf16``, ``cv_agg.bf16``,
+   ``plf.bf16``, with the launches of the bf16 serving phase), then
    ``{"ok": true, "device": ...}`` last.
 
 Every launch counter is set to 0 just before each served forward, each
@@ -196,8 +222,31 @@ WRAPPERS = {"ball_query": neighbors.ball_query_multi, "knn": neighbors.knn,
             "plf": fused.fused_point_local_feature,
             "gather_bwd": fused.gather_rows_backward}
 EXACT = ("ball_query", "knn", "gather")
+# the bf16 arms of the fused kernels (bf16 serving, eval_compute_dtype
+# bfloat16), each behind its float32 sibling's wrapper and launch counter:
+# the bf16 phase's counts are theirs
+BF16 = torch.bfloat16
+BF16_ARMS = {"mse.bf16": "mse", "cv.bf16": "cv", "cv_agg.bf16": "cv_agg",
+             "plf.bf16": "plf"}
+# the arms on the tensor cores, with their instruction of a bf16 type in
+# SASS (HGMMA.*BF16 for wgmma, HMMA.*BF16 for mma.sync); K4b's arm sums on
+# the CUDA cores, as its float32 sibling does
+BF16_TC_KERNELS = {"mse.bf16": ("mse", "mse_bf16_kernel", "HMMA"),
+                   "cv.bf16": ("cost_volume", "cv_p2p_bf16_kernel", "HGMMA"),
+                   "plf.bf16": ("plf", "plf_bf16_kernel", "HGMMA")}
+BF16_FLOP_PER_S = 989e12  # dense, tensor cores
+# a bf16 arm against its plain version: max abs error over the output's
+# largest magnitude (a float32 sum in another order can flip a bf16
+# rounding by one ulp, 2^-8)
+BF16_RTOL = 1e-2
+# the JAX package's bf16 serving bars (scripts/parity_tpu.py:41,
+# tests/test_fused.py:139-148): stat_cls and pre_trans absolute, masks
+# agreeing, sf_agg within flow * max(|sf|, 1)
+BF16_BARS = {"cls": 3e-2, "trans": 1e-2, "agree": 0.99, "flow": 0.05}
+# the CLI's bf16 eval: its RNE within this of the float32 eval's
+BF16_RNE_RTOL = 0.05
 # held to themselves bit for bit across two runs
-SAME_BITS = ("gather_bwd", "cv_agg", *TC_KERNELS)
+SAME_BITS = ("gather_bwd", "cv_agg", *TC_KERNELS, *BF16_ARMS)
 LAUNCHES = {
     "fused": {"ball_query": 2, "knn": 2, "gather": 0, "mse": 2, "cv": 1,
               "cv_agg": 1, "plf": 4, "gather_bwd": 0},
@@ -215,6 +264,10 @@ DEVICE_NAMES = {"ball_query": ("ball_query_kernel",), "knn": ("knn_kernel",),
                 "gather": ("gather_rows_kernel",), "mse": ("mse_kernel",),
                 "cv": ("cv_p2p_kernel",), "cv_agg": ("cv_agg_kernel",),
                 "plf": ("plf_kernel",),
+                "mse.bf16": ("mse_bf16_kernel",),
+                "cv.bf16": ("cv_p2p_bf16_kernel",),
+                "cv_agg.bf16": ("cv_agg_bf16_kernel",),
+                "plf.bf16": ("plf_bf16_kernel",),
                 "gather_bwd": ("gather_rows_backward_csr_kernel",
                                "gather_rows_backward_sum_kernel",
                                "gather_rows_backward_combine_kernel")}
@@ -223,7 +276,8 @@ LARGE_N = 4096
 # the route whose forward (train step) each kernel's summary describes
 SUMMARY_PATH = {"ball_query": "fused", "knn": "fused", "gather": "module",
                 "mse": "fused", "cv": "fused", "cv_agg": "fused",
-                "plf": "fused", "gather_bwd": "train"}
+                "plf": "fused", "gather_bwd": "train",
+                **{name: "bf16" for name in BF16_ARMS}}
 SOURCES = {
     "ball_query": ("cmflow_tpu_torch/csrc/neighbors.cu",
                    "cmflow_tpu/ops/neighbors.py:64"),
@@ -239,6 +293,14 @@ SOURCES = {
     "plf": ("cmflow_tpu_torch/csrc/plf.cu", "cmflow_tpu/ops/fused.py:55"),
     "gather_bwd": ("cmflow_tpu_torch/csrc/gather.cu",
                    "cmflow_tpu/ops/fused.py:579"),
+    # the bf16 arms of the Pallas kernels
+    "mse.bf16": ("cmflow_tpu_torch/csrc/mse.cu",
+                 "cmflow_tpu/ops/fused.py:290"),
+    "cv.bf16": ("cmflow_tpu_torch/csrc/cost_volume.cu",
+                "cmflow_tpu/ops/fused.py:721"),
+    "cv_agg.bf16": ("cmflow_tpu_torch/csrc/cost_volume.cu",
+                    "cmflow_tpu/ops/fused.py:792"),
+    "plf.bf16": ("cmflow_tpu_torch/csrc/plf.cu", "cmflow_tpu/ops/fused.py:99"),
 }
 
 
@@ -258,6 +320,11 @@ def zero_counts() -> None:
 
 def counts_now() -> dict:
     return {k: fn.launches for k, fn in WRAPPERS.items()}
+
+
+def wrapper_of(name: str):
+    """A kernel's wrapper (a bf16 arm's is its float32 sibling's)."""
+    return WRAPPERS[BF16_ARMS.get(name, name)]
 
 
 def event_ms(fn, iters: int) -> float:
@@ -285,7 +352,7 @@ def device_ms(fn, iters: int, kernels=("",), per_call: int = 0) -> tuple:
     """Device time of one call of ``fn``, from ``torch.profiler``'s CUDA
     activity over ``iters`` warmed calls: (the summed durations of the
     kernels whose names hold one of ``kernels``, of every kernel it
-    launches, {each of ``kernels``: its own}).
+    launches, {each of ``kernels``: its own}, the kernels it launches).
 
     The profiler now and then records only part of a window's kernels, or
     none; it drops the first most often, so each window starts with a
@@ -322,7 +389,8 @@ def device_ms(fn, iters: int, kernels=("",), per_call: int = 0) -> tuple:
             total = sum(e.self_device_time_total for e in events)
             parts = {k: sum(e.self_device_time_total for e in events
                             if k in e.key) / 1e3 / iters for k in kernels}
-            return sum(parts.values()), total / 1e3 / iters, parts
+            count = sum(e.count for e in events) / iters
+            return sum(parts.values()), total / 1e3 / iters, parts, count
         print(json.dumps(dict(profiler_window_rejected=dict(
             kernels=list(kernels), iters=iters, per_call=per_call, window=t,
             counts={e.key[:80]: e.count for e in events}))),
@@ -343,7 +411,10 @@ def bound_ms(nbytes: float, flops: float, peak: float = F32_FLOP_PER_S):
 
 def bounds(name: str, nbytes: float, flops: float) -> dict:
     """The bound of a kernel's work at its arithmetic's peak, with the
-    float32 bound beside it for the tensor-core kernels."""
+    float32 bound beside it for the 3xTF32 tensor-core kernels."""
+    if name in BF16_TC_KERNELS:
+        ms, by = bound_ms(nbytes, flops, BF16_FLOP_PER_S)
+        return dict(bound_ms=ms, bound_by=by, bound_arith="bf16")
     if name not in TC_KERNELS:
         ms, by = bound_ms(nbytes, flops)
         return dict(bound_ms=ms, bound_by=by)
@@ -362,12 +433,13 @@ def shares(row: dict, ms: float) -> dict:
 
 
 def sass_report(libs: dict) -> dict:
-    """For each tensor-core kernel: its tensor-core (HGMMA or HMMA) and FFMA
-    instructions in the SASS of its built library, and its registers,
-    spills and shared memory from the library's ptxas log."""
+    """For each tensor-core kernel: its tensor-core (HGMMA or HMMA; for a
+    bf16 arm those of a bf16 type) and FFMA instructions in the SASS of its
+    built library, and its registers, spills and shared memory from the
+    library's ptxas log."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     report = {}
-    for name, (lib, fn, tc_op) in TC_KERNELS.items():
+    for name, (lib, fn, tc_op) in {**TC_KERNELS, **BF16_TC_KERNELS}.items():
         sass = subprocess.run([tool, "-sass", str(libs[lib])], check=True,
                               capture_output=True, text=True).stdout
         body = next(part for part in sass.split("Function : ")[1:]
@@ -379,9 +451,13 @@ def sass_report(libs: dict) -> dict:
         regs, smem = re.search(r"Used (\d+) registers.*?(\d+) bytes smem",
                                props).groups()
         spill = re.search(r"(\d+) bytes spill stores", props).group(1)
-        count = len(re.findall(rf"\b{tc_op}\b", body))
+        if name in BF16_TC_KERNELS:
+            key, pattern = f"{tc_op.lower()}_bf16", rf"\b{tc_op}\.\S*BF16\b"
+        else:
+            key, pattern = tc_op.lower(), rf"\b{tc_op}\b"
+        count = len(re.findall(pattern, body))
         report[name] = dict(
-            function=fn, **{tc_op.lower(): count},
+            function=fn, **{key: count},
             ffma=len(re.findall(r"\bFFMA\b", body)), registers=int(regs),
             spill_store_bytes=int(spill), static_smem_bytes=int(smem))
         require(count > 0,
@@ -585,6 +661,115 @@ def fused_cases(model, req: dict, dev):
     return cases
 
 
+def nbytes(*tensors) -> int:
+    """Bytes of ``tensors`` (nested sequences flattened), each read or
+    written once."""
+    out = 0
+    for t in tensors:
+        out += nbytes(*t) if isinstance(t, (list, tuple)) else (
+            t.numel() * t.element_size())
+    return out
+
+
+def bf16_cases(model, req: dict, dev):
+    """Every shape of the bf16 fused forward (``compute_dtype`` bfloat16)
+    on this request: the bf16 arms of K3, K4a, K4b and K5 on the forward's
+    own bf16 operands, with the same operation counts as their float32
+    siblings and the bytes of their own inputs and outputs; beside K4a and
+    K5, cuBLAS on bf16 operands with float32 sums (``torch.mm(...,
+    out_dtype=)``, as ``_dot32`` calls it) on their products alone."""
+    pc1, pc2, ft1, ft2, v1, v2 = request_tensors(req, dev)
+    b, n, _ = pc1.shape
+    cfg = model.trunk.cfg
+    radii, ks = tuple(cfg.sa_radii), tuple(cfg.sa_nsamples)
+    rows = b * n
+    cases = []
+
+    def yardstick(k, widths):
+        xs = [torch.randn((rows * k, c), device=dev).to(BF16)
+              for c in widths[:-1]]
+        ws = [torch.randn((c, o), device=dev).to(BF16)
+              for c, o in zip(widths[:-1], widths[1:])]
+        return lambda: [torch.mm(x, w, out_dtype=torch.float32)
+                        for x, w in zip(xs, ws)]
+
+    idx = {name: inference._ball_query_all(radii, ks, pc, v)
+           for name, pc, v in (("pc1", pc1, v1), ("pc2", pc2, v2))}
+    mse = model.trunk.mse_layer
+    packed, _ = fused.mse_narrow_params_from_variables(mse, BF16)
+    frags, floats = fused.mse_bf16_weights(packed)
+    c1, c2, c3 = fused.MSE_WIDTHS
+    s_cnt = len(ks)
+    for name, pc, ft in (("pc1", pc1, ft1), ("pc2", pc2, ft2)):
+        ftb = ft.to(BF16)
+        cases.append(dict(
+            kernel="mse.bf16", path="bf16",
+            shape=f"B={b} N={n} K={ks} {name} masked", mult=1,
+            run=lambda pc=pc, ft=ftb, i=idx[name]:
+                fused.fused_multi_scale_encoder(ft, i, pc, packed),
+            plain=lambda pc=pc, ft=ftb, i=idx[name]:
+                fused.fused_multi_scale_encoder_plain(ft, i, pc, packed),
+            # the bf16 base, the centred points, the indices, the weight
+            # images in, the float32 output back
+            nbytes=(rows * s_cnt * c1 * 2 + nbytes(pc, idx[name], frags,
+                                                  floats)
+                    + rows * s_cnt * c3 * 4),
+            flops=2 * (rows * s_cnt * c1 * 9
+                       + rows * sum(ks) * (c1 * c2 + c2 * c3))))
+
+    f1 = inference._mse_fused(mse, pc1, ft1, v1, idx["pc1"], BF16)
+    f2 = inference._mse_fused(mse, pc2, ft2, v2, idx["pc2"], BF16)
+    g1, g2 = masked_global_max(f1, v1), masked_global_max(f2, v2)
+    fc = model.trunk.fc_layer
+    d = cfg.fc_inch
+    f1t = inference._fanin_dot((f1, g1), fc.w0[:d], BF16).to(BF16)
+    f2t = inference._fanin_dot((f2, g2), fc.w0[d:2 * d], BF16).to(BF16)
+    dense, wn1, wn2 = fused.cv_params_from_variables(fc)
+    dense = [t.to(BF16) if i % 2 == 0 else t for i, t in enumerate(dense)]
+    knn2 = neighbors.knn(8, pc1, pc2, v2)
+    knn1 = neighbors.knn(8, pc1, pc1, v1)
+    f1c, f2c, z1, z2, zq = fused.cost_volume_folds(
+        f1t, f2t, pc1, pc2, dense[0], wn1[0], wn2[0], BF16)
+    c, k, h = fused.CV_WIDTH, fc.nsample, fused.WEIGHTNET_HIDDEN
+    cv_args = (f1c, f2c, knn2, z1, z2, dense[1:], wn1[1:])
+    cases.append(dict(
+        kernel="cv.bf16", path="bf16",
+        shape=f"B={b} N={n} C={c} k={k} masked", mult=1,
+        run=lambda: fused.cost_volume_p2p(*cv_args),
+        plain=lambda: fused.cost_volume_p2p_plain(*cv_args),
+        cublas=yardstick(k, (c, c, c)),
+        nbytes=nbytes(cv_args) + rows * c * 2,
+        flops=2 * rows * k * (2 * c * c + h * h + h * c)))
+    p2p = fused.cost_volume_p2p(*cv_args)
+    agg_args = (p2p, knn1, zq, wn2[1:])
+    cases.append(dict(
+        kernel="cv_agg.bf16", path="bf16",
+        shape=f"B={b} N={n} C={c} k={k} masked", mult=1,
+        run=lambda: fused.cost_volume_agg(*agg_args),
+        plain=lambda: fused.cost_volume_agg_plain(*agg_args),
+        nbytes=nbytes(agg_args) + rows * c * 4,
+        flops=2 * rows * k * (h * h + h * c + c)))
+    cor = fused.cost_volume_agg(*agg_args)
+
+    parts = (ft1, f1, g1, cor)
+    w1, w2, w3 = fused.PLF_WIDTHS
+    for s, scale in enumerate(inference._scales(model.trunk.mse_layer2)):
+        chain, feat_w, _ = fused.plf_params_from_variables(scale)
+        chain = inference._cast_chain(chain, BF16)
+        feat_tx = inference._fanin_dot(parts, feat_w, BF16).to(BF16)
+        kk = ks[s]
+        plf_args = (feat_tx, idx["pc1"][s], pc1, chain)
+        cases.append(dict(
+            kernel="plf.bf16", path="bf16", shape=f"B={b} N={n} K={kk} masked",
+            mult=1, run=lambda a=plf_args: fused.fused_point_local_feature(*a),
+            plain=lambda a=plf_args:
+                fused.fused_point_local_feature_plain(*a),
+            cublas=yardstick(kk, fused.PLF_WIDTHS),
+            nbytes=nbytes(plf_args) + rows * w3 * 4,
+            flops=2 * (rows * w1 * 6 + rows * kk * (w1 * w2 + w2 * w3))))
+    return cases
+
+
 def gather_bwd_cases(batch: dict, dev, gen: torch.Generator):
     """K7 at every shape of the train step, on this batch's own neighbour
     indices and seeded random cotangents."""
@@ -710,6 +895,10 @@ def hold_to_plain(case) -> tuple:
         require(err <= GATHER_BWD_RTOL * scale,
                 f"{name} {case['shape']}: kernel and plain version "
                 f"differ by {err} at a largest magnitude of {scale}")
+    elif name in BF16_ARMS:
+        require(got.dtype == want.dtype and err <= BF16_RTOL * scale,
+                f"{name} {case['shape']}: kernel and plain version "
+                f"differ by {err} at a largest magnitude of {scale}")
     else:
         require(err <= FUSED_ATOL and err <= FUSED_RTOL * scale,
                 f"{name} {case['shape']}: kernel and plain version "
@@ -736,11 +925,11 @@ def check_kernels(cases, first: bool, per_forward: dict) -> None:
         err, scale = hold_to_plain(case)
         library = case.get("library")
         cublas = case.get("cublas")
-        before = WRAPPERS[name].launches
+        before = wrapper_of(name).launches
         case["run"]()
-        per_call = WRAPPERS[name].launches - before
-        own, wrapper, parts = device_ms(case["run"], 20, DEVICE_NAMES[name],
-                                        per_call)
+        per_call = wrapper_of(name).launches - before
+        own, wrapper, parts, _ = device_ms(case["run"], 20,
+                                           DEVICE_NAMES[name], per_call)
         row = dict(kernel=name, path=case["path"], shape=case["shape"],
                    kernel_ms=own, wrapper_device_ms=wrapper,
                    kernel_event_ms=event_ms(case["run"], 50),
@@ -871,6 +1060,93 @@ def serve(route: str, step, requests, checks,
         if i == 0:
             row.update(checks(req, out))
         emit(row)
+    return launches
+
+
+# per family: the slots of make_eval_step's outputs holding sf_agg,
+# stat_cls (RaFlow has none), pre_trans and the mask
+BF16_OUTPUTS = {"cmflow": (0, 1, 2, 3), "raflow": (0, None, 2, 3),
+                "cmflow_t": (0, 1, 2, 3)}
+
+
+def compare_bf16(family: str, req, out, ref, what: str,
+                 hold: bool = True) -> dict:
+    """Hold a bf16 forward's outputs to ``ref`` at BF16_BARS (or, without
+    ``hold``, only measure them), on the valid points (sf_agg where the
+    masks agree, as :func:`compare`); CMFlow_T's new carry is reported."""
+    i_sf, i_cls, i_trans, i_mask = BF16_OUTPUTS[family]
+    o, r = ([x.cpu().numpy() for x in y] for y in (out, ref))
+    valid = req["valid1"]
+    same = (o[i_mask] == r[i_mask]) & valid
+    res = dict(trans_max_abs_err=float(np.abs(o[i_trans] - r[i_trans]).max()),
+               flow_max_abs_err=float(np.abs(o[i_sf] - r[i_sf])[same].max()),
+               flow_scale=max(float(np.abs(r[i_sf][valid]).max()), 1.0),
+               mask_agreement=float(same[valid].mean()))
+    if i_cls is not None:
+        res["cls_max_abs_err"] = float(
+            np.abs(o[i_cls] - r[i_cls])[valid].max())
+    if family == "cmflow_t":
+        res["gfeat_max_abs_err"] = float(np.abs(o[4] - r[4]).max())
+    require(not hold or res.get("cls_max_abs_err", 0.0) <= BF16_BARS["cls"]
+            and res["trans_max_abs_err"] <= BF16_BARS["trans"]
+            and res["mask_agreement"] >= BF16_BARS["agree"]
+            and res["flow_max_abs_err"]
+            <= BF16_BARS["flow"] * res["flow_scale"], f"{what}: {res}")
+    return res
+
+
+def serve_bf16(name: str, model, cpu_model, requests) -> dict:
+    """Serve ``requests`` in bf16 through ``make_eval_step(name, model,
+    compute_dtype=torch.bfloat16)``, which on the card takes the fused
+    engine and the kernels' bf16 arms: each forward's launches counted
+    (2/2/2/1/1/4), finite outputs, each request held to the card's own
+    float32 forward on the same inputs and the first to the CPU's bf16
+    route (every kernel's plain version), at BF16_BARS.  CMFlow_T carries
+    its GRU state frame to frame from a zero carry.  Returns the launches
+    summed over the requests."""
+    dev = next(model.parameters()).device
+    step = make_eval_step(name, model, compute_dtype=BF16)
+    require(step.fused, f"{name}: the bf16 eval step on the card must be "
+                        f"fused")
+    step_f32 = make_eval_step(name, model)
+    cpu_step = make_eval_step(name, cpu_model, fused="on",
+                              compute_dtype=BF16)
+    temporal = name == "cmflow_t"
+    carry = ((torch.zeros((B, model.cfg.prop_width), device=dev),)
+             if temporal else ())
+    launches = {k: 0 for k in WRAPPERS}
+    for i, req in enumerate(requests):
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(req, *carry)
+        torch.cuda.synchronize()
+        latency = time.perf_counter() - t0
+        counts = counts_now()
+        require(counts == LAUNCHES["fused"],
+                f"{name} bf16 request {i}: launches {counts}")
+        for k in launches:
+            launches[k] += counts[k]
+        b, n = req["pc1"].shape[:2]
+        require(out[0].shape == (b, n, 3) and out[2].shape == (b, 4, 4)
+                and all(bool(torch.isfinite(out[j]).all())
+                        for j in (0, 1, 2)),
+                f"{name} bf16 request {i}: output shapes or non-finite "
+                f"values")
+        row = dict(family=name, route="fused", dtype="bfloat16", request=i,
+                   batch=int(b), bucket=int(n), latency_ms=1e3 * latency,
+                   frames_per_s=b / latency, launches=counts,
+                   **frame_metrics(req, out[:4]))
+        row["vs_card_float32"] = compare_bf16(
+            name, req, out, step_f32(req, *carry),
+            f"{name} bf16 request {i} vs the card's float32")
+        if i == 0:
+            row["vs_cpu_bf16"] = compare_bf16(
+                name, req, out, cpu_step(req, *(c.cpu() for c in carry)),
+                f"{name} bf16 request {i} vs the CPU's bf16 route")
+        emit(row)
+        if temporal:
+            carry = (out[4],)
     return launches
 
 
@@ -1127,9 +1403,10 @@ def loop_batch_checks(model, root: str, dev) -> dict:
                 device_metrics_max_abs_err=err, vs_module_route=vs_module)
 
 
-def cli_phase(dev, card: str) -> dict:
+def cli_phase(dev, card: str) -> tuple:
     """Train, resume and evaluate through ``cmflow_tpu_torch.cli.main`` on a
-    synthetic tree in a temporary directory, at full width on the card."""
+    synthetic tree in a temporary directory, at full width on the card;
+    returns the numbers and the model restored from ``models/best``."""
     steps_per_epoch = CLI_PARTS["train"] // CLI_BATCH
     with tempfile.TemporaryDirectory() as tmp:
         root, ck = os.path.join(tmp, "data"), os.path.join(tmp, "checkpoints")
@@ -1175,24 +1452,41 @@ def cli_phase(dev, card: str) -> dict:
         runs["eval"] = run_cli(common + ["--exp_name", "eval", "--eval",
                                          "--save_res", "--model_path", best],
                                0, 1)
+        runs["eval_bf16"] = run_cli(
+            common + ["--exp_name", "eval_bf16", "--eval",
+                      "--eval_compute_dtype", "bfloat16", "--model_path",
+                      best], 0, 1)
         results = os.path.join(ck, "eval", "results")
         dumps = [f for _, _, fs in os.walk(results) for f in fs]
         require(len(dumps) == CLI_PARTS["test"],
                 f"eval --save_res wrote {len(dumps)} result files, want "
                 f"{CLI_PARTS['test']}")
         numbers = {k: read_log(os.path.join(ck, k))
-                   for k in ("train", "resume", "eval")}
-        require(all(np.isfinite(v) for v in numbers["eval"]["means"].values())
-                and len(numbers["eval"]["means"]) == 14,
-                f"eval means: {numbers['eval']['means']}")
+                   for k in ("train", "resume", "eval", "eval_bf16")}
+        for k in ("eval", "eval_bf16"):
+            require(all(np.isfinite(v) for v in numbers[k]["means"].values())
+                    and len(numbers[k]["means"]) == 14,
+                    f"{k} means: {numbers[k]['means']}")
+        rne, rne_bf16 = (numbers[k]["means"]["rne"]
+                         for k in ("eval", "eval_bf16"))
+        rne_rel = abs(rne_bf16 - rne) / abs(rne)
+        require(rne_rel <= BF16_RNE_RTOL,
+                f"eval --eval_compute_dtype bfloat16: RNE {rne_bf16} against "
+                f"{rne} in float32")
         batch = loop_batch_checks(model, root, dev)
-    return dict(card=card, runs=runs, resume=dict(step=step, lr=got_lr),
-                loop_batch=batch,
-                train_frames_per_s=numbers["train"]["train_frames_per_s"],
-                val_ms_per_frame=numbers["train"]["eval_ms_per_frame"],
-                eval_ms_per_frame=numbers["eval"]["eval_ms_per_frame"],
-                eval_peak_memory_mb=numbers["eval"]["peak_memory_mb"],
-                eval_means=numbers["eval"]["means"])
+    return model, dict(
+        card=card, runs=runs, resume=dict(step=step, lr=got_lr),
+        loop_batch=batch,
+        train_frames_per_s=numbers["train"]["train_frames_per_s"],
+        val_ms_per_frame=numbers["train"]["eval_ms_per_frame"],
+        eval_ms_per_frame=numbers["eval"]["eval_ms_per_frame"],
+        eval_peak_memory_mb=numbers["eval"]["peak_memory_mb"],
+        eval_means=numbers["eval"]["means"],
+        eval_bf16=dict(
+            ms_per_frame=numbers["eval_bf16"]["eval_ms_per_frame"],
+            peak_memory_mb=numbers["eval_bf16"]["peak_memory_mb"],
+            means=numbers["eval_bf16"]["means"],
+            rne_rel_to_float32=rne_rel))
 
 
 # ---------------------------------------------------------------------------
@@ -1252,7 +1546,8 @@ def serve_raflow(dev, gen, requests) -> tuple:
     """RaFlow with seeded weights and BatchNorm statistics through
     ``make_eval_step`` on the fused route; its kernels held to their plain
     versions at its first request; the first request held to the CPU and to
-    the module route."""
+    the module route.  Returns the launches, the kernel cases held and the
+    model."""
     model = build_model("raflow", dev, seed=FAMILY_SEED["raflow"])
     module_step = make_eval_step("raflow", model, fused="off")
     randomize_batchnorm(model, module_step,
@@ -1270,7 +1565,7 @@ def serve_raflow(dev, gen, requests) -> tuple:
                                            "raflow fused vs module route"))
 
     launches = serve("fused", step, requests, checks, family="raflow")
-    return launches, held
+    return launches, held, model
 
 
 def serve_cmflow_t(dev, gen, frames) -> tuple:
@@ -1279,7 +1574,8 @@ def serve_cmflow_t(dev, gen, frames) -> tuple:
     carry, every lane reset at frame 0 and lane 0 again at frame 2
     (``cmflow_t_infer_seq``'s resets).  Each frame's launches; the first
     frame held to the module route; every frame and the final carry held
-    to ``cmflow_t_infer_seq`` on the CPU and on the card."""
+    to ``cmflow_t_infer_seq`` on the CPU and on the card.  Returns the
+    launches, the kernel cases held and the model."""
     model = build_model("cmflow_t", dev, seed=FAMILY_SEED["cmflow_t"])
     width = model.cfg.prop_width
     module_step = make_eval_step("cmflow_t", model, fused="off")
@@ -1346,7 +1642,7 @@ def serve_cmflow_t(dev, gen, frames) -> tuple:
     emit(dict(family="cmflow_t", route="fused", sequence=SEQ_FRAMES,
               vs_infer_seq_card=checks["card"],
               vs_infer_seq_cpu=checks["cpu"]))
-    return launches, held
+    return launches, held, model
 
 
 def lr0_clip_steps(model, cpu_model, clip: dict) -> tuple:
@@ -1477,10 +1773,11 @@ def lane_batch_checks(model, root: str, dev) -> dict:
                 vs_module_route=vs_module)
 
 
-def family_cli_phase(name: str, dev) -> dict:
+def family_cli_phase(name: str, dev) -> tuple:
     """Train (2 epochs), resume (1 epoch) and evaluate ``name`` through
     ``cmflow_tpu_torch.cli.main`` on its synthetic tree (FAMILY_TREE) at
-    full width on the card, each run's launches required exactly."""
+    full width on the card, each run's launches required exactly; returns
+    the numbers and the model restored from ``models/best``."""
     cfg = load_config(FAMILY_CONFIG[name])
     parts = FAMILY_TREE[name]
     temporal = name == "cmflow_t"
@@ -1547,13 +1844,14 @@ def family_cli_phase(name: str, dev) -> dict:
                         for v in numbers["eval"]["means"].values()),
                 f"{name} eval means: {numbers['eval']['means']}")
         lanes = lane_batch_checks(model, root, dev) if temporal else None
-    return dict(family=name, runs=runs, resume=dict(step=step, lr=got_lr),
-                lane_batch=lanes,
-                train_frames_per_s=numbers["train"]["train_frames_per_s"],
-                val_ms_per_frame=numbers["train"]["eval_ms_per_frame"],
-                eval_ms_per_frame=numbers["eval"]["eval_ms_per_frame"],
-                eval_peak_memory_mb=numbers["eval"]["peak_memory_mb"],
-                eval_means=numbers["eval"]["means"])
+    return model, dict(
+        family=name, runs=runs, resume=dict(step=step, lr=got_lr),
+        lane_batch=lanes,
+        train_frames_per_s=numbers["train"]["train_frames_per_s"],
+        val_ms_per_frame=numbers["train"]["eval_ms_per_frame"],
+        eval_ms_per_frame=numbers["eval"]["eval_ms_per_frame"],
+        eval_peak_memory_mb=numbers["eval"]["peak_memory_mb"],
+        eval_means=numbers["eval"]["means"])
 
 
 def main() -> int:
@@ -1624,6 +1922,26 @@ def main() -> int:
                             [requests[0], requests[3]], module_checks)
     emit(dict(serve_phase_s=time.perf_counter() - t0))
 
+    # bf16 serving (compute_dtype bfloat16): the kernels' bf16 arms at every
+    # shape of the bf16 forward, then three B=16 requests; the fused
+    # forward's device time and CUDA operations in each dtype
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for ri, req in enumerate((requests[0], requests[3])):
+            check_kernels(bf16_cases(model, req, dev), ri == 0, per_forward)
+    # with random weights the bf16 forward lies far from the float32 one,
+    # in JAX as here (ROADMAP Queue 3): measured, not held
+    step_bf16 = make_eval_step("cmflow", model, compute_dtype=BF16)
+    emit(dict(bf16_vs_float32_random_weights=compare_bf16(
+        "cmflow", requests[0], step_bf16(requests[0]), step(requests[0]),
+        "random weights", hold=False)))
+    forward = {}
+    for dtype, fn in (("float32", step), ("bfloat16", step_bf16)):
+        _, ms, _, ops = device_ms(lambda fn=fn: fn(requests[0]), 5)
+        forward[dtype] = dict(device_ms=ms, cuda_ops_per_forward=ops)
+    emit(dict(fused_forward_device=dict(batch=B, bucket=256, **forward)))
+    emit(dict(bf16_phase_s=time.perf_counter() - t0))
+
     t0 = time.perf_counter()
     batch = make_train_batch(SEED, B, 256)
     with torch.no_grad():
@@ -1633,11 +1951,19 @@ def main() -> int:
     emit(dict(train_phase_s=time.perf_counter() - t0))
 
     t0 = time.perf_counter()
-    cli_run = cli_phase(dev, card)
+    trained, cli_run = cli_phase(dev, card)
     emit(dict(cli=cli_run))
     emit(dict(cli_phase_s=time.perf_counter() - t0))
+
+    # bf16 serving of the checkpoint the CLI trained: three B=16 requests,
+    # held to its float32 forward and to the CPU's bf16 route
+    t0 = time.perf_counter()
+    launches_bf16 = serve_bf16("cmflow", trained,
+                               copy.deepcopy(trained).to("cpu"),
+                               [requests[i] for i in (0, 1, 3)])
+    emit(dict(bf16_serve_phase_s=time.perf_counter() - t0))
     by_path = {"fused": launches, "module": launches_module,
-               "train": launches_train}
+               "train": launches_train, "bf16": launches_bf16}
 
     # RaFlow and CMFlow_T: serving, training and the CLI, each path's
     # counters set to 0 just before it and read just after
@@ -1645,10 +1971,14 @@ def main() -> int:
     t0 = time.perf_counter()
     frames = [make_request(SEED + 50 + i, B, (200, 256))
               for i in range(SEQ_FRAMES)]
-    family_paths["raflow_fused"], held["raflow_fused"] = serve_raflow(
-        dev, gen, frames)
-    family_paths["cmflow_t_fused"], held["cmflow_t_fused"] = serve_cmflow_t(
-        dev, gen, frames)
+    models = {}
+    family_paths["raflow_fused"], held["raflow_fused"], models["raflow"] = \
+        serve_raflow(dev, gen, frames)
+    family_paths["cmflow_t_fused"], held["cmflow_t_fused"], \
+        models["cmflow_t"] = serve_cmflow_t(dev, gen, frames)
+    for name, fam_model in models.items():
+        held[f"{name}_bf16"] = hold_cases(bf16_cases(fam_model, frames[0],
+                                                     dev))
     emit(dict(family_serve_phase_s=time.perf_counter() - t0))
     for name, path in (("raflow", "raflow_train"),
                        ("cmflow_t", "cmflow_t_seq_train")):
@@ -1658,8 +1988,11 @@ def main() -> int:
     t0 = time.perf_counter()
     family_cli = {}
     for name in FAMILY_CONFIG:
-        family_cli[name] = family_cli_phase(name, dev)
+        fam_trained, family_cli[name] = family_cli_phase(name, dev)
         emit(dict(cli=family_cli[name], card=card))
+        family_paths[f"{name}_bf16"] = serve_bf16(
+            name, fam_trained, copy.deepcopy(fam_trained).to("cpu"),
+            [frames[0], frames[1], requests[3]])
     emit(dict(family_cli_phase_s=time.perf_counter() - t0))
     for path, counts in family_paths.items():
         kind = "train" if path.endswith("train") else "fused"
@@ -1668,15 +2001,16 @@ def main() -> int:
     emit(dict(family_kernel_cases_held=held))
 
     kernels = []
-    for name in WRAPPERS:
+    for name in (*WRAPPERS, *BF16_ARMS):
         source, replaces = SOURCES[name]
         path = SUMMARY_PATH[name]
+        sibling, bf16 = BF16_ARMS.get(name, name), name in BF16_ARMS
         require((name, path) in per_forward,
                 f"{name}: no case on its route {path}")
         acc = per_forward[(name, path)]
         entry = dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=by_path[path][name],
+            launches=by_path[path][sibling],
             max_abs_err=acc["max_abs_err"], ms=acc["ms"],
             plain_ms=acc["plain_ms"],
             **bounds(name, acc["nbytes"], acc["flops"]),
@@ -1688,16 +2022,21 @@ def main() -> int:
                 entry[key] = acc[key]
         if acc["cublas_products_ms"]:
             entry["cublas_products_ms"] = acc["cublas_products_ms"]
-        if name in TC_KERNELS:
+        if name in sass:
             entry["sass"] = sass[name]
-        entry["cli_launches"] = {k: r["launches"][name]
-                                 for k, r in cli_run["runs"].items()}
-        entry["family_launches"] = {p: c[name]
-                                    for p, c in family_paths.items()}
-        entry["family_cli_launches"] = {
-            f"{fam}_{k}": r["launches"][name]
-            for fam, run in family_cli.items()
-            for k, r in run["runs"].items()}
+        # the float32 and bf16 arms share a counter: each row counts the
+        # runs of its own dtype
+        entry["cli_launches"] = {k: r["launches"][sibling]
+                                 for k, r in cli_run["runs"].items()
+                                 if (k == "eval_bf16") == bf16}
+        entry["family_launches"] = {p: c[sibling]
+                                    for p, c in family_paths.items()
+                                    if p.endswith("_bf16") == bf16}
+        if not bf16:
+            entry["family_cli_launches"] = {
+                f"{fam}_{k}": r["launches"][name]
+                for fam, run in family_cli.items()
+                for k, r in run["runs"].items()}
         # the kernel on each route measured: per forward (per train step)
         routes = {p: a for (n, p), a in per_forward.items() if n == name}
         if len(routes) > 1:

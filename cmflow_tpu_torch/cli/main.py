@@ -51,7 +51,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                    help="training activation dtype (only float32 is ported)")
     p.add_argument("--eval_compute_dtype", type=str, default=None,
                    choices=[None, "float32", "bfloat16"],
-                   help="serving dtype (only float32 is ported)")
+                   help="serving dtype of the fused engine (validation "
+                        "and --eval)")
     p.add_argument("--remat", default=None, nargs="?", const=True,
                    choices=[True, "dots"],
                    type=lambda v: True if v in ("1", "true", "full") else v,

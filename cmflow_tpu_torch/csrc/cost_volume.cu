@@ -67,9 +67,30 @@
 // All sums are float32.  The kernels' dynamic shared memory (224 KB and
 // 64 KB) needs cudaFuncSetAttribute; a refused launch never runs, so each
 // entry point returns cudaGetLastError().
+//
+// The bf16 arms (the JAX kernels' bf16 serving mode, fused.py:721-725,
+// :742-745, :792-796, :912-918):
+// - cv_p2p_bf16_kernel reads f1c and f2c in bf16 (four channels a uint2),
+//   forms x0 in float32, and runs both 512x512 products on wgmma m64nNk16
+//   .bf16, each activation rounded to nearest even just before, each
+//   product's whole float32 sum in the tensor cores (their drift, ~5e-6 of
+//   its size, is far below the arm's 1e-2 bar, so nothing is promoted).
+//   Stages are one k16 step (16 KB, ops/fused.py::tc_weights_bf16); x1 goes
+//   to shared memory in bf16, in the A-fragment order of the second
+//   product (a uint4 per thread and step).  The WeightNet, w * x2 and the
+//   sum over k stay float32, as above; the sum is stored rounded to bf16.
+//   What bounds it: operations, 34.6 GFLOP at B=16, N=256, k=8, 0.035 ms
+//   at the dense bf16 peak (989 TFLOP/s), beside 2 MB of weights from L2
+//   per block.
+// - cv_agg_bf16_kernel is cv_agg_kernel with p2p in bf16: each thread's
+//   cells of the ring are 8 bytes (cp.async.ca of 8), half the bytes; the
+//   sums stay float32 and in the same order.
+// Each pair of arms shares one body, templated on the operand type.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "tc_gemm.cuh"
 
@@ -85,11 +106,20 @@ constexpr int kP2pThreads = kP2pConsumers + 128;  // and a producer warpgroup
 constexpr int kP2pRows = 64;  // (query, neighbour) rows per block
 constexpr int kSteps = kC / 8;  // k8 steps of one product
 constexpr int kStageBytes = 2 * 8 * kC * 4;  // one k8 step, hi and lo
+constexpr int kBf16StageBytes = 16 * kC * 2;  // one bf16 k16 step
 constexpr int kP2pStages = 3;
-constexpr size_t kSmemBytes =
-    (size_t)kP2pStages * kStageBytes + (size_t)kP2pRows * kC * 4;
-using WeightRing = tc::Ring<kP2pStages, kStageBytes>;
 constexpr int kPackHalf = 2 * kC * kC;  // floats of each half (hi, lo)
+
+template <bool kBf16>
+__host__ __device__ constexpr int stage_bytes() {
+  return kBf16 ? kBf16StageBytes : kStageBytes;
+}
+
+template <bool kBf16>
+constexpr size_t p2p_smem_bytes() {
+  return (size_t)kP2pStages * stage_bytes<kBf16>() +
+         (size_t)kP2pRows * kC * 4;
+}
 
 __device__ __forceinline__ float leaky(float x) {
   return x > 0.0f ? x : 0.1f * x;
@@ -126,6 +156,41 @@ struct WeightNet {  // after its first product: (b0, w1, b1, w2, b2)
 
 __device__ __forceinline__ float4 load_or_zero(const float4* p, int i) {
   return p ? __ldg(p + i) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+}
+
+// four consecutive bf16 channels as floats
+__device__ __forceinline__ float4 load_or_zero(const uint2* p, int i) {
+  return p ? tc::bf16x4_to_float4(__ldg(p + i))
+           : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+}
+
+// the accumulator's columns 128h .. 128h + 127 of a warpgroup's 256
+template <int H>
+__device__ __forceinline__ float (&half_of(float (&acc)[128]))[64] {
+  return *reinterpret_cast<float(*)[64]>(acc + 64 * H);
+}
+
+// one bf16 k16 step of a 512-wide product for a warpgroup's 256 columns,
+// summed into acc by the tensor cores; its B tile at `st`, the
+// warpgroup's columns `half` bytes into it
+__device__ __forceinline__ void p2p_step_bf16(float (&acc)[128],
+                                              const uint32_t (&a)[4],
+                                              uint32_t st, uint32_t half) {
+  tc::fence();
+  tc::mma_bf16_n128(half_of<0>(acc), a, tc::desc(st + half), 1);
+  tc::mma_bf16_n128(half_of<1>(acc), a, tc::desc(st + half + 4096), 1);
+  tc::commit();
+  tc::wait_all();
+  tc::fence_regs(acc);
+}
+
+__device__ __forceinline__ void store_out(float* out, int64_t i, float v) {
+  out[i] = v;
+}
+
+__device__ __forceinline__ void store_out(__nv_bfloat16* out, int64_t i,
+                                          float v) {
+  out[i] = __float2bfloat16_rn(v);
 }
 
 // the WeightNet's last layer for the two channels c, c+1
@@ -166,27 +231,30 @@ __device__ __forceinline__ void p2p_step(float (&acc)[128], float (&part)[64],
   }
 }
 
-__global__ void __launch_bounds__(kP2pThreads, 1)
-    cv_p2p_kernel(const float* __restrict__ f1c,  // [B*N, kC]
-                  const float* __restrict__ f2c,  // [B*N, kC]
-                  const int* __restrict__ idx,    // [B*N, k]
-                  const float* __restrict__ z1,   // [B*N, kH]
-                  const float* __restrict__ z2,   // [B*N, kH]
-                  const float* __restrict__ b0,
-                  const float* __restrict__ wpack,  // tc_weights
-                  const float* __restrict__ b1, const float* __restrict__ b2,
-                  WeightNet wn,
-                  float* __restrict__ out,  // [B*N, kC]
-                  int total, int n, int k) {
+// T the element of f1c, f2c and out: float, or __nv_bfloat16 for the bf16
+// arm (f1c/f2c rows read as uint2s of four channels); wpack from tc_weights
+// or tc_weights_bf16
+template <typename T>
+__device__ __forceinline__ void p2p_body(
+    const T* __restrict__ f1c, const T* __restrict__ f2c,
+    const int* __restrict__ idx, const float* __restrict__ z1,
+    const float* __restrict__ z2, const float* __restrict__ b0,
+    const void* __restrict__ wpack, const float* __restrict__ b1,
+    const float* __restrict__ b2, WeightNet wn, T* __restrict__ out,
+    int total, int n, int k) {
+  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+  using Row4 = typename std::conditional<kBf16, uint2, float4>::type;
+  constexpr int kStage = stage_bytes<kBf16>();
   extern __shared__ __align__(128) char smem[];
-  // x1, then w * x2, in A-fragment order: step S (8 channels), then the
-  // warpgroup's 128 threads, a float4 each
-  float4* xbuf = reinterpret_cast<float4*>(smem + kP2pStages * kStageBytes);
+  // x1, then w * x2, in A-fragment order: step S (8 channels; bf16 x1: 16
+  // channels, a uint4 a thread), then the warpgroup's 128 threads, a float4
+  // each
+  float4* xbuf = reinterpret_cast<float4*>(smem + kP2pStages * kStage);
   __shared__ int row_j[kP2pRows];  // neighbour row in f2c, or -1
   __shared__ int row_q[kP2pRows];  // query, or -1 for an unused row
   __shared__ __align__(8) uint64_t full[kP2pStages];
   __shared__ __align__(8) uint64_t empty[kP2pStages];
-  const WeightRing ring{smem, full, empty};
+  const tc::Ring<kP2pStages, kStage> ring{smem, full, empty};
 
   const int qpb = kP2pRows / k;
   const int q0 = blockIdx.x * qpb;
@@ -208,9 +276,12 @@ __global__ void __launch_bounds__(kP2pThreads, 1)
   if (threadIdx.x >= kP2pConsumers) {  // the producer warpgroup: one thread
     tc::producer_registers();
     if (threadIdx.x == kP2pConsumers) {
-      ring.produce(reinterpret_cast<const char*>(wpack),
-                   reinterpret_cast<const char*>(wpack + kPackHalf),
-                   2 * kSteps);
+      const char* w = static_cast<const char*>(wpack);
+      if constexpr (kBf16) {
+        ring.produce(w, kSteps);  // 2 products of kSteps / 2 k16 steps
+      } else {
+        ring.produce(w, w + kPackHalf * 4, 2 * kSteps);
+      }
     }
     return;
   }
@@ -227,68 +298,116 @@ __global__ void __launch_bounds__(kP2pThreads, 1)
   constexpr int C4 = kC / 4;
   const int qa = row_q[ra], qb = row_q[rb];
   const int ja = row_j[ra], jb = row_j[rb];
-  const float4* f14 = reinterpret_cast<const float4*>(f1c);
-  const float4* f24 = reinterpret_cast<const float4*>(f2c);
+  const Row4* f14 = reinterpret_cast<const Row4*>(f1c);
+  const Row4* f24 = reinterpret_cast<const Row4*>(f2c);
   const float4* b04 = reinterpret_cast<const float4*>(b0);
-  const float4* p1a = qa >= 0 ? f14 + (int64_t)qa * C4 : nullptr;
-  const float4* p1b = qb >= 0 ? f14 + (int64_t)qb * C4 : nullptr;
-  const float4* p2a = qa >= 0 && ja >= 0 ? f24 + (int64_t)ja * C4 : nullptr;
-  const float4* p2b = qb >= 0 && jb >= 0 ? f24 + (int64_t)jb * C4 : nullptr;
+  const Row4* p1a = qa >= 0 ? f14 + (int64_t)qa * C4 : nullptr;
+  const Row4* p1b = qb >= 0 ? f14 + (int64_t)qb * C4 : nullptr;
+  const Row4* p2a = qa >= 0 && ja >= 0 ? f24 + (int64_t)ja * C4 : nullptr;
+  const Row4* p2b = qb >= 0 && jb >= 0 ? f24 + (int64_t)jb * C4 : nullptr;
 
-  float acc[128];
-  float part[64];
-  // x1 = x0 @ W1 with x0 = LeakyReLU(f1c[q] + f2c[j] + b0).  Step 2c + e,
-  // position p is channel 16c + 4*(p%4) + 2e + p/4, so the float4 at
-  // channels 16c + 4t holds the thread's A values of steps 2c and 2c + 1.
-#pragma unroll
-  for (int i = 0; i < 128; ++i) acc[i] = 0.0f;
-  for (int c = 0; c < kSteps / 2; ++c) {
-    const int c4 = 4 * c + t;
+  // x0 = LeakyReLU(f1c[q] + f2c[j] + b0) at channels 4*c4 .. 4*c4 + 3 of
+  // rows ra (xa) and rb (xb)
+  auto first_layer = [&](int c4, float4& xa, float4& xb) {
     const float4 bb = __ldg(b04 + c4);
     const float4 f1a = load_or_zero(p1a, c4), f2a = load_or_zero(p2a, c4);
     const float4 f1b = load_or_zero(p1b, c4), f2b = load_or_zero(p2b, c4);
-    const float4 xa = qa >= 0 ? leaky4(make_float4((f1a.x + f2a.x) + bb.x,
-                                                   (f1a.y + f2a.y) + bb.y,
-                                                   (f1a.z + f2a.z) + bb.z,
-                                                   (f1a.w + f2a.w) + bb.w))
-                              : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    const float4 xb = qb >= 0 ? leaky4(make_float4((f1b.x + f2b.x) + bb.x,
-                                                   (f1b.y + f2b.y) + bb.y,
-                                                   (f1b.z + f2b.z) + bb.z,
-                                                   (f1b.w + f2b.w) + bb.w))
-                              : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    p2p_step(acc, part, tc::split4(xa.x, xb.x, xa.y, xb.y),
-             ring.acquire(2 * c), half);
-    ring.release(2 * c);
-    p2p_step(acc, part, tc::split4(xa.z, xb.z, xa.w, xb.w),
-             ring.acquire(2 * c + 1), half);
-    ring.release(2 * c + 1);
-  }
+    xa = qa >= 0 ? leaky4(make_float4((f1a.x + f2a.x) + bb.x,
+                                      (f1a.y + f2a.y) + bb.y,
+                                      (f1a.z + f2a.z) + bb.z,
+                                      (f1a.w + f2a.w) + bb.w))
+                 : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    xb = qb >= 0 ? leaky4(make_float4((f1b.x + f2b.x) + bb.x,
+                                      (f1b.y + f2b.y) + bb.y,
+                                      (f1b.z + f2b.z) + bb.z,
+                                      (f1b.w + f2b.w) + bb.w))
+                 : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  };
 
-  // x1 = LeakyReLU(acc + b1) into shared memory, already in the A-fragment
-  // order of the second product: acc[4j + e] is (row ra or rb, column
-  // 256*wg + 8j + 2t + e%2), which step S = 32*wg + j takes at positions t
-  // and t + 4.
-#pragma unroll
-  for (int j = 0; j < 32; ++j) {
-    const int col = 256 * wg + 8 * j + 2 * t;
-    const float2 b = __ldg(reinterpret_cast<const float2*>(b1 + col));
-    xbuf[(32 * wg + j) * 128 + tid] =
-        make_float4(leaky(acc[4 * j] + b.x), leaky(acc[4 * j + 2] + b.x),
-                    leaky(acc[4 * j + 1] + b.y), leaky(acc[4 * j + 3] + b.y));
-  }
-  tc::consumer_sync<kP2pConsumers>();
-
-  // x2 = x1 @ W2: step S, position p is channel 8S + 2*(p%4) + p/4
+  float acc[128];
 #pragma unroll
   for (int i = 0; i < 128; ++i) acc[i] = 0.0f;
-  float4 xn = xbuf[tid];
-  for (int s = 0; s < kSteps; ++s) {
-    const float4 x = xn;
-    if (s + 1 < kSteps) xn = xbuf[(s + 1) * 128 + tid];
-    p2p_step(acc, part, tc::split4(x.x, x.y, x.z, x.w),
-             ring.acquire(kSteps + s), half);
-    ring.release(kSteps + s);
+  if constexpr (kBf16) {
+    // x1 = x0 @ W1: channels 16s + 4t .. +3 of a thread's rows are its A
+    // values of k16 step s (tc_gemm.cuh)
+    for (int s = 0; s < kSteps / 2; ++s) {
+      float4 xa, xb;
+      first_layer(4 * s + t, xa, xb);
+      const uint32_t a[4] = {
+          tc::pack_bf16(xa.x, xa.y), tc::pack_bf16(xb.x, xb.y),
+          tc::pack_bf16(xa.z, xa.w), tc::pack_bf16(xb.z, xb.w)};
+      p2p_step_bf16(acc, a, ring.acquire(s), half);
+      ring.release(s);
+    }
+    // x1 = LeakyReLU(acc + b1), rounded to bf16, into shared memory in the
+    // A-fragment order of the second product: acc[8S' .. 8S' + 7] are the
+    // thread's columns 256*wg + 16S' + 2t, +1, +8, +9 of rows ra and rb,
+    // the A of step S = 16*wg + S'
+    uint4* xbuf16 = reinterpret_cast<uint4*>(xbuf);
+#pragma unroll
+    for (int sp = 0; sp < 16; ++sp) {
+      const int col = 256 * wg + 16 * sp + 2 * t;
+      const float2 b = __ldg(reinterpret_cast<const float2*>(b1 + col));
+      const float2 bh = __ldg(reinterpret_cast<const float2*>(b1 + col + 8));
+      const int i = 8 * sp;
+      xbuf16[(16 * wg + sp) * 128 + tid] = make_uint4(
+          tc::pack_bf16(leaky(acc[i] + b.x), leaky(acc[i + 1] + b.y)),
+          tc::pack_bf16(leaky(acc[i + 2] + b.x), leaky(acc[i + 3] + b.y)),
+          tc::pack_bf16(leaky(acc[i + 4] + bh.x), leaky(acc[i + 5] + bh.y)),
+          tc::pack_bf16(leaky(acc[i + 6] + bh.x), leaky(acc[i + 7] + bh.y)));
+    }
+    tc::consumer_sync<kP2pConsumers>();
+
+    // x2 = x1 @ W2, step S in natural channel order 16S .. 16S + 15
+#pragma unroll
+    for (int i = 0; i < 128; ++i) acc[i] = 0.0f;
+    for (int s = 0; s < kSteps / 2; ++s) {
+      const uint4 x = xbuf16[s * 128 + tid];
+      const uint32_t a[4] = {x.x, x.y, x.z, x.w};
+      p2p_step_bf16(acc, a, ring.acquire(kSteps / 2 + s), half);
+      ring.release(kSteps / 2 + s);
+    }
+  } else {
+    float part[64];
+    // x1 = x0 @ W1.  Step 2c + e, position p is channel 16c + 4*(p%4) + 2e
+    // + p/4, so the float4 at channels 16c + 4t holds the thread's A values
+    // of steps 2c and 2c + 1.
+    for (int c = 0; c < kSteps / 2; ++c) {
+      float4 xa, xb;
+      first_layer(4 * c + t, xa, xb);
+      p2p_step(acc, part, tc::split4(xa.x, xb.x, xa.y, xb.y),
+               ring.acquire(2 * c), half);
+      ring.release(2 * c);
+      p2p_step(acc, part, tc::split4(xa.z, xb.z, xa.w, xb.w),
+               ring.acquire(2 * c + 1), half);
+      ring.release(2 * c + 1);
+    }
+
+    // x1 = LeakyReLU(acc + b1) into shared memory, already in the
+    // A-fragment order of the second product: acc[4j + e] is (row ra or rb,
+    // column 256*wg + 8j + 2t + e%2), which step S = 32*wg + j takes at
+    // positions t and t + 4.
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int col = 256 * wg + 8 * j + 2 * t;
+      const float2 b = __ldg(reinterpret_cast<const float2*>(b1 + col));
+      xbuf[(32 * wg + j) * 128 + tid] = make_float4(
+          leaky(acc[4 * j] + b.x), leaky(acc[4 * j + 2] + b.x),
+          leaky(acc[4 * j + 1] + b.y), leaky(acc[4 * j + 3] + b.y));
+    }
+    tc::consumer_sync<kP2pConsumers>();
+
+    // x2 = x1 @ W2: step S, position p is channel 8S + 2*(p%4) + p/4
+#pragma unroll
+    for (int i = 0; i < 128; ++i) acc[i] = 0.0f;
+    float4 xn = xbuf[tid];
+    for (int s = 0; s < kSteps; ++s) {
+      const float4 x = xn;
+      if (s + 1 < kSteps) xn = xbuf[(s + 1) * 128 + tid];
+      p2p_step(acc, part, tc::split4(x.x, x.y, x.z, x.w),
+               ring.acquire(kSteps + s), half);
+      ring.release(kSteps + s);
+    }
   }
 
   // w * LeakyReLU(acc + b2), w the WeightNet of z2[j] - z1[q], over x1
@@ -335,16 +454,49 @@ __global__ void __launch_bounds__(kP2pThreads, 1)
           xs[cbase + (r / 16) * 128 + (r % 8) * 16 + (r % 16) / 8];
       s = kk == 0 ? v : s + v;
     }
-    out[(int64_t)q * kC + c] = s;
+    store_out(out, (int64_t)q * kC + c, s);
   }
+}
+
+__global__ void __launch_bounds__(kP2pThreads, 1)
+    cv_p2p_kernel(const float* __restrict__ f1c,  // [B*N, kC]
+                  const float* __restrict__ f2c,  // [B*N, kC]
+                  const int* __restrict__ idx,    // [B*N, k]
+                  const float* __restrict__ z1,   // [B*N, kH]
+                  const float* __restrict__ z2,   // [B*N, kH]
+                  const float* __restrict__ b0,
+                  const void* __restrict__ wpack,  // tc_weights
+                  const float* __restrict__ b1, const float* __restrict__ b2,
+                  WeightNet wn,
+                  float* __restrict__ out,  // [B*N, kC]
+                  int total, int n, int k) {
+  p2p_body(f1c, f2c, idx, z1, z2, b0, wpack, b1, b2, wn, out, total, n, k);
+}
+
+__global__ void __launch_bounds__(kP2pThreads, 1)
+    cv_p2p_bf16_kernel(const __nv_bfloat16* __restrict__ f1c,
+                       const __nv_bfloat16* __restrict__ f2c,
+                       const int* __restrict__ idx,
+                       const float* __restrict__ z1,
+                       const float* __restrict__ z2,
+                       const float* __restrict__ b0,
+                       const void* __restrict__ wpack,  // tc_weights_bf16
+                       const float* __restrict__ b1,
+                       const float* __restrict__ b2, WeightNet wn,
+                       __nv_bfloat16* __restrict__ out,  // [B*N, kC]
+                       int total, int n, int k) {
+  p2p_body(f1c, f2c, idx, z1, z2, b0, wpack, b1, b2, wn, out, total, n, k);
 }
 
 constexpr int kAggThreads = 256;
 constexpr int kAggQ = 16;   // queries of a block, all of one batch element
 constexpr int kAggKc = 8;   // neighbours per chunk
 constexpr int kAggDepth = 2;  // queries in the ring of each thread's rows
-constexpr size_t kAggSmemBytes =
-    (size_t)kAggDepth * kAggKc * kAggThreads * 16;
+// a thread's cell of the ring: four channels of one row, float4 or bf16
+template <bool kBf16>
+constexpr size_t agg_smem_bytes() {
+  return (size_t)kAggDepth * kAggKc * kAggThreads * (kBf16 ? 8 : 16);
+}
 constexpr int kAggSlots = kAggThreads / (kC / 4);  // queries worked at once
 constexpr int kAggPairs = kAggQ * kAggKc;  // (query, neighbour) of a chunk
 static_assert(kAggPairs <= kAggThreads, "a thread per pair of a chunk");
@@ -389,6 +541,14 @@ __device__ __forceinline__ void copy16(uint32_t dst, const void* src,
                : "memory");
 }
 
+// the same, 8 bytes (cp.async.cg copies 16 only)
+__device__ __forceinline__ void copy8(uint32_t dst, const void* src,
+                                      int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
 __device__ __forceinline__ void copy_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -399,20 +559,28 @@ __device__ __forceinline__ void copy_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
-__global__ void __launch_bounds__(kAggThreads, 2)
-    cv_agg_kernel(const float* __restrict__ p2p,  // [B*N, kC]
-                  const int* __restrict__ idx,    // [B*N, k]
-                  const float* __restrict__ zq,   // [B*N, kH]
-                  WeightNet wn, float* __restrict__ out, int n, int k,
-                  int tiles) {
+// T the element of p2p: float, or __nv_bfloat16 for the bf16 arm (a
+// thread's four channels of a row one uint2)
+template <typename T>
+__device__ __forceinline__ void agg_body(const T* __restrict__ p2p,
+                                         const int* __restrict__ idx,
+                                         const float* __restrict__ zq,
+                                         WeightNet wn,
+                                         float* __restrict__ out, int n,
+                                         int k, int tiles) {
+  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+  using Cell = typename std::conditional<kBf16, uint2, float4>::type;
+  constexpr int kCell = sizeof(Cell);
   constexpr int C4 = kC / 4;
   constexpr int kPer = kAggQ / kAggSlots;  // queries of a thread
-  extern __shared__ float4 g_s[];  // [kAggDepth][kAggKc][kAggThreads]
+  // [kAggDepth][kAggKc][kAggThreads] cells
+  extern __shared__ __align__(16) char g_raw[];
+  const Cell* g_s = reinterpret_cast<const Cell*>(g_raw);
   __shared__ float4 h_s[kAggPairs][2];  // each pair's hidden layer
   __shared__ float4 wn_s[2 * kH / 4 + kH * kH / 4];  // b0, w1, b1
   // its neighbour's row in p2p, -1 outside [0, N)
   __shared__ __align__(16) int j_s[kAggPairs];
-  const uint32_t ring = tc::smem_addr(g_s) + 16 * threadIdx.x;
+  const uint32_t ring = tc::smem_addr(g_raw) + kCell * threadIdx.x;
 
   const int tid = threadIdx.x;
   const int64_t row0 = (int64_t)(blockIdx.x / tiles) * n;
@@ -430,7 +598,7 @@ __global__ void __launch_bounds__(kAggThreads, 2)
     w2r[m] = __ldg(reinterpret_cast<const float4*>(wn.w2 + m * kC) + c4);
   }
   const float4 b2r = __ldg(reinterpret_cast<const float4*>(wn.b2) + c4);
-  const float4* p4 = reinterpret_cast<const float4*>(p2p) + c4;
+  const Cell* p4 = reinterpret_cast<const Cell*>(p2p) + c4;
   const float4* z4 = reinterpret_cast<const float4*>(zq);
   const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
 
@@ -477,10 +645,14 @@ __global__ void __launch_bounds__(kAggThreads, 2)
           const int r[4] = {r4.x, r4.y, r4.z, r4.w};
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            copy16(ring + ((s % kAggDepth) * kAggKc + kk + e) *
-                              (kAggThreads * 16),
-                   p4 + (size_t)(unsigned)max(r[e], 0) * C4,
-                   r[e] >= 0 ? 16 : 0);
+            const uint32_t dst = ring + ((s % kAggDepth) * kAggKc + kk + e) *
+                                            (kAggThreads * kCell);
+            const Cell* src = p4 + (size_t)(unsigned)max(r[e], 0) * C4;
+            if constexpr (kBf16) {
+              copy8(dst, src, r[e] >= 0 ? 8 : 0);
+            } else {
+              copy16(dst, src, r[e] >= 0 ? 16 : 0);
+            }
           }
         }
       }
@@ -494,7 +666,7 @@ __global__ void __launch_bounds__(kAggThreads, 2)
       copy_wait<kAggDepth - 1>();  // query s's rows have landed
       const int qi = slot + kAggSlots * s;
       if (i0 + qi >= n) continue;  // the same on every lane of a warp
-      const float4* g = g_s + (s % kAggDepth) * kAggKc * kAggThreads + tid;
+      const Cell* g = g_s + (s % kAggDepth) * kAggKc * kAggThreads + tid;
       // no branch inside a step of 4, so that the steps' products overlap
 #pragma unroll 4
       for (int kk = 0; kk < kn; ++kk) {
@@ -509,12 +681,35 @@ __global__ void __launch_bounds__(kAggThreads, 2)
         const float4 w = make_float4(
             fmaxf(t.x + b2r.x, 0.0f), fmaxf(t.y + b2r.y, 0.0f),
             fmaxf(t.z + b2r.z, 0.0f), fmaxf(t.w + b2r.w, 0.0f));
-        acc[s] = fma4(w, g[kk * kAggThreads], acc[s]);
+        float4 gv;
+        if constexpr (kBf16) {
+          gv = tc::bf16x4_to_float4(g[kk * kAggThreads]);
+        } else {
+          gv = g[kk * kAggThreads];
+        }
+        acc[s] = fma4(w, gv, acc[s]);
       }
       // a whole sum goes out at once, under the next query's work
       if (last) o4[(row0 + i0 + qi) * C4 + c4] = acc[s];
     }
   }
+}
+
+__global__ void __launch_bounds__(kAggThreads, 2)
+    cv_agg_kernel(const float* __restrict__ p2p,  // [B*N, kC]
+                  const int* __restrict__ idx,    // [B*N, k]
+                  const float* __restrict__ zq,   // [B*N, kH]
+                  WeightNet wn, float* __restrict__ out, int n, int k,
+                  int tiles) {
+  agg_body(p2p, idx, zq, wn, out, n, k, tiles);
+}
+
+__global__ void __launch_bounds__(kAggThreads, 2)
+    cv_agg_bf16_kernel(const __nv_bfloat16* __restrict__ p2p,  // [B*N, kC]
+                       const int* __restrict__ idx, const float* __restrict__ zq,
+                       WeightNet wn, float* __restrict__ out, int n, int k,
+                       int tiles) {
+  agg_body(p2p, idx, zq, wn, out, n, k, tiles);
 }
 
 bool valid_p2p_shape(int b, int n, int k, int c) {
@@ -524,6 +719,63 @@ bool valid_p2p_shape(int b, int n, int k, int c) {
 bool valid_agg_shape(int b, int n, int k, int c) {  // rows fit an int
   return c == kC && n >= 1 && b >= 0 && k >= 1 &&
          (int64_t)b * n <= 0x7fffffff;
+}
+
+WeightNet weightnet(const void* wb0, const void* ww1, const void* wb1,
+                    const void* ww2, const void* wb2) {
+  return WeightNet{static_cast<const float*>(wb0),
+                   static_cast<const float*>(ww1),
+                   static_cast<const float*>(wb1),
+                   static_cast<const float*>(ww2),
+                   static_cast<const float*>(wb2)};
+}
+
+template <typename T>
+int launch_p2p(void (*kernel)(const T*, const T*, const int*, const float*,
+                              const float*, const float*, const void*,
+                              const float*, const float*, WeightNet, T*, int,
+                              int, int),
+               size_t smem, const void* f1c, const void* f2c,
+               const void* idx, const void* z1, const void* z2,
+               const void* b0, const void* wpack, const void* b1,
+               const void* b2, const void* wb0, const void* ww1,
+               const void* wb1, const void* ww2, const void* wb2, void* out,
+               int b, int n, int k, int c, void* stream) {
+  if (!valid_p2p_shape(b, n, k, c)) return (int)cudaErrorInvalidValue;
+  const int total = b * n;
+  if (total == 0) return (int)cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int qpb = kP2pRows / k;
+  kernel<<<(total + qpb - 1) / qpb, kP2pThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(f1c), static_cast<const T*>(f2c),
+      static_cast<const int*>(idx), static_cast<const float*>(z1),
+      static_cast<const float*>(z2), static_cast<const float*>(b0), wpack,
+      static_cast<const float*>(b1), static_cast<const float*>(b2),
+      weightnet(wb0, ww1, wb1, ww2, wb2), static_cast<T*>(out), total, n, k);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_agg(void (*kernel)(const T*, const int*, const float*, WeightNet,
+                              float*, int, int, int),
+               size_t smem, const void* p2p, const void* idx, const void* zq,
+               const void* wb0, const void* ww1, const void* wb1,
+               const void* ww2, const void* wb2, void* out, int b, int n,
+               int k, int c, void* stream) {
+  if (!valid_agg_shape(b, n, k, c)) return (int)cudaErrorInvalidValue;
+  if (b == 0) return (int)cudaSuccess;
+  const int tiles = (n + kAggQ - 1) / kAggQ;  // b * tiles <= b * n fits
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<b * tiles, kAggThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(p2p), static_cast<const int*>(idx),
+      static_cast<const float*>(zq), weightnet(wb0, ww1, wb1, ww2, wb2),
+      static_cast<float*>(out), n, k, tiles);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -541,28 +793,22 @@ int cmflow_cv_p2p(const void* f1c, const void* f2c, const void* idx,
                   const void* wb0, const void* ww1, const void* wb1,
                   const void* ww2, const void* wb2, void* out, int b, int n,
                   int k, int c, void* stream) {
-  if (!valid_p2p_shape(b, n, k, c)) return (int)cudaErrorInvalidValue;
-  const int total = b * n;
-  if (total == 0) return (int)cudaSuccess;
-  cudaError_t err = cudaFuncSetAttribute(
-      cv_p2p_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kSmemBytes);
-  if (err != cudaSuccess) return (int)err;
-  const WeightNet wn{static_cast<const float*>(wb0),
-                     static_cast<const float*>(ww1),
-                     static_cast<const float*>(wb1),
-                     static_cast<const float*>(ww2),
-                     static_cast<const float*>(wb2)};
-  const int qpb = kP2pRows / k;
-  cv_p2p_kernel<<<(total + qpb - 1) / qpb, kP2pThreads, kSmemBytes,
-                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(f1c), static_cast<const float*>(f2c),
-      static_cast<const int*>(idx), static_cast<const float*>(z1),
-      static_cast<const float*>(z2), static_cast<const float*>(b0),
-      static_cast<const float*>(wpack), static_cast<const float*>(b1),
-      static_cast<const float*>(b2), wn, static_cast<float*>(out), total, n,
-      k);
-  return (int)cudaGetLastError();
+  return launch_p2p(cv_p2p_kernel, p2p_smem_bytes<false>(), f1c, f2c, idx,
+                    z1, z2, b0, wpack, b1, b2, wb0, ww1, wb1, ww2, wb2, out,
+                    b, n, k, c, stream);
+}
+
+// The bf16 arm: f1c/f2c and out [B,N,512] bf16, wpack from tc_weights_bf16
+// (bf16), the rest as cmflow_cv_p2p.
+int cmflow_cv_p2p_bf16(const void* f1c, const void* f2c, const void* idx,
+                       const void* z1, const void* z2, const void* b0,
+                       const void* wpack, const void* b1, const void* b2,
+                       const void* wb0, const void* ww1, const void* wb1,
+                       const void* ww2, const void* wb2, void* out, int b,
+                       int n, int k, int c, void* stream) {
+  return launch_p2p(cv_p2p_bf16_kernel, p2p_smem_bytes<true>(), f1c, f2c,
+                    idx, z1, z2, b0, wpack, b1, b2, wb0, ww1, wb1, ww2, wb2,
+                    out, b, n, k, c, stream);
 }
 
 // p2p [B,N,512], idx [B,N,k] int32 (k >= 1), zq [B,N,8], the WeightNet
@@ -571,24 +817,17 @@ int cmflow_cv_agg(const void* p2p, const void* idx, const void* zq,
                   const void* wb0, const void* ww1, const void* wb1,
                   const void* ww2, const void* wb2, void* out, int b, int n,
                   int k, int c, void* stream) {
-  if (!valid_agg_shape(b, n, k, c)) return (int)cudaErrorInvalidValue;
-  if (b == 0) return (int)cudaSuccess;
-  const int tiles = (n + kAggQ - 1) / kAggQ;  // b * tiles <= b * n fits
-  cudaError_t err = cudaFuncSetAttribute(
-      cv_agg_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kAggSmemBytes);
-  if (err != cudaSuccess) return (int)err;
-  const WeightNet wn{static_cast<const float*>(wb0),
-                     static_cast<const float*>(ww1),
-                     static_cast<const float*>(wb1),
-                     static_cast<const float*>(ww2),
-                     static_cast<const float*>(wb2)};
-  cv_agg_kernel<<<b * tiles, kAggThreads, kAggSmemBytes,
-                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(p2p), static_cast<const int*>(idx),
-      static_cast<const float*>(zq), wn, static_cast<float*>(out), n, k,
-      tiles);
-  return (int)cudaGetLastError();
+  return launch_agg(cv_agg_kernel, agg_smem_bytes<false>(), p2p, idx, zq,
+                    wb0, ww1, wb1, ww2, wb2, out, b, n, k, c, stream);
+}
+
+// The bf16 arm: p2p [B,N,512] bf16, the rest (out float32) as cmflow_cv_agg.
+int cmflow_cv_agg_bf16(const void* p2p, const void* idx, const void* zq,
+                       const void* wb0, const void* ww1, const void* wb1,
+                       const void* ww2, const void* wb2, void* out, int b,
+                       int n, int k, int c, void* stream) {
+  return launch_agg(cv_agg_bf16_kernel, agg_smem_bytes<true>(), p2p, idx, zq,
+                    wb0, ww1, wb1, ww2, wb2, out, b, n, k, c, stream);
 }
 
 const char* cmflow_error_string(int code) {

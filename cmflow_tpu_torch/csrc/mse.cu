@@ -50,7 +50,23 @@
 //   float2, the warp's store of a query one 256-byte line).
 // The weights come in float32 and are split into TF32 hi and lo while they
 // are staged.  No atomics: two launches give the same bits.
+//
+// The bf16 arm (mse_bf16_kernel, the JAX kernel's bf16 serving mode,
+// fused.py:290-293, :348, :351): the first layer comes folded and rounded
+// to bf16 outside, one rounding per point, as a [B*N, S*32] base (the
+// wrapper builds it, ops/fused.py::make_mse_base), so each thread gathers
+// its eight channels of that row (four 4-byte loads), subtracts the query's
+// offset xyz_c[i] @ w0r_s in float32, applies the affine and ReLU, and
+// rounds to bf16: the A of the 32 -> 32 product's two k16 steps.  Both
+// products (32 -> 32 -> 64) run on mma.sync m16n8k16 .bf16 with float32
+// sums, each activation rounded to nearest even before; then the same
+// padding, tiles, butterfly max and stores as the float32 arm.  Its weights
+// come as a bf16 image of B fragments (6 KB a scale) and a float32 image of
+// w0r and the affines (ops/fused.py::mse_bf16_weights), staged in shared
+// memory as they are.  What bounds it: operations, 3,072 multiply-adds a
+// row, ~1.5 us at the dense bf16 peak at B=16, N=256.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -221,6 +237,63 @@ __device__ __forceinline__ void store_part(float* __restrict__ out, int qa,
   }
 }
 
+// The max over each query's rows of a unit, then its stores.  v0 and v1
+// are the last product's rows g and g + 8 (columns 8 nt + 2t, +1 at
+// 2 nt, 2 nt + 1).  P = 2^lp consecutive rows of the unit are the low bits
+// of g, then (P >= 16) both row groups, then (P = 32) both halves of the
+// tile, h the unit's half; carry holds the first half's max at P = 32.
+__device__ __forceinline__ void pool_store(float (&v0)[16], float (&v1)[16],
+                                           int lp, int h, int g, int t,
+                                           int qa, int qb,
+                                           float* __restrict__ outs,
+                                           int stride, float (&carry)[2]) {
+  if (lp <= 3) {
+    float w[32];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      w[i] = v0[i];
+      w[16 + i] = v1[i];
+    }
+    int off = 0;  // w[i] now holds value i + off of {v0, v1}
+    if (lp > 0) {
+      halve<16>(w, g & 1, 4);
+      off += (g & 1) * 16;
+    }
+    if (lp > 1) {
+      halve<8>(w, (g >> 1) & 1, 8);
+      off += ((g >> 1) & 1) * 8;
+    }
+    if (lp > 2) {
+      halve<4>(w, (g >> 2) & 1, 16);
+      off += ((g >> 2) & 1) * 4;
+    }
+    switch (lp) {
+      case 0: store_part<32>(outs, qa, qb, stride, w, off, t); break;
+      case 1: store_part<16>(outs, qa, qb, stride, w, off, t); break;
+      case 2: store_part<8>(outs, qa, qb, stride, w, off, t); break;
+      default: store_part<4>(outs, qa, qb, stride, w, off, t); break;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 16; ++i) v0[i] = fmaxf(v0[i], v1[i]);
+    halve<8>(v0, g & 1, 4);
+    halve<4>(v0, (g >> 1) & 1, 8);
+    halve<2>(v0, (g >> 2) & 1, 16);
+    // v0[0..1] are columns 8 nt + 2t, +1 with nt = 4 g0 + 2 g1 + g2
+    if (lp == 5 && h == 0) {
+      carry[0] = v0[0];
+      carry[1] = v0[1];
+    } else {
+      if (lp == 5) {
+        v0[0] = fmaxf(v0[0], carry[0]);
+        v0[1] = fmaxf(v0[1], carry[1]);
+      }
+      const int nt = 4 * (g & 1) + ((g >> 1) & 1) * 2 + (g >> 2);
+      store2(outs, qa, stride, 8 * nt + 2 * t, v0[0], v0[1]);
+    }
+  }
+}
+
 __global__ void __launch_bounds__(kWarps * 32, 2)
     mse_kernel(Cloud cloud, const float* __restrict__ image,  // [S, kImage]
                float* __restrict__ out,                      // [B*N, S*kC3]
@@ -330,57 +403,204 @@ __global__ void __launch_bounds__(kWarps * 32, 2)
       }
     }
 
-    // max over each query's rows: P consecutive rows of the unit are the
-    // low bits of g, then (P >= 16) both row groups, then (P = 32) both
-    // halves of the tile
-    if (lp <= 3) {
-      float w[32];
-#pragma unroll
-      for (int i = 0; i < 16; ++i) {
-        w[i] = v0[i];
-        w[16 + i] = v1[i];
-      }
-      int off = 0;  // w[i] now holds value i + off of {v0, v1}
-      if (lp > 0) {
-        halve<16>(w, g & 1, 4);
-        off += (g & 1) * 16;
-      }
-      if (lp > 1) {
-        halve<8>(w, (g >> 1) & 1, 8);
-        off += ((g >> 1) & 1) * 8;
-      }
-      if (lp > 2) {
-        halve<4>(w, (g >> 2) & 1, 16);
-        off += ((g >> 2) & 1) * 4;
-      }
-      switch (lp) {
-        case 0: store_part<32>(outs, ra.q, rb.q, stride, w, off, t); break;
-        case 1: store_part<16>(outs, ra.q, rb.q, stride, w, off, t); break;
-        case 2: store_part<8>(outs, ra.q, rb.q, stride, w, off, t); break;
-        default: store_part<4>(outs, ra.q, rb.q, stride, w, off, t); break;
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < 16; ++i) v0[i] = fmaxf(v0[i], v1[i]);
-      halve<8>(v0, g & 1, 4);
-      halve<4>(v0, (g >> 1) & 1, 8);
-      halve<2>(v0, (g >> 2) & 1, 16);
-      // v0[0..1] are columns 8 nt + 2t, +1 with nt = 4 g0 + 2 g1 + g2
-      if (lp == 5 && h == 0) {
-        carry[0] = v0[0];
-        carry[1] = v0[1];
-      } else {
-        if (lp == 5) {
-          v0[0] = fmaxf(v0[0], carry[0]);
-          v0[1] = fmaxf(v0[1], carry[1]);
-        }
-        const int nt = 4 * (g & 1) + ((g >> 1) & 1) * 2 + (g >> 2);
-        store2(outs, ra.q, stride, 8 * nt + 2 * t, v0[0], v0[1]);
-      }
-    }
+    pool_store(v0, v1, lp, h, g, t, ra.q, rb.q, outs, stride, carry);
     ra = na;
     rb = nb;
   }
+}
+
+// ---------------------------------------------------------------------------
+// the bf16 arm
+// ---------------------------------------------------------------------------
+
+// B fragments of one scale, one uint2 (b0, b1: two bf16 each) per
+// (product, k16 step, n8 tile, lane): layer 1 (2 x 4), layer 2 (2 x 8)
+constexpr int kBf16Slots1 = 8 * 32;
+constexpr int kBf16Slots = kBf16Slots1 + 16 * 32;
+// floats of one scale: w0r [3][kC1], then the affines as kS0 .. kB2
+constexpr int kW0r = 0, kBf16Aff = 3 * kC1;
+constexpr int kBf16Floats = kBf16Aff + kAffine;
+static_assert(4 * kBf16Slots == 3072, "ops/fused.py::MSE_BF16_IMAGE");
+static_assert(kBf16Floats == 352, "ops/fused.py::MSE_BF16_AFFINE");
+
+struct Bf16Cloud {
+  const uint32_t* base;  // [B*N, S*kC1] bf16, as pairs
+  const float* xyz;      // [B*N, 3], centred
+  int n, pairs;          // points per element, bf16 pairs per base row
+};
+
+// x[4j + 2e + u] = x0 at channel 16j + 8e + 2t + u of the row: the base
+// (zero outside [0, N)) less the query's offset xyz_c[q] @ w0r, then the
+// affine and ReLU, in float32
+__device__ __forceinline__ void first_layer_bf16(const Bf16Cloud& c, Row row,
+                                                 int s, int t,
+                                                 const float* fsm,
+                                                 float (&x)[8]) {
+  float p0 = 0.0f, p1 = 0.0f, p2 = 0.0f;
+  const uint32_t* src = nullptr;
+  if (row.q >= 0) {
+    p0 = __ldg(c.xyz + (int64_t)row.q * 3);
+    p1 = __ldg(c.xyz + (int64_t)row.q * 3 + 1);
+    p2 = __ldg(c.xyz + (int64_t)row.q * 3 + 2);
+    if (row.j >= 0) {
+      src = c.base + ((int64_t)row.b * c.n + row.j) * c.pairs + s * kC1 / 2;
+    }
+  }
+  const float* w0r = fsm + kW0r;
+  const float* aff = fsm + kBf16Aff;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int ch = 16 * j + 8 * e + 2 * t;
+      const uint32_t v = src ? __ldg(src + ch / 2) : 0u;
+      const float g[2] = {__uint_as_float(v << 16),
+                          __uint_as_float(v & 0xffff0000u)};
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int cc = ch + u;
+        const float off = fmaf(p2, w0r[2 * kC1 + cc],
+                               fmaf(p1, w0r[kC1 + cc], p0 * w0r[cc]));
+        x[4 * j + 2 * e + u] =
+            relu_affine(g[u] - off, aff[kS0 + cc], aff[kB0 + cc]);
+      }
+    }
+  }
+}
+
+// the A of k16 step j from rows g (xa) and g + 8 (xb), each x as
+// first_layer_bf16 lays it out, or an accumulator's n8 tiles 2j, 2j + 1
+__device__ __forceinline__ void chain_a_bf16(const float* xa, const float* xb,
+                                             uint32_t (&a)[4]) {
+  a[0] = tc::pack_bf16(xa[0], xa[1]);
+  a[1] = tc::pack_bf16(xb[0], xb[1]);
+  a[2] = tc::pack_bf16(xa[2], xa[3]);
+  a[3] = tc::pack_bf16(xb[2], xb[3]);
+}
+
+__global__ void __launch_bounds__(kWarps * 32, 2)
+    mse_bf16_kernel(Bf16Cloud cloud,
+                    const uint2* __restrict__ frags,   // [S, kBf16Slots]
+                    const float* __restrict__ floats,  // [S, kBf16Floats]
+                    float* __restrict__ out,           // [B*N, S*kC3]
+                    int total, Scales sc) {
+  __shared__ uint2 wsm[kBf16Slots];
+  __shared__ __align__(16) float fsm[kBf16Floats];
+
+  int s = 0;
+  while (s + 1 < sc.count && (int)blockIdx.x >= sc.block0[s + 1]) ++s;
+  for (int e = threadIdx.x; e < kBf16Slots; e += blockDim.x) {
+    wsm[e] = __ldg(frags + (size_t)s * kBf16Slots + e);
+  }
+  for (int e = threadIdx.x; e < kBf16Floats; e += blockDim.x) {
+    fsm[e] = __ldg(floats + (size_t)s * kBf16Floats + e);
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int lp = sc.log2p[s], k = sc.k[s];
+  const int* __restrict__ idx = sc.idx[s];
+  const int tiles = ((total << lp) + kTileRows - 1) / kTileRows;
+  const int tile0 = (blockIdx.x - sc.block0[s]) * kWarps * kTilesPerWarp;
+  const int stride = sc.count * kC3;
+  float* __restrict__ outs = out + s * kC3;
+  const float* aff = fsm + kBf16Aff;
+
+  auto first_row = [&](int u) {
+    return (tile0 + warp + (u >> 1) * kWarps) * kTileRows + 16 * (u & 1) + g;
+  };
+  Row ra = unit_row(idx, first_row(0), lp, k, total, cloud.n);
+  Row rb = unit_row(idx, first_row(0) + 8, lp, k, total, cloud.n);
+  float carry[2];  // P = 32: the first half's max
+
+  for (int u = 0; u < 2 * kTilesPerWarp; ++u) {
+    if (tile0 + warp + (u >> 1) * kWarps >= tiles) break;  // warp-uniform
+    const int h = u & 1;
+    float xa[8], xb[8];
+    first_layer_bf16(cloud, ra, s, t, fsm, xa);
+    first_layer_bf16(cloud, rb, s, t, fsm, xb);
+    Row na{-1, 0, -1}, nb{-1, 0, -1};
+    if (u + 1 < 2 * kTilesPerWarp) {
+      na = unit_row(idx, first_row(u + 1), lp, k, total, cloud.n);
+      nb = unit_row(idx, first_row(u + 1) + 8, lp, k, total, cloud.n);
+    }
+
+    // layer 1: k16 step j takes channels 16j .. 16j + 15 of x0
+    float y[16];
+    {
+      uint32_t a[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) chain_a_bf16(xa + 4 * j, xb + 4 * j, a[j]);
+#pragma unroll
+      for (int nt = 0; nt < kC2 / 8; ++nt) {
+        float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const uint2 w = wsm[(j * (kC2 / 8) + nt) * 32 + lane];
+          tc::mma_sync_bf16(d, a[j], w.x, w.y);
+        }
+        epilogue(y + 4 * nt, d, aff, kS1, kB1, 8 * nt + 2 * t);
+      }
+    }
+    // layer 2: k16 step j takes y's n8 tiles 2j, 2j + 1
+    float v0[16], v1[16];
+    {
+      uint32_t a[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float* yy = y + 8 * j;
+        const float ya[4] = {yy[0], yy[1], yy[4], yy[5]};
+        const float yb[4] = {yy[2], yy[3], yy[6], yy[7]};
+        chain_a_bf16(ya, yb, a[j]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < kC3 / 8; ++nt) {
+        float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const uint2 w = wsm[kBf16Slots1 + (j * (kC3 / 8) + nt) * 32 + lane];
+          tc::mma_sync_bf16(d, a[j], w.x, w.y);
+        }
+        float z[4];
+        epilogue(z, d, aff, kS2, kB2, 8 * nt + 2 * t);
+        v0[2 * nt] = z[0];
+        v0[2 * nt + 1] = z[1];
+        v1[2 * nt] = z[2];
+        v1[2 * nt + 1] = z[3];
+      }
+    }
+    pool_store(v0, v1, lp, h, g, t, ra.q, rb.q, outs, stride, carry);
+    ra = na;
+    rb = nb;
+  }
+}
+
+// fills `scales` for count scales of ks[] neighbours and idx[] indices over
+// `total` queries; returns a cudaError_t
+int make_scales(void* const* idx, const int* ks, int count, int total,
+                Scales& scales) {
+  scales.count = count;
+  scales.block0[0] = 0;
+  for (int t = 0; t < kMaxScales; ++t) {
+    const bool used = t < count;
+    const int k = used ? ks[t] : 1;
+    if (used && (k < 1 || k > kMaxK)) return (int)cudaErrorInvalidValue;
+    int lp = 0;
+    while ((1 << lp) < k) ++lp;
+    scales.k[t] = k;
+    scales.log2p[t] = lp;
+    scales.idx[t] = used ? static_cast<const int*>(idx[t]) : nullptr;
+    const int64_t tiles = (((int64_t)total << lp) + kTileRows - 1) / kTileRows;
+    const int64_t blocks =
+        used ? (tiles + kWarps * kTilesPerWarp - 1) / (kWarps * kTilesPerWarp)
+             : 0;
+    if (scales.block0[t] + blocks > 0x7fffffff) {
+      return (int)cudaErrorInvalidValue;
+    }
+    scales.block0[t + 1] = scales.block0[t] + (int)blocks;
+  }
+  return (int)cudaSuccess;
 }
 
 }  // namespace
@@ -402,26 +622,8 @@ int cmflow_mse(const void* xyz, const void* feats, long long sb, long long sn,
   }
   const int total = b * n;
   Scales scales;
-  scales.count = count;
-  scales.block0[0] = 0;
-  for (int t = 0; t < kMaxScales; ++t) {
-    const bool used = t < count;
-    const int k = used ? ks[t] : 1;
-    if (used && (k < 1 || k > kMaxK)) return (int)cudaErrorInvalidValue;
-    int lp = 0;
-    while ((1 << lp) < k) ++lp;
-    scales.k[t] = k;
-    scales.log2p[t] = lp;
-    scales.idx[t] = used ? static_cast<const int*>(idx[t]) : nullptr;
-    const int64_t tiles = (((int64_t)total << lp) + kTileRows - 1) / kTileRows;
-    const int64_t blocks =
-        used ? (tiles + kWarps * kTilesPerWarp - 1) / (kWarps * kTilesPerWarp)
-             : 0;
-    if (scales.block0[t] + blocks > 0x7fffffff) {
-      return (int)cudaErrorInvalidValue;
-    }
-    scales.block0[t + 1] = scales.block0[t] + (int)blocks;
-  }
+  const int err = make_scales(idx, ks, count, total, scales);
+  if (err != (int)cudaSuccess) return err;
   if (total == 0) return (int)cudaSuccess;
   Cloud cloud{static_cast<const float*>(xyz), static_cast<const float*>(feats),
               sb, sn, sc, cf, static_cast<const float*>(ctr), n};
@@ -429,6 +631,33 @@ int cmflow_mse(const void* xyz, const void* feats, long long sb, long long sn,
                static_cast<cudaStream_t>(stream)>>>(
       cloud, static_cast<const float*>(image), static_cast<float*>(out),
       total, scales);
+  return (int)cudaGetLastError();
+}
+
+// The bf16 arm: base [B,N,count*32] bf16, each scale's folded first layer
+// (ops/fused.py::make_mse_base); xyz [B,N,3] f32 centred; idx and ks as
+// cmflow_mse; frags [count, 3072] bf16 and floats [count, 352] f32 from
+// ops/fused.py::mse_bf16_weights; out [B,N,count*64] f32.  Returns a
+// cudaError_t.
+int cmflow_mse_bf16(const void* base, const void* xyz, void* const* idx,
+                    const int* ks, int count, const void* frags,
+                    const void* floats, void* out, int b, int n,
+                    void* stream) {
+  if (count < 1 || count > kMaxScales || n < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int total = b * n;
+  Scales scales;
+  const int err = make_scales(idx, ks, count, total, scales);
+  if (err != (int)cudaSuccess) return err;
+  if (total == 0) return (int)cudaSuccess;
+  const Bf16Cloud cloud{static_cast<const uint32_t*>(base),
+                        static_cast<const float*>(xyz), n, count * kC1 / 2};
+  mse_bf16_kernel<<<scales.block0[count], kWarps * 32, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
+      cloud, static_cast<const uint2*>(frags),
+      static_cast<const float*>(floats), static_cast<float*>(out), total,
+      scales);
   return (int)cudaGetLastError();
 }
 

@@ -1,7 +1,8 @@
 // Tensor-core pieces shared by the fused GEMM kernels (plf.cu,
-// cost_volume.cu), for Hopper (sm_90a): float32 accuracy from TF32 products
-// (3xTF32), `wgmma` with A in registers and B in shared memory, and a ring of
-// weight stages filled by `cp.async.bulk` and completed on `mbarrier`s.
+// cost_volume.cu, mse.cu), for Hopper (sm_90a): float32 accuracy from TF32
+// products (3xTF32), the bf16 products of the bf16 serving arms, `wgmma`
+// with A in registers and B in shared memory, and a ring of weight stages
+// filled by `cp.async.bulk` and completed on `mbarrier`s.
 //
 // 3xTF32.  A TF32 product keeps 10 mantissa bits of each operand, about
 // 5e-4 relative, which over 512-wide sums breaks the 1e-5-of-magnitude bar
@@ -34,9 +35,27 @@
 // adjacent accumulator columns 8j + 2t, +1 of a previous product (one k8
 // step, no data movement).  The packers in ops/fused.py order the weights'
 // rows to match.
+//
+// bf16 (the serving arms).  A bf16 product is exact and the tensor cores sum
+// it in float32, so one pass replaces the hi/lo split; the activations are
+// rounded to nearest even (pack_bf16), as the JAX package's astype rounds.
+// wgmma m64nNk16 .bf16: each 32-bit register holds two bf16 values, the
+// lower k in its low half.
+// - A, 64 x 16, from registers: lane (g, t) of warp w holds a[0] = (16w+g,
+//   2t..2t+1), a[1] = (16w+g+8, 2t..2t+1), a[2] = (16w+g, 2t+8..2t+9),
+//   a[3] = (16w+g+8, 2t+8..2t+9), as mma.sync m16n8k16 takes it.
+// - B, N x 16, from shared memory in the same no-swizzle layout: a core
+//   matrix is still 8 rows of 16 bytes (8 bf16 along K), so LBO and SBO
+//   stay 128 and 256 bytes.  One k16 step of B is [N/8][2][8][8] bf16:
+//   element (n, p) at ((n/8 * 2 + p/8) * 8 + n%8) * 8 + p%8.
+// - D is as above.  A gathered row's four consecutive channels 4t .. 4t+3
+//   of a 16-channel block are positions 2t, 2t+1, 2t+8, 2t+9 of one k16
+//   step; accumulator columns 16s .. 16s+15 (n8 tiles 2s, 2s+1) are the A
+//   of step s as they stand, in natural order.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -152,8 +171,75 @@ __device__ __forceinline__ void mma_n64(float (&d)[32], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
 
+// d = A (registers, bf16) x B (descriptor, bf16, K-major) + (accumulate ?
+// d : 0) in float32, 64 x 128 x 16
+__device__ __forceinline__ void mma_bf16_n128(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
+      "}\n"
+      : CMFLOW_D32(0), CMFLOW_D32(32)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// the same, 64 x 64 x 16
+__device__ __forceinline__ void mma_bf16_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
+      "}\n"
+      : CMFLOW_D32(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
 #undef CMFLOW_D32
 #undef CMFLOW_D8
+
+// d += a (16 x 16, bf16) b (16 x 8, bf16) on the tensor cores, one warp,
+// float32 sums: a[0..3] as wgmma's A above (rows g, g+8); b0 = (k 2t..2t+1,
+// n g), b1 = (k 2t+8..2t+9, n g); d[0..3] = (g, 2t), (g, 2t+1), (g+8, 2t),
+// (g+8, 2t+1)
+__device__ __forceinline__ void mma_sync_bf16(float (&d)[4],
+                                              const uint32_t (&a)[4],
+                                              uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two floats rounded to nearest even as the bf16 pair of one register, lo
+// in the low half (the lower k)
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// four bf16 values (a uint2, the lowest first) as floats, exactly
+__device__ __forceinline__ float4 bf16x4_to_float4(uint2 v) {
+  return make_float4(__uint_as_float(v.x << 16),
+                     __uint_as_float(v.x & 0xffff0000u),
+                     __uint_as_float(v.y << 16),
+                     __uint_as_float(v.y & 0xffff0000u));
+}
 
 // the three products of 3xTF32 for one k8 step, small ones first; B's hi
 // and lo tiles at shared addresses b_hi, b_lo.  accumulate = 0 starts d
@@ -216,10 +302,11 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
 }
 
 // A ring of STAGES buffers of BYTES each in shared memory, filled in order
-// from the packed weights (ops/fused.py::tc_weights): buffer c % STAGES takes
-// chunk c of the hi array in its first half and chunk c of the lo array in
-// its second.  full[s] completes when buffer s has landed; empty[s] when
-// every consumer warp has released it.
+// from the packed weights: for 3xTF32 (ops/fused.py::tc_weights) buffer
+// c % STAGES takes chunk c of the hi array in its first half and chunk c of
+// the lo array in its second; for bf16 (tc_weights_bf16) chunk c of the one
+// array.  full[s] completes when buffer s has landed; empty[s] when every
+// consumer warp has released it.
 template <int STAGES, int BYTES>
 struct Ring {
   char* buf;
@@ -259,6 +346,26 @@ struct Ring {
           "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
           "[%0], [%1], %2, [%3];\n" ::"r"(dst + kHalf),
           "l"(lo + (size_t)c * kHalf), "r"(kHalf), "r"(bar)
+          : "memory");
+    }
+  }
+
+  // the producer thread, one array (the bf16 weights): chunk c is the BYTES
+  // at src + c * BYTES
+  __device__ void produce(const char* src, int chunks) const {
+    for (int c = 0; c < chunks; ++c) {
+      const int s = c % STAGES;
+      if (c >= STAGES) mbar_wait(&empty[s], ((c / STAGES) - 1) & 1);
+      const uint32_t bar = smem_addr(&full[s]);
+      asm volatile(
+          "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+              bar),
+          "r"(BYTES)
+          : "memory");
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+          "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(buf + s * BYTES)),
+          "l"(src + (size_t)c * BYTES), "r"(BYTES), "r"(bar)
           : "memory");
     }
   }

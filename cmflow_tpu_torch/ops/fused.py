@@ -31,11 +31,26 @@ gather(f + xyz @ W) - xyz_t @ W``).
 
 The packers read the port's modules (``nn/blocks.py``), which
 ``models/convert.py`` fills from flax variables.  Dense kernels come out
-``[in, out]``, as the flax trees hold them.  K3, K4a and K5 run their
-products on the tensor cores in 3xTF32 (``csrc/tc_gemm.cuh``).  The K4a and
-K5 wrappers split those weights into TF32 hi and lo parts and lay them out
-for the kernels on every call (:func:`tc_weights`); the K3 wrapper lays its
-weights out in float32 (:func:`mse_tc_weights`) and the kernel splits them.
+``[in, out]``, as the flax trees hold them.
+
+K3, K4a and K5 each have two arms, picked by the dtype of their operands:
+the gathered bases (K3, K5), ``f1c``/``f2c`` (K4a), the point-to-patch cost
+(K4b) and the Dense weights.
+* float32: the products run on the tensor cores in 3xTF32
+  (``csrc/tc_gemm.cuh``).  The K4a and K5 wrappers split the weights into
+  TF32 hi and lo parts and lay them out for the kernels on every call
+  (:func:`tc_weights`); the K3 wrapper lays its weights out in float32
+  (:func:`mse_tc_weights`) and the kernel splits them.
+* bfloat16 (the JAX package's bf16 serving mode, ``compute_dtype``
+  bfloat16): the bases, ``f1c``/``f2c``, the point-to-patch cost and the
+  Dense weights come in bfloat16, every product takes bf16 operands in one
+  tensor-core pass and sums in float32, the activations are rounded to bf16
+  before each product, and the affines, offsets and WeightNets stay float32
+  (:func:`tc_weights_bf16`, :func:`mse_bf16_weights`).  K4a writes its
+  point-to-patch cost in bf16; every other output is float32.  The plain
+  versions round with ``.to(torch.bfloat16)`` and multiply the rounded
+  values in float32 (:func:`_mm`), so they differ from the JAX kernels only
+  in the order of their float32 sums.
 """
 
 from __future__ import annotations
@@ -62,14 +77,19 @@ _SIGNATURES = {
     "mse": {"cmflow_mse": (_P, _P, _L, _L, _L, _I, _P,
                            ctypes.POINTER(ctypes.c_void_p),
                            ctypes.POINTER(ctypes.c_int), _I, _P, _P, _I, _I,
-                           _P)},
-    "plf": {"cmflow_plf": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                           _I, _I, _I, _I, _P)},
+                           _P),
+            "cmflow_mse_bf16": (_P, _P, ctypes.POINTER(ctypes.c_void_p),
+                                ctypes.POINTER(ctypes.c_int), _I, _P, _P, _P,
+                                _I, _I, _P)},
+    "plf": {name: (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                   _I, _I, _I, _I, _P)
+            for name in ("cmflow_plf", "cmflow_plf_bf16")},
     "cost_volume": {
-        "cmflow_cv_p2p": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                          _P, _P, _P, _I, _I, _I, _I, _P),
-        "cmflow_cv_agg": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                          _I, _P),
+        **{name: (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                  _P, _I, _I, _I, _I, _P)
+           for name in ("cmflow_cv_p2p", "cmflow_cv_p2p_bf16")},
+        **{name: (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)
+           for name in ("cmflow_cv_agg", "cmflow_cv_agg_bf16")},
     },
 }
 
@@ -93,17 +113,26 @@ def _stream(t: Tensor) -> int:
 
 
 def _on_card(what: str, floats: Sequence[Tensor],
-             ints: Sequence[Tensor] = ()) -> bool:
+             ints: Sequence[Tensor] = (),
+             operands: Sequence[Tensor] = ()) -> bool:
     """Check dtypes and devices; True for CUDA tensors (the kernel), False
-    for CPU tensors (the plain version)."""
-    dev = floats[0].device
+    for CPU tensors (the plain version).  ``floats`` are float32;
+    ``operands``, the tensors a bf16 arm takes in bfloat16, are all float32
+    or all bfloat16."""
+    tensors = (*floats, *operands)
+    dev = tensors[0].device
     for t in floats:
         if t.dtype != torch.float32:
             raise TypeError(f"{what}: need float32 tensors, got {t.dtype}")
+    kinds = {t.dtype for t in operands}
+    if len(kinds) > 1 or not kinds <= {torch.float32, torch.bfloat16}:
+        raise TypeError(f"{what}: need its bases, features and Dense "
+                        f"weights all float32 or all bfloat16, got "
+                        f"{sorted(map(str, kinds))}")
     for t in ints:
         if t.dtype != torch.int32:
             raise TypeError(f"{what}: need int32 indices, got {t.dtype}")
-    if any(t.device != dev for t in (*floats, *ints)):
+    if any(t.device != dev for t in (*tensors, *ints)):
         raise ValueError(f"{what}: every tensor must share one device")
     if dev.type == "cpu":
         return False
@@ -135,6 +164,16 @@ def _relu_affine(x: Tensor, s: Tensor, b: Tensor) -> Tensor:
 
 def _leaky(x: Tensor) -> Tensor:
     return torch.where(x > 0, x, 0.1 * x)
+
+
+def _mm(x: Tensor, w: Tensor) -> Tensor:
+    """``x @ w`` as the kernels' arm of ``w`` multiplies: for a bfloat16
+    ``w``, ``x`` rounded to bf16 and both multiplied in float32 (each
+    product exact, the sum in float32), the JAX kernels'
+    ``dot(x.astype(w.dtype), w, preferred_element_type=float32)``."""
+    if w.dtype == torch.bfloat16:
+        return x.to(torch.bfloat16).float() @ w.float()
+    return x @ w
 
 
 # ---------------------------------------------------------------------------
@@ -361,9 +400,11 @@ def plf_params_from_variables(plf) -> Tuple[Tuple[Tensor, ...], Tensor,
     return tuple(chain), plf.w0[3:], mlp2
 
 
-def mse_narrow_params_from_variables(mse) -> Tuple[tuple, list]:
+def mse_narrow_params_from_variables(mse, dtype: torch.dtype = torch.float32
+                                     ) -> Tuple[tuple, list]:
     """A narrow ``MultiScaleEncoder`` (3-layer sa mlp) for
-    :func:`fused_multi_scale_encoder`.
+    :func:`fused_multi_scale_encoder`, its stacked ``w1``/``w2`` in
+    ``dtype`` (the kernel's arm; everything else float32).
 
     Returns ``(packed, mlp2_bd)``: ``packed = (w0rel tuple, w0feat tuple,
     s0, b0, w1 [S, C1, C2], s1, b1, w2 [S, C2, C3], s2, b2)`` with the
@@ -387,8 +428,8 @@ def mse_narrow_params_from_variables(mse) -> Tuple[tuple, list]:
             layer.append(wsb)
     w0rel, w0feat, s0, b0, w1, s1, b1, w2, s2, b2 = parts
     packed = (tuple(w0rel), tuple(w0feat), torch.cat(s0), torch.cat(b0),
-              torch.stack(w1), torch.cat(s1), torch.cat(b1),
-              torch.stack(w2), torch.cat(s2), torch.cat(b2))
+              torch.stack(w1).to(dtype), torch.cat(s1), torch.cat(b1),
+              torch.stack(w2).to(dtype), torch.cat(s2), torch.cat(b2))
     mlp2_bd = [(torch.block_diag(*[w for w, _, _ in layer]),
                 torch.cat([s for _, s, _ in layer]),
                 torch.cat([b for _, _, b in layer]))
@@ -463,6 +504,33 @@ def tc_weights(w1: Tensor, w2: Tensor) -> Tensor:
     hi, lo = tf32_split(torch.cat((_tc_operand(w1, True).flatten(),
                                    _tc_operand(w2, False).flatten())))
     return torch.cat((hi, lo))
+
+
+def _tc_operand_bf16(w: Tensor, from_rows: bool) -> Tensor:
+    """A bfloat16 dense kernel ``w [cin, cout]`` as the B operand of the
+    bf16 wgmma kernels, ``[cin / 16, cout * 16]``: per k16 step one tile in
+    the layout of ``csrc/tc_gemm.cuh`` (element ``(n, p)`` at
+    ``((n // 8 * 2 + p // 8) * 8 + n % 8) * 8 + p % 8``).  With
+    ``from_rows``, step ``s`` position ``p`` is channel ``16s + 4*(p%8//2)
+    + 2*(p//8) + p%2`` (A made from four consecutive channels of a gathered
+    row); otherwise channel ``16s + p`` (A taken from a previous product's
+    accumulator)."""
+    cin, cout = w.shape
+    if from_rows:  # (s, t, h, u, ng, r) -> (s, ng, h, r, t, u)
+        v = w.reshape(cin // 16, 4, 2, 2, cout // 8, 8).permute(
+            0, 4, 2, 5, 1, 3)
+    else:  # (s, h, i, ng, r) -> (s, ng, h, r, i)
+        v = w.reshape(cin // 16, 2, 8, cout // 8, 8).permute(0, 3, 1, 4, 2)
+    return v.reshape(cin // 16, cout * 16)
+
+
+def tc_weights_bf16(w1: Tensor, w2: Tensor) -> Tensor:
+    """The bf16 arms' :func:`tc_weights`: two chained bfloat16 products as
+    the one bf16 array that K5 and K4a stream in order, ``w1`` (A made from
+    gathered rows) then ``w2`` (A the first product), one pass each
+    (:func:`_tc_operand_bf16`)."""
+    return torch.cat((_tc_operand_bf16(w1, True).flatten(),
+                      _tc_operand_bf16(w2, False).flatten()))
 
 
 # K3's B fragments per scale (csrc/mse.cu): (k8 steps, n8 tiles) of its
@@ -546,6 +614,56 @@ def mse_tc_weights(packed: tuple) -> Tensor:
     return flat[index]
 
 
+# K3's bf16 arm (csrc/mse.cu::mse_bf16_kernel): (k16 steps, n8 tiles) of its
+# two products, bf16 values per scale of its fragment image (four per
+# fragment slot: b0's pair, b1's pair), and floats per scale of its float32
+# image (w0r [3, C1], then the six affines)
+MSE_BF16_PRODUCTS = ((2, 4), (2, 8))
+MSE_BF16_IMAGE = 4 * 32 * sum(s * t for s, t in MSE_BF16_PRODUCTS)
+MSE_BF16_AFFINE = 3 * MSE_WIDTHS[0] + 2 * sum(MSE_WIDTHS)
+_MSE_BF16_INDEX: Dict[tuple, Tensor] = {}
+
+
+def _mse_bf16_image_index(s_cnt: int) -> np.ndarray:
+    """``[S, MSE_BF16_IMAGE]`` positions in the flat concatenation of the
+    stacked ``w1 [S, C1, C2]`` and ``w2 [S, C2, C3]``: per scale and
+    product, per (k16 step j, n8 tile, lane (g, t)) the mma.sync B values
+    ``k = 16j + 2t, +1, +8, +9`` of column ``8 tile + g``."""
+    c1, c2, c3 = MSE_WIDTHS
+    out = np.empty((s_cnt, MSE_BF16_IMAGE), np.int64)
+    for s in range(s_cnt):
+        parts = []
+        for (steps, tiles), off, cout in (
+                (MSE_BF16_PRODUCTS[0], s * c1 * c2, c2),
+                (MSE_BF16_PRODUCTS[1], s_cnt * c1 * c2 + s * c2 * c3, c3)):
+            j, nt, lane, e = np.meshgrid(np.arange(steps), np.arange(tiles),
+                                         np.arange(32), np.arange(4),
+                                         indexing="ij")
+            k = 16 * j + 2 * (lane % 4) + e % 2 + 8 * (e // 2)
+            parts.append(off + k * cout + 8 * nt + lane // 4)
+        out[s] = np.concatenate([p.reshape(-1) for p in parts])
+    return out
+
+
+def mse_bf16_weights(packed: tuple) -> Tuple[Tensor, Tensor]:
+    """The weights of every scale of K3's bf16 arm: a bfloat16 ``[S,
+    MSE_BF16_IMAGE]`` image of its two products' mma.sync B fragments
+    (:func:`_mse_bf16_image_index`), and a float32 ``[S, MSE_BF16_AFFINE]``
+    image of each scale's offset block ``w0r_s [3, C1]`` and its affines
+    ``s0, b0, s1, b1, s2, b2``."""
+    w0rel, _, s0, b0, w1, s1, b1, w2, s2, b2 = packed
+    s_cnt = len(w0rel)
+    key = (s_cnt, w1.device)
+    if key not in _MSE_BF16_INDEX:
+        _MSE_BF16_INDEX[key] = torch.from_numpy(
+            _mse_bf16_image_index(s_cnt)).to(w1.device)
+    frags = torch.cat((w1.reshape(-1), w2.reshape(-1)))[_MSE_BF16_INDEX[key]]
+    floats = torch.cat([torch.stack(w0rel).reshape(s_cnt, -1)]
+                       + [a.reshape(s_cnt, -1)
+                          for a in (s0, b0, s1, b1, s2, b2)], dim=1)
+    return frags, floats
+
+
 def center_xyz(xyz: Tensor) -> Tensor:
     """Subtract each cloud's mean over all N points, padding included.  The
     centre cancels exactly in ``gather(base) - off``; it keeps the folded
@@ -553,19 +671,25 @@ def center_xyz(xyz: Tensor) -> Tensor:
     return xyz - xyz.mean(dim=1, keepdim=True)
 
 
-def make_plf_base(feat_tx: Tensor, xyz: Tensor, wrel: Tensor) -> Tensor:
-    """``feat_tx + xyz @ wrel`` in float32."""
-    return feat_tx + xyz @ wrel
+def make_plf_base(feat_tx: Tensor, xyz: Tensor, wrel: Tensor,
+                  dtype: torch.dtype = torch.float32) -> Tensor:
+    """``feat_tx + xyz @ wrel`` in float32 (``wrel`` as it comes, bf16
+    values included), stored in ``dtype``: the bf16 arm's pre-rounded base,
+    one rounding per point."""
+    return (feat_tx.float() + xyz @ wrel.float()).to(dtype)
 
 
 def make_mse_base(feats: Tensor, xyz: Tensor, w0rel_list: Sequence[Tensor],
-                  w0feat_list: Sequence[Tensor]) -> Tensor:
+                  w0feat_list: Sequence[Tensor],
+                  dtype: torch.dtype = torch.float32) -> Tensor:
     """``[B, N, S*C1]``: channel block s holds scale s's folded first layer
-    ``feats @ w0f_s + xyz @ w0r_s``.  (The JAX package stacks the blocks
-    along rows, ``[B, S*N, C1c]`` with zeros off the diagonal, for its
-    one-hot gather; summing its row blocks gives this tensor.)"""
-    return torch.cat([feats @ wf + xyz @ wr
-                      for wr, wf in zip(w0rel_list, w0feat_list)], dim=-1)
+    ``feats @ w0f_s + xyz @ w0r_s``, computed in float32 and stored in
+    ``dtype``.  (The JAX package stacks the blocks along rows, ``[B, S*N,
+    C1c]`` with zeros off the diagonal, for its one-hot gather; summing its
+    row blocks gives this tensor.)"""
+    return torch.cat([feats.float() @ wf + xyz @ wr
+                      for wr, wf in zip(w0rel_list, w0feat_list)],
+                     dim=-1).to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -577,16 +701,16 @@ def fused_multi_scale_encoder_plain(feats: Tensor, idx_list: Sequence[Tensor],
     """Plain version of :func:`fused_multi_scale_encoder`."""
     w0rel, w0feat, s0, b0, w1, s1, b1, w2, s2, b2 = packed
     xyz_c = center_xyz(xyz)
-    base = make_mse_base(feats, xyz_c, w0rel, w0feat)
+    base = make_mse_base(feats, xyz_c, w0rel, w0feat, feats.dtype)
     c1, c2, c3 = w1.shape[1], w1.shape[2], w2.shape[2]
     outs = []
     for s, idx in enumerate(idx_list):
         r1, r2, r3 = (slice(s * c, (s + 1) * c) for c in (c1, c2, c3))
-        x = (_group(base[..., r1], idx)
+        x = (_group(base[..., r1], idx).float()
              - (xyz_c @ w0rel[s])[:, :, None, :])
         x = _relu_affine(x, s0[r1], b0[r1])
-        x = _relu_affine(x @ w1[s], s1[r2], b1[r2])
-        x = _relu_affine(x @ w2[s], s2[r3], b2[r3])
+        x = _relu_affine(_mm(x, w1[s]), s1[r2], b1[r2])
+        x = _relu_affine(_mm(x, w2[s]), s2[r3], b2[r3])
         outs.append(torch.amax(x, dim=2))
     return torch.cat(outs, dim=-1)
 
@@ -596,22 +720,25 @@ def fused_multi_scale_encoder(feats: Tensor, idx_list: Sequence[Tensor],
     """All scales of a narrow ``MultiScaleEncoder``, before mlp2: per scale
     s, gather ``feats @ w0f_s + xyz_c @ w0r_s`` at the ball indices, minus
     ``xyz_c @ w0r_s`` of the query, then three [affine -> ReLU -> Dense]
-    layers and the max over that scale's ``K_s`` neighbours.  (The kernel
-    forms the first layer of each row itself, from the gathered point and
-    features; see ``csrc/mse.cu``.)
+    layers and the max over that scale's ``K_s`` neighbours.  (The float32
+    kernel forms the first layer of each row itself, from the gathered point
+    and features; the bf16 arm gathers the bf16 base, which its wrapper
+    builds, one rounding per point as the JAX package's.  See
+    ``csrc/mse.cu``.)
 
     Args:
-      feats: ``[B, N, Cf]`` float32 per-point features, any strides.
+      feats: ``[B, N, Cf]`` per-point features, any strides: float32, or
+        bfloat16 for the bf16 arm (with ``w1``/``w2`` in bfloat16).
       idx_list: per scale, ``[B, N, K_s]`` int32 ball-query indices.
       xyz: ``[B, N, 3]`` float32 coordinates.
       packed: from :func:`mse_narrow_params_from_variables`.
     Returns:
-      ``[B, N, S*C3]``, channel blocks in scale order.
+      ``[B, N, S*C3]`` float32, channel blocks in scale order.
     """
     w0rel, w0feat, s0, b0, w1, s1, b1, w2, s2, b2 = packed
-    flat = [*w0rel, *w0feat, s0, b0, w1, s1, b1, w2, s2, b2]
-    if not _on_card("fused_multi_scale_encoder", [feats, xyz, *flat],
-                    list(idx_list)):
+    flat = [*w0rel, *w0feat, s0, b0, s1, b1, s2, b2]
+    if not _on_card("fused_multi_scale_encoder", [xyz, *flat],
+                    list(idx_list), [feats, w1, w2]):
         return fused_multi_scale_encoder_plain(feats, idx_list, xyz, packed)
     b, n, _ = xyz.shape
     s_cnt = len(idx_list)
@@ -633,20 +760,30 @@ def fused_multi_scale_encoder(feats: Tensor, idx_list: Sequence[Tensor],
     if not all(i.is_contiguous() for i in idx_list):
         raise ValueError("fused_multi_scale_encoder: the CUDA kernel takes "
                          "contiguous indices")
-    # the kernel reads xyz, ctr and the indices by scalar loads; the image
-    # is fresh, so aligned for its float2 loads
-    xyz = xyz.contiguous()
-    ctr = xyz.mean(dim=1)
-    image = mse_tc_weights(packed)
     out = torch.empty((b, n, s_cnt * MSE_WIDTHS[2]), dtype=torch.float32,
                       device=xyz.device)
+    idx_ptrs = (ctypes.c_void_p * s_cnt)(*[i.data_ptr() for i in idx_list])
     lib = build.load("mse", _SIGNATURES["mse"])
-    code = lib.cmflow_mse(
-        xyz.data_ptr(), feats.data_ptr(), *feats.stride(), cf,
-        ctr.data_ptr(),
-        (ctypes.c_void_p * s_cnt)(*[i.data_ptr() for i in idx_list]),
-        (ctypes.c_int * s_cnt)(*ks), s_cnt, image.data_ptr(),
-        out.data_ptr(), b, n, _stream(xyz))
+    if feats.dtype == torch.bfloat16:
+        # the bf16 base [B, N, S*C1] and the centred points; fresh, so
+        # contiguous and aligned for the kernel's loads
+        xyz_c = center_xyz(xyz).contiguous()
+        base = make_mse_base(feats, xyz_c, w0rel, w0feat, feats.dtype)
+        frags, floats = mse_bf16_weights(packed)
+        code = lib.cmflow_mse_bf16(
+            base.data_ptr(), xyz_c.data_ptr(), idx_ptrs,
+            (ctypes.c_int * s_cnt)(*ks), s_cnt, frags.data_ptr(),
+            floats.data_ptr(), out.data_ptr(), b, n, _stream(xyz))
+    else:
+        # the kernel reads xyz, ctr and the indices by scalar loads; the
+        # image is fresh, so aligned for its float2 loads
+        xyz = xyz.contiguous()
+        ctr = xyz.mean(dim=1)
+        image = mse_tc_weights(packed)
+        code = lib.cmflow_mse(
+            xyz.data_ptr(), feats.data_ptr(), *feats.stride(), cf,
+            ctr.data_ptr(), idx_ptrs, (ctypes.c_int * s_cnt)(*ks), s_cnt,
+            image.data_ptr(), out.data_ptr(), b, n, _stream(xyz))
     build.check(lib, code, "fused_multi_scale_encoder")
     fused_multi_scale_encoder.launches += 1
     return out
@@ -664,12 +801,12 @@ def fused_point_local_feature_plain(feat_tx: Tensor, idx: Tensor, xyz: Tensor,
     """Plain version of :func:`fused_point_local_feature`."""
     wrel = params[0]
     xyz_c = center_xyz(xyz)
-    base = make_plf_base(feat_tx, xyz_c, wrel)
-    x = _group(base, idx) - (xyz_c @ wrel)[:, :, None, :]
+    base = make_plf_base(feat_tx, xyz_c, wrel, feat_tx.dtype)
+    x = _group(base, idx).float() - (xyz_c @ wrel.float())[:, :, None, :]
     x = _relu_affine(x, params[1], params[2])
     for i in range(3, len(params), 3):
         w, s, b = params[i:i + 3]
-        x = _relu_affine(x @ w, s, b)
+        x = _relu_affine(_mm(x, w), s, b)
     return torch.amax(x, dim=2)
 
 
@@ -679,17 +816,21 @@ def fused_point_local_feature(feat_tx: Tensor, idx: Tensor, xyz: Tensor,
 
     Args:
       feat_tx: ``[B, N, C1]`` per-point features after the factored first
-        layer's feature transform (``features @ w0[3:]``).
+        layer's feature transform (``features @ w0[3:]``): float32, or
+        bfloat16 for the bf16 arm, whose base ``feat_tx + xyz_c @ wrel`` is
+        rounded to bf16 once per point.
       idx: ``[B, N, K]`` int32 ball-query indices.
-      xyz: ``[B, N, 3]`` coordinates.
+      xyz: ``[B, N, 3]`` float32 coordinates.
       params: ``(wrel, s0, b0, w1, s1, b1, ...)`` from
-        :func:`plf_params_from_variables`.
+        :func:`plf_params_from_variables`; ``wrel`` and the Dense kernels in
+        ``feat_tx``'s dtype, the affines float32.
     Returns:
-      ``[B, N, C_last]``.
+      ``[B, N, C_last]`` float32.
     """
     params = list(params)
-    if not _on_card("fused_point_local_feature", [feat_tx, xyz, *params],
-                    [idx]):
+    if not _on_card("fused_point_local_feature",
+                    [xyz, *params[1::3], *params[2::3]], [idx],
+                    [feat_tx, params[0], *params[3::3]]):
         return fused_point_local_feature_plain(feat_tx, idx, xyz, params)
     b, n, c1 = feat_tx.shape
     k = idx.shape[2]
@@ -701,16 +842,18 @@ def fused_point_local_feature(feat_tx: Tensor, idx: Tensor, xyz: Tensor,
         raise ValueError(f"idx must be [B, N, K] with K <= {2 * MAX_K}, "
                          f"got {tuple(idx.shape)}")
     wrel, s0, b0, w1, s1, b1, w2, s2, b2 = params
+    bf16 = feat_tx.dtype == torch.bfloat16
     xyz_c = center_xyz(xyz).contiguous()
-    base = make_plf_base(feat_tx, xyz_c, wrel).contiguous()
-    wpack = tc_weights(w1, w2)
+    base = make_plf_base(feat_tx, xyz_c, wrel, feat_tx.dtype).contiguous()
+    wrel = wrel.float().contiguous()  # the offset stays float32
+    wpack = tc_weights_bf16(w1, w2) if bf16 else tc_weights(w1, w2)
     _check_kernel_args("fused_point_local_feature",
                        [base, idx, xyz_c, wrel, s0, b0, wpack, s1, b1, s2,
                         b2])
     out = torch.empty((b, n, PLF_WIDTHS[2]), dtype=torch.float32,
                       device=xyz.device)
     lib = build.load("plf", _SIGNATURES["plf"])
-    code = lib.cmflow_plf(
+    code = (lib.cmflow_plf_bf16 if bf16 else lib.cmflow_plf)(
         base.data_ptr(), idx.data_ptr(), xyz_c.data_ptr(), wrel.data_ptr(),
         s0.data_ptr(), b0.data_ptr(), wpack.data_ptr(), s1.data_ptr(),
         b1.data_ptr(), s2.data_ptr(), b2.data_ptr(), out.data_ptr(), b, n,
@@ -741,11 +884,11 @@ def cost_volume_p2p_plain(f1c: Tensor, f2c: Tensor, idx: Tensor, z1: Tensor,
                           wn: Sequence[Tensor]) -> Tensor:
     """Plain version of :func:`cost_volume_p2p`."""
     b0, w1, b1, w2, b2 = dense
-    x = _leaky((f1c[:, :, None, :] + _group(f2c, idx)) + b0)
-    x = _leaky(x @ w1 + b1)
-    x = _leaky(x @ w2 + b2)
+    x = _leaky((f1c.float()[:, :, None, :] + _group(f2c, idx).float()) + b0)
+    x = _leaky(_mm(x, w1) + b1)
+    x = _leaky(_mm(x, w2) + b2)
     w = _weightnet_tail(_group(z2, idx) - z1[:, :, None, :], wn)
-    return torch.sum(w * x, dim=2)
+    return torch.sum(w * x, dim=2).to(f1c.dtype)
 
 
 def cost_volume_p2p(f1c: Tensor, f2c: Tensor, idx: Tensor, z1: Tensor,
@@ -758,31 +901,35 @@ def cost_volume_p2p(f1c: Tensor, f2c: Tensor, idx: Tensor, z1: Tensor,
     over k.
 
     Args:
-      f1c / f2c: ``[B, N, C]`` folded frame-1 / frame-2 features.
+      f1c / f2c: ``[B, N, C]`` folded frame-1 / frame-2 features, float32,
+        or bfloat16 for the bf16 arm (with ``w1``/``w2`` in bfloat16).
       idx: ``[B, N, K]`` int32 frame-2 kNN indices.
-      z1 / z2: ``[B, N, H]`` the WeightNet's first product of the centred
-        frame-1 / frame-2 coordinates.
-      dense: ``(b0, w1, b1, w2, b2)``.
-      wn: the WeightNet after its first product, ``(b0, w1, b1, w2, b2)``.
+      z1 / z2: ``[B, N, H]`` float32, the WeightNet's first product of the
+        centred frame-1 / frame-2 coordinates.
+      dense: ``(b0, w1, b1, w2, b2)``, the biases float32.
+      wn: the WeightNet after its first product, ``(b0, w1, b1, w2, b2)``,
+        float32.
     Returns:
-      ``[B, N, C]``.
+      ``[B, N, C]`` in ``f1c``'s dtype: the bf16 arm stores the sum of its
+      float32 terms rounded to bf16.
     """
     dense, wn = list(dense), list(wn)
-    if not _on_card("cost_volume_p2p", [f1c, f2c, z1, z2, *dense, *wn],
-                    [idx]):
+    b0, w1, b1, w2, b2 = dense
+    if not _on_card("cost_volume_p2p", [z1, z2, b0, b1, b2, *wn], [idx],
+                    [f1c, f2c, w1, w2]):
         return cost_volume_p2p_plain(f1c, f2c, idx, z1, z2, dense, wn)
     b, n, c = f1c.shape
     k = idx.shape[2]
     _check_cv(b, n, c, k, idx, z1, wn)
     if f2c.shape != f1c.shape or z2.shape != z1.shape:
         raise ValueError("frame 2 must have frame 1's shapes")
-    b0, w1, b1, w2, b2 = dense
-    wpack = tc_weights(w1, w2)
+    bf16 = f1c.dtype == torch.bfloat16
+    wpack = tc_weights_bf16(w1, w2) if bf16 else tc_weights(w1, w2)
     _check_kernel_args("cost_volume_p2p",
                        [f1c, f2c, idx, z1, z2, b0, wpack, b1, b2, *wn])
-    out = torch.empty((b, n, c), dtype=torch.float32, device=f1c.device)
+    out = torch.empty((b, n, c), dtype=f1c.dtype, device=f1c.device)
     lib = build.load("cost_volume", _SIGNATURES["cost_volume"])
-    code = lib.cmflow_cv_p2p(
+    code = (lib.cmflow_cv_p2p_bf16 if bf16 else lib.cmflow_cv_p2p)(
         f1c.data_ptr(), f2c.data_ptr(), idx.data_ptr(), z1.data_ptr(),
         z2.data_ptr(), b0.data_ptr(), wpack.data_ptr(), b1.data_ptr(),
         b2.data_ptr(), *[t.data_ptr() for t in wn], out.data_ptr(), b, n, k,
@@ -799,7 +946,7 @@ def cost_volume_agg_plain(p2p: Tensor, idx: Tensor, zq: Tensor,
                           wn: Sequence[Tensor]) -> Tensor:
     """Plain version of :func:`cost_volume_agg`."""
     w = _weightnet_tail(_group(zq, idx) - zq[:, :, None, :], wn)
-    return torch.sum(w * _group(p2p, idx), dim=2)
+    return torch.sum(w * _group(p2p, idx).float(), dim=2)
 
 
 def cost_volume_agg(p2p: Tensor, idx: Tensor, zq: Tensor,
@@ -809,16 +956,17 @@ def cost_volume_agg(p2p: Tensor, idx: Tensor, zq: Tensor,
     p2p[j]`` over the frame-1 neighbours ``j = idx[i, k]``.
 
     Args:
-      p2p: ``[B, N, C]`` point-to-patch cost.
+      p2p: ``[B, N, C]`` point-to-patch cost, float32 or bfloat16 (the bf16
+        arm, which reads it in bf16 and sums in float32).
       idx: ``[B, N, K]`` int32 frame-1 kNN indices, any K >= 1.
-      zq: ``[B, N, H]`` the WeightNet's first product of the centred
-        frame-1 coordinates.
+      zq: ``[B, N, H]`` float32, the WeightNet's first product of the
+        centred frame-1 coordinates.
       wn: the WeightNet after its first product, ``(b0, w1, b1, w2, b2)``.
     Returns:
-      ``[B, N, C]``.
+      ``[B, N, C]`` float32.
     """
     wn = list(wn)
-    if not _on_card("cost_volume_agg", [p2p, zq, *wn], [idx]):
+    if not _on_card("cost_volume_agg", [zq, *wn], [idx], [p2p]):
         return cost_volume_agg_plain(p2p, idx, zq, wn)
     b, n, c = p2p.shape
     k = idx.shape[2]
@@ -826,7 +974,8 @@ def cost_volume_agg(p2p: Tensor, idx: Tensor, zq: Tensor,
     _check_kernel_args("cost_volume_agg", [p2p, idx, zq, *wn])
     out = torch.empty((b, n, c), dtype=torch.float32, device=p2p.device)
     lib = build.load("cost_volume", _SIGNATURES["cost_volume"])
-    code = lib.cmflow_cv_agg(
+    bf16 = p2p.dtype == torch.bfloat16
+    code = (lib.cmflow_cv_agg_bf16 if bf16 else lib.cmflow_cv_agg)(
         p2p.data_ptr(), idx.data_ptr(), zq.data_ptr(),
         *[t.data_ptr() for t in wn], out.data_ptr(), b, n, k, c,
         _stream(p2p))
@@ -871,29 +1020,35 @@ def fused_cost_volume(f1t: Tensor, f2t: Tensor, idx2: Tensor, xyz1: Tensor,
 
     Args:
       f1t / f2t: ``[B, N, C]`` transformed features (``f @ w0[:d1]`` /
-        ``f @ w0[d1:d1+d2]``).
+        ``f @ w0[d1:d1+d2]``), float32 or bfloat16 (the bf16 arms, with
+        ``wd``, ``w1`` and ``w2`` of ``dense`` in bfloat16).
       idx2: frame-2 kNN indices ``[B, N, K]``; idx1: frame-1 (self) kNN.
-      xyz1 / xyz2: ``[B, N, 3]`` coordinates.
+      xyz1 / xyz2: ``[B, N, 3]`` float32 coordinates.
       dense / wn1 / wn2: from :func:`cv_params_from_variables`.
     Returns:
-      ``[B, N, C]`` aggregated cost volume.
+      ``[B, N, C]`` float32 aggregated cost volume.
     """
     f1c, f2c, z1, z2, zq = cost_volume_folds(f1t, f2t, xyz1, xyz2,
-                                             dense[0], wn1[0], wn2[0])
+                                             dense[0], wn1[0], wn2[0],
+                                             f1t.dtype)
     p2p = cost_volume_p2p(f1c, f2c, idx2, z1, z2, dense[1:], wn1[1:])
     return cost_volume_agg(p2p, idx1, zq, wn2[1:])
 
 
 def cost_volume_folds(f1t: Tensor, f2t: Tensor, xyz1: Tensor, xyz2: Tensor,
-                      wd: Tensor, wn1_w0: Tensor, wn2_w0: Tensor
+                      wd: Tensor, wn1_w0: Tensor, wn2_w0: Tensor,
+                      dtype: torch.dtype = torch.float32
                       ) -> Tuple[Tensor, ...]:
     """The kernels' folded inputs ``(f1c, f2c, z1, z2, zq)``:
-    ``f1c = f1t - x1c @ wd``, ``f2c = f2t + x2c @ wd``,
-    ``z1 = x1c @ wn1_w0``, ``z2 = x2c @ wn1_w0``, ``zq = x1c @ wn2_w0``,
-    with both clouds centred on the mean of frame 1 over all N (padding
-    included).  The direction ``xyz2[j] - xyz1[i]`` is unchanged by any
-    shared shift, so the folds are exact."""
+    ``f1c = f1t - x1c @ wd``, ``f2c = f2t + x2c @ wd`` (in float32 from
+    ``wd`` as it comes, bf16 values included, then stored in ``dtype``),
+    ``z1 = x1c @ wn1_w0``, ``z2 = x2c @ wn1_w0``, ``zq = x1c @ wn2_w0``
+    (float32), with both clouds centred on the mean of frame 1 over all N
+    (padding included).  The direction ``xyz2[j] - xyz1[i]`` is unchanged
+    by any shared shift, so the folds are exact."""
     ctr = xyz1.mean(dim=1, keepdim=True)
     x1c, x2c = xyz1 - ctr, xyz2 - ctr
-    return (f1t - x1c @ wd, f2t + x2c @ wd, x1c @ wn1_w0, x2c @ wn1_w0,
+    wd = wd.float()
+    return ((f1t.float() - x1c @ wd).to(dtype),
+            (f2t.float() + x2c @ wd).to(dtype), x1c @ wn1_w0, x2c @ wn1_w0,
             x1c @ wn2_w0)

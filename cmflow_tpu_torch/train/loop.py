@@ -197,9 +197,13 @@ def reset_lanes(gfeat: Tensor, reset: Tensor) -> Tensor:
 
 
 def make_experiment_eval_step(cfg: Config, model):
-    """Build the experiment's eval step once, for every validation pass."""
+    """Build the experiment's eval step once, for every validation pass, in
+    the config's ``eval_compute_dtype``."""
+    dtype = (torch.bfloat16 if cfg.eval_compute_dtype == "bfloat16"
+             else torch.float32)
     return steplib.make_eval_step(cfg.model, model,
-                                  fused=cfg.fused_inference)
+                                  fused=cfg.fused_inference,
+                                  compute_dtype=dtype)
 
 
 def _pinned_buckets(cfg: Config):

@@ -23,6 +23,7 @@ import torch
 from cmflow_tpu_torch.losses import radar_loss as rl
 from cmflow_tpu_torch.models import MODEL_REGISTRY
 from cmflow_tpu_torch.models.inference import (
+    check_compute_dtype,
     cmflow_infer,
     cmflow_t_infer,
     raflow_infer,
@@ -201,7 +202,8 @@ def make_train_step_seq(model: torch.nn.Module,
 
 
 def make_eval_step(model_name: str, model: torch.nn.Module,
-                   fused: str = "auto") -> Callable:
+                   fused: str = "auto",
+                   compute_dtype: torch.dtype = torch.float32) -> Callable:
     """Inference step in eval mode (main_util.py:139-142,
     clip_util.py:226-233):
 
@@ -219,11 +221,14 @@ def make_eval_step(model_name: str, model: torch.nn.Module,
     ``"on"`` the fused engine, ``"off"`` the module route, ``"auto"`` the
     fused engine when the model's parameters lie on a CUDA device and the
     module route otherwise (the JAX package's rule, with the card in the
-    TPU's place)."""
+    TPU's place).  ``compute_dtype`` (float32 or bfloat16) is the fused
+    engine's; the module route ignores it and serves float32, as the JAX
+    package's does."""
     if model_name not in MODEL_REGISTRY:
         raise ValueError(f"unknown model {model_name!r}")
     if fused not in _FUSED:
         raise ValueError(f"fused must be one of {_FUSED}, got {fused!r}")
+    check_compute_dtype(compute_dtype)
     device = next(model.parameters()).device
     use_fused = device.type == "cuda" if fused == "auto" else fused == "on"
     keys = _INPUTS + (("interval",) if model_name == "raflow" else ())
@@ -239,7 +244,8 @@ def make_eval_step(model_name: str, model: torch.nn.Module,
         with torch.inference_mode():
             if use_fused:
                 extra = (x["interval"],) if raflow else ()
-                out = engine(model, *args, *extra, *carry, *masks)
+                out = engine(model, *args, *extra, *carry, *masks,
+                             compute_dtype=compute_dtype)
             else:
                 extra = (x["interval"],) if raflow else (None,)
                 out = model(*args, *extra, False, *carry, *masks)

@@ -26,9 +26,7 @@ At B=16, N=256, with seeded full-width weights and random features:
 - K4b (``csrc/cost_volume.cu::cv_agg_kernel``) at N=256 and at the padded
   N=384 bucket, k=8, on masked kNN indices of a random cloud, as the fused
   route calls it: the kernel's own device time beside its bound (bytes at
-  3.35 TB/s, operations at 67 TFLOP/s, as ``chip_smoke.py`` counts them)
-  and a digest of its output's bits, so that two trees' outputs on the
-  same inputs can be compared.
+  3.35 TB/s, operations at 67 TFLOP/s, as ``chip_smoke.py`` counts them).
 On one synthetic train batch (``make_train_batch``, B=16, N=256), as
 ``chip_smoke.py`` takes it:
 - K7 at the train step's 15 shapes (sa encoder C=32 and propagation encoder
@@ -42,8 +40,10 @@ On one synthetic train batch (``make_train_batch``, B=16, N=256), as
   route calls it; K2 at k=8, pc1 -> pc2 and pc1 -> pc1.
 Each case also gives the kernel's max abs error against its plain version
 and the output's largest magnitude (exact for K1 and K2; K3-K5 within 1e-4
-and 1e-5 of it; K7 within 1e-5 of it); the tensor-core kernels and K7 also
-whether two launches give the same bits.  Device times from
+and 1e-5 of it; K7 within 1e-5 of it); the tensor-core kernels and K7
+also whether two launches give the same bits, and K3-K5 a digest of the
+output's bits, so that two trees' outputs on the same inputs can be
+compared.  Device times from
 ``torch.profiler`` over 20 warmed calls, each window checked for every
 launch (see :func:`device_ms`).  One JSON line per case, then the sums.
 Needs a CUDA device; exits with code 1 without one.
@@ -147,11 +147,14 @@ def device_ms(fn, kernel: str = "", wrapper=None) -> tuple:
 
 
 def checks(run, plain) -> dict:
+    """The kernel against its plain version, against itself, and a digest
+    of its output's bits, to compare two trees on the same inputs."""
     got, again, want = run(), run(), plain()
     torch.cuda.synchronize()
     return dict(max_abs_err=float((got.double() - want.double()).abs().max()),
                 plain_max_abs=float(want.abs().max()),
-                same_bits=bool(torch.equal(got, again)))
+                same_bits=bool(torch.equal(got, again)),
+                digest=hashlib.sha1(got.cpu().numpy().tobytes()).hexdigest())
 
 
 def case(name, k, run, plain, widths, kernel, wrapper, dev):
@@ -203,12 +206,9 @@ def cv_agg_cases(dev) -> None:
         bound = 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S)
         run = lambda: fused.cost_volume_agg(p2p, idx, zq, wn)  # noqa: E731
         ms = device_ms(run, "cv_agg_kernel", fused.cost_volume_agg)[0]
-        out = run()
-        torch.cuda.synchronize()
         print(json.dumps(dict(
             kernel="K4b", shape=f"B={B} N={n} k={k} masked", ms=ms,
             bound_ms=bound, share_of_bound=bound / ms,
-            digest=hashlib.sha1(out.cpu().numpy().tobytes()).hexdigest(),
             **checks(run, lambda: fused.cost_volume_agg_plain(
                 p2p, idx, zq, wn)))), flush=True)
 

@@ -20,7 +20,11 @@ each row's cotangents in a fixed order of its own (32 sorted entries a warp,
 ``csrc/gather.cu``), the plain version's ``index_add_`` on the card in any
 order: it is held to 1e-5 of the output's largest magnitude, and to itself
 bit for bit across runs; its CSR build (``gather_rows_csr``) is integer work
-and is held to its plain version exactly.
+and is held to its plain version exactly.  The bf16 arms of the sa encoder,
+the propagation encoder and both cost-volume kernels round to bf16 where
+their plain versions do, and a float32 sum in another order can flip such a
+rounding by one ulp (2^-8): they are held to 1e-2 of the output's largest
+magnitude, and to themselves bit for bit across two launches.
 """
 
 import copy
@@ -622,6 +626,200 @@ def test_fused_kernels_zero_rows_out_of_range(dev, rs):
         idx[1, -3:, 2] = torch.tensor([-5, 200, 4096], dtype=torch.int32)
         near(fused.fused_point_local_feature(f[0], idx, pc, chain),
              fused.fused_point_local_feature_plain(f[0], idx, pc, chain))
+
+
+# ---------------------------------------------------------------------------
+# the bf16 arms (bf16 serving)
+# ---------------------------------------------------------------------------
+
+BF16 = torch.bfloat16
+BF16_RTOL = 1e-2  # of the output's largest magnitude
+
+
+def near_bf16(got, want):
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    err = float((got.double() - want.double()).abs().max())
+    scale = float(want.double().abs().max())
+    assert scale > 0.1, scale  # not degenerate
+    assert err <= BF16_RTOL * scale, (err, scale)
+
+
+def bf16_mse_packed(dev, ks, seed):
+    radii = tuple(2.0 * (i + 1) for i in range(len(ks)))
+    mse = seeded(blocks.MultiScaleEncoder(radii, ks, 3, (32, 32, 64),
+                                          (64, 64, 64)), dev, seed)
+    with torch.no_grad():
+        packed, _ = fused.mse_narrow_params_from_variables(mse, BF16)
+    return packed
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_mse_bf16_kernel(dev, rs, shape):
+    b, n, masked = shape
+    pc, valid = clouds(rs, b, n, masked, dev)
+    feats = strided_feats(rs, b, n, dev).to(BF16)
+    packed = bf16_mse_packed(dev, KS, 1)
+    idx = list(neighbors.ball_query_multi(RADII, KS, pc, pc, valid))
+    with torch.no_grad():
+        before = fused.fused_multi_scale_encoder.launches
+        got = same_twice(lambda: fused.fused_multi_scale_encoder(
+            feats, idx, pc, packed))
+        assert fused.fused_multi_scale_encoder.launches == before + 2
+        assert got.dtype == torch.float32
+        near_bf16(got, fused.fused_multi_scale_encoder_plain(feats, idx, pc,
+                                                             packed))
+
+
+def test_mse_bf16_kernel_ragged_k_and_out_of_range(dev, rs):
+    """K that are not powers of two, five scales in one launch, a row count
+    that fills no tile, and indices outside [0, N) (a zero row of the bf16
+    base)."""
+    b, n = 3, 200
+    ks = (1, 3, 5, 17, 32)
+    pc = cloud(rs, b, n, dev)
+    feats = strided_feats(rs, b, n, dev).to(BF16)
+    packed = bf16_mse_packed(dev, ks, 7)
+    idx = [torch.from_numpy(rs.randint(-2, n + 2, (b, n, k)).astype(
+        np.int32)).to(dev) for k in ks]
+    with torch.no_grad():
+        got = same_twice(lambda: fused.fused_multi_scale_encoder(
+            feats, idx, pc, packed))
+        near_bf16(got, fused.fused_multi_scale_encoder_plain(feats, idx, pc,
+                                                             packed))
+
+
+def bf16_chain(plf):
+    with torch.no_grad():
+        chain, _, _ = fused.plf_params_from_variables(plf)
+    return [t.to(BF16) if i % 3 == 0 else t for i, t in enumerate(chain)]
+
+
+@pytest.mark.parametrize("k", (1, 3, *KS, 33, 64))
+@pytest.mark.parametrize("shape", SHAPES)
+def test_plf_bf16_kernel(dev, rs, shape, k):
+    """K5's bf16 arm at every K of the model and at K that leave part of
+    its 128-row tiles empty; random neighbours, some outside [0, N)."""
+    b, n, masked = shape
+    pc, _ = clouds(rs, b, n, masked, dev)
+    plf = seeded(blocks.PointLocalFeature(8.0, k, 1027, (512, 256, 64),
+                                          (64, 64, 64)), dev, 2)
+    feat_tx = torch.from_numpy(rs.randn(b, n, 512).astype(np.float32)).to(
+        dev).to(BF16)
+    idx = torch.from_numpy(rs.randint(-2, n + 2, (b, n, k)).astype(
+        np.int32)).to(dev)
+    chain = bf16_chain(plf)
+    with torch.no_grad():
+        before = fused.fused_point_local_feature.launches
+        got = same_twice(lambda: fused.fused_point_local_feature(
+            feat_tx, idx, pc, chain))
+        assert fused.fused_point_local_feature.launches == before + 2
+        assert got.dtype == torch.float32
+        near_bf16(got, fused.fused_point_local_feature_plain(feat_tx, idx, pc,
+                                                             chain))
+
+
+def bf16_cost_volume_inputs(rs, shape, dev):
+    f, idx1, idx2, z, dense, wn1, wn2 = cost_volume_inputs(rs, shape, dev)
+    dense = [t.to(BF16) if i % 2 == 0 else t for i, t in enumerate(dense)]
+    return [x.to(BF16) for x in f], idx1, idx2, z, dense, wn1, wn2
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_cost_volume_bf16_kernels(dev, rs, shape):
+    """K4a's bf16 arm (bf16 f1c/f2c in, bf16 p2p out) and K4b's (bf16 p2p
+    in, float32 out), each against its plain version on the same inputs."""
+    f, idx1, idx2, z, dense, wn1, wn2 = bf16_cost_volume_inputs(rs, shape,
+                                                                dev)
+    with torch.no_grad():
+        before = (fused.cost_volume_p2p.launches,
+                  fused.cost_volume_agg.launches)
+        args = (f[0], f[1], idx2, z[0], z[1], dense[1:], wn1[1:])
+        p2p = same_twice(lambda: fused.cost_volume_p2p(*args))
+        assert p2p.dtype == BF16
+        near_bf16(p2p, fused.cost_volume_p2p_plain(*args))
+        agg = same_twice(lambda: fused.cost_volume_agg(p2p, idx1, z[0],
+                                                       wn2[1:]))
+        assert agg.dtype == torch.float32
+        near_bf16(agg, fused.cost_volume_agg_plain(p2p, idx1, z[0], wn2[1:]))
+        assert (fused.cost_volume_p2p.launches,
+                fused.cost_volume_agg.launches) == (before[0] + 2,
+                                                    before[1] + 2)
+
+
+@pytest.mark.parametrize("k", [1, 5, 32])
+def test_cost_volume_p2p_bf16_partial_tiles(dev, rs, k):
+    shape = (16, 256, True)
+    f, _, _, z, dense, wn1, _ = bf16_cost_volume_inputs(rs, shape, dev)
+    pc1, _ = clouds(rs, *shape, dev)
+    pc2, v2 = clouds(rs, *shape, dev)
+    idx2 = neighbors.knn(k, pc1, pc2, v2)
+    idx2[0, :3, 0] = torch.tensor([-1, 256, 4096], dtype=torch.int32)
+    args = (f[0], f[1], idx2, z[0], z[1], dense[1:], wn1[1:])
+    with torch.no_grad():
+        got = same_twice(lambda: fused.cost_volume_p2p(*args))
+        near_bf16(got, fused.cost_volume_p2p_plain(*args))
+
+
+@pytest.mark.parametrize("k", [1, 8, 33])
+@pytest.mark.parametrize("n", [200, 384])
+def test_cost_volume_agg_bf16_any_k(dev, rs, n, k):
+    b = 16
+    pc, valid = cloud(rs, b, n, dev), valid_mask(rs, b, n, dev)
+    idx = neighbors.knn(k, pc, pc, valid)
+    idx[0, :3, 0] = torch.tensor([-1, n, 4096], dtype=torch.int32)
+    p2p = torch.from_numpy(rs.randn(b, n, 512).astype(np.float32)).to(
+        dev).to(BF16)
+    zq = torch.from_numpy(rs.randn(b, n, 8).astype(np.float32)).to(dev)
+    fc = seeded(blocks.FeatureCorrelator(8, 512, 512, (512, 512, 512)),
+                dev, 3)
+    with torch.no_grad():
+        wn = fused.cv_params_from_variables(fc)[2][1:]
+        got = same_twice(lambda: fused.cost_volume_agg(p2p, idx, zq, wn))
+        near_bf16(got, fused.cost_volume_agg_plain(p2p, idx, zq, wn))
+
+
+def test_bf16_arms_reject_mixed_dtypes(dev, rs):
+    """A bf16 arm takes its bases, features and Dense weights all in bf16;
+    a mix raises before any launch, as does a bf16 tensor where the arm
+    takes float32."""
+    shape = (2, 200, False)
+    f, idx1, idx2, z, dense, wn1, wn2 = bf16_cost_volume_inputs(rs, shape,
+                                                                dev)
+    with torch.no_grad():
+        with pytest.raises(TypeError, match="all float32 or all bfloat16"):
+            fused.cost_volume_p2p(f[0].float(), f[1], idx2, z[0], z[1],
+                                  dense[1:], wn1[1:])
+        with pytest.raises(TypeError, match="float32"):
+            fused.cost_volume_agg(f[0], idx1, z[0].to(BF16), wn2[1:])
+
+
+def test_fused_route_bf16(dev):
+    """``make_eval_step`` with ``compute_dtype=torch.bfloat16`` on the card:
+    the fused route launches what the float32 one does (2/2/2/1/1/4) and
+    agrees with the same bf16 forward on the CPU (every kernel's plain
+    version) at the JAX package's bf16 bars: stat_cls 3e-2, pre_trans
+    1e-2, masks on >= 99% of the valid points, sf_agg within 0.05 of
+    max(|sf|, 1)."""
+    req = make_request(4, 16, (200, 256))
+    model = seeded(CMFlow(), dev, 12).eval()
+    cpu = copy.deepcopy(model).to("cpu")
+    counters = (neighbors.ball_query_multi, neighbors.knn,
+                fused.fused_multi_scale_encoder, fused.cost_volume_p2p,
+                fused.cost_volume_agg, fused.fused_point_local_feature)
+    before = [c.launches for c in counters]
+    out = make_eval_step("cmflow", model, compute_dtype=BF16)(req)
+    assert [c.launches - b for c, b in zip(counters, before)] == [
+        2, 2, 2, 1, 1, 4]
+    ref = make_eval_step("cmflow", cpu, fused="on", compute_dtype=BF16)(req)
+    (sf, cls, trans, mask), (rsf, rcls, rtrans, rmask) = (
+        [x.cpu().numpy() for x in o] for o in (out, ref))
+    valid = req["valid1"]
+    assert np.abs(cls - rcls)[valid].max() <= 3e-2
+    assert np.abs(trans - rtrans).max() <= 1e-2
+    assert (mask == rmask)[valid].mean() >= 0.99
+    assert np.abs(sf - rsf)[valid].max() <= 0.05 * max(
+        np.abs(rsf[valid]).max(), 1.0)
 
 
 def test_fused_kernels_reject_other_widths(dev, rs):

@@ -120,12 +120,14 @@ def test_auto_picks_module_route_on_cpu(batch, engines):
 
 
 def test_bf16_raises(batch, engines):
+    """The engines serve float32 and bfloat16
+    (tests/test_torch_bf16_serving.py); any other compute dtype raises."""
     _, port = engines
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cmflow_infer(port, *inputs(batch), compute_dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="compute_dtype"):
+        cmflow_infer(port, *inputs(batch), compute_dtype=torch.float16)
+    with pytest.raises(ValueError, match="compute_dtype"):
         cmflow_infer_many(port, *(x[None] for x in inputs(batch)),
-                          compute_dtype=torch.bfloat16)
+                          compute_dtype=torch.float16)
 
 
 def test_infer_many_matches_per_batch(engines):

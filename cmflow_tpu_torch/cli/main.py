@@ -48,7 +48,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                    help="auto: the GPU (raises without one); cpu: the CPU")
     p.add_argument("--compute_dtype", type=str, default=None,
                    choices=[None, "float32", "bfloat16"],
-                   help="training activation dtype (only float32 is ported)")
+                   help="the model's compute dtype: training, and its "
+                        "module route in eval")
     p.add_argument("--eval_compute_dtype", type=str, default=None,
                    choices=[None, "float32", "bfloat16"],
                    help="serving dtype of the fused engine (validation "

@@ -69,7 +69,21 @@
 //     then slot 0 of each later one); a row that no index names is zeroed.
 // Whichever row a warp meets, the order of every sum follows from the
 // indices alone, so two runs give the same bits.
+//
+// bf16 arms (cmflow_gather_rows_bf16, cmflow_gather_rows_backward_bf16):
+// the branches of the same Pallas kernels for bf16 points
+// (_gather_fwd_kernel's single-pass product, _gather_bwd_kernel's bf16
+// cotangent, and _mxu_group_bwd's cast of its float32 sum to the points'
+// dtype).  The forward copies each bf16 row bit for bit, as the one-hot
+// product of bf16 values did, on 16-byte vectors of 8 bf16 (uint4) where C
+// is a multiple of 8 and the pointers are aligned, else on single bf16.
+// The backward is the same three launches: the sum kernel loads bf16 terms
+// (8 a lane, or one), adds them in float32 in the same order as the float32
+// arm, keeps its partial slots in float32, and rounds each row to bf16 once,
+// where its sum is complete: in the sum kernel for a row that lies in one
+// piece, in the combine for a row that spans pieces.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -91,8 +105,29 @@ __device__ __forceinline__ float4 zero<float4>() {
   return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
 }
 
-// T is float (one channel per element) or float4 (four channels); c counts
-// elements of T in a row.
+template <>
+__device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() {
+  return __ushort_as_bfloat16((unsigned short)0);
+}
+
+template <>
+__device__ __forceinline__ uint4 zero<uint4>() {
+  return make_uint4(0u, 0u, 0u, 0u);
+}
+
+// eight float32 sums, the accumulator of a uint4 of 8 bf16
+struct alignas(16) float8 {
+  float4 lo, hi;
+};
+
+template <>
+__device__ __forceinline__ float8 zero<float8>() {
+  return float8{zero<float4>(), zero<float4>()};
+}
+
+// T is float (one channel per element), float4 (four channels),
+// __nv_bfloat16 (one) or uint4 (eight bf16 channels); c counts elements of
+// T in a row.  The bf16 arms copy bits.
 template <typename T>
 __global__ void gather_rows_kernel(const T* __restrict__ points,
                                    const int* __restrict__ idx,
@@ -130,6 +165,11 @@ __device__ __forceinline__ void add_to(float4& acc, float4 v) {
   acc.w += v.w;
 }
 
+__device__ __forceinline__ void add_to(float8& acc, float8 v) {
+  add_to(acc.lo, v.lo);
+  add_to(acc.hi, v.hi);
+}
+
 __device__ __forceinline__ float shfl_xor(float v, int off) {
   return __shfl_xor_sync(0xffffffffu, v, off);
 }
@@ -137,6 +177,83 @@ __device__ __forceinline__ float shfl_xor(float v, int off) {
 __device__ __forceinline__ float4 shfl_xor(float4 v, int off) {
   return make_float4(shfl_xor(v.x, off), shfl_xor(v.y, off),
                      shfl_xor(v.z, off), shfl_xor(v.w, off));
+}
+
+__device__ __forceinline__ float8 shfl_xor(float8 v, int off) {
+  return float8{shfl_xor(v.lo, off), shfl_xor(v.hi, off)};
+}
+
+// The backward's element types: L, the type it loads and stores (float,
+// float4, __nv_bfloat16 or uint4 of 8 bf16), and Acc<L>, the float32 type
+// it sums in.  widen() turns a loaded element into its sum type (exactly:
+// a bf16 is the top half of a float32), narrow() a finished sum into the
+// stored type (round to nearest even for bf16); both are the identity on
+// the float32 arms, which keep their instructions and their bits.
+template <typename L>
+struct AccOf {
+  using type = L;
+};
+template <>
+struct AccOf<__nv_bfloat16> {
+  using type = float;
+};
+template <>
+struct AccOf<uint4> {
+  using type = float8;
+};
+template <typename L>
+using Acc = typename AccOf<L>::type;
+
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float4 widen(float4 v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+// bf16 element 2i is the low half of word i (little endian)
+__device__ __forceinline__ float2 widen2(unsigned w) {
+  return make_float2(__uint_as_float(w << 16), __uint_as_float(w & 0xffff0000u));
+}
+
+__device__ __forceinline__ float8 widen(uint4 v) {
+  const float2 a = widen2(v.x), b = widen2(v.y), c = widen2(v.z),
+               d = widen2(v.w);
+  return float8{make_float4(a.x, a.y, b.x, b.y), make_float4(c.x, c.y, d.x, d.y)};
+}
+
+template <typename L>
+__device__ __forceinline__ L narrow(Acc<L> v);
+
+template <>
+__device__ __forceinline__ float narrow<float>(float v) {
+  return v;
+}
+
+template <>
+__device__ __forceinline__ float4 narrow<float4>(float4 v) {
+  return v;
+}
+
+template <>
+__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+__device__ __forceinline__ unsigned pack2(float a, float b) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);  // .x low half
+  return *reinterpret_cast<const unsigned*>(&h);
+}
+
+template <>
+__device__ __forceinline__ uint4 narrow<uint4>(float8 v) {
+  return make_uint4(pack2(v.lo.x, v.lo.y), pack2(v.lo.z, v.lo.w),
+                    pack2(v.hi.x, v.hi.y), pack2(v.hi.z, v.hi.w));
+}
+
+__device__ __forceinline__ float load_acc(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float4 load_acc(const float4* p) { return __ldg(p); }
+__device__ __forceinline__ float8 load_acc(const float8* p) {
+  return float8{__ldg(&p->lo), __ldg(&p->hi)};
 }
 
 constexpr unsigned kFull = 0xffffffffu;
@@ -147,7 +264,8 @@ constexpr int kCsrSteps = 8;             // 32-entry steps loaded together
 constexpr int kPiece = 32;               // sorted entries per warp of the sum
 constexpr int kSumWarps = 4;             // pieces per block of the sum
 constexpr int kSumBatch = 8;             // rows in flight, wide sum warp
-constexpr int kBwdMaxElems = 512;        // elements of T per row: C <= 512 * 4
+constexpr int kBwdMaxElems = 512;  // elements of T per row: float C <= 2048,
+                                   // bf16 C <= 4096 (8 a uint4)
 
 // the bin of an index: its row, or n (discarded) outside [0, n)
 __device__ __forceinline__ int bin_of(int j, int n) {
@@ -269,18 +387,20 @@ gather_rows_backward_csr_kernel(const int* __restrict__ idx,
   }
 }
 
-// T is float or float4; c counts elements of T in a row.  G lanes take a
-// row (G < 32: one element each, 32 / G groups; G = 32: VPL elements each,
-// and `slices` warps share a piece, each taking 32 * VPL elements of the
-// rows).
+// T is the loaded and stored element (float, float4, __nv_bfloat16 or uint4
+// of 8 bf16), A = Acc<T> its float32 sum and the type of the partial slots;
+// c counts elements of T in a row.  G lanes take a row (G < 32: one element
+// each, 32 / G groups; G = 32: VPL elements each, and `slices` warps share a
+// piece, each taking 32 * VPL elements of the rows).
 template <typename T, int G, int VPL>
 __global__ void __launch_bounds__(kSumWarps * 32)
 gather_rows_backward_sum_kernel(const T* __restrict__ g,
                                 const int* __restrict__ idx,
                                 const int* __restrict__ offsets,
                                 const int* __restrict__ order,
-                                T* __restrict__ out, T* __restrict__ part,
+                                T* __restrict__ out, Acc<T>* __restrict__ part,
                                 int n, int m, int c, int pieces, int slices) {
+  using A = Acc<T>;
   const int b = blockIdx.y;
   const int w = blockIdx.x * kSumWarps + threadIdx.x / 32;  // warp-uniform
   const int p = w / slices;
@@ -307,15 +427,17 @@ gather_rows_backward_sum_kernel(const T* __restrict__ g,
   const int r_last = __shfl_sync(kFull, ri, cnt - 1);
   const bool head_open = __ldg(ob + r_first) < s;    // began before the piece
   const bool tail_open = __ldg(ob + r_last + 1) > e;  // goes on after it
-  T* const slot0 = part + ((int64_t)b * pieces + p) * 2 * c;
+  A* const slot0 = part + ((int64_t)b * pieces + p) * 2 * c;
 
-  // where the run [lo, hi) of row r goes
-  auto dest = [&](int lo, int hi, int r) -> T* {
+  // element col of the run [lo, hi) of row r: a whole row to out, narrowed
+  // once; a part of a row that spans pieces to its float32 slot
+  auto put = [&](int lo, int hi, int r, int col, const A& v) {
     const bool first = lo == 0 && head_open;
     if (!first && !(hi == cnt && tail_open)) {
-      return out + ((int64_t)b * n + r) * c;
+      out[((int64_t)b * n + r) * c + col] = narrow<T>(v);
+    } else {
+      (first ? slot0 : slot0 + c)[col] = v;
     }
-    return first ? slot0 : slot0 + c;
   };
 
   if constexpr (G < 32) {
@@ -335,23 +457,23 @@ gather_rows_backward_sum_kernel(const T* __restrict__ g,
       const int lo = __ffs(rest) - 1;
       rest &= rest - 1;
       const int hi = rest ? __ffs(rest) - 1 : cnt;
-      T acc = zero<T>();
+      A acc = zero<A>();
 #pragma unroll
       for (int t = 0; t < PER; ++t) {
         const int i = q + NG * t;
-        if (i >= lo && i < hi) add_to(acc, val[t]);
+        if (i >= lo && i < hi) add_to(acc, widen(val[t]));
       }
 #pragma unroll
       for (int off = G; off < 32; off <<= 1) add_to(acc, shfl_xor(acc, off));
-      T* dst = dest(lo, hi, __shfl_sync(kFull, ri, lo));
-      if (q == 0 && u < c) dst[u] = acc;
+      const int r = __shfl_sync(kFull, ri, lo);
+      if (q == 0 && u < c) put(lo, hi, r, u, acc);
     }
   } else {
     constexpr int BATCH = kSumBatch;
     const int c0 = (w % slices) * 32 * VPL;  // this warp's first element
-    T acc[VPL];
+    A acc[VPL];
 #pragma unroll
-    for (int v = 0; v < VPL; ++v) acc[v] = zero<T>();
+    for (int v = 0; v < VPL; ++v) acc[v] = zero<A>();
     int lo = 0;  // first entry of the run being summed
     for (int i0 = 0; i0 < cnt; i0 += BATCH) {
       T val[BATCH][VPL];
@@ -370,35 +492,36 @@ gather_rows_backward_sum_kernel(const T* __restrict__ g,
         const int i = i0 + t;
         if (i >= cnt) break;
         if (i > lo && ((starts >> i) & 1u)) {  // a new run: store the last
-          T* dst = dest(lo, i, __shfl_sync(kFull, ri, lo));
+          const int r = __shfl_sync(kFull, ri, lo);
 #pragma unroll
           for (int v = 0; v < VPL; ++v) {
             const int col = c0 + lane + 32 * v;
-            if (col < c) dst[col] = acc[v];
-            acc[v] = zero<T>();
+            if (col < c) put(lo, i, r, col, acc[v]);
+            acc[v] = zero<A>();
           }
           lo = i;
         }
 #pragma unroll
-        for (int v = 0; v < VPL; ++v) add_to(acc[v], val[t][v]);
+        for (int v = 0; v < VPL; ++v) add_to(acc[v], widen(val[t][v]));
       }
     }
-    T* dst = dest(lo, cnt, __shfl_sync(kFull, ri, lo));
+    const int r = __shfl_sync(kFull, ri, lo);
 #pragma unroll
     for (int v = 0; v < VPL; ++v) {
       const int col = c0 + lane + 32 * v;
-      if (col < c) dst[col] = acc[v];
+      if (col < c) put(lo, cnt, r, col, acc[v]);
     }
   }
 }
 
 // One thread per element of T of out: a row no index names is zeroed, a row
-// that spans pieces sums its partials in piece order; every other row was
-// written by the sum kernel.
+// that spans pieces sums its float32 partials in piece order and narrows the
+// sum once; every other row was written by the sum kernel.
 template <typename T>
 __global__ void gather_rows_backward_combine_kernel(
-    const int* __restrict__ offsets, const T* __restrict__ part,
+    const int* __restrict__ offsets, const Acc<T>* __restrict__ part,
     T* __restrict__ out, int n, int c, int pieces, int64_t total) {
+  using A = Acc<T>;
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; e < total;
        e += stride) {
@@ -413,10 +536,12 @@ __global__ void gather_rows_backward_combine_kernel(
     }
     const int p0 = a / kPiece, p1 = (z - 1) / kPiece;
     if (p0 == p1) continue;
-    const T* pb = part + b * pieces * 2 * c + col;
-    T acc = __ldg(pb + ((int64_t)p0 * 2 + 1) * c);
-    for (int p = p0 + 1; p <= p1; ++p) add_to(acc, __ldg(pb + (int64_t)p * 2 * c));
-    out[e] = acc;
+    const A* pb = part + b * pieces * 2 * c + col;
+    A acc = load_acc(pb + ((int64_t)p0 * 2 + 1) * c);
+    for (int p = p0 + 1; p <= p1; ++p) {
+      add_to(acc, load_acc(pb + (int64_t)p * 2 * c));
+    }
+    out[e] = narrow<T>(acc);
   }
 }
 
@@ -468,7 +593,7 @@ void launch_sum(const void* g, const int* idx, const int* offsets,
   const dim3 grid((unsigned)((warps + kSumWarps - 1) / kSumWarps), (unsigned)b);
   gather_rows_backward_sum_kernel<T, G, VPL><<<grid, kSumWarps * 32, 0, stream>>>(
       static_cast<const T*>(g), idx, offsets, order, static_cast<T*>(out),
-      static_cast<T*>(part), n, m, c, pieces, slices);
+      static_cast<Acc<T>*>(part), n, m, c, pieces, slices);
 }
 
 template <typename T>
@@ -507,7 +632,7 @@ cudaError_t launch_backward(const void* g, const int* idx, int* offsets,
   int64_t blocks = (total + kThreads - 1) / kThreads;
   if (blocks > kMaxBlocks) blocks = kMaxBlocks;
   gather_rows_backward_combine_kernel<T><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      offsets, static_cast<const T*>(part), static_cast<T*>(out), n, c,
+      offsets, static_cast<const Acc<T>*>(part), static_cast<T*>(out), n, c,
       pieces, total);
   return cudaGetLastError();
 }
@@ -532,6 +657,27 @@ int cmflow_gather_rows(const void* points, const void* idx, void* out, int b,
     err = launch<float4>(points, idx, out, n, m, c / 4, rows * (c / 4), st);
   } else {
     err = launch<float>(points, idx, out, n, m, c, rows * c, st);
+  }
+  return (int)err;
+}
+
+// points [B,N,C] bf16, idx [B,M] int32, out [B,M,C] bf16, each row an exact
+// copy.  vec8 != 0 asks for the 8-bf16 (16-byte) path: C % 8 == 0 and all
+// three pointers 16-byte aligned.  Returns a cudaError_t.
+int cmflow_gather_rows_bf16(const void* points, const void* idx, void* out,
+                            int b, int n, int m, int c, int vec8,
+                            void* stream) {
+  if (n < 1 || c < 1 || (vec8 && c % 8 != 0)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int64_t rows = (int64_t)b * m;
+  if (rows == 0) return (int)cudaSuccess;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (vec8) {
+    err = launch<uint4>(points, idx, out, n, m, c / 8, rows * (c / 8), st);
+  } else {
+    err = launch<__nv_bfloat16>(points, idx, out, n, m, c, rows * c, st);
   }
   return (int)err;
 }
@@ -586,6 +732,35 @@ int cmflow_gather_rows_backward(const void* g, const void* idx, void* offsets,
   }
   return (int)launch_backward<float>(g, it, of, od, sc, part, out, b, n, m,
                                      elems, st);
+}
+
+// g [B,M,C] bf16, idx [B,M] int32, out [B,N,C] bf16: the float32 arm's
+// sums in float32, each row rounded to bf16 once.  Scratch as above, part
+// [B, ceil(M/32), 2, C] float32.  vec8 != 0 asks for the 8-bf16 path: C % 8
+// == 0 and g, out 16-byte aligned (part always is).  C may be at most 512
+// (single bf16) or 4096 (8-bf16 path).  Three launches; returns a
+// cudaError_t.
+int cmflow_gather_rows_backward_bf16(const void* g, const void* idx,
+                                     void* offsets, void* order, void* scratch,
+                                     void* part, void* out, int b, int n,
+                                     int m, int c, int vec8, void* stream) {
+  if (n < 1 || c < 1 || m < 0 || (vec8 && c % 8 != 0)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int elems = vec8 ? c / 8 : c;
+  if (elems > kBwdMaxElems) return (int)cudaErrorInvalidValue;
+  if (b == 0) return (int)cudaSuccess;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* it = static_cast<const int*>(idx);
+  int* of = static_cast<int*>(offsets);
+  int* od = static_cast<int*>(order);
+  int* sc = static_cast<int*>(scratch);
+  if (vec8) {
+    return (int)launch_backward<uint4>(g, it, of, od, sc, part, out, b, n, m,
+                                       elems, st);
+  }
+  return (int)launch_backward<__nv_bfloat16>(g, it, of, od, sc, part, out, b,
+                                             n, m, elems, st);
 }
 
 const char* cmflow_error_string(int code) {

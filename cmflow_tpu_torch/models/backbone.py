@@ -67,20 +67,24 @@ class BackboneConfig:
 
 class SceneFlowTrunk(nn.Module):
     """Encoder + cost volume + flow-embedding propagation.  Returns
-    ``prop_features [B, N, prop_width]``, before the global concat."""
+    ``prop_features [B, N, prop_width]``, before the global concat.
+    ``dtype`` is the blocks' compute dtype (``nn/blocks.py``): in bf16 the
+    features come out float32 in train mode and bf16 in eval."""
 
     def __init__(self, cfg: BackboneConfig = BackboneConfig(),
-                 feat_ch: int = 3):
+                 feat_ch: int = 3, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.cfg = cfg
         # one encoder for both frames, like the reference's single mse_layer
         self.mse_layer = MultiScaleEncoder(
-            cfg.sa_radii, cfg.sa_nsamples, feat_ch, cfg.sa_mlp, cfg.sa_mlp2)
+            cfg.sa_radii, cfg.sa_nsamples, feat_ch, cfg.sa_mlp, cfg.sa_mlp2,
+            dtype=dtype)
         self.fc_layer = FeatureCorrelator(
-            cfg.fc_nsample, cfg.fc_inch, cfg.fc_inch, cfg.fc_mlp)
+            cfg.fc_nsample, cfg.fc_inch, cfg.fc_inch, cfg.fc_mlp, dtype=dtype)
         self.mse_layer2 = MultiScaleEncoder(
             cfg.sa_radii, cfg.sa_nsamples,
-            feat_ch + cfg.fc_inch + cfg.fc_mlp[-1], cfg.ep_mlp, cfg.ep_mlp2)
+            feat_ch + cfg.fc_inch + cfg.fc_mlp[-1], cfg.ep_mlp, cfg.ep_mlp2,
+            dtype=dtype)
 
     def forward(self, pc1: Tensor, pc2: Tensor, feature1: Tensor,
                 feature2: Tensor, train: bool,

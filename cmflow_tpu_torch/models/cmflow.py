@@ -29,16 +29,20 @@ Tensor = torch.Tensor
 
 class CMFlow(nn.Module):
     """``forward(pc1, pc2, ft1, ft2, label_m, train, valid1, valid2) ->
-    (sf_agg, stat_cls, pre_trans, mask)``."""
+    (sf_agg, stat_cls, pre_trans, mask)``.  ``dtype``: the compute dtype,
+    ``None`` (float32) or ``torch.bfloat16`` (``nn/blocks.py``); the
+    outputs are float32 in either."""
 
     def __init__(self, stat_thres: float = 0.5,
-                 cfg: BackboneConfig = BackboneConfig(), feat_ch: int = 3):
+                 cfg: BackboneConfig = BackboneConfig(), feat_ch: int = 3,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.stat_thres = stat_thres
         self.cfg = cfg
-        self.trunk = SceneFlowTrunk(cfg, feat_ch)
-        self.fp = FlowHead(cfg.head_inch, cfg.head_mlp)
-        self.mp = MotionHead(cfg.head_inch, cfg.head_mlp)
+        self.dtype = dtype
+        self.trunk = SceneFlowTrunk(cfg, feat_ch, dtype)
+        self.fp = FlowHead(cfg.head_inch, cfg.head_mlp, dtype)
+        self.mp = MotionHead(cfg.head_inch, cfg.head_mlp, dtype)
 
     def forward(self, pc1: Tensor, pc2: Tensor, feature1: Tensor,
                 feature2: Tensor, label_m: Optional[Tensor], train: bool,

@@ -57,17 +57,21 @@ class CMFlowT(nn.Module):
 
     ``gfeat`` is the previous GRU state ``[B, prop_width]``: zeros at a clip
     start (the reference's ``None`` also becomes zeros, cmflow_t.py:97-98).
-    ``stat_thres`` is 0.5, hardcoded in the reference (cmflow_t.py:18)."""
+    ``stat_thres`` is 0.5, hardcoded in the reference (cmflow_t.py:18).
+    ``dtype``: the compute dtype of the trunk and heads, as
+    :class:`cmflow_tpu_torch.models.cmflow.CMFlow`'s; the GRU has none in
+    the JAX package and computes in float32 (its carry stays float32)."""
 
     def __init__(self, cfg: BackboneConfig = BackboneConfig(),
-                 feat_ch: int = 3):
+                 feat_ch: int = 3, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.stat_thres = 0.5
         self.cfg = cfg
-        self.trunk = SceneFlowTrunk(cfg, feat_ch)
+        self.dtype = dtype
+        self.trunk = SceneFlowTrunk(cfg, feat_ch, dtype)
         self.gru = GRUCell(cfg.prop_width)
-        self.fp = FlowHead(cfg.head_inch, cfg.head_mlp)
-        self.mp = MotionHead(cfg.head_inch, cfg.head_mlp)
+        self.fp = FlowHead(cfg.head_inch, cfg.head_mlp, dtype)
+        self.mp = MotionHead(cfg.head_inch, cfg.head_mlp, dtype)
 
     def forward(self, pc1: Tensor, pc2: Tensor, feature1: Tensor,
                 feature2: Tensor, label_m: Optional[Tensor], train: bool,
@@ -76,7 +80,7 @@ class CMFlowT(nn.Module):
                 ) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
         prop = self.trunk(pc1, pc2, feature1, feature2, train, valid1, valid2)
         # the GRU over the pooled global feature (cmflow_t.py:94-107)
-        gfeat_new = self.gru(gfeat, masked_global_max(prop, valid1))
+        gfeat_new = self.gru(gfeat, masked_global_max(prop, valid1).float())
         final = concat_global(prop, gfeat_new)
         output = self.fp(final, train)
         stat_cls = self.mp(final, train)

@@ -35,7 +35,7 @@ import torch
 from cmflow_tpu_torch.geometry import se3
 from cmflow_tpu_torch.models.cmflow_t import temporal_ego_motion
 from cmflow_tpu_torch.models.raflow import static_flow_refinement
-from cmflow_tpu_torch.nn.blocks import masked_global_max
+from cmflow_tpu_torch.nn.blocks import masked_global_max, mm32
 from cmflow_tpu_torch.ops import neighbors, pointops
 from cmflow_tpu_torch.ops.fused import (
     cv_params_from_variables,
@@ -67,17 +67,11 @@ def _cast_chain(chain: Sequence[Tensor], dtype: torch.dtype) -> list:
 def _dot32(x: Tensor, w: Tensor, dtype: torch.dtype) -> Tensor:
     """``x @ w`` with both operands rounded to ``dtype`` and a float32
     result, the JAX engine's ``_dot32``: each bf16 product is exact and the
-    sum is float32.  On the card cuBLAS does it in one call
-    (``torch.mm(..., out_dtype=)``, which has no CPU kernel); on the CPU the
-    rounded operands are multiplied in float32."""
+    sum is float32 (:func:`cmflow_tpu_torch.nn.blocks.mm32`)."""
     if dtype == torch.float32:
         return x @ w
     a, b = x.reshape(-1, x.shape[-1]).to(dtype), w.to(dtype)
-    if a.is_cuda:
-        out = torch.mm(a, b, out_dtype=torch.float32)
-    else:
-        out = a.float() @ b.float()
-    return out.reshape(*x.shape[:-1], w.shape[-1])
+    return mm32(a, b).reshape(*x.shape[:-1], w.shape[-1])
 
 
 def _fanin_dot(parts: Parts, w: Tensor,

@@ -76,16 +76,19 @@ def static_flow_refinement(pc1: Tensor, output: Tensor, vel1: Tensor,
 class RaFlow(nn.Module):
     """``forward(pc1, pc2, ft1, ft2, interval, train, valid1, valid2) ->
     (coarse_flow, sf_agg, pre_trans, mask_s)`` (reference raflow.py:157-164).
-    Submodules ``trunk`` and ``fp`` carry the flax names."""
+    Submodules ``trunk`` and ``fp`` carry the flax names.  ``dtype``: the
+    compute dtype, as :class:`cmflow_tpu_torch.models.cmflow.CMFlow`'s."""
 
     def __init__(self, rigid_thres: float = 0.15, rigid_pcs: float = 0.25,
-                 cfg: BackboneConfig = BackboneConfig(), feat_ch: int = 3):
+                 cfg: BackboneConfig = BackboneConfig(), feat_ch: int = 3,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.rigid_thres = rigid_thres
         self.rigid_pcs = rigid_pcs  # least inlier share for the re-fit
         self.cfg = cfg
-        self.trunk = SceneFlowTrunk(cfg, feat_ch)
-        self.fp = FlowHead(cfg.head_inch, cfg.head_mlp)
+        self.dtype = dtype
+        self.trunk = SceneFlowTrunk(cfg, feat_ch, dtype)
+        self.fp = FlowHead(cfg.head_inch, cfg.head_mlp, dtype)
 
     def forward(self, pc1: Tensor, pc2: Tensor, feature1: Tensor,
                 feature2: Tensor, interval: Tensor, train: bool,

@@ -15,6 +15,28 @@ The factored first layers of :class:`PointLocalFeature` and
 linear in ``concat(rel_xyz, feat[idx])``, so it is applied per point and the
 result gathered, with the xyz term folded into the gathered base
 (``gather(f + xyz@W) - xyz@W``).
+
+Compute dtype.  Each block takes ``dtype``: ``None`` computes in float32;
+``torch.bfloat16`` is the JAX package's ``compute_dtype: bfloat16``, its
+"auto" bf16 chain (``cmflow_tpu/nn/blocks.py``).  Parameters and BatchNorm
+statistics stay float32 in both.  In bf16:
+
+* a Dense (:func:`dense`) is flax's ``nn.Dense(dtype=bfloat16)``: input
+  and kernel rounded to bf16, the products summed in float32 and rounded
+  to a bf16 result, then the bf16 bias added in bf16;
+* the factored first layers keep a float32 result of bf16 operands
+  (``preferred_element_type=float32``), :func:`dot32`;
+* BatchNorm computes in float32 and emits float32;
+* each BN'd (or bias'd) activation is rounded back to bf16, except the last
+  BN'd layer of a chain in train mode, the tensor that feeds a max-pool
+  (:func:`round_boundary`);
+* the gathered bases and the cost volume's point-to-patch cost are rounded
+  to bf16 before their gathers, so K6 and K7 run their bf16 arms;
+* the WeightNets and the heads end in float32.
+
+Every product of bf16 operands, forward and backward, sums in float32
+(:class:`_Dot32`): on the card cuBLAS with a float32 output, never a bf16
+reduction.
 """
 
 from __future__ import annotations
@@ -28,6 +50,81 @@ from torch import nn
 from cmflow_tpu_torch.ops import pointops
 
 Tensor = torch.Tensor
+DType = Optional[torch.dtype]
+
+
+def mm32(a: Tensor, b: Tensor) -> Tensor:
+    """``a @ b`` of 2-D operands holding bf16 or float32 values, as a
+    float32 result summed in float32.  Two bf16 operands on the card go to
+    cuBLAS with a float32 output (``out_dtype``), so no sum is reduced in
+    bf16 (``out_dtype`` has no CPU kernel); otherwise both are widened
+    (exactly) and multiplied in float32."""
+    if a.is_cuda and a.dtype == b.dtype == torch.bfloat16:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+class _Dot32(torch.autograd.Function):
+    """``x @ w`` (``x [..., K]``, ``w [K, M]``) summed in float32 and
+    rounded to ``out_dtype``: JAX's ``dot_general`` on these operands with
+    that result type.  The backward is JAX's transpose: each cotangent
+    product summed in float32 too and rounded to its operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, x: Tensor, w: Tensor, out_dtype: torch.dtype) -> Tensor:
+        ctx.save_for_backward(x, w)
+        out = mm32(x.reshape(-1, x.shape[-1]), w).to(out_dtype)
+        return out.reshape(*x.shape[:-1], w.shape[1])
+
+    @staticmethod
+    def backward(ctx, g: Tensor):
+        x, w = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1])
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            gx = mm32(g2, w.t()).to(x.dtype).reshape(x.shape)
+        if ctx.needs_input_grad[1]:
+            gw = mm32(x.reshape(-1, x.shape[-1]).t(), g2).to(w.dtype)
+        return gx, gw, None
+
+
+def dot32(x: Tensor, w: Tensor, dtype: DType) -> Tensor:
+    """``x @ w`` with a float32 result: in float32 for ``dtype`` None, else
+    both operands rounded to ``dtype`` and summed in float32 (the JAX
+    package's ``einsum(..., preferred_element_type=float32)``)."""
+    if dtype is None:
+        return x @ w
+    return _Dot32.apply(x.to(dtype), w.to(dtype), torch.float32)
+
+
+def dense(lin: nn.Linear, x: Tensor, dtype: DType) -> Tensor:
+    """``lin(x)`` as flax's ``nn.Dense(dtype=dtype)`` computes it: for
+    ``dtype`` None in float32; else a ``dtype`` product of the rounded
+    input and kernel (summed in float32) plus the rounded bias, added in
+    ``dtype``."""
+    if dtype is None:
+        return lin(x)
+    y = _Dot32.apply(x.to(dtype), lin.weight.t().to(dtype), dtype)
+    return y if lin.bias is None else y + lin.bias.to(dtype)
+
+
+def round_boundary(dtype: DType, train: bool, prepool: bool) -> bool:
+    """Whether an activation is rounded back to ``dtype``: the JAX
+    package's "auto" bf16 chain, every BN'd activation but, in train mode,
+    the last BN'd layer of a chain (``prepool``, the tensor a max-pool
+    takes), which stays float32: rounding it stalls bf16 training on the
+    TPU (``docs/PERF.md``, "bf16 train-path convergence")."""
+    return dtype is not None and not (train and prepool)
+
+
+def leaky_relu(x: Tensor, slope: float) -> Tensor:
+    """flax's ``leaky_relu``, ``where(x >= 0, x, slope * x)``: on a bf16
+    ``x`` the slope is a bf16 constant and the product rounds to bf16, as
+    JAX computes it."""
+    if x.dtype == torch.float32:
+        return nn.functional.leaky_relu(x, slope)
+    return torch.where(x >= 0, x, x * torch.tensor(slope, dtype=x.dtype))
+
 
 def init_uniform_(t: Tensor, fan_in: int, generator: torch.Generator) -> None:
     """PyTorch's default Conv2d/Linear init, ``U(-1/sqrt(fan_in), +)`` for
@@ -47,7 +144,11 @@ class BatchNorm(nn.Module):
     (``use_fast_variance``): ``max(E[x^2] - E[x]^2, 0)``; the gradient flows
     through both.  It then updates ``running = momentum * running +
     (1 - momentum) * batch`` with the same biased variance (flax momentum
-    0.9; ``F.batch_norm`` would feed the unbiased variance in)."""
+    0.9; ``F.batch_norm`` would feed the unbiased variance in).
+
+    A bf16 input is widened first: the statistics, the normalisation and
+    the output are float32, as flax's ``BatchNorm`` (no ``dtype``) gives
+    them for a bf16 input."""
 
     MOMENTUM = 0.9
 
@@ -60,6 +161,7 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
 
     def forward(self, x: Tensor, train: bool) -> Tensor:
+        x = x.float()
         if not train:
             mean, var = self.running_mean, self.running_var
         else:
@@ -79,14 +181,16 @@ class PointwiseMLP(nn.Module):
     """Stack of [Linear -> (BatchNorm) -> ReLU or LeakyReLU] over the channel
     axis.  ``use_bn=True, use_bias=False`` is the reference's
     ``Conv2d(bias=False) + BatchNorm2d + ReLU``; ``use_bn=False`` keeps the
-    conv bias."""
+    conv bias.  ``dtype``: the compute dtype (module docstring)."""
 
     def __init__(self, in_ch: int, features: Sequence[int], use_bn: bool = True,
-                 use_bias: bool = False, negative_slope: float = 0.0):
+                 use_bias: bool = False, negative_slope: float = 0.0,
+                 dtype: DType = None):
         super().__init__()
         self.depth = len(features)
         self.use_bn = use_bn
         self.negative_slope = negative_slope
+        self.dtype = dtype
         for i, width in enumerate(features):
             self.add_module(f"dense_{i}", nn.Linear(in_ch, width, bias=use_bias))
             if use_bn:
@@ -95,13 +199,16 @@ class PointwiseMLP(nn.Module):
 
     def forward(self, x: Tensor, train: bool) -> Tensor:
         for i in range(self.depth):
-            x = getattr(self, f"dense_{i}")(x)
+            x = dense(getattr(self, f"dense_{i}"), x, self.dtype)
             if self.use_bn:
                 x = getattr(self, f"bn_{i}")(x, train)
             if self.negative_slope > 0:
-                x = nn.functional.leaky_relu(x, self.negative_slope)
+                x = leaky_relu(x, self.negative_slope)
             else:
                 x = torch.relu(x)
+            if round_boundary(self.dtype, train,
+                              self.use_bn and i == self.depth - 1):
+                x = x.to(self.dtype)
         return x
 
 
@@ -110,17 +217,19 @@ class PointLocalFeature(nn.Module):
     ReLU -> mlp -> max over neighbours -> mlp2 (radarflow_util.py:121-162)."""
 
     def __init__(self, radius: float, nsample: int, in_ch: int,
-                 mlp: Sequence[int], mlp2: Sequence[int]):
+                 mlp: Sequence[int], mlp2: Sequence[int], dtype: DType = None):
         super().__init__()
         self.radius = radius
         self.nsample = nsample
+        self.dtype = dtype
         c1 = mlp[0]
         # kept [in, out]: the first three rows act on xyz, the rest on the
         # features
         self.w0 = nn.Parameter(torch.empty(in_ch + 3, c1))
         self.bn0 = BatchNorm(c1)
-        self.mlp = PointwiseMLP(c1, mlp[1:]) if len(mlp) > 1 else None
-        self.mlp2 = PointwiseMLP(mlp[-1], mlp2)
+        self.mlp = (PointwiseMLP(c1, mlp[1:], dtype=dtype) if len(mlp) > 1
+                    else None)
+        self.mlp2 = PointwiseMLP(mlp[-1], mlp2, dtype=dtype)
 
     def forward(self, xyz: Tensor, features: Tensor, train: bool,
                 valid: Optional[Tensor] = None) -> Tensor:
@@ -128,10 +237,16 @@ class PointLocalFeature(nn.Module):
         # centred by the mean over ALL N points, padding included, as in
         # the JAX package; the centre cancels exactly in the algebra
         xyz_c = xyz - xyz.mean(dim=1, keepdim=True)
-        off = xyz_c @ self.w0[:3]
-        base = features @ self.w0[3:] + off
+        off = dot32(xyz_c, self.w0[:3], self.dtype)
+        base = dot32(features, self.w0[3:], self.dtype) + off
+        if self.dtype is not None:
+            # the gathered base and the offset in bf16: K6 and K7 take
+            # their bf16 arms
+            base, off = base.to(self.dtype), off.to(self.dtype)
         pre = pointops.group_points(base, idx) - off[:, :, None, :]
         h = torch.relu(self.bn0(pre, train))
+        if round_boundary(self.dtype, train, self.mlp is None):
+            h = h.to(self.dtype)
         if self.mlp is not None:
             h = self.mlp(h, train)
         h = torch.amax(h, dim=2)  # max over neighbours
@@ -143,12 +258,13 @@ class MultiScaleEncoder(nn.Module):
     (radarflow_util.py:101-118)."""
 
     def __init__(self, radii: Sequence[float], nsamples: Sequence[int],
-                 in_ch: int, mlp: Sequence[int], mlp2: Sequence[int]):
+                 in_ch: int, mlp: Sequence[int], mlp2: Sequence[int],
+                 dtype: DType = None):
         super().__init__()
         self.scales = len(radii)
         for i, (r, k) in enumerate(zip(radii, nsamples)):
-            self.add_module(f"scale_{i}",
-                            PointLocalFeature(r, k, in_ch, mlp, mlp2))
+            self.add_module(f"scale_{i}", PointLocalFeature(
+                r, k, in_ch, mlp, mlp2, dtype=dtype))
 
     def forward(self, xyz: Tensor, features: Tensor, train: bool,
                 valid: Optional[Tensor] = None) -> Tensor:
@@ -159,12 +275,15 @@ class MultiScaleEncoder(nn.Module):
 
 class WeightNet(nn.Module):
     """Small MLP from 3-D offsets to per-neighbour weights, ReLU after every
-    layer including the last (radarflow_util.py:287-318)."""
+    layer including the last (radarflow_util.py:287-318).  Its Denses take
+    the compute dtype; the weights come out float32."""
 
-    def __init__(self, out_channel: int, hidden: Sequence[int] = (8, 8)):
+    def __init__(self, out_channel: int, hidden: Sequence[int] = (8, 8),
+                 dtype: DType = None):
         super().__init__()
         widths = list(hidden) + [out_channel]
         self.depth = len(widths)
+        self.dtype = dtype
         in_ch = 3
         for i, width in enumerate(widths):
             self.add_module(f"dense_{i}", nn.Linear(in_ch, width))
@@ -173,8 +292,8 @@ class WeightNet(nn.Module):
     def forward(self, offsets: Tensor) -> Tensor:
         x = offsets
         for i in range(self.depth):
-            x = torch.relu(getattr(self, f"dense_{i}")(x))
-        return x
+            x = torch.relu(dense(getattr(self, f"dense_{i}"), x, self.dtype))
+        return x.float()
 
 
 class FeatureCorrelator(nn.Module):
@@ -184,39 +303,43 @@ class FeatureCorrelator(nn.Module):
     ``w0`` is the single ``[D1+D2+3, C]`` first-layer kernel, sliced by rows
     into the frame-1, frame-2 and direction blocks; ``b0`` its bias."""
 
-    def __init__(self, nsample: int, d1: int, d2: int, mlp: Sequence[int]):
+    def __init__(self, nsample: int, d1: int, d2: int, mlp: Sequence[int],
+                 dtype: DType = None):
         super().__init__()
         self.nsample = nsample
         self.d1, self.d2 = d1, d2
+        self.dtype = dtype
         c1 = mlp[0]
         self.w0 = nn.Parameter(torch.empty(d1 + d2 + 3, c1))
         self.b0 = nn.Parameter(torch.empty(c1))
         self.mlp = (PointwiseMLP(c1, mlp[1:], use_bn=False, use_bias=True,
-                                 negative_slope=0.1)
+                                 negative_slope=0.1, dtype=dtype)
                     if len(mlp) > 1 else None)
-        self.weightnet1 = WeightNet(mlp[-1])
-        self.weightnet2 = WeightNet(mlp[-1])
+        self.weightnet1 = WeightNet(mlp[-1], dtype=dtype)
+        self.weightnet2 = WeightNet(mlp[-1], dtype=dtype)
 
     def forward(self, xyz1: Tensor, xyz2: Tensor, points1: Tensor,
                 points2: Tensor, train: bool,
                 valid1: Optional[Tensor] = None,
                 valid2: Optional[Tensor] = None) -> Tensor:
-        k, d1, d2 = self.nsample, self.d1, self.d2
+        k, d1, d2, cdt = self.nsample, self.d1, self.d2, self.dtype
 
         # point-to-patch volume over frame-2 neighbourhoods
         knn_idx = pointops.knn(k, xyz1, xyz2, valid2)  # [B, N1, K]
         direction = (pointops.group_points(xyz2, knn_idx)
                      - xyz1[:, :, None, :])
-        f1_tx = points1 @ self.w0[:d1]
-        f2_tx = points2 @ self.w0[d1:d1 + d2]
+        f1_tx = dot32(points1, self.w0[:d1], cdt)
+        f2_tx = dot32(points2, self.w0[d1:d1 + d2], cdt)
         # direction @ wd folded into the frame-2 gather around one shared
         # centre, the mean of frame 1 (padding included)
         center = xyz1.mean(dim=1, keepdim=True)
         wd = self.w0[d1 + d2:]
-        base2 = f2_tx + (xyz2 - center) @ wd
-        point_term = f1_tx - (xyz1 - center) @ wd + self.b0
+        base2 = f2_tx + dot32(xyz2 - center, wd, cdt)
+        point_term = f1_tx - dot32(xyz1 - center, wd, cdt) + self.b0
+        if cdt is not None:  # the gathered base and its partner in bf16
+            base2, point_term = base2.to(cdt), point_term.to(cdt)
         pre = point_term[:, :, None, :] + pointops.group_points(base2, knn_idx)
-        new_points = nn.functional.leaky_relu(pre, 0.1)
+        new_points = leaky_relu(pre, 0.1)
         if self.mlp is not None:
             new_points = self.mlp(new_points, train)
         weights = self.weightnet1(direction)
@@ -227,33 +350,38 @@ class FeatureCorrelator(nn.Module):
         direction = (pointops.group_points(xyz1, knn_idx)
                      - xyz1[:, :, None, :])
         weights = self.weightnet2(direction)
-        grouped_cost = pointops.group_points(point_to_patch, knn_idx)
+        p2p = point_to_patch if cdt is None else point_to_patch.to(cdt)
+        grouped_cost = pointops.group_points(p2p, knn_idx)
         return torch.sum(weights * grouped_cost, dim=2)  # [B, N1, C]
 
 
 class FlowHead(nn.Module):
-    """Scene-flow regression head (radarflow_util.py:240-261)."""
+    """Scene-flow regression head (radarflow_util.py:240-261); the flow is
+    float32 in either compute dtype."""
 
-    def __init__(self, in_ch: int, mlp: Sequence[int]):
+    def __init__(self, in_ch: int, mlp: Sequence[int], dtype: DType = None):
         super().__init__()
-        self.mlp = PointwiseMLP(in_ch, mlp)
+        self.dtype = dtype
+        self.mlp = PointwiseMLP(in_ch, mlp, dtype=dtype)
         self.out = nn.Linear(mlp[-1], 3, bias=False)
 
     def forward(self, feat: Tensor, train: bool) -> Tensor:
-        return self.out(self.mlp(feat, train))
+        return dense(self.out, self.mlp(feat, train), self.dtype).float()
 
 
 class MotionHead(nn.Module):
     """Static/moving classification head (radarflow_util.py:263-285):
-    probabilities in (0, 1), ``[B, N]``."""
+    probabilities in (0, 1), ``[B, N]``, float32 in either compute dtype."""
 
-    def __init__(self, in_ch: int, mlp: Sequence[int]):
+    def __init__(self, in_ch: int, mlp: Sequence[int], dtype: DType = None):
         super().__init__()
-        self.mlp = PointwiseMLP(in_ch, mlp)
+        self.dtype = dtype
+        self.mlp = PointwiseMLP(in_ch, mlp, dtype=dtype)
         self.out = nn.Linear(mlp[-1], 1, bias=False)
 
     def forward(self, feat: Tensor, train: bool) -> Tensor:
-        return torch.sigmoid(self.out(self.mlp(feat, train)))[..., 0]
+        logit = dense(self.out, self.mlp(feat, train), self.dtype).float()
+        return torch.sigmoid(logit)[..., 0]
 
 
 class GRUCell(nn.Module):

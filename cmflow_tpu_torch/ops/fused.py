@@ -4,11 +4,14 @@ PyTorch version, and the parameter packers of the fused engine.
 Counterpart of ``cmflow_tpu/ops/fused.py``:
 
 * :func:`gather_rows`: ``mxu_gather_rows`` / ``mxu_group_points`` forward
-  (K6, ``csrc/gather.cu``);
+  (K6, ``csrc/gather.cu``), float32 or bfloat16 points, an exact copy of
+  each row in either;
 * :func:`gather_rows_backward`: ``_gather_bwd_kernel``, the backward of
   ``mxu_group_points`` (K7, ``csrc/gather.cu``: a CSR build,
   :func:`gather_rows_csr`, then a sum over fixed pieces of the sorted
-  indices);
+  indices); a bfloat16 cotangent is summed in float32 and rounded to
+  bfloat16 once, as ``_mxu_gather_bwd``'s float32 result cast to the
+  points' dtype;
 * :func:`fused_multi_scale_encoder`: ``_mse_kernel`` (K3, ``csrc/mse.cu``);
 * :func:`fused_point_local_feature`: ``_plf_kernel`` (K5, ``csrc/plf.cu``);
 * :func:`fused_cost_volume`: ``_cv_kernel`` then ``_cv_agg_kernel``, here
@@ -69,11 +72,14 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIGNATURES = {
-    "gather": {"cmflow_gather_rows": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "gather": {**{name: (_P, _P, _P, _I, _I, _I, _I, _I, _P)
+                  for name in ("cmflow_gather_rows",
+                               "cmflow_gather_rows_bf16")},
                "cmflow_gather_rows_csr_scratch": (_I, _I),
                "cmflow_gather_rows_csr": (_P, _P, _P, _P, _I, _I, _I, _P),
-               "cmflow_gather_rows_backward": (_P, _P, _P, _P, _P, _P, _P,
-                                               _I, _I, _I, _I, _I, _P)},
+               **{name: (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)
+                  for name in ("cmflow_gather_rows_backward",
+                               "cmflow_gather_rows_backward_bf16")}},
     "mse": {"cmflow_mse": (_P, _P, _L, _L, _L, _I, _P,
                            ctypes.POINTER(ctypes.c_void_p),
                            ctypes.POINTER(ctypes.c_int), _I, _P, _P, _I, _I,
@@ -180,8 +186,11 @@ def _mm(x: Tensor, w: Tensor) -> Tensor:
 # K6: row gather
 # ---------------------------------------------------------------------------
 
+_GATHER_DTYPES = (torch.float32, torch.bfloat16)
+
+
 def gather_rows_plain(points: Tensor, idx: Tensor) -> Tensor:
-    """Plain version of :func:`gather_rows`."""
+    """Plain version of :func:`gather_rows`, in the points' dtype."""
     b, n, c = points.shape
     m = idx.shape[1]
     inside = (idx >= 0) & (idx < n)
@@ -194,17 +203,17 @@ def gather_rows(points: Tensor, idx: Tensor) -> Tensor:
     """``out[b, m] = points[b, idx[b, m]]``.
 
     Args:
-      points: ``[B, N, C]`` float32.
+      points: ``[B, N, C]`` float32 or bfloat16.
       idx: ``[B, M]`` int32; an index outside ``[0, N)`` gives a zero row.
     Returns:
-      ``[B, M, C]`` float32.
+      ``[B, M, C]`` in the points' dtype, each row an exact copy.
     """
     if points.dim() != 3 or idx.dim() != 2 or idx.shape[0] != points.shape[0]:
         raise ValueError(f"need points [B, N, C] and idx [B, M], got "
                          f"{tuple(points.shape)} and {tuple(idx.shape)}")
-    if points.dtype != torch.float32 or idx.dtype != torch.int32:
-        raise TypeError(f"need float32 points and int32 idx, got "
-                        f"{points.dtype} and {idx.dtype}")
+    if points.dtype not in _GATHER_DTYPES or idx.dtype != torch.int32:
+        raise TypeError(f"need float32 or bfloat16 points and int32 idx, "
+                        f"got {points.dtype} and {idx.dtype}")
     if idx.device != points.device:
         raise ValueError("points and idx must share a device")
     if points.device.type == "cpu":
@@ -216,41 +225,48 @@ def gather_rows(points: Tensor, idx: Tensor) -> Tensor:
     b, n, c = points.shape
     m = idx.shape[1]
     out = torch.empty((b, m, c), dtype=points.dtype, device=points.device)
-    vec4 = (c % 4 == 0 and points.data_ptr() % 16 == 0
-            and out.data_ptr() % 16 == 0)
+    # the widest aligned vector that divides a row: 16 bytes, four float32
+    # or eight bf16
+    bf16 = points.dtype == torch.bfloat16
+    vec = (c % (8 if bf16 else 4) == 0 and points.data_ptr() % 16 == 0
+           and out.data_ptr() % 16 == 0)
     lib = build.load("gather", _SIGNATURES["gather"])
-    code = lib.cmflow_gather_rows(
-        points.data_ptr(), idx.data_ptr(), out.data_ptr(), b, n, m, c,
-        int(vec4), _stream(points))
+    launch = lib.cmflow_gather_rows_bf16 if bf16 else lib.cmflow_gather_rows
+    code = launch(points.data_ptr(), idx.data_ptr(), out.data_ptr(), b, n, m,
+                  c, int(vec), _stream(points))
     build.check(lib, code, "gather_rows")
     gather_rows.launches += 1
+    gather_rows.launches_bf16 += bf16
     return out
 
 
+# every launch, and those of the bf16 arm
 gather_rows.launches = 0
+gather_rows.launches_bf16 = 0
 
 
 # ---------------------------------------------------------------------------
 # K7: the row gather's backward
 # ---------------------------------------------------------------------------
 
-# widest row the K7 kernels take on their float4 path (512 float4s); a
-# quarter of it on the scalar path
-GATHER_BWD_MAX_C = 2048
+# widest row the K7 kernels take: 512 elements of their load type, float4
+# (2048 channels) or 8 bf16 (4096) on the vector paths, one channel on the
+# scalar ones
+GATHER_BWD_MAX_ELEMS = 512
 # sorted entries per warp of K7's sum kernel (``csrc/gather.cu::kPiece``)
 GATHER_BWD_PIECE = 32
 
 
 def gather_rows_backward_plain(g: Tensor, idx: Tensor, n: int) -> Tensor:
-    """Plain version of :func:`gather_rows_backward`: one ``index_add_``
-    over the flattened batch, which on the CPU adds the rows in ascending
-    ``m``."""
+    """Plain version of :func:`gather_rows_backward`: one float32
+    ``index_add_`` over the flattened batch, which on the CPU adds the rows
+    in ascending ``m``, then one cast to ``g``'s dtype (none for float32)."""
     b, m, c = g.shape
     inside = (idx >= 0) & (idx < n)
     base = n * torch.arange(b, device=idx.device)[:, None]
-    out = torch.zeros((b * n, c), dtype=g.dtype, device=g.device)
-    out.index_add_(0, (idx.long() + base)[inside], g[inside])
-    return out.view(b, n, c)
+    out = torch.zeros((b * n, c), dtype=torch.float32, device=g.device)
+    out.index_add_(0, (idx.long() + base)[inside], g[inside].float())
+    return out.to(g.dtype).view(b, n, c)
 
 
 def gather_rows_csr_plain(idx: Tensor, n: int) -> Tuple[Tensor, Tensor]:
@@ -325,21 +341,29 @@ def gather_rows_backward(g: Tensor, idx: Tensor, n: int) -> Tensor:
     fixed order, and rows that span several warps add their parts in order;
     no atomics.  Three launches, no sync with the host.
 
+    A bfloat16 cotangent takes the same sums in float32 (each bf16 term
+    exact, the float32 arm's order) and rounds each row to bf16 once.
+
     Args:
-      g: ``[B, M, C]`` float32 cotangent rows.
+      g: ``[B, M, C]`` float32 or bfloat16 cotangent rows.
       idx: ``[B, M]`` int32; an index outside ``[0, N)`` contributes nothing.
       n: ``N``, the number of rows of the gathered tensor.
     Returns:
-      ``[B, N, C]`` float32.
+      ``[B, N, C]`` in ``g``'s dtype.
     """
     if g.dim() != 3 or idx.shape != g.shape[:2] or n < 1:
         raise ValueError(f"need g [B, M, C], idx [B, M] and n >= 1, got "
                          f"{tuple(g.shape)}, {tuple(idx.shape)} and {n}")
-    if not _on_card("gather_rows_backward", (g,), (idx,)):
+    if g.dtype not in _GATHER_DTYPES:
+        raise TypeError(f"gather_rows_backward: need a float32 or bfloat16 "
+                        f"cotangent, got {g.dtype}")
+    if not _on_card("gather_rows_backward", (), (idx,), (g,)):
         return gather_rows_backward_plain(g, idx, n)
     b, m, c = g.shape
-    vec4 = c % 4 == 0 and g.data_ptr() % 16 == 0
-    if c > (GATHER_BWD_MAX_C if vec4 else GATHER_BWD_MAX_C // 4):
+    bf16 = g.dtype == torch.bfloat16
+    lanes = 8 if bf16 else 4  # elements of the 16-byte load
+    vec = c % lanes == 0 and g.data_ptr() % 16 == 0
+    if c > GATHER_BWD_MAX_ELEMS * (lanes if vec else 1):
         raise ValueError(f"gather_rows_backward: C={c} is wider than the "
                          f"kernel takes")
     if not g.is_contiguous():
@@ -352,17 +376,23 @@ def gather_rows_backward(g: Tensor, idx: Tensor, n: int) -> Tensor:
     offsets = torch.empty((b, n + 1), dtype=torch.int32, device=dev)
     order = torch.empty((b, m), dtype=torch.int32, device=dev)
     pieces = -(-m // GATHER_BWD_PIECE)
-    part = torch.empty((b, max(pieces, 1), 2, c), dtype=g.dtype, device=dev)
-    code = lib.cmflow_gather_rows_backward(
-        g.data_ptr(), idx.data_ptr(), offsets.data_ptr(), order.data_ptr(),
-        scratch.data_ptr(), part.data_ptr(), out.data_ptr(), b, n, m, c,
-        int(vec4), _stream(g))
+    # the partial sums stay float32 in both arms
+    part = torch.empty((b, max(pieces, 1), 2, c), dtype=torch.float32,
+                       device=dev)
+    launch = (lib.cmflow_gather_rows_backward_bf16 if bf16
+              else lib.cmflow_gather_rows_backward)
+    code = launch(g.data_ptr(), idx.data_ptr(), offsets.data_ptr(),
+                  order.data_ptr(), scratch.data_ptr(), part.data_ptr(),
+                  out.data_ptr(), b, n, m, c, int(vec), _stream(g))
     build.check(lib, code, "gather_rows_backward")
     gather_rows_backward.launches += 1
+    gather_rows_backward.launches_bf16 += bf16
     return out
 
 
+# every launch, and those of the bf16 arm
 gather_rows_backward.launches = 0
+gather_rows_backward.launches_bf16 = 0
 
 
 # ---------------------------------------------------------------------------

@@ -5,7 +5,9 @@ through :mod:`cmflow_tpu_torch.ops.neighbors` and gathers through
 :mod:`cmflow_tpu_torch.ops.fused`, whose wrappers launch the CUDA kernels
 on CUDA tensors and run the plain PyTorch versions on CPU tensors.  Gathers
 are differentiable in the points, as the JAX package's ``mxu_group_points``:
-forward K6 (``gather_rows``), backward K7 (``gather_rows_backward``).  An
+forward K6 (``gather_rows``), backward K7 (``gather_rows_backward``), each in
+the points' dtype, float32 or bfloat16 (a bf16 gather gets a bf16 cotangent
+and returns a bf16 gradient, summed in float32).  An
 optional boolean ``valid`` mask marks real (non-padding) points; padded
 points are excluded from every neighbourhood.
 """
@@ -55,8 +57,8 @@ def ball_query(radius: float, nsample: int, points: Tensor, query: Tensor,
 
 
 class _GatherRows(torch.autograd.Function):
-    """``gather_rows`` with ``gather_rows_backward`` as its backward; the
-    indices take no gradient."""
+    """``gather_rows`` with ``gather_rows_backward`` as its backward, both in
+    the points' dtype; the indices take no gradient."""
 
     @staticmethod
     def forward(ctx, points: Tensor, idx: Tensor) -> Tensor:

@@ -107,7 +107,8 @@ def build_datasets(cfg: Config, textio) -> Tuple:
 
 def _build_model(cfg: Config, device: torch.device) -> torch.nn.Module:
     return build_model(cfg.model, device, seed=cfg.seed,
-                       stat_thres=cfg.stat_thres, rigid_thres=cfg.rigid_thres)
+                       stat_thres=cfg.stat_thres, rigid_thres=cfg.rigid_thres,
+                       compute_dtype=cfg.compute_dtype)
 
 
 def _host_tensor(array: np.ndarray, pin: bool) -> Tensor:

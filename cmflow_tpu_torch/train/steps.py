@@ -4,7 +4,10 @@
   models (reference main_util.py:39-90): for CMFlow pseudo labels, the
   train-mode forward and the composite loss; for RaFlow the train-mode
   forward and the self-supervised loss on its refined flow; then the
-  backward through the K7 gather transposes and one Adam step;
+  backward through the K7 gather transposes and one Adam step.  A model
+  built with ``compute_dtype="bfloat16"`` trains its bf16 chain
+  (``nn/blocks.py``): float32 parameters, gradients and Adam moments, bf16
+  activations, K6 and K7 on their bf16 arms for the bf16 gathers;
 * :func:`make_train_step_seq`, CMFlow_T's mini-clip step (reference
   clip_util.py:34-66): one optimizer step per frame, the GRU carry
   detached between frames;
@@ -222,8 +225,9 @@ def make_eval_step(model_name: str, model: torch.nn.Module,
     fused engine when the model's parameters lie on a CUDA device and the
     module route otherwise (the JAX package's rule, with the card in the
     TPU's place).  ``compute_dtype`` (float32 or bfloat16) is the fused
-    engine's; the module route ignores it and serves float32, as the JAX
-    package's does."""
+    engine's; the module route ignores it and serves in the model's own
+    compute dtype (``build_model(..., compute_dtype=)``), as the JAX
+    package's ``model.apply`` does."""
     if model_name not in MODEL_REGISTRY:
         raise ValueError(f"unknown model {model_name!r}")
     if fused not in _FUSED:

@@ -99,7 +99,6 @@ class Config:
 
 
 _NOT_PORTED = {
-    "compute_dtype": "ROADMAP Queue 1, item 5, bf16 training",
     "remat": "ROADMAP Queue 1, item 8",
     "vis": "ROADMAP Queue 1, item 8",
     "profile_dir": "ROADMAP Queue 1, item 8",
@@ -109,6 +108,7 @@ _DEFAULTS = {f.name: f.default for f in dataclasses.fields(Config)}
 _CHOICES = {"platform": ("auto", "cpu"),
             "fused_inference": ("auto", "on", "off"),
             "eval_wire": ("float32", "int16"),
+            "compute_dtype": ("float32", "bfloat16"),
             "eval_compute_dtype": ("float32", "bfloat16")}
 
 

@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Where the time of the port's CMFlow train step goes, on one GPU.
 
-    python scripts/profile_torch_train.py
+    python scripts/profile_torch_train.py [float32|bfloat16]
 
-Builds a full-width CMFlow (seeded weights) and takes train steps
+Builds a full-width CMFlow (seeded weights) in the compute dtype given
+(float32 by default; bfloat16 is ``compute_dtype: bfloat16``, bf16
+training) and takes train steps
 (``make_train_step``: pseudo labels, train-mode forward, composite loss,
 backward, Adam) on one synthetic batch of ``BATCH`` frame pairs of
 ``NUM_POINTS`` points (``synthetic.make_train_batch``, the batch
@@ -68,7 +70,8 @@ def main() -> int:
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip(),
         flush=True)
-    model = build_model("cmflow", seed=SEED)
+    dtype = sys.argv[1] if len(sys.argv) > 1 else "float32"
+    model = build_model("cmflow", seed=SEED, compute_dtype=dtype)
     state = create_train_state(model)
     step = make_train_step("cmflow", model, VOD_CAMERA_PROJECTION,
                            VOD_T_CAMERA_RADAR)
@@ -114,7 +117,8 @@ def main() -> int:
         groups[name] += ms
         launches += count
     print(json.dumps(dict(
-        device=torch.cuda.get_device_name(0), batch=BATCH,
+        device=torch.cuda.get_device_name(0), compute_dtype=dtype,
+        batch=BATCH,
         num_points=NUM_POINTS,
         step_ms_median=1e3 * median, step_ms_min=1e3 * walls[0],
         step_ms_max=1e3 * walls[-1], frames_per_s_median=BATCH / median,

@@ -24,7 +24,12 @@ and is held to its plain version exactly.  The bf16 arms of the sa encoder,
 the propagation encoder and both cost-volume kernels round to bf16 where
 their plain versions do, and a float32 sum in another order can flip such a
 rounding by one ulp (2^-8): they are held to 1e-2 of the output's largest
-magnitude, and to themselves bit for bit across two launches.
+magnitude, and to themselves bit for bit across two launches.  The gather's
+bf16 arm (K6) copies bf16 rows and is held to its plain version bit for
+bit; the bf16 arm of its backward (K7) sums bf16 cotangents in float32 in
+its own fixed order and rounds once, the plain version sums them in float32
+with ``index_add_`` and rounds once: within one bf16 ulp of each element,
+and the same bits across runs.
 """
 
 import copy
@@ -319,6 +324,141 @@ def test_gather_backward_empty_index(dev, rs):
     got = fused.gather_rows_backward(g, idx, 64)
     torch.cuda.synchronize()
     assert got.shape == (2, 64, 32) and (got == 0).all()
+
+
+def bf16_ulp(x):
+    """One bf16 ulp at each magnitude of ``x`` (8 significant bits)."""
+    return torch.ldexp(torch.ones_like(x),
+                       torch.frexp(x.float().abs()).exponent - 8)
+
+
+def within_one_bf16_ulp(got, want):
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == torch.bfloat16
+    assert got.shape == want.shape
+    g, w = got.float(), want.float()
+    assert ((g - w).abs() <= bf16_ulp(torch.maximum(g.abs(), w.abs()))).all()
+
+
+@pytest.mark.parametrize("c", [5, 32, 512])
+def test_gather_bf16(dev, rs, c):
+    """K6's bf16 arm: an exact copy of each row (8 bf16 a thread where C
+    divides by 8, one otherwise), zero rows outside [0, N); a row that is
+    not 16-byte aligned takes the scalar path."""
+    b, n, s, k = 16, 256, 256, 32
+    pts = torch.from_numpy(rs.randn(b, n, c).astype(np.float32)).to(
+        dev).to(torch.bfloat16)
+    idx = torch.from_numpy(rs.randint(0, n, (b, s, k)).astype(np.int32)).to(dev)
+    idx[0, :4, 0] = torch.tensor([-1, n, n + 7, -100], dtype=torch.int32)
+    before = (fused.gather_rows.launches, fused.gather_rows.launches_bf16)
+    got = pointops.group_points(pts, idx)
+    assert (fused.gather_rows.launches,
+            fused.gather_rows.launches_bf16) == (before[0] + 1, before[1] + 1)
+    assert got.dtype == torch.bfloat16
+    want = fused.gather_rows_plain(pts, idx.reshape(b, s * k)).reshape(
+        b, s, k, c)
+    same(got, want)
+    assert (got[0, :4, 0] == 0).all()
+    buf = torch.zeros(b * n * c + 1, dtype=torch.bfloat16, device=dev)
+    shifted = buf[1:].view(b, n, c)
+    shifted.copy_(pts)
+    assert shifted.data_ptr() % 16 != 0
+    flat = idx.reshape(b, s * k)
+    same(fused.gather_rows(shifted, flat), fused.gather_rows_plain(pts, flat))
+
+
+@pytest.mark.parametrize("case", GATHER_BWD_CASES)
+def test_gather_backward_bf16(dev, rs, case):
+    """K7's bf16 arm at the bf16 train step's shapes: within one bf16 ulp of
+    its plain version, the same bits twice, one launch of the bf16 arm."""
+    s, k, c = case
+    b, n = 16, 256
+    g, idx = bwd_inputs(rs, dev, b, n, s, k, c)
+    g = g.to(torch.bfloat16)
+    before = (fused.gather_rows_backward.launches,
+              fused.gather_rows_backward.launches_bf16)
+    got = fused.gather_rows_backward(g, idx, n)
+    assert (fused.gather_rows_backward.launches,
+            fused.gather_rows_backward.launches_bf16) == (before[0] + 1,
+                                                          before[1] + 1)
+    within_one_bf16_ulp(got, fused.gather_rows_backward_plain(g, idx, n))
+    again = fused.gather_rows_backward(g, idx, n)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+
+
+# every width the bf16 arm's lane groups take (C=3: scalar, groups of 4
+# lanes; 8: one 8-bf16 vector, groups of 1; 32: groups of 4; 30: scalar,
+# the whole warp; 512 and 4096: the whole warp, 8 bf16 a lane), on the
+# worst skew and with indices outside [0, N) and rows no index names
+@pytest.mark.parametrize("c", [3, 8, 30, 32, 512, 4096])
+def test_gather_backward_bf16_widths_and_worst_skew(dev, rs, c):
+    b, n = 4, 256
+    for m in (1000, 8192):
+        g = torch.from_numpy(rs.randn(b, m, c).astype(np.float32)).to(
+            dev).to(torch.bfloat16)
+        idx = skewed_indices(rs, dev, b, n, m)
+        if m == 8192:
+            idx[:2] = 0
+        got = same_twice(lambda: fused.gather_rows_backward(g, idx, n))
+        within_one_bf16_ulp(got, fused.gather_rows_backward_plain(g, idx, n))
+        assert (got[2:, 3] == 0).all()
+        if m == 8192:
+            assert (got[:2, 1:] == 0).all()
+    with pytest.raises(ValueError, match="wider"):
+        fused.gather_rows_backward(
+            torch.zeros((1, 8, 8192), dtype=torch.bfloat16, device=dev),
+            torch.zeros((1, 8), dtype=torch.int32, device=dev), 4)
+
+
+def test_group_points_bf16_autograd_on_card(dev, rs):
+    """A bf16 gather hands K7's bf16 arm a bf16 cotangent and gets a bf16
+    gradient, one launch of each arm."""
+    b, n, s, k, c = 4, 256, 256, 16, 512
+    p = torch.from_numpy(rs.randn(b, n, c).astype(np.float32)).to(dev).to(
+        torch.bfloat16).requires_grad_(True)
+    idx = torch.from_numpy(rs.randint(0, n, (b, s, k)).astype(np.int32)).to(dev)
+    before = (fused.gather_rows.launches_bf16,
+              fused.gather_rows_backward.launches_bf16)
+    out = pointops.group_points(p, idx)
+    cot = torch.from_numpy(rs.randn(*out.shape).astype(np.float32)).to(
+        dev).to(torch.bfloat16)
+    out.backward(cot)
+    assert (fused.gather_rows.launches_bf16,
+            fused.gather_rows_backward.launches_bf16) == (before[0] + 1,
+                                                          before[1] + 1)
+    assert p.grad.dtype == torch.bfloat16
+    within_one_bf16_ulp(p.grad, fused.gather_rows_backward_plain(
+        cot.reshape(b, s * k, c), idx.reshape(b, s * k), n))
+
+
+def test_bf16_train_step_on_card(dev):
+    """One bf16 CMFlow train step at B=2, N=64 on the card beside the same
+    step on the CPU: 17 gathers and 15 gather backwards, 14 of each on the
+    bf16 arms (the bases and the point-to-patch cost; the xyz gathers and
+    the smoothness loss's flow stay float32), finite items near the CPU's
+    (random weights carry bf16's rounding far: within 0.1 relative)."""
+    batch = make_train_batch(0, 2, 64)
+    items = {}
+    for where in ("cpu", "cuda"):
+        model = CMFlow(dtype=torch.bfloat16)
+        blocks.init_parameters(model, torch.Generator().manual_seed(3))
+        model = model.to(where)
+        state = create_train_state(model, steps_per_epoch=10)
+        step = make_train_step("cmflow", model, VOD_CAMERA_PROJECTION,
+                               VOD_T_CAMERA_RADAR)
+        counters = (fused.gather_rows, fused.gather_rows_backward)
+        for fn in counters:
+            fn.launches = fn.launches_bf16 = 0
+        items[where] = {k: float(v) for k, v in step(state, batch).items()}
+        if where == "cuda":
+            assert [(fn.launches, fn.launches_bf16) for fn in counters] == [
+                (17, 14), (15, 14)]
+            assert all(p.grad.dtype == torch.float32
+                       for p in model.parameters())
+    for k, v in items["cpu"].items():
+        assert np.isfinite(items["cuda"][k])
+        assert abs(items["cuda"][k] - v) <= 0.1 * abs(v), k
 
 
 def knn_clouds(rs, dev, case):

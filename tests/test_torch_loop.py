@@ -138,10 +138,11 @@ def test_flat_yaml_rejects_the_rest(text):
 ])
 def test_unported_fields_raise(field, value):
     """Fields the port does not have yet raise, naming their ROADMAP item.
-    ``eval_compute_dtype`` bfloat16 is ported (bf16 serving): it loads, and
-    a dtype outside (float32, bfloat16) raises."""
-    if field == "eval_compute_dtype":
-        assert config.Config(**{field: value}).eval_compute_dtype == value
+    ``eval_compute_dtype`` and ``compute_dtype`` bfloat16 are ported (bf16
+    serving, bf16 training): each loads, and a dtype outside (float32,
+    bfloat16) raises."""
+    if field in ("compute_dtype", "eval_compute_dtype"):
+        assert getattr(config.Config(**{field: value}), field) == value
         with pytest.raises(ValueError, match=field):
             config.Config(**{field: "float16"})
         return

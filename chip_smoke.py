@@ -56,10 +56,14 @@ Run from the repository root on a machine with a CUDA GPU and nvcc.  Steps:
    operands with float32 sums on the cost volume's and the propagation
    encoder's products, and bound them at the dense bf16 peak (989
    TFLOP/s); require a tensor-core instruction of a bf16 type in their
-   SASS (``HGMMA.*BF16``, ``HMMA.*BF16``); measure, without a bar, how far
-   the bf16 forward of this model with random weights lies from its
-   float32 one (far, in JAX as here: ROADMAP Queue 3); time one whole
-   fused forward in each dtype (device time and CUDA operations);
+   SASS (``HGMMA.*BF16``, ``HMMA.*BF16``), and no note of ptxas's that it
+   serialises the ``wgmma``s of the propagation encoder's and the cost
+   volume's first bf16 arms; hold those two arms past the neighbour counts
+   their float32 siblings take (K=129 and k=65, a query's rows over two
+   tiles) to their plain versions and to themselves; measure, without a
+   bar, how far the bf16 forward of this model with random weights lies
+   from its float32 one (far, in JAX as here: ROADMAP Queue 3); time one
+   whole fused forward in each dtype (device time and CUDA operations);
 6. hold the gather's backward (K7) to its plain version at every shape the
    train step gives it (B=16, N=256: the sa encoder's C=32 and the
    propagation encoder's C=512 at K = 4, 8, 16, 32, the cost volume's C=512
@@ -251,6 +255,9 @@ BF16_TC_KERNELS = {"mse.bf16": ("mse", "mse_bf16_kernel", "HMMA"),
                    "cv.bf16": ("cost_volume", "cv_p2p_bf16_kernel", "HGMMA"),
                    "plf.bf16": ("plf", "plf_bf16_kernel", "HGMMA")}
 BF16_FLOP_PER_S = 989e12  # dense, tensor cores
+# the arms whose wgmmas ptxas must not serialise (no register of an operand
+# or the accumulator is touched while their products run)
+WGMMA_UNSERIALIZED = ("plf.bf16", "cv.bf16")
 # a bf16 arm against its plain version: max abs error over the output's
 # largest magnitude (a float32 sum in another order can flip a bf16
 # rounding by one ulp, 2^-8)
@@ -486,8 +493,9 @@ def shares(row: dict, ms: float) -> dict:
 def sass_report(libs: dict) -> dict:
     """For each tensor-core kernel: its tensor-core (HGMMA or HMMA; for a
     bf16 arm those of a bf16 type) and FFMA instructions in the SASS of its
-    built library, and its registers, spills and shared memory from the
-    library's ptxas log."""
+    built library, and its registers, spills, shared memory and ptxas's
+    notes that it serialises the kernel's ``wgmma``s, from the library's
+    ptxas log; the arms in WGMMA_UNSERIALIZED must have no such note."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     report = {}
     for name, (lib, fn, tc_op) in {**TC_KERNELS, **BF16_TC_KERNELS}.items():
@@ -502,6 +510,9 @@ def sass_report(libs: dict) -> dict:
         regs, smem = re.search(r"Used (\d+) registers.*?(\d+) bytes smem",
                                props).groups()
         spill = re.search(r"(\d+) bytes spill stores", props).group(1)
+        serialized = [line.strip() for line in log.splitlines()
+                      if "wgmma" in line and "serializ" in line
+                      and fn in line]
         if name in BF16_TC_KERNELS:
             key, pattern = f"{tc_op.lower()}_bf16", rf"\b{tc_op}\.\S*BF16\b"
         else:
@@ -510,9 +521,12 @@ def sass_report(libs: dict) -> dict:
         report[name] = dict(
             function=fn, **{key: count},
             ffma=len(re.findall(r"\bFFMA\b", body)), registers=int(regs),
-            spill_store_bytes=int(spill), static_smem_bytes=int(smem))
+            spill_store_bytes=int(spill), static_smem_bytes=int(smem),
+            wgmma_serialized=serialized)
         require(count > 0,
                 f"{fn}: no tensor-core ({tc_op}) instruction in its SASS")
+        require(not (serialized and name in WGMMA_UNSERIALIZED),
+                f"{fn}: ptxas serialises its wgmmas: {serialized}")
     return report
 
 
@@ -930,6 +944,51 @@ def check_cv_agg_any_k(model, dev, gen: torch.Generator) -> None:
     emit(dict(cv_agg_any_k=dict(batch=B, num_points=n, k=k,
                                 max_abs_err=err, plain_max_abs=scale,
                                 same_bits=True)))
+
+
+def check_bf16_tc_any_k(model, dev, gen: torch.Generator) -> None:
+    """The bf16 arms of K5 and K4a past the neighbour counts they took
+    before (K5 64, K4a 32), at one B=16, N=256 cloud: K5 at K=129 (a
+    query's rows over two 128-row tiles) with the model's first
+    propagation-encoder scale, K4a at k=65 (over two 64-row tiles) with its
+    cost volume's weights, bf16 operands, seeded random indices with some
+    outside [0, N); each held to its plain version at BF16_RTOL and to
+    itself bit for bit; not part of any route's time."""
+    n, row = 256, {}
+    pc = (20.0 * torch.rand((B, n, 3), generator=gen)).to(dev)
+    chain, _, _ = fused.plf_params_from_variables(
+        inference._scales(model.trunk.mse_layer2)[0])
+    chain = inference._cast_chain(chain, BF16)
+    fc = model.trunk.fc_layer
+    dense, wn1, _ = fused.cv_params_from_variables(fc)
+    dense = [t.to(BF16) if i % 2 == 0 else t for i, t in enumerate(dense)]
+    for name, k, width in (("plf.bf16", 129, fused.PLF_WIDTHS[0]),
+                           ("cv.bf16", 65, fused.CV_WIDTH)):
+        idx = torch.randint(-2, n + 2, (B, n, k), generator=gen,
+                            dtype=torch.int32).to(dev)
+        feats = [torch.randn((B, n, width), generator=gen).to(dev).to(BF16)
+                 for _ in range(2)]
+        if name == "plf.bf16":
+            args = (feats[0], idx, pc, chain)
+            kernel = fused.fused_point_local_feature
+            plain = fused.fused_point_local_feature_plain(*args)
+        else:
+            z = [torch.randn((B, n, fused.WEIGHTNET_HIDDEN),
+                             generator=gen).to(dev) for _ in range(2)]
+            args = (feats[0], feats[1], idx, z[0], z[1], dense[1:], wn1[1:])
+            kernel = fused.cost_volume_p2p
+            plain = fused.cost_volume_p2p_plain(*args)
+        got, again = kernel(*args), kernel(*args)
+        torch.cuda.synchronize()
+        err, scale = errors(got, plain)
+        require(got.dtype == plain.dtype and err <= BF16_RTOL * scale,
+                f"{name} at N={n} k={k}: kernel and plain version differ by "
+                f"{err} at a largest magnitude of {scale}")
+        require(torch.equal(got, again), f"{name} at N={n} k={k}: two runs "
+                                         f"differ")
+        row[name] = dict(k=k, max_abs_err=err, plain_max_abs=scale,
+                         same_bits=True)
+    emit(dict(bf16_tc_any_k=dict(batch=B, num_points=n, **row)))
 
 
 def hold_to_plain(case) -> tuple:
@@ -2109,6 +2168,7 @@ def main() -> int:
             check_kernels(module_cases(req, dev, gen), ri == 0, per_forward)
         check_large_cloud(dev, gen)
         check_cv_agg_any_k(model, dev, gen)
+        check_bf16_tc_any_k(model, dev, gen)
     emit(dict(kernel_phase_s=time.perf_counter() - t0))
 
     def fused_checks(req, out):

@@ -70,22 +70,35 @@
 //
 // The bf16 arms (the JAX kernels' bf16 serving mode, fused.py:721-725,
 // :742-745, :792-796, :912-918):
-// - cv_p2p_bf16_kernel reads f1c and f2c in bf16 (four channels a uint2),
-//   forms x0 in float32, and runs both 512x512 products on wgmma m64nNk16
-//   .bf16, each activation rounded to nearest even just before, each
-//   product's whole float32 sum in the tensor cores (their drift, ~5e-6 of
-//   its size, is far below the arm's 1e-2 bar, so nothing is promoted).
-//   Stages are one k16 step (16 KB, ops/fused.py::tc_weights_bf16); x1 goes
-//   to shared memory in bf16, in the A-fragment order of the second
-//   product (a uint4 per thread and step).  The WeightNet, w * x2 and the
-//   sum over k stay float32, as above; the sum is stored rounded to bf16.
-//   What bounds it: operations, 34.6 GFLOP at B=16, N=256, k=8, 0.035 ms
-//   at the dense bf16 peak (989 TFLOP/s), beside 2 MB of weights from L2
-//   per block.
+// - cv_p2p_bf16_kernel reads f1c and f2c in bf16, forms x0 in float32 and
+//   rounds it, and x1, to bf16 (nearest even) before the two 512x512
+//   products, which sum in float32 in the tensor cores (their drift, ~5e-6
+//   of a sum's size, is far below the arm's 1e-2 bar, so nothing is
+//   promoted); the WeightNet, w * x2 and the sum over k stay float32 as
+//   above, and the sum is stored rounded to bf16 once.  It takes any K.
+//   What bounds it: operations, 34.6 GFLOP at B=16, N=256, k=8, 0.035 ms at
+//   the dense bf16 peak (989 TFLOP/s).  Its packed bf16 weights
+//   (ops/fused.py::tc_weights_bf16, 1 MiB) stream from L2 once per cluster
+//   of two blocks: at that shape 512 blocks, 268 MB of L2 reads a forward
+//   (537 MB if each block read its own).
+//   Design (cv_p2p_bf16_kernel, below): x0 and then x1 of the 64 rows in
+//   shared memory in the A layout of tc_gemm.cuh, both products on wgmma
+//   m64n256k16 with A and B from shared memory, so the tensor cores never
+//   wait on a gather and ptxas serialises nothing; each stage's group of
+//   products stays in flight while the next stage's is issued
+//   (tc::wait<1>); 32 KB stages (two k16 steps) in a ring of three, each
+//   half copied by one block of the cluster and multicast to both.  A query
+//   with more than 64 neighbours runs over consecutive tiles of one block,
+//   its running sum carried in registers.
+//   What held the first design (scripts/profile_torch_bf16_tc.py, NVIDIA
+//   H100 80GB HBM3 at 700 W): its products' issue, each k16 step waited out
+//   before the next gather (left out, they took 39% of its time with them);
+//   without them it still took 61%, streaming its 537 MB of weights at
+//   5.8 TB/s.
 // - cv_agg_bf16_kernel is cv_agg_kernel with p2p in bf16: each thread's
 //   cells of the ring are 8 bytes (cp.async.ca of 8), half the bytes; the
-//   sums stay float32 and in the same order.
-// Each pair of arms shares one body, templated on the operand type.
+//   sums stay float32 and in the same order.  It and cv_agg_kernel share one
+//   body, templated on the operand type.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -106,20 +119,22 @@ constexpr int kP2pThreads = kP2pConsumers + 128;  // and a producer warpgroup
 constexpr int kP2pRows = 64;  // (query, neighbour) rows per block
 constexpr int kSteps = kC / 8;  // k8 steps of one product
 constexpr int kStageBytes = 2 * 8 * kC * 4;  // one k8 step, hi and lo
-constexpr int kBf16StageBytes = 16 * kC * 2;  // one bf16 k16 step
 constexpr int kP2pStages = 3;
 constexpr int kPackHalf = 2 * kC * kC;  // floats of each half (hi, lo)
-
-template <bool kBf16>
-__host__ __device__ constexpr int stage_bytes() {
-  return kBf16 ? kBf16StageBytes : kStageBytes;
-}
-
-template <bool kBf16>
-constexpr size_t p2p_smem_bytes() {
-  return (size_t)kP2pStages * stage_bytes<kBf16>() +
-         (size_t)kP2pRows * kC * 4;
-}
+constexpr size_t kP2pSmemBytes =
+    (size_t)kP2pStages * kStageBytes + (size_t)kP2pRows * kC * 4;
+// the bf16 arm: a stage is two k16 steps of all 512 columns, 16 stages a
+// product
+constexpr int kBf16Stage = 2 * 16 * kC * 2;
+constexpr int kBf16Stages = 3;
+constexpr int kBf16Cluster = 2;  // blocks that share each weight stage
+constexpr int kBf16Chunks1 = kC / 32;  // stages of one product
+constexpr int kC8 = kC / 8;  // 16-byte pieces (8 bf16) of a feature row
+constexpr int kXTile = kP2pRows * kC * 2;  // x0 or x1 of the rows, bf16
+constexpr size_t kBf16SmemBytes = (size_t)kP2pRows * kC * 4 +
+                                  (size_t)kBf16Stages * kBf16Stage +
+                                  (size_t)kP2pRows * kH * 4;
+static_assert(2 * kXTile == kP2pRows * kC * 4, "x0 and x1 fill w * x2's");
 
 __device__ __forceinline__ float leaky(float x) {
   return x > 0.0f ? x : 0.1f * x;
@@ -156,32 +171,6 @@ struct WeightNet {  // after its first product: (b0, w1, b1, w2, b2)
 
 __device__ __forceinline__ float4 load_or_zero(const float4* p, int i) {
   return p ? __ldg(p + i) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-}
-
-// four consecutive bf16 channels as floats
-__device__ __forceinline__ float4 load_or_zero(const uint2* p, int i) {
-  return p ? tc::bf16x4_to_float4(__ldg(p + i))
-           : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-}
-
-// the accumulator's columns 128h .. 128h + 127 of a warpgroup's 256
-template <int H>
-__device__ __forceinline__ float (&half_of(float (&acc)[128]))[64] {
-  return *reinterpret_cast<float(*)[64]>(acc + 64 * H);
-}
-
-// one bf16 k16 step of a 512-wide product for a warpgroup's 256 columns,
-// summed into acc by the tensor cores; its B tile at `st`, the
-// warpgroup's columns `half` bytes into it
-__device__ __forceinline__ void p2p_step_bf16(float (&acc)[128],
-                                              const uint32_t (&a)[4],
-                                              uint32_t st, uint32_t half) {
-  tc::fence();
-  tc::mma_bf16_n128(half_of<0>(acc), a, tc::desc(st + half), 1);
-  tc::mma_bf16_n128(half_of<1>(acc), a, tc::desc(st + half + 4096), 1);
-  tc::commit();
-  tc::wait_all();
-  tc::fence_regs(acc);
 }
 
 __device__ __forceinline__ void store_out(float* out, int64_t i, float v) {
@@ -231,24 +220,24 @@ __device__ __forceinline__ void p2p_step(float (&acc)[128], float (&part)[64],
   }
 }
 
-// T the element of f1c, f2c and out: float, or __nv_bfloat16 for the bf16
-// arm (f1c/f2c rows read as uint2s of four channels); wpack from tc_weights
-// or tc_weights_bf16
-template <typename T>
-__device__ __forceinline__ void p2p_body(
-    const T* __restrict__ f1c, const T* __restrict__ f2c,
-    const int* __restrict__ idx, const float* __restrict__ z1,
-    const float* __restrict__ z2, const float* __restrict__ b0,
-    const void* __restrict__ wpack, const float* __restrict__ b1,
-    const float* __restrict__ b2, WeightNet wn, T* __restrict__ out,
-    int total, int n, int k) {
-  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
-  using Row4 = typename std::conditional<kBf16, uint2, float4>::type;
-  constexpr int kStage = stage_bytes<kBf16>();
+// wpack from tc_weights
+__global__ void __launch_bounds__(kP2pThreads, 1)
+    cv_p2p_kernel(const float* __restrict__ f1c,  // [B*N, kC]
+                  const float* __restrict__ f2c,  // [B*N, kC]
+                  const int* __restrict__ idx,    // [B*N, k]
+                  const float* __restrict__ z1,   // [B*N, kH]
+                  const float* __restrict__ z2,   // [B*N, kH]
+                  const float* __restrict__ b0,
+                  const void* __restrict__ wpack,  // tc_weights
+                  const float* __restrict__ b1, const float* __restrict__ b2,
+                  WeightNet wn,
+                  float* __restrict__ out,  // [B*N, kC]
+                  int total, int n, int k) {
+  using Row4 = float4;
+  constexpr int kStage = kStageBytes;
   extern __shared__ __align__(128) char smem[];
-  // x1, then w * x2, in A-fragment order: step S (8 channels; bf16 x1: 16
-  // channels, a uint4 a thread), then the warpgroup's 128 threads, a float4
-  // each
+  // x1, then w * x2, in A-fragment order: step S (8 channels), then the
+  // warpgroup's 128 threads, a float4 each
   float4* xbuf = reinterpret_cast<float4*>(smem + kP2pStages * kStage);
   __shared__ int row_j[kP2pRows];  // neighbour row in f2c, or -1
   __shared__ int row_q[kP2pRows];  // query, or -1 for an unused row
@@ -277,11 +266,7 @@ __device__ __forceinline__ void p2p_body(
     tc::producer_registers();
     if (threadIdx.x == kP2pConsumers) {
       const char* w = static_cast<const char*>(wpack);
-      if constexpr (kBf16) {
-        ring.produce(w, kSteps);  // 2 products of kSteps / 2 k16 steps
-      } else {
-        ring.produce(w, w + kPackHalf * 4, 2 * kSteps);
-      }
+      ring.produce(w, w + kPackHalf * 4, 2 * kSteps);
     }
     return;
   }
@@ -327,47 +312,7 @@ __device__ __forceinline__ void p2p_body(
   float acc[128];
 #pragma unroll
   for (int i = 0; i < 128; ++i) acc[i] = 0.0f;
-  if constexpr (kBf16) {
-    // x1 = x0 @ W1: channels 16s + 4t .. +3 of a thread's rows are its A
-    // values of k16 step s (tc_gemm.cuh)
-    for (int s = 0; s < kSteps / 2; ++s) {
-      float4 xa, xb;
-      first_layer(4 * s + t, xa, xb);
-      const uint32_t a[4] = {
-          tc::pack_bf16(xa.x, xa.y), tc::pack_bf16(xb.x, xb.y),
-          tc::pack_bf16(xa.z, xa.w), tc::pack_bf16(xb.z, xb.w)};
-      p2p_step_bf16(acc, a, ring.acquire(s), half);
-      ring.release(s);
-    }
-    // x1 = LeakyReLU(acc + b1), rounded to bf16, into shared memory in the
-    // A-fragment order of the second product: acc[8S' .. 8S' + 7] are the
-    // thread's columns 256*wg + 16S' + 2t, +1, +8, +9 of rows ra and rb,
-    // the A of step S = 16*wg + S'
-    uint4* xbuf16 = reinterpret_cast<uint4*>(xbuf);
-#pragma unroll
-    for (int sp = 0; sp < 16; ++sp) {
-      const int col = 256 * wg + 16 * sp + 2 * t;
-      const float2 b = __ldg(reinterpret_cast<const float2*>(b1 + col));
-      const float2 bh = __ldg(reinterpret_cast<const float2*>(b1 + col + 8));
-      const int i = 8 * sp;
-      xbuf16[(16 * wg + sp) * 128 + tid] = make_uint4(
-          tc::pack_bf16(leaky(acc[i] + b.x), leaky(acc[i + 1] + b.y)),
-          tc::pack_bf16(leaky(acc[i + 2] + b.x), leaky(acc[i + 3] + b.y)),
-          tc::pack_bf16(leaky(acc[i + 4] + bh.x), leaky(acc[i + 5] + bh.y)),
-          tc::pack_bf16(leaky(acc[i + 6] + bh.x), leaky(acc[i + 7] + bh.y)));
-    }
-    tc::consumer_sync<kP2pConsumers>();
-
-    // x2 = x1 @ W2, step S in natural channel order 16S .. 16S + 15
-#pragma unroll
-    for (int i = 0; i < 128; ++i) acc[i] = 0.0f;
-    for (int s = 0; s < kSteps / 2; ++s) {
-      const uint4 x = xbuf16[s * 128 + tid];
-      const uint32_t a[4] = {x.x, x.y, x.z, x.w};
-      p2p_step_bf16(acc, a, ring.acquire(kSteps / 2 + s), half);
-      ring.release(kSteps / 2 + s);
-    }
-  } else {
+  {
     float part[64];
     // x1 = x0 @ W1.  Step 2c + e, position p is channel 16c + 4*(p%4) + 2e
     // + p/4, so the float4 at channels 16c + 4t holds the thread's A values
@@ -458,34 +403,287 @@ __device__ __forceinline__ void p2p_body(
   }
 }
 
-__global__ void __launch_bounds__(kP2pThreads, 1)
-    cv_p2p_kernel(const float* __restrict__ f1c,  // [B*N, kC]
-                  const float* __restrict__ f2c,  // [B*N, kC]
-                  const int* __restrict__ idx,    // [B*N, k]
-                  const float* __restrict__ z1,   // [B*N, kH]
-                  const float* __restrict__ z2,   // [B*N, kH]
-                  const float* __restrict__ b0,
-                  const void* __restrict__ wpack,  // tc_weights
-                  const float* __restrict__ b1, const float* __restrict__ b2,
-                  WeightNet wn,
-                  float* __restrict__ out,  // [B*N, kC]
-                  int total, int n, int k) {
-  p2p_body(f1c, f2c, idx, z1, z2, b0, wpack, b1, b2, wn, out, total, n, k);
+// One 512-wide product of the bf16 arm for a warpgroup's 256 columns, into
+// acc: ring chunks c0 .. c0 + 15, two k16 steps each (the warpgroup's
+// columns `half` bytes into each step's B tile), A from shared memory at `a`
+// (tc::kAStep bytes a step).  A stage's products are one group, issued
+// before the wait for the last stage's group, which then releases it.
+template <class Ring>
+__device__ __forceinline__ void bf16_product(float (&acc)[128],
+                                             const Ring& ring, uint32_t a,
+                                             uint32_t half, int c0) {
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.0f;
+  for (int c = 0; c < kBf16Chunks1; ++c) {
+    const uint32_t st = ring.acquire(c0 + c);
+    tc::fence_regs(acc);
+    tc::fence();
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      tc::mma_bf16_ss_n256(acc, tc::desc(a + (2 * c + e) * tc::kAStep),
+                           tc::desc(st + 16384 * e + half), 1);
+    }
+    tc::commit();
+    tc::wait<1>();  // the last stage's products are done
+    tc::fence_regs(acc);
+    if (c > 0) ring.release(c0 + c - 1);
+  }
+  tc::wait<0>();
+  tc::fence_regs(acc);
+  ring.release(c0 + kBf16Chunks1 - 1);
 }
 
+// The bf16 arm.  The block's work is qpb = max(1, kP2pRows / k) whole
+// queries, qpb * k rows in `tiles` tiles of kP2pRows: one tile of whole
+// queries where k <= kP2pRows, else one query whose rows span several
+// tiles, its running sum carried in registers.  Per tile:
+// - all consumers form x0 of the 64 rows (LeakyReLU(f1c[q] + f2c[j] + b0) in
+//   float32, rounded to bf16) in shared memory in the A layout of
+//   tc_gemm.cuh, the loads of eight rows in flight at a time;
+// - x1 = x0 @ W1 on wgmma m64n256k16 with A and B from shared memory, each
+//   warpgroup on 256 of the 512 columns: a stage's two k16 steps are one
+//   group of products, and the next stage's group is issued before the wait
+//   for this one (tc::wait<1>), which then releases the stage before it;
+// - x1 (LeakyReLU, bf16) goes to shared memory in the same A layout, and
+//   x2 = x1 @ W2 runs as x1 did;
+// - x2 (LeakyReLU, float32) goes to shared memory over x1, the WeightNet's
+//   8-wide layers run once a row, and each thread takes two of the 512
+//   columns with their last WeightNet layer in registers: w * x2 summed
+//   over each query's rows in ascending k, as the float32 arm sums, and
+//   rounded to bf16 once.
 __global__ void __launch_bounds__(kP2pThreads, 1)
-    cv_p2p_bf16_kernel(const __nv_bfloat16* __restrict__ f1c,
-                       const __nv_bfloat16* __restrict__ f2c,
-                       const int* __restrict__ idx,
-                       const float* __restrict__ z1,
-                       const float* __restrict__ z2,
+    cv_p2p_bf16_kernel(const __nv_bfloat16* __restrict__ f1c,  // [B*N, kC]
+                       const __nv_bfloat16* __restrict__ f2c,  // [B*N, kC]
+                       const int* __restrict__ idx,            // [B*N, k]
+                       const float* __restrict__ z1,           // [B*N, kH]
+                       const float* __restrict__ z2,           // [B*N, kH]
                        const float* __restrict__ b0,
                        const void* __restrict__ wpack,  // tc_weights_bf16
                        const float* __restrict__ b1,
                        const float* __restrict__ b2, WeightNet wn,
                        __nv_bfloat16* __restrict__ out,  // [B*N, kC]
                        int total, int n, int k) {
-  p2p_body(f1c, f2c, idx, z1, z2, b0, wpack, b1, b2, wn, out, total, n, k);
+  extern __shared__ __align__(128) char smem[];
+  // x0 then x1 of the tile's rows (bf16), later x2 (float32); the ring; the
+  // WeightNet's hidden layer of each row
+  float4* xbuf = reinterpret_cast<float4*>(smem);
+  char* ring_buf = smem + 2 * kXTile;
+  float4* h_s =
+      reinterpret_cast<float4*>(ring_buf + kBf16Stages * kBf16Stage);
+  float carry[kC / kP2pConsumers] = {};  // a query's sums over its tiles
+  __shared__ int row_j[kP2pRows];  // neighbour row in f2c, or -1
+  __shared__ int row_q[kP2pRows];  // query, or -1 for an unused row
+  __shared__ __align__(8) uint64_t full[kBf16Stages];
+  __shared__ __align__(8) uint64_t empty[kBf16Stages];
+  const tc::ClusterRing<kBf16Stages, kBf16Stage, kBf16Cluster> ring{
+      ring_buf, full, empty};
+
+  const int qpb = max(1, kP2pRows / k);
+  const int rows = qpb * k;
+  const int tiles = (rows + kP2pRows - 1) / kP2pRows;
+  const int q0 = blockIdx.x * qpb;
+  // the tile's rows: (query, neighbour row in f2c), or -1
+  auto set_rows = [&](int tile) {
+    const int r = threadIdx.x;
+    const int rg = tile * kP2pRows + r;  // row of the block's work
+    const int q = q0 + rg / k;
+    int j = -1, qq = -1;
+    if (rg < rows && q < total) {
+      qq = q;
+      const int jj = idx[(int64_t)q * k + rg % k];
+      if (jj >= 0 && jj < n) j = (q / n) * n + jj;
+    }
+    row_j[r] = j;
+    row_q[r] = qq;
+  };
+  if (threadIdx.x < kP2pRows) set_rows(0);
+  if (threadIdx.x == 0) ring.init(kP2pConsumers / 32);
+  tc::cluster_sync();  // every block's barriers are initialised
+
+  if (threadIdx.x >= kP2pConsumers) {  // the producer warpgroup: one thread
+    tc::producer_registers();
+    if (threadIdx.x == kP2pConsumers) {
+      ring.produce(static_cast<const char*>(wpack),
+                   tiles * 2 * kBf16Chunks1, 2 * kBf16Chunks1);
+    }
+    return;
+  }
+  tc::consumer_registers();
+
+  // warpgroup wg computes columns 256*wg .. +255 of all 64 rows; the
+  // thread's two rows are ra and rb (tc_gemm.cuh, fragment layouts)
+  const int wg = threadIdx.x / 128;
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32;
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int ra = 16 * warp + g, rb = ra + 8;
+  const uint32_t half = 8192 * wg;  // the warpgroup's columns in a B step
+  char* x0s = smem;
+  char* x1s = smem + kXTile;
+  const uint32_t x0a = tc::smem_addr(x0s), x1a = tc::smem_addr(x1s);
+  const uint4* f18 = reinterpret_cast<const uint4*>(f1c);
+  const uint4* f28 = reinterpret_cast<const uint4*>(f2c);
+  const float4* b04 = reinterpret_cast<const float4*>(b0);
+
+  for (int tile = 0; tile < tiles; ++tile) {
+    if (tile > 0) {
+      tc::consumer_sync<kP2pConsumers>();  // the last tile's rows and sums
+      if (threadIdx.x < kP2pRows) set_rows(tile);
+      tc::consumer_sync<kP2pConsumers>();
+    }
+
+    // x0 of rows 8rr + rl (rr < 8), channels 8 c8 .. +7 for c8 = cq + 32m:
+    // the lanes of a quarter warp hold eight rows of one piece, so their
+    // 16-byte stores meet no bank twice
+    {
+      const int rl = threadIdx.x % 8, cq = threadIdx.x / 8;
+      const uint4* p1[8];
+      const uint4* p2[8];
+#pragma unroll
+      for (int rr = 0; rr < 8; ++rr) {
+        const int r = 8 * rr + rl;
+        const bool valid = row_q[r] >= 0;
+        p1[rr] = valid ? f18 + (int64_t)row_q[r] * kC8 : nullptr;
+        p2[rr] = valid && row_j[r] >= 0 ? f28 + (int64_t)row_j[r] * kC8
+                                        : nullptr;
+      }
+#pragma unroll 1
+      for (int m = 0; m < 2; ++m) {
+        const int c8 = cq + 32 * m;
+        const float4 bl = __ldg(b04 + 2 * c8), bh = __ldg(b04 + 2 * c8 + 1);
+        const float bb[8] = {bl.x, bl.y, bl.z, bl.w, bh.x, bh.y, bh.z, bh.w};
+        uint4 u1[8], u2[8];
+#pragma unroll
+        for (int rr = 0; rr < 8; ++rr) {
+          u1[rr] = p1[rr] ? __ldg(p1[rr] + c8) : make_uint4(0, 0, 0, 0);
+          u2[rr] = p2[rr] ? __ldg(p2[rr] + c8) : make_uint4(0, 0, 0, 0);
+        }
+#pragma unroll
+        for (int rr = 0; rr < 8; ++rr) {
+          const float4 a0 =
+              tc::bf16x4_to_float4(make_uint2(u1[rr].x, u1[rr].y));
+          const float4 a1 =
+              tc::bf16x4_to_float4(make_uint2(u1[rr].z, u1[rr].w));
+          const float4 d0 =
+              tc::bf16x4_to_float4(make_uint2(u2[rr].x, u2[rr].y));
+          const float4 d1 =
+              tc::bf16x4_to_float4(make_uint2(u2[rr].z, u2[rr].w));
+          const float fa[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+          const float fb[8] = {d0.x, d0.y, d0.z, d0.w, d1.x, d1.y, d1.z, d1.w};
+          float v[8];
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {  // (no sum reads a row of no query)
+            v[e] = leaky((fa[e] + fb[e]) + bb[e]);
+          }
+          *reinterpret_cast<uint4*>(x0s + (c8 / 2) * tc::kAStep +
+                                    tc::a_offset(8 * rr + rl, c8 % 2)) =
+              make_uint4(tc::pack_bf16(v[0], v[1]), tc::pack_bf16(v[2], v[3]),
+                         tc::pack_bf16(v[4], v[5]), tc::pack_bf16(v[6], v[7]));
+        }
+      }
+    }
+    tc::fence_view_async();
+    tc::consumer_sync<kP2pConsumers>();  // x0 is whole
+
+    const int c0 = tile * 2 * kBf16Chunks1;
+    float acc[128];
+    bf16_product(acc, ring, x0a, half, c0);
+
+    // x1 = LeakyReLU(acc + b1), rounded to bf16, into its A tiles:
+    // acc[4j + e] is (row ra or rb, column 256*wg + 8j + 2t + e%2), two
+    // channels of step 16*wg + j/2 at 2t of its eight 8*(j%2) ..
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int col = 256 * wg + 8 * j + 2 * t;
+      const float2 b = __ldg(reinterpret_cast<const float2*>(b1 + col));
+      char* step = x1s + (16 * wg + j / 2) * tc::kAStep + 4 * t;
+      *reinterpret_cast<uint32_t*>(step + tc::a_offset(ra, j % 2)) =
+          tc::pack_bf16(leaky(acc[4 * j] + b.x), leaky(acc[4 * j + 1] + b.y));
+      *reinterpret_cast<uint32_t*>(step + tc::a_offset(rb, j % 2)) =
+          tc::pack_bf16(leaky(acc[4 * j + 2] + b.x),
+                        leaky(acc[4 * j + 3] + b.y));
+    }
+    tc::fence_view_async();
+    tc::consumer_sync<kP2pConsumers>();  // x1 is whole
+
+    bf16_product(acc, ring, x1a, half, c0 + kBf16Chunks1);
+
+    // the WeightNet's two 8-wide layers, once a row: h_s[r] of z2[j] - z1[q]
+    if (threadIdx.x < kP2pRows) {
+      const int r = threadIdx.x, q = row_q[r], j = row_j[r];
+      float d[kH], h[kH];
+#pragma unroll
+      for (int m = 0; m < kH; ++m) {
+        d[m] = (j >= 0 ? z2[(int64_t)j * kH + m] : 0.0f) -
+               (q >= 0 ? z1[(int64_t)q * kH + m] : 0.0f);
+      }
+      weightnet_hidden(d, wn.b0, wn.w1, wn.b1, h);
+      h_s[2 * r] = make_float4(h[0], h[1], h[2], h[3]);
+      h_s[2 * r + 1] = make_float4(h[4], h[5], h[6], h[7]);
+    }
+    tc::consumer_sync<kP2pConsumers>();  // every thread has read x1
+    // x2 = LeakyReLU(acc + b2) over x1, in the float32 arm's A-fragment
+    // order: (row r, column c) at float (c/8)*512 + (r/16)*128 + (r%8)*16 +
+    // ((c%8)/2)*4 + (r%16)/8 + 2*(c%2)
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int col = 256 * wg + 8 * j + 2 * t;
+      const float2 b = __ldg(reinterpret_cast<const float2*>(b2 + col));
+      xbuf[(32 * wg + j) * 128 + tid] = make_float4(
+          leaky(acc[4 * j] + b.x), leaky(acc[4 * j + 2] + b.x),
+          leaky(acc[4 * j + 1] + b.y), leaky(acc[4 * j + 3] + b.y));
+    }
+    tc::consumer_sync<kP2pConsumers>();
+
+    // each thread's columns c = threadIdx.x + 256 i: w * x2 summed over each
+    // query's rows in this tile, k ascending, on from the running sum of the
+    // tiles before, w = ReLU(h_s[r] . w2[:, c] + b2w[c]) (weightnet_out2's
+    // order); the columns' last layer stays in registers
+    constexpr int kCols = kC / kP2pConsumers;
+    const float* xs = reinterpret_cast<const float*>(xbuf);
+    float w2c[kCols][kH], wb2[kCols];
+    int cbase[kCols];
+#pragma unroll
+    for (int i = 0; i < kCols; ++i) {
+      const int c = threadIdx.x + kP2pConsumers * i;
+#pragma unroll
+      for (int m = 0; m < kH; ++m) w2c[i][m] = __ldg(wn.w2 + m * kC + c);
+      wb2[i] = __ldg(wn.b2 + c);
+      cbase[i] = (c / 8) * 512 + ((c % 8) / 2) * 4 + 2 * (c % 2);
+    }
+    for (int qi = 0; qi < qpb && q0 + qi < total; ++qi) {
+      const int lo = max(qi * k, tile * kP2pRows);
+      const int hi = min(qi * k + k, (tile + 1) * kP2pRows);
+      float s[kCols];
+#pragma unroll
+      for (int i = 0; i < kCols; ++i) s[i] = carry[i];
+#pragma unroll 4
+      for (int rg = lo; rg < hi; ++rg) {
+        const int rr = rg - tile * kP2pRows;
+        const float4 ha = h_s[2 * rr], hb = h_s[2 * rr + 1];
+        const float h[kH] = {ha.x, ha.y, ha.z, ha.w, hb.x, hb.y, hb.z, hb.w};
+        const int at = (rr / 16) * 128 + (rr % 8) * 16 + (rr % 16) / 8;
+#pragma unroll
+        for (int i = 0; i < kCols; ++i) {
+          float a = 0.0f;
+#pragma unroll
+          for (int m = 0; m < kH; ++m) a = fmaf(h[m], w2c[i][m], a);
+          const float v = fmaxf(a + wb2[i], 0.0f) * xs[cbase[i] + at];
+          s[i] = rg == qi * k ? v : s[i] + v;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kCols; ++i) {
+        if (tile + 1 == tiles) {
+          store_out(out, (int64_t)(q0 + qi) * kC + threadIdx.x +
+                             kP2pConsumers * i, s[i]);
+        } else {
+          carry[i] = s[i];  // one query: qpb is 1 where a query spans tiles
+        }
+      }
+    }
+  }
+  tc::cluster_sync();  // no block of the cluster signals this one any more
 }
 
 constexpr int kAggThreads = 256;
@@ -713,7 +911,7 @@ __global__ void __launch_bounds__(kAggThreads, 2)
 }
 
 bool valid_p2p_shape(int b, int n, int k, int c) {
-  return c == kC && n >= 1 && b >= 0 && k >= 1 && k <= kMaxK;
+  return c == kC && n >= 1 && b >= 0 && k >= 1;
 }
 
 bool valid_agg_shape(int b, int n, int k, int c) {  // rows fit an int
@@ -728,34 +926,6 @@ WeightNet weightnet(const void* wb0, const void* ww1, const void* wb1,
                    static_cast<const float*>(wb1),
                    static_cast<const float*>(ww2),
                    static_cast<const float*>(wb2)};
-}
-
-template <typename T>
-int launch_p2p(void (*kernel)(const T*, const T*, const int*, const float*,
-                              const float*, const float*, const void*,
-                              const float*, const float*, WeightNet, T*, int,
-                              int, int),
-               size_t smem, const void* f1c, const void* f2c,
-               const void* idx, const void* z1, const void* z2,
-               const void* b0, const void* wpack, const void* b1,
-               const void* b2, const void* wb0, const void* ww1,
-               const void* wb1, const void* ww2, const void* wb2, void* out,
-               int b, int n, int k, int c, void* stream) {
-  if (!valid_p2p_shape(b, n, k, c)) return (int)cudaErrorInvalidValue;
-  const int total = b * n;
-  if (total == 0) return (int)cudaSuccess;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int qpb = kP2pRows / k;
-  kernel<<<(total + qpb - 1) / qpb, kP2pThreads, smem,
-           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(f1c), static_cast<const T*>(f2c),
-      static_cast<const int*>(idx), static_cast<const float*>(z1),
-      static_cast<const float*>(z2), static_cast<const float*>(b0), wpack,
-      static_cast<const float*>(b1), static_cast<const float*>(b2),
-      weightnet(wb0, ww1, wb1, ww2, wb2), static_cast<T*>(out), total, n, k);
-  return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -793,22 +963,55 @@ int cmflow_cv_p2p(const void* f1c, const void* f2c, const void* idx,
                   const void* wb0, const void* ww1, const void* wb1,
                   const void* ww2, const void* wb2, void* out, int b, int n,
                   int k, int c, void* stream) {
-  return launch_p2p(cv_p2p_kernel, p2p_smem_bytes<false>(), f1c, f2c, idx,
-                    z1, z2, b0, wpack, b1, b2, wb0, ww1, wb1, ww2, wb2, out,
-                    b, n, k, c, stream);
+  if (!valid_p2p_shape(b, n, k, c) || k > kMaxK) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int total = b * n;
+  if (total == 0) return (int)cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(
+      cv_p2p_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kP2pSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  const int qpb = kP2pRows / k;
+  cv_p2p_kernel<<<(total + qpb - 1) / qpb, kP2pThreads, kP2pSmemBytes,
+                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(f1c), static_cast<const float*>(f2c),
+      static_cast<const int*>(idx), static_cast<const float*>(z1),
+      static_cast<const float*>(z2), static_cast<const float*>(b0), wpack,
+      static_cast<const float*>(b1), static_cast<const float*>(b2),
+      weightnet(wb0, ww1, wb1, ww2, wb2), static_cast<float*>(out), total, n,
+      k);
+  return (int)cudaGetLastError();
 }
 
-// The bf16 arm: f1c/f2c and out [B,N,512] bf16, wpack from tc_weights_bf16
-// (bf16), the rest as cmflow_cv_p2p.
+// The bf16 arm: f1c/f2c and out [B,N,512] bf16, idx [B,N,k] int32 (any
+// k >= 1), wpack from tc_weights_bf16 (bf16), the rest as cmflow_cv_p2p.
+// Launched in clusters of kBf16Cluster blocks (a block past the last query
+// takes part in the weight stages and writes nothing).
 int cmflow_cv_p2p_bf16(const void* f1c, const void* f2c, const void* idx,
                        const void* z1, const void* z2, const void* b0,
                        const void* wpack, const void* b1, const void* b2,
                        const void* wb0, const void* ww1, const void* wb1,
                        const void* ww2, const void* wb2, void* out, int b,
                        int n, int k, int c, void* stream) {
-  return launch_p2p(cv_p2p_bf16_kernel, p2p_smem_bytes<true>(), f1c, f2c,
-                    idx, z1, z2, b0, wpack, b1, b2, wb0, ww1, wb1, ww2, wb2,
-                    out, b, n, k, c, stream);
+  if (!valid_p2p_shape(b, n, k, c)) return (int)cudaErrorInvalidValue;
+  const int total = b * n;
+  if (total == 0) return (int)cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(
+      cv_p2p_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kBf16SmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  const int qpb = k < kP2pRows ? kP2pRows / k : 1;
+  const int blocks = (total + qpb - 1) / qpb;
+  return (int)tc::launch_cluster<kBf16Cluster>(
+      cv_p2p_bf16_kernel,
+      (blocks + kBf16Cluster - 1) / kBf16Cluster * kBf16Cluster, kP2pThreads,
+      kBf16SmemBytes, stream, static_cast<const __nv_bfloat16*>(f1c),
+      static_cast<const __nv_bfloat16*>(f2c), static_cast<const int*>(idx),
+      static_cast<const float*>(z1), static_cast<const float*>(z2),
+      static_cast<const float*>(b0), wpack, static_cast<const float*>(b1),
+      static_cast<const float*>(b2), weightnet(wb0, ww1, wb1, ww2, wb2),
+      static_cast<__nv_bfloat16*>(out), total, n, k);
 }
 
 // p2p [B,N,512], idx [B,N,k] int32 (k >= 1), zq [B,N,8], the WeightNet

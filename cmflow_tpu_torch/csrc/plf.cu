@@ -40,25 +40,36 @@
 // cudaFuncSetAttribute, and a launch refused for it never runs, so the entry
 // point returns cudaGetLastError().
 //
-// The bf16 arm (plf_bf16_kernel, the JAX kernel's bf16 serving mode,
-// fused.py:99-105 and :129): the base comes rounded to bf16, one rounding
-// per point; the offset, the first affine and ReLU stay float32; the two
-// products take bf16 operands in one wgmma pass (m64nNk16 .bf16, each
-// activation rounded to nearest even just before) and sum in float32; the
-// output is float32.  Half the operations' cost and half the weight bytes:
-// the packed bf16 weights (ops/fused.py::tc_weights_bf16, 320 KB) stream
-// through five 16 KB stages, each W1 stage two k16 steps (32 channels),
-// each W2 stage eight.  The tensor cores keep each product's whole sum:
-// their accumulator's drift (~5e-6 of its size, tc_gemm.cuh) is far below
-// the bf16 arm's bar (1e-2 of the output), so nothing is promoted.  What
-// bounds it: operations, 72.5 GFLOP at B=16, N=256, 0.073 ms at the dense
-// bf16 peak (989 TFLOP/s).  Both arms share plf_body.
+// The bf16 arm (plf_bf16_kernel) replaces the same Pallas kernel in its
+// bf16 serving mode (cmflow_tpu/ops/fused.py:99-105, the chain :120-129,
+// pallas_call :216): the base comes rounded to bf16, one rounding per point;
+// the offset, the first affine and ReLU stay float32; x0 and x1 are rounded
+// to bf16 (nearest even) before their products, which sum in float32 in the
+// tensor cores (their accumulator's drift, ~5e-6 of its size, is far below
+// the arm's bar of 1e-2 of the output, so nothing is promoted); the output is
+// float32.  It takes any K.
+// What bounds it: operations, 72.5 GFLOP at B=16, N=256, 0.073 ms at the
+// dense bf16 peak (989 TFLOP/s).  The packed bf16 weights
+// (ops/fused.py::tc_weights_bf16, 288 KiB) stream from L2 once a block: at
+// that shape 1,920 blocks, 566 MB of L2 reads a forward.  The ring takes a
+// cluster size (kBf16Cluster): in clusters of two, each stage multicast to
+// both blocks, those reads halve, but the kernel ran 5% slower.
+// Design (plf_bf16_kernel, below): each thread forms its A registers of a
+// stage (64 channels) from gathered bf16 pairs while the tensor cores run
+// the stage before, the next stage's pairs in flight, so the tensor cores
+// never wait on a gather; a stage's group of products stays in flight
+// while the next stage's is issued (tc::wait<1>), and the A registers of
+// each group, and the accumulator, are held (tc::fence_regs) until the
+// wait that covers it, so ptxas serialises nothing; 32 KB stages in a ring
+// of four.  A query with more than 128 neighbours runs over consecutive
+// tiles of one block, its running max carried in shared memory.
+// What held the first design (scripts/profile_torch_bf16_tc.py, NVIDIA H100
+// 80GB HBM3 at 700 W): its products' own issue.  Left out, they took 74% of
+// its time with them; its gathers 20%, its weight stream 5%.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 #include "tc_gemm.cuh"
 
@@ -81,22 +92,27 @@ static_assert(2 * 16 * kC2 * 4 == kStageBytes, "a W1 stage: 16 rows, hi, lo");
 static_assert(2 * 64 * kC3 * 4 == kStageBytes, "a W2 stage: 64 rows, hi, lo");
 // floats of each half (hi, lo) of the packed weights
 constexpr int kPackHalf = kC1 * kC2 + kC2 * kC3;
-// the bf16 arm's stages: W1 two k16 steps of 256 columns, W2 eight of 64
-constexpr int kBf16StageBytes = 16384;
-constexpr int kBf16Chunks1 = kC1 / 32;
-constexpr int kBf16Chunks2 = kC2 / 128;
-static_assert(2 * 16 * kC2 * 2 == kBf16StageBytes, "a bf16 W1 stage");
-static_assert(8 * 16 * kC3 * 2 == kBf16StageBytes, "a bf16 W2 stage");
+// the bf16 arm: tiles of kRows rows, 64 a consumer warpgroup; a stage is
+// four W1 k16 steps of 256 columns, or all of W2 (16 k16 steps of 64)
+constexpr int kBf16Stage = 32768;
+constexpr int kBf16Stages = 4;
+// blocks that share each weight stage: one (a cluster of two, multicasting
+// each stage, measured slower here: scripts/profile_torch_bf16_tc.py)
+constexpr int kBf16Cluster = 1;
+constexpr int kBf16W1Chunks = kC1 / 64;
+constexpr int kBf16Chunks = kBf16W1Chunks + 1;
+static_assert(4 * 16 * kC2 * 2 == kBf16Stage, "a bf16 W1 stage");
+static_assert(kC2 * kC3 * 2 == kBf16Stage, "W2 in one bf16 stage");
+// dynamic shared memory of the bf16 arm: the ring, x2, the float32
+// parameters (wrel, s0, b0, s1, b1, s2, b2), a running max
+constexpr int kBf16X2 = kBf16Stages * kBf16Stage;
+constexpr int kBf16Params = kBf16X2 + kRows * kX2Stride * 4;
+constexpr int kParamFloats = 5 * kC1 + 2 * kC2 + 2 * kC3;
+constexpr int kBf16Carry = kBf16Params + kParamFloats * 4;
+constexpr size_t kBf16SmemBytes = kBf16Carry + kC3 * 4;
 
-template <bool kBf16>
-__host__ __device__ constexpr int stage_bytes() {
-  return kBf16 ? kBf16StageBytes : kStageBytes;
-}
-
-template <bool kBf16>
 constexpr size_t smem_bytes() {
-  return (size_t)kStages * stage_bytes<kBf16>() +
-         (size_t)kRows * kX2Stride * 4;
+  return (size_t)kStages * kStageBytes + (size_t)kRows * kX2Stride * 4;
 }
 
 __device__ __forceinline__ float relu_affine(float x, float s, float b) {
@@ -107,31 +123,18 @@ __device__ __forceinline__ float4 load_or_zero(const float4* p, int i) {
   return p ? __ldg(p + i) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
 }
 
-// four consecutive bf16 channels as floats
-__device__ __forceinline__ float4 load_or_zero(const uint2* p, int i) {
-  return p ? tc::bf16x4_to_float4(__ldg(p + i))
-           : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-}
-
-// the accumulator's columns 128h .. 128h + 127
-template <int H>
-__device__ __forceinline__ float (&half_of(float (&acc)[128]))[64] {
-  return *reinterpret_cast<float(*)[64]>(acc + 64 * H);
-}
-
-// base [B*N, kC1] float32 (float4 rows) or bf16 (uint2 rows: four channels
-// each); wpack from tc_weights or tc_weights_bf16
-template <bool kBf16>
-__device__ __forceinline__ void plf_body(
-    const void* __restrict__ base, const int* __restrict__ idx,
-    const float* __restrict__ xyz, const float* __restrict__ wrel,
-    const float* __restrict__ s0, const float* __restrict__ b0,
-    const void* __restrict__ wpack, const float* __restrict__ s1,
-    const float* __restrict__ b1, const float* __restrict__ s2,
-    const float* __restrict__ b2, float* __restrict__ out, int total, int n,
-    int k) {
-  using Row4 = typename std::conditional<kBf16, uint2, float4>::type;
-  constexpr int kStage = stage_bytes<kBf16>();
+__global__ void __launch_bounds__(kThreads, 1)
+    plf_kernel(const float* __restrict__ base,  // [B*N, kC1]
+               const int* __restrict__ idx,     // [B*N, k]
+               const float* __restrict__ xyz,   // [B*N, 3], centred
+               const float* __restrict__ wrel,  // [3, kC1]
+               const float* __restrict__ s0, const float* __restrict__ b0,
+               const float* __restrict__ wpack,  // tc_weights
+               const float* __restrict__ s1, const float* __restrict__ b1,
+               const float* __restrict__ s2, const float* __restrict__ b2,
+               float* __restrict__ out,  // [B*N, kC3]
+               int total, int n, int k) {
+  constexpr int kStage = kStageBytes;
   extern __shared__ __align__(128) char smem[];
   float* x2s = reinterpret_cast<float*>(smem + kStages * kStage);
   __shared__ int row_j[kRows];  // neighbour row in base, or -1
@@ -168,12 +171,8 @@ __device__ __forceinline__ void plf_body(
   if (threadIdx.x >= kConsumers) {  // the producer warpgroup: one thread
     tc::producer_registers();
     if (threadIdx.x == kConsumers) {
-      const char* w = static_cast<const char*>(wpack);
-      if constexpr (kBf16) {
-        ring.produce(w, kBf16Chunks1 + kBf16Chunks2);
-      } else {
-        ring.produce(w, w + kPackHalf * 4, kChunks1 + kChunks2);
-      }
+      const char* w = reinterpret_cast<const char*>(wpack);
+      ring.produce(w, w + kPackHalf * 4, kChunks1 + kChunks2);
     }
     return;
   }
@@ -187,10 +186,10 @@ __device__ __forceinline__ void plf_body(
   const int ra = 64 * wg + 16 * warp + g, rb = ra + 8;
   constexpr int C4 = kC1 / 4;
   const bool va = row_q[ra] >= 0, vb = row_q[rb] >= 0;
-  const Row4* base4 = static_cast<const Row4*>(base);
-  const Row4* pa =
+  const float4* base4 = reinterpret_cast<const float4*>(base);
+  const float4* pa =
       va && row_j[ra] >= 0 ? base4 + (int64_t)row_j[ra] * C4 : nullptr;
-  const Row4* pb =
+  const float4* pb =
       vb && row_j[rb] >= 0 ? base4 + (int64_t)row_j[rb] * C4 : nullptr;
   const float xa = row_xyz[ra][0], ya = row_xyz[ra][1], za = row_xyz[ra][2];
   const float xb = row_xyz[rb][0], yb = row_xyz[rb][1], zb = row_xyz[rb][2];
@@ -223,35 +222,7 @@ __device__ __forceinline__ void plf_body(
   float acc[128];
 #pragma unroll
   for (int i = 0; i < 128; ++i) acc[i] = 0.0f;
-  if constexpr (kBf16) {
-    // Stage c holds k16 steps 2c and 2c+1 (8 KB each): channels 32c + 16e
-    // + 4t .. +3 of a thread's rows are its A values of step 2c + e
-    // (tc_gemm.cuh).  The tensor cores sum the whole product in `acc`.
-    for (int c = 0; c < kBf16Chunks1; ++c) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        float xa4[4], xb4[4];
-        first_layer(8 * c + 4 * e + t, xa4, xb4);
-        a[e][0] = tc::pack_bf16(xa4[0], xa4[1]);
-        a[e][1] = tc::pack_bf16(xb4[0], xb4[1]);
-        a[e][2] = tc::pack_bf16(xa4[2], xa4[3]);
-        a[e][3] = tc::pack_bf16(xb4[2], xb4[3]);
-      }
-      const uint32_t st = ring.acquire(c);
-      tc::fence();
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        tc::mma_bf16_n128(half_of<0>(acc), a[e], tc::desc(st + 8192 * e), 1);
-        tc::mma_bf16_n128(half_of<1>(acc), a[e],
-                          tc::desc(st + 8192 * e + 4096), 1);
-      }
-      tc::commit();
-      tc::wait_all();
-      tc::fence_regs(acc);
-      ring.release(c);
-    }
-  } else {
+  {
     // Stage c holds k8 steps 2c and 2c+1: their hi tiles (8 KB each), then
     // their lo tiles.  Step 2c + e, position p is channel 16c + 4*(p%4) +
     // 2e + p/4, so the channels 16c + 4t .. +3 a thread loads as one float4
@@ -299,28 +270,7 @@ __device__ __forceinline__ void plf_body(
   float acc2[32];
 #pragma unroll
   for (int i = 0; i < 32; ++i) acc2[i] = 0.0f;
-  if constexpr (kBf16) {
-    // Stage c holds k16 steps 8c .. 8c+7 (2 KB each); step s takes the
-    // accumulator's columns 16s .. 16s+15 in natural order.
-#pragma unroll
-    for (int c = 0; c < kBf16Chunks2; ++c) {
-      const uint32_t st = ring.acquire(kBf16Chunks1 + c);
-      tc::fence();
-#pragma unroll
-      for (int jj = 0; jj < 8; ++jj) {
-        const int s = 8 * (8 * c + jj);
-        const uint32_t a[4] = {tc::pack_bf16(acc[s], acc[s + 1]),
-                               tc::pack_bf16(acc[s + 2], acc[s + 3]),
-                               tc::pack_bf16(acc[s + 4], acc[s + 5]),
-                               tc::pack_bf16(acc[s + 6], acc[s + 7])};
-        tc::mma_bf16_n64(acc2, a, tc::desc(st + 2048 * jj), 1);
-      }
-      tc::commit();
-      tc::wait_all();
-      tc::fence_regs(acc2);
-      ring.release(kBf16Chunks1 + c);
-    }
-  } else {
+  {
     // Stage c holds k8 steps 8c .. 8c+7: their hi tiles (2 KB each), then
     // their lo tiles.  Step j, position p is channel 8j + 2*(p%4) + p/4,
     // the columns 8j + 2t (p = t) and 8j + 2t + 1 (p = t + 4) the thread
@@ -376,62 +326,305 @@ __device__ __forceinline__ void plf_body(
   }
 }
 
-__global__ void __launch_bounds__(kThreads, 1)
-    plf_kernel(const float* __restrict__ base,  // [B*N, kC1]
-               const int* __restrict__ idx,     // [B*N, k]
-               const float* __restrict__ xyz,   // [B*N, 3], centred
-               const float* __restrict__ wrel,  // [3, kC1]
-               const float* __restrict__ s0, const float* __restrict__ b0,
-               const float* __restrict__ wpack,  // tc_weights
-               const float* __restrict__ s1, const float* __restrict__ b1,
-               const float* __restrict__ s2, const float* __restrict__ b2,
-               float* __restrict__ out,  // [B*N, kC3]
-               int total, int n, int k) {
-  plf_body<false>(base, idx, xyz, wrel, s0, b0, wpack, s1, b1, s2, b2, out,
-                  total, n, k);
-}
-
+// The bf16 arm.  The block's work is qpb = max(1, kRows / k) whole
+// queries, qpb * k rows in `tiles` tiles of kRows: one tile of whole queries
+// where k <= kRows, else one query whose rows span several tiles, its
+// running max carried in shared memory.  Per tile, each consumer warpgroup
+// takes 64 rows:
+// - x1 = x0 @ W1 on wgmma m64n256k16 with A in registers and B from the
+//   ring, a stage (64 channels, four k16 steps) at a time: each thread
+//   forms its A of a stage (the gathered bf16 pairs, offset, affine and
+//   ReLU in float32, rounded to bf16) while the tensor cores run the stage
+//   before, and loads the next stage's pairs once the stage's products are
+//   issued; a stage's group of products is waited for (tc::wait<1>) only
+//   once the next one is issued, and then releases its stage, its A
+//   registers held until that wait (tc::fence_regs);
+// - x1 (affine, ReLU, bf16) becomes the A registers of all 16 k16 steps of
+//   W2 before its products start (m64n64k16, one group);
+// - x2 (affine, ReLU) goes to shared memory, and the max over each query's
+//   rows closes the tile.
 __global__ void __launch_bounds__(kThreads, 1)
     plf_bf16_kernel(const __nv_bfloat16* __restrict__ base,  // [B*N, kC1]
-                    const int* __restrict__ idx, const float* __restrict__ xyz,
-                    const float* __restrict__ wrel,
+                    const int* __restrict__ idx,             // [B*N, k]
+                    const float* __restrict__ xyz,  // [B*N, 3], centred
+                    const float* __restrict__ wrel,  // [3, kC1]
                     const float* __restrict__ s0, const float* __restrict__ b0,
                     const __nv_bfloat16* __restrict__ wpack,  // tc_weights_bf16
                     const float* __restrict__ s1, const float* __restrict__ b1,
                     const float* __restrict__ s2, const float* __restrict__ b2,
-                    float* __restrict__ out, int total, int n, int k) {
-  plf_body<true>(base, idx, xyz, wrel, s0, b0, wpack, s1, b1, s2, b2, out,
-                 total, n, k);
+                    float* __restrict__ out,  // [B*N, kC3]
+                    int total, int n, int k) {
+  extern __shared__ __align__(128) char smem[];
+  float* x2s = reinterpret_cast<float*>(smem + kBf16X2);
+  // wrel [3][kC1], s0, b0 [kC1], s1, b1 [kC2], s2, b2 [kC3]
+  float* params = reinterpret_cast<float*>(smem + kBf16Params);
+  const float* s1s = params + 5 * kC1;
+  const float* b1s = s1s + kC2;
+  const float* s2s = b1s + kC2;
+  const float* b2s = s2s + kC3;
+  float* carry = reinterpret_cast<float*>(smem + kBf16Carry);
+  __shared__ int row_j[kRows];  // neighbour row in base, or -1
+  __shared__ int row_q[kRows];  // query, or -1 for an unused row
+  __shared__ float row_xyz[kRows][3];  // the query's point, or 0
+  __shared__ __align__(8) uint64_t full[kBf16Stages];
+  __shared__ __align__(8) uint64_t empty[kBf16Stages];
+  const tc::ClusterRing<kBf16Stages, kBf16Stage, kBf16Cluster> ring{
+      smem, full, empty};
+
+  const int qpb = max(1, kRows / k);
+  const int rows = qpb * k;
+  const int tiles = (rows + kRows - 1) / kRows;
+  const int q0 = blockIdx.x * qpb;
+  // the parameters into shared memory, by every thread, before the first
+  // barrier
+  for (int i = threadIdx.x; i < kParamFloats / 4; i += kThreads) {
+    const float* const srcs[7] = {wrel, s0, b0, s1, b1, s2, b2};
+    const int ends[7] = {3 * kC1, 4 * kC1, 5 * kC1, 5 * kC1 + kC2,
+                         5 * kC1 + 2 * kC2, 5 * kC1 + 2 * kC2 + kC3,
+                         kParamFloats};
+    int a = 0, from = 0;
+#pragma unroll
+    for (int u = 0; u < 6; ++u) {
+      if (4 * i >= ends[u]) {
+        a = u + 1;
+        from = ends[u];
+      }
+    }
+    reinterpret_cast<float4*>(params)[i] =
+        __ldg(reinterpret_cast<const float4*>(srcs[a] + 4 * i - from));
+  }
+  // the tile's rows: (query, neighbour row in base), or -1
+  auto set_rows = [&](int tile) {
+    const int r = threadIdx.x;
+    const int rg = tile * kRows + r;  // row of the block's work
+    const int q = q0 + rg / k;
+    int j = -1, qq = -1;
+    if (rg < rows && q < total) {
+      qq = q;
+      const int jj = idx[(int64_t)q * k + rg % k];
+      if (jj >= 0 && jj < n) j = (q / n) * n + jj;
+    }
+    row_j[r] = j;
+    row_q[r] = qq;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      row_xyz[r][a] = qq >= 0 ? __ldg(xyz + (int64_t)qq * 3 + a) : 0.0f;
+    }
+  };
+  if (threadIdx.x < kRows) set_rows(0);
+  if (threadIdx.x == 0) ring.init(kConsumers / 32);
+  tc::cluster_sync();  // every block's barriers are initialised
+
+  if (threadIdx.x >= kConsumers) {  // the producer warpgroup: one thread
+    tc::producer_registers();
+    if (threadIdx.x == kConsumers) {
+      ring.produce(reinterpret_cast<const char*>(wpack), tiles * kBf16Chunks,
+                   kBf16Chunks);
+    }
+    return;
+  }
+  tc::consumer_registers();
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int warp = (tid / 32) % 4;
+  const int lane = tid % 32, g = lane / 4, t = lane % 4;
+  // the thread's rows ra, rb of the warpgroup's 64 (tc_gemm.cuh, fragment
+  // layouts); in W1's K order (ops/fused.py::tc_weights_bf16 with
+  // from_rows) its A values of k16 step s are channels 16s + 4t .. +3 of
+  // both rows, one 8-byte load each
+  const int ra = 64 * wg + 16 * warp + g, rb = ra + 8;
+  const uint2* base4 = reinterpret_cast<const uint2*>(base);
+  const float4* params4 = reinterpret_cast<const float4*>(params);
+
+  for (int tile = 0; tile < tiles; ++tile) {
+    if (tile > 0) {
+      tc::consumer_sync<kConsumers>();  // the last tile's rows and x2 read
+      if (tid < kRows) set_rows(tile);
+      tc::consumer_sync<kConsumers>();
+    }
+
+    const int rows2[2] = {ra, rb};
+    const uint2* prow[2];
+    float rx[2], ry[2], rz[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = rows2[h], j = row_j[r];
+      prow[h] = j >= 0 ? base4 + (int64_t)j * (kC1 / 4) : nullptr;
+      rx[h] = row_xyz[r][0];
+      ry[h] = row_xyz[r][1];
+      rz[h] = row_xyz[r][2];
+    }
+    const bool same_query = row_q[ra] == row_q[rb];
+    // a stage's gathered channels 64c + 16e + 4t .. +3 of both rows
+    auto gather = [&](int cc, uint2 (&gp)[2][4]) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          gp[h][e] = prow[h] ? __ldg(prow[h] + 16 * cc + 4 * e + t)
+                             : make_uint2(0, 0);
+        }
+      }
+    };
+    uint2 gp[2][4];  // the next stage's
+    gather(0, gp);
+
+    // x1 = x0 @ W1 on wgmma m64n256k16, A in registers: stage c holds k16
+    // steps 4c .. 4c+3, 8 KB each.  x0 of a stage is formed from its
+    // gathered channels (offset, affine and ReLU in float32, rounded to
+    // bf16) while the tensor cores run the stage before; the next stage's
+    // channels are loaded once this stage's products are issued
+    const int c0 = tile * kBf16Chunks;
+    float acc[128];
+#pragma unroll
+    for (int i = 0; i < 128; ++i) acc[i] = 0.0f;
+    uint32_t a[2][4][4];  // the A of two stages: [stage % 2][step][reg]
+#pragma unroll 2
+    for (int c = 0; c < kBf16W1Chunks; ++c) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c4 = 16 * c + 4 * e + t;  // channels 4 c4 .. +3
+        const float4 w0 = params4[c4], w1 = params4[kC1 / 4 + c4],
+                     w2 = params4[kC1 / 2 + c4],
+                     sc = params4[3 * kC1 / 4 + c4], bi = params4[kC1 + c4];
+        const float r0[4] = {w0.x, w0.y, w0.z, w0.w};
+        const float r1[4] = {w1.x, w1.y, w1.z, w1.w};
+        const float r2[4] = {w2.x, w2.y, w2.z, w2.w};
+        const float ss[4] = {sc.x, sc.y, sc.z, sc.w};
+        const float bb[4] = {bi.x, bi.y, bi.z, bi.w};
+        float v[2][4];
+        const float4 ga = tc::bf16x4_to_float4(gp[0][e]);
+        const float4 gb = tc::bf16x4_to_float4(gp[1][e]);
+        const float g4[2][4] = {{ga.x, ga.y, ga.z, ga.w},
+                                {gb.x, gb.y, gb.z, gb.w}};
+        // (a row of no query forms values that no max reads)
+        if (same_query) {  // one offset for both rows (k >= 16)
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const float off =
+                fmaf(rz[0], r2[u], fmaf(ry[0], r1[u], rx[0] * r0[u]));
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              v[h][u] = relu_affine(g4[h][u] - off, ss[u], bb[u]);
+            }
+          }
+        } else {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+              const float off =
+                  fmaf(rz[h], r2[u], fmaf(ry[h], r1[u], rx[h] * r0[u]));
+              v[h][u] = relu_affine(g4[h][u] - off, ss[u], bb[u]);
+            }
+          }
+        }
+        a[c % 2][e][0] = tc::pack_bf16(v[0][0], v[0][1]);
+        a[c % 2][e][1] = tc::pack_bf16(v[1][0], v[1][1]);
+        a[c % 2][e][2] = tc::pack_bf16(v[0][2], v[0][3]);
+        a[c % 2][e][3] = tc::pack_bf16(v[1][2], v[1][3]);
+      }
+      const uint32_t st = ring.acquire(c0 + c);
+      tc::fence_regs(acc);
+      tc::fence();
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        tc::mma_bf16_n256(acc, a[c % 2][e], tc::desc(st + 8192 * e), 1);
+      }
+      tc::commit();
+      if (c + 1 < kBf16W1Chunks) gather(c + 1, gp);
+      tc::wait<1>();  // the last stage's products are done
+      tc::fence_regs(acc);
+      tc::fence_regs(a[(c + 1) % 2]);  // their A, now free
+      if (c > 0) ring.release(c0 + c - 1);
+    }
+    tc::wait<0>();
+    tc::fence_regs(acc);
+    tc::fence_regs(a[(kBf16W1Chunks - 1) % 2]);
+    ring.release(c0 + kBf16W1Chunks - 1);
+
+    // x1 = ReLU(acc * s1 + b1) in bf16 as the A registers of W2's k16 steps:
+    // acc[8s .. 8s+7] are columns 16s + 2t, +1 and 16s + 8 + 2t, +1 of rows
+    // g and g + 8 (tc_gemm.cuh)
+    uint32_t a2[kC2 / 16][4];
+#pragma unroll
+    for (int s = 0; s < kC2 / 16; ++s) {
+      const int col = 16 * s + 2 * t;
+      const float2 sa = *reinterpret_cast<const float2*>(s1s + col);
+      const float2 ba = *reinterpret_cast<const float2*>(b1s + col);
+      const float2 sb = *reinterpret_cast<const float2*>(s1s + col + 8);
+      const float2 bb = *reinterpret_cast<const float2*>(b1s + col + 8);
+      a2[s][0] = tc::pack_bf16(relu_affine(acc[8 * s], sa.x, ba.x),
+                               relu_affine(acc[8 * s + 1], sa.y, ba.y));
+      a2[s][1] = tc::pack_bf16(relu_affine(acc[8 * s + 2], sa.x, ba.x),
+                               relu_affine(acc[8 * s + 3], sa.y, ba.y));
+      a2[s][2] = tc::pack_bf16(relu_affine(acc[8 * s + 4], sb.x, bb.x),
+                               relu_affine(acc[8 * s + 5], sb.y, bb.y));
+      a2[s][3] = tc::pack_bf16(relu_affine(acc[8 * s + 6], sb.x, bb.x),
+                               relu_affine(acc[8 * s + 7], sb.y, bb.y));
+    }
+
+    // x2 = x1 @ W2: one stage, k16 step s 2 KB at 2048 s
+    float acc2[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc2[i] = 0.0f;
+    {
+      const uint32_t st = ring.acquire(c0 + kBf16W1Chunks);
+      tc::fence_regs(acc2);
+      tc::fence();
+#pragma unroll
+      for (int s = 0; s < kC2 / 16; ++s) {
+        tc::mma_bf16_n64(acc2, a2[s], tc::desc(st + 2048 * s), 1);
+      }
+      tc::commit();
+      tc::wait<0>();
+      tc::fence_regs(acc2);
+      ring.release(c0 + kBf16W1Chunks);
+    }
+
+    // x2 = ReLU(acc2 * s2 + b2) into shared memory
+    const int ra = 64 * wg + 16 * warp + g, rb = ra + 8;
+#pragma unroll
+    for (int j = 0; j < kC3 / 8; ++j) {
+      const int col = 8 * j + 2 * t;
+      const float2 s = *reinterpret_cast<const float2*>(s2s + col);
+      const float2 b = *reinterpret_cast<const float2*>(b2s + col);
+      *reinterpret_cast<float2*>(x2s + ra * kX2Stride + col) =
+          make_float2(relu_affine(acc2[4 * j], s.x, b.x),
+                      relu_affine(acc2[4 * j + 1], s.y, b.y));
+      *reinterpret_cast<float2*>(x2s + rb * kX2Stride + col) =
+          make_float2(relu_affine(acc2[4 * j + 2], s.x, b.x),
+                      relu_affine(acc2[4 * j + 3], s.y, b.y));
+    }
+    tc::consumer_sync<kConsumers>();
+
+    // max over each query's rows in this tile, k ascending, on from the
+    // running max of the tiles before
+    for (int e = tid; e < qpb * kC3; e += kConsumers) {
+      const int qi = e / kC3, c = e % kC3;
+      const int q = q0 + qi;
+      if (q >= total) continue;
+      const int lo = max(qi * k, tile * kRows);
+      const int hi = min(qi * k + k, (tile + 1) * kRows);
+      float m = tile == 0 ? -INFINITY : carry[c];
+#pragma unroll 4
+      for (int rg = lo; rg < hi; ++rg) {
+        m = fmaxf(m, x2s[(rg - tile * kRows) * kX2Stride + c]);
+      }
+      if (tile + 1 == tiles) {
+        out[(int64_t)q * kC3 + c] = m;
+      } else {
+        carry[c] = m;
+      }
+    }
+  }
+  tc::cluster_sync();  // no block of the cluster signals this one any more
 }
 
-template <typename T, typename W>
-int launch(void (*kernel)(const T*, const int*, const float*, const float*,
-                          const float*, const float*, const W*, const float*,
-                          const float*, const float*, const float*, float*,
-                          int, int, int),
-           size_t smem, const void* base, const void* idx, const void* xyz,
-           const void* wrel, const void* s0, const void* b0,
-           const void* wpack, const void* s1, const void* b1, const void* s2,
-           const void* b2, void* out, int b, int n, int k, int c1,
-           void* stream) {
-  if (c1 != kC1 || k < 1 || k > kRows || n < 1) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const int total = b * n;
-  if (total == 0) return (int)cudaSuccess;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int qpb = kRows / k;
-  const int blocks = (total + qpb - 1) / qpb;
-  kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(base), static_cast<const int*>(idx),
-      static_cast<const float*>(xyz), static_cast<const float*>(wrel),
-      static_cast<const float*>(s0), static_cast<const float*>(b0),
-      static_cast<const W*>(wpack), static_cast<const float*>(s1),
-      static_cast<const float*>(b1), static_cast<const float*>(s2),
-      static_cast<const float*>(b2), static_cast<float*>(out), total, n, k);
-  return (int)cudaGetLastError();
+int check_shape(int n, int k, int c1) {
+  return c1 != kC1 || k < 1 || n < 1 ? (int)cudaErrorInvalidValue
+                                     : (int)cudaSuccess;
 }
 
 }  // namespace
@@ -447,19 +640,56 @@ int cmflow_plf(const void* base, const void* idx, const void* xyz,
                const void* wpack, const void* s1, const void* b1,
                const void* s2, const void* b2, void* out, int b, int n, int k,
                int c1, void* stream) {
-  return launch(plf_kernel, smem_bytes<false>(), base, idx, xyz, wrel, s0,
-                b0, wpack, s1, b1, s2, b2, out, b, n, k, c1, stream);
+  if (check_shape(n, k, c1) || k > kRows) return (int)cudaErrorInvalidValue;
+  const int total = b * n;
+  if (total == 0) return (int)cudaSuccess;
+  const size_t smem = smem_bytes();
+  cudaError_t err = cudaFuncSetAttribute(
+      plf_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int qpb = kRows / k;
+  const int blocks = (total + qpb - 1) / qpb;
+  plf_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(base), static_cast<const int*>(idx),
+      static_cast<const float*>(xyz), static_cast<const float*>(wrel),
+      static_cast<const float*>(s0), static_cast<const float*>(b0),
+      static_cast<const float*>(wpack), static_cast<const float*>(s1),
+      static_cast<const float*>(b1), static_cast<const float*>(s2),
+      static_cast<const float*>(b2), static_cast<float*>(out), total, n, k);
+  return (int)cudaGetLastError();
 }
 
-// The bf16 arm: base [B,N,512] bf16, wrel [3,512] f32 (the bf16-rounded
-// values), wpack from tc_weights_bf16 (bf16), the rest as cmflow_plf.
+// The bf16 arm: base [B,N,512] bf16, idx [B,N,k] int32 (any k >= 1), wrel
+// [3,512] f32 (the bf16-rounded values), wpack from tc_weights_bf16 (bf16),
+// the rest as cmflow_plf.  Launched in clusters of kBf16Cluster blocks (a
+// block past the last query takes part in the weight stages and writes
+// nothing).
 int cmflow_plf_bf16(const void* base, const void* idx, const void* xyz,
                     const void* wrel, const void* s0, const void* b0,
                     const void* wpack, const void* s1, const void* b1,
                     const void* s2, const void* b2, void* out, int b, int n,
                     int k, int c1, void* stream) {
-  return launch(plf_bf16_kernel, smem_bytes<true>(), base, idx, xyz, wrel,
-                s0, b0, wpack, s1, b1, s2, b2, out, b, n, k, c1, stream);
+  if (check_shape(n, k, c1)) return (int)cudaErrorInvalidValue;
+  const int total = b * n;
+  if (total == 0) return (int)cudaSuccess;
+  const size_t smem = kBf16SmemBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      plf_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int qpb = k < kRows ? kRows / k : 1;
+  const int blocks = (total + qpb - 1) / qpb;
+  return (int)tc::launch_cluster<kBf16Cluster>(
+      plf_bf16_kernel,
+      (blocks + kBf16Cluster - 1) / kBf16Cluster * kBf16Cluster, kThreads,
+      smem, stream, static_cast<const __nv_bfloat16*>(base),
+      static_cast<const int*>(idx), static_cast<const float*>(xyz),
+      static_cast<const float*>(wrel), static_cast<const float*>(s0),
+      static_cast<const float*>(b0),
+      static_cast<const __nv_bfloat16*>(wpack),
+      static_cast<const float*>(s1), static_cast<const float*>(b1),
+      static_cast<const float*>(s2), static_cast<const float*>(b2),
+      static_cast<float*>(out), total, n, k);
 }
 
 const char* cmflow_error_string(int code) {

@@ -1,8 +1,9 @@
 // Tensor-core pieces shared by the fused GEMM kernels (plf.cu,
 // cost_volume.cu, mse.cu), for Hopper (sm_90a): float32 accuracy from TF32
 // products (3xTF32), the bf16 products of the bf16 serving arms, `wgmma`
-// with A in registers and B in shared memory, and a ring of weight stages
-// filled by `cp.async.bulk` and completed on `mbarrier`s.
+// with A in registers or shared memory and B in shared memory, and rings of
+// weight stages filled by `cp.async.bulk` and completed on `mbarrier`s, the
+// bf16 arms' shared by a cluster of blocks (multicast).
 //
 // 3xTF32.  A TF32 product keeps 10 mantissa bits of each operand, about
 // 5e-4 relative, which over 512-wide sums breaks the 1e-5-of-magnitude bar
@@ -48,10 +49,14 @@
 //   matrix is still 8 rows of 16 bytes (8 bf16 along K), so LBO and SBO
 //   stay 128 and 256 bytes.  One k16 step of B is [N/8][2][8][8] bf16:
 //   element (n, p) at ((n/8 * 2 + p/8) * 8 + n%8) * 8 + p%8.
-// - D is as above.  A gathered row's four consecutive channels 4t .. 4t+3
-//   of a 16-channel block are positions 2t, 2t+1, 2t+8, 2t+9 of one k16
-//   step; accumulator columns 16s .. 16s+15 (n8 tiles 2s, 2s+1) are the A
-//   of step s as they stand, in natural order.
+// - A, 64 x 16, may come from shared memory instead, in B's layout with
+//   rows for columns (a_offset): 2 KB a k16 step, each row's channels 8h ..
+//   8h+7 one 16-byte store.
+// - D is as above.  Accumulator columns 16s .. 16s+15 (n8 tiles 2s, 2s+1)
+//   are the A of step s as they stand, in natural order, as is an A from
+//   shared memory; a gathered row's four consecutive channels 4t .. 4t+3 of
+//   a 16-channel block are positions 2t, 2t+1, 2t+8, 2t+9 of one k16 step
+//   (ops/fused.py::tc_weights_bf16 orders each product's weights to match).
 
 #pragma once
 
@@ -117,6 +122,11 @@ __device__ __forceinline__ void commit() {
 __device__ __forceinline__ void wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
+// until at most N committed groups of products are still in flight
+template <int N>
+__device__ __forceinline__ void wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
 
 // keeps the compiler from moving reads or writes of the accumulator across
 // the asynchronous products
@@ -124,6 +134,16 @@ template <int M>
 __device__ __forceinline__ void fence_regs(float (&d)[M]) {
 #pragma unroll
   for (int i = 0; i < M; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+// the same for A operands in registers: after the wait that covers their
+// products, so that no other value takes their registers while they run
+template <int M, int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[M][N]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+  }
 }
 
 #define CMFLOW_D8(i)                                                    \
@@ -172,23 +192,30 @@ __device__ __forceinline__ void mma_n64(float (&d)[32], const uint32_t (&a)[4],
 }
 
 // d = A (registers, bf16) x B (descriptor, bf16, K-major) + (accumulate ?
-// d : 0) in float32, 64 x 128 x 16
-__device__ __forceinline__ void mma_bf16_n128(float (&d)[64],
+// d : 0) in float32, 64 x 256 x 16
+__device__ __forceinline__ void mma_bf16_n256(float (&d)[128],
                                               const uint32_t (&a)[4],
                                               uint64_t b, int accumulate) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
-      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
-      "%57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
+      "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
+      "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
+      "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
+      "%127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 0;\n"
       "}\n"
-      : CMFLOW_D32(0), CMFLOW_D32(32)
+      : CMFLOW_D32(0), CMFLOW_D32(32), CMFLOW_D32(64), CMFLOW_D32(96)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
 
@@ -208,6 +235,34 @@ __device__ __forceinline__ void mma_bf16_n64(float (&d)[32],
       "}\n"
       : CMFLOW_D32(0)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// d = A (descriptor, bf16, K-major) x B (descriptor, bf16, K-major) +
+// (accumulate ? d : 0) in float32, 64 x 256 x 16: both operands from shared
+// memory, so no register of an operand is live while the product runs
+__device__ __forceinline__ void mma_bf16_ss_n256(float (&d)[128], uint64_t a,
+                                                 uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
+      "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
+      "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
+      "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
+      "%127}, "
+      "%128, %129, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : CMFLOW_D32(0), CMFLOW_D32(32), CMFLOW_D32(64), CMFLOW_D32(96)
+      : "l"(a), "l"(b), "r"(accumulate));
 }
 
 #undef CMFLOW_D32
@@ -302,11 +357,10 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
 }
 
 // A ring of STAGES buffers of BYTES each in shared memory, filled in order
-// from the packed weights: for 3xTF32 (ops/fused.py::tc_weights) buffer
+// from the packed 3xTF32 weights (ops/fused.py::tc_weights): buffer
 // c % STAGES takes chunk c of the hi array in its first half and chunk c of
-// the lo array in its second; for bf16 (tc_weights_bf16) chunk c of the one
-// array.  full[s] completes when buffer s has landed; empty[s] when every
-// consumer warp has released it.
+// the lo array in its second.  full[s] completes when buffer s has landed;
+// empty[s] when every consumer warp has released it.
 template <int STAGES, int BYTES>
 struct Ring {
   char* buf;
@@ -350,26 +404,6 @@ struct Ring {
     }
   }
 
-  // the producer thread, one array (the bf16 weights): chunk c is the BYTES
-  // at src + c * BYTES
-  __device__ void produce(const char* src, int chunks) const {
-    for (int c = 0; c < chunks; ++c) {
-      const int s = c % STAGES;
-      if (c >= STAGES) mbar_wait(&empty[s], ((c / STAGES) - 1) & 1);
-      const uint32_t bar = smem_addr(&full[s]);
-      asm volatile(
-          "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-              bar),
-          "r"(BYTES)
-          : "memory");
-      asm volatile(
-          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-          "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(buf + s * BYTES)),
-          "l"(src + (size_t)c * BYTES), "r"(BYTES), "r"(bar)
-          : "memory");
-    }
-  }
-
   // a consumer warp: wait for chunk c; returns its buffer's shared address
   __device__ uint32_t acquire(int c) const {
     const int s = c % STAGES;
@@ -382,6 +416,157 @@ struct Ring {
     if (threadIdx.x % 32 == 0) mbar_arrive(&empty[c % STAGES]);
   }
 };
+
+// ---------------------------------------------------------------------------
+// the bf16 arms: A in shared memory, and weight stages shared by a cluster
+// ---------------------------------------------------------------------------
+
+// bytes of one k16 step of a 64-row A tile in shared memory, and where row
+// r's channels 8h .. 8h+7 of a step lie in it (B's layout, rows for
+// columns; LBO 128 and SBO 256 as for B)
+constexpr uint32_t kAStep = 2048;
+__host__ __device__ constexpr uint32_t a_offset(int r, int h) {
+  return (uint32_t)(((r / 8 * 2 + h) * 8 + r % 8) * 16);
+}
+
+// makes this thread's stores to shared memory visible to the tensor cores'
+// reads of it (the async proxy); a barrier then orders them across threads
+__device__ __forceinline__ void fence_view_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// every thread of the cluster that has not exited, with release and
+// acquire order for shared memory across its blocks
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// an arrival on the barrier at `bar`'s offset in block `rank` of the
+// cluster.  Its release is the default, of this block's own operations
+// only: enough where what it reports (the products' reads of a stage) has
+// already completed; a release at cluster scope costs each arrival a fence
+// of a microsecond or more.
+__device__ __forceinline__ void mbar_arrive_remote(uint64_t* bar,
+                                                   uint32_t rank) {
+  asm volatile(
+      "{\n"
+      ".reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(rank)
+      : "memory");
+}
+
+// A ring of STAGES buffers of BYTES each, at the same offset in each of the
+// CLUSTER blocks of a cluster, filled in order from one packed array: chunk
+// c (the BYTES at src + (c % period) * BYTES) goes to buffer c % STAGES of
+// every block.  Each block's producer copies its 1/CLUSTER part of the chunk
+// and multicasts it to all of them, so each weight byte leaves L2 once per
+// cluster.  full[s] of a block completes when all BYTES have landed in it;
+// empty[s] of a block when every consumer warp of every block has released
+// buffer s, since the next copy writes into all of them.  Every block of the
+// cluster must take part in every chunk.
+template <int STAGES, int BYTES, int CLUSTER>
+struct ClusterRing {
+  static_assert(BYTES % (16 * CLUSTER) == 0, "parts of whole 16 bytes");
+  static constexpr int kPart = BYTES / CLUSTER;
+  char* buf;
+  uint64_t* full;
+  uint64_t* empty;
+
+  // one thread, before the cluster's first barrier (cluster_sync)
+  __device__ void init(uint32_t consumer_warps) const {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], consumer_warps * CLUSTER);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+
+  // the producer thread of each block
+  __device__ void produce(const char* src, int chunks, int period) const {
+    const uint32_t rank = CLUSTER == 1 ? 0 : cluster_rank();
+    for (int c = 0; c < chunks; ++c) {
+      const int s = c % STAGES;
+      if (c >= STAGES) mbar_wait(&empty[s], ((c / STAGES) - 1) & 1);
+      const uint32_t bar = smem_addr(&full[s]);
+      asm volatile(
+          "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+              bar),
+          "r"(BYTES)
+          : "memory");
+      const uint32_t dst = smem_addr(buf + s * BYTES + rank * kPart);
+      const char* from = src + (size_t)(c % period) * BYTES + rank * kPart;
+      if constexpr (CLUSTER == 1) {
+        asm volatile(
+            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::"
+            "bytes [%0], [%1], %2, [%3];\n" ::"r"(dst),
+            "l"(from), "r"(kPart), "r"(bar)
+            : "memory");
+      } else {
+        asm volatile(
+            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::"
+            "bytes.multicast::cluster [%0], [%1], %2, [%3], %4;\n" ::"r"(dst),
+            "l"(from), "r"(kPart), "r"(bar),
+            "h"((uint16_t)((1u << CLUSTER) - 1))
+            : "memory");
+      }
+    }
+  }
+
+  // a consumer warp: wait for chunk c; returns its buffer's shared address
+  __device__ uint32_t acquire(int c) const {
+    const int s = c % STAGES;
+    mbar_wait(&full[s], (c / STAGES) & 1);
+    return smem_addr(buf + s * BYTES);
+  }
+
+  // a consumer warp, once the products that read chunk c have completed:
+  // its release of the buffer in every block of the cluster
+  __device__ void release(int c) const {
+    if (threadIdx.x % 32 == 0) {
+      const uint32_t own = CLUSTER == 1 ? 0 : cluster_rank();
+#pragma unroll
+      for (uint32_t r = 0; r < CLUSTER; ++r) {
+        if (r == own) {
+          mbar_arrive(&empty[c % STAGES]);
+        } else {
+          mbar_arrive_remote(&empty[c % STAGES], r);
+        }
+      }
+    }
+  }
+};
+
+// a launch in clusters of CLUSTER blocks along x (blocks a multiple of it),
+// with `smem` bytes of dynamic shared memory; returns the launch's error
+template <int CLUSTER, typename... Params, typename... Args>
+cudaError_t launch_cluster(void (*kernel)(Params...), int blocks, int threads,
+                           size_t smem, void* stream, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CLUSTER;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  const cudaError_t last = cudaGetLastError();  // clears a refused launch
+  return err != cudaSuccess ? err : last;
+}
 
 // warp specialisation: the producer warpgroup gives up registers that the
 // consumer warpgroups take (all four warps of a warpgroup execute it)

@@ -107,7 +107,7 @@ MSE_MAX_FEATS = 5  # the sa encoder's first layer: 3 + Cf inputs, at most 8
 PLF_WIDTHS = (512, 256, 64)
 CV_WIDTH = 512
 WEIGHTNET_HIDDEN = 8
-MAX_K = 32  # K3 and K4a (K5: twice it); K4b takes any K
+MAX_K = 32  # K3 and K4a's float32 arm (K5's: twice it); the rest any K
 
 
 # ---------------------------------------------------------------------------
@@ -536,15 +536,15 @@ def tc_weights(w1: Tensor, w2: Tensor) -> Tensor:
     return torch.cat((hi, lo))
 
 
-def _tc_operand_bf16(w: Tensor, from_rows: bool) -> Tensor:
+def _tc_operand_bf16(w: Tensor, from_rows: bool = False) -> Tensor:
     """A bfloat16 dense kernel ``w [cin, cout]`` as the B operand of the
-    bf16 wgmma kernels, ``[cin / 16, cout * 16]``: per k16 step one tile in
-    the layout of ``csrc/tc_gemm.cuh`` (element ``(n, p)`` at
-    ``((n // 8 * 2 + p // 8) * 8 + n % 8) * 8 + p % 8``).  With
-    ``from_rows``, step ``s`` position ``p`` is channel ``16s + 4*(p%8//2)
-    + 2*(p//8) + p%2`` (A made from four consecutive channels of a gathered
-    row); otherwise channel ``16s + p`` (A taken from a previous product's
-    accumulator)."""
+    bf16 wgmma kernels, ``[cin / 16, cout * 16]``: per k16 step ``s`` one
+    tile in the layout of ``csrc/tc_gemm.cuh``, element ``(n, p)`` at
+    ``((n // 8 * 2 + p // 8) * 8 + n % 8) * 8 + p % 8``.  Position ``p`` is
+    channel ``16s + p`` (A from shared memory, or from a previous product's
+    accumulator), or with ``from_rows`` channel ``16s + 4*(p%8//2) +
+    2*(p//8) + p%2`` (A made in registers from four consecutive channels of
+    a gathered row)."""
     cin, cout = w.shape
     if from_rows:  # (s, t, h, u, ng, r) -> (s, ng, h, r, t, u)
         v = w.reshape(cin // 16, 4, 2, 2, cout // 8, 8).permute(
@@ -554,13 +554,15 @@ def _tc_operand_bf16(w: Tensor, from_rows: bool) -> Tensor:
     return v.reshape(cin // 16, cout * 16)
 
 
-def tc_weights_bf16(w1: Tensor, w2: Tensor) -> Tensor:
+def tc_weights_bf16(w1: Tensor, w2: Tensor, from_rows: bool = False
+                    ) -> Tensor:
     """The bf16 arms' :func:`tc_weights`: two chained bfloat16 products as
-    the one bf16 array that K5 and K4a stream in order, ``w1`` (A made from
-    gathered rows) then ``w2`` (A the first product), one pass each
-    (:func:`_tc_operand_bf16`)."""
-    return torch.cat((_tc_operand_bf16(w1, True).flatten(),
-                      _tc_operand_bf16(w2, False).flatten()))
+    the one bf16 array that K5 (``from_rows``: its first product's A is made
+    from gathered rows in registers) and K4a (A from shared memory) stream
+    in order, ``w1`` then ``w2`` (in natural order: its A is the first
+    product), one pass each (:func:`_tc_operand_bf16`)."""
+    return torch.cat((_tc_operand_bf16(w1, from_rows).flatten(),
+                      _tc_operand_bf16(w2).flatten()))
 
 
 # K3's B fragments per scale (csrc/mse.cu): (k8 steps, n8 tiles) of its
@@ -849,7 +851,8 @@ def fused_point_local_feature(feat_tx: Tensor, idx: Tensor, xyz: Tensor,
         layer's feature transform (``features @ w0[3:]``): float32, or
         bfloat16 for the bf16 arm, whose base ``feat_tx + xyz_c @ wrel`` is
         rounded to bf16 once per point.
-      idx: ``[B, N, K]`` int32 ball-query indices.
+      idx: ``[B, N, K]`` int32 ball-query indices: K <= 64 for the
+        float32 arm's kernel, any K >= 1 for the bf16 arm's.
       xyz: ``[B, N, 3]`` float32 coordinates.
       params: ``(wrel, s0, b0, w1, s1, b1, ...)`` from
         :func:`plf_params_from_variables`; ``wrel`` and the Dense kernels in
@@ -868,15 +871,18 @@ def fused_point_local_feature(feat_tx: Tensor, idx: Tensor, xyz: Tensor,
     if widths != PLF_WIDTHS:
         raise ValueError(f"the CUDA kernel takes a {PLF_WIDTHS} chain, got "
                          f"{widths}")
-    if tuple(idx.shape[:2]) != (b, n) or not 1 <= k <= 2 * MAX_K:
-        raise ValueError(f"idx must be [B, N, K] with K <= {2 * MAX_K}, "
-                         f"got {tuple(idx.shape)}")
-    wrel, s0, b0, w1, s1, b1, w2, s2, b2 = params
     bf16 = feat_tx.dtype == torch.bfloat16
+    k_max = None if bf16 else 2 * MAX_K  # the bf16 arm takes any K
+    if tuple(idx.shape[:2]) != (b, n) or k < 1 or (k_max and k > k_max):
+        raise ValueError(f"idx must be [B, N, K] with 1 <= K"
+                         f"{f' <= {k_max}' if k_max else ''}, got "
+                         f"{tuple(idx.shape)}")
+    wrel, s0, b0, w1, s1, b1, w2, s2, b2 = params
     xyz_c = center_xyz(xyz).contiguous()
     base = make_plf_base(feat_tx, xyz_c, wrel, feat_tx.dtype).contiguous()
     wrel = wrel.float().contiguous()  # the offset stays float32
-    wpack = tc_weights_bf16(w1, w2) if bf16 else tc_weights(w1, w2)
+    wpack = (tc_weights_bf16(w1, w2, from_rows=True) if bf16
+             else tc_weights(w1, w2))
     _check_kernel_args("fused_point_local_feature",
                        [base, idx, xyz_c, wrel, s0, b0, wpack, s1, b1, s2,
                         b2])
@@ -933,7 +939,8 @@ def cost_volume_p2p(f1c: Tensor, f2c: Tensor, idx: Tensor, z1: Tensor,
     Args:
       f1c / f2c: ``[B, N, C]`` folded frame-1 / frame-2 features, float32,
         or bfloat16 for the bf16 arm (with ``w1``/``w2`` in bfloat16).
-      idx: ``[B, N, K]`` int32 frame-2 kNN indices.
+      idx: ``[B, N, K]`` int32 frame-2 kNN indices: K <= 32 for the
+        float32 arm's kernel, any K >= 1 for the bf16 arm's.
       z1 / z2: ``[B, N, H]`` float32, the WeightNet's first product of the
         centred frame-1 / frame-2 coordinates.
       dense: ``(b0, w1, b1, w2, b2)``, the biases float32.
@@ -950,10 +957,11 @@ def cost_volume_p2p(f1c: Tensor, f2c: Tensor, idx: Tensor, z1: Tensor,
         return cost_volume_p2p_plain(f1c, f2c, idx, z1, z2, dense, wn)
     b, n, c = f1c.shape
     k = idx.shape[2]
-    _check_cv(b, n, c, k, idx, z1, wn)
+    bf16 = f1c.dtype == torch.bfloat16
+    # the bf16 arm takes any K, the float32 arm K <= MAX_K
+    (_check_cv_agg if bf16 else _check_cv)(b, n, c, k, idx, z1, wn)
     if f2c.shape != f1c.shape or z2.shape != z1.shape:
         raise ValueError("frame 2 must have frame 1's shapes")
-    bf16 = f1c.dtype == torch.bfloat16
     wpack = tc_weights_bf16(w1, w2) if bf16 else tc_weights(w1, w2)
     _check_kernel_args("cost_volume_p2p",
                        [f1c, f2c, idx, z1, z2, b0, wpack, b1, b2, *wn])
@@ -1032,7 +1040,7 @@ def _check_cv_agg(b: int, n: int, c: int, k: int, idx: Tensor, z: Tensor,
 
 def _check_cv(b: int, n: int, c: int, k: int, idx: Tensor, z: Tensor,
               wn: Sequence[Tensor]) -> None:
-    """The shapes K4a takes: K4b's, with K <= MAX_K."""
+    """The shapes K4a's float32 arm takes: K4b's, with K <= MAX_K."""
     _check_cv_agg(b, n, c, k, idx, z, wn)
     if k > MAX_K:
         raise ValueError(f"idx must be [B, N, K] with K <= {MAX_K}, got "

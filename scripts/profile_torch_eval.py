@@ -2,8 +2,12 @@
 """Where the time of the port's CMFlow eval forward goes, on one GPU, on
 both routes: the fused serving engine and the module route.
 
-    python scripts/profile_torch_eval.py
+    python scripts/profile_torch_eval.py [bfloat16] [TREE]
 
+``bfloat16`` serves at ``compute_dtype`` bfloat16 (the fused route's bf16
+arms; the module route ignores the dtype, as the JAX package's does).
+``TREE`` is the root of a checkout whose package is imported (default:
+this script's own), so that one machine can time two versions in turns.
 Builds a full-width CMFlow (seeded weights) and serves one request of
 ``BATCH`` synthetic frames at the 256-point bucket (the request
 ``chip_smoke.py`` serves there, from ``synthetic.make_request``) through
@@ -29,7 +33,11 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+ARGS = sys.argv[1:]
+DTYPE = torch.bfloat16 if "bfloat16" in ARGS else torch.float32
+TREE = Path(next((a for a in ARGS if a != "bfloat16"),
+                 Path(__file__).resolve().parents[1])).resolve()
+sys.path.insert(0, str(TREE))
 
 from cmflow_tpu_torch.data.synthetic import make_request  # noqa: E402
 from cmflow_tpu_torch.models import build_model  # noqa: E402
@@ -40,18 +48,19 @@ SEED = 0
 ITERS = 5
 TIMED = 20
 # device-side names of the port's kernels and of cuBLAS products
+# (either dtype's arm)
 GROUPS = (("ball_query", ("ball_query_kernel",)),
           ("knn", ("knn_kernel",)),
           ("gather", ("gather_rows_kernel",)),
-          ("mse", ("mse_kernel",)),
-          ("cv", ("cv_p2p_kernel",)),
-          ("cv_agg", ("cv_agg_kernel",)),
-          ("plf", ("plf_kernel",)),
+          ("mse", ("mse_kernel", "mse_bf16_kernel")),
+          ("cv", ("cv_p2p_kernel", "cv_p2p_bf16_kernel")),
+          ("cv_agg", ("cv_agg_kernel", "cv_agg_bf16_kernel")),
+          ("plf", ("plf_kernel", "plf_bf16_kernel")),
           ("matmul", ("gemm", "gemv", "sm90_xmma", "cutlass")))
 
 
 def profile_route(model, req, fused: str) -> None:
-    step = make_eval_step("cmflow", model, fused=fused)
+    step = make_eval_step("cmflow", model, fused=fused, compute_dtype=DTYPE)
     for _ in range(3):
         step(req)
     torch.cuda.synchronize()
@@ -88,7 +97,8 @@ def profile_route(model, req, fused: str) -> None:
         groups[name] += ms
         launches += count
     print(json.dumps(dict(
-        route=fused, device=torch.cuda.get_device_name(0), batch=BATCH,
+        route=fused, dtype=str(DTYPE), tree=str(TREE),
+        device=torch.cuda.get_device_name(0), batch=BATCH,
         bucket=req["pc1"].shape[1],
         latency_ms_median=1e3 * median, latency_ms_min=1e3 * latencies[0],
         latency_ms_max=1e3 * latencies[-1],

@@ -38,6 +38,14 @@ On one synthetic train batch (``make_train_batch``, B=16, N=256), as
 - K1 one radius per launch, as the train step calls it (r = 2, 4, 8, 16,
   K = 4, 8, 16, 32 on pc1), and all four radii in one launch, as the fused
   route calls it; K2 at k=8, pc1 -> pc2 and pc1 -> pc1.
+Then the bf16 arms of K5 at k in {1, 3, 4, 8, 16, 32, 33, 64, 65, 128} and
+of K4a at k in {1, 5, 8, 32, 33, 64}, on random indices as above, with
+bf16 features and seeded weights rounded to bf16: the kernel's own device
+time, cuBLAS bf16 on the same products alone (``torch.mm`` with float32
+sums, as ``_dot32`` calls it) and the bound of the products at the dense
+bf16 peak of 989 TFLOP/s; within 1e-2 of the output's largest magnitude.
+A tree whose wrapper refuses a k (older trees' bf16 arms took K5 k <= 64
+and K4a k <= 32) gets a ``refused`` line for it.
 Each case also gives the kernel's max abs error against its plain version
 and the output's largest magnitude (exact for K1 and K2; K3-K5 within 1e-4
 and 1e-5 of it; K7 within 1e-5 of it); the tensor-core kernels and K7
@@ -77,6 +85,8 @@ ITERS = 20
 PROFILE_TRIES = 6  # windows traced before device_ms gives up
 SENTINEL = "spin_kernel"  # torch.cuda._sleep's kernel
 TF32_FLOP_PER_S = 495e12
+BF16_FLOP_PER_S = 989e12
+BF16 = torch.bfloat16
 F32_FLOP_PER_S = 67e12
 HBM_BYTES_PER_S = 3.35e12
 RADII, KS = (2.0, 4.0, 8.0, 16.0), (4, 8, 16, 32)
@@ -151,10 +161,13 @@ def checks(run, plain) -> dict:
     of its output's bits, to compare two trees on the same inputs."""
     got, again, want = run(), run(), plain()
     torch.cuda.synchronize()
+    bits = got.cpu()
+    if bits.dtype == torch.bfloat16:  # numpy has no bf16
+        bits = bits.view(torch.int16)
     return dict(max_abs_err=float((got.double() - want.double()).abs().max()),
                 plain_max_abs=float(want.abs().max()),
                 same_bits=bool(torch.equal(got, again)),
-                digest=hashlib.sha1(got.cpu().numpy().tobytes()).hexdigest())
+                digest=hashlib.sha1(bits.numpy().tobytes()).hexdigest())
 
 
 def case(name, k, run, plain, widths, kernel, wrapper, dev):
@@ -169,6 +182,63 @@ def case(name, k, run, plain, widths, kernel, wrapper, dev):
         cublas_products_ms=device_ms(
             lambda: [x @ w for x, w in zip(xs, ws)])[1],
         bound_3xtf32_ms=1e3 * 3 * flops / TF32_FLOP_PER_S)), flush=True)
+
+
+def bf16_case(name, k, run, plain, widths, kernel, wrapper, dev):
+    """A bf16 arm at one k beside cuBLAS bf16 on its products alone."""
+    rows = B * N * k
+    xs = [torch.randn((rows, c), device=dev).to(BF16) for c in widths[:-1]]
+    ws = [torch.randn((c, o), device=dev).to(BF16)
+          for c, o in zip(widths[:-1], widths[1:])]
+    flops = 2 * rows * sum(c * o for c, o in zip(widths[:-1], widths[1:]))
+    try:
+        checked = checks(run, plain)
+    except ValueError as e:  # the wrapper refuses this k
+        print(json.dumps(dict(kernel=name, k=k, refused=str(e))), flush=True)
+        return
+    print(json.dumps(dict(
+        kernel=name, k=k, **checked,
+        kernel_ms=device_ms(run, kernel, wrapper)[0],
+        cublas_bf16_products_ms=device_ms(
+            lambda: [torch.mm(x, w, out_dtype=torch.float32)
+                     for x, w in zip(xs, ws)])[1],
+        bound_bf16_ms=1e3 * flops / BF16_FLOP_PER_S)), flush=True)
+
+
+def bf16_cases(dev) -> None:
+    """K5's and K4a's bf16 arms across k."""
+    rs = np.random.RandomState(12)
+
+    def randn(*shape):
+        return torch.from_numpy(rs.randn(*shape).astype(np.float32)).to(dev)
+
+    pc = torch.from_numpy((rs.rand(B, N, 3) * 20).astype(np.float32)).to(dev)
+    f1, f2 = randn(B, N, 512).to(BF16), randn(B, N, 512).to(BF16)
+    z1, z2 = randn(B, N, 8), randn(B, N, 8)
+    plf = seeded(blocks.PointLocalFeature(4.0, 8, 1027, (512, 256, 64),
+                                          (64, 64, 64)), 2, dev)
+    chain, _, _ = fused.plf_params_from_variables(plf)
+    chain = [t.to(BF16) if i % 3 == 0 else t for i, t in enumerate(chain)]
+    for k in (1, 3, 4, 8, 16, 32, 33, 64, 65, 128):
+        idx = torch.from_numpy(rs.randint(-1, N, (B, N, k)).astype(
+            np.int32)).to(dev)
+        bf16_case("plf.bf16", k,
+                  lambda: fused.fused_point_local_feature(f1, idx, pc, chain),
+                  lambda: fused.fused_point_local_feature_plain(f1, idx, pc,
+                                                                chain),
+                  fused.PLF_WIDTHS, "plf_bf16_kernel",
+                  fused.fused_point_local_feature, dev)
+    fc = seeded(blocks.FeatureCorrelator(8, 512, 512, (512, 512, 512)),
+                3, dev)
+    dense, wn1, _ = fused.cv_params_from_variables(fc)
+    dense = [t.to(BF16) if i % 2 == 0 else t for i, t in enumerate(dense)]
+    for k in (1, 5, 8, 32, 33, 64):
+        idx = torch.from_numpy(rs.randint(-1, N, (B, N, k)).astype(
+            np.int32)).to(dev)
+        args = (f1, f2, idx, z1, z2, dense[1:], wn1[1:])
+        bf16_case("cv.bf16", k, lambda: fused.cost_volume_p2p(*args),
+                  lambda: fused.cost_volume_p2p_plain(*args), (512,) * 3,
+                  "cv_p2p_bf16_kernel", fused.cost_volume_p2p, dev)
 
 
 def mse_case(ks, run, plain):
@@ -349,6 +419,8 @@ def main() -> int:
                                                            one))
         cv_agg_cases(dev)
     train_batch_cases(dev)
+    with torch.no_grad():
+        bf16_cases(dev)
     return 0
 
 

@@ -288,23 +288,26 @@ def test_plf_bf16_chain_and_base_match_jax(plf_scale):
 def test_tc_weights_bf16_layout():
     """Each k16 step of the packed B operand holds element (n, p) at
     ((n // 8 * 2 + p // 8) * 8 + n % 8) * 8 + p % 8, position p being
-    channel 16s + 4 * (p % 8 // 2) + 2 * (p // 8) + p % 2 of ``w1`` (A from
-    gathered rows) and 16s + p of ``w2`` (A from the accumulator)."""
+    channel 16s + 4 * (p % 8 // 2) + 2 * (p // 8) + p % 2 of ``w1`` where
+    K5 makes its A from gathered rows (``from_rows``), else (K4a) 16s + p,
+    and 16s + p of ``w2`` (A from shared memory or the accumulator)."""
     gen = torch.Generator().manual_seed(3)
     w1 = torch.randn((64, 32), generator=gen).to(BF16)
     w2 = torch.randn((32, 16), generator=gen).to(BF16)
-    pack = fused.tc_weights_bf16(w1, w2)
-    assert pack.dtype == BF16 and pack.numel() == w1.numel() + w2.numel()
-    for w, base, from_rows in ((w1, 0, True), (w2, w1.numel(), False)):
-        cin, cout = w.shape
-        for s in range(cin // 16):
-            for n in range(cout):
-                for p in range(16):
-                    ch = (16 * s + 4 * (p % 8 // 2) + 2 * (p // 8) + p % 2
-                          if from_rows else 16 * s + p)
-                    at = base + s * cout * 16 + (
-                        (n // 8 * 2 + p // 8) * 8 + n % 8) * 8 + p % 8
-                    assert pack[at] == w[ch, n]
+    for from_rows in (True, False):
+        pack = fused.tc_weights_bf16(w1, w2, from_rows)
+        assert pack.dtype == BF16
+        assert pack.numel() == w1.numel() + w2.numel()
+        for w, base, rows in ((w1, 0, from_rows), (w2, w1.numel(), False)):
+            cin, cout = w.shape
+            for s in range(cin // 16):
+                for n in range(cout):
+                    for p in range(16):
+                        ch = (16 * s + 4 * (p % 8 // 2) + 2 * (p // 8)
+                              + p % 2 if rows else 16 * s + p)
+                        at = base + s * cout * 16 + (
+                            (n // 8 * 2 + p // 8) * 8 + n % 8) * 8 + p % 8
+                        assert pack[at] == w[ch, n]
 
 
 # ---------------------------------------------------------------------------

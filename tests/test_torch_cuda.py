@@ -835,11 +835,19 @@ def bf16_chain(plf):
     return [t.to(BF16) if i % 3 == 0 else t for i, t in enumerate(chain)]
 
 
-@pytest.mark.parametrize("k", (1, 3, *KS, 33, 64))
-@pytest.mark.parametrize("shape", SHAPES)
+# the bf16 arm of K4a runs in clusters of two blocks (a block with no rows
+# pads the grid): both buckets at B=16, and 603 rows, which leave an odd
+# number of blocks at most K
+BF16_SHAPES = [(16, 256, True), (16, 384, True), (3, 201, False)]
+
+
+@pytest.mark.parametrize("k", (1, 3, *KS, 33, 64, 65, 100, 128, 129, 200))
+@pytest.mark.parametrize("shape", BF16_SHAPES)
 def test_plf_bf16_kernel(dev, rs, shape, k):
-    """K5's bf16 arm at every K of the model and at K that leave part of
-    its 128-row tiles empty; random neighbours, some outside [0, N)."""
+    """K5's bf16 arm at every K of the model, at K that leave part of its
+    128-row tiles empty, and at any K past them (a query's rows over two
+    tiles at 129 and 200); random neighbours, some outside [0, N); the same
+    bits on two runs."""
     b, n, masked = shape
     pc, _ = clouds(rs, b, n, masked, dev)
     plf = seeded(blocks.PointLocalFeature(8.0, k, 1027, (512, 256, 64),
@@ -865,12 +873,32 @@ def bf16_cost_volume_inputs(rs, shape, dev):
     return [x.to(BF16) for x in f], idx1, idx2, z, dense, wn1, wn2
 
 
-@pytest.mark.parametrize("shape", SHAPES)
-def test_cost_volume_bf16_kernels(dev, rs, shape):
-    """K4a's bf16 arm (bf16 f1c/f2c in, bf16 p2p out) and K4b's (bf16 p2p
-    in, float32 out), each against its plain version on the same inputs."""
+def p2p_indices(rs, shape, k, dev):
+    """Frame-2 neighbours of K4a: kNN where K2 takes k (<= 64), else
+    random; three outside [0, N)."""
+    b, n, _ = shape
+    if k <= 64:
+        pc1, _ = clouds(rs, *shape, dev)
+        pc2, v2 = clouds(rs, *shape, dev)
+        idx2 = neighbors.knn(k, pc1, pc2, v2)
+    else:
+        idx2 = torch.from_numpy(rs.randint(0, n, (b, n, k)).astype(
+            np.int32)).to(dev)
+    idx2[0, :3, 0] = torch.tensor([-1, n, 4096], dtype=torch.int32)
+    return idx2
+
+
+@pytest.mark.parametrize("k", [8, 33, 64, 65, 100])
+@pytest.mark.parametrize("shape", BF16_SHAPES)
+def test_cost_volume_bf16_kernels(dev, rs, shape, k):
+    """K4a's bf16 arm (bf16 f1c/f2c in, bf16 p2p out) at the forward's k=8
+    and past its old K <= 32 (a query's rows over two tiles at 65 and 100),
+    and K4b's (bf16 p2p in, float32 out), each against its plain version on
+    the same inputs and against itself bit for bit."""
     f, idx1, idx2, z, dense, wn1, wn2 = bf16_cost_volume_inputs(rs, shape,
                                                                 dev)
+    if k != 8:
+        idx2 = p2p_indices(rs, shape, k, dev)
     with torch.no_grad():
         before = (fused.cost_volume_p2p.launches,
                   fused.cost_volume_agg.launches)
@@ -887,14 +915,14 @@ def test_cost_volume_bf16_kernels(dev, rs, shape):
                                                     before[1] + 2)
 
 
-@pytest.mark.parametrize("k", [1, 5, 32])
-def test_cost_volume_p2p_bf16_partial_tiles(dev, rs, k):
-    shape = (16, 256, True)
+@pytest.mark.parametrize("k", [1, 5, 32, 33, 64, 65, 100])
+@pytest.mark.parametrize("shape", [(16, 256, True), (3, 201, False)])
+def test_cost_volume_p2p_bf16_partial_tiles(dev, rs, shape, k):
+    """K4a's bf16 arm at k that leave part of its 64-row tiles empty and
+    past them, with an odd number of blocks (603 rows at k = 5, 33, 65,
+    100); three indices outside [0, N)."""
     f, _, _, z, dense, wn1, _ = bf16_cost_volume_inputs(rs, shape, dev)
-    pc1, _ = clouds(rs, *shape, dev)
-    pc2, v2 = clouds(rs, *shape, dev)
-    idx2 = neighbors.knn(k, pc1, pc2, v2)
-    idx2[0, :3, 0] = torch.tensor([-1, 256, 4096], dtype=torch.int32)
+    idx2 = p2p_indices(rs, shape, k, dev)
     args = (f[0], f[1], idx2, z[0], z[1], dense[1:], wn1[1:])
     with torch.no_grad():
         got = same_twice(lambda: fused.cost_volume_p2p(*args))

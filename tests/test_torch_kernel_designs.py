@@ -34,6 +34,21 @@ port's plain versions:
   (-1, N, 4096), within 1e-4 and 1e-5 of the largest magnitude; every
   output row written exactly once.
 
+* (e) the bf16 arms of K5 and K4a (``csrc/plf.cu::plf_bf16_kernel``,
+  ``csrc/cost_volume.cu::cv_p2p_bf16_kernel``): tiles of ``kRows`` /
+  ``kP2pRows`` rows that hold whole queries where K fits, or one query's
+  rows over several tiles with its running max (K5) or sum in ascending k
+  (K4a) carried between them; blocks in clusters of ``kBf16Cluster``, the
+  grid padded to whole clusters, every block of a cluster through the same
+  tiles (the weight stages are shared), a padding block writing nothing;
+  x0 and x1 rounded to bf16 before each product, the products summed in
+  float32; the constants read from the CUDA sources.  Every output row
+  written exactly once; held within 1e-2 of the output's largest magnitude
+  to the bf16 plain versions and to the JAX kernels in interpret mode
+  (``fused_point_local_feature``, and ``fused_cost_volume`` with the
+  model's point-to-patch cost through K4b's plain version), at K inside
+  the old limits (K5 64, K4a 32) and past them.
+
 And the lifted point limit: the port's ``knn`` and ``ball_query_multi`` at
 N=2500 against ``cmflow_tpu.ops.pointops`` (its XLA route on the CPU).
 """
@@ -46,6 +61,7 @@ import numpy as np
 import pytest
 import torch
 
+from cmflow_tpu.ops import fused as jfused
 from cmflow_tpu.ops import pointops as jpo
 from cmflow_tpu.ops.fused import mxu_group_points
 from cmflow_tpu.ops.neighbors import knn_pallas
@@ -438,6 +454,265 @@ def test_cv_agg_schedule(rs, k):
                                        [t(w) for w in wn]).numpy()
     err, scale = np.abs(got - want).max(), np.abs(want).max()
     assert scale > 0.1 and err <= 1e-4 and err <= 1e-5 * scale, (err, scale)
+
+
+# ---------------------------------------------------------------------------
+# (e) the bf16 arms of K5 and K4a: tiles, queries over tiles, clusters
+# ---------------------------------------------------------------------------
+
+BF16 = torch.bfloat16
+
+
+def src_constant(source, name):
+    text = (build.CSRC / source).read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+
+def bf16_round(x):
+    """float32 values rounded to bf16 (to nearest even), as float32."""
+    return torch.from_numpy(np.ascontiguousarray(x, F32)).to(BF16).float(
+        ).numpy()
+
+
+def bf16_schedule(source, tile_name, total, k):
+    """The launch and tiles of a bf16 arm: (queries a block, rows of its
+    work, tiles of it, blocks of the grid, rows a tile, blocks a
+    cluster)."""
+    tile_rows = src_constant(source, tile_name)
+    cluster = src_constant(source, "kBf16Cluster")
+    qpb = max(1, tile_rows // k)
+    rows = qpb * k
+    tiles = -(-rows // tile_rows)
+    blocks = -(-(-(-total // qpb)) // cluster) * cluster
+    return qpb, rows, tiles, blocks, tile_rows, cluster
+
+
+def bf16_arm_model(source, tile_name, idx, n, tile_fn, combine, c_out):
+    """A bf16 arm block by block and tile by tile: ``tile_fn(q, j, used)``
+    gives the tile's rows (query, neighbour row in the batch or -1, used)
+    their values; ``combine(acc, values)`` folds a query's rows of one tile
+    into its running result, ``acc`` None on its first tile.  Returns (out,
+    how often each row was written, tiles each block ran)."""
+    bsz, _, k = idx.shape
+    total = bsz * n
+    qpb, rows, tiles, blocks, tile_rows, cluster = bf16_schedule(
+        source, tile_name, total, k)
+    flat = idx.reshape(total, k)
+    out = np.full((total, c_out), np.nan, F32)
+    writes = np.zeros(total, np.int64)
+    ran = np.zeros(blocks, np.int64)
+    assert blocks % cluster == 0 and blocks * qpb >= total
+    for blk in range(blocks):
+        q0 = blk * qpb
+        carry = [None] * qpb
+        for tile in range(tiles):  # every block, its padding too
+            ran[blk] += 1
+            rg = tile * tile_rows + np.arange(tile_rows)
+            q = q0 + rg // k
+            used = (rg < rows) & (q < total)
+            jj = np.where(used, flat[np.minimum(q, total - 1), rg % k], -1)
+            inside = used & (jj >= 0) & (jj < n)
+            j = np.where(inside, (q // n) * n + jj, -1)
+            vals = tile_fn(np.where(used, q, 0), j, used)
+            for qi in range(qpb):
+                if q0 + qi >= total:
+                    continue
+                lo = max(qi * k, tile * tile_rows)
+                hi = min(qi * k + k, (tile + 1) * tile_rows)
+                carry[qi] = combine(carry[qi], vals[lo - tile * tile_rows:
+                                                    hi - tile * tile_rows])
+                if tile + 1 == tiles:
+                    out[q0 + qi] = carry[qi]
+                    writes[q0 + qi] += 1
+    return out, writes, ran.reshape(-1, cluster)
+
+
+def plf_bf16_model(base, idx, xyz_c, chain):
+    """K5's bf16 arm: base [B*N, C1] and the chain's wrel and Dense kernels
+    bf16 values in float32, the affines float32."""
+    wrel, s0, b0, w1, s1, b1, w2, s2, b2 = chain
+    n = idx.shape[1]
+
+    def tile_fn(q, j, used):
+        g = np.where((j >= 0)[:, None], base[np.maximum(j, 0)], F32(0))
+        x0 = np.maximum((g - xyz_c[q] @ wrel) * s0 + b0, F32(0))
+        x0 = bf16_round(np.where(used[:, None], x0, F32(0)))
+        x1 = bf16_round(np.maximum((x0 @ w1) * s1 + b1, F32(0)))
+        return np.maximum((x1 @ w2) * s2 + b2, F32(0))
+
+    def running_max(acc, rows):
+        m = rows.max(axis=0)
+        return m if acc is None else np.maximum(acc, m)
+
+    return bf16_arm_model("plf.cu", "kRows", idx, n, tile_fn, running_max,
+                          w2.shape[1])
+
+
+def cv_p2p_bf16_model(f1c, f2c, idx, z1, z2, dense, wn):
+    """K4a's bf16 arm: f1c, f2c [B*N, C] and the Dense kernels bf16 values
+    in float32; the sum over k ascending, rounded to bf16 once."""
+    b0, w1, b1, w2, b2 = dense
+    n = idx.shape[1]
+
+    def leaky(x):
+        return np.where(x > 0, x, F32(0.1) * x)
+
+    def tile_fn(q, j, used):
+        g = np.where((j >= 0)[:, None], f2c[np.maximum(j, 0)], F32(0))
+        x0 = bf16_round(np.where(used[:, None], leaky((f1c[q] + g) + b0),
+                                 F32(0)))
+        x1 = bf16_round(leaky(x0 @ w1 + b1))
+        x2 = leaky(x1 @ w2 + b2)
+        zj = np.where((j >= 0)[:, None], z2[np.maximum(j, 0)], F32(0))
+        w = fused._weightnet_tail(t(zj - z1[q]), [t(a) for a in wn]).numpy()
+        return w * x2
+
+    def running_sum(acc, rows):
+        for v in rows:  # k ascending
+            acc = v.copy() if acc is None else acc + v
+        return acc
+
+    out, writes, ran = bf16_arm_model("cost_volume.cu", "kP2pRows", idx, n,
+                                      tile_fn, running_sum, f1c.shape[1])
+    return bf16_round(out), writes, ran
+
+
+def bf16_close(got, want):
+    got, want = np.asarray(got, F32), np.asarray(want, F32)
+    assert got.shape == want.shape
+    err, scale = np.abs(got - want).max(), np.abs(want).max()
+    assert scale > 0.1 and err <= 1e-2 * scale, (err, scale)
+
+
+def plf_bf16_case(rs, k, b=1, n=37):
+    """Full-width K5 inputs in bf16 (the chain as ``_cast_chain`` casts
+    it); indices with some outside [0, N)."""
+    c1, c2, c3 = fused.PLF_WIDTHS
+    xyz = (rs.randn(b, n, 3) * 5).astype(F32)
+    feat = rs.randn(b, n, c1).astype(F32)
+    idx = rs.randint(-2, n + 2, (b, n, k)).astype(np.int32)
+    chain = [(rs.randn(3, c1) * 0.3).astype(F32)]
+    for cin, cout in ((None, c1), (c1, c2), (c2, c3)):
+        if cin:
+            chain.append((rs.randn(cin, cout) / np.sqrt(cin)).astype(F32))
+        chain += [rs.uniform(0.5, 1.5, cout).astype(F32),
+                  rs.uniform(-0.2, 0.2, cout).astype(F32)]
+    chain = [bf16_round(a) if i % 3 == 0 else a for i, a in enumerate(chain)]
+    return bf16_round(feat), idx, xyz, chain
+
+
+@pytest.mark.parametrize("k", [8, 100, 128, 129, 200])
+def test_plf_bf16_schedule(rs, k):
+    """Whole queries per tile (k=8: 16 a tile, 37 rows in 3 blocks), one
+    query a tile (100, 128), a query over two tiles (129, 200; 37 blocks),
+    each grid padded to whole clusters: against the plain bf16 version."""
+    feat, idx, xyz, chain = plf_bf16_case(rs, k)
+    tchain = [t(a).to(BF16) if i % 3 == 0 else t(a)
+              for i, a in enumerate(chain)]
+    xyz_c = fused.center_xyz(t(xyz))
+    base = fused.make_plf_base(t(feat).to(BF16), xyz_c, tchain[0], BF16)
+    got, writes, ran = plf_bf16_model(
+        base.float().numpy().reshape(-1, fused.PLF_WIDTHS[0]), idx,
+        xyz_c.numpy().reshape(-1, 3), chain)
+    assert (writes == 1).all() and (ran == ran[0, 0]).all()
+    want = fused.fused_point_local_feature_plain(
+        t(feat).to(BF16), t(idx), t(xyz), tchain).numpy()
+    bf16_close(got.reshape(want.shape), want)
+
+
+@pytest.mark.parametrize("k", [16, 129])
+def test_plf_bf16_schedule_against_pallas(rs, k):
+    """The model against the JAX kernel in interpret mode, at a K inside
+    the old limit (64) and past it."""
+    feat, idx, xyz, chain = plf_bf16_case(rs, k)
+    tchain = [t(a).to(BF16) if i % 3 == 0 else t(a)
+              for i, a in enumerate(chain)]
+    xyz_c = fused.center_xyz(t(xyz))
+    base = fused.make_plf_base(t(feat).to(BF16), xyz_c, tchain[0], BF16)
+    got, writes, _ = plf_bf16_model(
+        base.float().numpy().reshape(-1, fused.PLF_WIDTHS[0]), idx,
+        xyz_c.numpy().reshape(-1, 3), chain)
+    assert (writes == 1).all()
+    jchain = tuple(j(a).astype(jnp.bfloat16) if i % 3 == 0 else j(a)
+                   for i, a in enumerate(chain))
+    want = jfused.fused_point_local_feature(
+        j(feat).astype(jnp.bfloat16), j(idx), j(xyz), jchain, True)
+    bf16_close(got.reshape(want.shape), want)
+
+
+def cv_bf16_case(rs, k, b=1, n=37):
+    """Full-width K4a inputs: bf16 frame features, bf16 ``wd``, ``w1``,
+    ``w2`` (as JAX's ``_cost_volume`` casts them), float32 biases and
+    WeightNets; kNN-like indices with some outside [0, N)."""
+    c, h = fused.CV_WIDTH, fused.WEIGHTNET_HIDDEN
+    xyz1 = (rs.randn(b, n, 3) * 5).astype(F32)
+    xyz2 = xyz1 + (rs.randn(b, n, 3) * 0.3).astype(F32)
+    f1t, f2t = (bf16_round(rs.randn(b, n, c)) for _ in range(2))
+    idx2 = rs.randint(-2, n + 2, (b, n, k)).astype(np.int32)
+    idx1 = rs.randint(0, n, (b, n, 8)).astype(np.int32)
+    dense = [bf16_round(rs.randn(3, c) * 0.3), rs.randn(c).astype(F32) * 0.1]
+    for _ in range(2):
+        dense += [bf16_round(rs.randn(c, c) / np.sqrt(c)),
+                  (rs.randn(c) * 0.1).astype(F32)]
+
+    def wn():
+        return [(rs.randn(3, h) * 0.3).astype(F32),
+                (rs.randn(h) * 0.1).astype(F32),
+                (rs.randn(h, h) / np.sqrt(h)).astype(F32),
+                (rs.randn(h) * 0.1).astype(F32),
+                (rs.randn(h, c) / np.sqrt(h)).astype(F32),
+                (rs.randn(c) * 0.1).astype(F32)]
+    return f1t, f2t, idx2, idx1, xyz1, xyz2, dense, wn(), wn()
+
+
+def cv_bf16_model_p2p(case):
+    """The folds as the port computes them, then the model's p2p; also the
+    folds' zq for K4b."""
+    f1t, f2t, idx2, _, xyz1, xyz2, dense, wn1, wn2 = case
+    tdense = [t(a).to(BF16) if i % 2 == 0 else t(a)
+              for i, a in enumerate(dense)]
+    f1c, f2c, z1, z2, zq = fused.cost_volume_folds(
+        t(f1t).to(BF16), t(f2t).to(BF16), t(xyz1), t(xyz2), tdense[0],
+        t(wn1[0]), t(wn2[0]), BF16)
+    c = fused.CV_WIDTH
+    p2p, writes, ran = cv_p2p_bf16_model(
+        f1c.float().numpy().reshape(-1, c), f2c.float().numpy().reshape(-1, c),
+        idx2, z1.numpy().reshape(-1, 8), z2.numpy().reshape(-1, 8),
+        dense[1:], wn1[1:])
+    args = (f1c, f2c, t(idx2), z1, z2, tdense[1:], [t(a) for a in wn1[1:]])
+    return p2p.reshape(f1c.shape), writes, ran, args, zq
+
+
+@pytest.mark.parametrize("k", [8, 33, 64, 65, 100])
+def test_cv_p2p_bf16_schedule(rs, k):
+    """Whole queries per tile (k=8, 33: 37 rows in 5 and 37 blocks padded
+    to 6 and 38), one query a tile (64), a query over two tiles (65, 100):
+    against the plain bf16 version."""
+    p2p, writes, ran, args, _ = cv_bf16_model_p2p(cv_bf16_case(rs, k))
+    assert (writes == 1).all() and (ran == ran[0, 0]).all()
+    want = fused.cost_volume_p2p_plain(*args)
+    assert want.dtype == BF16
+    bf16_close(p2p, want.float().numpy())
+
+
+@pytest.mark.parametrize("k", [8, 65])
+def test_cv_bf16_schedule_against_pallas(rs, k):
+    """The model's p2p through K4b's plain version against the JAX cost
+    volume in interpret mode, at a K inside the old limit (32) and past
+    it."""
+    case = cv_bf16_case(rs, k)
+    f1t, f2t, idx2, idx1, xyz1, xyz2, dense, wn1, wn2 = case
+    p2p, writes, _, _, zq = cv_bf16_model_p2p(case)
+    assert (writes == 1).all()
+    got = fused.cost_volume_agg_plain(t(p2p).to(BF16), t(idx1), zq,
+                                      [t(a) for a in wn2[1:]])
+    jdense = tuple(j(a).astype(jnp.bfloat16) if i % 2 == 0 else j(a)
+                   for i, a in enumerate(dense))
+    want = jfused.fused_cost_volume(
+        j(f1t).astype(jnp.bfloat16), j(f2t).astype(jnp.bfloat16), j(idx2),
+        j(xyz1), j(idx1), j(xyz2), True, dense=jdense,
+        wn1=tuple(map(j, wn1)), wn2=tuple(map(j, wn2)))
+    bf16_close(got.numpy(), want)
 
 
 # ---------------------------------------------------------------------------

@@ -22,10 +22,14 @@ their sums, which the kernels keep short (``tc::promote``); the card test
 ``tests/test_torch_cuda.py`` holds the kernels themselves to the bars.
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
+from cmflow_tpu_torch.native import build
 from cmflow_tpu_torch.nn import blocks
 from cmflow_tpu_torch.ops import fused, neighbors
 
@@ -161,6 +165,61 @@ def test_tc_weights_layout(widths):
         assert np.array_equal(got2, split(w2)[want])
     # the stages the kernels stream are whole k8 steps of one product
     assert (n1 * 4) % 32768 == 0 and (n2 * 4) % 16384 == 0
+
+
+def descriptor_read(step, rows):
+    """A k16 step of a bf16 wgmma operand (A or B, K-major, no swizzle) as
+    the tensor cores read it through a descriptor with LBO 128 and SBO 256
+    bytes (csrc/tc_gemm.cuh): ``[rows, 16]``, element (r, p) at element
+    ``((r // 8 * 2 + p // 8) * 8 + r % 8) * 8 + p % 8``."""
+    r = np.arange(rows)[:, None]
+    p = np.arange(16)[None, :]
+    return step[((r // 8 * 2 + p // 8) * 8 + r % 8) * 8 + p % 8]
+
+
+@pytest.mark.parametrize("widths", [(512, 256, 64), (512, 512, 512)],
+                         ids=["K5", "K4a"])
+def test_tc_weights_bf16_layout(widths):
+    """``tc_weights_bf16`` holds w1 then w2, each k16 step of channels in
+    natural order a B tile; x0 stored as the bf16 kernels store it (row r's
+    channels 8h .. 8h+7 of a step at byte ``a_offset(r, h)``, a step
+    ``kAStep`` bytes) and read through the A descriptor, times the B tiles,
+    gives ``x0 @ w1``."""
+    c0, c1, c2 = widths
+    rs = np.random.RandomState(43)
+    w1 = torch.from_numpy(rs.randn(c0, c1).astype(np.float32)).to(
+        torch.bfloat16)
+    w2 = torch.from_numpy(rs.randn(c1, c2).astype(np.float32)).to(
+        torch.bfloat16)
+    packed = fused.tc_weights_bf16(w1, w2).float().numpy()
+    n1 = c0 * c1
+    assert packed.shape == (n1 + c1 * c2,)
+    for flat, w in ((packed[:n1], w1), (packed[n1:], w2)):
+        cin, cout = w.shape
+        steps = flat.reshape(cin // 16, cout * 16)
+        got = np.concatenate([descriptor_read(st, cout).T for st in steps])
+        assert np.array_equal(got, w.float().numpy())
+    # x0 of 64 rows as the kernels store it, 8 channels a 16-byte store
+    header = (Path(build.__file__).parents[1] / "csrc" /
+              "tc_gemm.cuh").read_text()
+    a_step = int(re.search(r"kAStep = (\d+);", header).group(1))
+    assert a_step == 64 * 16 * 2
+    x0 = rs.randn(64, c0).astype(np.float32)
+    tiles = np.zeros(c0 // 16 * a_step // 2, np.float32)
+    for r in range(64):
+        for c8 in range(c0 // 8):
+            at = (c8 // 2) * a_step + (((r // 8 * 2 + c8 % 2) * 8 + r % 8)
+                                       * 16)  # a_offset(r, c8 % 2)
+            tiles[at // 2:at // 2 + 8] = x0[r, 8 * c8:8 * c8 + 8]
+    steps_a = tiles.reshape(c0 // 16, a_step // 2)
+    steps_b = packed[:n1].reshape(c0 // 16, c1 * 16)
+    prod = sum(descriptor_read(a, 64).astype(np.float64)
+               @ descriptor_read(b, c1).T.astype(np.float64)
+               for a, b in zip(steps_a, steps_b))
+    want = x0.astype(np.float64) @ w1.double().numpy()
+    np.testing.assert_allclose(prod, want, rtol=1e-12, atol=1e-9)
+    # the stages the kernels stream are whole k16 steps of one product
+    assert (n1 * 2) % 32768 == 0 and (c1 * c2 * 2) % 32768 == 0
 
 
 RADII = (2.0, 4.0, 8.0, 16.0)

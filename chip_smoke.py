@@ -21,8 +21,10 @@ Run from the repository root on a machine with a CUDA GPU and nvcc.  Steps:
    PyTorch call computing the same function, by their device time: the
    kernels' own durations from ``torch.profiler`` over warmed calls, so
    that the host's time to issue a short kernel does not count.  A
-   kernel's time is its own (the gather's backward: its three kernels, the
-   CSR build, the piece sum and the combine, each also on its own); beside
+   kernel's time is its own (the gather's backward: its two kernels, the
+   CSR build and the piece sum, each also on its own, and exactly two
+   kernels a call; the sa encoder's bf16 arm: at most two kernels a call,
+   the centroids' mean and the kernel, its whole call's time beside); beside
    it stand the device time of every
    kernel its wrapper launches (the folds and weight packing included)
    and the CUDA-event time of back-to-back wrapper calls, in the summary
@@ -315,10 +317,14 @@ DEVICE_NAMES = {"ball_query": ("ball_query_kernel",), "knn": ("knn_kernel",),
                 "cv_agg.bf16": ("cv_agg_bf16_kernel",),
                 "plf.bf16": ("plf_bf16_kernel",),
                 "gather_bwd": ("gather_rows_backward_csr_kernel",
-                               "gather_rows_backward_sum_kernel",
-                               "gather_rows_backward_combine_kernel")}
+                               "gather_rows_backward_sum_kernel")}
 for _arm, _sibling in GATHER_ARMS.items():
     DEVICE_NAMES[_arm] = DEVICE_NAMES[_sibling]
+# the CUDA kernels one call of a wrapper may launch, where that is bounded:
+# K7 its CSR build and its sum (exactly), K3's bf16 arm the centroids' mean
+# and the kernel (at most)
+KERNELS_PER_CALL = {"gather_bwd": (2, 2), "gather_bwd.bf16": (2, 2),
+                    "mse.bf16": (1, 2)}
 # one cloud above the 2048 points the neighbour kernels stage at a time
 LARGE_N = 4096
 # the route whose forward (train step) each kernel's summary describes
@@ -762,7 +768,6 @@ def bf16_cases(model, req: dict, dev):
            for name, pc, v in (("pc1", pc1, v1), ("pc2", pc2, v2))}
     mse = model.trunk.mse_layer
     packed, _ = fused.mse_narrow_params_from_variables(mse, BF16)
-    frags, floats = fused.mse_bf16_weights(packed)
     c1, c2, c3 = fused.MSE_WIDTHS
     s_cnt = len(ks)
     for name, pc, ft in (("pc1", pc1, ft1), ("pc2", pc2, ft2)):
@@ -774,10 +779,9 @@ def bf16_cases(model, req: dict, dev):
                 fused.fused_multi_scale_encoder(ft, i, pc, packed),
             plain=lambda pc=pc, ft=ftb, i=idx[name]:
                 fused.fused_multi_scale_encoder_plain(ft, i, pc, packed),
-            # the bf16 base, the centred points, the indices, the weight
-            # images in, the float32 output back
-            nbytes=(rows * s_cnt * c1 * 2 + nbytes(pc, idx[name], frags,
-                                                  floats)
+            # the points, the bf16 features, the indices and the weights
+            # in, the float32 output back
+            nbytes=(nbytes(pc, ftb, idx[name], packed)
                     + rows * s_cnt * c3 * 4),
             flops=2 * (rows * s_cnt * c1 * 9
                        + rows * sum(ks) * (c1 * c2 + c2 * c3))))
@@ -1049,10 +1053,15 @@ def check_kernels(cases, first: bool, per_forward: dict) -> None:
         before = wrapper_of(name).launches
         case["run"]()
         per_call = wrapper_of(name).launches - before
-        own, wrapper, parts, _ = device_ms(case["run"], 20,
-                                           DEVICE_NAMES[name], per_call)
+        own, wrapper, parts, call_kernels = device_ms(
+            case["run"], 20, DEVICE_NAMES[name], per_call)
+        lo, hi = KERNELS_PER_CALL.get(name, (1, math.inf))
+        require(lo <= call_kernels <= hi,
+                f"{name} {case['shape']}: {call_kernels} kernels a call, "
+                f"not {lo}..{hi}")
         row = dict(kernel=name, path=case["path"], shape=case["shape"],
                    kernel_ms=own, wrapper_device_ms=wrapper,
+                   kernels_per_call=call_kernels,
                    kernel_event_ms=event_ms(case["run"], 50),
                    plain_ms=device_ms(case["plain"], 5)[1],
                    library_ms=device_ms(library, 10)[1] if library else None,
@@ -2299,6 +2308,8 @@ def main() -> int:
         for key in ("wrapper_ms", "event_ms"):
             if abs(acc[key] - acc["ms"]) > 0.1 * acc["ms"]:
                 entry[key] = acc[key]
+        if name in KERNELS_PER_CALL:  # every kernel of its calls
+            entry["call_ms"] = acc["wrapper_ms"]
         if acc["cublas_products_ms"]:
             entry["cublas_products_ms"] = acc["cublas_products_ms"]
         if name in sass:

@@ -33,22 +33,33 @@
 // Design: deterministic, with no atomics in any sum, so that a train step
 // gives the same bits every run, and balanced however the indices are skewed
 // (the ball query names low indices far more often: at K=32 one row of 256
-// is named 203 times, and ~100 never).  Three launches:
+// is named 203 times, and ~100 never).  Two launches:
 //  1. CSR build (gather_rows_backward_csr_kernel, also cmflow_gather_rows_csr):
-//     a counting sort of each element's indices by row, stable in m, one
-//     block per element.  Out-of-range indices go to a discard bin past row
-//     N-1.  Each warp takes a contiguous range of m, counts its entries per
-//     row (shared-memory atomics: a count does not depend on order), then,
-//     32 at a time, finds the lanes naming each lane's row (32 shuffles);
-//     an entry's rank among them (popc of the lower lanes) plus the warp's
-//     running count of that row gives its place.  Per (warp, row) counts,
-//     scanned over the warps of each row and then over the rows, give every
-//     warp's first position in each row: offsets [B, N+1] and order [B, M],
-//     the m of each sorted position.  No position comes from the return
-//     value of an atomic.  The counts lie in shared memory up to 25,599
-//     rows (one warp; 32 warps up to 1,550 rows), and above that in a
-//     device scratch buffer that the caller sizes, with 8 warps, so N has
-//     no limit.
+//     a counting sort of each element's indices by row, stable in m, by a
+//     thread-block cluster of kCsrCluster blocks per element (one block per
+//     SM-sized slice: at B=16 128 blocks, where one block per element left 116
+//     of the 132 SMs idle).  Out-of-range indices go to a discard bin past row
+//     N-1.  Block q takes the q-th contiguous slice of m, and each of its warps
+//     a contiguous range of that slice; a warp counts its entries per row
+//     (shared-memory atomics: a count does not depend on order).  Per (warp,
+//     row) counts scanned over the block's warps give each block its per-row
+//     totals, which it stores into every block of the cluster (distributed
+//     shared memory) before the cluster's barrier; after it each block scans
+//     (row, then block rank, then warp) what it holds, so every warp knows its
+//     first position in each row; block q's slice precedes block q+1's, so the
+//     order stays stable in m.  (Reading the others' totals after the barrier
+//     instead put a remote load's latency, ~1,000 cycles, twice on the path:
+//     PERF.md.)  Then, 32 entries at a time, a warp finds the lanes naming each
+//     lane's row (32 shuffles); an entry's rank among them (popc of the lower
+//     lanes) plus the warp's running count of that row gives its place: offsets
+//     [B, N+1] and order [B, M], the m of each sorted position.  No position
+//     comes from the return value of an atomic.  Above kCsrClusterBins rows an
+//     element takes one block (every block's totals would not fit beside the
+//     counts); the counts lie in shared memory up to 25,599 rows, and above
+//     that in a device scratch buffer that the caller sizes, with 8 warps, so N
+//     has no limit.  For the backward the same kernel also zeroes the rows of
+//     out that no index names (it knows them from the totals), each by the
+//     block of its rank modulo the cluster, and the tickets of step 2.
 //  2. Sum (gather_rows_backward_sum_kernel): the sorted in-range entries are
 //     cut into pieces of 32, one warp each, so every warp has the same work
 //     whatever the rows' lengths.  A warp loads its piece's m and rows, finds
@@ -63,10 +74,14 @@
 //     and the groups combine by a fixed xor-shuffle tree, so all 32 lanes
 //     carry data.  Wider rows take all 32 lanes, up to 64 elements of T a
 //     warp (a C=512 piece is two warps), and stream through the piece eight
-//     rows at a time, adding in sorted order.
-//  3. Combine (gather_rows_backward_combine_kernel): every row that spans
-//     pieces adds its partials in piece order (its first piece's slot 1,
-//     then slot 0 of each later one); a row that no index names is zeroed.
+//     rows at a time, adding in sorted order.  A warp that wrote a partial
+//     takes a ticket of its row (an atomicAdd after a release fence); the
+//     warp that takes the row's last ticket adds its partials in piece order
+//     (its first piece's slot 1, then slot 0 of each later one) and writes
+//     the row.  The ticket decides which warp adds, never the order of a
+//     sum.  (The warp of a row's first piece summing all of a row that goes
+//     on, piece by piece, waited on no other warp but made a heavy row, ~200
+//     entries, one warp's serial chain: slower, PERF.md.)
 // Whichever row a warp meets, the order of every sum follows from the
 // indices alone, so two runs give the same bits.
 //
@@ -77,12 +92,13 @@
 // dtype).  The forward copies each bf16 row bit for bit, as the one-hot
 // product of bf16 values did, on 16-byte vectors of 8 bf16 (uint4) where C
 // is a multiple of 8 and the pointers are aligned, else on single bf16.
-// The backward is the same three launches: the sum kernel loads bf16 terms
+// The backward is the same two launches: the sum kernel loads bf16 terms
 // (8 a lane, or one), adds them in float32 in the same order as the float32
 // arm, keeps its partial slots in float32, and rounds each row to bf16 once,
-// where its sum is complete: in the sum kernel for a row that lies in one
-// piece, in the combine for a row that spans pieces.
+// where its sum is complete: for a row that spans pieces, in the warp that
+// takes its last ticket.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -250,17 +266,25 @@ __device__ __forceinline__ uint4 narrow<uint4>(float8 v) {
                     pack2(v.hi.x, v.hi.y), pack2(v.hi.z, v.hi.w));
 }
 
-__device__ __forceinline__ float load_acc(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float4 load_acc(const float4* p) { return __ldg(p); }
-__device__ __forceinline__ float8 load_acc(const float8* p) {
-  return float8{__ldg(&p->lo), __ldg(&p->hi)};
+// a partial slot written by another warp of the sum kernel, read past L1
+// (which another SM's stores do not reach)
+__device__ __forceinline__ float load_cg(const float* p) { return __ldcg(p); }
+__device__ __forceinline__ float4 load_cg(const float4* p) {
+  return __ldcg(p);
+}
+__device__ __forceinline__ float8 load_cg(const float8* p) {
+  return float8{__ldcg(&p->lo), __ldcg(&p->hi)};
 }
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kCsrMaxWarps = 32;
+constexpr int kCsrMinWarps = 8;          // a block's warps where they fit
+constexpr int kCsrClusterWarps = 8;      // a cluster block's warps
 constexpr int kCsrGlobalWarps = 8;       // counts in device scratch
 constexpr int kCsrMaxSmem = 200 * 1024;  // of the SM's 227 KB a block may use
 constexpr int kCsrSteps = 8;             // 32-entry steps loaded together
+constexpr int kCsrCluster = 8;           // blocks per batch element
+constexpr int kCsrClusterBins = 2048;    // the most bins a cluster scans
 constexpr int kPiece = 32;               // sorted entries per warp of the sum
 constexpr int kSumWarps = 4;             // pieces per block of the sum
 constexpr int kSumBatch = 8;             // rows in flight, wide sum warp
@@ -272,29 +296,59 @@ __device__ __forceinline__ int bin_of(int j, int n) {
   return (j >= 0 && j < n) ? j : n;
 }
 
-// One block per batch element; blockDim.x / 32 warps.  Its counts, (warps +
-// 1) * (n + 1) ints, lie in dynamic shared memory when scratch is null, else
-// in scratch, that many ints per element.
+// zeroes `bytes` at p (16-byte aligned when bytes % 16 == 0), one warp
+__device__ __forceinline__ void zero_row(char* p, int bytes, int lane) {
+  if (bytes % 16 == 0) {
+    for (int i = 16 * lane; i < bytes; i += 16 * 32) {
+      *reinterpret_cast<uint4*>(p + i) = make_uint4(0u, 0u, 0u, 0u);
+    }
+  } else if (bytes % 4 == 0) {
+    for (int i = 4 * lane; i < bytes; i += 4 * 32) {
+      *reinterpret_cast<unsigned*>(p + i) = 0u;
+    }
+  } else {
+    for (int i = 2 * lane; i < bytes; i += 2 * 32) {
+      *reinterpret_cast<unsigned short*>(p + i) = 0;
+    }
+  }
+}
+
+// CLUSTER blocks per batch element (a thread-block cluster when more than
+// one), blockDim.x / 32 warps each.  Block q = blockIdx.x % CLUSTER of
+// element blockIdx.x / CLUSTER takes its entries [q * span, (q + 1) * span),
+// span = ceil(m / CLUSTER).  Its counts, (warps + CLUSTER) * (n + 1) ints
+// (per warp, then every block's totals), lie in dynamic shared memory when
+// scratch is null, else in scratch, that many ints per element (CLUSTER
+// 1).  With out non-null, the rows of out [B, n] (row_bytes each) that no
+// index names are zeroed, and so are the tickets [B, n, slices] of every
+// row.
+template <int CLUSTER>
 __global__ void __launch_bounds__(kCsrMaxWarps * 32)
 gather_rows_backward_csr_kernel(const int* __restrict__ idx,
                                 int* __restrict__ offsets,
                                 int* __restrict__ order,
-                                int* __restrict__ scratch, int n, int m) {
+                                int* __restrict__ scratch, int n, int m,
+                                char* __restrict__ out, int row_bytes,
+                                int* __restrict__ tickets, int slices) {
+  constexpr int cluster = CLUSTER;
   extern __shared__ int csr_smem[];
   __shared__ int wsum[32];
+  namespace cg = cooperative_groups;
   const int bins = n + 1;
   const int warps = blockDim.x / 32;
   const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
   const unsigned below = (1u << lane) - 1u;
-  const int b = blockIdx.x;
+  const int b = blockIdx.x / cluster, rank = blockIdx.x % cluster;
   int* wc = scratch ? scratch + (int64_t)b * (warps + 1) * bins
-                    : csr_smem;   // [warps][bins]
-  int* start = wc + warps * bins;  // [bins]
+                    : csr_smem;  // [warps][bins]
+  int* tot = wc + warps * bins;  // [CLUSTER][bins], each block's totals
   const int* ib = idx + (int64_t)b * m;
   int* ob = offsets + (int64_t)b * bins;
   int* rb = order + (int64_t)b * m;
-  const int span = (m + warps - 1) / warps;
-  const int lo = min(w * span, m), hi = min(lo + span, m);
+  const int bspan = (m + cluster - 1) / cluster;
+  const int blo = min(rank * bspan, m), bhi = min(blo + bspan, m);
+  const int span = (bhi - blo + warps - 1) / warps;
+  const int lo = min(blo + w * span, bhi), hi = min(lo + span, bhi);
   int* mine = wc + w * bins;
 
   for (int i = tid; i < warps * bins; i += blockDim.x) wc[i] = 0;
@@ -305,8 +359,9 @@ gather_rows_backward_csr_kernel(const int* __restrict__ idx,
     atomicAdd(mine + bin_of(__ldg(ib + j), n), 1);
   }
   __syncthreads();
-  // 2. per bin, each warp's count becomes the count of the warps before it;
-  // the bin's total goes to start
+  // 2. per bin, each warp's count becomes the count of this block's warps
+  // before it; the block's total goes to row `rank` of every block's tot
+  // (stores through the cluster, which its barrier completes)
   for (int r = tid; r < bins; r += blockDim.x) {
     int run = 0;
     for (int v = 0; v < warps; ++v) {
@@ -314,15 +369,34 @@ gather_rows_backward_csr_kernel(const int* __restrict__ idx,
       wc[v * bins + r] = run;
       run += t;
     }
-    start[r] = run;
+    if constexpr (CLUSTER > 1) {
+#pragma unroll
+      for (int q = 0; q < CLUSTER; ++q) {
+        *cg::this_cluster().map_shared_rank(tot + rank * bins + r, q) = run;
+      }
+    } else {
+      tot[r] = run;
+    }
   }
-  __syncthreads();
-  // 3. exclusive scan of the totals over the bins: each thread a run of
-  // bins, a shuffle scan over the threads of a warp, then over the warps
+  // every block's totals are in place before any block reads them; no
+  // block touches another's shared memory after this
+  if constexpr (CLUSTER > 1) {
+    cg::this_cluster().sync();
+  } else {
+    __syncthreads();
+  }
+  // 3. exclusive scan over the bins of the element's totals (every block of
+  // the cluster scans them all): each thread a run of bins, a shuffle scan
+  // over the threads of a warp, then over the warps; a bin's start, plus
+  // the counts of the blocks before this one, plus those of the warps
+  // before each warp, is that warp's first position in the bin
   const int per = (bins + blockDim.x - 1) / blockDim.x;
   const int r0 = min(tid * per, bins), r1 = min(r0 + per, bins);
   int local = 0;
-  for (int r = r0; r < r1; ++r) local += start[r];
+  for (int r = r0; r < r1; ++r) {
+#pragma unroll
+    for (int q = 0; q < CLUSTER; ++q) local += tot[q * bins + r];
+  }
   int inc = local;
 #pragma unroll
   for (int off = 1; off < 32; off <<= 1) {
@@ -344,17 +418,30 @@ gather_rows_backward_csr_kernel(const int* __restrict__ idx,
   __syncthreads();
   int run = wsum[w] + inc - local;
   for (int r = r0; r < r1; ++r) {
-    const int t = start[r];
-    start[r] = run;
-    ob[r] = run;
-    run += t;
+    int all = 0, before = 0;
+#pragma unroll
+    for (int q = 0; q < CLUSTER; ++q) {
+      const int t = tot[q * bins + r];
+      all += t;
+      if (q < rank) before += t;
+    }
+    if (rank == 0) ob[r] = run;
+    for (int v = 0; v < warps; ++v) wc[v * bins + r] += run + before;
+    // a bin no index names: its counts are never read again
+    if (all == 0) wc[r] = -1;
+    run += all;
   }
   __syncthreads();
-  // 4. every warp's first position in each bin
-  for (int r = tid; r < bins; r += blockDim.x) {
-    for (int v = 0; v < warps; ++v) wc[v * bins + r] += start[r];
+  // 4. the rows no index names are zeroed, and every row's tickets, by
+  // the block of the row's rank modulo the cluster, a warp a row
+  if (out != nullptr) {
+    for (int r = rank + cluster * w; r < n; r += cluster * warps) {
+      if (lane < slices) tickets[((int64_t)b * n + r) * slices + lane] = 0;
+      if (wc[r] < 0) {
+        zero_row(out + ((int64_t)b * n + r) * row_bytes, row_bytes, lane);
+      }
+    }
   }
-  __syncthreads();
   // 5. each warp walks its range again, 32 entries a step, the bins of
   // kCsrSteps steps loaded together: an entry goes to the warp's next
   // position in its bin plus its rank among the lanes before it with the
@@ -391,7 +478,8 @@ gather_rows_backward_csr_kernel(const int* __restrict__ idx,
 // of 8 bf16), A = Acc<T> its float32 sum and the type of the partial slots;
 // c counts elements of T in a row.  G lanes take a row (G < 32: one element
 // each, 32 / G groups; G = 32: VPL elements each, and `slices` warps share a
-// piece, each taking 32 * VPL elements of the rows).
+// piece, each taking 32 * VPL elements of the rows).  tickets [B, n,
+// slices], zeroed by the CSR build.
 template <typename T, int G, int VPL>
 __global__ void __launch_bounds__(kSumWarps * 32)
 gather_rows_backward_sum_kernel(const T* __restrict__ g,
@@ -399,11 +487,12 @@ gather_rows_backward_sum_kernel(const T* __restrict__ g,
                                 const int* __restrict__ offsets,
                                 const int* __restrict__ order,
                                 T* __restrict__ out, Acc<T>* __restrict__ part,
-                                int n, int m, int c, int pieces, int slices) {
+                                int* __restrict__ tickets, int n, int m, int c,
+                                int pieces, int slices) {
   using A = Acc<T>;
   const int b = blockIdx.y;
   const int w = blockIdx.x * kSumWarps + threadIdx.x / 32;  // warp-uniform
-  const int p = w / slices;
+  const int p = w / slices, slice = w % slices;
   const int lane = threadIdx.x & 31;
   const int* ob = offsets + (int64_t)b * (n + 1);
   const int total = __ldg(ob + n);  // in-range entries
@@ -428,6 +517,7 @@ gather_rows_backward_sum_kernel(const T* __restrict__ g,
   const bool head_open = __ldg(ob + r_first) < s;    // began before the piece
   const bool tail_open = __ldg(ob + r_last + 1) > e;  // goes on after it
   A* const slot0 = part + ((int64_t)b * pieces + p) * 2 * c;
+  const A* const pb = part + (int64_t)b * pieces * 2 * c;
 
   // element col of the run [lo, hi) of row r: a whole row to out, narrowed
   // once; a part of a row that spans pieces to its float32 slot
@@ -437,6 +527,36 @@ gather_rows_backward_sum_kernel(const T* __restrict__ g,
       out[((int64_t)b * n + r) * c + col] = narrow<T>(v);
     } else {
       (first ? slot0 : slot0 + c)[col] = v;
+    }
+  };
+  // after the run [lo, hi) of row r is put (warp-uniform): if it went to a
+  // slot, this warp's ticket of the row; the warp that takes the row's last
+  // ticket adds its partials in piece order, its first piece's slot 1, then
+  // slot 0 of each later one, into its elements c0 + lane + 32 v
+  auto settle = [&](int lo, int hi, int r, int c0) {
+    const bool first = lo == 0 && head_open;
+    if (!first && !(hi == cnt && tail_open)) return;
+    // release: every lane's part of the slot before the ticket
+    asm volatile("fence.acq_rel.gpu;\n" ::: "memory");
+    __syncwarp();
+    int ticket = 0;
+    if (lane == 0) {
+      ticket = atomicAdd(tickets + ((int64_t)b * n + r) * slices + slice, 1);
+    }
+    ticket = __shfl_sync(kFull, ticket, 0);
+    const int p0 = __ldg(ob + r) / kPiece, p1 = (__ldg(ob + r + 1) - 1) / kPiece;
+    if (ticket < p1 - p0) return;  // a piece's warp that has not come yet
+    // acquire: the other pieces' slots after their tickets
+    asm volatile("fence.acq_rel.gpu;\n" ::: "memory");
+#pragma unroll
+    for (int v = 0; v < (G < 32 ? 1 : VPL); ++v) {
+      const int col = c0 + lane + 32 * v;
+      if (col >= c) continue;
+      A acc = load_cg(pb + ((int64_t)p0 * 2 + 1) * c + col);
+      for (int q = p0 + 1; q <= p1; ++q) {
+        add_to(acc, load_cg(pb + (int64_t)q * 2 * c + col));
+      }
+      out[((int64_t)b * n + r) * c + col] = narrow<T>(acc);
     }
   };
 
@@ -470,7 +590,7 @@ gather_rows_backward_sum_kernel(const T* __restrict__ g,
     }
   } else {
     constexpr int BATCH = kSumBatch;
-    const int c0 = (w % slices) * 32 * VPL;  // this warp's first element
+    const int c0 = slice * 32 * VPL;  // this warp's first element
     A acc[VPL];
 #pragma unroll
     for (int v = 0; v < VPL; ++v) acc[v] = zero<A>();
@@ -512,102 +632,119 @@ gather_rows_backward_sum_kernel(const T* __restrict__ g,
       if (col < c) put(lo, cnt, r, col, acc[v]);
     }
   }
+  // the rows this piece may have put in slots: its first run's and its
+  // last run's (one run: both)
+  const int c0 = G < 32 ? 0 : slice * 32 * VPL;
+  const unsigned later = starts & ~1u;
+  const int first_end = later ? __ffs(later) - 1 : cnt;
+  settle(0, first_end, r_first, c0);
+  if (later) settle(31 - __clz(starts), cnt, r_last, c0);
 }
 
-// One thread per element of T of out: a row no index names is zeroed, a row
-// that spans pieces sums its float32 partials in piece order and narrows the
-// sum once; every other row was written by the sum kernel.
-template <typename T>
-__global__ void gather_rows_backward_combine_kernel(
-    const int* __restrict__ offsets, const Acc<T>* __restrict__ part,
-    T* __restrict__ out, int n, int c, int pieces, int64_t total) {
-  using A = Acc<T>;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; e < total;
-       e += stride) {
-    const int64_t row = e / c;  // b * n + r
-    const int col = (int)(e - row * c);
-    const int64_t b = row / n;
-    const int* ob = offsets + b * (n + 1) + (row - b * n);
-    const int a = __ldg(ob), z = __ldg(ob + 1);
-    if (a == z) {
-      out[e] = zero<T>();
-      continue;
-    }
-    const int p0 = a / kPiece, p1 = (z - 1) / kPiece;
-    if (p0 == p1) continue;
-    const A* pb = part + b * pieces * 2 * c + col;
-    A acc = load_acc(pb + ((int64_t)p0 * 2 + 1) * c);
-    for (int p = p0 + 1; p <= p1; ++p) {
-      add_to(acc, load_acc(pb + (int64_t)p * 2 * c));
-    }
-    out[e] = narrow<T>(acc);
-  }
-}
+// The CSR build's shape for n rows and m entries: blocks per element (a
+// cluster of kCsrCluster, kCsrClusterWarps warps each, up to
+// kCsrClusterBins bins; else one), warps per block (one block: as many as
+// its entries need, at least kCsrMinWarps and at most kCsrMaxWarps; all as
+// far as their counts fit in shared memory; if not even one warp's do,
+// kCsrGlobalWarps with the counts in device scratch).
+struct CsrShape {
+  int cluster, warps;
+  bool in_scratch;
+};
 
-// The CSR build's block size for n rows and m entries, at most one warp per
-// 32 entries: as many warps as fit in shared memory, or, if not even one
-// does, kCsrGlobalWarps with the counts in device scratch (*in_scratch).
-int csr_warps(int n, int m, bool* in_scratch) {
+CsrShape csr_shape(int n, int m) {
+  CsrShape sh;
   const int fit = kCsrMaxSmem / (int)sizeof(int) / (n + 1) - 1;
-  const int want = m > 32 ? (m + 31) / 32 : 1;
-  *in_scratch = fit < 1;
-  return min(*in_scratch ? kCsrGlobalWarps : min(fit, kCsrMaxWarps), want);
+  sh.in_scratch = fit < 1;
+  sh.cluster = !sh.in_scratch && n + 1 <= kCsrClusterBins ? kCsrCluster : 1;
+  const int cluster_fit = fit + 1 - kCsrCluster;  // beside every block's totals
+  const int want = max(m > 32 ? (m + 31) / 32 : 1, kCsrMinWarps);
+  sh.warps = sh.in_scratch         ? kCsrGlobalWarps
+             : sh.cluster > 1      ? min(cluster_fit, kCsrClusterWarps)
+                                   : min(min(fit, kCsrMaxWarps), want);
+  return sh;
 }
 
 // scratch: null, or csr_scratch_ints(n, m) ints per element when that is
 // not 0
 int64_t csr_scratch_ints(int n, int m) {
-  bool in_scratch;
-  const int warps = csr_warps(n, m, &in_scratch);
-  return in_scratch ? (int64_t)(warps + 1) * (n + 1) : 0;
+  const CsrShape sh = csr_shape(n, m);
+  return sh.in_scratch ? (int64_t)(sh.warps + 1) * (n + 1) : 0;
 }
 
 cudaError_t launch_csr(const int* idx, int* offsets, int* order, int* scratch,
-                       int b, int n, int m, cudaStream_t stream) {
-  bool in_scratch;
-  const int warps = csr_warps(n, m, &in_scratch);
-  if (in_scratch) {
-    if (scratch == nullptr) return cudaErrorInvalidValue;
-    gather_rows_backward_csr_kernel<<<b, warps * 32, 0, stream>>>(
-        idx, offsets, order, scratch, n, m);
-    return cudaGetLastError();
-  }
-  const int smem = (warps + 1) * (n + 1) * (int)sizeof(int);
+                       int b, int n, int m, char* out, int row_bytes,
+                       int* tickets, int slices, cudaStream_t stream) {
+  const CsrShape sh = csr_shape(n, m);
+  if (sh.in_scratch && scratch == nullptr) return cudaErrorInvalidValue;
+  const int smem = sh.in_scratch ? 0
+                                 : (sh.warps + sh.cluster) * (n + 1) *
+                                       (int)sizeof(int);
+  auto kernel = sh.cluster > 1 ? gather_rows_backward_csr_kernel<kCsrCluster>
+                               : gather_rows_backward_csr_kernel<1>;
+  cudaError_t err = cudaSuccess;
   if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        gather_rows_backward_csr_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
     if (err != cudaSuccess) return err;
   }
-  gather_rows_backward_csr_kernel<<<b, warps * 32, smem, stream>>>(
-      idx, offsets, order, nullptr, n, m);
-  return cudaGetLastError();
+  if (sh.cluster > 8) {  // past the portable cluster size
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed,
+                               1);
+    if (err != cudaSuccess) return err;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(b * sh.cluster));
+  cfg.blockDim = dim3((unsigned)(sh.warps * 32));
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)sh.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = sh.cluster > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, kernel, idx, offsets, order,
+                           sh.in_scratch ? scratch : nullptr, n, m, out,
+                           row_bytes, tickets, slices);
+  const cudaError_t last = cudaGetLastError();  // clears a refused launch
+  return err != cudaSuccess ? err : last;
 }
 
 template <typename T, int G, int VPL>
 void launch_sum(const void* g, const int* idx, const int* offsets,
-                const int* order, void* out, void* part, int b, int n, int m,
-                int c, int pieces, int slices, cudaStream_t stream) {
+                const int* order, void* out, void* part, int* tickets, int b,
+                int n, int m, int c, int pieces, int slices,
+                cudaStream_t stream) {
   const int warps = pieces * slices;
   const dim3 grid((unsigned)((warps + kSumWarps - 1) / kSumWarps), (unsigned)b);
   gather_rows_backward_sum_kernel<T, G, VPL><<<grid, kSumWarps * 32, 0, stream>>>(
       static_cast<const T*>(g), idx, offsets, order, static_cast<T*>(out),
-      static_cast<Acc<T>*>(part), n, m, c, pieces, slices);
+      static_cast<Acc<T>*>(part), tickets, n, m, c, pieces, slices);
 }
+
+// the warps that share a piece of c elements of T: one up to 32 elements,
+// then one per 64
+int sum_slices(int c) { return c <= 32 ? 1 : (c + 63) / 64; }
 
 template <typename T>
 cudaError_t launch_backward(const void* g, const int* idx, int* offsets,
-                            int* order, int* scratch, void* part, void* out,
-                            int b, int n, int m, int c, cudaStream_t stream) {
-  cudaError_t err = launch_csr(idx, offsets, order, scratch, b, n, m, stream);
+                            int* order, int* scratch, void* part, int* tickets,
+                            void* out, int b, int n, int m, int c,
+                            cudaStream_t stream) {
+  const int slices = sum_slices(c);
+  cudaError_t err =
+      launch_csr(idx, offsets, order, scratch, b, n, m, static_cast<char*>(out),
+                 c * (int)sizeof(T), tickets, slices, stream);
   if (err != cudaSuccess) return err;
   const int pieces = (m + kPiece - 1) / kPiece;
   if (pieces > 0) {
     // narrow rows: lane groups of the least power of two >= c; wide rows:
     // warps of 64 elements each (one each up to 32), so that a C=512 piece
     // is two warps with 8 rows of 1 KB in flight each
-    int slices = 1;
     auto sum = &launch_sum<T, 32, 2>;
     if (c <= 1) {
       sum = &launch_sum<T, 1, 1>;
@@ -621,20 +758,12 @@ cudaError_t launch_backward(const void* g, const int* idx, int* offsets,
       sum = &launch_sum<T, 16, 1>;
     } else if (c <= 32) {
       sum = &launch_sum<T, 32, 1>;
-    } else {
-      slices = (c + 63) / 64;
     }
-    sum(g, idx, offsets, order, out, part, b, n, m, c, pieces, slices, stream);
+    sum(g, idx, offsets, order, out, part, tickets, b, n, m, c, pieces,
+        slices, stream);
     err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
   }
-  const int64_t total = (int64_t)b * n * c;
-  int64_t blocks = (total + kThreads - 1) / kThreads;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  gather_rows_backward_combine_kernel<T><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      offsets, static_cast<const Acc<T>*>(part), static_cast<T*>(out), n, c,
-      pieces, total);
-  return cudaGetLastError();
+  return err;
 }
 
 }  // namespace
@@ -701,20 +830,27 @@ int cmflow_gather_rows_csr(const void* idx, void* offsets, void* order,
   if (b == 0) return (int)cudaSuccess;
   return (int)launch_csr(static_cast<const int*>(idx),
                          static_cast<int*>(offsets), static_cast<int*>(order),
-                         static_cast<int*>(scratch), b, n, m,
-                         static_cast<cudaStream_t>(stream));
+                         static_cast<int*>(scratch), b, n, m, nullptr, 0,
+                         nullptr, 0, static_cast<cudaStream_t>(stream));
+}
+
+// The int32 tickets per row of the backward below, for rows of `elems`
+// elements of its load type (c / 4 or c / 8 on the vector paths, else c).
+int cmflow_gather_rows_backward_slices(int elems) {
+  return sum_slices(elems);
 }
 
 // g [B,M,C] f32, idx [B,M] int32, out [B,N,C] f32, every row of out written.
 // Scratch: offsets [B,N+1] and order [B,M] int32, the CSR build's scratch
-// as above, part [B, ceil(M/32), 2, C] f32.  vec4 != 0 asks for the float4
-// path: C % 4 == 0 and g, part and out 16-byte aligned.  C may be at most
-// 512 (scalar path) or 2048 (float4 path).  Three launches; returns a
+// as above, part [B, ceil(M/32), 2, C] f32, tickets [B, N, S] int32 (S from
+// cmflow_gather_rows_backward_slices).  vec4 != 0 asks for the float4 path:
+// C % 4 == 0 and g, part and out 16-byte aligned.  C may be at most 512
+// (scalar path) or 2048 (float4 path).  Two launches; returns a
 // cudaError_t.
 int cmflow_gather_rows_backward(const void* g, const void* idx, void* offsets,
                                 void* order, void* scratch, void* part,
-                                void* out, int b, int n, int m, int c,
-                                int vec4, void* stream) {
+                                void* tickets, void* out, int b, int n, int m,
+                                int c, int vec4, void* stream) {
   if (n < 1 || c < 1 || m < 0 || (vec4 && c % 4 != 0)) {
     return (int)cudaErrorInvalidValue;
   }
@@ -726,11 +862,12 @@ int cmflow_gather_rows_backward(const void* g, const void* idx, void* offsets,
   int* of = static_cast<int*>(offsets);
   int* od = static_cast<int*>(order);
   int* sc = static_cast<int*>(scratch);
+  int* tk = static_cast<int*>(tickets);
   if (vec4) {
-    return (int)launch_backward<float4>(g, it, of, od, sc, part, out, b, n, m,
-                                        elems, st);
+    return (int)launch_backward<float4>(g, it, of, od, sc, part, tk, out, b, n,
+                                        m, elems, st);
   }
-  return (int)launch_backward<float>(g, it, of, od, sc, part, out, b, n, m,
+  return (int)launch_backward<float>(g, it, of, od, sc, part, tk, out, b, n, m,
                                      elems, st);
 }
 
@@ -738,12 +875,13 @@ int cmflow_gather_rows_backward(const void* g, const void* idx, void* offsets,
 // sums in float32, each row rounded to bf16 once.  Scratch as above, part
 // [B, ceil(M/32), 2, C] float32.  vec8 != 0 asks for the 8-bf16 path: C % 8
 // == 0 and g, out 16-byte aligned (part always is).  C may be at most 512
-// (single bf16) or 4096 (8-bf16 path).  Three launches; returns a
+// (single bf16) or 4096 (8-bf16 path).  Two launches; returns a
 // cudaError_t.
 int cmflow_gather_rows_backward_bf16(const void* g, const void* idx,
                                      void* offsets, void* order, void* scratch,
-                                     void* part, void* out, int b, int n,
-                                     int m, int c, int vec8, void* stream) {
+                                     void* part, void* tickets, void* out,
+                                     int b, int n, int m, int c, int vec8,
+                                     void* stream) {
   if (n < 1 || c < 1 || m < 0 || (vec8 && c % 8 != 0)) {
     return (int)cudaErrorInvalidValue;
   }
@@ -755,12 +893,13 @@ int cmflow_gather_rows_backward_bf16(const void* g, const void* idx,
   int* of = static_cast<int*>(offsets);
   int* od = static_cast<int*>(order);
   int* sc = static_cast<int*>(scratch);
+  int* tk = static_cast<int*>(tickets);
   if (vec8) {
-    return (int)launch_backward<uint4>(g, it, of, od, sc, part, out, b, n, m,
-                                       elems, st);
+    return (int)launch_backward<uint4>(g, it, of, od, sc, part, tk, out, b, n,
+                                       m, elems, st);
   }
-  return (int)launch_backward<__nv_bfloat16>(g, it, of, od, sc, part, out, b,
-                                             n, m, elems, st);
+  return (int)launch_backward<__nv_bfloat16>(g, it, of, od, sc, part, tk, out,
+                                             b, n, m, elems, st);
 }
 
 const char* cmflow_error_string(int code) {

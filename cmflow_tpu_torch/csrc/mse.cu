@@ -52,19 +52,29 @@
 // are staged.  No atomics: two launches give the same bits.
 //
 // The bf16 arm (mse_bf16_kernel, the JAX kernel's bf16 serving mode,
-// fused.py:290-293, :348, :351): the first layer comes folded and rounded
-// to bf16 outside, one rounding per point, as a [B*N, S*32] base (the
-// wrapper builds it, ops/fused.py::make_mse_base), so each thread gathers
-// its eight channels of that row (four 4-byte loads), subtracts the query's
-// offset xyz_c[i] @ w0r_s in float32, applies the affine and ReLU, and
-// rounds to bf16: the A of the 32 -> 32 product's two k16 steps.  Both
-// products (32 -> 32 -> 64) run on mma.sync m16n8k16 .bf16 with float32
-// sums, each activation rounded to nearest even before; then the same
-// padding, tiles, butterfly max and stores as the float32 arm.  Its weights
-// come as a bf16 image of B fragments (6 KB a scale) and a float32 image of
-// w0r and the affines (ops/fused.py::mse_bf16_weights), staged in shared
-// memory as they are.  What bounds it: operations, 3,072 multiply-adds a
-// row, ~1.5 us at the dense bf16 peak at B=16, N=256.
+// fused.py:290-293, :348, :351) takes what the float32 arm takes: the
+// points, the features (here bf16, any strides), each cloud's centroid, the
+// indices, and the weights where they lie (each scale's w0r and w0f, the
+// stacked bf16 w1 and w2, the six affines), so its call is two launches (the
+// centroids' mean and the kernel).  It forms the folded first layer itself,
+// in float32 as the JAX package's base (make_mse_base: feats @ w0f_s, then
+// (xyz - ctr) @ w0r_s, each over its channels in ascending order as one
+// product and a chain of fused multiply-adds, then one add), rounded once to
+// bf16, once a point: a block first forms the base and the centred point of
+// every point of the batch elements its rows touch (its span; at B=16, N=256
+// one or two elements) in shared memory.  Each row then reads its
+// neighbour's base there (zero outside [0, N)), subtracts its query's
+// offset (xyz_q - ctr) @ w0r_s in float32, applies the affine and ReLU,
+// and rounds to bf16: the A of the 32 -> 32 product's two k16 steps.  (A
+// span of more than kBf16SpanPoints points does not fit: then each row
+// forms its neighbour's base from the point and features it gathers, a
+// unit ahead.)  Both products (32 -> 32 -> 64) run on mma.sync m16n8k16
+// .bf16 with float32 sums, each activation rounded to nearest even before;
+// then the same padding, tiles, butterfly max and stores as the float32
+// arm.  A block stages its scale's w1 and w2 into shared memory as the B
+// fragments of its two products (one uint2 per fragment slot) and the
+// float32 weights beside them.  What bounds it: operations, 3,072
+// multiply-adds a row, ~1.5 us at the dense bf16 peak at B=16, N=256.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -417,52 +427,105 @@ __global__ void __launch_bounds__(kWarps * 32, 2)
 // (product, k16 step, n8 tile, lane): layer 1 (2 x 4), layer 2 (2 x 8)
 constexpr int kBf16Slots1 = 8 * 32;
 constexpr int kBf16Slots = kBf16Slots1 + 16 * 32;
-// floats of one scale: w0r [3][kC1], then the affines as kS0 .. kB2
-constexpr int kW0r = 0, kBf16Aff = 3 * kC1;
+// floats of one scale in shared memory: w0r [3][kC1], w0f [kMaxFeats][kC1],
+// then the affines as kS0 .. kB2
+constexpr int kW0r = 0, kW0f = 3 * kC1, kBf16Aff = kW0f + kMaxFeats * kC1;
 constexpr int kBf16Floats = kBf16Aff + kAffine;
-static_assert(4 * kBf16Slots == 3072, "ops/fused.py::MSE_BF16_IMAGE");
-static_assert(kBf16Floats == 352, "ops/fused.py::MSE_BF16_AFFINE");
+constexpr int kBf16Warps = 8;
+constexpr int kBf16TilesPerWarp = 4;
+constexpr int kBf16MinBlocks = 2;  // per SM, for the register budget
 
 struct Bf16Cloud {
-  const uint32_t* base;  // [B*N, S*kC1] bf16, as pairs
-  const float* xyz;      // [B*N, 3], centred
-  int n, pairs;          // points per element, bf16 pairs per base row
+  const float* xyz;              // [B*N, 3]
+  const unsigned short* feats;   // [B, N, Cf] bf16, strided
+  int64_t sb, sn, sc;
+  int cf;
+  const float* ctr;  // [B, 3], each cloud's mean over all N
+  int n;
 };
 
-// x[4j + 2e + u] = x0 at channel 16j + 8e + 2t + u of the row: the base
-// (zero outside [0, N)) less the query's offset xyz_c[q] @ w0r, then the
-// affine and ReLU, in float32
-__device__ __forceinline__ void first_layer_bf16(const Bf16Cloud& c, Row row,
-                                                 int s, int t,
+// the weights of every scale where they lie
+struct Bf16Weights {
+  const float* w0r[kMaxScales];  // [3, kC1] per scale
+  const float* w0f[kMaxScales];  // [Cf, kC1] per scale
+  const unsigned short* w1;      // [S, kC1, kC2] bf16
+  const unsigned short* w2;      // [S, kC2, kC3] bf16
+  const float* aff[6];           // s0, b0 [S*kC1], s1, b1, s2, b2
+};
+
+// a point of a block's span in shared memory: its bf16 base, kC1 channels
+// as pairs (channel 2w in the low half of word w), then its centred point
+// (an odd stride, so the rows a warp reads at once rarely share a bank)
+constexpr int kPointWords = kC1 / 2 + 3;
+constexpr int kBf16SpanPoints = 2048;  // the most points a block forms
+
+// channel cc of a point's folded first layer, in float32 before its one
+// rounding to bf16, from its features f and centred point d: f @ w0f as the
+// first channel's product then a fused multiply-add per channel, the same
+// for d @ w0r, then one add (the order of the plain version's float32
+// matmuls, ops/fused.py::make_mse_base)
+__device__ __forceinline__ float base_channel(const float* f, const float* d,
+                                              int cf, int cc,
+                                              const float* fsm) {
+  const float* w0r = fsm + kW0r;
+  const float* w0f = fsm + kW0f;
+  float a = cf > 0 ? __fmul_rn(f[0], w0f[cc]) : 0.0f;
+#pragma unroll
+  for (int i = 1; i < kMaxFeats; ++i) {
+    if (i < cf) a = __fmaf_rn(f[i], w0f[i * kC1 + cc], a);
+  }
+  float r = __fmul_rn(d[0], w0r[cc]);
+  r = __fmaf_rn(d[1], w0r[kC1 + cc], r);
+  r = __fmaf_rn(d[2], w0r[2 * kC1 + cc], r);
+  return __fadd_rn(a, r);
+}
+
+// point j of element b, centred: xyz - ctr (as ops/fused.py::center_xyz)
+__device__ __forceinline__ void centred(const Bf16Cloud& c, int b, int j,
+                                        float (&d)[3]) {
+  const float* x = c.xyz + ((int64_t)b * c.n + j) * 3;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    d[i] = __fsub_rn(__ldg(x + i), __ldg(c.ctr + b * 3 + i));
+  }
+}
+
+// the features of point j of element b, as floats (zero past cf)
+__device__ __forceinline__ void features(const Bf16Cloud& c, int b, int j,
+                                         float (&f)[kMaxFeats]) {
+  const unsigned short* fp = c.feats + b * c.sb + j * c.sn;
+#pragma unroll
+  for (int i = 0; i < kMaxFeats; ++i) {
+    f[i] = i < c.cf ? __uint_as_float((uint32_t)__ldg(fp + i * c.sc) << 16)
+                    : 0.0f;
+  }
+}
+
+// x[4j + 2e + u] = x0 at channel 16j + 8e + 2t + u of the row: its
+// neighbour's base (zero outside [0, N)) less the query's offset p @ w0r
+// (p its centred point), then the affine and ReLU, in float32; g(w) gives
+// word w of the neighbour's base
+template <typename BaseWord>
+__device__ __forceinline__ void first_layer_bf16(const float (&p)[3],
+                                                 BaseWord g, int t,
                                                  const float* fsm,
                                                  float (&x)[8]) {
-  float p0 = 0.0f, p1 = 0.0f, p2 = 0.0f;
-  const uint32_t* src = nullptr;
-  if (row.q >= 0) {
-    p0 = __ldg(c.xyz + (int64_t)row.q * 3);
-    p1 = __ldg(c.xyz + (int64_t)row.q * 3 + 1);
-    p2 = __ldg(c.xyz + (int64_t)row.q * 3 + 2);
-    if (row.j >= 0) {
-      src = c.base + ((int64_t)row.b * c.n + row.j) * c.pairs + s * kC1 / 2;
-    }
-  }
   const float* w0r = fsm + kW0r;
   const float* aff = fsm + kBf16Aff;
 #pragma unroll
   for (int j = 0; j < 2; ++j) {
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
-      const int ch = 16 * j + 8 * e + 2 * t;
-      const uint32_t v = src ? __ldg(src + ch / 2) : 0u;
-      const float g[2] = {__uint_as_float(v << 16),
-                          __uint_as_float(v & 0xffff0000u)};
+      const uint32_t v = g(8 * j + 4 * e + t);
+      const float base[2] = {__uint_as_float(v << 16),
+                             __uint_as_float(v & 0xffff0000u)};
 #pragma unroll
       for (int u = 0; u < 2; ++u) {
-        const int cc = ch + u;
-        const float off = fmaf(p2, w0r[2 * kC1 + cc],
-                               fmaf(p1, w0r[kC1 + cc], p0 * w0r[cc]));
+        const int cc = 16 * j + 8 * e + 2 * t + u;
+        const float off = fmaf(p[2], w0r[2 * kC1 + cc],
+                               fmaf(p[1], w0r[kC1 + cc], p[0] * w0r[cc]));
         x[4 * j + 2 * e + u] =
-            relu_affine(g[u] - off, aff[kS0 + cc], aff[kB0 + cc]);
+            relu_affine(base[u] - off, aff[kS0 + cc], aff[kB0 + cc]);
       }
     }
   }
@@ -478,53 +541,177 @@ __device__ __forceinline__ void chain_a_bf16(const float* xa, const float* xb,
   a[3] = tc::pack_bf16(xb[2], xb[3]);
 }
 
-__global__ void __launch_bounds__(kWarps * 32, 2)
-    mse_bf16_kernel(Bf16Cloud cloud,
-                    const uint2* __restrict__ frags,   // [S, kBf16Slots]
-                    const float* __restrict__ floats,  // [S, kBf16Floats]
-                    float* __restrict__ out,           // [B*N, S*kC3]
+// the B fragment slot e of one scale's two products: lane (g, t) of k16
+// step j and n8 tile nt holds w[k][8 nt + g] at k = 16j + 2t, +1, +8, +9
+__device__ __forceinline__ uint2 bf16_slot(const unsigned short* w1,
+                                           const unsigned short* w2, int e) {
+  const bool second = e >= kBf16Slots1;
+  const int f = second ? e - kBf16Slots1 : e;
+  const int cout = second ? kC3 : kC2;
+  const int lane = f % 32, nt = (f / 32) % (cout / 8), j = f / 32 / (cout / 8);
+  const unsigned short* col =
+      (second ? w2 : w1) + (16 * j + 2 * (lane % 4)) * cout + 8 * nt + lane / 4;
+  return make_uint2(
+      (uint32_t)__ldg(col) | (uint32_t)__ldg(col + cout) << 16,
+      (uint32_t)__ldg(col + 8 * cout) | (uint32_t)__ldg(col + 9 * cout) << 16);
+}
+
+// the queries [first, last] of the tiles [tile0, tile0 + per_block) of a
+// scale with P = 2^lp rows a query
+__device__ __host__ __forceinline__ int2 block_queries(int64_t tile0,
+                                                       int per_block, int lp,
+                                                       int total) {
+  const int64_t first = (tile0 * kTileRows) >> lp;
+  const int64_t last = ((tile0 + per_block) * kTileRows - 1) >> lp;
+  return make_int2((int)first, (int)(last < total - 1 ? last : total - 1));
+}
+
+// kSpan: the block first forms the base and the centred point of every
+// point of the elements its rows touch (its span, <= kBf16SpanPoints) in
+// dynamic shared memory, once a point, and each row reads them there;
+// otherwise each row forms its neighbour's base from the points and
+// features it gathers, a unit ahead.
+template <bool kSpan>
+__global__ void __launch_bounds__(kBf16Warps * 32, kBf16MinBlocks)
+    mse_bf16_kernel(Bf16Cloud cloud, Bf16Weights wt,
+                    float* __restrict__ out,  // [B*N, S*kC3]
                     int total, Scales sc) {
   __shared__ uint2 wsm[kBf16Slots];
   __shared__ __align__(16) float fsm[kBf16Floats];
+  extern __shared__ uint32_t span[];  // [points][kPointWords]
 
   int s = 0;
   while (s + 1 < sc.count && (int)blockIdx.x >= sc.block0[s + 1]) ++s;
-  for (int e = threadIdx.x; e < kBf16Slots; e += blockDim.x) {
-    wsm[e] = __ldg(frags + (size_t)s * kBf16Slots + e);
-  }
-  for (int e = threadIdx.x; e < kBf16Floats; e += blockDim.x) {
-    fsm[e] = __ldg(floats + (size_t)s * kBf16Floats + e);
+  {
+    const unsigned short* w1 = wt.w1 + (size_t)s * kC1 * kC2;
+    const unsigned short* w2 = wt.w2 + (size_t)s * kC2 * kC3;
+    for (int e = threadIdx.x; e < kBf16Slots; e += blockDim.x) {
+      wsm[e] = bf16_slot(w1, w2, e);
+    }
+    const float* w0r = wt.w0r[s];
+    const float* w0f = wt.w0f[s];
+    for (int e = threadIdx.x; e < 3 * kC1; e += blockDim.x) {
+      fsm[kW0r + e] = __ldg(w0r + e);
+    }
+    for (int e = threadIdx.x; e < cloud.cf * kC1; e += blockDim.x) {
+      fsm[kW0f + e] = __ldg(w0f + e);
+    }
+    // s0, b0 (kC1 each), s1, b1 (kC2), s2, b2 (kC3): this scale's part
+    for (int e = threadIdx.x; e < kAffine; e += blockDim.x) {
+      const int a = e < kS2 ? e / kC1 : 4 + (e - kS2) / kC3;
+      const int width = a < 2 ? kC1 : a < 4 ? kC2 : kC3;
+      const int col = e < kS2 ? e % kC1 : (e - kS2) % kC3;
+      fsm[kBf16Aff + e] = __ldg(wt.aff[a] + s * width + col);
+    }
   }
   __syncthreads();
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
-  const int lp = sc.log2p[s], k = sc.k[s];
+  const int lp = sc.log2p[s], k = sc.k[s], n = cloud.n;
   const int* __restrict__ idx = sc.idx[s];
   const int tiles = ((total << lp) + kTileRows - 1) / kTileRows;
-  const int tile0 = (blockIdx.x - sc.block0[s]) * kWarps * kTilesPerWarp;
+  constexpr int kPerBlock = kBf16Warps * kBf16TilesPerWarp;
+  const int tile0 = (blockIdx.x - sc.block0[s]) * kPerBlock;
   const int stride = sc.count * kC3;
   float* __restrict__ outs = out + s * kC3;
   const float* aff = fsm + kBf16Aff;
+  constexpr int kUnits = 2 * kBf16TilesPerWarp;
 
-  auto first_row = [&](int u) {
-    return (tile0 + warp + (u >> 1) * kWarps) * kTileRows + 16 * (u & 1) + g;
+  // the span: the elements [b0, ...] of the block's queries, each point's
+  // base rounded to bf16 once
+  const int b0 = block_queries(tile0, kPerBlock, lp, total).x / n;
+  if constexpr (kSpan) {
+    const int points = (block_queries(tile0, kPerBlock, lp, total).y / n -
+                        b0 + 1) * n;
+    for (int i = threadIdx.x; i < points; i += blockDim.x) {
+      float d[3], f[kMaxFeats];
+      centred(cloud, b0 + i / n, i % n, d);
+      features(cloud, b0 + i / n, i % n, f);
+      uint32_t* row = span + i * kPointWords;
+#pragma unroll
+      for (int w = 0; w < kC1 / 2; ++w) {
+        row[w] = tc::pack_bf16(base_channel(f, d, cloud.cf, 2 * w, fsm),
+                               base_channel(f, d, cloud.cf, 2 * w + 1, fsm));
+      }
+#pragma unroll
+      for (int e = 0; e < 3; ++e) row[kC1 / 2 + e] = __float_as_uint(d[e]);
+    }
+    __syncthreads();
+  }
+
+  // unit u of this warp: the half u % 2 of tile tile0 + warp + (u / 2) *
+  // kBf16Warps; its rows g and g + 8 in the scale's row space
+  auto row_of = [&](int u, int plus) {
+    if (u >= kUnits) return Row{-1, 0, -1};
+    const int r = (tile0 + warp + (u >> 1) * kBf16Warps) * kTileRows +
+                  16 * (u & 1) + g + plus;
+    return unit_row(idx, r, lp, k, total, n);
   };
-  Row ra = unit_row(idx, first_row(0), lp, k, total, cloud.n);
-  Row rb = unit_row(idx, first_row(0) + 8, lp, k, total, cloud.n);
+  // a row's x0 from the span: its query's centred point, its neighbour's
+  // base words
+  auto x0_span = [&](Row row, float (&x)[8]) {
+    float p[3] = {0.0f, 0.0f, 0.0f};
+    const uint32_t* q = span + (int64_t)(row.q - b0 * n) * kPointWords;
+    const uint32_t* j = span + (int64_t)((row.b - b0) * n + row.j) * kPointWords;
+    if (row.q >= 0) {
+#pragma unroll
+      for (int e = 0; e < 3; ++e) p[e] = __uint_as_float(q[kC1 / 2 + e]);
+    }
+    const bool in = row.q >= 0 && row.j >= 0;
+    first_layer_bf16(p, [&](int w) { return in ? j[w] : 0u; }, t, fsm, x);
+  };
+  // the values a row forms its x0 from, without a span: its neighbour's
+  // centred point and features, its query's centred point
+  struct Gathered {
+    float d[3], f[kMaxFeats], p[3];
+  };
+  auto gather = [&](Row row) {
+    Gathered v{};
+    if (row.q >= 0) {
+      centred(cloud, row.b, row.q - row.b * n, v.p);
+      if (row.j >= 0) {
+        centred(cloud, row.b, row.j, v.d);
+        features(cloud, row.b, row.j, v.f);
+      }
+    }
+    return v;
+  };
+  auto x0_gathered = [&](Row row, const Gathered& v, float (&x)[8]) {
+    const bool in = row.q >= 0 && row.j >= 0;
+    first_layer_bf16(v.p, [&](int w) {
+      return in ? tc::pack_bf16(base_channel(v.f, v.d, cloud.cf, 2 * w, fsm),
+                                base_channel(v.f, v.d, cloud.cf, 2 * w + 1,
+                                             fsm))
+                : 0u;
+    }, t, fsm, x);
+  };
+
+  Row ra = row_of(0, 0), rb = row_of(0, 8);
+  Row na = row_of(1, 0), nb = row_of(1, 8);
+  Gathered va{}, vb{};
+  if constexpr (!kSpan) {
+    va = gather(ra);
+    vb = gather(rb);
+  }
   float carry[2];  // P = 32: the first half's max
 
-  for (int u = 0; u < 2 * kTilesPerWarp; ++u) {
-    if (tile0 + warp + (u >> 1) * kWarps >= tiles) break;  // warp-uniform
+  for (int u = 0; u < kUnits; ++u) {
+    if (tile0 + warp + (u >> 1) * kBf16Warps >= tiles) break;  // warp-uniform
     const int h = u & 1;
     float xa[8], xb[8];
-    first_layer_bf16(cloud, ra, s, t, fsm, xa);
-    first_layer_bf16(cloud, rb, s, t, fsm, xb);
-    Row na{-1, 0, -1}, nb{-1, 0, -1};
-    if (u + 1 < 2 * kTilesPerWarp) {
-      na = unit_row(idx, first_row(u + 1), lp, k, total, cloud.n);
-      nb = unit_row(idx, first_row(u + 1) + 8, lp, k, total, cloud.n);
+    if constexpr (kSpan) {
+      x0_span(ra, xa);
+      x0_span(rb, xb);
+    } else {
+      x0_gathered(ra, va, xa);
+      x0_gathered(rb, vb, xb);
+      // the next unit's gathers, in flight while this unit's products run
+      va = gather(na);
+      vb = gather(nb);
     }
+    // the indices of the unit after the next
+    const Row na2 = row_of(u + 2, 0), nb2 = row_of(u + 2, 8);
 
     // layer 1: k16 step j takes channels 16j .. 16j + 15 of x0
     float y[16];
@@ -573,13 +760,15 @@ __global__ void __launch_bounds__(kWarps * 32, 2)
     pool_store(v0, v1, lp, h, g, t, ra.q, rb.q, outs, stride, carry);
     ra = na;
     rb = nb;
+    na = na2;
+    nb = nb2;
   }
 }
 
 // fills `scales` for count scales of ks[] neighbours and idx[] indices over
-// `total` queries; returns a cudaError_t
+// `total` queries, `per_block` 32-row tiles a block; returns a cudaError_t
 int make_scales(void* const* idx, const int* ks, int count, int total,
-                Scales& scales) {
+                int per_block, Scales& scales) {
   scales.count = count;
   scales.block0[0] = 0;
   for (int t = 0; t < kMaxScales; ++t) {
@@ -592,9 +781,7 @@ int make_scales(void* const* idx, const int* ks, int count, int total,
     scales.log2p[t] = lp;
     scales.idx[t] = used ? static_cast<const int*>(idx[t]) : nullptr;
     const int64_t tiles = (((int64_t)total << lp) + kTileRows - 1) / kTileRows;
-    const int64_t blocks =
-        used ? (tiles + kWarps * kTilesPerWarp - 1) / (kWarps * kTilesPerWarp)
-             : 0;
+    const int64_t blocks = used ? (tiles + per_block - 1) / per_block : 0;
     if (scales.block0[t] + blocks > 0x7fffffff) {
       return (int)cudaErrorInvalidValue;
     }
@@ -622,7 +809,8 @@ int cmflow_mse(const void* xyz, const void* feats, long long sb, long long sn,
   }
   const int total = b * n;
   Scales scales;
-  const int err = make_scales(idx, ks, count, total, scales);
+  const int err =
+      make_scales(idx, ks, count, total, kWarps * kTilesPerWarp, scales);
   if (err != (int)cudaSuccess) return err;
   if (total == 0) return (int)cudaSuccess;
   Cloud cloud{static_cast<const float*>(xyz), static_cast<const float*>(feats),
@@ -634,30 +822,69 @@ int cmflow_mse(const void* xyz, const void* feats, long long sb, long long sn,
   return (int)cudaGetLastError();
 }
 
-// The bf16 arm: base [B,N,count*32] bf16, each scale's folded first layer
-// (ops/fused.py::make_mse_base); xyz [B,N,3] f32 centred; idx and ks as
-// cmflow_mse; frags [count, 3072] bf16 and floats [count, 352] f32 from
-// ops/fused.py::mse_bf16_weights; out [B,N,count*64] f32.  Returns a
-// cudaError_t.
-int cmflow_mse_bf16(const void* base, const void* xyz, void* const* idx,
-                    const int* ks, int count, const void* frags,
-                    const void* floats, void* out, int b, int n,
-                    void* stream) {
-  if (count < 1 || count > kMaxScales || n < 1) {
+// The bf16 arm: xyz, ctr, idx and ks as cmflow_mse; feats [B,N,cf] bf16
+// with element strides (sb, sn, sc); per scale s, w0r[s] [3,32] and w0f[s]
+// [cf,32] f32; w1 [count,32,32] and w2 [count,32,64] bf16; the affines s0,
+// b0 [count*32], s1, b1 [count*32], s2, b2 [count*64] f32 (all contiguous);
+// out [B,N,count*64] f32.  Returns a cudaError_t.
+int cmflow_mse_bf16(const void* xyz, const void* feats, long long sb,
+                    long long sn, long long sc, int cf, const void* ctr,
+                    void* const* idx, const int* ks, int count,
+                    void* const* w0r, void* const* w0f, const void* w1,
+                    const void* w2, const void* s0, const void* b0,
+                    const void* s1, const void* b1, const void* s2,
+                    const void* b2, void* out, int b, int n, void* stream) {
+  if (count < 1 || count > kMaxScales || n < 1 || cf < 0 ||
+      cf > kMaxFeats) {
     return (int)cudaErrorInvalidValue;
   }
   const int total = b * n;
   Scales scales;
-  const int err = make_scales(idx, ks, count, total, scales);
+  const int err = make_scales(idx, ks, count, total,
+                              kBf16Warps * kBf16TilesPerWarp, scales);
   if (err != (int)cudaSuccess) return err;
   if (total == 0) return (int)cudaSuccess;
-  const Bf16Cloud cloud{static_cast<const uint32_t*>(base),
-                        static_cast<const float*>(xyz), n, count * kC1 / 2};
-  mse_bf16_kernel<<<scales.block0[count], kWarps * 32, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-      cloud, static_cast<const uint2*>(frags),
-      static_cast<const float*>(floats), static_cast<float*>(out), total,
-      scales);
+  const Bf16Cloud cloud{static_cast<const float*>(xyz),
+                        static_cast<const unsigned short*>(feats),
+                        sb, sn, sc, cf, static_cast<const float*>(ctr), n};
+  Bf16Weights wt;
+  for (int t = 0; t < kMaxScales; ++t) {
+    wt.w0r[t] = t < count ? static_cast<const float*>(w0r[t]) : nullptr;
+    wt.w0f[t] = t < count ? static_cast<const float*>(w0f[t]) : nullptr;
+  }
+  wt.w1 = static_cast<const unsigned short*>(w1);
+  wt.w2 = static_cast<const unsigned short*>(w2);
+  const void* affs[6] = {s0, b0, s1, b1, s2, b2};
+  for (int a = 0; a < 6; ++a) wt.aff[a] = static_cast<const float*>(affs[a]);
+  // the most points a block's span holds (the elements its queries
+  // touch, whole)
+  int64_t points = 0;
+  constexpr int kPerBlock = kBf16Warps * kBf16TilesPerWarp;
+  for (int t = 0; t < count; ++t) {
+    for (int blk = 0; blk < scales.block0[t + 1] - scales.block0[t]; ++blk) {
+      const int2 q = block_queries((int64_t)blk * kPerBlock, kPerBlock,
+                                   scales.log2p[t], total);
+      const int64_t p = (int64_t)(q.y / n - q.x / n + 1) * n;
+      if (p > points) points = p;
+    }
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (points <= kBf16SpanPoints) {
+    const int smem = (int)points * kPointWords * (int)sizeof(uint32_t);
+    if (smem > 48 * 1024 - (int)(sizeof(uint2) * kBf16Slots +
+                                 sizeof(float) * kBf16Floats)) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          mse_bf16_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          smem);
+      if (e != cudaSuccess) return (int)e;
+    }
+    mse_bf16_kernel<true><<<scales.block0[count], kBf16Warps * 32, smem,
+                            st>>>(cloud, wt, static_cast<float*>(out), total,
+                                  scales);
+  } else {
+    mse_bf16_kernel<false><<<scales.block0[count], kBf16Warps * 32, 0, st>>>(
+        cloud, wt, static_cast<float*>(out), total, scales);
+  }
   return (int)cudaGetLastError();
 }
 

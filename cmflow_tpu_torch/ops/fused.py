@@ -7,11 +7,11 @@ Counterpart of ``cmflow_tpu/ops/fused.py``:
   (K6, ``csrc/gather.cu``), float32 or bfloat16 points, an exact copy of
   each row in either;
 * :func:`gather_rows_backward`: ``_gather_bwd_kernel``, the backward of
-  ``mxu_group_points`` (K7, ``csrc/gather.cu``: a CSR build,
-  :func:`gather_rows_csr`, then a sum over fixed pieces of the sorted
-  indices); a bfloat16 cotangent is summed in float32 and rounded to
-  bfloat16 once, as ``_mxu_gather_bwd``'s float32 result cast to the
-  points' dtype;
+  ``mxu_group_points`` (K7, ``csrc/gather.cu``: a CSR build by a
+  thread-block cluster per batch element, :func:`gather_rows_csr`, then a
+  sum over fixed pieces of the sorted indices); a bfloat16 cotangent is
+  summed in float32 and rounded to bfloat16 once, as ``_mxu_gather_bwd``'s
+  float32 result cast to the points' dtype;
 * :func:`fused_multi_scale_encoder`: ``_mse_kernel`` (K3, ``csrc/mse.cu``);
 * :func:`fused_point_local_feature`: ``_plf_kernel`` (K5, ``csrc/plf.cu``);
 * :func:`fused_cost_volume`: ``_cv_kernel`` then ``_cv_agg_kernel``, here
@@ -49,7 +49,8 @@ the gathered bases (K3, K5), ``f1c``/``f2c`` (K4a), the point-to-patch cost
   Dense weights come in bfloat16, every product takes bf16 operands in one
   tensor-core pass and sums in float32, the activations are rounded to bf16
   before each product, and the affines, offsets and WeightNets stay float32
-  (:func:`tc_weights_bf16`, :func:`mse_bf16_weights`).  K4a writes its
+  (:func:`tc_weights_bf16`; K3's bf16 arm reads its weights where they lie
+  and forms its bf16 base itself).  K4a writes its
   point-to-patch cost in bf16; every other output is float32.  The plain
   versions round with ``.to(torch.bfloat16)`` and multiply the rounded
   values in float32 (:func:`_mm`), so they differ from the JAX kernels only
@@ -77,16 +78,21 @@ _SIGNATURES = {
                                "cmflow_gather_rows_bf16")},
                "cmflow_gather_rows_csr_scratch": (_I, _I),
                "cmflow_gather_rows_csr": (_P, _P, _P, _P, _I, _I, _I, _P),
-               **{name: (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)
+               "cmflow_gather_rows_backward_slices": (_I,),
+               **{name: (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                         _P)
                   for name in ("cmflow_gather_rows_backward",
                                "cmflow_gather_rows_backward_bf16")}},
     "mse": {"cmflow_mse": (_P, _P, _L, _L, _L, _I, _P,
                            ctypes.POINTER(ctypes.c_void_p),
                            ctypes.POINTER(ctypes.c_int), _I, _P, _P, _I, _I,
                            _P),
-            "cmflow_mse_bf16": (_P, _P, ctypes.POINTER(ctypes.c_void_p),
-                                ctypes.POINTER(ctypes.c_int), _I, _P, _P, _P,
-                                _I, _I, _P)},
+            "cmflow_mse_bf16": (_P, _P, _L, _L, _L, _I, _P,
+                                ctypes.POINTER(ctypes.c_void_p),
+                                ctypes.POINTER(ctypes.c_int), _I,
+                                ctypes.POINTER(ctypes.c_void_p),
+                                ctypes.POINTER(ctypes.c_void_p), _P, _P, _P,
+                                _P, _P, _P, _P, _P, _P, _I, _I, _P)},
     "plf": {name: (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                    _I, _I, _I, _I, _P)
             for name in ("cmflow_plf", "cmflow_plf_bf16")},
@@ -337,9 +343,11 @@ def gather_rows_backward(g: Tensor, idx: Tensor, n: int) -> Tensor:
     ``out[b, j] = sum of g[b, m] over every m with idx[b, m] == j``.
 
     Deterministic on the card: the indices are sorted by row (stable in
-    ``m``, :func:`gather_rows_csr`), each warp sums 32 sorted entries in a
-    fixed order, and rows that span several warps add their parts in order;
-    no atomics.  Three launches, no sync with the host.
+    ``m``, :func:`gather_rows_csr`, which also zeroes the rows no index
+    names), each warp sums 32 sorted entries in a fixed order, and a row
+    that spans several warps is added from their parts in order by the warp
+    that finishes last (an atomic ticket picks that warp; no atomic adds).
+    Two launches, no sync with the host.
 
     A bfloat16 cotangent takes the same sums in float32 (each bf16 term
     exact, the float32 arm's order) and rounds each row to bf16 once.
@@ -379,11 +387,15 @@ def gather_rows_backward(g: Tensor, idx: Tensor, n: int) -> Tensor:
     # the partial sums stay float32 in both arms
     part = torch.empty((b, max(pieces, 1), 2, c), dtype=torch.float32,
                        device=dev)
+    # the sum kernel's tickets per row; the CSR build zeroes them
+    slices = lib.cmflow_gather_rows_backward_slices(c // lanes if vec else c)
+    tickets = torch.empty((b, n, slices), dtype=torch.int32, device=dev)
     launch = (lib.cmflow_gather_rows_backward_bf16 if bf16
               else lib.cmflow_gather_rows_backward)
     code = launch(g.data_ptr(), idx.data_ptr(), offsets.data_ptr(),
                   order.data_ptr(), scratch.data_ptr(), part.data_ptr(),
-                  out.data_ptr(), b, n, m, c, int(vec), _stream(g))
+                  tickets.data_ptr(), out.data_ptr(), b, n, m, c, int(vec),
+                  _stream(g))
     build.check(lib, code, "gather_rows_backward")
     gather_rows_backward.launches += 1
     gather_rows_backward.launches_bf16 += bf16
@@ -646,56 +658,6 @@ def mse_tc_weights(packed: tuple) -> Tensor:
     return flat[index]
 
 
-# K3's bf16 arm (csrc/mse.cu::mse_bf16_kernel): (k16 steps, n8 tiles) of its
-# two products, bf16 values per scale of its fragment image (four per
-# fragment slot: b0's pair, b1's pair), and floats per scale of its float32
-# image (w0r [3, C1], then the six affines)
-MSE_BF16_PRODUCTS = ((2, 4), (2, 8))
-MSE_BF16_IMAGE = 4 * 32 * sum(s * t for s, t in MSE_BF16_PRODUCTS)
-MSE_BF16_AFFINE = 3 * MSE_WIDTHS[0] + 2 * sum(MSE_WIDTHS)
-_MSE_BF16_INDEX: Dict[tuple, Tensor] = {}
-
-
-def _mse_bf16_image_index(s_cnt: int) -> np.ndarray:
-    """``[S, MSE_BF16_IMAGE]`` positions in the flat concatenation of the
-    stacked ``w1 [S, C1, C2]`` and ``w2 [S, C2, C3]``: per scale and
-    product, per (k16 step j, n8 tile, lane (g, t)) the mma.sync B values
-    ``k = 16j + 2t, +1, +8, +9`` of column ``8 tile + g``."""
-    c1, c2, c3 = MSE_WIDTHS
-    out = np.empty((s_cnt, MSE_BF16_IMAGE), np.int64)
-    for s in range(s_cnt):
-        parts = []
-        for (steps, tiles), off, cout in (
-                (MSE_BF16_PRODUCTS[0], s * c1 * c2, c2),
-                (MSE_BF16_PRODUCTS[1], s_cnt * c1 * c2 + s * c2 * c3, c3)):
-            j, nt, lane, e = np.meshgrid(np.arange(steps), np.arange(tiles),
-                                         np.arange(32), np.arange(4),
-                                         indexing="ij")
-            k = 16 * j + 2 * (lane % 4) + e % 2 + 8 * (e // 2)
-            parts.append(off + k * cout + 8 * nt + lane // 4)
-        out[s] = np.concatenate([p.reshape(-1) for p in parts])
-    return out
-
-
-def mse_bf16_weights(packed: tuple) -> Tuple[Tensor, Tensor]:
-    """The weights of every scale of K3's bf16 arm: a bfloat16 ``[S,
-    MSE_BF16_IMAGE]`` image of its two products' mma.sync B fragments
-    (:func:`_mse_bf16_image_index`), and a float32 ``[S, MSE_BF16_AFFINE]``
-    image of each scale's offset block ``w0r_s [3, C1]`` and its affines
-    ``s0, b0, s1, b1, s2, b2``."""
-    w0rel, _, s0, b0, w1, s1, b1, w2, s2, b2 = packed
-    s_cnt = len(w0rel)
-    key = (s_cnt, w1.device)
-    if key not in _MSE_BF16_INDEX:
-        _MSE_BF16_INDEX[key] = torch.from_numpy(
-            _mse_bf16_image_index(s_cnt)).to(w1.device)
-    frags = torch.cat((w1.reshape(-1), w2.reshape(-1)))[_MSE_BF16_INDEX[key]]
-    floats = torch.cat([torch.stack(w0rel).reshape(s_cnt, -1)]
-                       + [a.reshape(s_cnt, -1)
-                          for a in (s0, b0, s1, b1, s2, b2)], dim=1)
-    return frags, floats
-
-
 def center_xyz(xyz: Tensor) -> Tensor:
     """Subtract each cloud's mean over all N points, padding included.  The
     centre cancels exactly in ``gather(base) - off``; it keeps the folded
@@ -716,7 +678,10 @@ def make_mse_base(feats: Tensor, xyz: Tensor, w0rel_list: Sequence[Tensor],
                   dtype: torch.dtype = torch.float32) -> Tensor:
     """``[B, N, S*C1]``: channel block s holds scale s's folded first layer
     ``feats @ w0f_s + xyz @ w0r_s``, computed in float32 and stored in
-    ``dtype``.  (The JAX package stacks the blocks along rows, ``[B, S*N,
+    ``dtype`` (K3's bf16 arm forms each gathered row of it in the kernel,
+    each product rounded where these float32 matmuls round theirs on the
+    CPU: the first term's product, then a fused multiply-add per channel,
+    then one add).  (The JAX package stacks the blocks along rows, ``[B, S*N,
     C1c]`` with zeros off the diagonal, for its one-hot gather; summing its
     row blocks gives this tensor.)"""
     return torch.cat([feats.float() @ wf + xyz @ wr
@@ -752,10 +717,11 @@ def fused_multi_scale_encoder(feats: Tensor, idx_list: Sequence[Tensor],
     """All scales of a narrow ``MultiScaleEncoder``, before mlp2: per scale
     s, gather ``feats @ w0f_s + xyz_c @ w0r_s`` at the ball indices, minus
     ``xyz_c @ w0r_s`` of the query, then three [affine -> ReLU -> Dense]
-    layers and the max over that scale's ``K_s`` neighbours.  (The float32
-    kernel forms the first layer of each row itself, from the gathered point
-    and features; the bf16 arm gathers the bf16 base, which its wrapper
-    builds, one rounding per point as the JAX package's.  See
+    layers and the max over that scale's ``K_s`` neighbours.  (Both arms'
+    kernels form the first layer of each row themselves, from the gathered
+    point and features; the bf16 arm rounds each gathered row's base to
+    bf16 once, as the JAX package's base is rounded per point.  Each call
+    is two launches, the clouds' centroids and the kernel.  See
     ``csrc/mse.cu``.)
 
     Args:
@@ -789,6 +755,15 @@ def fused_multi_scale_encoder(feats: Tensor, idx_list: Sequence[Tensor],
                          f"{MSE_MAX_FEATS}, got {tuple(feats.shape)}")
     if any(tuple(i.shape[:2]) != (b, n) for i in idx_list):
         raise ValueError("every idx must be [B, N, K_s]")
+    c1 = MSE_WIDTHS[0]
+    if (any(tuple(w.shape) != (3, c1) for w in w0rel)
+            or any(tuple(w.shape) != (cf, c1) for w in w0feat)
+            or any(a.numel() != s_cnt * w for a, w in zip(
+                (s0, b0, s1, b1, s2, b2),
+                (c1, c1) + MSE_WIDTHS[1:2] * 2 + MSE_WIDTHS[2:] * 2))):
+        raise ValueError(f"the CUDA kernel takes per scale w0rel [3, {c1}], "
+                         f"w0feat [{cf}, {c1}] and the affines of every "
+                         f"scale")
     if not all(i.is_contiguous() for i in idx_list):
         raise ValueError("fused_multi_scale_encoder: the CUDA kernel takes "
                          "contiguous indices")
@@ -796,21 +771,22 @@ def fused_multi_scale_encoder(feats: Tensor, idx_list: Sequence[Tensor],
                       device=xyz.device)
     idx_ptrs = (ctypes.c_void_p * s_cnt)(*[i.data_ptr() for i in idx_list])
     lib = build.load("mse", _SIGNATURES["mse"])
+    # the kernels read xyz, ctr, the indices and the bf16 arm's weights by
+    # scalar loads
+    xyz = xyz.contiguous()
+    ctr = xyz.mean(dim=1)
     if feats.dtype == torch.bfloat16:
-        # the bf16 base [B, N, S*C1] and the centred points; fresh, so
-        # contiguous and aligned for the kernel's loads
-        xyz_c = center_xyz(xyz).contiguous()
-        base = make_mse_base(feats, xyz_c, w0rel, w0feat, feats.dtype)
-        frags, floats = mse_bf16_weights(packed)
+        w0r, w0f = ([w.contiguous() for w in ws] for ws in (w0rel, w0feat))
+        rest = [t.contiguous() for t in (w1, w2, s0, b0, s1, b1, s2, b2)]
         code = lib.cmflow_mse_bf16(
-            base.data_ptr(), xyz_c.data_ptr(), idx_ptrs,
-            (ctypes.c_int * s_cnt)(*ks), s_cnt, frags.data_ptr(),
-            floats.data_ptr(), out.data_ptr(), b, n, _stream(xyz))
+            xyz.data_ptr(), feats.data_ptr(), *feats.stride(), cf,
+            ctr.data_ptr(), idx_ptrs, (ctypes.c_int * s_cnt)(*ks), s_cnt,
+            (ctypes.c_void_p * s_cnt)(*[w.data_ptr() for w in w0r]),
+            (ctypes.c_void_p * s_cnt)(*[w.data_ptr() for w in w0f]),
+            *[t.data_ptr() for t in rest], out.data_ptr(), b, n,
+            _stream(xyz))
     else:
-        # the kernel reads xyz, ctr and the indices by scalar loads; the
-        # image is fresh, so aligned for its float2 loads
-        xyz = xyz.contiguous()
-        ctr = xyz.mean(dim=1)
+        # the image is fresh, so aligned for its float2 loads
         image = mse_tc_weights(packed)
         code = lib.cmflow_mse(
             xyz.data_ptr(), feats.data_ptr(), *feats.stride(), cf,

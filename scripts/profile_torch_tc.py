@@ -32,9 +32,12 @@ On one synthetic train batch (``make_train_batch``, B=16, N=256), as
 - K7 at the train step's 15 shapes (sa encoder C=32 and propagation encoder
   C=512 on the ball query's indices at K = 4, 8, 16, 32; the cost volume's
   C=512 on kNN indices; the smoothness loss's C=3), seeded random
-  cotangents: every kernel the wrapper launches, and ``index_add_`` on the
-  same rows, a yardstick the port never calls; summed per train step with
-  the launches per step;
+  cotangents, then its bf16 arm at the 14 of them a bf16 step gives it
+  bf16 cotangents (all but C=3): every kernel the wrapper launches, each
+  of them (the CSR build, the sum, and in older trees the combine), and
+  ``index_add_`` in float32 on the same rows (for bf16 with a cast each
+  way), a yardstick the port never calls; summed per train step with the
+  launches per step;
 - K1 one radius per launch, as the train step calls it (r = 2, 4, 8, 16,
   K = 4, 8, 16, 32 on pc1), and all four radii in one launch, as the fused
   route calls it; K2 at k=8, pc1 -> pc2 and pc1 -> pc1.
@@ -43,15 +46,16 @@ of K4a at k in {1, 5, 8, 32, 33, 64}, on random indices as above, with
 bf16 features and seeded weights rounded to bf16: the kernel's own device
 time, cuBLAS bf16 on the same products alone (``torch.mm`` with float32
 sums, as ``_dot32`` calls it) and the bound of the products at the dense
-bf16 peak of 989 TFLOP/s; within 1e-2 of the output's largest magnitude.
+bf16 peak of 989 TFLOP/s; within 1e-2 of the output's largest magnitude;
+and K3's bf16 arm at K = 4, 8, 16, 32 (its kernel and its whole call).
 A tree whose wrapper refuses a k (older trees' bf16 arms took K5 k <= 64
 and K4a k <= 32) gets a ``refused`` line for it.
 Each case also gives the kernel's max abs error against its plain version
 and the output's largest magnitude (exact for K1 and K2; K3-K5 within 1e-4
-and 1e-5 of it; K7 within 1e-5 of it); the tensor-core kernels and K7
-also whether two launches give the same bits, and K3-K5 a digest of the
-output's bits, so that two trees' outputs on the same inputs can be
-compared.  Device times from
+and 1e-5 of it; K7 within 1e-5 of it, its bf16 arm within a bf16 ulp);
+the tensor-core kernels and K7 also whether two launches give the same
+bits, and K3-K5 and both arms of K7 a digest of the output's bits, so
+that two trees' outputs on the same inputs can be compared.  Device times from
 ``torch.profiler`` over 20 warmed calls, each window checked for every
 launch (see :func:`device_ms`).  One JSON line per case, then the sums.
 Needs a CUDA device; exits with code 1 without one.
@@ -90,6 +94,8 @@ BF16 = torch.bfloat16
 F32_FLOP_PER_S = 67e12
 HBM_BYTES_PER_S = 3.35e12
 RADII, KS = (2.0, 4.0, 8.0, 16.0), (4, 8, 16, 32)
+# K7's kernels (the combine only in trees before its fold into the sum)
+K7_PARTS = ("csr_kernel", "sum_kernel", "combine_kernel")
 
 
 def seeded(module, seed: int, dev):
@@ -105,9 +111,11 @@ def seeded(module, seed: int, dev):
     return module.to(dev)
 
 
-def device_ms(fn, kernel: str = "", wrapper=None) -> tuple:
+def device_ms(fn, kernel: str = "", wrapper=None, parts=()) -> tuple:
     """(summed durations of the kernels of one ``fn()`` whose names hold
-    ``kernel``, of all its kernels), over ``ITERS`` warmed calls.
+    ``kernel``, of all its kernels), over ``ITERS`` warmed calls; with
+    ``parts``, a third item: {each of ``parts``: the durations of the
+    kernels whose names hold it}.
 
     The profiler now and then records only part of a window's kernels, or
     none; it drops the first most often, so each window starts with a
@@ -146,7 +154,11 @@ def device_ms(fn, kernel: str = "", wrapper=None) -> tuple:
         if whole:
             own = sum(e.self_device_time_total for e in named)
             total = sum(e.self_device_time_total for e in events)
-            return own / 1e3 / ITERS, total / 1e3 / ITERS
+            if not parts:
+                return own / 1e3 / ITERS, total / 1e3 / ITERS
+            return own / 1e3 / ITERS, total / 1e3 / ITERS, {
+                k: sum(e.self_device_time_total for e in named if k in e.key)
+                / 1e3 / ITERS for k in parts}
         print(json.dumps(dict(profiler_window_rejected=dict(
             kernel=kernel, per_call=per_call, window=t,
             counts={e.key[:80]: e.count for e in events}))),
@@ -206,7 +218,7 @@ def bf16_case(name, k, run, plain, widths, kernel, wrapper, dev):
 
 
 def bf16_cases(dev) -> None:
-    """K5's and K4a's bf16 arms across k."""
+    """K5's and K4a's bf16 arms across k; K3's at the fused route's K."""
     rs = np.random.RandomState(12)
 
     def randn(*shape):
@@ -239,6 +251,21 @@ def bf16_cases(dev) -> None:
         bf16_case("cv.bf16", k, lambda: fused.cost_volume_p2p(*args),
                   lambda: fused.cost_volume_p2p_plain(*args), (512,) * 3,
                   "cv_p2p_bf16_kernel", fused.cost_volume_p2p, dev)
+    # K3's bf16 arm, all four scales on the ball query's indices, as the
+    # fused route calls it: the kernel, the whole call, and the digest
+    mse = seeded(blocks.MultiScaleEncoder(RADII, KS, 3, (32, 32, 64),
+                                          (64, 64, 64)), 1, dev)
+    packed, _ = fused.mse_narrow_params_from_variables(mse, BF16)
+    feats = randn(B, 3, N).to(BF16).transpose(1, 2)  # strided, as collated
+    idx = list(neighbors.ball_query_multi(RADII, KS, pc, pc))
+    run = lambda: fused.fused_multi_scale_encoder(  # noqa: E731
+        feats, idx, pc, packed)
+    plain = lambda: fused.fused_multi_scale_encoder_plain(  # noqa: E731
+        feats, idx, pc, packed)
+    own, call = device_ms(run, "mse_bf16_kernel",
+                          fused.fused_multi_scale_encoder)
+    print(json.dumps(dict(kernel="mse.bf16", k=list(KS), **checks(run, plain),
+                          kernel_ms=own, call_ms=call)), flush=True)
 
 
 def mse_case(ks, run, plain):
@@ -289,15 +316,9 @@ def err(got, want) -> float:
     return float((got.double() - want.double()).abs().max())
 
 
-def train_batch_cases(dev) -> None:
-    """K7, K1 and K2 at the train step's shapes; then their sums per train
-    step."""
-    batch = make_train_batch(0, B, N)
-    pc1 = torch.as_tensor(batch["pc1"], device=dev)
-    pc2 = torch.as_tensor(batch["pc2"], device=dev)
-    gen = torch.Generator().manual_seed(0)
-    sums = {"K7": 0.0, "K7 index_add_": 0.0, "K1 train": 0.0}
-
+def k7_shapes(pc1, pc2) -> list:
+    """K7's calls in a train step: (C, indices [B, S, K], calls a step,
+    what), on one batch's own neighbours."""
     ball = [neighbors.ball_query_multi((r,), (k,), pc1, pc1)[0]
             for r, k in zip(RADII, KS)]
     smooth = torch.sort(neighbors.square_distance(pc1, pc1), dim=-1,
@@ -305,28 +326,51 @@ def train_batch_cases(dev) -> None:
     shapes = [(32, ball[i], 2, f"sa encoder K={k}") for i, k in enumerate(KS)]
     shapes += [(512, ball[i], 1, f"propagation encoder K={k}")
                for i, k in enumerate(KS)]
-    shapes += [(512, neighbors.knn(8, pc1, pc2), 1, "cost volume pc1->pc2"),
-               (512, neighbors.knn(8, pc1, pc1), 1, "cost volume pc1->pc1"),
-               (3, smooth, 1, "smoothness loss")]
-    for c, idx, mult, what in shapes:
-        flat = idx.reshape(B, -1).contiguous()
-        m = flat.shape[1]
-        g = torch.randn((B, m, c), generator=gen).to(dev)
-        rows = (flat.long() + N * torch.arange(B, device=dev)[:, None]
-                ).reshape(-1)
-        g_rows = g.reshape(B * m, c)
-        run = lambda: fused.gather_rows_backward(g, flat, N)  # noqa: E731
-        ms = device_ms(run, "gather_rows_backward",
-                       fused.gather_rows_backward)[0]
-        lib = device_ms(lambda: torch.zeros((B * N, c), device=dev)
-                        .index_add_(0, rows, g_rows))[1]
-        sums["K7"] += mult * ms
-        sums["K7 index_add_"] += mult * lib
-        print(json.dumps(dict(
-            kernel="K7", shape=f"M={m} C={c} ({what})",
-            launches_per_step=mult, ms=ms, index_add_ms=lib,
-            **checks(run, lambda: fused.gather_rows_backward_plain(
-                g, flat, N)))), flush=True)
+    return shapes + [
+        (512, neighbors.knn(8, pc1, pc2), 1, "cost volume pc1->pc2"),
+        (512, neighbors.knn(8, pc1, pc1), 1, "cost volume pc1->pc1"),
+        (3, smooth, 1, "smoothness loss")]
+
+
+def train_batch_cases(dev) -> None:
+    """K7, K1 and K2 at the train step's shapes; then their sums per train
+    step."""
+    batch = make_train_batch(0, B, N)
+    pc1 = torch.as_tensor(batch["pc1"], device=dev)
+    pc2 = torch.as_tensor(batch["pc2"], device=dev)
+    gen = torch.Generator().manual_seed(0)
+    sums = {"K1 train": 0.0}
+
+    shapes = k7_shapes(pc1, pc2)
+    for dtype in (torch.float32, BF16):
+        arm = "K7" if dtype == torch.float32 else "K7 bf16"
+        for c, idx, mult, what in shapes:
+            if dtype == BF16 and c == 3:  # the smoothness loss: float32
+                continue
+            flat = idx.reshape(B, -1).contiguous()
+            m = flat.shape[1]
+            g = torch.randn((B, m, c), generator=gen).to(dev).to(dtype)
+            rows = (flat.long() + N * torch.arange(B, device=dev)[:, None]
+                    ).reshape(-1)
+            g_rows = g.reshape(B * m, c)
+            run = lambda: fused.gather_rows_backward(g, flat, N)  # noqa: E731
+            ms, _, parts = device_ms(run, "gather_rows_backward",
+                                     fused.gather_rows_backward, K7_PARTS)
+            # index_add_ in float32, and for bf16 one cast each way
+            lib = device_ms(lambda: torch.zeros((B * N, c), device=dev)
+                            .index_add_(0, rows, g_rows.float()).to(dtype))[1]
+            for name, t in parts.items():
+                sums[f"{arm} {name}"] = sums.get(f"{arm} {name}", 0.0) + (
+                    mult * t)
+            sums[arm] = sums.get(arm, 0.0) + mult * ms
+            sums[f"{arm} index_add_"] = sums.get(f"{arm} index_add_",
+                                                 0.0) + mult * lib
+            print(json.dumps(dict(
+                kernel=arm, shape=f"M={m} C={c} ({what})",
+                launches_per_step=mult, ms=ms, parts_ms=parts,
+                index_add_ms=lib,
+                **checks(run, lambda: fused.gather_rows_backward_plain(
+                    g, flat, N)))), flush=True)
     for r, k in zip(RADII, KS):
         run = lambda r=r, k=k: neighbors.ball_query_multi(  # noqa: E731
             (r,), (k,), pc1, pc1)

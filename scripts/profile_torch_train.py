@@ -48,8 +48,8 @@ NUM_POINTS = 256
 SEED = 0
 ITERS = 3
 TIMED = 10
-# device-side names, first match wins (K7's three kernels, the CSR build,
-# the piece sum and the combine, all hold "gather_rows_backward")
+# device-side names, first match wins (K7's kernels, the CSR build and the
+# piece sum, both hold "gather_rows_backward")
 GROUPS = (("K1 ball_query", ("ball_query_kernel",)),
           ("K2 knn", ("knn_kernel",)),
           ("K7 gather_bwd", ("gather_rows_backward",)),

@@ -25,6 +25,8 @@ runs them).  A different order can flip a later bf16 rounding by one ulp
   valid points), which shows that the port rounds where JAX does.
 """
 
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -42,6 +44,7 @@ from cmflow_tpu_torch.models.convert import (
     export_flax_variables,
     load_flax_variables,
 )
+from cmflow_tpu_torch.native import build
 from cmflow_tpu_torch.nn import blocks
 from cmflow_tpu_torch.nn.blocks import BatchNorm
 from cmflow_tpu_torch.ops import fused
@@ -191,35 +194,102 @@ def test_mse_fused_bf16_matches_jax(sa_encoder):
     assert_kernel_close(got, want)
 
 
+def mse_constant(name):
+    """A constant of ``csrc/mse.cu`` (a number or a product of two)."""
+    text = (build.CSRC / "mse.cu").read_text()
+    expr = re.search(rf"constexpr int {name} = ([\d *]+);", text).group(1)
+    return int(np.prod([int(x) for x in expr.split("*")]))
+
+
+def mse_bf16_slots(w1, w2):
+    """``csrc/mse.cu::bf16_slot`` for every slot of one scale: ``[slots,
+    4]``, the b0 pair then the b1 pair of each lane's B fragment of its k16
+    step and n8 tile."""
+    out = []
+    slots1 = mse_constant("kBf16Slots1")  # the first product's
+    assert slots1 == 2 * w1.shape[1] // 8 * 32
+    for e in range(slots1 + 2 * w2.shape[1] // 8 * 32):
+        second = e >= slots1
+        f = e - slots1 if second else e
+        w = w2 if second else w1
+        tiles = w.shape[1] // 8
+        lane, nt, jj = f % 32, f // 32 % tiles, f // 32 // tiles
+        k0, col = 16 * jj + 2 * (lane % 4), 8 * nt + lane // 4
+        out.append(w[[k0, k0 + 1, k0 + 8, k0 + 9], col])
+    return np.array(out)
+
+
+LANE_G, LANE_T = np.arange(32) // 4, np.arange(32) % 4
+
+
+def mma_m16n8k16(a, b):
+    """One warp's ``mma.sync.m16n8k16`` (``tc_gemm.cuh::mma_sync_bf16``) on
+    numpy fragments: a ``[32, 4, 2]`` (rows g, g + 8, then their k + 8),
+    b ``[32, 4]`` (k 2t, 2t + 1, 2t + 8, 2t + 9 of column g); returns d
+    ``[32, 4]``: (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1)."""
+    g, tt = LANE_G, LANE_T
+    am, bm = np.zeros((16, 16)), np.zeros((16, 8))
+    for reg, (dr, dk) in enumerate(((0, 0), (8, 0), (0, 8), (8, 8))):
+        for u in range(2):
+            am[g + dr, 2 * tt + dk + u] = a[:, reg, u]
+    for v, dk in enumerate((0, 1, 8, 9)):
+        bm[2 * tt + dk, g] = b[:, v]
+    d = am @ bm
+    return np.stack([d[g, 2 * tt], d[g, 2 * tt + 1], d[g + 8, 2 * tt],
+                     d[g + 8, 2 * tt + 1]], axis=1)
+
+
+def chain_a(xa, xb):
+    """``mse.cu::chain_a_bf16``: a k16 step's A from rows g (xa) and g + 8
+    (xb), four values each, as pairs."""
+    return np.stack([xa[:, 0:2], xb[:, 0:2], xa[:, 2:4], xb[:, 2:4]], axis=1)
+
+
 def test_mse_bf16_image_layout(sa_encoder):
-    """K3's bf16 fragment image holds, for each (k16 step j, n8 tile, lane
-    (g, t)), the B values k = 16j + 2t, +1, +8, +9 of column 8 tile + g of
-    each product, and its float image each scale's w0r and affines."""
+    """K3's bf16 arm stages each scale's w1 and w2 as mma.sync B fragments
+    (``csrc/mse.cu::bf16_slot``).  A model of that staging fed to a model
+    of the warp's m16n8k16 product, with A made as the kernel makes it
+    (from the first layer's channel layout, ``x[4j + 2e + u]`` = channel
+    16j + 8e + 2t + u, then from the first product's accumulator), gives
+    x0 @ w1 and x1 @ w2 for a 16-row unit of every scale."""
     packed = sa_encoder["packed"]
-    frags, floats = fused.mse_bf16_weights(packed)
-    s_cnt = len(RADII)
-    assert frags.dtype == BF16 and frags.shape == (s_cnt,
-                                                   fused.MSE_BF16_IMAGE)
-    assert floats.shape == (s_cnt, fused.MSE_BF16_AFFINE)
-    off = 0
-    for w, (steps, tiles) in zip((packed[4], packed[7]),
-                                 fused.MSE_BF16_PRODUCTS):
-        n_vals = steps * tiles * 32 * 4
-        img = frags[:, off:off + n_vals].reshape(s_cnt, steps, tiles, 8, 4,
-                                                 4)  # (j, tile, g, t, e)
-        off += n_vals
-        for e, dk in enumerate((0, 1, 8, 9)):
-            for tt in range(4):
-                # rows 16j + 2t + dk, columns 8 tile + g
-                rows = w[:, [16 * jj + 2 * tt + dk for jj in range(steps)]]
-                want = rows.reshape(s_cnt, steps, tiles, 8)
-                torch.testing.assert_close(img[:, :, :, :, tt, e], want,
-                                           rtol=0, atol=0)
-    w0rel, _, s0, b0, _, s1, b1, _, s2, b2 = packed
-    want = torch.cat([torch.stack(w0rel).reshape(s_cnt, -1)]
-                     + [a.reshape(s_cnt, -1)
-                        for a in (s0, b0, s1, b1, s2, b2)], dim=1)
-    torch.testing.assert_close(floats, want, rtol=0, atol=0)
+    rs = np.random.RandomState(3)
+    g, tt = LANE_G, LANE_T
+    for s in range(len(RADII)):
+        w1, w2 = packed[4][s].float().numpy(), packed[7][s].float().numpy()
+        wsm = mse_bf16_slots(w1, w2)
+        x0 = as_np(t(rs.randn(16, 32).astype(np.float32)).to(BF16))
+        ch = np.array([16 * jj + 8 * e + 2 * tt + u for jj in range(2)
+                       for e in range(2) for u in range(2)]).T  # [32, 8]
+        xa, xb = x0[g[:, None], ch], x0[g[:, None] + 8, ch]
+        y = np.zeros((32, 16))
+        for nt in range(4):
+            for jj in range(2):
+                y[:, 4 * nt:4 * nt + 4] += mma_m16n8k16(
+                    chain_a(xa[:, 4 * jj:], xb[:, 4 * jj:]),
+                    wsm[(jj * 4 + nt) * 32 + np.arange(32)])
+        rows = np.stack([g, g, g + 8, g + 8], 1)
+        cols = 2 * tt[:, None] + np.array([0, 1, 0, 1])
+        want = x0.astype(np.float64) @ w1
+        for nt in range(4):
+            np.testing.assert_allclose(y[:, 4 * nt:4 * nt + 4],
+                                       want[rows, cols + 8 * nt], rtol=1e-12)
+        x1 = as_np(t(y.astype(np.float32)).to(BF16))
+        z = np.zeros((32, 32))
+        slots1 = mse_constant("kBf16Slots1")
+        for nt in range(8):
+            for jj in range(2):
+                yy = x1[:, 8 * jj:8 * jj + 8]
+                z[:, 4 * nt:4 * nt + 4] += mma_m16n8k16(
+                    chain_a(yy[:, [0, 1, 4, 5]], yy[:, [2, 3, 6, 7]]),
+                    wsm[slots1 + (jj * 8 + nt) * 32 + np.arange(32)])
+        full = np.zeros((16, 32))
+        for nt in range(4):
+            full[rows, cols + 8 * nt] = x1[:, 4 * nt:4 * nt + 4]
+        want = full @ w2
+        for nt in range(8):
+            np.testing.assert_allclose(z[:, 4 * nt:4 * nt + 4],
+                                       want[rows, cols + 8 * nt], rtol=1e-12)
 
 
 # ---------------------------------------------------------------------------

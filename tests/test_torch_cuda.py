@@ -29,7 +29,10 @@ bf16 arm (K6) copies bf16 rows and is held to its plain version bit for
 bit; the bf16 arm of its backward (K7) sums bf16 cotangents in float32 in
 its own fixed order and rounds once, the plain version sums them in float32
 with ``index_add_`` and rounds once: within one bf16 ulp of each element,
-and the same bits across runs.
+and the same bits across runs.  On cotangents whose sums float32 holds
+exactly in any order, both arms of K7 are held to their plain versions bit
+for bit.  Kernels per call (K7 2, K3's bf16 arm at most 2) are counted by
+``torch.profiler``.
 """
 
 import copy
@@ -87,6 +90,40 @@ def same(a, b):
     torch.cuda.synchronize()
     assert a.dtype == b.dtype and a.shape == b.shape
     assert torch.equal(a, b)
+
+
+def kernels_per_call(fn, kernel, calls=4):
+    """The CUDA kernels one call of ``fn`` launches, from ``torch.profiler``
+    over ``calls`` calls; a window in which the profiler dropped a launch of
+    ``kernel`` (a part of a name) is traced again."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(4):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1)  # the profiler most often drops the first
+            torch.cuda.synchronize()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        counts = {e.key[:60]: e.count for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and "spin_kernel" not in e.key}
+        named = sum(c for k, c in counts.items() if kernel in k)
+        if named and named % calls == 0:
+            # the profiler may drop a window's first kernel of another name
+            assert all(c >= calls - 1 for c in counts.values()), counts
+            return sum(round(c / calls) for c in counts.values())
+    raise AssertionError(f"the profiler recorded no whole window: {counts}")
+
+
+def exact_cotangents(rs, dev, shape, dtype=torch.float32):
+    """Cotangents with at most 8 significant bits and a narrow range of
+    magnitudes, whose sums float32 holds exactly in any order: the kernel
+    and the plain version's ``index_add_`` must then agree bit for bit."""
+    g = rs.randint(-128, 128, shape) / 64.0
+    return torch.from_numpy(g.astype(np.float32)).to(dev).to(dtype)
 
 
 @pytest.mark.parametrize("masked", [False, True])
@@ -233,7 +270,13 @@ def test_gather_backward(dev, rs, case):
     near_plain(got, fused.gather_rows_backward_plain(g, idx, n))
     again = fused.gather_rows_backward(g, idx, n)
     torch.cuda.synchronize()
-    assert torch.equal(got, again)  # deterministic: no atomics
+    assert torch.equal(got, again)  # deterministic: no atomic adds
+    # exact terms: the plain version's bits; two kernels a call
+    g = exact_cotangents(rs, dev, g.shape)
+    same(fused.gather_rows_backward(g, idx, n),
+         fused.gather_rows_backward_plain(g, idx, n))
+    assert kernels_per_call(lambda: fused.gather_rows_backward(g, idx, n),
+                            "gather_rows_backward") == 2
 
 
 def test_gather_backward_out_of_range_and_empty_rows(dev, rs):
@@ -299,12 +342,19 @@ def skewed_indices(rs, dev, b, n, m):
 
 # (B, N, M): the train step's sizes, M not a multiple of 32, an empty index,
 # more rows than entries, N large enough that fewer warps fit, the most rows
-# whose counts fit in shared memory, and from one row more on, counts in
-# device scratch
-@pytest.mark.parametrize("shape", [(16, 256, 8192), (16, 256, 1024),
-                                   (3, 200, 1001), (2, 64, 0), (2, 5000, 300),
-                                   (1, 20000, 9000), (1, 25599, 700),
-                                   (2, 25600, 9000), (3, 60000, 8192)])
+# a cluster sorts (2,047) and one more (one block an element), the most
+# rows whose counts fit in shared memory, and from one row more on, counts
+# in device scratch; then B in {1, 2, 16} at N in {200, 256, 25,599,
+# 25,600, 60,000}
+CSR_SHAPES = [(16, 256, 8192), (16, 256, 1024), (3, 200, 1001), (2, 64, 0),
+              (2, 5000, 300), (2, 2047, 3000), (2, 2048, 3000),
+              (1, 20000, 9000), (1, 25599, 700), (2, 25600, 9000),
+              (3, 60000, 8192)] + [
+    (b, n, 4096) for b in (1, 2, 16) for n in (200, 256, 25599, 25600,
+                                             60000)]
+
+
+@pytest.mark.parametrize("shape", CSR_SHAPES)
 def test_gather_rows_csr(dev, rs, shape):
     b, n, m = shape
     idx = skewed_indices(rs, dev, b, n, m)
@@ -316,6 +366,16 @@ def test_gather_rows_csr(dev, rs, shape):
         g = torch.from_numpy(rs.randn(b, m, 4).astype(np.float32)).to(dev)
         near_plain(same_twice(lambda: fused.gather_rows_backward(g, idx, n)),
                    fused.gather_rows_backward_plain(g, idx, n))
+    # both arms on exact terms (C=32, and C=8 for one bf16 vector of 8): the
+    # plain version's bits, twice, in two kernels a call (one, the CSR
+    # build, with no index)
+    for dtype, c in ((torch.float32, 32), (torch.bfloat16, 8)):
+        g = exact_cotangents(rs, dev, (b, m, c), dtype)
+        same(same_twice(lambda: fused.gather_rows_backward(g, idx, n)),
+             fused.gather_rows_backward_plain(g, idx, n))
+        assert kernels_per_call(
+            lambda: fused.gather_rows_backward(g, idx, n),
+            "gather_rows_backward") == (2 if m else 1)  # no sum without m
 
 
 def test_gather_backward_empty_index(dev, rs):
@@ -385,6 +445,11 @@ def test_gather_backward_bf16(dev, rs, case):
     again = fused.gather_rows_backward(g, idx, n)
     torch.cuda.synchronize()
     assert torch.equal(got, again)
+    g = exact_cotangents(rs, dev, g.shape, torch.bfloat16)
+    same(fused.gather_rows_backward(g, idx, n),
+         fused.gather_rows_backward_plain(g, idx, n))
+    assert kernels_per_call(lambda: fused.gather_rows_backward(g, idx, n),
+                            "gather_rows_backward") == 2
 
 
 # every width the bf16 arm's lane groups take (C=3: scalar, groups of 4
@@ -785,21 +850,31 @@ def near_bf16(got, want):
     assert err <= BF16_RTOL * scale, (err, scale)
 
 
-def bf16_mse_packed(dev, ks, seed):
+def bf16_mse_packed(dev, ks, seed, cf=3):
     radii = tuple(2.0 * (i + 1) for i in range(len(ks)))
-    mse = seeded(blocks.MultiScaleEncoder(radii, ks, 3, (32, 32, 64),
+    mse = seeded(blocks.MultiScaleEncoder(radii, ks, cf, (32, 32, 64),
                                           (64, 64, 64)), dev, seed)
     with torch.no_grad():
         packed, _ = fused.mse_narrow_params_from_variables(mse, BF16)
     return packed
 
 
+def bf16_feats(rs, b, n, cf, dev):
+    """``[B, N, Cf]`` bf16 features, channel-strided as collated."""
+    return torch.from_numpy(rs.randn(b, cf, n).astype(np.float32)).to(
+        dev).to(BF16).transpose(1, 2)
+
+
+# the two buckets with padding and a size that is a multiple of no tile, at
+# the sa encoder's Cf = 3 and at the most the kernel takes, 5; a call is at
+# most two kernels, the centroids' mean and the kernel
+@pytest.mark.parametrize("cf", [3, 5])
 @pytest.mark.parametrize("shape", SHAPES)
-def test_mse_bf16_kernel(dev, rs, shape):
+def test_mse_bf16_kernel(dev, rs, shape, cf):
     b, n, masked = shape
     pc, valid = clouds(rs, b, n, masked, dev)
-    feats = strided_feats(rs, b, n, dev).to(BF16)
-    packed = bf16_mse_packed(dev, KS, 1)
+    feats = bf16_feats(rs, b, n, cf, dev)
+    packed = bf16_mse_packed(dev, KS, 1, cf)
     idx = list(neighbors.ball_query_multi(RADII, KS, pc, pc, valid))
     with torch.no_grad():
         before = fused.fused_multi_scale_encoder.launches
@@ -809,24 +884,29 @@ def test_mse_bf16_kernel(dev, rs, shape):
         assert got.dtype == torch.float32
         near_bf16(got, fused.fused_multi_scale_encoder_plain(feats, idx, pc,
                                                              packed))
+        assert kernels_per_call(lambda: fused.fused_multi_scale_encoder(
+            feats, idx, pc, packed), "mse_bf16_kernel") <= 2
 
 
-def test_mse_bf16_kernel_ragged_k_and_out_of_range(dev, rs):
+@pytest.mark.parametrize("cf", [3, 5])
+def test_mse_bf16_kernel_ragged_k_and_out_of_range(dev, rs, cf):
     """K that are not powers of two, five scales in one launch, a row count
     that fills no tile, and indices outside [0, N) (a zero row of the bf16
-    base)."""
-    b, n = 3, 200
+    base), at B=3 and at both buckets' B=16; and one cloud of more points
+    than a block forms in shared memory (each row forms its neighbour's
+    base itself)."""
     ks = (1, 3, 5, 17, 32)
-    pc = cloud(rs, b, n, dev)
-    feats = strided_feats(rs, b, n, dev).to(BF16)
-    packed = bf16_mse_packed(dev, ks, 7)
-    idx = [torch.from_numpy(rs.randint(-2, n + 2, (b, n, k)).astype(
-        np.int32)).to(dev) for k in ks]
-    with torch.no_grad():
-        got = same_twice(lambda: fused.fused_multi_scale_encoder(
-            feats, idx, pc, packed))
-        near_bf16(got, fused.fused_multi_scale_encoder_plain(feats, idx, pc,
-                                                             packed))
+    packed = bf16_mse_packed(dev, ks, 7, cf)
+    for b, n in ((3, 200), (16, 256), (16, 384), (2, 2100)):
+        pc = cloud(rs, b, n, dev)
+        feats = bf16_feats(rs, b, n, cf, dev)
+        idx = [torch.from_numpy(rs.randint(-2, n + 2, (b, n, k)).astype(
+            np.int32)).to(dev) for k in ks]
+        with torch.no_grad():
+            got = same_twice(lambda: fused.fused_multi_scale_encoder(
+                feats, idx, pc, packed))
+            near_bf16(got, fused.fused_multi_scale_encoder_plain(
+                feats, idx, pc, packed))
 
 
 def bf16_chain(plf):

@@ -7,14 +7,19 @@ their arithmetic step by step and are held to the JAX package and to the
 port's plain versions:
 
 * (a) the CSR build, ``gather_rows_csr``: its plain version, and a model of
-  the kernel's ranks (per-warp ranges of m, lanes with equal bins ranked by
-  lane, per-(warp, bin) counts scanned over warps and then bins), against a
-  numpy stable argsort, on the skewed ball-query indices of a train batch,
-  with out-of-range indices and rows that no index names.  Exact.
+  the kernel's ranks (a cluster of R blocks per element, each a slice of m,
+  per-warp ranges of it, lanes with equal bins ranked by lane, per-(block,
+  warp, bin) counts scanned over bins, then block ranks, then warps; the
+  rows no index names, which the build zeroes), against a numpy stable
+  argsort, with R in {1, 8, 16}, on the skewed ball-query indices of a
+  train batch, with out-of-range indices, rows that no index names, M a
+  multiple of no R * 32 and N past the shared-memory threshold; the launch
+  shape and constants read from ``csrc/gather.cu``.  Exact.
 * (b) the piecewise sum: pieces of ``GATHER_BWD_PIECE`` sorted entries, runs
   of one row summed by lane groups in the kernel's order and combined by
   its xor tree, rows that span pieces added from their partials in piece
-  order.  Held to the JAX ``mxu_group_points`` backward in interpret mode:
+  order by the warp that takes the row's last ticket, the pieces' warps in
+  random orders (two orders, the same bits).  Held to the JAX ``mxu_group_points`` backward in interpret mode:
   bit-identical on cotangents with at most 15 significant bits (whose sums
   float32 holds exactly, as ``tests/test_torch_ops.py`` argues), within
   1e-5 of the largest magnitude on normal ones.  Every output row must be
@@ -48,6 +53,15 @@ port's plain versions:
   (``fused_point_local_feature``, and ``fused_cost_volume`` with the
   model's point-to-patch cost through K4b's plain version), at K inside
   the old limits (K5 64, K4a 32) and past them.
+
+* (f) K3's bf16 arm (``csrc/mse.cu::mse_bf16_kernel``): each gathered
+  row's base formed in the kernel (``feats @ w0f`` and ``(xyz - ctr) @
+  w0r``, each a product then fused multiply-adds in ascending channel
+  order, one add, one rounding to bf16), held to ``make_mse_base`` bit for
+  bit at Cf = 3 and 5, and through the chain (the query's offset, the
+  affines, both bf16 products, the max) within 1e-2 of the output's
+  largest magnitude to the plain bf16 version (indices outside [0, N)
+  included) and to the JAX kernel in bf16 in interpret mode.
 
 And the lifted point limit: the port's ``knn`` and ``ball_query_multi`` at
 N=2500 against ``cmflow_tpu.ops.pointops`` (its XLA route on the CPU).
@@ -127,36 +141,78 @@ def csr_reference(idx, n):
     return offsets, order
 
 
-def csr_model(idx, n, warps):
-    """The kernel's CSR build: warp w takes a contiguous range of m, 32 at a
-    time; an entry's place is its warp's first position in its bin, plus
-    the warp's earlier entries of that bin, plus the lanes below it in the
-    same step with its bin."""
+def gather_constant(name):
+    """A constant of ``csrc/gather.cu`` (a number or a product of two)."""
+    text = (build.CSRC / "gather.cu").read_text()
+    expr = re.search(rf"constexpr int {name} = ([\d *]+);", text).group(1)
+    return int(np.prod([int(x) for x in expr.split("*")]))
+
+
+def csr_shape(n, m, cluster=None):
+    """The CSR build's launch (``gather.cu::csr_shape``): (blocks an
+    element, warps a block, counts in device scratch); ``cluster`` forces
+    the blocks an element."""
+    fit = gather_constant("kCsrMaxSmem") // 4 // (n + 1) - 1
+    in_scratch = fit < 1
+    if cluster is None:
+        cluster = (gather_constant("kCsrCluster") if not in_scratch
+                   and n + 1 <= gather_constant("kCsrClusterBins") else 1)
+    want = max(-(-m // 32) if m > 32 else 1, gather_constant("kCsrMinWarps"))
+    if in_scratch:
+        warps = gather_constant("kCsrGlobalWarps")
+    elif cluster > 1:  # beside every block's totals
+        warps = min(fit + 1 - cluster, gather_constant("kCsrClusterWarps"))
+    else:
+        warps = min(fit, gather_constant("kCsrMaxWarps"), want)
+    return cluster, warps, in_scratch
+
+
+def csr_cluster_model(idx, n, cluster=None, warps=None):
+    """The kernel's CSR build: ``cluster`` blocks per element, block q
+    taking the q-th slice of m and each of its warps a contiguous range of
+    that slice, 32 entries at a time; per (block, warp, bin) counts; a
+    bin's start (the totals, which every block holds of every block,
+    scanned over the bins), plus the counts of the blocks before this one,
+    plus those of the block's warps before this one, is a warp's first
+    position in the bin; an entry's place is that
+    plus the warp's earlier entries of the bin plus the lanes below it in
+    the same step with its bin.  Returns (offsets, order, the rows no index
+    names, which the CSR build zeroes)."""
     b, m = idx.shape
+    cluster, shape_warps, _ = csr_shape(n, m, cluster)
+    warps = warps or shape_warps
     bins = np.where((idx >= 0) & (idx < n), idx, n)
-    span = -(-m // warps)
+    bspan = -(-m // cluster)
+    ranges = []  # (lo, hi) of each (block, warp)
+    for q in range(cluster):
+        blo = min(q * bspan, m)
+        bhi = min(blo + bspan, m)
+        span = -(-(bhi - blo) // warps)
+        for w in range(warps):
+            lo = min(blo + w * span, bhi)
+            ranges.append((lo, min(lo + span, bhi)))
     offsets = np.zeros((b, n + 1), np.int32)
     order = np.full((b, m), -1, np.int32)
     for bi in range(b):
-        ranges = [(min(w * span, m), min(w * span + span, m))
-                  for w in range(warps)]
-        wc = np.zeros((warps, n + 1), np.int64)
-        for w, (lo, hi) in enumerate(ranges):
-            np.add.at(wc[w], bins[bi, lo:hi], 1)
-        before = np.cumsum(wc, axis=0) - wc          # warps before, per bin
-        total = wc.sum(0)
-        start = np.cumsum(total) - total               # bins before
+        wc = np.zeros((cluster * warps, n + 1), np.int64)
+        for i, (lo, hi) in enumerate(ranges):
+            np.add.at(wc[i], bins[bi, lo:hi], 1)
+        wc = wc.reshape(cluster, warps, n + 1)
+        tot = wc.sum(1)  # each block's totals
+        total = tot.sum(0)
+        start = np.cumsum(total) - total
+        first = (start + (np.cumsum(tot, 0) - tot)[:, None, :]
+                 + np.cumsum(wc, 1) - wc).reshape(cluster * warps, n + 1)
         offsets[bi] = start
-        first = before + start[None, :]
-        for w, (lo, hi) in enumerate(ranges):
-            run = first[w].copy()
+        for i, (lo, hi) in enumerate(ranges):
+            run = first[i].copy()
             for j0 in range(lo, hi, 32):
                 step = bins[bi, j0:min(j0 + 32, hi)]
-                for lane, bin_ in enumerate(step):
-                    rank = int((step[:lane] == bin_).sum())
-                    order[bi, run[bin_] + rank] = j0 + lane
+                rank = np.tril(step[:, None] == step[None, :], -1).sum(1)
+                order[bi, run[step] + rank] = j0 + np.arange(len(step))
                 np.add.at(run, step, 1)
-    return offsets, order
+    unnamed = offsets[:, 1:] == offsets[:, :-1]
+    return offsets, order, unnamed
 
 
 @pytest.mark.parametrize("radius, k", [(16.0, 32), (8.0, 16), (2.0, 4)])
@@ -176,13 +232,47 @@ def test_csr_plain_on_skewed_indices(radius, k):
 
 @pytest.mark.parametrize("warps, m", [(32, 8192), (7, 1000), (1, 77), (5, 3)])
 def test_csr_kernel_model(rs, warps, m):
+    """One block an element (clusters of one), as many warps as given."""
     n = 64
     idx = rs.randint(-3, n + 3, (2, m)).astype(np.int32)
     idx[:, rs.rand(m) < 0.3] = 0  # one heavy row
     idx[idx == 9] = 10            # and an empty one
-    got = csr_model(idx, n, warps)
+    got = csr_cluster_model(idx, n, cluster=1, warps=warps)
     for g, w in zip(got, csr_reference(idx, n)):
         np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("cluster", [1, 8, 16])
+@pytest.mark.parametrize("case", ["ball", "ragged", "above_smem"])
+def test_csr_cluster_model(rs, cluster, case):
+    """The cluster build against a stable argsort and the plain version:
+    the skewed ball-query indices of a train batch with indices outside
+    [0, N) and a row no index names; M = 845, a multiple of no R * 32; N
+    past the rows whose counts fit in shared memory (where the kernel takes
+    one block with its counts in device scratch)."""
+    if case == "ball":
+        n = 256
+        idx = with_edges(ball_indices(2, n, 8.0, 16), n)
+    else:
+        n, m = (64, 845) if case == "ragged" else (26000, 700)
+        idx = rs.randint(-3, n + 3, (2, m)).astype(np.int32)
+        idx[:, rs.rand(m) < 0.3] = 0
+        idx[idx == 9] = 10
+    expect = (1, True) if case == "above_smem" else (
+        gather_constant("kCsrCluster"), False)
+    shape = csr_shape(n, idx.shape[1])
+    assert (shape[0], shape[2]) == expect
+    offsets, order, unnamed = csr_cluster_model(idx, n, cluster)
+    want = csr_reference(idx, n)
+    plain = fused.gather_rows_csr_plain(t(idx), n)
+    for got, w, pl in zip((offsets, order), want, plain):
+        np.testing.assert_array_equal(got, w)
+        np.testing.assert_array_equal(got, pl.numpy())
+    named = np.zeros(unnamed.shape, bool)
+    for bi in range(idx.shape[0]):
+        named[bi, idx[bi][(idx[bi] >= 0) & (idx[bi] < n)]] = True
+    np.testing.assert_array_equal(unnamed, ~named)
+    assert unnamed[:, 3 if case == "ball" else 9].all()
 
 
 # ---------------------------------------------------------------------------
@@ -197,9 +287,13 @@ def group_lanes(elems):
     return g
 
 
-def piecewise_sum(g, idx, n, vec4):
-    """K7's sum and combine on the CSR form of ``idx``, in the kernels'
-    order, in float32."""
+def piecewise_sum(g, idx, n, vec4, rs=None):
+    """K7's sum on the CSR form of ``idx``, in the kernels' order, in
+    float32.  The CSR build zeroes the rows no index names; the pieces'
+    warps then run in a random order (``rs``): a warp that writes a row's
+    partial takes the next ticket of the row, and the one that takes its
+    last ticket adds the row's partials in piece order."""
+    rs = rs or np.random.RandomState(0)
     b, m, c = g.shape
     offsets, order = csr_reference(idx, n)
     groups = 32 // group_lanes(c // 4 if vec4 else c)
@@ -208,8 +302,12 @@ def piecewise_sum(g, idx, n, vec4):
     part = np.full((b, max(pieces, 1), 2, c), np.nan, F32)
     writes = np.zeros((b, n), np.int64)
     for bi in range(b):
+        unnamed = offsets[bi, 1:] == offsets[bi, :-1]
+        out[bi, unnamed] = 0.0
+        writes[bi, unnamed] += 1
+        tickets = np.zeros(n, np.int64)
         total = offsets[bi, n]
-        for p in range(pieces):
+        for p in rs.permutation(pieces):
             s = p * L
             if s >= total:
                 continue
@@ -227,25 +325,22 @@ def piecewise_sum(g, idx, n, vec4):
                 while h < groups:  # the xor-shuffle tree
                     acc = [acc[q] + acc[q ^ h] for q in range(groups)]
                     h *= 2
+                r = rows[lo]
                 first = lo == 0 and head_open
-                if first or (hi == cnt and tail_open):
-                    part[bi, p, 0 if first else 1] = acc[0]
-                else:
-                    out[bi, rows[lo]] = acc[0]
-                    writes[bi, rows[lo]] += 1
-    for bi in range(b):
-        for r in range(n):
-            a, z = offsets[bi, r], offsets[bi, r + 1]
-            if a == z:
-                out[bi, r] = 0.0
-            elif a // L != (z - 1) // L:
-                acc = part[bi, a // L, 1]
-                for p in range(a // L + 1, (z - 1) // L + 1):
-                    acc = acc + part[bi, p, 0]
-                out[bi, r] = acc
-            else:
-                continue
-            writes[bi, r] += 1
+                if not (first or (hi == cnt and tail_open)):
+                    out[bi, r] = acc[0]
+                    writes[bi, r] += 1
+                    continue
+                part[bi, p, 0 if first else 1] = acc[0]
+                p0 = offsets[bi, r] // L
+                p1 = (offsets[bi, r + 1] - 1) // L
+                tickets[r] += 1
+                if tickets[r] == p1 - p0 + 1:  # the row's last ticket
+                    total_r = part[bi, p0, 1]
+                    for q in range(p0 + 1, p1 + 1):
+                        total_r = total_r + part[bi, q, 0]
+                    out[bi, r] = total_r
+                    writes[bi, r] += 1
     assert (writes == 1).all()  # every row written exactly once
     assert not np.isnan(out).any()
     return out
@@ -275,6 +370,9 @@ def test_piecewise_sum_on_skewed_indices(rs, c, vec4):
     np.testing.assert_array_equal(got, jax_gather_grad(n, idx, exact))
     cot = rs.randn(*idx.shape, c).astype(F32)
     got = piecewise_sum(cot, idx, n, vec4)
+    # the warps' order decides who adds a row's partials, never the sum
+    np.testing.assert_array_equal(
+        got, piecewise_sum(cot, idx, n, vec4, np.random.RandomState(1)))
     want = jax_gather_grad(n, idx, cot)
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * np.abs(want).max())
     plain = fused.gather_rows_backward(t(cot), t(idx), n).numpy()
@@ -713,6 +811,134 @@ def test_cv_bf16_schedule_against_pallas(rs, k):
         j(xyz1), j(idx1), j(xyz2), True, dense=jdense,
         wn1=tuple(map(j, wn1)), wn2=tuple(map(j, wn2)))
     bf16_close(got.numpy(), want)
+
+
+# ---------------------------------------------------------------------------
+# (f) K3's bf16 arm: the first layer formed per gathered row
+# ---------------------------------------------------------------------------
+
+def fma32(a, b, c):
+    """float32 a * b + c rounded once (the float64 product is exact)."""
+    return (np.asarray(a, np.float64) * np.asarray(b, np.float64)
+            + np.asarray(c, np.float64)).astype(F32)
+
+
+def dot_chain(x, w):
+    """``x [..., C] @ w [C, D]`` as the kernel forms it: the first
+    channel's product, then one fused multiply-add per channel, in
+    ascending order."""
+    acc = (x[..., :1] * w[0]).astype(F32)
+    for c in range(1, x.shape[-1]):
+        acc = fma32(x[..., c:c + 1], w[c], acc)
+    return acc
+
+
+def mse_bf16_base_model(feats, xyz, ctr, w0r, w0f):
+    """``csrc/mse.cu::first_layer_bf16``'s base of each point, [B, N, C1]
+    per scale: ``feats @ w0f`` and ``(xyz - ctr) @ w0r`` as
+    :func:`dot_chain`s, one float32 add, one rounding to bf16."""
+    d = (xyz - ctr[:, None, :]).astype(F32)
+    f = dot_chain(feats, w0f) if feats.shape[-1] else 0.0
+    return bf16_round((f + dot_chain(d, w0r)).astype(F32))
+
+
+def mse_bf16_model(feats, idx_list, xyz, ctr, packed):
+    """The bf16 arm per (query, neighbour) row: the gathered base (zero
+    outside [0, N)) less the query's offset (``fmaf(p2, w2, fmaf(p1, w1,
+    p0 * w0))``, p = xyz_q - ctr), affine, ReLU, bf16; two products of bf16
+    operands (their float32 sums in float64, the tensor cores' order being
+    their own), each after affine and ReLU; the max over the neighbours.
+    Returns (out, each scale's base)."""
+    w0r, w0f, s0, b0, w1, s1, b1, w2, s2, b2 = packed
+    bsz, n, _ = xyz.shape
+    p = (xyz - ctr[:, None, :]).astype(F32)
+    outs, bases = [], []
+    for s, idx in enumerate(idx_list):
+        c1, c2, c3 = w1.shape[1], w1.shape[2], w2.shape[2]
+        r1, r2, r3 = (slice(s * c, (s + 1) * c) for c in (c1, c2, c3))
+        base = mse_bf16_base_model(feats, xyz, ctr, w0r[s], w0f[s])
+        bases.append(base)
+        inside = (idx >= 0) & (idx < n)
+        rows = base[np.arange(bsz)[:, None, None], np.where(inside, idx, 0)]
+        rows = np.where(inside[..., None], rows, 0.0).astype(F32)
+        off = fma32(p[..., 2:3], w0r[s][2], fma32(
+            p[..., 1:2], w0r[s][1], (p[..., :1] * w0r[s][0]).astype(F32)))
+        x = np.maximum(fma32(rows - off[:, :, None, :], s0[r1], b0[r1]), 0)
+        for w, sc, bi in ((w1[s], s1[r2], b1[r2]), (w2[s], s2[r3], b2[r3])):
+            prod = (bf16_round(x).astype(np.float64) @ w.astype(np.float64))
+            x = np.maximum(fma32(prod.astype(F32), sc, bi), 0)
+        outs.append(x.max(axis=2))
+    return np.concatenate(outs, axis=-1).astype(F32), bases
+
+
+def mse_bf16_case(rs, cf, b=1, n=64, ks=(4, 8, 16, 32)):
+    """Narrow sa-encoder inputs: bf16 features (channel-strided, as
+    collated), points, ball-query indices; weights with ``w1``/``w2``
+    rounded to bf16 (the packed layout of
+    ``mse_narrow_params_from_variables``, as numpy)."""
+    c1, c2, c3 = fused.MSE_WIDTHS
+    xyz = (rs.rand(b, n, 3) * 8 + 30).astype(F32)  # away from the origin
+    feats = bf16_round(rs.randn(b, n, cf))
+    radii = tuple(2.0 * (i + 1) for i in range(len(ks)))
+    idx = [np.asarray(i) for i in neighbors.ball_query_multi(
+        radii, ks, t(xyz), t(xyz))]
+    s_cnt = len(ks)
+    w0r = [(rs.randn(3, c1) * 0.5).astype(F32) for _ in ks]
+    w0f = [(rs.randn(cf, c1) * 0.5).astype(F32) for _ in ks]
+    aff = [rs.uniform(lo, hi, s_cnt * c).astype(F32)
+           for c in (c1, c2, c3) for lo, hi in ((0.5, 1.5), (-0.2, 0.2))]
+    w1 = bf16_round(rs.randn(s_cnt, c1, c2) / np.sqrt(c1))
+    w2 = bf16_round(rs.randn(s_cnt, c2, c3) / np.sqrt(c2))
+    packed = (w0r, w0f, aff[0], aff[1], w1, aff[2], aff[3], w2, aff[4],
+              aff[5])
+    return feats, idx, xyz, packed
+
+
+def torch_packed(packed):
+    w0r, w0f, *rest = packed
+    return (tuple(map(t, w0r)), tuple(map(t, w0f))) + tuple(
+        t(a).to(BF16) if i in (2, 5) else t(a) for i, a in enumerate(rest))
+
+
+@pytest.mark.parametrize("cf", [3, 5])
+def test_mse_bf16_first_layer(rs, cf):
+    """The base each gathered row forms in the kernel is ``make_mse_base``
+    bit for bit (centred on ``xyz.mean(dim=1)``, as the wrapper's one other
+    launch computes it); through the chain, with indices outside [0, N),
+    the model lies within 1e-2 of the output's largest magnitude from the
+    plain bf16 version."""
+    feats, idx, xyz, packed = mse_bf16_case(rs, cf)
+    idx = [i.copy() for i in idx]
+    for i in idx:
+        i[0, :3, -1] = [-1, xyz.shape[1], 1000]
+    tp = torch_packed(packed)
+    ctr = t(xyz).mean(dim=1).numpy()
+    got, bases = mse_bf16_model(feats, idx, xyz, ctr, packed)
+    want = fused.make_mse_base(t(feats).to(BF16), fused.center_xyz(t(xyz)),
+                               tp[0], tp[1], BF16).float().numpy()
+    np.testing.assert_array_equal(np.concatenate(bases, -1), want)
+    tfeats = t(np.ascontiguousarray(feats.transpose(0, 2, 1))).transpose(1, 2)
+    plain = fused.fused_multi_scale_encoder_plain(
+        tfeats.to(BF16), [t(i) for i in idx], t(xyz), tp).numpy()
+    bf16_close(got, plain)
+
+
+def test_mse_bf16_first_layer_against_pallas(rs):
+    """The model against the JAX kernel in bf16, in interpret mode (its
+    weights block-diagonal, as the JAX packer lays them out)."""
+    from jax.scipy.linalg import block_diag
+    feats, idx, xyz, packed = mse_bf16_case(rs, 3)
+    ctr = t(xyz).mean(dim=1).numpy()
+    got, _ = mse_bf16_model(feats, idx, xyz, ctr, packed)
+    w0r, w0f, s0, b0, w1, s1, b1, w2, s2, b2 = packed
+    jpacked = (tuple(map(j, w0r)), tuple(map(j, w0f)), j(s0), j(b0),
+               block_diag(*map(j, w1)).astype(jnp.bfloat16), j(s1), j(b1),
+               block_diag(*map(j, w2)).astype(jnp.bfloat16), j(s2), j(b2))
+    ks = tuple(i.shape[-1] for i in idx)
+    want = jfused.fused_multi_scale_encoder(
+        j(feats).astype(jnp.bfloat16), [j(i) for i in idx], j(xyz), jpacked,
+        ks, True, fused.MSE_WIDTHS[2])
+    bf16_close(got, want)
 
 
 # ---------------------------------------------------------------------------

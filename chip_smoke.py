@@ -52,12 +52,13 @@ Run from the repository root on a machine with a CUDA GPU and nvcc.  Steps:
 5b. bf16 serving (``compute_dtype=torch.bfloat16``, the JAX package's
    ``eval_compute_dtype: bfloat16``): hold the bf16 arms of the sa encoder,
    both cost-volume kernels and the propagation encoder to their plain
-   versions at every shape of the bf16 forward (B=16, both buckets,
-   masked) within 1e-2 of the output's largest magnitude, and to
-   themselves bit for bit; time them as above, beside cuBLAS on bf16
-   operands with float32 sums on the cost volume's and the propagation
-   encoder's products, and bound them at the dense bf16 peak (989
-   TFLOP/s); require a tensor-core instruction of a bf16 type in their
+   versions at every shape of the bf16 forward (B=16, both buckets, masked)
+   within 1e-2 of the output's largest magnitude (the cost volume's second
+   arm, whose WeightNet and sums stay float32, within the float32 kernels'
+   bars), and to themselves bit for bit; time them as above, beside cuBLAS
+   on bf16 operands with float32 sums on the cost volume's and the
+   propagation encoder's products, and bound them at the dense bf16 peak
+   (989 TFLOP/s); require a tensor-core instruction of a bf16 type in their
    SASS (``HGMMA.*BF16``, ``HMMA.*BF16``), and no note of ptxas's that it
    serialises the ``wgmma``s of the propagation encoder's and the cost
    volume's first bf16 arms; hold those two arms past the neighbour counts
@@ -77,9 +78,10 @@ Run from the repository root on a machine with a CUDA GPU and nvcc.  Steps:
    version at the train step's shapes (one radius per launch, no masks) and
    time it.  Hold the ball query and kNN exactly to their plain versions at
    one B=16 cloud of 4,096 points, masked and not (two staged tiles; not
-   timed), and the cost volume's second kernel to its plain version and to
-   itself bit for bit at one B=16, N=384 cloud with k=33, past the first
-   kernel's K <= 32, masked, some indices out of range (not timed);
+   timed), and the cost volume's second kernel, both arms, to its plain
+   version and to itself bit for bit at one B=16, N=384 cloud with k=33,
+   past the first kernel's K <= 32, masked, some indices out of range (not
+   timed);
 7. train: a full-width CMFlow with seeded random weights takes train steps
    (``make_train_step``) on one synthetic B=16, N=256 batch
    (``make_train_batch``, VoD calibration).  The first step is taken on the
@@ -264,6 +266,11 @@ WGMMA_UNSERIALIZED = ("plf.bf16", "cv.bf16")
 # largest magnitude (a float32 sum in another order can flip a bf16
 # rounding by one ulp, 2^-8)
 BF16_RTOL = 1e-2
+# the bf16 arms whose arithmetic stays float32 (K4b's: bf16 p2p widened
+# exactly, its WeightNet and sums in float32), held at FUSED_ATOL and
+# FUSED_RTOL: it reads ~1.3e-7 of the largest magnitude, where a last layer
+# in one TF32 pass read 2.5e-4 (PERF.md)
+F32_ACCURATE_ARMS = ("cv_agg.bf16",)
 # the JAX package's bf16 serving bars (scripts/parity_tpu.py:41,
 # tests/test_fused.py:139-148): stat_cls and pre_trans absolute, masks
 # agreeing, sf_agg within flow * max(|sf|, 1)
@@ -923,9 +930,10 @@ def check_large_cloud(dev, gen: torch.Generator) -> None:
 
 def check_cv_agg_any_k(model, dev, gen: torch.Generator) -> None:
     """K4b at one B=16, N=384 cloud with k=33 neighbours, past K4a's
-    K <= 32: masked kNN indices, three of them out of range, seeded p2p and
-    zq, the model's WeightNet; held to its plain version and to itself bit
-    for bit; not part of any route's time."""
+    K <= 32, in both arms: masked kNN indices, three of them out of range,
+    seeded p2p (float32, and rounded to bf16 for the bf16 arm) and zq, the
+    model's WeightNet; each held to its plain version at FUSED_ATOL and
+    FUSED_RTOL and to itself bit for bit; not part of any route's time."""
     n, k = 384, 33
     pc = (20.0 * torch.rand((B, n, 3), generator=gen)).to(dev)
     valid = (torch.rand((B, n), generator=gen) > 0.2).to(dev)
@@ -935,19 +943,21 @@ def check_cv_agg_any_k(model, dev, gen: torch.Generator) -> None:
     p2p = torch.randn((B, n, fused.CV_WIDTH), generator=gen).to(dev)
     zq = torch.randn((B, n, fused.WEIGHTNET_HIDDEN), generator=gen).to(dev)
     wn = fused.cv_params_from_variables(model.trunk.fc_layer)[2][1:]
-    got = fused.cost_volume_agg(p2p, idx, zq, wn)
-    again = fused.cost_volume_agg(p2p, idx, zq, wn)
-    want = fused.cost_volume_agg_plain(p2p, idx, zq, wn)
-    torch.cuda.synchronize()
-    err, scale = errors(got, want)
-    require(err <= FUSED_ATOL and err <= FUSED_RTOL * scale,
-            f"cv_agg at N={n} k={k}: kernel and plain version differ by "
-            f"{err} at a largest magnitude of {scale}")
-    require(torch.equal(got, again), f"cv_agg at N={n} k={k}: two runs "
-                                     f"differ")
-    emit(dict(cv_agg_any_k=dict(batch=B, num_points=n, k=k,
-                                max_abs_err=err, plain_max_abs=scale,
-                                same_bits=True)))
+    row = {}
+    for name, p in (("cv_agg", p2p), ("cv_agg.bf16", p2p.to(BF16))):
+        got = fused.cost_volume_agg(p, idx, zq, wn)
+        again = fused.cost_volume_agg(p, idx, zq, wn)
+        want = fused.cost_volume_agg_plain(p, idx, zq, wn)
+        torch.cuda.synchronize()
+        err, scale = errors(got, want)
+        require(err <= FUSED_ATOL and err <= FUSED_RTOL * scale,
+                f"{name} at N={n} k={k}: kernel and plain version differ "
+                f"by {err} at a largest magnitude of {scale}")
+        require(torch.equal(got, again), f"{name} at N={n} k={k}: two runs "
+                                         f"differ")
+        row[name] = dict(max_abs_err=err, plain_max_abs=scale,
+                         same_bits=True)
+    emit(dict(cv_agg_any_k=dict(batch=B, num_points=n, k=k, **row)))
 
 
 def check_bf16_tc_any_k(model, dev, gen: torch.Generator) -> None:
@@ -1020,7 +1030,7 @@ def hold_to_plain(case) -> tuple:
         require(err <= GATHER_BWD_RTOL * scale,
                 f"{name} {case['shape']}: kernel and plain version "
                 f"differ by {err} at a largest magnitude of {scale}")
-    elif name in BF16_ARMS:
+    elif name in BF16_ARMS and name not in F32_ACCURATE_ARMS:
         require(got.dtype == want.dtype and err <= BF16_RTOL * scale,
                 f"{name} {case['shape']}: kernel and plain version "
                 f"differ by {err} at a largest magnitude of {scale}")

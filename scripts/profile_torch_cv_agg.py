@@ -46,6 +46,7 @@ KERNEL = "cv_agg_kernel"
 G_LOAD = "r[e] >= 0 ? 16 : 0"
 W_LAYER = "t = fma4(make_float4(h[m], h[m], h[m], h[m]), w2r[m], t);"
 HIDDEN = "weightnet_hidden_shared(d, wn_s, h);"
+SUM_LOOP = "#pragma unroll {}\n      for (int kk = 0; kk < kn; ++kk) {{"
 VARIANTS = {
     **{f"Q={q} kc={kc}": [(r"constexpr int kAggQ = \d+;",
                            f"constexpr int kAggQ = {q};"),
@@ -54,8 +55,8 @@ VARIANTS = {
        for q in (4, 8, 16) for kc in (8, 16)},
     "Q=16 kc=4": [(r"constexpr int kAggKc = \d+;",
                    "constexpr int kAggKc = 4;")],
-    **{f"unroll={u}": [(re.escape("#pragma unroll 4\n"),
-                        f"#pragma unroll {u}\n")] for u in (1, 8)},
+    **{f"unroll={u}": [(re.escape(SUM_LOOP.format(4)), SUM_LOOP.format(u))]
+       for u in (1, 8)},
     "depth=3": [(r"constexpr int kAggDepth = \d+;",
                  "constexpr int kAggDepth = 3;")],
     "Q=8 three_blocks_per_sm": [

@@ -37,7 +37,10 @@ port's plain versions:
   k ascending, with the constants read from the CUDA source.  Held to
   ``cost_volume_agg_plain`` at k = 1, 8, 40, with indices outside [0, N)
   (-1, N, 4096), within 1e-4 and 1e-5 of the largest magnitude; every
-  output row written exactly once.
+  output row written exactly once.  The bf16 arm (``cv_agg_bf16_kernel``)
+  runs the same body on bf16 p2p, each value widened to float32 exactly:
+  the same model on p2p rounded to bf16 is held to the plain version on
+  the bf16 tensor at the same bars.
 
 * (e) the bf16 arms of K5 and K4a (``csrc/plf.cu::plf_bf16_kernel``,
   ``csrc/cost_volume.cu::cv_p2p_bf16_kernel``): tiles of ``kRows`` /
@@ -535,23 +538,32 @@ def cv_agg_model(p2p, idx, zq, wn):
     return out, writes
 
 
-@pytest.mark.parametrize("k", [1, 8, 40])
-def test_cv_agg_schedule(rs, k):
+def check_cv_agg_schedule(rs, k, dtype):
     b, n, c, h = 2, 37, fused.CV_WIDTH, fused.WEIGHTNET_HIDDEN
     assert n % cv_agg_constant("kAggQ")  # a ragged last tile
-    p2p = rs.randn(b, n, c).astype(F32)
+    p2p = t(rs.randn(b, n, c).astype(F32)).to(dtype)
     zq = rs.randn(b, n, h).astype(F32)
     idx = rs.randint(0, n, (b, n, k)).astype(np.int32)
     idx[0, :3, 0] = [-1, n, 4096]
     idx[1, -1, -1] = -7
     wn = [(rs.randn(*shape) * 0.5).astype(F32)
           for shape in ((h,), (h, h), (h,), (h, c), (c,))]
-    got, writes = cv_agg_model(p2p, idx, zq, wn)
+    got, writes = cv_agg_model(p2p.float().numpy(), idx, zq, wn)
     assert (writes == 1).all()
-    want = fused.cost_volume_agg_plain(t(p2p), t(idx), t(zq),
+    want = fused.cost_volume_agg_plain(p2p, t(idx), t(zq),
                                        [t(w) for w in wn]).numpy()
     err, scale = np.abs(got - want).max(), np.abs(want).max()
     assert scale > 0.1 and err <= 1e-4 and err <= 1e-5 * scale, (err, scale)
+
+
+@pytest.mark.parametrize("k", [1, 8, 40])
+def test_cv_agg_schedule(rs, k):
+    check_cv_agg_schedule(rs, k, torch.float32)
+
+
+@pytest.mark.parametrize("k", [1, 8, 40])
+def test_cv_agg_bf16_schedule(rs, k):
+    check_cv_agg_schedule(rs, k, BF16)
 
 
 # ---------------------------------------------------------------------------

@@ -147,6 +147,25 @@ Run from the repository root on a machine with a CUDA GPU and nvcc.  Steps:
    finite items and the last Loss below the first; one bf16 RaFlow step
    and one bf16 CMFlow_T T=2 clip step with their launches; a 2-epoch bf16
    CLI train of CMFlow and a 1-epoch resume, launches exact;
+9c. data parallelism, each rank a process of its own: two ranks sharing
+   the one card (gloo, ``parallel/mesh.py::spawn``), each with 8 of the
+   same 16 frames, take the CMFlow float32 step, a RaFlow step, CMFlow_T's
+   clip step at T=1 and T=2 and the CMFlow bf16 step from the seeded
+   weights; each is held to the one-process step on the 16 frames (loss
+   items rtol 1e-4, gradients before Adam at the train bars, BatchNorm
+   statistics atol 1e-5; CMFlow_T at T=2 and the bf16 step finite, their
+   distance printed), the ranks' variables after every step bit-identical,
+   each rank's launches those of the one-process step; the float32 CMFlow
+   step timed on both sides and its collectives counted; the ranks' rows
+   of one B=16 request through the fused engine in float32 and bf16 held
+   to the one-process forward at the serving bars.  A one-rank NCCL group's
+   float32 step equals the plain step bit for bit.  Then the CLI under
+   ``python -m torch.distributed.run --standalone``: two ranks train 2
+   epochs (run.log written once), a one-rank run trains one epoch on the
+   same batches (first epoch's loss within rtol 1e-3), two ranks evaluate
+   the best checkpoint (every metric within 1e-5 of the one-process
+   evaluation), and two 2-rank resumes from the last checkpoint end with
+   the same bits.  Two ranks on one card measure contention, not scaling;
 10. print one JSON line per kernel shape, per request and per train step,
    one per route of a kernel measured on several (the ball query: fused 2
    launches per forward, module 12, train step 12; also under its
@@ -183,6 +202,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
@@ -202,6 +222,7 @@ from cmflow_tpu_torch.models.convert import export_flax_variables
 from cmflow_tpu_torch.native import build
 from cmflow_tpu_torch.nn.blocks import BatchNorm, masked_global_max
 from cmflow_tpu_torch.ops import fused, neighbors
+from cmflow_tpu_torch.parallel import mesh
 from cmflow_tpu_torch.train import loop
 from cmflow_tpu_torch.train.state import create_train_state
 from cmflow_tpu_torch.train.steps import (
@@ -2138,6 +2159,384 @@ def family_cli_phase(name: str, dev) -> tuple:
         eval_means=numbers["eval"]["means"])
 
 
+# ---------------------------------------------------------------------------
+# data parallelism: two ranks sharing the one card (gloo), a one-rank NCCL
+# group, and the CLI under torch.distributed.run
+# ---------------------------------------------------------------------------
+
+DDP_RANKS = 2
+DDP_TIMED_STEPS = 3
+# case: (model, weight seed, compute dtype, mini-clip length or None)
+DDP_CASES = {"cmflow": ("cmflow", SEED + 1, "float32", None),
+             "raflow": ("raflow", FAMILY_SEED["raflow"], "float32", None),
+             "cmflow_t_t1": ("cmflow_t", FAMILY_SEED["cmflow_t"], "float32",
+                             1),
+             "cmflow_t_t2": ("cmflow_t", FAMILY_SEED["cmflow_t"], "float32",
+                             2),
+             "cmflow_bf16": ("cmflow", SEED + 1, "bfloat16", None)}
+# the cases held to the one-process step at the train bars; CMFlow_T at
+# T=2 is held to finiteness (as the JAX package holds its own), the bf16
+# step to finiteness with its distance printed
+DDP_HELD = ("cmflow", "raflow", "cmflow_t_t1")
+DDP_EVAL_DTYPES = {"float32": torch.float32, "bf16": BF16}
+DDP_N = 256  # the train batches' points a cloud
+# the CLI phase under the launcher: one epoch on two ranks and on one, the
+# same batches at learning rate 0, their losses within this
+CLI_DDP_LOSS_RTOL = 1e-3
+CLI_DDP_METRICS_ATOL = 1e-5
+
+
+def ddp_batch(case: str) -> dict:
+    """The global batch of a case (B=16, N=256), the same in every
+    process; CMFlow_T's is a mini-clip of one frame repeated."""
+    name, _, _, t = DDP_CASES[case]
+    batch = make_train_batch(FAMILY_SEED.get(name, SEED), B, DDP_N)
+    if t is not None:
+        batch = {k: np.repeat(v[:, None], t, axis=1) for k, v in batch.items()}
+    return batch
+
+
+def ddp_step(case: str, dev, group) -> dict:
+    """One train step of a case from its seeded weights: on the whole batch
+    without a group, on this rank's rows with one.  Its loss items, the
+    gradients it applied (before Adam), the variables after it and the
+    launches."""
+    name, seed, dtype, t = DDP_CASES[case]
+    model = build_model(name, dev, seed=seed, compute_dtype=dtype,
+                        group=group)
+    state = create_train_state(model)
+    if t is None:
+        step = make_train_step(name, model, VOD_CAMERA_PROJECTION,
+                               VOD_T_CAMERA_RADAR, group=group)
+    else:
+        step = make_train_step_seq(model, VOD_CAMERA_PROJECTION,
+                                   VOD_T_CAMERA_RADAR, group=group)
+    batch = ddp_batch(case)
+    if group is not None:
+        batch = mesh.shard_batch(batch, group)
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    items = step(state, batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return dict(items={k: float(v) for k, v in items.items()},
+                grads=export_flax_variables(model, grads=True)["params"],
+                after=export_flax_variables(model), launches=counts_now(),
+                first_step_ms=1e3 * wall, step=step, state=state,
+                batch=batch)
+
+
+class _CountCollectives:
+    """Counts the ``all_reduce`` calls and bytes of one step (patched over
+    ``torch.distributed.all_reduce`` while it runs)."""
+
+    def __init__(self):
+        self.calls, self.bytes, self.sizes = 0, 0, {}
+
+    def __enter__(self):
+        self.real = dist.all_reduce
+
+        def counting(tensor, *args, **kwargs):
+            self.calls += 1
+            self.bytes += tensor.numel() * tensor.element_size()
+            self.sizes[tensor.numel()] = self.sizes.get(tensor.numel(), 0) + 1
+            return self.real(tensor, *args, **kwargs)
+
+        dist.all_reduce = counting
+        return self
+
+    def __exit__(self, *exc):
+        dist.all_reduce = self.real
+
+
+def timed_steps(res: dict) -> list:
+    """DDP_TIMED_STEPS more steps of a case on its batch: wall ms each."""
+    times = []
+    for _ in range(DDP_TIMED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res["step"](res["state"], res["batch"])
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return times
+
+
+def ddp_rank(dp, out_dir: str) -> None:
+    """A rank of the ddp phases (``mesh.spawn``): every train case on its
+    rows, the float32 CMFlow step timed and its collectives counted, then
+    its rows of one B=16 request through the fused engine in each dtype."""
+    res = {}
+    for case in DDP_CASES:
+        r = ddp_step(case, dp.device, dp.group)
+        if case == "cmflow":
+            r["step_ms"] = timed_steps(r)
+            with _CountCollectives() as count:
+                r["step"](r["state"], r["batch"])
+            r["collectives"] = dict(calls=count.calls, bytes=count.bytes,
+                                    by_numel=count.sizes)
+        res[case] = {k: v for k, v in r.items()
+                     if k not in ("step", "state", "batch")}
+    request = mesh.shard_batch(make_request(SEED, B, (200, 256)), dp.group)
+    model = build_model("cmflow", dp.device, seed=SEED)
+    for dtype, torch_dtype in DDP_EVAL_DTYPES.items():
+        step = make_eval_step("cmflow", model, compute_dtype=torch_dtype)
+        require(step.fused, "the ranks' eval step must take the fused engine")
+        zero_counts()
+        out = step(request)
+        torch.cuda.synchronize()
+        res[f"eval_{dtype}"] = dict(out=[o.cpu() for o in out],
+                                    launches=counts_now())
+    torch.save(res, os.path.join(out_dir, f"rank{dp.rank}.pt"))
+
+
+def nccl_rank(dp, out_dir: str) -> None:
+    """The one rank of an NCCL group: the float32 CMFlow step with the
+    group and without, from the same weights on the same batch; whether
+    the variables after them hold the same bits."""
+    plain = ddp_step("cmflow", dp.device, None)
+    with_group = ddp_step("cmflow", dp.device, dp.group)
+    a, b = (dict(leaves(r["after"])) for r in (plain, with_group))
+    same = sorted(a) == sorted(b) and all(np.array_equal(a[k], b[k])
+                                          for k in a)
+    torch.save(dict(backend=dist.get_backend(dp.group), same_bits=same,
+                    items_equal=plain["items"] == with_group["items"]),
+               os.path.join(out_dir, "nccl.pt"))
+
+
+def grad_distance(got: dict, want: dict) -> dict:
+    """Each leaf's relative L2 error (a leaf exactly zero in ``want`` must
+    be exactly zero in ``got``) and the whole gradient's."""
+    got, want = dict(leaves(got)), dict(leaves(want))
+    require(sorted(got) == sorted(want), "gradient leaves differ")
+    zero = [k for k, w in want.items() if not w.any()]
+    require(all(not got[k].any() for k in zero),
+            f"a gradient leaf exactly zero in one process is not on the "
+            f"ranks: {[k for k in zero if got[k].any()]}")
+    leaf = {k: float(np.linalg.norm(got[k] - w) / np.linalg.norm(w))
+            for k, w in want.items() if k not in zero}
+    whole = float(np.sqrt(sum(np.sum((got[k] - w) ** 2)
+                              for k, w in want.items())
+                          / sum(np.sum(w ** 2) for w in want.values())))
+    return dict(grad_leaf_l2_max=max(leaf.values()),
+                grad_leaf_l2_median=float(np.median(list(leaf.values()))),
+                grad_l2=whole, zero_leaves=len(zero))
+
+
+def ddp_case_checks(case: str, ranks: list, ref: dict) -> dict:
+    """Hold the ranks' step of ``case`` to the one-process step ``ref``."""
+    r0, r1 = ranks[0][case], ranks[1][case]
+    a, b = dict(leaves(r0["after"])), dict(leaves(r1["after"]))
+    require(sorted(a) == sorted(b)
+            and all(np.array_equal(a[k], b[k]) for k in a),
+            f"ddp {case}: the ranks' variables after the step differ")
+    require(r0["items"] == r1["items"], f"ddp {case}: items differ")
+    for r in (r0, r1):
+        require(r["launches"] == ref["launches"],
+                f"ddp {case}: launches {r['launches']}, one process "
+                f"{ref['launches']}")
+    require(all(np.isfinite(v) for v in r0["items"].values()),
+            f"ddp {case}: items {r0['items']}")
+    res = dict(launches=r0["launches"],
+               first_step_ms=[r["first_step_ms"] for r in (r0, r1)],
+               one_process_first_step_ms=ref["first_step_ms"])
+    res["loss_max_rel_err"] = max(
+        abs(r0["items"][k] - v) / abs(v) for k, v in ref["items"].items())
+    res.update(grad_distance(r0["grads"], ref["grads"]))
+    want = dict(leaves(ref["after"]))
+    res["stats_max_abs_err"] = max(float(np.abs(a[k] - w).max())
+                                   for k, w in want.items()
+                                   if k.startswith("batch_stats/"))
+    if case in DDP_HELD:
+        bars = {"loss_max_rel_err": TRAIN_BARS["loss_rtol"],
+                "grad_leaf_l2_max": TRAIN_BARS["grad_leaf_l2"],
+                "grad_l2": TRAIN_BARS["grad_l2"],
+                "stats_max_abs_err": TRAIN_BARS["stats_atol"]}
+        missed = {k: (res[k], bar) for k, bar in bars.items()
+                  if not res[k] <= bar}
+        require(not missed, f"ddp {case} against one process: {missed} "
+                            f"(value, bar) in {res}")
+    return res
+
+
+def ddp_phase(dev, card: str) -> dict:
+    """Two ranks sharing the one card (gloo): every case's step held to the
+    one-process step on the same 16 frames, the ranks' rows of one request
+    through the fused engine held to the one-process forward; then one
+    NCCL rank, its step against the plain step bit for bit."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh.spawn(ddp_rank, (tmp,), DDP_RANKS)
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                            weights_only=False) for r in range(DDP_RANKS)]
+    ranks_s = time.perf_counter() - t0
+    out = {"cases": {}}
+    for case in DDP_CASES:
+        ref = ddp_step(case, dev, None)
+        if case == "cmflow":
+            out["one_process_step_ms"] = timed_steps(ref)
+        out["cases"][case] = ddp_case_checks(case, ranks, ref)
+        emit(dict(ddp=case, ranks=DDP_RANKS, **out["cases"][case]))
+    out["ranks_step_ms"] = [r["cmflow"]["step_ms"] for r in ranks]
+    out["collectives"] = ranks[0]["cmflow"]["collectives"]
+    request = make_request(SEED, B, (200, 256))
+    model = build_model("cmflow", dev, seed=SEED)
+    out["eval"] = {}
+    for dtype, torch_dtype in DDP_EVAL_DTYPES.items():
+        zero_counts()
+        ref = make_eval_step("cmflow", model, compute_dtype=torch_dtype)(
+            request)
+        want_launches = counts_now()
+        got = [torch.cat([r[f"eval_{dtype}"]["out"][i] for r in ranks])
+               for i in range(4)]
+        for r in ranks:
+            require(r[f"eval_{dtype}"]["launches"] == want_launches,
+                    f"ddp_eval {dtype}: launches "
+                    f"{r[f'eval_{dtype}']['launches']}, want {want_launches}")
+        out["eval"][dtype] = dict(
+            launches=want_launches,
+            **compare(request, got, ref, f"ddp_eval {dtype}"))
+    emit(dict(ddp_eval=out["eval"]))
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh.spawn(nccl_rank, (tmp,), 1)
+        nccl = torch.load(os.path.join(tmp, "nccl.pt"), weights_only=False)
+    require(nccl["backend"] == "nccl" and nccl["same_bits"]
+            and nccl["items_equal"],
+            f"nccl: the one-rank NCCL step is not the plain step: {nccl}")
+    out["nccl"] = dict(nccl, phase_s=time.perf_counter() - t1)
+    out.update(ranks_phase_s=ranks_s, card=card,
+               note="two ranks sharing one card: contention, not scaling")
+    return out
+
+
+def torchrun(nproc: int, args, cwd: str) -> str:
+    """``python -m torch.distributed.run --standalone`` of the CLI with
+    ``nproc`` ranks; raises on a non-zero exit, returns the output."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={nproc}", "-m", "cmflow_tpu_torch.cli.main",
+           *args]
+    proc = subprocess.run(cmd, cwd=cwd, capture_output=True, text=True,
+                          timeout=600)
+    require(proc.returncode == 0,
+            f"{' '.join(cmd)}: exit {proc.returncode}\n{proc.stdout[-3000:]}"
+            f"\n{proc.stderr[-3000:]}")
+    return proc.stdout
+
+
+def checkpoint_bits(path: str) -> dict:
+    """A checkpoint's tensors and counts, flattened."""
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    flat = {f"model/{k}": v for k, v in payload["model"].items()}
+    for i, s in payload["optimizer"]["state"].items():
+        flat.update({f"adam/{i}/{k}": v for k, v in s.items()})
+    flat["step"] = torch.tensor(payload["step"])
+    return flat
+
+
+def cli_ddp_phase() -> dict:
+    """The CLI under ``torch.distributed.run`` with two ranks on the one
+    card: 2 epochs of CMFlow, its run.log written once; an epoch at
+    learning rate 0 on two ranks and on one, the same batches, their
+    losses within CLI_DDP_LOSS_RTOL; an evaluation of the 2-epoch run's
+    checkpoint against the one-process evaluation; two resumes from its
+    last checkpoint, bit for bit the same."""
+    here = str(Path(__file__).resolve().parent)
+    steps_per_epoch = CLI_PARTS["train"] // CLI_BATCH
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root, ck = os.path.join(tmp, "data"), os.path.join(tmp, "checkpoints")
+        write_synthetic_dataset(root, CLI_PARTS, seed=SEED)
+        common = ["--config", CLI_CONFIG, "--dataset_path", root,
+                  "--checkpoints_dir", ck, "--num_workers", "0"]
+        train = common + ["--batch_size", str(CLI_BATCH)]
+        timing = {}
+
+        def launch(name, nproc, args):
+            t0 = time.perf_counter()
+            stdout = torchrun(nproc, args + ["--exp_name", name], here)
+            timing[name] = time.perf_counter() - t0
+            require(stdout.count("FINISH") == 1,
+                    f"{name}: FINISH printed {stdout.count('FINISH')} times")
+            return os.path.join(ck, name)
+
+        exp = launch("ddp", 2, train + ["--epochs", str(CLI_EPOCHS)])
+        log = open(os.path.join(exp, "run.log")).read()
+        counts = {k: log.count(k) for k in (
+            "data-parallel over 2 ranks (gloo), 8 rows a rank",
+            "mean train loss", "mean RNE score")}
+        require(counts == {"data-parallel over 2 ranks (gloo), 8 rows a rank":
+                           1, "mean train loss": CLI_EPOCHS,
+                           "mean RNE score": CLI_EPOCHS},
+                f"cli_ddp: run.log lines {counts}")
+        require_finite_rows(os.path.join(exp, "metrics.jsonl"),
+                            ["train", "val"] * CLI_EPOCHS)
+        # the same batches on two ranks and on one, at learning rate 0: at
+        # the config's rate each Adam step moves a parameter by about lr *
+        # sign(g), and a sign float32 rounding flips sets a free-running
+        # run apart within a few steps, as it sets apart two one-process
+        # runs on other thread counts (scripts/dp_drift_torch.py)
+        lr0 = os.path.join(tmp, "lr0.yaml")
+        with open(CLI_CONFIG) as f:
+            lines = [ln for ln in f if not ln.startswith("lr:")]
+        with open(lr0, "w") as f:
+            f.writelines(lines + ["lr: 0.0\n"])
+        lr0_args = ["--config", lr0] + train[2:] + ["--epochs", "1"]
+        first = {}
+        for name, nproc in (("lr0_ddp", 2), ("lr0_one_rank", 1)):
+            rows = require_finite_rows(
+                os.path.join(launch(name, nproc, lr0_args), "metrics.jsonl"),
+                ["train", "val"])
+            first[name] = rows[0]["Loss"]
+        loss, one_loss = first["lr0_ddp"], first["lr0_one_rank"]
+        loss_rel = abs(loss - one_loss) / abs(one_loss)
+        require(loss_rel <= CLI_DDP_LOSS_RTOL,
+                f"cli_ddp: first epoch's loss {loss} on 2 ranks, "
+                f"{one_loss} on one")
+        best, last = (os.path.join(exp, "models", k) for k in ("best", "last"))
+
+        launch("ddp_eval", 2, common + ["--eval", "--model_path", best])
+        t0 = time.perf_counter()
+        require(cli.main(common + ["--exp_name", "one_eval", "--eval",
+                                   "--model_path", best]) == 0,
+                "cli_ddp: the one-process eval failed")
+        timing["one_eval"] = time.perf_counter() - t0
+        means = {k: read_log(os.path.join(ck, k))["means"]
+                 for k in ("ddp_eval", "one_eval")}
+        require(sorted(means["ddp_eval"]) == sorted(means["one_eval"])
+                and len(means["one_eval"]) == 14, f"cli_ddp: means {means}")
+        eval_err = {k: abs(v - means["one_eval"][k])
+                    for k, v in means["ddp_eval"].items()}
+        require(max(eval_err.values()) <= CLI_DDP_METRICS_ATOL,
+                f"cli_ddp: the 2-rank eval against one process: {eval_err}")
+
+        saved = torch.load(last, map_location="cpu", weights_only=True)
+        resumed = []
+        for name in ("resume_a", "resume_b"):
+            path = launch(name, 2, train + [
+                "--epochs", "1", "--load_checkpoint", "--model_path", last])
+            resumed.append(checkpoint_bits(
+                os.path.join(path, "models", "last")))
+        a, b = resumed
+        require(sorted(a) == sorted(b)
+                and all(torch.equal(a[k], b[k]) for k in a),
+                "cli_ddp: two 2-rank resumes from one checkpoint differ")
+        step = saved["step"] + steps_per_epoch
+        require(int(a["step"]) == step,
+                f"cli_ddp: resumed to step {int(a['step'])}, want {step}")
+        out.update(first_epoch_loss=loss, one_rank_first_epoch_loss=one_loss,
+                   loss_rel_err=loss_rel, eval_max_abs_err=max(
+                       eval_err.values()),
+                   eval_rne=means["ddp_eval"]["rne"], resume_step=step,
+                   wall_s=timing,
+                   train_frames_per_s=read_log(exp)["train_frames_per_s"],
+                   one_rank_train_frames_per_s=read_log(os.path.join(
+                       ck, "lr0_one_rank"))["train_frames_per_s"],
+                   note="two ranks sharing one card: contention, not "
+                        "scaling")
+    return out
+
+
 def main() -> int:
     # the kernels must build from this checkout's sources, not from a copy
     # of the package installed elsewhere
@@ -2298,6 +2697,19 @@ def main() -> int:
                 f"{path}: a kernel of its route was not launched: {counts}")
     emit(dict(family_kernel_cases_held=held))
 
+    # data parallelism: two ranks sharing the card, one NCCL rank, the CLI
+    # under torch.distributed.run; each rank's counters set to 0 just
+    # before each of its steps and forwards and read just after
+    t0 = time.perf_counter()
+    ddp = ddp_phase(dev, card)
+    emit(dict(ddp=ddp, ddp_phase_s=time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    emit(dict(cli_ddp=cli_ddp_phase(), card=card,
+              cli_ddp_phase_s=time.perf_counter() - t0))
+    ddp_paths = {**{case: c["launches"] for case, c in ddp["cases"].items()},
+                 **{f"eval_{k}": e["launches"]
+                    for k, e in ddp["eval"].items()}}
+
     kernels = []
     for name in (*WRAPPERS, *BF16_ARMS, *GATHER_ARMS):
         source, replaces = SOURCES[name]
@@ -2338,6 +2750,12 @@ def main() -> int:
             entry["family_launches"] = {p: c[sibling]
                                         for p, c in family_paths.items()
                                         if p.endswith("_bf16") == bf16}
+        # rank 0's launches in the ddp phase, per case, on the kernel's
+        # arm (a float32 row the float32 cases', a bf16 row the bf16 ones')
+        entry["ddp_launches"] = {
+            p: c[name if name in GATHER_ARMS else sibling]
+            for p, c in ddp_paths.items()
+            if ("bf16" in p) == (bf16 or name in GATHER_ARMS)}
         if not bf16 and name not in GATHER_ARMS:
             entry["family_cli_launches"] = {
                 f"{fam}_{k}": r["launches"][name]

@@ -8,6 +8,21 @@ reference's ``main.py``):
 It runs on the GPU unless ``--platform cpu`` is given, and raises where
 there is none.  :func:`main` takes the arguments as a list and returns 0, so
 it can be called in-process.
+
+Data parallelism (``data_parallel: true``, the default), as the JAX CLI's
+one command uses every local device:
+
+* under a launcher (``RANK``, ``WORLD_SIZE`` and ``LOCAL_RANK`` set, e.g.
+  ``python -m torch.distributed.run --nproc_per_node=G -m
+  cmflow_tpu_torch.cli.main ...``) each process joins the launcher's group
+  as one rank, on the card of its local rank (several ranks may share one
+  card: they then talk through gloo);
+* without one, with G > 1 visible cards, it builds the kernels and starts
+  one rank per card itself;
+* with one card (or ``--platform cpu``) and no launcher it runs as one
+  process, with no group.
+
+A group that cannot start raises: the run never carries on as one process.
 """
 
 from __future__ import annotations
@@ -18,8 +33,10 @@ import sys
 from typing import List, Optional
 
 import numpy as np
+import torch
 
-from cmflow_tpu_torch.utils.config import load_config
+from cmflow_tpu_torch.parallel import mesh
+from cmflow_tpu_torch.utils.config import Config, load_config
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -67,28 +84,68 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     return p.parse_args(argv)
 
 
+def run(dp: Optional[mesh.DataParallel], cfg: Config) -> None:
+    """One process's run: the whole run, or rank ``dp.rank`` of a
+    data-parallel one (rank 0 alone writes and prints)."""
+    from cmflow_tpu_torch.train.loop import (
+        eval_experiment,
+        experiment_dir,
+        train_experiment,
+    )
+    from cmflow_tpu_torch.utils.logging import IOStream, NullStream
+
+    np.random.seed(cfg.seed)
+    lead = dp is None or dp.rank == 0
+    if dp is not None and dp.device.type == "cuda":
+        # one build a host, before any rank launches a kernel
+        if dp.local_rank == 0:
+            from cmflow_tpu_torch.native import build
+
+            build.build()
+        mesh.barrier(dp.group)
+    exp_dir = experiment_dir(cfg, dp)
+    textio = (IOStream(os.path.join(exp_dir, "run.log")) if lead
+              else NullStream())
+    try:
+        textio.cprint(str(cfg))
+        if cfg.eval:
+            eval_experiment(cfg, textio, dp)
+        else:
+            train_experiment(cfg, textio, dp)
+    finally:
+        textio.close()
+    if lead:
+        print("FINISH")
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     args = parse_args(argv)
     overrides = {k: v for k, v in vars(args).items()
                  if k != "config" and v is not None}
     cfg = load_config(args.config, overrides)
 
-    np.random.seed(cfg.seed)
+    launched = mesh.launcher_env()
+    if launched is not None:
+        rank, world, local_rank = launched
+        if not cfg.data_parallel and world > 1:
+            raise ValueError(f"launched as {world} ranks with "
+                             "data_parallel: false")
+        local_world = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+        dp = mesh.setup(rank, world, local_rank, "env://", cfg.platform,
+                        local_world)
+        try:
+            run(dp, cfg)
+        finally:
+            mesh.teardown()
+        return 0
+    cards = torch.cuda.device_count() if cfg.platform != "cpu" else 0
+    if cfg.data_parallel and cards > 1:
+        from cmflow_tpu_torch.native import build
 
-    from cmflow_tpu_torch.train.loop import eval_experiment, train_experiment
-    from cmflow_tpu_torch.utils.logging import IOStream, init_experiment_dir
-
-    exp_dir = init_experiment_dir(cfg.checkpoints_dir, cfg.exp_name, cfg)
-    textio = IOStream(os.path.join(exp_dir, "run.log"))
-    try:
-        textio.cprint(str(cfg))
-        if cfg.eval:
-            eval_experiment(cfg, textio)
-        else:
-            train_experiment(cfg, textio)
-    finally:
-        textio.close()
-    print("FINISH")
+        build.build()
+        mesh.spawn(run, (cfg,), cards, cfg.platform)
+        return 0
+    run(None, cfg)
     return 0
 
 

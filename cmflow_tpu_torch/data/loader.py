@@ -8,6 +8,14 @@ stack to ``[B, T, ...]``).  Given the same dataset, seed and settings it
 yields the JAX loader's batches bit for bit (at ``num_workers=0``; with
 workers the dataset's shared subsample generator is drawn in thread order).
 Moving a batch to the device is the caller's.
+
+Data parallelism (``shard=(rank, ranks)``): every rank builds the same plan
+of global batches from the same seed and decodes only its own rows of each,
+rows ``[r*B/G, (r+1)*B/G)``, the rows the JAX loop's ``shard_batch`` puts on
+device ``r``.  A training sample's subsample is then drawn from a generator
+of its own, seeded with ``(seed, epoch, index)``: a rank does not decode
+the samples before its rows, so it cannot draw from a generator they share,
+and a run draws the same subsamples with any number of ranks and threads.
 """
 
 from __future__ import annotations
@@ -15,7 +23,7 @@ from __future__ import annotations
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Iterator, List, Optional
+from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -40,6 +48,7 @@ class BatchLoader:
         seed: int = 1234,
         pad_batch: bool = False,
         plan: Optional[List[dict]] = None,
+        shard: Optional[Tuple[int, int]] = None,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -60,6 +69,19 @@ class BatchLoader:
         # order, padded as any other, with "lane_valid", "reset" and
         # "_frame_idx" attached
         self.plan = plan
+        # (rank, ranks): this rank's rows of every global batch (module
+        # docstring); the batches must split evenly
+        self.shard = shard
+        if shard is not None:
+            rank, ranks = shard
+            if not 0 <= rank < ranks or batch_size % ranks:
+                raise ValueError(f"batch_size {batch_size} does not divide "
+                                 f"over {ranks} ranks (rank {rank})")
+            if plan is not None or not (drop_last or pad_batch):
+                raise ValueError("a sharded loader takes whole batches: "
+                                 "drop_last or pad_batch, and no plan")
+        self.seed = seed
+        self._epoch = 0
         self._rng = np.random.default_rng(seed)
 
     def __len__(self) -> int:
@@ -78,6 +100,37 @@ class BatchLoader:
 
     def _make_batch(self, indices: List[int]) -> Sample:
         samples = [self.dataset[i] for i in indices]
+        n_real = len(samples)
+        if self.pad_batch and n_real < self.batch_size:
+            # pad the batch dimension with repeats of the last sample so a
+            # short final batch keeps the batch's shape; "lane_valid" marks
+            # the real lanes for the consumer
+            samples = samples + [samples[-1]] * (self.batch_size - n_real)
+        batch = self._pad_collate(samples)
+        if self.pad_batch:
+            batch["lane_valid"] = np.arange(len(samples)) < n_real
+        return batch
+
+    def _make_shard(self, job: Tuple[List[int], int]) -> Sample:
+        """This rank's rows of the global batch ``indices`` (padded to the
+        batch size with repeats of its last sample, as ``pad_batch`` pads),
+        each sample decoded once, its subsample drawn from its own seeded
+        generator."""
+        indices, epoch = job
+        n_real = len(indices)
+        lanes = indices + [indices[-1]] * (self.batch_size - n_real)
+        rank, ranks = self.shard
+        rows = slice(rank * self.batch_size // ranks,
+                     (rank + 1) * self.batch_size // ranks)
+        decoded = {i: self.dataset.get(i, np.random.default_rng(
+            (self.seed, epoch, i))) for i in set(lanes[rows])}
+        batch = self._pad_collate([decoded[i] for i in lanes[rows]])
+        if self.pad_batch:
+            batch["lane_valid"] = (np.arange(self.batch_size) < n_real)[rows]
+        return batch
+
+    def _pad_collate(self, samples: List[Sample]) -> Sample:
+        """Pad the samples to the batch's bucket and collate them."""
         if self.pad_buckets is not None:
             n_max = max(
                 max(s["pc1"].shape[-2], s["pc2"].shape[-2]) for s in samples
@@ -97,18 +150,7 @@ class BatchLoader:
             n = max(self.pad_bucket,
                     bucket_size(n_max, self.pad_multiple, self.pad_bucket))
             samples = [pad_to(s, n) for s in samples]
-        n_real = len(samples)
-        if self.pad_batch and n_real < self.batch_size:
-            # pad the batch dimension with repeats of the last sample so a
-            # short final batch keeps the batch's shape; "lane_valid" marks
-            # the real lanes for the consumer
-            samples = samples + [samples[-1]] * (self.batch_size - n_real)
-        batch = collate(samples)
-        if self.pad_batch:
-            lane = np.zeros(len(samples), bool)
-            lane[:n_real] = True
-            batch["lane_valid"] = lane
-        return batch
+        return collate(samples)
 
     def _make_plan_batch(self, entry: dict) -> Sample:
         batch = self._make_batch(list(entry["indices"]))
@@ -128,7 +170,12 @@ class BatchLoader:
             ]
             if self.drop_last:
                 batches = [b for b in batches if len(b) == self.batch_size]
-            jobs = [(self._make_batch, list(b)) for b in batches]
+            if self.shard is None:
+                jobs = [(self._make_batch, list(b)) for b in batches]
+            else:
+                jobs = [(self._make_shard, ([int(i) for i in b], self._epoch))
+                        for b in batches]
+                self._epoch += 1
 
         if self.num_workers <= 0:
             for fn, arg in jobs:

@@ -186,10 +186,14 @@ class VodDataset:
         return len(self.samples)
 
     def __getitem__(self, index: int) -> Sample:
+        return self.get(index, self._rng)
+
+    def get(self, index: int, rng: np.random.Generator) -> Sample:
+        """Sample ``index``, a training subsample drawn from ``rng``."""
         data = load_sample_file(self.samples[index])
         return decode_sample(
             data, self.partition, eval_mode=self.eval_mode,
-            num_points=self.num_points, rng=self._rng,
+            num_points=self.num_points, rng=rng,
         )
 
 
@@ -253,14 +257,18 @@ class VodClipDataset:
         return len(self.samples) if self.eval_mode else len(self.mini_samples)
 
     def __getitem__(self, index: int) -> Sample:
+        return self.get(index, self._rng)
+
+    def get(self, index: int, rng: np.random.Generator) -> Sample:
+        """Item ``index``, its training subsamples drawn from ``rng``."""
         if self.eval_mode:
             return decode_sample(
                 load_sample_file(self.samples[index]), self.partition,
-                eval_mode=True, num_points=self.num_points, rng=self._rng)
+                eval_mode=True, num_points=self.num_points, rng=rng)
         frames = [
             decode_sample(load_sample_file(p), self.partition,
                           eval_mode=False, num_points=self.num_points,
-                          rng=self._rng)
+                          rng=rng)
             for p in self.mini_samples[index]
         ]
         return {k: np.stack([f[k] for f in frames]) for k in frames[0]}

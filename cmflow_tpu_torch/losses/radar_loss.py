@@ -2,8 +2,9 @@
 
 Counterpart of ``cmflow_tpu/losses/radar_loss.py`` (reference
 losses/radar_loss.py): pure functions of tensors, channels-last
-``[B, N, 3]``.  Count-normalised terms divide by the local counts; the
-data-parallel form of ``_global_ratio`` comes with DDP (ROADMAP Queue 1).
+``[B, N, 3]``.  Under data parallelism (a process ``group``, the JAX
+package's ``axis_name``) the count-normalised terms take the global batch's
+counts (:func:`_global_ratio`).
 """
 
 from __future__ import annotations
@@ -11,10 +12,13 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from cmflow_tpu_torch.geometry import camera as cam
 from cmflow_tpu_torch.geometry import se3
 from cmflow_tpu_torch.ops import pointops
+from cmflow_tpu_torch.parallel import mesh
+from cmflow_tpu_torch.parallel.mesh import Group
 
 Tensor = torch.Tensor
 
@@ -91,9 +95,19 @@ def ego_motion_loss(pc1: Tensor, pre_trans: Tensor,
                                - se3.apply_transform(pc1, gt_trans)))
 
 
-def _global_ratio(num: Tensor, den: Tensor) -> Tensor:
-    """``num / max(den, 1)``: a count-normalised term on one process."""
-    return num / torch.clamp_min(den, 1.0)
+def _global_ratio(num: Tensor, den: Tensor, group: Group) -> Tensor:
+    """A count-normalised term, ``num / max(den, 1)`` on one process.
+
+    Under data parallelism each rank holds a slice of the batch, and the
+    reference computes these terms on the whole batch.  The denominators
+    are label counts (no gradient), so the rank's term is ``G * num_local /
+    max(sum over ranks of den, 1)``: its mean over the ranks is the global
+    ratio, and so is the mean of its gradient."""
+    if group is None:
+        return num / torch.clamp_min(den, 1.0)
+    den_g = den.detach().clone()
+    dist.all_reduce(den_g, group=group)
+    return mesh.size(group) * num / torch.clamp_min(den_g, 1.0)
 
 
 def binary_cross_entropy(p: Tensor, y: Tensor) -> Tensor:
@@ -104,20 +118,21 @@ def binary_cross_entropy(p: Tensor, y: Tensor) -> Tensor:
     return -(y * logp + (1.0 - y) * log1p)
 
 
-def motion_seg_loss(mseg_pre: Tensor, mseg_gt: Tensor) -> Tensor:
+def motion_seg_loss(mseg_pre: Tensor, mseg_gt: Tensor,
+                    group: Group = None) -> Tensor:
     """Class-balanced BCE (radar_loss.py:184-205): half the mean over static
     points plus half the mean over moving points; an absent class adds 0."""
     bce = binary_cross_entropy(mseg_pre, mseg_gt)
     is0 = (mseg_gt == 0).to(bce.dtype)
     is1 = (mseg_gt == 1).to(bce.dtype)
-    return 0.5 * (_global_ratio(torch.sum(bce * is0), torch.sum(is0))
-                  + _global_ratio(torch.sum(bce * is1), torch.sum(is1)))
+    return 0.5 * (_global_ratio(torch.sum(bce * is0), torch.sum(is0), group)
+                  + _global_ratio(torch.sum(bce * is1), torch.sum(is1), group))
 
 
 def optical_flow_loss(opt: Tensor, radar_u: Tensor, radar_v: Tensor,
                       pc1_warp: Tensor, mseg_gt: Tensor, projection: Tensor,
-                      t_camera_radar: Tensor,
-                      lower_bound: float = 0.25) -> Tensor:
+                      t_camera_radar: Tensor, lower_bound: float = 0.25,
+                      group: Group = None) -> Tensor:
     """Point-to-camera-ray reprojection loss on moving points
     (radar_loss.py:207-242)."""
     end_pixels = torch.stack([radar_u, radar_v], dim=-1) + opt
@@ -125,16 +140,17 @@ def optical_flow_loss(opt: Tensor, radar_u: Tensor, radar_v: Tensor,
                                      t_camera_radar)
     opt_div = torch.relu(opt_div - lower_bound)
     moving = 1.0 - mseg_gt.detach().to(opt_div.dtype)
-    return _global_ratio(torch.sum(moving * opt_div), torch.sum(moving))
+    return _global_ratio(torch.sum(moving * opt_div), torch.sum(moving),
+                         group)
 
 
-def dynamic_flow_loss(pred_f: Tensor, gt_f: Tensor,
-                      dyn_mask: Tensor) -> Tensor:
+def dynamic_flow_loss(pred_f: Tensor, gt_f: Tensor, dyn_mask: Tensor,
+                      group: Group = None) -> Tensor:
     """Supervised flow loss on (pseudo-labelled) moving points
     (radar_loss.py:244-258); ``dyn_mask`` is 1 static, 0 moving."""
     moving = 1.0 - dyn_mask
     err = _l2_norm(gt_f - pred_f)
-    return _global_ratio(torch.sum(moving * err), torch.sum(moving))
+    return _global_ratio(torch.sum(moving * err), torch.sum(moving), group)
 
 
 def radar_flow_loss(
@@ -160,19 +176,22 @@ def radar_flow_loss(
     w_ms: float = 1.0,
     w_opt: float = 0.1,
     w_dyn: float = 1.0,
+    group: Group = None,
 ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """Composite loss (radar_loss.py:260-292): the self-supervised terms,
     and for the cross-modal models the ego-motion, motion-segmentation,
     optical-flow and supervised flow terms.  Returns ``(loss, items)``
-    with the keys of ``LOSS_ITEMS[model]``."""
+    with the keys of ``LOSS_ITEMS[model]``.  ``group`` makes the
+    count-normalised terms the global batch's (:func:`_global_ratio`)."""
     total, items = self_supervised_loss(pc1, pc2, pred_f, vel1)
     total = w_self * total
     if model in ("cmflow", "cmflow_t"):
         em = ego_motion_loss(pc1, pre_trans, gt_trans)
-        ms = motion_seg_loss(mseg_pre, mseg_gt)
-        dyn = dynamic_flow_loss(pred_f, gt_f, dyn_mask)
+        ms = motion_seg_loss(mseg_pre, mseg_gt, group)
+        dyn = dynamic_flow_loss(pred_f, gt_f, dyn_mask, group)
         opt_l = optical_flow_loss(opt, radar_u, radar_v, pc1 + pred_f,
-                                  mseg_gt, projection, t_camera_radar)
+                                  mseg_gt, projection, t_camera_radar,
+                                  group=group)
         total = total + w_em * em + w_ms * ms + w_opt * opt_l + w_dyn * dyn
         items.update(egoLoss=em, maskLoss=ms, opticalLoss=opt_l,
                      superviseLoss=dyn)

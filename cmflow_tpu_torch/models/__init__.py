@@ -9,6 +9,7 @@ from cmflow_tpu_torch.models.cmflow import CMFlow
 from cmflow_tpu_torch.models.cmflow_t import CMFlowT
 from cmflow_tpu_torch.models.raflow import RaFlow
 from cmflow_tpu_torch.nn.blocks import init_parameters
+from cmflow_tpu_torch.parallel.mesh import Group
 from cmflow_tpu_torch.utils.device import DeviceLike, resolve_device
 
 MODEL_REGISTRY = {"raflow": RaFlow, "cmflow": CMFlow, "cmflow_t": CMFlowT}
@@ -19,7 +20,8 @@ COMPUTE_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
 
 def build_model(name: str, device: DeviceLike = None, seed: int = 0,
                 stat_thres: float = 0.5, rigid_thres: float = 0.15,
-                compute_dtype: str = "float32") -> torch.nn.Module:
+                compute_dtype: str = "float32",
+                group: Group = None) -> torch.nn.Module:
     """Build a model by registry name, its weights drawn from a
     ``torch.Generator`` seeded with ``seed``, in eval mode on ``device``
     (``None`` is the GPU; pass ``"cpu"`` for the CPU).  ``stat_thres`` is
@@ -29,7 +31,9 @@ def build_model(name: str, device: DeviceLike = None, seed: int = 0,
     ``"float32"`` or ``"bfloat16"``) is the modules' compute dtype, as the
     JAX package's ``build_model`` gives it: the parameters and BatchNorm
     statistics are float32 either way, so the same weights load into both
-    (``models/convert.py``)."""
+    (``models/convert.py``).  ``group`` is the process group the train-mode
+    BatchNorms average their statistics over, the JAX ``build_model``'s
+    ``axis_name`` (``None`` for one process)."""
     name = name.lower()
     if name not in MODEL_REGISTRY:
         raise KeyError(f"unknown model {name!r}; have {list(MODEL_REGISTRY)}")
@@ -39,7 +43,8 @@ def build_model(name: str, device: DeviceLike = None, seed: int = 0,
     dev = resolve_device(device)
     kwargs = {"raflow": dict(rigid_thres=rigid_thres),
               "cmflow": dict(stat_thres=stat_thres)}.get(name, {})
-    model = MODEL_REGISTRY[name](**kwargs, dtype=COMPUTE_DTYPES[compute_dtype])
+    model = MODEL_REGISTRY[name](**kwargs, dtype=COMPUTE_DTYPES[compute_dtype],
+                                 group=group)
     init_parameters(model, torch.Generator().manual_seed(seed))
     return model.to(dev).eval()
 

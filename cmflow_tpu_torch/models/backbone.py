@@ -20,6 +20,7 @@ from cmflow_tpu_torch.nn.blocks import (
     MultiScaleEncoder,
     masked_global_max,
 )
+from cmflow_tpu_torch.parallel.mesh import Group
 
 Tensor = torch.Tensor
 
@@ -69,22 +70,24 @@ class SceneFlowTrunk(nn.Module):
     """Encoder + cost volume + flow-embedding propagation.  Returns
     ``prop_features [B, N, prop_width]``, before the global concat.
     ``dtype`` is the blocks' compute dtype (``nn/blocks.py``): in bf16 the
-    features come out float32 in train mode and bf16 in eval."""
+    features come out float32 in train mode and bf16 in eval.  ``group``:
+    the BatchNorms' process group (``None`` for one process)."""
 
     def __init__(self, cfg: BackboneConfig = BackboneConfig(),
-                 feat_ch: int = 3, dtype: Optional[torch.dtype] = None):
+                 feat_ch: int = 3, dtype: Optional[torch.dtype] = None,
+                 group: Group = None):
         super().__init__()
         self.cfg = cfg
         # one encoder for both frames, like the reference's single mse_layer
         self.mse_layer = MultiScaleEncoder(
             cfg.sa_radii, cfg.sa_nsamples, feat_ch, cfg.sa_mlp, cfg.sa_mlp2,
-            dtype=dtype)
+            dtype=dtype, group=group)
         self.fc_layer = FeatureCorrelator(
             cfg.fc_nsample, cfg.fc_inch, cfg.fc_inch, cfg.fc_mlp, dtype=dtype)
         self.mse_layer2 = MultiScaleEncoder(
             cfg.sa_radii, cfg.sa_nsamples,
             feat_ch + cfg.fc_inch + cfg.fc_mlp[-1], cfg.ep_mlp, cfg.ep_mlp2,
-            dtype=dtype)
+            dtype=dtype, group=group)
 
     def forward(self, pc1: Tensor, pc2: Tensor, feature1: Tensor,
                 feature2: Tensor, train: bool,

@@ -23,6 +23,7 @@ from cmflow_tpu_torch.nn.blocks import (
     MotionHead,
     masked_global_max,
 )
+from cmflow_tpu_torch.parallel.mesh import Group
 
 Tensor = torch.Tensor
 
@@ -31,18 +32,19 @@ class CMFlow(nn.Module):
     """``forward(pc1, pc2, ft1, ft2, label_m, train, valid1, valid2) ->
     (sf_agg, stat_cls, pre_trans, mask)``.  ``dtype``: the compute dtype,
     ``None`` (float32) or ``torch.bfloat16`` (``nn/blocks.py``); the
-    outputs are float32 in either."""
+    outputs are float32 in either.  ``group``: the BatchNorms' process
+    group, the JAX model's ``axis_name`` (``None`` for one process)."""
 
     def __init__(self, stat_thres: float = 0.5,
                  cfg: BackboneConfig = BackboneConfig(), feat_ch: int = 3,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, group: Group = None):
         super().__init__()
         self.stat_thres = stat_thres
         self.cfg = cfg
         self.dtype = dtype
-        self.trunk = SceneFlowTrunk(cfg, feat_ch, dtype)
-        self.fp = FlowHead(cfg.head_inch, cfg.head_mlp, dtype)
-        self.mp = MotionHead(cfg.head_inch, cfg.head_mlp, dtype)
+        self.trunk = SceneFlowTrunk(cfg, feat_ch, dtype, group)
+        self.fp = FlowHead(cfg.head_inch, cfg.head_mlp, dtype, group)
+        self.mp = MotionHead(cfg.head_inch, cfg.head_mlp, dtype, group)
 
     def forward(self, pc1: Tensor, pc2: Tensor, feature1: Tensor,
                 feature2: Tensor, label_m: Optional[Tensor], train: bool,

@@ -27,6 +27,7 @@ from cmflow_tpu_torch.nn.blocks import (
     MotionHead,
     masked_global_max,
 )
+from cmflow_tpu_torch.parallel.mesh import Group
 
 Tensor = torch.Tensor
 
@@ -60,18 +61,20 @@ class CMFlowT(nn.Module):
     ``stat_thres`` is 0.5, hardcoded in the reference (cmflow_t.py:18).
     ``dtype``: the compute dtype of the trunk and heads, as
     :class:`cmflow_tpu_torch.models.cmflow.CMFlow`'s; the GRU has none in
-    the JAX package and computes in float32 (its carry stays float32)."""
+    the JAX package and computes in float32 (its carry stays float32).
+    ``group``: the BatchNorms' process group, as CMFlow's."""
 
     def __init__(self, cfg: BackboneConfig = BackboneConfig(),
-                 feat_ch: int = 3, dtype: Optional[torch.dtype] = None):
+                 feat_ch: int = 3, dtype: Optional[torch.dtype] = None,
+                 group: Group = None):
         super().__init__()
         self.stat_thres = 0.5
         self.cfg = cfg
         self.dtype = dtype
-        self.trunk = SceneFlowTrunk(cfg, feat_ch, dtype)
+        self.trunk = SceneFlowTrunk(cfg, feat_ch, dtype, group)
         self.gru = GRUCell(cfg.prop_width)
-        self.fp = FlowHead(cfg.head_inch, cfg.head_mlp, dtype)
-        self.mp = MotionHead(cfg.head_inch, cfg.head_mlp, dtype)
+        self.fp = FlowHead(cfg.head_inch, cfg.head_mlp, dtype, group)
+        self.mp = MotionHead(cfg.head_inch, cfg.head_mlp, dtype, group)
 
     def forward(self, pc1: Tensor, pc2: Tensor, feature1: Tensor,
                 feature2: Tensor, label_m: Optional[Tensor], train: bool,

@@ -21,6 +21,7 @@ from cmflow_tpu_torch.models.backbone import (
     concat_global,
 )
 from cmflow_tpu_torch.nn.blocks import FlowHead, masked_global_max
+from cmflow_tpu_torch.parallel.mesh import Group
 
 Tensor = torch.Tensor
 
@@ -77,18 +78,19 @@ class RaFlow(nn.Module):
     """``forward(pc1, pc2, ft1, ft2, interval, train, valid1, valid2) ->
     (coarse_flow, sf_agg, pre_trans, mask_s)`` (reference raflow.py:157-164).
     Submodules ``trunk`` and ``fp`` carry the flax names.  ``dtype``: the
-    compute dtype, as :class:`cmflow_tpu_torch.models.cmflow.CMFlow`'s."""
+    compute dtype and ``group`` the BatchNorms' process group, as
+    :class:`cmflow_tpu_torch.models.cmflow.CMFlow`'s."""
 
     def __init__(self, rigid_thres: float = 0.15, rigid_pcs: float = 0.25,
                  cfg: BackboneConfig = BackboneConfig(), feat_ch: int = 3,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, group: Group = None):
         super().__init__()
         self.rigid_thres = rigid_thres
         self.rigid_pcs = rigid_pcs  # least inlier share for the re-fit
         self.cfg = cfg
         self.dtype = dtype
-        self.trunk = SceneFlowTrunk(cfg, feat_ch, dtype)
-        self.fp = FlowHead(cfg.head_inch, cfg.head_mlp, dtype)
+        self.trunk = SceneFlowTrunk(cfg, feat_ch, dtype, group)
+        self.fp = FlowHead(cfg.head_inch, cfg.head_mlp, dtype, group)
 
     def forward(self, pc1: Tensor, pc2: Tensor, feature1: Tensor,
                 feature2: Tensor, interval: Tensor, train: bool,

@@ -48,6 +48,8 @@ import torch
 from torch import nn
 
 from cmflow_tpu_torch.ops import pointops
+from cmflow_tpu_torch.parallel import mesh
+from cmflow_tpu_torch.parallel.mesh import Group
 
 Tensor = torch.Tensor
 DType = Optional[torch.dtype]
@@ -148,13 +150,21 @@ class BatchNorm(nn.Module):
 
     A bf16 input is widened first: the statistics, the normalisation and
     the output are float32, as flax's ``BatchNorm`` (no ``dtype``) gives
-    them for a bf16 input."""
+    them for a bf16 input.
+
+    ``group``: flax's ``axis_name``.  In train mode the batch mean and the
+    mean of squares are then the mean over the ranks of the local ones (one
+    ``all_reduce`` of both, ``[2C]``, a layer, with a gradient), so the
+    running statistics update identically on every rank.  Every rank must
+    hold as many rows.  Eval mode takes no collective."""
 
     MOMENTUM = 0.9
 
-    def __init__(self, num_features: int, eps: float = 1e-5):
+    def __init__(self, num_features: int, eps: float = 1e-5,
+                 group: Group = None):
         super().__init__()
         self.eps = eps
+        self.group = group
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -167,7 +177,12 @@ class BatchNorm(nn.Module):
         else:
             axes = tuple(range(x.dim() - 1))
             mean = x.mean(dim=axes)
-            var = torch.clamp_min((x * x).mean(dim=axes) - mean * mean, 0.0)
+            mean2 = (x * x).mean(dim=axes)
+            if self.group is not None:
+                stats = mesh.all_reduce_sum(torch.cat([mean, mean2]),
+                                            self.group) / mesh.size(self.group)
+                mean, mean2 = stats.split(mean.shape[0])
+            var = torch.clamp_min(mean2 - mean * mean, 0.0)
             with torch.no_grad():
                 m = self.MOMENTUM
                 self.running_mean.copy_(m * self.running_mean
@@ -181,11 +196,12 @@ class PointwiseMLP(nn.Module):
     """Stack of [Linear -> (BatchNorm) -> ReLU or LeakyReLU] over the channel
     axis.  ``use_bn=True, use_bias=False`` is the reference's
     ``Conv2d(bias=False) + BatchNorm2d + ReLU``; ``use_bn=False`` keeps the
-    conv bias.  ``dtype``: the compute dtype (module docstring)."""
+    conv bias.  ``dtype``: the compute dtype (module docstring); ``group``:
+    the BatchNorms' (:class:`BatchNorm`)."""
 
     def __init__(self, in_ch: int, features: Sequence[int], use_bn: bool = True,
                  use_bias: bool = False, negative_slope: float = 0.0,
-                 dtype: DType = None):
+                 dtype: DType = None, group: Group = None):
         super().__init__()
         self.depth = len(features)
         self.use_bn = use_bn
@@ -194,7 +210,7 @@ class PointwiseMLP(nn.Module):
         for i, width in enumerate(features):
             self.add_module(f"dense_{i}", nn.Linear(in_ch, width, bias=use_bias))
             if use_bn:
-                self.add_module(f"bn_{i}", BatchNorm(width))
+                self.add_module(f"bn_{i}", BatchNorm(width, group=group))
             in_ch = width
 
     def forward(self, x: Tensor, train: bool) -> Tensor:
@@ -217,7 +233,8 @@ class PointLocalFeature(nn.Module):
     ReLU -> mlp -> max over neighbours -> mlp2 (radarflow_util.py:121-162)."""
 
     def __init__(self, radius: float, nsample: int, in_ch: int,
-                 mlp: Sequence[int], mlp2: Sequence[int], dtype: DType = None):
+                 mlp: Sequence[int], mlp2: Sequence[int], dtype: DType = None,
+                 group: Group = None):
         super().__init__()
         self.radius = radius
         self.nsample = nsample
@@ -226,10 +243,10 @@ class PointLocalFeature(nn.Module):
         # kept [in, out]: the first three rows act on xyz, the rest on the
         # features
         self.w0 = nn.Parameter(torch.empty(in_ch + 3, c1))
-        self.bn0 = BatchNorm(c1)
-        self.mlp = (PointwiseMLP(c1, mlp[1:], dtype=dtype) if len(mlp) > 1
-                    else None)
-        self.mlp2 = PointwiseMLP(mlp[-1], mlp2, dtype=dtype)
+        self.bn0 = BatchNorm(c1, group=group)
+        self.mlp = (PointwiseMLP(c1, mlp[1:], dtype=dtype, group=group)
+                    if len(mlp) > 1 else None)
+        self.mlp2 = PointwiseMLP(mlp[-1], mlp2, dtype=dtype, group=group)
 
     def forward(self, xyz: Tensor, features: Tensor, train: bool,
                 valid: Optional[Tensor] = None) -> Tensor:
@@ -259,12 +276,12 @@ class MultiScaleEncoder(nn.Module):
 
     def __init__(self, radii: Sequence[float], nsamples: Sequence[int],
                  in_ch: int, mlp: Sequence[int], mlp2: Sequence[int],
-                 dtype: DType = None):
+                 dtype: DType = None, group: Group = None):
         super().__init__()
         self.scales = len(radii)
         for i, (r, k) in enumerate(zip(radii, nsamples)):
             self.add_module(f"scale_{i}", PointLocalFeature(
-                r, k, in_ch, mlp, mlp2, dtype=dtype))
+                r, k, in_ch, mlp, mlp2, dtype=dtype, group=group))
 
     def forward(self, xyz: Tensor, features: Tensor, train: bool,
                 valid: Optional[Tensor] = None) -> Tensor:
@@ -359,10 +376,11 @@ class FlowHead(nn.Module):
     """Scene-flow regression head (radarflow_util.py:240-261); the flow is
     float32 in either compute dtype."""
 
-    def __init__(self, in_ch: int, mlp: Sequence[int], dtype: DType = None):
+    def __init__(self, in_ch: int, mlp: Sequence[int], dtype: DType = None,
+                 group: Group = None):
         super().__init__()
         self.dtype = dtype
-        self.mlp = PointwiseMLP(in_ch, mlp, dtype=dtype)
+        self.mlp = PointwiseMLP(in_ch, mlp, dtype=dtype, group=group)
         self.out = nn.Linear(mlp[-1], 3, bias=False)
 
     def forward(self, feat: Tensor, train: bool) -> Tensor:
@@ -373,10 +391,11 @@ class MotionHead(nn.Module):
     """Static/moving classification head (radarflow_util.py:263-285):
     probabilities in (0, 1), ``[B, N]``, float32 in either compute dtype."""
 
-    def __init__(self, in_ch: int, mlp: Sequence[int], dtype: DType = None):
+    def __init__(self, in_ch: int, mlp: Sequence[int], dtype: DType = None,
+                 group: Group = None):
         super().__init__()
         self.dtype = dtype
-        self.mlp = PointwiseMLP(in_ch, mlp, dtype=dtype)
+        self.mlp = PointwiseMLP(in_ch, mlp, dtype=dtype, group=group)
         self.out = nn.Linear(mlp[-1], 1, bias=False)
 
     def forward(self, feat: Tensor, train: bool) -> Tensor:

@@ -20,6 +20,19 @@ The host feed:
 Neither loop reads the device per step: the train loss items are summed on
 the device and read once per epoch, and without ``save_res`` the metrics are
 summed on the device and read once per evaluation pass.
+
+Data parallelism (a :class:`cmflow_tpu_torch.parallel.mesh.DataParallel`
+``dp``, the JAX loop's ``mesh``): ``batch_size`` is the global batch and
+must divide by the G ranks; each rank decodes and trains on its rows of
+every batch.  Validation and evaluation are sharded the same way when
+``eval_batch_size`` divides by G, the model is not CMFlow_T (its lane count
+is data-driven) and no result files are written; otherwise rank 0 alone
+evaluates and broadcasts the metrics.  A sharded pass pads each rank's rows
+to their own bucket (the forwards are the same function of the valid
+points at any padding) and sums its metrics over the ranks, so every rank
+takes the same best-RNE decision.  Rank 0 alone writes ``run.log``,
+``metrics.jsonl`` and the checkpoints, and the other ranks wait for each
+checkpoint at a barrier; every rank reads a checkpoint it restores.
 """
 
 from __future__ import annotations
@@ -33,18 +46,22 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from cmflow_tpu_torch.data import DATASET_REGISTRY, BatchLoader
 from cmflow_tpu_torch.evaluation import device_metrics as dmet
 from cmflow_tpu_torch.evaluation import metrics as ev
 from cmflow_tpu_torch.losses.radar_loss import LOSS_ITEMS
 from cmflow_tpu_torch.models import build_model
+from cmflow_tpu_torch.parallel import mesh
+from cmflow_tpu_torch.parallel.mesh import DataParallel
 from cmflow_tpu_torch.train import steps as steplib
 from cmflow_tpu_torch.train.state import TrainState, create_train_state
 from cmflow_tpu_torch.utils.config import Config, config_device
 from cmflow_tpu_torch.utils.logging import (
     IOStream,
     MetricsWriter,
+    NullStream,
     init_experiment_dir,
 )
 
@@ -105,10 +122,39 @@ def build_datasets(cfg: Config, textio) -> Tuple:
     return train, val, None
 
 
-def _build_model(cfg: Config, device: torch.device) -> torch.nn.Module:
+def _build_model(cfg: Config, device: torch.device,
+                 group: mesh.Group = None) -> torch.nn.Module:
     return build_model(cfg.model, device, seed=cfg.seed,
                        stat_thres=cfg.stat_thres, rigid_thres=cfg.rigid_thres,
-                       compute_dtype=cfg.compute_dtype)
+                       compute_dtype=cfg.compute_dtype, group=group)
+
+
+def _lead(dp: Optional[DataParallel]) -> bool:
+    """Whether this process writes the run's files: rank 0, or the one
+    process."""
+    return dp is None or dp.rank == 0
+
+
+def experiment_dir(cfg: Config, dp: Optional[DataParallel] = None) -> str:
+    """The experiment's directory, created (with its config snapshot) by
+    the process that writes the run's files."""
+    if _lead(dp):
+        return init_experiment_dir(cfg.checkpoints_dir, cfg.exp_name, cfg)
+    return os.path.join(cfg.checkpoints_dir, cfg.exp_name)
+
+
+def _device(cfg: Config, dp: Optional[DataParallel]) -> torch.device:
+    return config_device(cfg) if dp is None else dp.device
+
+
+def _sharded_eval(cfg: Config, dp: Optional[DataParallel],
+                  save_res: bool) -> bool:
+    """The JAX loop's eval-mesh rule: evaluation rides the data-parallel
+    group when ``eval_batch_size`` divides by it and the model is not
+    CMFlow_T; the port also keeps a pass that writes result files on rank
+    0 alone."""
+    return (dp is not None and cfg.model != "cmflow_t" and not save_res
+            and int(cfg.eval_batch_size) % dp.size == 0)
 
 
 def _host_tensor(array: np.ndarray, pin: bool) -> Tensor:
@@ -251,6 +297,7 @@ def evaluate_frames(
     cfg: Config, model, dataset, textio,
     save_res_dir: Optional[str] = None,
     eval_step=None,
+    dp: Optional[DataParallel] = None,
 ) -> Tuple[Dict, Dict, Dict]:
     """Frame-pair evaluation (eval_one_epoch, main_util.py:93-206) at static
     padded shapes: ``eval_batch_size`` frames a batch, padded to a pinned
@@ -268,13 +315,21 @@ def evaluate_frames(
     once per pass.  With it, each batch's predictions come to the host (one
     batch behind the dispatch) for the host battery and the reference's
     ``[3, N]`` JSON dumps.  Pass ``eval_step`` (from
-    :func:`make_experiment_eval_step`) when calling repeatedly."""
+    :func:`make_experiment_eval_step`) when calling repeatedly.
+
+    ``dp``: a sharded pass (a frame-pair model, no ``save_res_dir``): each
+    rank evaluates its rows of every batch, padded to its rows' bucket, and
+    the metric sums are added over the ranks, so every rank returns the
+    global metrics."""
     device = next(model.parameters()).device
     pin = device.type == "cuda"
     wire = cfg.eval_wire
     if eval_step is None:
         eval_step = make_experiment_eval_step(cfg, model)
     temporal = cfg.model == "cmflow_t"
+    if dp is not None and (temporal or save_res_dir is not None):
+        raise ValueError("a sharded evaluation takes a frame-pair model and "
+                         "no result files")
     lane_plan = None
     if temporal and int(cfg.eval_batch_size) > 1 and dataset.clips_info:
         batch_size = min(int(cfg.eval_batch_size), len(dataset.clips_info))
@@ -287,6 +342,7 @@ def evaluate_frames(
         pad_bucket=cfg.num_points, pad_multiple=cfg.eval_pad_multiple,
         pad_buckets=_pinned_buckets(cfg), num_workers=cfg.num_workers,
         pad_batch=not temporal, plan=lane_plan,
+        shard=None if dp is None else (dp.rank, dp.size),
     )
 
     def prep(batch):
@@ -425,8 +481,11 @@ def evaluate_frames(
         if pending is not None:
             consume(*pending)
         if use_dev_metrics:
+            vec = torch.cat([msums, mcount[None]])
+            if dp is not None:
+                dist.all_reduce(vec, group=dp.group)
             # the one host read of the pass, which also ends it on the card
-            vec = torch.cat([msums, mcount[None]]).cpu().numpy()
+            vec = vec.cpu().numpy()
             num_pcs = int(vec[-1])
             slots = dict(zip(dmet.METRIC_KEYS, vec[:-1]))
             for d in (sf_metric, seg_metric, pose_metric):
@@ -455,28 +514,60 @@ def evaluate_frames(
 # --------------------------------------------------------------------------
 # training
 
-def train_experiment(cfg: Config, textio=None) -> Dict:
-    """Full training run (main.py:104-170).  Returns a summary dict."""
-    exp_dir = init_experiment_dir(cfg.checkpoints_dir, cfg.exp_name, cfg)
-    log = textio or IOStream(os.path.join(exp_dir, "run.log"))
-    metrics_out = MetricsWriter(os.path.join(exp_dir, "metrics.jsonl"))
+def evaluate(cfg: Config, model, dataset, textio, dp=None,
+             save_res_dir: Optional[str] = None,
+             eval_step=None) -> Tuple[Dict, Dict, Dict]:
+    """:func:`evaluate_frames` of one process, or of a data-parallel run:
+    sharded over the ranks where the eval-mesh rule allows it
+    (:func:`_sharded_eval`), else on rank 0 alone with the metrics
+    broadcast to every rank."""
+    if dp is None or _sharded_eval(cfg, dp, save_res_dir is not None):
+        return evaluate_frames(cfg, model, dataset, textio,
+                               save_res_dir=save_res_dir, eval_step=eval_step,
+                               dp=dp)
+    result = [None]
+    if dp.rank == 0:
+        result[0] = evaluate_frames(cfg, model, dataset, textio,
+                                    save_res_dir=save_res_dir,
+                                    eval_step=eval_step)
+    dist.broadcast_object_list(result, src=dist.get_global_rank(dp.group, 0),
+                               group=dp.group)
+    return result[0]
+
+
+def train_experiment(cfg: Config, textio=None,
+                     dp: Optional[DataParallel] = None) -> Dict:
+    """Full training run (main.py:104-170).  Returns a summary dict.
+    ``dp``: this rank of a data-parallel run (module docstring)."""
+    exp_dir = experiment_dir(cfg, dp)
+    lead = _lead(dp)
+    log = textio or (IOStream(os.path.join(exp_dir, "run.log")) if lead
+                     else NullStream())
+    metrics_out = (MetricsWriter(os.path.join(exp_dir, "metrics.jsonl"))
+                   if lead else NullStream())
     try:
-        return _train(cfg, log, metrics_out, exp_dir)
+        return _train(cfg, log, metrics_out, exp_dir, dp)
     finally:
         metrics_out.close()
         if textio is None:
             log.close()
 
 
-def _train(cfg: Config, textio, metrics_out, exp_dir: str) -> Dict:
-    device = config_device(cfg)
+def _train(cfg: Config, textio, metrics_out, exp_dir: str,
+           dp: Optional[DataParallel]) -> Dict:
+    device = _device(cfg, dp)
+    group = None if dp is None else dp.group
+    if dp is not None and cfg.batch_size % dp.size:
+        raise ValueError(f"batch_size {cfg.batch_size} not divisible by the "
+                         f"{dp.size}-rank data-parallel group")
     pin = device.type == "cuda"
-    model = _build_model(cfg, device)
+    model = _build_model(cfg, device, group)
     train_ds, val_ds, _ = build_datasets(cfg, textio)
     temporal = cfg.dataset == "vodClipDataset"
     loader = BatchLoader(
         train_ds, cfg.batch_size, shuffle=True, drop_last=True,
         num_workers=cfg.num_workers, seed=cfg.seed,
+        shard=None if dp is None else (dp.rank, dp.size),
     )
     state = create_train_state(
         model, steps_per_epoch=len(loader), lr=cfg.lr,
@@ -487,6 +578,11 @@ def _train(cfg: Config, textio, metrics_out, exp_dir: str) -> Dict:
         textio.cprint(f"restored checkpoint from {cfg.model_path} (step "
                       f"{state.step}, next lr "
                       f"{state.optimizer.param_groups[0]['lr']})")
+    if dp is not None:
+        mesh.replicate(model, group)
+        textio.cprint(f"data-parallel over {dp.size} ranks "
+                      f"({dist.get_backend(group)}), "
+                      f"{cfg.batch_size // dp.size} rows a rank")
 
     if temporal:
         # one optimizer and schedule step per frame: the schedule, counted
@@ -494,11 +590,12 @@ def _train(cfg: Config, textio, metrics_out, exp_dir: str) -> Dict:
         # the JAX package's does
         step_fn = steplib.make_train_step_seq(
             model, train_ds.camera_projection_matrix,
-            train_ds.t_camera_radar, cfg.vr_thres, model_name=cfg.model)
+            train_ds.t_camera_radar, cfg.vr_thres, model_name=cfg.model,
+            group=group)
     else:
         step_fn = steplib.make_train_step(
             cfg.model, model, train_ds.camera_projection_matrix,
-            train_ds.t_camera_radar, cfg.vr_thres)
+            train_ds.t_camera_radar, cfg.vr_thres, group=group)
     frames_per_batch = cfg.batch_size * (cfg.mini_clip_len if temporal
                                          else 1)
     best_rne = np.inf
@@ -551,36 +648,48 @@ def _train(cfg: Config, textio, metrics_out, exp_dir: str) -> Dict:
             "final read %.2fs" % (t_wait, t_steps, t_read))
         metrics_out.write({"epoch": epoch, "phase": "train", **means})
 
-        sf, seg, pose = evaluate_frames(cfg, model, val_ds, textio,
-                                        eval_step=eval_step)
+        sf, seg, pose = evaluate(cfg, model, val_ds, textio, dp,
+                                 eval_step=eval_step)
         textio.cprint(f"mean RNE score: {sf['rne']:.6f}")
         metrics_out.write({"epoch": epoch, "phase": "val", **sf, **seg,
                            **pose})
 
         if sf["rne"] <= best_rne:
             best_rne = sf["rne"]
-            save_checkpoint(best_path, state)
+            _save(best_path, state, dp)
             textio.cprint(f"best val score till now: {best_rne:.6f}")
 
-    save_checkpoint(os.path.join(exp_dir, "models", "last"), state)
+    _save(os.path.join(exp_dir, "models", "last"), state, dp)
     textio.cprint(f"==== best RNE after {cfg.epochs} epochs: {best_rne} ====")
     return {"best_rne": best_rne, "exp_dir": exp_dir}
 
 
-def eval_experiment(cfg: Config, textio=None) -> Dict:
+def _save(path: str, state: TrainState, dp: Optional[DataParallel]) -> None:
+    """Rank 0 writes the checkpoint; the other ranks wait for it."""
+    if _lead(dp):
+        save_checkpoint(path, state)
+    if dp is not None:
+        mesh.barrier(dp.group)
+
+
+def eval_experiment(cfg: Config, textio=None,
+                    dp: Optional[DataParallel] = None) -> Dict:
     """Evaluation run (main.py:51-69): restore ``cfg.model_path`` (or the
-    experiment's ``models/best``), or warn and evaluate the random init."""
-    exp_dir = init_experiment_dir(cfg.checkpoints_dir, cfg.exp_name, cfg)
-    log = textio or IOStream(os.path.join(exp_dir, "run.log"))
+    experiment's ``models/best``), or warn and evaluate the random init.
+    ``dp``: this rank of a data-parallel run (module docstring)."""
+    exp_dir = experiment_dir(cfg, dp)
+    log = textio or (IOStream(os.path.join(exp_dir, "run.log"))
+                     if _lead(dp) else NullStream())
     try:
-        return _eval(cfg, log, exp_dir)
+        return _eval(cfg, log, exp_dir, dp)
     finally:
         if textio is None:
             log.close()
 
 
-def _eval(cfg: Config, textio, exp_dir: str) -> Dict:
-    device = config_device(cfg)
+def _eval(cfg: Config, textio, exp_dir: str,
+          dp: Optional[DataParallel]) -> Dict:
+    device = _device(cfg, dp)
     model = _build_model(cfg, device)
     _, _, test_ds = build_datasets(cfg, textio)
 
@@ -594,8 +703,8 @@ def _eval(cfg: Config, textio, exp_dir: str) -> Dict:
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     save_dir = os.path.join(exp_dir, "results") if cfg.save_res else None
-    sf, seg, pose = evaluate_frames(cfg, model, test_ds, textio,
-                                    save_res_dir=save_dir)
+    sf, seg, pose = evaluate(cfg, model, test_ds, textio, dp,
+                             save_res_dir=save_dir)
     for d in (sf, seg, pose):
         for k, v in d.items():
             textio.cprint(f"###The mean {k}: {v}###")

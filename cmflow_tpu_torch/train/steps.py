@@ -14,6 +14,18 @@
 * :func:`make_eval_step`, with its two routes: the fused serving engines
   (:mod:`cmflow_tpu_torch.models.inference`) and the module route
   (``forward(train=False)``).
+
+Data parallelism (the JAX steps under ``shard_map`` over the ``data``
+mesh): the train steps take a process ``group`` where JAX takes ``mesh``,
+and each rank passes its own rows of the global batch
+(:func:`cmflow_tpu_torch.parallel.mesh.shard_batch`).  The model is built
+with the same group (its BatchNorms average their statistics over it), the
+count-normalised losses take the global batch's counts, and after the
+backward the gradients and loss items are averaged over the ranks in one
+``all_reduce`` each, before Adam: every rank then applies the same update to
+the same state, so the parameters stay bit-identical across the ranks.  An
+eval forward takes no collective: a sharded eval is each rank's
+:func:`make_eval_step` on its own rows.
 """
 
 from __future__ import annotations
@@ -31,6 +43,8 @@ from cmflow_tpu_torch.models.inference import (
     cmflow_t_infer,
     raflow_infer,
 )
+from cmflow_tpu_torch.parallel import mesh
+from cmflow_tpu_torch.parallel.mesh import Group
 from cmflow_tpu_torch.train import labels as labelgen
 from cmflow_tpu_torch.train.state import TrainState
 
@@ -53,14 +67,15 @@ def _to_device(value, device: torch.device) -> Tensor:
 
 def _frame_loss(model_name: str, model: torch.nn.Module,
                 x: Mapping[str, Tensor], proj: Tensor, tcr: Tensor,
-                vr_thres: float, gfeat: Optional[Tensor] = None
+                vr_thres: float, gfeat: Optional[Tensor] = None,
+                group: Group = None
                 ) -> Tuple[Tensor, Dict[str, Tensor], Optional[Tensor]]:
     """The train-mode forward and loss of one frame pair (``_frame_loss``
     of the JAX package): RaFlow's self-supervised loss on its refined flow,
     or, for the cross-modal models, pseudo labels and the composite loss
     (CMFlow_T from the carry ``gfeat``).  Updates the BatchNorm running
     statistics; returns ``(loss, items, gfeat_new)``, ``gfeat_new`` None but
-    for CMFlow_T."""
+    for CMFlow_T.  ``group``: the losses' (``radar_flow_loss``)."""
     pc1, pc2, ft1, ft2 = x["pc1"], x["pc2"], x["ft1"], x["ft2"]
     vel1 = ft1[..., 0]
     if model_name == "raflow":
@@ -87,7 +102,7 @@ def _frame_loss(model_name: str, model: torch.nn.Module,
         pre_trans=pre_trans, mseg_pre=mseg_pre, gt_trans=x["trans"],
         mseg_gt=mseg_gt, dyn_mask=dyn_mask, radar_u=x["radar_u"],
         radar_v=x["radar_v"], opt=x["opt_flow"], projection=proj,
-        t_camera_radar=tcr)
+        t_camera_radar=tcr, group=group)
     return loss, items, gfeat_new
 
 
@@ -108,17 +123,27 @@ def _train_inputs(model_name: str) -> Tuple[str, ...]:
     return _RAFLOW_TRAIN_INPUTS if model_name == "raflow" else _TRAIN_INPUTS
 
 
-def _optimizer_step(state: TrainState, loss: Tensor) -> None:
-    """Backward, one optimizer step and one schedule step."""
+def _optimizer_step(state: TrainState, loss: Tensor,
+                    items: Mapping[str, Tensor], keys: Tuple[str, ...],
+                    group: Group) -> Tensor:
+    """Backward; with a group, the gradients averaged over the ranks (one
+    ``all_reduce``); one optimizer step and one schedule step.  Returns the
+    loss items ``keys`` stacked, detached and averaged over the ranks."""
     loss.backward()
+    vec = torch.stack([items[k].detach() for k in keys])
+    if group is not None:
+        mesh.average_gradients(state.model.parameters(), group)
+        mesh.pmean_([vec], group)
     state.optimizer.step()
     state.scheduler.step()
     state.step += 1
+    return vec
 
 
 def make_train_step(model_name: str, model: torch.nn.Module,
                     calib_projection: np.ndarray,
-                    calib_t_camera_radar: np.ndarray, vr_thres: float = 0.3
+                    calib_t_camera_radar: np.ndarray, vr_thres: float = 0.3,
+                    group: Group = None
                     ) -> Callable[[TrainState, Mapping[str, np.ndarray]],
                                   Dict[str, Tensor]]:
     """Per-batch train step ``(state, batch) -> items`` of a frame-pair
@@ -133,23 +158,33 @@ def make_train_step(model_name: str, model: torch.nn.Module,
     and takes one optimizer step and one schedule step.  ``state`` (from
     :func:`cmflow_tpu_torch.train.state.create_train_state`) must hold
     ``model``; it is updated in place.  Returns the loss items, the keys of
-    ``LOSS_ITEMS[model_name]``, as detached 0-d tensors on the device."""
+    ``LOSS_ITEMS[model_name]``, as detached 0-d tensors on the device.
+
+    ``group``: data parallelism (module docstring).  The batch is then this
+    rank's rows, ``model`` was built with the same group, and the items are
+    the means over the ranks."""
     keys = _train_inputs(model_name)
     if model_name == "cmflow_t":
         raise ValueError("cmflow_t trains per frame of a mini-clip: use "
                          "make_train_step_seq")
     device, proj, tcr = _calib(model, calib_projection, calib_t_camera_radar)
+    item_keys = rl.LOSS_ITEMS[model_name]
+    checked = group is None
 
     def step(state: TrainState, batch: Mapping[str, np.ndarray]
              ) -> Dict[str, Tensor]:
+        nonlocal checked
         if state.model is not model:
             raise ValueError("the train state holds another model")
         x = {k: _to_device(batch[k], device) for k in keys}
+        if not checked:
+            mesh.check_equal_rows(x["pc1"].shape[0], group)
+            checked = True
         state.optimizer.zero_grad(set_to_none=True)
         loss, items, _ = _frame_loss(model_name, model, x, proj, tcr,
-                                     vr_thres)
-        _optimizer_step(state, loss)
-        return {k: items[k].detach() for k in rl.LOSS_ITEMS[model_name]}
+                                     vr_thres, group=group)
+        vec = _optimizer_step(state, loss, items, item_keys, group)
+        return {k: vec[j] for j, k in enumerate(item_keys)}
 
     return step
 
@@ -157,7 +192,8 @@ def make_train_step(model_name: str, model: torch.nn.Module,
 def make_train_step_seq(model: torch.nn.Module,
                         calib_projection: np.ndarray,
                         calib_t_camera_radar: np.ndarray,
-                        vr_thres: float = 0.3, model_name: str = "cmflow_t"
+                        vr_thres: float = 0.3, model_name: str = "cmflow_t",
+                        group: Group = None
                         ) -> Callable[[TrainState, Mapping[str, np.ndarray]],
                                       Dict[str, Tensor]]:
     """Mini-clip train step ``(state, clip) -> items`` (reference
@@ -172,13 +208,16 @@ def make_train_step_seq(model: torch.nn.Module,
     as the JAX package's does.  A model without a carry (``"cmflow"``,
     ``"raflow"``, as ``model_name`` picks the loss) takes the same per-frame
     steps.  Returns each loss item's mean over the T frames, detached, on
-    the device."""
+    the device.  ``group``: as :func:`make_train_step`'s, the reduction
+    after each frame's backward; each rank's carry stays on its own rows."""
     keys = _train_inputs(model_name)
     device, proj, tcr = _calib(model, calib_projection, calib_t_camera_radar)
     item_keys = rl.LOSS_ITEMS[model_name]
+    checked = group is None
 
     def step(state: TrainState, clip: Mapping[str, np.ndarray]
              ) -> Dict[str, Tensor]:
+        nonlocal checked
         if state.model is not model:
             raise ValueError("the train state holds another model")
         # frame-major [T, B, ...]: each frame's fields are contiguous, as
@@ -186,17 +225,20 @@ def make_train_step_seq(model: torch.nn.Module,
         x = {k: _to_device(clip[k], device).transpose(0, 1).contiguous()
              for k in keys}
         t, b = x["pc1"].shape[:2]
+        if not checked:
+            mesh.check_equal_rows(b, group)
+            checked = True
         gfeat = torch.zeros((b, model.cfg.prop_width), device=device)
         sums = None
         for i in range(t):
             frame = {k: v[i] for k, v in x.items()}
             state.optimizer.zero_grad(set_to_none=True)
             loss, items, gfeat_new = _frame_loss(model_name, model, frame,
-                                                 proj, tcr, vr_thres, gfeat)
-            _optimizer_step(state, loss)
+                                                 proj, tcr, vr_thres, gfeat,
+                                                 group)
+            vec = _optimizer_step(state, loss, items, item_keys, group)
             if gfeat_new is not None:
                 gfeat = gfeat_new.detach()
-            vec = torch.stack([items[k].detach() for k in item_keys])
             sums = vec if sums is None else sums + vec
         means = sums / t
         return {k: means[j] for j, k in enumerate(item_keys)}

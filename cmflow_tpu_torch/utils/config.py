@@ -42,7 +42,7 @@ class Config:
     # runtime
     seed: int = 1234
     num_workers: int = 8
-    data_parallel: bool = True  # one process per card: ROADMAP Queue 1.6
+    data_parallel: bool = True  # one process per card (parallel/mesh.py)
     platform: str = "auto"  # auto: the GPU; cpu: the CPU
     compute_dtype: str = "float32"
     remat: object = False
@@ -114,18 +114,11 @@ _CHOICES = {"platform": ("auto", "cpu"),
 
 def config_device(cfg: Config) -> torch.device:
     """The device ``cfg`` runs on: ``platform: auto`` is the GPU (raising
-    without one), ``cpu`` the CPU.  ``data_parallel`` with more than one
-    visible card raises: one process drives one card until DDP is ported
-    (ROADMAP Queue 1, item 6)."""
+    without one; the current card, which a data-parallel rank sets to its
+    own), ``cpu`` the CPU."""
     if cfg.platform == "cpu":
         return resolve_device("cpu")
-    dev = resolve_device(None)
-    if cfg.data_parallel and torch.cuda.device_count() > 1:
-        raise NotImplementedError(
-            f"data_parallel over {torch.cuda.device_count()} cards is not "
-            "ported yet (ROADMAP Queue 1, item 6); set data_parallel: false "
-            "or make one card visible (CUDA_VISIBLE_DEVICES)")
-    return dev
+    return resolve_device(None)
 
 
 # ---------------------------------------------------------------------------

@@ -26,6 +26,20 @@ class IOStream:
         self.f.close()
 
 
+class NullStream:
+    """What a data-parallel rank other than 0 logs to: nothing (rank 0
+    alone writes ``run.log`` and ``metrics.jsonl``)."""
+
+    def cprint(self, text: str) -> None:
+        pass
+
+    def write(self, record: Dict[str, Any]) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
 class MetricsWriter:
     """Structured metrics sink: one JSON object per line."""
 

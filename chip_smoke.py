@@ -166,6 +166,21 @@ Run from the repository root on a machine with a CUDA GPU and nvcc.  Steps:
    the best checkpoint (every metric within 1e-5 of the one-process
    evaluation), and two 2-rank resumes from the last checkpoint end with
    the same bits.  Two ranks on one card measure contention, not scaling;
+9d. the cross-modal preprocessing: RAFT-small with seeded weights at VoD's
+   camera size (1216x1936, 12 iterations) on the card: ms per frame pair
+   (CUDA events, median of 5 after one warm-up), peak memory, the
+   all-pairs product alone beside its bound, two runs compared bit for
+   bit, the flow against the same module in float64 on the card (finite;
+   max and 99.9th percentile printed) and, at 256x320, against the CPU
+   within 1e-2 px.  Then ``python -m cmflow_tpu_torch.cli.preprocess`` in a
+   subprocess on a synthetic raw VoD tree (every clip of the default
+   splits, full-size JPEG images), RAFT on the card for the train split,
+   one train clip again in-process with its flow held to the CLI's within
+   1e-2 px; the samples read back through the C++ codec (timed against
+   ``json``), packed with ``pack_split``, the packed batches equal to the
+   json tree's bit for bit; then the CLI trains two B=16 steps and
+   validates once on the packed split (``--dataset vodPackedDataset``),
+   its launches exact.  RAFT has no hand-written kernel (cuBLAS, cuDNN);
 10. print one JSON line per kernel shape, per request and per train step,
    one per route of a kernel measured on several (the ball query: fused 2
    launches per forward, module 12, train step 12; also under its
@@ -214,15 +229,20 @@ from cmflow_tpu_torch.data.synthetic import (
     make_train_batch,
     write_synthetic_dataset,
 )
+from cmflow_tpu_torch.data.packed import PackedVodDataset, pack_split
 from cmflow_tpu_torch.data.vod import VOD_CAMERA_PROJECTION, VOD_T_CAMERA_RADAR
 from cmflow_tpu_torch.evaluation import device_metrics, metrics
 from cmflow_tpu_torch.losses import radar_loss
 from cmflow_tpu_torch.models import build_model, inference
 from cmflow_tpu_torch.models.convert import export_flax_variables
-from cmflow_tpu_torch.native import build
+from cmflow_tpu_torch.native import build, codec
 from cmflow_tpu_torch.nn.blocks import BatchNorm, masked_global_max
 from cmflow_tpu_torch.ops import fused, neighbors
 from cmflow_tpu_torch.parallel import mesh
+from cmflow_tpu_torch.preprocess import SCENE_FLOW_SPLITS, process_clip, vod_io
+from cmflow_tpu_torch.preprocess.optical_flow import RaftSmallProvider
+from cmflow_tpu_torch.preprocess.synthetic import write_raw_tree
+from cmflow_tpu_torch.preprocess.vod_io import IMG_HEIGHT, IMG_WIDTH
 from cmflow_tpu_torch.train import loop
 from cmflow_tpu_torch.train.state import create_train_state
 from cmflow_tpu_torch.train.steps import (
@@ -2537,6 +2557,282 @@ def cli_ddp_phase() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the cross-modal preprocessing: RAFT-small on the card, the preprocessing
+# CLI, and the codec and packed split that read what it writes
+# ---------------------------------------------------------------------------
+
+RAFT_SIZE = (IMG_HEIGHT, IMG_WIDTH)  # VoD's image_2, 1216x1936
+RAFT_ITERS = 12
+RAFT_TIMED = 5  # timed frame pairs after one warm-up
+# the card against the CPU on the same seeded weights: JAX's own bar
+# against torch RAFT (tests/test_preprocess.py:352), in pixels
+RAFT_CPU_SIZE = (256, 320)
+RAFT_CPU_ATOL = 1e-2
+RAFT_FEATURES = 128  # the feature net's width: the all-pairs product's D
+# the synthetic raw tree: every clip of SCENE_FLOW_SPLITS, 4 frames each
+# (13 train clips give 39 pairs: two train steps at B=16), 300 radar points
+# a frame before the camera's field of view
+PREPROCESS_FRAMES = 4
+PREPROCESS_POINTS = 300
+PREPROCESS_STEPS = 2  # train steps of the packed split through the CLI
+CODEC_ROUNDS = 3  # decode passes over the written train samples
+
+
+def raft_inputs(size, seed: int):
+    rng = np.random.RandomState(seed)
+    return [torch.from_numpy(rng.randint(0, 255, (1, 3, *size))
+                             .astype(np.uint8)) for _ in range(2)]
+
+
+def raft_phase(dev) -> dict:
+    """RAFT-small with seeded weights at VoD's camera size on the card:
+    ms per frame pair (CUDA events, median of ``RAFT_TIMED`` after one
+    warm-up), peak memory, the all-pairs product's own time and bound; two
+    float32 runs compared bit for bit; float32 against the same module in
+    float64 on the card (finite, max and 99.9th percentile |Δ|); the card
+    against the CPU at ``RAFT_CPU_SIZE`` within ``RAFT_CPU_ATOL`` px."""
+    # built as the preprocessing builds it (TF32 off, seeded weights)
+    model = RaftSmallProvider(device=dev, seed=SEED).model
+    cpu_model = copy.deepcopy(model).to("cpu")
+    img1, img2 = (x.to(dev) for x in raft_inputs(RAFT_SIZE, SEED))
+    out = dict(size=list(RAFT_SIZE), iters=RAFT_ITERS)
+    def peak_gb():
+        """Peak memory of one forward over what was allocated before."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        flow = model(img1, img2, RAFT_ITERS)
+        torch.cuda.synchronize()
+        return flow, (torch.cuda.max_memory_allocated() - base) / 1e9
+
+    with torch.inference_mode():
+        # the first forward autotunes cuDNN's convolutions (trying their
+        # algorithms' workspaces); the next is what a frame pair takes
+        _, out["first_call_peak_memory_gb"] = peak_gb()
+        flow, out["peak_memory_gb"] = peak_gb()
+        require(tuple(flow.shape) == (1, 2, *RAFT_SIZE)
+                and bool(torch.isfinite(flow).all()),
+                f"raft: flow {tuple(flow.shape)} not finite or misshapen")
+        times = []
+        for _ in range(RAFT_TIMED):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            again = model(img1, img2, RAFT_ITERS)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        out.update(ms_per_pair=float(np.median(times)), ms_runs=times,
+                   same_bits_twice=bool(torch.equal(flow, again)))
+
+        # the all-pairs product alone, at the feature maps' shape
+        h, w = RAFT_SIZE[0] // 8, RAFT_SIZE[1] // 8
+        hw = h * w
+        f1, f2 = (torch.randn(1, RAFT_FEATURES, hw, device=dev)
+                  for _ in range(2))
+        product_ms = event_ms(lambda: torch.matmul(f1.transpose(1, 2), f2),
+                              3)
+        flops = 2.0 * hw * hw * RAFT_FEATURES
+        nbytes = 4.0 * (2 * hw * RAFT_FEATURES + hw * hw)
+        bound, bound_by = bound_ms(nbytes, flops)
+        out["all_pairs_product"] = dict(
+            positions=hw, gflop=flops / 1e9, volume_gb=4.0 * hw * hw / 1e9,
+            ms=product_ms, bound_ms=bound, bound_by=bound_by,
+            share_of_bound=bound / product_ms)
+        del f1, f2
+
+        model64 = copy.deepcopy(model).double()
+        flow64 = model64(img1, img2, RAFT_ITERS)
+        require(bool(torch.isfinite(flow64).all()),
+                "raft: the float64 flow is not finite")
+        diff = (flow.double() - flow64).abs().flatten()
+        out["vs_float64"] = dict(
+            max_abs=float(diff.max()),
+            p999_abs=float(torch.quantile(diff, 0.999)),
+            flow_max_abs=float(flow64.abs().max()))
+        del model64, flow64, diff, again, flow
+
+        small = raft_inputs(RAFT_CPU_SIZE, SEED + 1)
+        got = model(*(x.to(dev) for x in small), RAFT_ITERS).cpu()
+        want = cpu_model(*small, RAFT_ITERS)
+        err = float((got - want).abs().max())
+        out["vs_cpu"] = dict(size=list(RAFT_CPU_SIZE), max_abs_px=err,
+                             flow_max_abs=float(want.abs().max()),
+                             bar=RAFT_CPU_ATOL)
+        require(bool(torch.isfinite(got).all()) and err <= RAFT_CPU_ATOL,
+                f"raft: the card's flow lies {err} px from the CPU's at "
+                f"{RAFT_CPU_SIZE}, bar {RAFT_CPU_ATOL}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def clip_counts(text: str) -> dict:
+    """``run_preprocess``'s per-clip lines: {(clip, split): samples}."""
+    return {(c, s): int(n) for c, s, n in re.findall(
+        r"^(\S+) \[(\w+)\]: (\d+) samples$", text, re.M)}
+
+
+def preprocess_phase(dev) -> dict:
+    """The preprocessing path end to end on a synthetic raw VoD tree (every
+    clip of ``SCENE_FLOW_SPLITS``, full-size JPEG images): ``python -m
+    cmflow_tpu_torch.cli.preprocess`` in a subprocess, RAFT-small with
+    seeded weights on the card for the train split; one train clip again
+    in-process through ``process_clip`` with the same provider, its flow
+    held to the CLI's; the samples read back through the codec (timed
+    against ``json``) and packed with ``pack_split``, the packed batches
+    equal to the json tree's bit for bit; then the port's CLI trains
+    ``PREPROCESS_STEPS`` steps and validates once on the packed split
+    (``--dataset vodPackedDataset``), its launches counted."""
+    import PIL
+
+    here = Path(__file__).resolve().parent
+    out = dict(images=f"JPEG through Pillow {PIL.__version__}",
+               route="python -m cmflow_tpu_torch.cli.preprocess, a "
+                     "subprocess, RAFT-small on the card for train")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        paths = write_raw_tree(os.path.join(tmp, "raw"), SCENE_FLOW_SPLITS,
+                               frames_per_clip=PREPROCESS_FRAMES,
+                               n_points=PREPROCESS_POINTS, seed=SEED)
+        out["tree_s"] = time.perf_counter() - t0
+        save = os.path.join(tmp, "out")
+        cmd = [sys.executable, "-m", "cmflow_tpu_torch.cli.preprocess",
+               "--save_dir", save, *(f"--{k}={v}" for k, v in paths.items())]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=here, capture_output=True, text=True,
+                              timeout=600)
+        wall = time.perf_counter() - t0
+        require(proc.returncode == 0,
+                f"preprocess CLI: exit {proc.returncode}\n{proc.stderr}")
+        counts = clip_counts(proc.stdout)
+        want = {(c, s): PREPROCESS_FRAMES - 1
+                for s, clips in SCENE_FLOW_SPLITS.items() for c in clips}
+        require(counts == want, f"preprocess CLI: samples per clip {counts}")
+        pairs = sum(counts.values())
+        train_pairs = sum(n for (_, s), n in counts.items() if s == "train")
+        out["cli"] = dict(wall_s=wall, pairs=pairs, train_pairs=train_pairs,
+                          pairs_per_s=pairs / wall)
+
+        smp = os.path.join(save, "flow_smp")
+        train_files = sorted(
+            os.path.join(d, f)
+            for d, _, fs in os.walk(os.path.join(smp, "train")) for f in fs)
+        require(len(train_files) == train_pairs, "train samples on disk")
+        for path in train_files:
+            s = json.load(open(path))
+            opt = np.array(s["opt_info"]["opt_flow"])
+            require(opt.shape == (len(s["pc1"]), 2) and len(s["pc1"]) > 0
+                    and np.isfinite(opt).all(),
+                    f"{path}: opt_flow {opt.shape} for {len(s['pc1'])} "
+                    f"points, or not finite")
+
+        # one train clip again in-process: steady pairs/s, flow against the
+        # CLI's
+        clip = SCENE_FLOW_SPLITS["train"][0]
+        provider = RaftSmallProvider(device=dev)
+        frames = vod_io.get_frame_list(os.path.join(paths["clips_dir"],
+                                                    f"{clip}.txt"))
+        again = os.path.join(tmp, "again")
+        loc = vod_io.VodLocations(root_dir=paths["root_dir"])
+        label = paths["pseudo_label_path"]
+        process_clip(loc, frames[:2], again, clip, "train", label, "train",
+                     provider, log=lambda text: None)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        process_clip(loc, frames, again, clip, "train", label, "train",
+                     provider, log=lambda text: None)
+        torch.cuda.synchronize()
+        steady = (len(frames) - 1) / (time.perf_counter() - t0)
+        worst, same = 0.0, True
+        for a, b in zip(frames[:-1], frames[1:]):
+            name = f"{a}_{b}.json"
+            mine, cli_s = (json.load(open(os.path.join(d, "train", clip,
+                                                       name)))
+                           for d in (again, smp))
+            got, ref = (np.array(s["opt_info"].pop("opt_flow"))
+                        for s in (mine, cli_s))
+            require(mine == cli_s, f"{name}: in-process sample differs from "
+                                   f"the CLI's beyond opt_flow")
+            worst = max(worst, float(np.abs(got - ref).max()))
+            same = same and np.array_equal(got, ref)
+        require(worst <= RAFT_CPU_ATOL,
+                f"opt_flow in-process against the CLI: {worst} px")
+        out["in_process"] = dict(train_pairs_per_s=steady,
+                                 opt_flow_vs_cli_max_abs_px=worst,
+                                 same_bits=same)
+        del provider
+        torch.cuda.empty_cache()
+
+        # read back: the codec against json, then the packed split
+        t0 = time.perf_counter()
+        codec.build()
+        out["codec_build_s"] = time.perf_counter() - t0
+        blobs = [open(p, "rb").read() for p in train_files]
+
+        def json_arrays(blob):  # what the readers make of json's lists
+            s = json.loads(blob)
+            return {k: np.asarray(v, np.float32) for k, v in s.items()
+                    if k != "opt_info"}, {
+                k: np.asarray(v, np.float32)
+                for k, v in s["opt_info"].items()}
+
+        decode = {}
+        for name, fn in (("codec", codec.parse_sample_bytes),
+                         ("json", json.loads),
+                         ("json_to_float32_arrays", json_arrays)):
+            t0 = time.perf_counter()
+            for _ in range(CODEC_ROUNDS):
+                for blob in blobs:
+                    fn(blob)
+            decode[name] = ((time.perf_counter() - t0) * 1e6
+                            / (CODEC_ROUNDS * len(blobs)))
+        out["decode_us_per_sample"] = dict(
+            **decode, sample_kb=sum(map(len, blobs)) / len(blobs) / 1e3)
+
+        held = {}
+        for part, ds_kw, kw in (
+                ("train", dict(eval_mode=False, seed=SEED),
+                 dict(batch_size=CLI_BATCH, shuffle=True, drop_last=True)),
+                ("val", dict(eval_mode=True),
+                 dict(batch_size=8, pad_bucket=256, pad_multiple=128,
+                      pad_batch=True))):
+            pack = os.path.join(smp, f"{part}.pack")
+            t0 = time.perf_counter()
+            n = pack_split(smp, part, pack, log=lambda text: None)
+            pack_s = time.perf_counter() - t0
+            js = VodDataset(smp, part, log=lambda text: None, **ds_kw)
+            pk = PackedVodDataset(pack, part, log=lambda text: None, **ds_kw)
+            require(n == len(js) == len(pk) and pk.clips_info
+                    == js.clips_info, f"{part}: packed {n} of {len(js)}")
+            batches = 0
+            for _ in range(2):  # two epochs: the shuffle goes on
+                for g, w in zip(BatchLoader(pk, num_workers=0, **kw),
+                                BatchLoader(js, num_workers=0, **kw)):
+                    require(sorted(g) == sorted(w) and all(
+                        g[k].dtype == w[k].dtype and np.array_equal(g[k], w[k])
+                        for k in w), f"{part}: a packed batch differs from "
+                                     f"the json tree's")
+                    batches += 1
+            held[part] = dict(samples=n, batches_equal=batches,
+                              pack_s=pack_s)
+        out["packed_vs_json"] = held
+
+        ck = os.path.join(tmp, "checkpoints")
+        run = run_cli(["--config", CLI_CONFIG, "--dataset_path", smp,
+                       "--dataset", "vodPackedDataset", "--checkpoints_dir",
+                       ck, "--num_workers", "0", "--batch_size",
+                       str(CLI_BATCH), "--exp_name", "packed", "--epochs",
+                       "1"], PREPROCESS_STEPS, 1)
+        require_finite_rows(os.path.join(ck, "packed", "metrics.jsonl"),
+                            ["train", "val"])
+        log = read_log(os.path.join(ck, "packed"))
+        out["packed_cli"] = dict(
+            **run, train_frames_per_s=log["train_frames_per_s"],
+            val_ms_per_frame=log["eval_ms_per_frame"])
+    return out
+
+
 def main() -> int:
     # the kernels must build from this checkout's sources, not from a copy
     # of the package installed elsewhere
@@ -2710,6 +3006,15 @@ def main() -> int:
                  **{f"eval_{k}": e["launches"]
                     for k, e in ddp["eval"].items()}}
 
+    # the cross-modal preprocessing: RAFT-small on the card, the
+    # preprocessing CLI, the codec and the packed split through the CLI
+    # (its counters set to 0 just before that run and read just after)
+    t0 = time.perf_counter()
+    emit(dict(raft=raft_phase(dev), card=card))
+    preprocess = preprocess_phase(dev)
+    emit(dict(preprocess=preprocess, card=card,
+              preprocess_phase_s=time.perf_counter() - t0))
+
     kernels = []
     for name in (*WRAPPERS, *BF16_ARMS, *GATHER_ARMS):
         source, replaces = SOURCES[name]
@@ -2757,6 +3062,8 @@ def main() -> int:
             for p, c in ddp_paths.items()
             if ("bf16" in p) == (bf16 or name in GATHER_ARMS)}
         if not bf16 and name not in GATHER_ARMS:
+            entry["packed_cli_launches"] = (
+                preprocess["packed_cli"]["launches"][name])
             entry["family_cli_launches"] = {
                 f"{fam}_{k}": r["launches"][name]
                 for fam, run in family_cli.items()

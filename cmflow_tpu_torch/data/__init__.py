@@ -2,20 +2,16 @@
 (copies of the JAX-free host modules of ``cmflow_tpu/data``)."""
 
 from cmflow_tpu_torch.data.loader import BatchLoader
+from cmflow_tpu_torch.data.packed import PackedVodDataset, packed_vod_dataset
 from cmflow_tpu_torch.data.vod import VodClipDataset, VodDataset
-
-
-def _not_ported(name: str, item: str):
-    def build(*args, **kwargs):
-        raise NotImplementedError(
-            f"dataset {name!r} is not ported yet (ROADMAP Queue 1, {item})")
-    return build
-
 
 DATASET_REGISTRY = {
     "vodDataset": VodDataset,
     "vodClipDataset": VodClipDataset,
-    "vodPackedDataset": _not_ported("vodPackedDataset", "item 8"),
+    # the json tree packed into one memory-mapped file per split on first
+    # use: no parse per sample
+    "vodPackedDataset": packed_vod_dataset,
 }
 
-__all__ = ["BatchLoader", "DATASET_REGISTRY", "VodClipDataset", "VodDataset"]
+__all__ = ["BatchLoader", "DATASET_REGISTRY", "PackedVodDataset",
+           "VodClipDataset", "VodDataset", "packed_vod_dataset"]

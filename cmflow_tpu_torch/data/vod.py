@@ -4,9 +4,10 @@
 
 Reads ``<root>/<partition>/<clip>/<i>_<j>.json``; only clips named
 ``delft_*`` contribute samples (vod.py:43-44).  The samples are read with
-Python's ``json``, as the reference reads them; the JAX package's C++ sample
-codec (ROADMAP Queue 1, item 8) parses straight to float32, so its ``trans``
-can differ from this reader's in the last bit.
+the C++ sample codec (``native/codec.py``), as the JAX package's default
+reader reads them: it parses straight to float32, so ``trans`` is inverted
+in float32 and the batches are that reader's bit for bit.  A file the codec
+rejects is read with Python's ``json``, as there.
 
 A raw sample is the ujson dict written by the reference's preprocessing
 (preprocess/utils/get_flow_samples.py:162-175): features are columns
@@ -25,6 +26,7 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from cmflow_tpu_torch.data.schema import Sample
+from cmflow_tpu_torch.native import codec
 
 # VoD radar sensor resolution (dataset/vod.py:21-24)
 VOD_RADAR_RES = {
@@ -73,7 +75,11 @@ def _list_samples(clip_path: str) -> List[str]:
 
 
 def load_sample_file(path: str) -> Dict:
-    """Load a raw sample json."""
+    """Load a raw sample json through the C++ codec; a file it rejects
+    through Python's ``json``."""
+    parsed = codec.parse_sample_file(path)
+    if parsed is not None:
+        return parsed
     with open(path, "rb") as f:
         return json.load(f)
 

@@ -122,3 +122,43 @@ def export_flax_variables(model: nn.Module, grads: bool = False
             node = node.setdefault(part, {})
         node[leaf] = array
     return tree
+
+
+# --------------------------------------------------------------------------
+# RAFT-small (models/raft.py): flax params and the public torch checkpoint
+
+# flax's encoder blocks in order -> torch RAFT's layers
+_RAFT_BLOCKS = ("layer1.0", "layer1.1", "layer2.0", "layer2.1", "layer3.0",
+                "layer3.1")
+
+
+def raft_params_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A state dict for ``models/raft.py::RaftSmall`` from the JAX
+    ``RaftSmall``'s flax ``params`` (nested dicts of arrays): conv kernels
+    HWIO -> OIHW, the encoders' ``block_{0..5}`` -> ``layer{1,2,3}.{0,1}``
+    (the JAX loader's ``layer_map``), ``downsample`` -> ``downsample.0``."""
+    state: Dict[str, torch.Tensor] = {}
+    for path, value in _leaves(params):
+        *module, leaf = path
+        if len(module) > 1 and module[0] in ("fnet", "cnet") \
+                and module[1].startswith("block_"):
+            module[1] = _RAFT_BLOCKS[int(module[1][len("block_"):])]
+        if module[-1] == "downsample":
+            module.append("0")
+        array = np.asarray(value, np.float32)
+        if leaf == "kernel":
+            name, array = "weight", np.transpose(array, (3, 2, 0, 1))
+        elif leaf == "bias":
+            name = "bias"
+        else:
+            raise KeyError(f"{'/'.join(path)}: not a RAFT conv leaf")
+        state[".".join([*module, name])] = torch.tensor(array)
+    return state
+
+
+def load_raft_small(path: str) -> Dict[str, torch.Tensor]:
+    """The public ``raft-small.pth`` as a state dict for ``RaftSmall``: its
+    DataParallel ``module.`` prefixes stripped, its keys kept (the port's
+    modules carry torch RAFT's names)."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    return {k.removeprefix("module."): v for k, v in sd.items()}

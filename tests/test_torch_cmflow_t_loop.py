@@ -46,7 +46,6 @@ from test_torch_loop import (
     SF_KEYS,
     _Quiet,
     assert_batches_equal,
-    jax_json_reader,  # noqa: F401 (a fixture)
 )
 
 UPDATE_LEN = 2
@@ -99,7 +98,7 @@ def test_registry_and_clip_dataset(tree):
     assert len(train) == 2 and train[0]["pc1"].shape == (5, 64, 3)
 
 
-def test_clip_batches_match_jax(tree, jax_json_reader):  # noqa: F811
+def test_clip_batches_match_jax(tree):
     port, ref = clip_datasets(tree, "train", False)
     kw = dict(batch_size=2, shuffle=True, drop_last=True, seed=11,
               num_workers=0)
@@ -124,7 +123,7 @@ def test_build_clip_plan_matches_jax(tree, lanes):
     assert all(r == (i in starts or i % UPDATE_LEN == 0) for i, r in seen)
 
 
-def test_plan_batches_match_jax(tree, jax_json_reader):  # noqa: F811
+def test_plan_batches_match_jax(tree):
     port, ref = clip_datasets(tree, "val", True)
     plan = loop.build_clip_plan(port.clips_info, 2, UPDATE_LEN)
     kw = dict(batch_size=2, pad_bucket=64, pad_multiple=64,

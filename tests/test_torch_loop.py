@@ -15,6 +15,7 @@ the >= 99% mask agreement bar of the fused engines.
 import dataclasses
 import json
 import os
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -191,19 +192,10 @@ def assert_batches_equal(got, want):
             np.testing.assert_array_equal(g[k], w[k], err_msg=k)
 
 
-@pytest.fixture
-def jax_json_reader(monkeypatch):
-    """The JAX reader on its Python ``json`` path, the port's only one: its
-    C++ codec parses straight to float32, so ``trans`` is inverted in
-    float32 there and lands up to an ulp away from the float64 inverse of
-    the ``json`` path (and of the reference's ``ujson``)."""
-    from cmflow_tpu import native
-
-    monkeypatch.setattr(native, "parse_sample_file", lambda path: None)
-
-
 @pytest.mark.parametrize("mode", ["train", "eval_pinned", "eval_multiple"])
-def test_loader_batches_match_jax(tree, mode, jax_json_reader):
+def test_loader_batches_match_jax(tree, mode):
+    """Against the JAX package's default reader: both parse the samples
+    with the C++ codec, straight to float32."""
     if mode == "train":
         ds = dict(partition="train", num_points=64, eval_mode=False, seed=7)
         kw = dict(batch_size=4, shuffle=True, drop_last=True, seed=11)
@@ -242,13 +234,24 @@ def test_build_model_takes_stat_thres():
     assert build_model("cmflow", "cpu").stat_thres == 0.5
 
 
-def test_dataset_registry():
-    from cmflow_tpu_torch.data import VodClipDataset
+def test_dataset_registry(tree, tmp_path):
+    from cmflow_tpu_torch.data import (
+        PackedVodDataset,
+        VodClipDataset,
+        packed_vod_dataset,
+    )
 
     assert DATASET_REGISTRY["vodDataset"] is VodDataset
     assert DATASET_REGISTRY["vodClipDataset"] is VodClipDataset
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DATASET_REGISTRY["vodPackedDataset"]("root", "train")
+    assert DATASET_REGISTRY["vodPackedDataset"] is packed_vod_dataset
+    # packed from the json tree on first use, beside it
+    root = tmp_path / "tree"
+    shutil.copytree(tree, root)
+    ds = DATASET_REGISTRY["vodPackedDataset"](str(root), "val",
+                                              eval_mode=True,
+                                              log=lambda s: None)
+    assert isinstance(ds, PackedVodDataset) and len(ds) == 5
+    assert (root / "val.pack").is_file()
 
 
 # --------------------------------------------------------------------------

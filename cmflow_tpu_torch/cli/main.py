@@ -23,14 +23,23 @@ one command uses every local device:
   process, with no group.
 
 A group that cannot start raises: the run never carries on as one process.
+
+``nan_check`` turns on autograd's anomaly mode for the run and has every
+step check for NaN (``train/steps.py``), as the JAX CLI sets
+``jax_debug_nans``; ``profile_dir`` traces the whole run with
+``torch.profiler`` (CPU and, on the card, CUDA activities) and writes a
+Chrome trace there when the run ends or fails, ``trace.json`` (a
+data-parallel rank: ``trace_rank<r>.json``), as the JAX CLI stops its trace
+in a ``finally``.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
-from typing import List, Optional
+from typing import Iterator, List, Optional
 
 import numpy as np
 import torch
@@ -74,7 +83,16 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--remat", default=None, nargs="?", const=True,
                    choices=[True, "dots"],
                    type=lambda v: True if v in ("1", "true", "full") else v,
-                   help="recompute grouped chains in backward (not ported)")
+                   help="recompute the encoder branches and the cost "
+                        "volume in backward (bare flag = all of them; "
+                        "'dots' keeps the neighbour indices, gathers and "
+                        "products and recomputes only BatchNorm/activation "
+                        "chains)")
+    p.add_argument("--nan_check", action="store_true", default=None,
+                   help="raise FloatingPointError at the first NaN a step "
+                        "holds (anomaly mode on for the run)")
+    p.add_argument("--profile_dir", type=str, default=None,
+                   help="write a torch.profiler trace of the run here")
     p.add_argument("--eval_wire", type=str, default=None,
                    choices=[None, "float32", "int16"],
                    help="eval host->device wire format (int16 quantizes "
@@ -82,6 +100,37 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--eval_batch_size", type=int, default=None,
                    help="frames per batch at eval")
     return p.parse_args(argv)
+
+
+@contextlib.contextmanager
+def instrumented(cfg: Config, dp: Optional[mesh.DataParallel],
+                 textio) -> Iterator[None]:
+    """The run's ``nan_check`` (anomaly mode) and ``profile_dir`` (a
+    ``torch.profiler`` trace written in a ``finally``); see the module
+    docstring."""
+    with contextlib.ExitStack() as stack:
+        if cfg.nan_check:
+            stack.enter_context(torch.autograd.set_detect_anomaly(True))
+        prof = None
+        if cfg.profile_dir:
+            from torch.profiler import ProfilerActivity, profile
+
+            activities = [ProfilerActivity.CPU]
+            if cfg.platform != "cpu" and torch.cuda.is_available():
+                activities.append(ProfilerActivity.CUDA)
+            prof = profile(activities=activities)
+            prof.start()
+        try:
+            yield
+        finally:
+            if prof is not None:
+                prof.stop()
+                os.makedirs(cfg.profile_dir, exist_ok=True)
+                name = ("trace.json" if dp is None
+                        else f"trace_rank{dp.rank}.json")
+                path = os.path.join(cfg.profile_dir, name)
+                prof.export_chrome_trace(path)
+                textio.cprint(f"profiler trace: {path}")
 
 
 def run(dp: Optional[mesh.DataParallel], cfg: Config) -> None:
@@ -108,10 +157,11 @@ def run(dp: Optional[mesh.DataParallel], cfg: Config) -> None:
               else NullStream())
     try:
         textio.cprint(str(cfg))
-        if cfg.eval:
-            eval_experiment(cfg, textio, dp)
-        else:
-            train_experiment(cfg, textio, dp)
+        with instrumented(cfg, dp, textio):
+            if cfg.eval:
+                eval_experiment(cfg, textio, dp)
+            else:
+                train_experiment(cfg, textio, dp)
     finally:
         textio.close()
     if lead:

@@ -2,14 +2,41 @@
 
 Counterpart of ``cmflow_tpu/geometry/camera.py``: ``project_radar_to_image``
 (utils/util.py:16-28) and ``point_ray_distance`` (utils/util.py:31-58),
-channels-last, with the two calibration matrices passed explicitly.
+channels-last, with the two calibration matrices passed explicitly, and the
+host-side calibration record :class:`CameraCalib`.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
+import numpy as np
 import torch
 
 Tensor = torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class CameraCalib:
+    """VoD radar->camera calibration (dataset/vod_radar_calib.txt): the
+    3x4 camera projection and the 4x4 radar->camera transform, float32."""
+
+    projection: np.ndarray
+    t_camera_radar: np.ndarray
+
+    @staticmethod
+    def from_kitti_file(path: str) -> "CameraCalib":
+        """Parse a KITTI-style calibration file (dataset/vod.py:127-134):
+        ``P2`` on its third line, ``Tr_velo_to_cam`` on its sixth."""
+        with open(path, "r") as f:
+            lines = f.readlines()
+        intrinsic = np.array(
+            lines[2].strip().split(" ")[1:], dtype=np.float32).reshape(3, 4)
+        extrinsic = np.array(
+            lines[5].strip().split(" ")[1:], dtype=np.float32).reshape(3, 4)
+        extrinsic = np.concatenate([extrinsic, [[0, 0, 0, 1]]], axis=0)
+        return CameraCalib(projection=intrinsic,
+                           t_camera_radar=extrinsic.astype(np.float32))
 
 
 def _homogeneous(x: Tensor) -> Tensor:

@@ -1,5 +1,5 @@
-"""SE(3) geometry: batched weighted Kabsch, rigid flow, transforms, KDE
-density.
+"""SE(3) geometry: batched weighted Kabsch, rigid flow, transforms and
+their inverses, quaternions, sensor extrinsics, KDE density.
 
 Counterpart of ``cmflow_tpu/geometry/se3.py``.  One function covers the
 reference's three Kabsch variants through its ``centroid`` and ``reflect``
@@ -206,6 +206,53 @@ def apply_transform(pc: Tensor, trans: Tensor) -> Tensor:
     r = trans[:, :3, :3]
     t = trans[:, :3, 3]
     return torch.einsum("bij,bnj->bni", r, pc) + t[:, None, :]
+
+
+def se3_inverse(trans: Tensor) -> Tensor:
+    """Inverse of rigid transforms ``[..., 4, 4]``: ``[R^T, -R^T t]``."""
+    r = trans[..., :3, :3]
+    t = trans[..., :3, 3]
+    r_inv = r.transpose(-1, -2)
+    t_inv = -torch.einsum("...ij,...j->...i", r_inv, t)
+    return make_transform(r_inv.reshape(-1, 3, 3),
+                          t_inv.reshape(-1, 3)).reshape(trans.shape)
+
+
+def relative_se3(t1: Tensor, t2: Tensor) -> Tensor:
+    """``t1^{-1} @ t2`` of transforms ``[..., 4, 4]``
+    (utils/odometry_util.py:63-78)."""
+    return se3_inverse(t1) @ t2
+
+
+def quat2mat(quat: Tensor) -> Tensor:
+    """Rotation matrices ``[B, 3, 3]`` of quaternions ``[B, 4]`` in (x, y,
+    z, w) order (utils/util.py:191-203)."""
+    x, y, z, w = quat[:, 0], quat[:, 1], quat[:, 2], quat[:, 3]
+    w2, x2, y2, z2 = w * w, x * x, y * y, z * z
+    wx, wy, wz = w * x, w * y, w * z
+    xy, xz, yz = x * y, x * z, y * z
+    rot = torch.stack([
+        w2 + x2 - y2 - z2, 2 * xy - 2 * wz, 2 * wy + 2 * xz,
+        2 * wz + 2 * xy, w2 - x2 + y2 - z2, 2 * yz - 2 * wx,
+        2 * xz - 2 * wy, 2 * wx + 2 * yz, w2 - x2 - y2 + z2,
+    ], dim=1)
+    return rot.reshape(-1, 3, 3)
+
+
+def get_matrix_from_ext(ext):
+    """Sensor extrinsic ``(x, y, z, yaw, pitch, roll)`` in degrees, ``[6]``
+    or ``[N, 6]``, to 4x4 transforms (utils/util.py:225-243); host numpy
+    and scipy."""
+    import numpy as np
+    from scipy.spatial.transform import Rotation
+
+    ext = np.asarray(ext)
+    rot = Rotation.from_euler("ZYX", ext[..., 3:], degrees=True).as_matrix()
+    tr = np.zeros(ext.shape[:-1] + (4, 4))
+    tr[..., :3, :3] = rot
+    tr[..., :3, 3] = ext[..., :3]
+    tr[..., 3, 3] = 1.0
+    return tr
 
 
 def kde_density(xyz1: Tensor, xyz2: Tensor, bandwidth: float = 1.0) -> Tensor:

@@ -21,7 +21,7 @@ COMPUTE_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
 def build_model(name: str, device: DeviceLike = None, seed: int = 0,
                 stat_thres: float = 0.5, rigid_thres: float = 0.15,
                 compute_dtype: str = "float32",
-                group: Group = None) -> torch.nn.Module:
+                group: Group = None, remat=False) -> torch.nn.Module:
     """Build a model by registry name, its weights drawn from a
     ``torch.Generator`` seeded with ``seed``, in eval mode on ``device``
     (``None`` is the GPU; pass ``"cpu"`` for the CPU).  ``stat_thres`` is
@@ -33,7 +33,10 @@ def build_model(name: str, device: DeviceLike = None, seed: int = 0,
     statistics are float32 either way, so the same weights load into both
     (``models/convert.py``).  ``group`` is the process group the train-mode
     BatchNorms average their statistics over, the JAX ``build_model``'s
-    ``axis_name`` (``None`` for one process)."""
+    ``axis_name`` (``None`` for one process).  ``remat`` (the config's key:
+    False, True or ``"dots"``) recomputes the encoder branches and the cost
+    volume in the backward (``nn/blocks.py::remat_call``); any other value
+    raises ``ValueError``."""
     name = name.lower()
     if name not in MODEL_REGISTRY:
         raise KeyError(f"unknown model {name!r}; have {list(MODEL_REGISTRY)}")
@@ -44,7 +47,7 @@ def build_model(name: str, device: DeviceLike = None, seed: int = 0,
     kwargs = {"raflow": dict(rigid_thres=rigid_thres),
               "cmflow": dict(stat_thres=stat_thres)}.get(name, {})
     model = MODEL_REGISTRY[name](**kwargs, dtype=COMPUTE_DTYPES[compute_dtype],
-                                 group=group)
+                                 group=group, remat=remat)
     init_parameters(model, torch.Generator().manual_seed(seed))
     return model.to(dev).eval()
 

@@ -19,6 +19,7 @@ from cmflow_tpu_torch.nn.blocks import (
     FeatureCorrelator,
     MultiScaleEncoder,
     masked_global_max,
+    remat_call,
 )
 from cmflow_tpu_torch.parallel.mesh import Group
 
@@ -71,23 +72,27 @@ class SceneFlowTrunk(nn.Module):
     ``prop_features [B, N, prop_width]``, before the global concat.
     ``dtype`` is the blocks' compute dtype (``nn/blocks.py``): in bf16 the
     features come out float32 in train mode and bf16 in eval.  ``group``:
-    the BatchNorms' process group (``None`` for one process)."""
+    the BatchNorms' process group (``None`` for one process).  ``remat``
+    (False, True or ``"dots"``): each encoder branch and the cost volume
+    run under :func:`cmflow_tpu_torch.nn.blocks.remat_call`, as the JAX
+    trunk wraps them."""
 
     def __init__(self, cfg: BackboneConfig = BackboneConfig(),
                  feat_ch: int = 3, dtype: Optional[torch.dtype] = None,
-                 group: Group = None):
+                 group: Group = None, remat=False):
         super().__init__()
         self.cfg = cfg
+        self.remat = remat
         # one encoder for both frames, like the reference's single mse_layer
         self.mse_layer = MultiScaleEncoder(
             cfg.sa_radii, cfg.sa_nsamples, feat_ch, cfg.sa_mlp, cfg.sa_mlp2,
-            dtype=dtype, group=group)
+            dtype=dtype, group=group, remat=remat)
         self.fc_layer = FeatureCorrelator(
             cfg.fc_nsample, cfg.fc_inch, cfg.fc_inch, cfg.fc_mlp, dtype=dtype)
         self.mse_layer2 = MultiScaleEncoder(
             cfg.sa_radii, cfg.sa_nsamples,
             feat_ch + cfg.fc_inch + cfg.fc_mlp[-1], cfg.ep_mlp, cfg.ep_mlp2,
-            dtype=dtype, group=group)
+            dtype=dtype, group=group, remat=remat)
 
     def forward(self, pc1: Tensor, pc2: Tensor, feature1: Tensor,
                 feature2: Tensor, train: bool,
@@ -97,7 +102,8 @@ class SceneFlowTrunk(nn.Module):
         pc2_feat = self.mse_layer(pc2, feature2, train, valid2)
         pc1_feat = concat_global(pc1_feat, masked_global_max(pc1_feat, valid1))
         pc2_feat = concat_global(pc2_feat, masked_global_max(pc2_feat, valid2))
-        cor = self.fc_layer(pc1, pc2, pc1_feat, pc2_feat, train, valid1, valid2)
+        cor = remat_call(self.remat, self.fc_layer, pc1, pc2, pc1_feat,
+                         pc2_feat, train, valid1, valid2)
         embeddings = torch.cat([feature1, pc1_feat, cor], dim=-1)
         return self.mse_layer2(pc1, embeddings, train, valid1)
 

@@ -33,16 +33,18 @@ class CMFlow(nn.Module):
     (sf_agg, stat_cls, pre_trans, mask)``.  ``dtype``: the compute dtype,
     ``None`` (float32) or ``torch.bfloat16`` (``nn/blocks.py``); the
     outputs are float32 in either.  ``group``: the BatchNorms' process
-    group, the JAX model's ``axis_name`` (``None`` for one process)."""
+    group, the JAX model's ``axis_name`` (``None`` for one process).
+    ``remat``: False, True or ``"dots"`` (``nn/blocks.py::remat_call``)."""
 
     def __init__(self, stat_thres: float = 0.5,
                  cfg: BackboneConfig = BackboneConfig(), feat_ch: int = 3,
-                 dtype: Optional[torch.dtype] = None, group: Group = None):
+                 dtype: Optional[torch.dtype] = None, group: Group = None,
+                 remat=False):
         super().__init__()
         self.stat_thres = stat_thres
         self.cfg = cfg
         self.dtype = dtype
-        self.trunk = SceneFlowTrunk(cfg, feat_ch, dtype, group)
+        self.trunk = SceneFlowTrunk(cfg, feat_ch, dtype, group, remat)
         self.fp = FlowHead(cfg.head_inch, cfg.head_mlp, dtype, group)
         self.mp = MotionHead(cfg.head_inch, cfg.head_mlp, dtype, group)
 

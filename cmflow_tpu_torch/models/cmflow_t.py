@@ -62,16 +62,17 @@ class CMFlowT(nn.Module):
     ``dtype``: the compute dtype of the trunk and heads, as
     :class:`cmflow_tpu_torch.models.cmflow.CMFlow`'s; the GRU has none in
     the JAX package and computes in float32 (its carry stays float32).
-    ``group``: the BatchNorms' process group, as CMFlow's."""
+    ``group``: the BatchNorms' process group, and ``remat`` the
+    recomputation mode, as CMFlow's."""
 
     def __init__(self, cfg: BackboneConfig = BackboneConfig(),
                  feat_ch: int = 3, dtype: Optional[torch.dtype] = None,
-                 group: Group = None):
+                 group: Group = None, remat=False):
         super().__init__()
         self.stat_thres = 0.5
         self.cfg = cfg
         self.dtype = dtype
-        self.trunk = SceneFlowTrunk(cfg, feat_ch, dtype, group)
+        self.trunk = SceneFlowTrunk(cfg, feat_ch, dtype, group, remat)
         self.gru = GRUCell(cfg.prop_width)
         self.fp = FlowHead(cfg.head_inch, cfg.head_mlp, dtype, group)
         self.mp = MotionHead(cfg.head_inch, cfg.head_mlp, dtype, group)

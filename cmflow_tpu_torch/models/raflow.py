@@ -78,18 +78,20 @@ class RaFlow(nn.Module):
     """``forward(pc1, pc2, ft1, ft2, interval, train, valid1, valid2) ->
     (coarse_flow, sf_agg, pre_trans, mask_s)`` (reference raflow.py:157-164).
     Submodules ``trunk`` and ``fp`` carry the flax names.  ``dtype``: the
-    compute dtype and ``group`` the BatchNorms' process group, as
+    compute dtype, ``group`` the BatchNorms' process group and ``remat``
+    the recomputation mode, as
     :class:`cmflow_tpu_torch.models.cmflow.CMFlow`'s."""
 
     def __init__(self, rigid_thres: float = 0.15, rigid_pcs: float = 0.25,
                  cfg: BackboneConfig = BackboneConfig(), feat_ch: int = 3,
-                 dtype: Optional[torch.dtype] = None, group: Group = None):
+                 dtype: Optional[torch.dtype] = None, group: Group = None,
+                 remat=False):
         super().__init__()
         self.rigid_thres = rigid_thres
         self.rigid_pcs = rigid_pcs  # least inlier share for the re-fit
         self.cfg = cfg
         self.dtype = dtype
-        self.trunk = SceneFlowTrunk(cfg, feat_ch, dtype, group)
+        self.trunk = SceneFlowTrunk(cfg, feat_ch, dtype, group, remat)
         self.fp = FlowHead(cfg.head_inch, cfg.head_mlp, dtype, group)
 
     def forward(self, pc1: Tensor, pc2: Tensor, feature1: Tensor,

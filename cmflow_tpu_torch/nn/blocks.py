@@ -37,19 +37,33 @@ statistics stay float32 in both.  In bf16:
 Every product of bf16 operands, forward and backward, sums in float32
 (:class:`_Dot32`): on the card cuBLAS with a float32 output, never a bf16
 reduction.
+
+Recomputation (``remat``, the JAX package's ``remat_wrap``): each
+:class:`PointLocalFeature` of a :class:`MultiScaleEncoder` and the trunk's
+:class:`FeatureCorrelator` run under :func:`remat_call`, which recomputes
+them in the backward instead of keeping what their backward reads.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import math
-from typing import Optional, Sequence
+import threading
+from typing import Callable, Optional, Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from cmflow_tpu_torch.ops import pointops
 from cmflow_tpu_torch.parallel import mesh
 from cmflow_tpu_torch.parallel.mesh import Group
+from cmflow_tpu_torch.utils.config import check_remat
 
 Tensor = torch.Tensor
 DType = Optional[torch.dtype]
@@ -128,6 +142,79 @@ def leaky_relu(x: Tensor, slope: float) -> Tensor:
     return torch.where(x >= 0, x, x * torch.tensor(slope, dtype=x.dtype))
 
 
+# ---------------------------------------------------------------------------
+# remat modes.  ``True`` recomputes the whole wrapped module in the backward;
+# ``"dots"`` keeps exactly the neighbour indices, every gather's output and
+# every pre-BN product (the JAX package's REMAT_SAVED_NAMES: nbr_idx,
+# grouped_dot, mlp_dot) and recomputes only the BatchNorm and activation
+# chains between them, so no neighbour search, gather or product runs twice.
+# ---------------------------------------------------------------------------
+
+# "dots" saves the outputs of these ops: the neighbour searches and the
+# gather (custom ops, ops/pointops.py) and every matrix product
+_DOTS_SAVED_OPS = (torch.ops.cmflow.ball_query.default,
+                   torch.ops.cmflow.knn.default,
+                   torch.ops.cmflow.gather_rows.default)
+_DOTS_SAVED_PRODUCTS = (torch.ops.aten.mm, torch.ops.aten.addmm,
+                        torch.ops.aten.bmm)
+
+# set while a wrapped module is recomputed in the backward (on the thread
+# that recomputes it): the BatchNorms leave their running statistics alone
+_remat_state = threading.local()
+
+
+def recomputing() -> bool:
+    """Whether a wrapped module is being recomputed in the backward."""
+    return getattr(_remat_state, "active", False)
+
+
+def _dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    if op in _DOTS_SAVED_OPS or op.overloadpacket in _DOTS_SAVED_PRODUCTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_call(remat, fn: Callable, *args):
+    """``fn(*args)``, recomputed in the backward as ``remat`` says.
+
+    Without a gradient recorded (``torch.is_grad_enabled()`` False) or with
+    ``remat`` False it is a plain call.  Otherwise it runs under
+    ``torch.utils.checkpoint.checkpoint(use_reentrant=False)``, for
+    ``"dots"`` with a selective policy that saves the outputs of the ops
+    above, the point ops dispatched as custom ops
+    (:func:`cmflow_tpu_torch.ops.pointops.custom_ops`).  The recomputation
+    gives the first run's bits, and the BatchNorms update their running
+    statistics in the first run only (:func:`recomputing`).  Under data
+    parallelism it issues the BatchNorms' ``all_reduce`` again; every
+    rank's backward recomputes the same modules in the same order."""
+    if not remat or not torch.is_grad_enabled():
+        return fn(*args)
+    runs = [0]
+    # "dots" must see the neighbour searches and gathers as ops
+    ops = (pointops.custom_ops if remat == "dots"
+           else contextlib.nullcontext)
+
+    def run(*a):
+        runs[0] += 1
+        if runs[0] == 1:
+            with ops():
+                return fn(*a)
+        before = recomputing()
+        _remat_state.active = True
+        try:
+            with ops():
+                return fn(*a)
+        finally:
+            _remat_state.active = before
+
+    extra = {}
+    if remat == "dots":
+        extra["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)
+    return checkpoint(run, *args, use_reentrant=False,
+                      preserve_rng_state=False, **extra)
+
+
 def init_uniform_(t: Tensor, fan_in: int, generator: torch.Generator) -> None:
     """PyTorch's default Conv2d/Linear init, ``U(-1/sqrt(fan_in), +)`` for
     weights and biases alike (kaiming-uniform with a=sqrt(5))."""
@@ -183,11 +270,13 @@ class BatchNorm(nn.Module):
                                             self.group) / mesh.size(self.group)
                 mean, mean2 = stats.split(mean.shape[0])
             var = torch.clamp_min(mean2 - mean * mean, 0.0)
-            with torch.no_grad():
-                m = self.MOMENTUM
-                self.running_mean.copy_(m * self.running_mean
-                                        + (1 - m) * mean)
-                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+            if not recomputing():  # a recomputation must not update twice
+                with torch.no_grad():
+                    m = self.MOMENTUM
+                    self.running_mean.copy_(m * self.running_mean
+                                            + (1 - m) * mean)
+                    self.running_var.copy_(m * self.running_var
+                                           + (1 - m) * var)
         mul = torch.rsqrt(var + self.eps) * self.weight
         return (x - mean) * mul + self.bias
 
@@ -272,20 +361,24 @@ class PointLocalFeature(nn.Module):
 
 class MultiScaleEncoder(nn.Module):
     """Concatenation of per-radius :class:`PointLocalFeature` branches
-    (radarflow_util.py:101-118)."""
+    (radarflow_util.py:101-118).  ``remat``: each branch runs under
+    :func:`remat_call`."""
 
     def __init__(self, radii: Sequence[float], nsamples: Sequence[int],
                  in_ch: int, mlp: Sequence[int], mlp2: Sequence[int],
-                 dtype: DType = None, group: Group = None):
+                 dtype: DType = None, group: Group = None, remat=False):
         super().__init__()
+        check_remat(remat)
         self.scales = len(radii)
+        self.remat = remat
         for i, (r, k) in enumerate(zip(radii, nsamples)):
             self.add_module(f"scale_{i}", PointLocalFeature(
                 r, k, in_ch, mlp, mlp2, dtype=dtype, group=group))
 
     def forward(self, xyz: Tensor, features: Tensor, train: bool,
                 valid: Optional[Tensor] = None) -> Tensor:
-        outs = [getattr(self, f"scale_{i}")(xyz, features, train, valid)
+        outs = [remat_call(self.remat, getattr(self, f"scale_{i}"), xyz,
+                           features, train, valid)
                 for i in range(self.scales)]
         return torch.cat(outs, dim=-1)
 

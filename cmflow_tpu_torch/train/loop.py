@@ -18,8 +18,9 @@ The host feed:
   lossless.
 
 Neither loop reads the device per step: the train loss items are summed on
-the device and read once per epoch, and without ``save_res`` the metrics are
-summed on the device and read once per evaluation pass.
+the device and read once per epoch, and without ``save_res`` or ``vis`` the
+metrics are summed on the device and read once per evaluation pass (under
+``nan_check`` each step also reads its NaN flags, ``train/steps.py``).
 
 Data parallelism (a :class:`cmflow_tpu_torch.parallel.mesh.DataParallel`
 ``dp``, the JAX loop's ``mesh``): ``batch_size`` is the global batch and
@@ -57,6 +58,7 @@ from cmflow_tpu_torch.parallel import mesh
 from cmflow_tpu_torch.parallel.mesh import DataParallel
 from cmflow_tpu_torch.train import steps as steplib
 from cmflow_tpu_torch.train.state import TrainState, create_train_state
+from cmflow_tpu_torch.utils import plots, vis
 from cmflow_tpu_torch.utils.config import Config, config_device
 from cmflow_tpu_torch.utils.logging import (
     IOStream,
@@ -126,7 +128,8 @@ def _build_model(cfg: Config, device: torch.device,
                  group: mesh.Group = None) -> torch.nn.Module:
     return build_model(cfg.model, device, seed=cfg.seed,
                        stat_thres=cfg.stat_thres, rigid_thres=cfg.rigid_thres,
-                       compute_dtype=cfg.compute_dtype, group=group)
+                       compute_dtype=cfg.compute_dtype, group=group,
+                       remat=cfg.remat)
 
 
 def _lead(dp: Optional[DataParallel]) -> bool:
@@ -148,13 +151,37 @@ def _device(cfg: Config, dp: Optional[DataParallel]) -> torch.device:
 
 
 def _sharded_eval(cfg: Config, dp: Optional[DataParallel],
-                  save_res: bool) -> bool:
+                  writes_files: bool) -> bool:
     """The JAX loop's eval-mesh rule: evaluation rides the data-parallel
     group when ``eval_batch_size`` divides by it and the model is not
-    CMFlow_T; the port also keeps a pass that writes result files on rank
-    0 alone."""
-    return (dp is not None and cfg.model != "cmflow_t" and not save_res
+    CMFlow_T; the port also keeps a pass that writes result files or
+    figures on rank 0 alone."""
+    return (dp is not None and cfg.model != "cmflow_t" and not writes_files
             and int(cfg.eval_batch_size) % dp.size == 0)
+
+
+def require_matplotlib_for_vis(cfg: Config) -> None:
+    """``vis: true`` asks for figures: without matplotlib the run stops
+    before it starts."""
+    if cfg.vis and not plots.have_matplotlib():
+        raise ImportError("vis: true draws its PNGs with matplotlib, which "
+                          "does not import here")
+
+
+def draw_curves(exp_dir: str, textio, state: Dict) -> None:
+    """The loss and validation curves of the run so far
+    (``loss_train/loss_train.png``, ``val_score.png``), as the JAX loop draws
+    them after every validation pass.  Without matplotlib one line in the
+    log, the first time (``state`` remembers it), and the run goes on."""
+    if not plots.have_matplotlib():
+        if not state.get("warned"):
+            textio.cprint("matplotlib does not import here: the loss and "
+                          "validation curves are not drawn")
+            state["warned"] = True
+        return
+    path = os.path.join(exp_dir, "metrics.jsonl")
+    plots.plot_loss_curves(path, os.path.join(exp_dir, "loss_train"))
+    plots.plot_val_score(path, exp_dir)
 
 
 def _host_tensor(array: np.ndarray, pin: bool) -> Tensor:
@@ -250,7 +277,8 @@ def make_experiment_eval_step(cfg: Config, model):
              else torch.float32)
     return steplib.make_eval_step(cfg.model, model,
                                   fused=cfg.fused_inference,
-                                  compute_dtype=dtype)
+                                  compute_dtype=dtype,
+                                  nan_check=cfg.nan_check)
 
 
 def _pinned_buckets(cfg: Config):
@@ -298,6 +326,7 @@ def evaluate_frames(
     save_res_dir: Optional[str] = None,
     eval_step=None,
     dp: Optional[DataParallel] = None,
+    vis_dir: Optional[str] = None,
 ) -> Tuple[Dict, Dict, Dict]:
     """Frame-pair evaluation (eval_one_epoch, main_util.py:93-206) at static
     padded shapes: ``eval_batch_size`` frames a batch, padded to a pinned
@@ -311,13 +340,16 @@ def evaluate_frames(
     with the batch; else one frame a batch, reset where frame ``i`` starts
     a clip or ``i % update_len == 0``.
 
-    Without ``save_res_dir`` the metrics are summed on the device and read
-    once per pass.  With it, each batch's predictions come to the host (one
-    batch behind the dispatch) for the host battery and the reference's
-    ``[3, N]`` JSON dumps.  Pass ``eval_step`` (from
-    :func:`make_experiment_eval_step`) when calling repeatedly.
+    Without ``save_res_dir`` and ``vis_dir`` the metrics are summed on the
+    device and read once per pass.  With either, each batch's predictions
+    come to the host (one batch behind the dispatch) for the host battery
+    and, into ``save_res_dir``, the reference's ``[3, N]`` JSON dumps, into
+    ``vis_dir`` each frame's BEV flow and segmentation PNGs
+    (``{fidx}_flow.png``, ``{fidx}_seg.png``; main_util.py:170-172).  Pass
+    ``eval_step`` (from :func:`make_experiment_eval_step`) when calling
+    repeatedly.
 
-    ``dp``: a sharded pass (a frame-pair model, no ``save_res_dir``): each
+    ``dp``: a sharded pass (a frame-pair model, no files written): each
     rank evaluates its rows of every batch, padded to its rows' bucket, and
     the metric sums are added over the ranks, so every rank returns the
     global metrics."""
@@ -327,9 +359,10 @@ def evaluate_frames(
     if eval_step is None:
         eval_step = make_experiment_eval_step(cfg, model)
     temporal = cfg.model == "cmflow_t"
-    if dp is not None and (temporal or save_res_dir is not None):
+    writes_files = save_res_dir is not None or vis_dir is not None
+    if dp is not None and (temporal or writes_files):
         raise ValueError("a sharded evaluation takes a frame-pair model and "
-                         "no result files")
+                         "writes no files")
     lane_plan = None
     if temporal and int(cfg.eval_batch_size) > 1 and dataset.clips_info:
         batch_size = min(int(cfg.eval_batch_size), len(dataset.clips_info))
@@ -356,7 +389,7 @@ def evaluate_frames(
                               if lane is None else np.asarray(lane, bool))
         return pack_eval_batch(host, wire, pin)
 
-    use_dev_metrics = save_res_dir is None
+    use_dev_metrics = not writes_files
     sf_metric = {k: 0.0 for k in
                  ("rne", "50-50 rne", "mov_rne", "stat_rne", "sas", "ras",
                   "epe", "accs", "accr")}
@@ -417,20 +450,28 @@ def evaluate_frames(
             fidx = (int(frame_idx[bi]) if frame_idx is not None
                     else num_pcs - int(sel.size) + int(np.sum(sel < bi)))
             nv = int(valid[bi].sum())
-            clip = clip_of_frame.get(fidx, "clip_0")
-            cdir = os.path.join(save_res_dir, clip)
-            os.makedirs(cdir, exist_ok=True)
-            # reference stores [3, N] layouts (main_util.py:149-156)
-            out = {
-                "pc1": batch["pc1"][bi, :nv].T.tolist(),
-                "pc2": batch["pc2"][bi, :int(batch["valid2"][bi].sum())]
-                       .T.tolist(),
-                "pred_f": pred_f[bi, :nv].T.tolist(),
-                "pred_m": pred_m[bi, :nv].astype(float).tolist(),
-                "pred_t": pred_t[bi].astype(float).tolist(),
-            }
-            with open(os.path.join(cdir, f"{fidx}.json"), "w") as fo:
-                json.dump(out, fo)
+            pc1 = batch["pc1"][bi, :nv]
+            if save_res_dir is not None:
+                clip = clip_of_frame.get(fidx, "clip_0")
+                cdir = os.path.join(save_res_dir, clip)
+                os.makedirs(cdir, exist_ok=True)
+                # reference stores [3, N] layouts (main_util.py:149-156)
+                out = {
+                    "pc1": pc1.T.tolist(),
+                    "pc2": batch["pc2"][bi, :int(batch["valid2"][bi].sum())]
+                           .T.tolist(),
+                    "pred_f": pred_f[bi, :nv].T.tolist(),
+                    "pred_m": pred_m[bi, :nv].astype(float).tolist(),
+                    "pred_t": pred_t[bi].astype(float).tolist(),
+                }
+                with open(os.path.join(cdir, f"{fidx}.json"), "w") as fo:
+                    json.dump(out, fo)
+            if vis_dir is not None:
+                os.makedirs(vis_dir, exist_ok=True)
+                vis.plot_flow_bev(pc1, pred_f[bi, :nv], os.path.join(
+                    vis_dir, f"{fidx}_flow.png"))
+                vis.plot_seg_bev(pc1, pred_m[bi, :nv] > cfg.stat_thres,
+                                 os.path.join(vis_dir, f"{fidx}_seg.png"))
 
     msums = torch.zeros(len(dmet.METRIC_KEYS), device=device)
     mcount = torch.zeros((), device=device)
@@ -516,20 +557,21 @@ def evaluate_frames(
 
 def evaluate(cfg: Config, model, dataset, textio, dp=None,
              save_res_dir: Optional[str] = None,
-             eval_step=None) -> Tuple[Dict, Dict, Dict]:
+             eval_step=None,
+             vis_dir: Optional[str] = None) -> Tuple[Dict, Dict, Dict]:
     """:func:`evaluate_frames` of one process, or of a data-parallel run:
     sharded over the ranks where the eval-mesh rule allows it
     (:func:`_sharded_eval`), else on rank 0 alone with the metrics
     broadcast to every rank."""
-    if dp is None or _sharded_eval(cfg, dp, save_res_dir is not None):
+    files = dict(save_res_dir=save_res_dir, vis_dir=vis_dir)
+    writes_files = save_res_dir is not None or vis_dir is not None
+    if dp is None or _sharded_eval(cfg, dp, writes_files):
         return evaluate_frames(cfg, model, dataset, textio,
-                               save_res_dir=save_res_dir, eval_step=eval_step,
-                               dp=dp)
+                               eval_step=eval_step, dp=dp, **files)
     result = [None]
     if dp.rank == 0:
         result[0] = evaluate_frames(cfg, model, dataset, textio,
-                                    save_res_dir=save_res_dir,
-                                    eval_step=eval_step)
+                                    eval_step=eval_step, **files)
     dist.broadcast_object_list(result, src=dist.get_global_rank(dp.group, 0),
                                group=dp.group)
     return result[0]
@@ -538,7 +580,10 @@ def evaluate(cfg: Config, model, dataset, textio, dp=None,
 def train_experiment(cfg: Config, textio=None,
                      dp: Optional[DataParallel] = None) -> Dict:
     """Full training run (main.py:104-170).  Returns a summary dict.
-    ``dp``: this rank of a data-parallel run (module docstring)."""
+    ``dp``: this rank of a data-parallel run (module docstring).  After
+    every validation pass the lead process draws the loss and validation
+    curves (:func:`draw_curves`)."""
+    require_matplotlib_for_vis(cfg)
     exp_dir = experiment_dir(cfg, dp)
     lead = _lead(dp)
     log = textio or (IOStream(os.path.join(exp_dir, "run.log")) if lead
@@ -591,17 +636,19 @@ def _train(cfg: Config, textio, metrics_out, exp_dir: str,
         step_fn = steplib.make_train_step_seq(
             model, train_ds.camera_projection_matrix,
             train_ds.t_camera_radar, cfg.vr_thres, model_name=cfg.model,
-            group=group)
+            group=group, nan_check=cfg.nan_check)
     else:
         step_fn = steplib.make_train_step(
             cfg.model, model, train_ds.camera_projection_matrix,
-            train_ds.t_camera_radar, cfg.vr_thres, group=group)
+            train_ds.t_camera_radar, cfg.vr_thres, group=group,
+            nan_check=cfg.nan_check)
     frames_per_batch = cfg.batch_size * (cfg.mini_clip_len if temporal
                                          else 1)
     best_rne = np.inf
     best_path = os.path.join(exp_dir, "models", "best")
     item_keys = LOSS_ITEMS[cfg.model]
     eval_step = make_experiment_eval_step(cfg, model)
+    curves = {}
 
     for epoch in range(cfg.epochs):
         textio.cprint(f"==== epoch {epoch} ====")
@@ -658,6 +705,8 @@ def _train(cfg: Config, textio, metrics_out, exp_dir: str,
             best_rne = sf["rne"]
             _save(best_path, state, dp)
             textio.cprint(f"best val score till now: {best_rne:.6f}")
+        if _lead(dp):
+            draw_curves(exp_dir, textio, curves)
 
     _save(os.path.join(exp_dir, "models", "last"), state, dp)
     textio.cprint(f"==== best RNE after {cfg.epochs} epochs: {best_rne} ====")
@@ -676,7 +725,9 @@ def eval_experiment(cfg: Config, textio=None,
                     dp: Optional[DataParallel] = None) -> Dict:
     """Evaluation run (main.py:51-69): restore ``cfg.model_path`` (or the
     experiment's ``models/best``), or warn and evaluate the random init.
-    ``dp``: this rank of a data-parallel run (module docstring)."""
+    ``dp``: this rank of a data-parallel run (module docstring).  ``vis``:
+    each test frame's BEV PNGs into ``test_vis/``."""
+    require_matplotlib_for_vis(cfg)
     exp_dir = experiment_dir(cfg, dp)
     log = textio or (IOStream(os.path.join(exp_dir, "run.log"))
                      if _lead(dp) else NullStream())
@@ -703,8 +754,9 @@ def _eval(cfg: Config, textio, exp_dir: str,
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     save_dir = os.path.join(exp_dir, "results") if cfg.save_res else None
+    vis_dir = os.path.join(exp_dir, "test_vis") if cfg.vis else None
     sf, seg, pose = evaluate(cfg, model, test_ds, textio, dp,
-                             save_res_dir=save_dir)
+                             save_res_dir=save_dir, vis_dir=vis_dir)
     for d in (sf, seg, pose):
         for k, v in d.items():
             textio.cprint(f"###The mean {k}: {v}###")

@@ -26,6 +26,15 @@ backward the gradients and loss items are averaged over the ranks in one
 the same state, so the parameters stay bit-identical across the ranks.  An
 eval forward takes no collective: a sharded eval is each rank's
 :func:`make_eval_step` on its own rows.
+
+``nan_check`` (the config's key; the JAX package's ``jax_debug_nans``):
+each step also checks the tensors it holds for NaN, in one host read per
+check, and raises ``FloatingPointError`` naming the first that holds one:
+a train step its inputs, its loss items and, after the backward, every
+gradient; an eval step its inputs and its predictions.  Under a group the
+flags are summed over the ranks first, so every rank raises together.  A
+NaN that autograd's anomaly mode (the CLI turns it on for the run) finds in
+the backward raises ``FloatingPointError`` too.
 """
 
 from __future__ import annotations
@@ -123,17 +132,55 @@ def _train_inputs(model_name: str) -> Tuple[str, ...]:
     return _RAFLOW_TRAIN_INPUTS if model_name == "raflow" else _TRAIN_INPUTS
 
 
+def check_nan(what: str, named: Mapping[str, Optional[Tensor]],
+              group: Group = None) -> None:
+    """Raise ``FloatingPointError`` naming the first floating tensor of
+    ``named`` that holds a NaN (one host read; under a group the flags are
+    summed over the ranks first)."""
+    named = {k: v for k, v in named.items()
+             if v is not None and v.is_floating_point()}
+    if not named:
+        return
+    flags = torch.stack([torch.isnan(v).any() for v in named.values()])
+    flags = flags.float()
+    mesh.pmean_([flags], group)
+    for name, bad in zip(named, flags.tolist()):
+        if bad:
+            raise FloatingPointError(f"nan_check: {what} {name} holds NaN")
+
+
+def _backward(loss: Tensor, nan_check: bool) -> None:
+    """``loss.backward()``; under ``nan_check`` a NaN that anomaly mode
+    finds in the backward raises ``FloatingPointError``."""
+    if not nan_check:
+        loss.backward()
+        return
+    try:
+        loss.backward()
+    except RuntimeError as e:
+        if "nan" not in str(e):
+            raise
+        raise FloatingPointError(f"nan_check: {e}") from e
+
+
 def _optimizer_step(state: TrainState, loss: Tensor,
                     items: Mapping[str, Tensor], keys: Tuple[str, ...],
-                    group: Group) -> Tensor:
+                    group: Group, nan_check: bool = False) -> Tensor:
     """Backward; with a group, the gradients averaged over the ranks (one
     ``all_reduce``); one optimizer step and one schedule step.  Returns the
-    loss items ``keys`` stacked, detached and averaged over the ranks."""
-    loss.backward()
+    loss items ``keys`` stacked, detached and averaged over the ranks.
+    ``nan_check``: the loss items checked before the backward, the
+    gradients after their average."""
+    if nan_check:
+        check_nan("loss item", items, group)
+    _backward(loss, nan_check)
     vec = torch.stack([items[k].detach() for k in keys])
     if group is not None:
         mesh.average_gradients(state.model.parameters(), group)
         mesh.pmean_([vec], group)
+    if nan_check:
+        check_nan("the gradient of", {n: p.grad for n, p in
+                                      state.model.named_parameters()}, group)
     state.optimizer.step()
     state.scheduler.step()
     state.step += 1
@@ -143,7 +190,7 @@ def _optimizer_step(state: TrainState, loss: Tensor,
 def make_train_step(model_name: str, model: torch.nn.Module,
                     calib_projection: np.ndarray,
                     calib_t_camera_radar: np.ndarray, vr_thres: float = 0.3,
-                    group: Group = None
+                    group: Group = None, nan_check: bool = False
                     ) -> Callable[[TrainState, Mapping[str, np.ndarray]],
                                   Dict[str, Tensor]]:
     """Per-batch train step ``(state, batch) -> items`` of a frame-pair
@@ -162,7 +209,7 @@ def make_train_step(model_name: str, model: torch.nn.Module,
 
     ``group``: data parallelism (module docstring).  The batch is then this
     rank's rows, ``model`` was built with the same group, and the items are
-    the means over the ranks."""
+    the means over the ranks.  ``nan_check``: module docstring."""
     keys = _train_inputs(model_name)
     if model_name == "cmflow_t":
         raise ValueError("cmflow_t trains per frame of a mini-clip: use "
@@ -180,10 +227,13 @@ def make_train_step(model_name: str, model: torch.nn.Module,
         if not checked:
             mesh.check_equal_rows(x["pc1"].shape[0], group)
             checked = True
+        if nan_check:
+            check_nan("input", x, group)
         state.optimizer.zero_grad(set_to_none=True)
         loss, items, _ = _frame_loss(model_name, model, x, proj, tcr,
                                      vr_thres, group=group)
-        vec = _optimizer_step(state, loss, items, item_keys, group)
+        vec = _optimizer_step(state, loss, items, item_keys, group,
+                              nan_check)
         return {k: vec[j] for j, k in enumerate(item_keys)}
 
     return step
@@ -193,7 +243,7 @@ def make_train_step_seq(model: torch.nn.Module,
                         calib_projection: np.ndarray,
                         calib_t_camera_radar: np.ndarray,
                         vr_thres: float = 0.3, model_name: str = "cmflow_t",
-                        group: Group = None
+                        group: Group = None, nan_check: bool = False
                         ) -> Callable[[TrainState, Mapping[str, np.ndarray]],
                                       Dict[str, Tensor]]:
     """Mini-clip train step ``(state, clip) -> items`` (reference
@@ -209,7 +259,8 @@ def make_train_step_seq(model: torch.nn.Module,
     ``"raflow"``, as ``model_name`` picks the loss) takes the same per-frame
     steps.  Returns each loss item's mean over the T frames, detached, on
     the device.  ``group``: as :func:`make_train_step`'s, the reduction
-    after each frame's backward; each rank's carry stays on its own rows."""
+    after each frame's backward; each rank's carry stays on its own rows.
+    ``nan_check``: module docstring, for each frame."""
     keys = _train_inputs(model_name)
     device, proj, tcr = _calib(model, calib_projection, calib_t_camera_radar)
     item_keys = rl.LOSS_ITEMS[model_name]
@@ -228,6 +279,8 @@ def make_train_step_seq(model: torch.nn.Module,
         if not checked:
             mesh.check_equal_rows(b, group)
             checked = True
+        if nan_check:
+            check_nan("input", x, group)
         gfeat = torch.zeros((b, model.cfg.prop_width), device=device)
         sums = None
         for i in range(t):
@@ -236,7 +289,8 @@ def make_train_step_seq(model: torch.nn.Module,
             loss, items, gfeat_new = _frame_loss(model_name, model, frame,
                                                  proj, tcr, vr_thres, gfeat,
                                                  group)
-            vec = _optimizer_step(state, loss, items, item_keys, group)
+            vec = _optimizer_step(state, loss, items, item_keys, group,
+                                  nan_check)
             if gfeat_new is not None:
                 gfeat = gfeat_new.detach()
             sums = vec if sums is None else sums + vec
@@ -248,7 +302,8 @@ def make_train_step_seq(model: torch.nn.Module,
 
 def make_eval_step(model_name: str, model: torch.nn.Module,
                    fused: str = "auto",
-                   compute_dtype: torch.dtype = torch.float32) -> Callable:
+                   compute_dtype: torch.dtype = torch.float32,
+                   nan_check: bool = False) -> Callable:
     """Inference step in eval mode (main_util.py:139-142,
     clip_util.py:226-233):
 
@@ -269,7 +324,7 @@ def make_eval_step(model_name: str, model: torch.nn.Module,
     TPU's place).  ``compute_dtype`` (float32 or bfloat16) is the fused
     engine's; the module route ignores it and serves in the model's own
     compute dtype (``build_model(..., compute_dtype=)``), as the JAX
-    package's ``model.apply`` does."""
+    package's ``model.apply`` does.  ``nan_check``: module docstring."""
     if model_name not in MODEL_REGISTRY:
         raise ValueError(f"unknown model {model_name!r}")
     if fused not in _FUSED:
@@ -287,6 +342,9 @@ def make_eval_step(model_name: str, model: torch.nn.Module,
         x = {k: _to_device(batch[k], device) for k in keys}
         args = (x["pc1"], x["pc2"], x["ft1"], x["ft2"])
         masks = (x["valid1"], x["valid2"])
+        if nan_check:
+            check_nan("input", {**x, **{f"carry {i}": c
+                                        for i, c in enumerate(carry)}})
         with torch.inference_mode():
             if use_fused:
                 extra = (x["interval"],) if raflow else ()
@@ -297,8 +355,11 @@ def make_eval_step(model_name: str, model: torch.nn.Module,
                 out = model(*args, *extra, False, *carry, *masks)
             if raflow:
                 _, sf_agg, pre_trans, mask_s = out
-                return sf_agg, mask_s.float(), pre_trans, mask_s
-            return out
+                out = sf_agg, mask_s.float(), pre_trans, mask_s
+        if nan_check:
+            check_nan("prediction", {f"output {i}": o
+                                     for i, o in enumerate(out)})
+        return out
 
     step.fused = use_fused
     return step

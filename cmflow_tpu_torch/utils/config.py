@@ -8,9 +8,10 @@ and :func:`parse_flat_yaml` reads that subset and nothing else: ints, floats,
 resolved as PyYAML's ``safe_load`` resolves it.  Anything outside the subset
 raises, so a recipe is never read differently from the JAX package.
 
-Fields whose behaviour the port does not have yet raise
-``NotImplementedError`` when set to anything but their default, naming the
-``ROADMAP.md`` item that ports them.
+Fields that take a fixed set of values raise ``ValueError`` on any other
+when the config is made: ``remat`` (False, True or ``"dots"``, as the JAX
+package's ``remat_wrap`` checks it), ``platform``, ``fused_inference``,
+``eval_wire`` and the compute dtypes.
 """
 
 from __future__ import annotations
@@ -22,6 +23,15 @@ from typing import Any, Dict, Optional
 import torch
 
 from cmflow_tpu_torch.utils.device import resolve_device
+
+
+def check_remat(remat) -> None:
+    """Raise ``ValueError`` unless ``remat`` is False (or falsy), True or
+    ``"dots"``, as the JAX package's ``remat_wrap`` does: a typo such as
+    ``"dot"`` or ``"on"`` must not select full recomputation."""
+    if remat and remat is not True and remat != "dots":
+        raise ValueError(
+            f"remat must be False, True, or 'dots'; got {remat!r}")
 
 
 @dataclasses.dataclass
@@ -45,14 +55,19 @@ class Config:
     data_parallel: bool = True  # one process per card (parallel/mesh.py)
     platform: str = "auto"  # auto: the GPU; cpu: the CPU
     compute_dtype: str = "float32"
+    # recompute the encoder branches and the cost volume in the backward:
+    # False | True (all of them) | "dots" (keep the neighbour indices, the
+    # gathers and the products; recompute the BatchNorm/activation chains)
     remat: object = False
     fused_inference: str = "auto"  # fused serving engine: auto|on|off
     # eval host->device wire: int16 quantizes each float32 field with >= 32
     # values per frame to a per-frame scale (max|x| / 32767); float32 is
     # lossless.  The same numbers as the JAX package's wire.
     eval_wire: str = "int16"
+    # check every step's inputs, loss items, gradients and predictions for
+    # NaN (FloatingPointError), with autograd's anomaly mode on for the run
     nan_check: bool = False
-    profile_dir: Optional[str] = None
+    profile_dir: Optional[str] = None  # torch.profiler trace of the run
 
     # dataset
     eval: bool = False
@@ -60,7 +75,7 @@ class Config:
     dataset: str = "vodDataset"
     train_set: str = "train"
     dataset_path: str = ""
-    vis: bool = False
+    vis: bool = False  # eval: BEV flow and segmentation PNGs (matplotlib)
     save_res: bool = False
     eval_pad_multiple: int = 128  # bucket granularity without pinned buckets
     # pinned eval shape set: every eval batch pads to one of these N, and a
@@ -84,11 +99,7 @@ class Config:
     checkpoints_dir: str = "checkpoints"
 
     def __post_init__(self):
-        for name, item in _NOT_PORTED.items():
-            if getattr(self, name) != _DEFAULTS[name]:
-                raise NotImplementedError(
-                    f"config {name}={getattr(self, name)!r} is not ported "
-                    f"yet ({item}); leave it at {_DEFAULTS[name]!r}")
+        check_remat(self.remat)
         for name, allowed in _CHOICES.items():
             if getattr(self, name) not in allowed:
                 raise ValueError(f"config {name} must be one of {allowed}, "
@@ -98,12 +109,6 @@ class Config:
         return dataclasses.replace(self, **kw)
 
 
-_NOT_PORTED = {
-    "remat": "ROADMAP Queue 1, item 8",
-    "vis": "ROADMAP Queue 1, item 8",
-    "profile_dir": "ROADMAP Queue 1, item 8",
-    "nan_check": "ROADMAP Queue 1, item 8",
-}
 _DEFAULTS = {f.name: f.default for f in dataclasses.fields(Config)}
 _CHOICES = {"platform": ("auto", "cpu"),
             "fused_inference": ("auto", "on", "off"),

@@ -1288,3 +1288,146 @@ def _leaves(tree, prefix=""):
             yield from _leaves(value, f"{prefix}{key}/")
         else:
             yield prefix + key, value
+
+
+# --------------------------------------------------------------------------
+# farthest-point sampling (csrc/sampling.cu), the PointNet++ modules and
+# recomputation on the card
+
+def unit_sphere(rs, b, n, dev):
+    x = rs.randn(b, n, 3)
+    x /= np.linalg.norm(x, axis=-1, keepdims=True)
+    return torch.from_numpy(x.astype(np.float32)).to(dev)
+
+
+@pytest.mark.parametrize("b,n,npoint", [
+    (16, 1024, 512), (16, 256, 64), (3, 50, 128), (2, 2048, 300),
+    (2, 5000, 200), (1, 1, 4), (4, 700, 700)])
+def test_farthest_point_sample(dev, rs, b, n, npoint):
+    """Bit for bit against the plain version, in and past the register
+    capacity (2,048 points a block, then global scratch), with more samples
+    than points; one kernel a call; the same bits twice."""
+    from cmflow_tpu_torch.ops import sampling
+
+    xyz = unit_sphere(rs, b, n, dev)
+    before = sampling.farthest_point_sample.launches
+    got = sampling.farthest_point_sample(xyz, npoint)
+    assert sampling.farthest_point_sample.launches == before + 1
+    same(got, sampling.farthest_point_sample_plain(xyz, npoint))
+    same(got, sampling.farthest_point_sample(xyz, npoint))
+    assert got.dtype == torch.int32 and got.shape == (b, npoint)
+    assert kernels_per_call(
+        lambda: sampling.farthest_point_sample(xyz, npoint)) == 1
+
+
+def test_farthest_point_sample_ties(dev):
+    """Duplicated points at equal distances: the lowest index wins."""
+    from cmflow_tpu_torch.ops import sampling
+
+    xyz = torch.zeros((2, 3000, 3), device=dev)
+    xyz[:, 3:6, 0] = 1.0
+    xyz[:, 2500:2600, 0] = -1.0  # also at distance 1, past the registers
+    xyz[1, 2999] = 2.0
+    got = sampling.farthest_point_sample(xyz, 8)
+    same(got, sampling.farthest_point_sample_plain(xyz, 8))
+    assert got[0, 1].item() == 3 and got[1, 1].item() == 2999
+
+
+def test_farthest_point_sample_rejects(dev):
+    from cmflow_tpu_torch.ops import sampling
+
+    xyz = torch.zeros((2, 8, 3), device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        sampling.farthest_point_sample(xyz.transpose(0, 1).contiguous()
+                                       .transpose(0, 1), 4)
+    with pytest.raises(TypeError):
+        sampling.farthest_point_sample(xyz.double(), 4)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_three_nn_on_card(dev, rs, masked):
+    """Indices (K2) and distances (K6 and the pair expression) bit for bit
+    against the plain version on the card, ``knn_with_dists`` (the full
+    distance matrix sorted) and its correctly rounded square root, and
+    against ``three_nn`` on the CPU."""
+    query = cloud(rs, 4, 300, dev, 4.0)
+    points = cloud(rs, 4, 80, dev, 4.0)
+    valid = valid_mask(rs, 4, 80, dev) if masked else None
+    d, idx = pointops.three_nn(query, points, valid)
+    d2, kidx = pointops.knn_with_dists(3, query, points, valid)
+    same(idx, kidx)
+    same(d, pointops.sqrt_rn(torch.clamp_min(d2, 0.0)))
+    cd, cidx = pointops.three_nn(query.cpu(), points.cpu(),
+                                 None if valid is None else valid.cpu())
+    same(idx.cpu(), cidx)
+    same(d.cpu(), cd)
+
+
+def test_sqrt_rn_on_card(dev, rs):
+    """``sqrt_rn`` on the card equals numpy's correctly rounded float32
+    square root, where the card's ``torch.sqrt`` need not."""
+    x = (rs.rand(1_000_000) * 100).astype(np.float32)
+    got = pointops.sqrt_rn(torch.from_numpy(x).to(dev))
+    same(got.cpu(), torch.from_numpy(np.sqrt(x)))
+
+
+def test_pointnet2_modules_on_card(dev, rs):
+    """SetAbstraction (npoint, group-all) and FeaturePropagation, train-mode
+    forward and backward, against the same modules on the CPU at the train
+    bars: outputs 1e-4, running statistics 1e-5, gradients relative L2
+    3e-2 a leaf."""
+    from cmflow_tpu_torch.nn import extras
+
+    gen = torch.Generator().manual_seed(3)
+    mods = torch.nn.ModuleDict(dict(
+        sa1=extras.SetAbstraction(128, 0.3, 16, 0, (32, 32, 64)),
+        sa2=extras.SetAbstraction(None, None, None, 64, (64, 128)),
+        fp=extras.FeaturePropagation(64, (64, 32))))
+    blocks.init_parameters(mods, gen)
+    card = copy.deepcopy(mods).to(dev)
+    xyz = unit_sphere(rs, 4, 512, dev)
+    outs = []
+    for m, x in ((card, xyz), (mods, xyz.cpu())):
+        l1_xyz, l1 = m["sa1"](x, None, True)
+        _, l2 = m["sa2"](l1_xyz, l1, True)
+        up = m["fp"](x, l1_xyz, None, l1, True)
+        (l2.sum() + (up * up).sum()).backward()
+        outs.append((l1_xyz.cpu(), l1.detach().cpu(), l2.detach().cpu(),
+                     up.detach().cpu()))
+    same(outs[0][0], outs[1][0])  # the same samples
+    for a, b in zip(outs[0][1:], outs[1][1:]):
+        assert (a - b).abs().max() <= 1e-4
+    for (k, a), (_, b) in zip(card.state_dict().items(),
+                              mods.state_dict().items()):
+        assert (a.cpu() - b).abs().max() <= 1e-5, k
+    for (k, a), (_, b) in zip(card.named_parameters(),
+                              mods.named_parameters()):
+        rel = (a.grad.cpu() - b.grad).norm() / b.grad.norm()
+        assert rel <= 3e-2, (k, float(rel))
+
+
+def test_remat_modes_on_card(dev):
+    """A CMFlow train step in each remat mode: the bits of remat False, and
+    "dots" with the gathers of False."""
+    batch = make_train_batch(4, 16, 256)
+    runs = {}
+    for mode in (False, True, "dots"):
+        model = CMFlow(remat=mode)
+        blocks.init_parameters(model, torch.Generator().manual_seed(6))
+        model.to(dev)
+        state = create_train_state(model)
+        step = make_train_step("cmflow", model, VOD_CAMERA_PROJECTION,
+                               VOD_T_CAMERA_RADAR)
+        before = fused.gather_rows.launches
+        items = step(state, batch)
+        torch.cuda.synchronize()
+        runs[mode] = ({k: float(v) for k, v in items.items()},
+                      {k: v.detach().cpu() for k, v in
+                       model.state_dict().items()},
+                      fused.gather_rows.launches - before)
+    for mode in (True, "dots"):
+        assert runs[mode][0] == runs[False][0]
+        for k, v in runs[False][1].items():
+            assert torch.equal(v, runs[mode][1][k]), (mode, k)
+    assert runs["dots"][2] == runs[False][2] == 17
+    assert runs[True][2] > 17

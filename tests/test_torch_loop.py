@@ -138,17 +138,18 @@ def test_flat_yaml_rejects_the_rest(text):
     ("nan_check", True),
 ])
 def test_unported_fields_raise(field, value):
-    """Fields the port does not have yet raise, naming their ROADMAP item.
-    ``eval_compute_dtype`` and ``compute_dtype`` bfloat16 are ported (bf16
-    serving, bf16 training): each loads, and a dtype outside (float32,
-    bfloat16) raises."""
-    if field in ("compute_dtype", "eval_compute_dtype"):
-        assert getattr(config.Config(**{field: value}), field) == value
+    """The fields that once raised ``NotImplementedError`` are all ported
+    now: each loads the JAX package's value, and a value outside a field's
+    choices raises ``ValueError`` (a dtype outside float32 and bfloat16, a
+    ``remat`` outside False, True and "dots", as ``remat_wrap`` raises)."""
+    assert getattr(config.Config(**{field: value}), field) == value
+    jax_value = getattr(jconfig.Config(**{field: value}), field)
+    assert jax_value == value
+    bad = {"compute_dtype": "float16", "eval_compute_dtype": "float16",
+           "remat": "dot"}.get(field)
+    if bad is not None:
         with pytest.raises(ValueError, match=field):
-            config.Config(**{field: "float16"})
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        config.Config(**{field: value})
+            config.Config(**{field: bad})
 
 
 def test_platform_choices():

@@ -81,7 +81,14 @@ Run from the repository root on a machine with a CUDA GPU and nvcc.  Steps:
    timed), and the cost volume's second kernel, both arms, to its plain
    version and to itself bit for bit at one B=16, N=384 cloud with k=33,
    past the first kernel's K <= 32, masked, some indices out of range (not
-   timed);
+   timed).  Past the limits these kernels once had (no route reaches
+   them): kNN at k = 65 and 128 (a block per query; beside ``torch.topk``
+   at the same k), the ball query with eight radii (two launches), the
+   gather's backward at C = 515 and 2,052 in float32 and 8,192 in bf16
+   (beside ``index_add_``): each held to its plain version at its bar and
+   to itself bit for bit, its launches a call counted, and timed by CUDA
+   graph replays; printed on a ``lifted`` line and in its kernel's row of
+   the kernels line;
 7. train: a full-width CMFlow with seeded random weights takes train steps
    (``make_train_step``) on one synthetic B=16, N=256 batch
    (``make_train_batch``, VoD calibration).  The first step is taken on the
@@ -154,7 +161,9 @@ Run from the repository root on a machine with a CUDA GPU and nvcc.  Steps:
    around replays of a CUDA graph of 20 calls (whose nodes also count its
    kernels a call: one), not by the profiler; its bound the bytes at
    3.35 TB/s and ten float32 operations per point and step at 67 TFLOP/s,
-   though the npoint dependent block-wide argmax steps are what limit it;
+   though the npoint dependent steps, each an argmax over the cloud, are
+   what limit it (``scripts/profile_torch_fps.py`` times each block size
+   and another checkout's FPS in one call);
    then one train-mode forward and backward of PointNet++ SSG at its
    published widths (SA 512/0.2/32 [64,64,128], SA 128/0.4/64
    [128,128,256], group-all [256,512,1024], FP [256,128] from level 2 to
@@ -426,6 +435,16 @@ KERNELS_PER_CALL = {"gather_bwd": (2, 2), "gather_bwd.bf16": (2, 2),
                     "mse.bf16": (1, 2)}
 # one cloud above the 2048 points the neighbour kernels stage at a time
 LARGE_N = 4096
+# shapes past the limits the kernels once had, which no route reaches: kNN
+# past the warp per query's k <= 64 at (N, k), B=16, every point a query;
+# the ball query with eight radii (two launches of four); the gather's
+# backward past 512 elements of its load type at (C, dtype, B) on the kNN
+# indices (k=8) of a B=16, N=256 cloud
+LIFTED_KNN = ((1024, 128), (256, 65))
+LIFTED_RADII = ((0.5, 1.0, 2.0, 3.0, 4.0, 6.0, 8.0, 16.0),
+                (4, 4, 8, 8, 16, 16, 32, 32))
+LIFTED_BWD = ((515, torch.float32, 16), (2052, torch.float32, 16),
+              (8192, BF16, 4))
 # the route whose forward (train step) each kernel's summary describes
 SUMMARY_PATH = {"ball_query": "fused", "knn": "fused", "gather": "module",
                 "mse": "fused", "cv": "fused", "cv_agg": "fused",
@@ -1143,6 +1162,90 @@ def check_bf16_tc_any_k(model, dev, gen: torch.Generator) -> None:
     emit(dict(bf16_tc_any_k=dict(batch=B, num_points=n, **row)))
 
 
+def lifted_cases(dev, gen: torch.Generator) -> list:
+    """The LIFTED_* shapes as check_kernels cases, each with the launches
+    one call of its wrapper must make."""
+    cases = []
+    for n, k in LIFTED_KNN:
+        pc = (20.0 * torch.rand((B, n, 3), generator=gen)).to(dev)
+        valid = (torch.rand((B, n), generator=gen) > 0.2).to(dev)
+        dist = neighbors.masked_square_distance(pc, pc, valid)
+        cases.append(dict(
+            kernel="knn", path="lifted",
+            shape=f"B={B} N={n} k={k} masked (block per query)", mult=0,
+            run=lambda pc=pc, v=valid, k=k: neighbors.knn(k, pc, pc, v),
+            plain=lambda pc=pc, v=valid, k=k: neighbors.knn_plain(
+                k, pc, pc, v),
+            library=lambda dist=dist, k=k: torch.topk(dist, k,
+                                                      largest=False),
+            nbytes=B * n * (3 * 4 + 1) + B * n * k * 4,
+            flops=PAIR_FLOPS * B * n * n, graph_timed=True, same_bits=True,
+            launches=1))
+    radii, ks = LIFTED_RADII
+    n = 256
+    pc = (20.0 * torch.rand((B, n, 3), generator=gen)).to(dev)
+    valid = (torch.rand((B, n), generator=gen) > 0.2).to(dev)
+    pairs = sum(ball_scan_pairs(radii[g:g + 4], ks[g:g + 4], pc, valid)
+                for g in range(0, len(radii), 4))
+    cases.append(dict(
+        kernel="ball_query", path="lifted",
+        shape=f"B={B} N={n} {len(radii)} radii K={ks} masked", mult=0,
+        run=lambda: neighbors.ball_query_multi(radii, ks, pc, pc, valid),
+        plain=lambda: neighbors.ball_query_multi_plain(radii, ks, pc, pc,
+                                                       valid),
+        nbytes=B * n * (3 * 4 + 1) + B * n * sum(ks) * 4,
+        flops=PAIR_FLOPS * pairs, graph_timed=True, same_bits=True,
+        launches=2))
+    idx = neighbors.knn(8, pc, pc, valid)
+    for c, dtype, b in LIFTED_BWD:
+        flat = idx[:b].reshape(b, -1).contiguous()
+        m = flat.shape[1]
+        g = torch.randn((b, m, c), generator=gen).to(dev).to(dtype)
+        rows = (flat.long() + n * torch.arange(b, device=dev)[:, None]
+                ).reshape(-1)
+        g_rows = g.reshape(b * m, c)
+        bf16 = dtype == BF16
+        cases.append(dict(
+            kernel="gather_bwd.bf16" if bf16 else "gather_bwd",
+            path="lifted", shape=f"B={b} N={n} M={m} C={c} {dtype}", mult=0,
+            run=lambda g=g, flat=flat: fused.gather_rows_backward(g, flat, n),
+            plain=lambda g=g, flat=flat: fused.gather_rows_backward_plain(
+                g, flat, n),
+            # index_add_ in float32 (then one cast for bf16)
+            library=lambda rows=rows, g_rows=g_rows, c=c, b=b: torch.zeros(
+                (b * n, c), device=dev).index_add_(
+                    0, rows, g_rows.float()).to(g_rows.dtype),
+            nbytes=g.element_size() * (b * m * c + b * n * c) + 4 * b * m,
+            flops=b * m * c, graph_timed=True, launches=1))
+    return cases
+
+
+def check_lifted(dev, gen: torch.Generator) -> dict:
+    """Every LIFTED_* case: its wrapper's launches a call, then
+    check_kernels; prints a ``lifted`` line; returns {kernel: rows}."""
+    cases = lifted_cases(dev, gen)
+    for case in cases:
+        wrapper = wrapper_of(case["kernel"])
+        before = wrapper.launches
+        case["run"]()
+        require(wrapper.launches - before == case["launches"],
+                f"{case['kernel']} {case['shape']}: "
+                f"{wrapper.launches - before} launches a call, not "
+                f"{case['launches']}")
+    rows = check_kernels(cases, False, {})
+    out = {}
+    for case, row in zip(cases, rows):
+        out.setdefault(case["kernel"], []).append(dict(
+            shape=row["shape"], launches_per_call=case["launches"],
+            kernels_per_call=row["kernels_per_call"], ms=row["kernel_ms"],
+            plain_ms=row["plain_ms"], library_ms=row["library_ms"],
+            bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+            share_of_bound=row["share_of_bound"],
+            max_abs_err=row["max_abs_err"], same_bits=True))
+    emit(dict(lifted=out))
+    return out
+
+
 def hold_to_plain(case) -> tuple:
     """Hold one case's kernel to its plain version at its bar (and to
     itself bit for bit where it must be); returns (max abs error, the plain
@@ -1176,11 +1279,12 @@ def hold_to_plain(case) -> tuple:
         require(err <= FUSED_ATOL and err <= FUSED_RTOL * scale,
                 f"{name} {case['shape']}: kernel and plain version "
                 f"differ by {err} at a largest magnitude of {scale}")
-    if name in SAME_BITS:
+    if name in SAME_BITS or case.get("same_bits"):
         again = case["run"]()
         torch.cuda.synchronize()
-        require(torch.equal(got, again), f"{name} {case['shape']}: two "
-                                         f"runs differ")
+        pairs = zip(got, again) if isinstance(got, tuple) else [(got, again)]
+        require(all(torch.equal(a, b) for a, b in pairs),
+                f"{name} {case['shape']}: two runs differ")
     if "csr" in case:  # K7's first kernel alone, exactly
         for a, b in zip(case["csr"](), case["csr_plain"]()):
             require(torch.equal(a, b), f"{name} {case['shape']}: "
@@ -1189,10 +1293,11 @@ def hold_to_plain(case) -> tuple:
     return err, scale
 
 
-def check_kernels(cases, first: bool, per_forward: dict) -> None:
+def check_kernels(cases, first: bool, per_forward: dict) -> list:
     """Hold each case to its plain version, time it, print it, and sum the
     first request's cases per forward or step of their route into
-    ``per_forward[(kernel, route)]``."""
+    ``per_forward[(kernel, route)]``; returns the printed rows."""
+    rows = []
     for case in cases:
         name = case["kernel"]
         err, scale = hold_to_plain(case)
@@ -1228,6 +1333,7 @@ def check_kernels(cases, first: bool, per_forward: dict) -> None:
         row.update(shares(row, row["kernel_ms"]))
         row["launches_per_forward"] = case["mult"]
         emit(row)
+        rows.append(row)
         if not first:
             continue
         acc = per_forward.setdefault((name, case["path"]), dict(
@@ -1247,6 +1353,7 @@ def check_kernels(cases, first: bool, per_forward: dict) -> None:
             acc["has_library"] = False
         else:
             acc["library_ms"] += mult * row["library_ms"]
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -3313,6 +3420,7 @@ def main() -> int:
         check_large_cloud(dev, gen)
         check_cv_agg_any_k(model, dev, gen)
         check_bf16_tc_any_k(model, dev, gen)
+        lifted = check_lifted(dev, gen)
     emit(dict(kernel_phase_s=time.perf_counter() - t0))
 
     def fused_checks(req, out):
@@ -3513,8 +3621,10 @@ def main() -> int:
                                    for m, r in remat["modes"].items()}
         if name == "fps":
             # the bound counts each step's arithmetic; the npoint dependent
-            # steps, each a block-wide argmax, are what limit it
-            entry["limited_by"] = "npoint dependent block-wide argmax steps"
+            # steps, each an argmax over the cloud, are what limit it
+            entry["limited_by"] = "npoint dependent steps, each an argmax"
+        if name in lifted:  # shapes past the kernel's old limits
+            entry["lifted"] = lifted[name]
         # the kernel on each route measured: per forward (per train step)
         routes = {p: a for (n, p), a in per_forward.items() if n == name}
         if len(routes) > 1:

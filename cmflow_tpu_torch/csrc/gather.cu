@@ -73,8 +73,11 @@
 //     loaded at once, each group sums its entries of a run in ascending i,
 //     and the groups combine by a fixed xor-shuffle tree, so all 32 lanes
 //     carry data.  Wider rows take all 32 lanes, up to 64 elements of T a
-//     warp (a C=512 piece is two warps), and stream through the piece eight
-//     rows at a time, adding in sorted order.  A warp that wrote a partial
+//     warp (a C=512 piece is two warps; a row of any width is one warp per
+//     64-element column slice, ceil(C/64) warps a piece in the grid, each
+//     slice with tickets of its own), and stream through the piece eight
+//     rows at a time, adding in sorted order.  A column's sum is the same
+//     whichever slice takes it.  A warp that wrote a partial
 //     takes a ticket of its row (an atomicAdd after a release fence); the
 //     warp that takes the row's last ticket adds its partials in piece order
 //     (its first piece's slot 1, then slot 0 of each later one) and writes
@@ -288,8 +291,6 @@ constexpr int kCsrClusterBins = 2048;    // the most bins a cluster scans
 constexpr int kPiece = 32;               // sorted entries per warp of the sum
 constexpr int kSumWarps = 4;             // pieces per block of the sum
 constexpr int kSumBatch = 8;             // rows in flight, wide sum warp
-constexpr int kBwdMaxElems = 512;  // elements of T per row: float C <= 2048,
-                                   // bf16 C <= 4096 (8 a uint4)
 
 // the bin of an index: its row, or n (discarded) outside [0, n)
 __device__ __forceinline__ int bin_of(int j, int n) {
@@ -436,7 +437,9 @@ gather_rows_backward_csr_kernel(const int* __restrict__ idx,
   // the block of the row's rank modulo the cluster, a warp a row
   if (out != nullptr) {
     for (int r = rank + cluster * w; r < n; r += cluster * warps) {
-      if (lane < slices) tickets[((int64_t)b * n + r) * slices + lane] = 0;
+      for (int u = lane; u < slices; u += 32) {
+        tickets[((int64_t)b * n + r) * slices + u] = 0;
+      }
       if (wc[r] < 0) {
         zero_row(out + ((int64_t)b * n + r) * row_bytes, row_bytes, lane);
       }
@@ -844,9 +847,8 @@ int cmflow_gather_rows_backward_slices(int elems) {
 // Scratch: offsets [B,N+1] and order [B,M] int32, the CSR build's scratch
 // as above, part [B, ceil(M/32), 2, C] f32, tickets [B, N, S] int32 (S from
 // cmflow_gather_rows_backward_slices).  vec4 != 0 asks for the float4 path:
-// C % 4 == 0 and g, part and out 16-byte aligned.  C may be at most 512
-// (scalar path) or 2048 (float4 path).  Two launches; returns a
-// cudaError_t.
+// C % 4 == 0 and g, part and out 16-byte aligned.  Any C.  Two launches;
+// returns a cudaError_t.
 int cmflow_gather_rows_backward(const void* g, const void* idx, void* offsets,
                                 void* order, void* scratch, void* part,
                                 void* tickets, void* out, int b, int n, int m,
@@ -855,7 +857,6 @@ int cmflow_gather_rows_backward(const void* g, const void* idx, void* offsets,
     return (int)cudaErrorInvalidValue;
   }
   const int elems = vec4 ? c / 4 : c;
-  if (elems > kBwdMaxElems) return (int)cudaErrorInvalidValue;
   if (b == 0) return (int)cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* it = static_cast<const int*>(idx);
@@ -874,9 +875,8 @@ int cmflow_gather_rows_backward(const void* g, const void* idx, void* offsets,
 // g [B,M,C] bf16, idx [B,M] int32, out [B,N,C] bf16: the float32 arm's
 // sums in float32, each row rounded to bf16 once.  Scratch as above, part
 // [B, ceil(M/32), 2, C] float32.  vec8 != 0 asks for the 8-bf16 path: C % 8
-// == 0 and g, out 16-byte aligned (part always is).  C may be at most 512
-// (single bf16) or 4096 (8-bf16 path).  Two launches; returns a
-// cudaError_t.
+// == 0 and g, out 16-byte aligned (part always is).  Any C.  Two launches;
+// returns a cudaError_t.
 int cmflow_gather_rows_backward_bf16(const void* g, const void* idx,
                                      void* offsets, void* order, void* scratch,
                                      void* part, void* tickets, void* out,
@@ -886,7 +886,6 @@ int cmflow_gather_rows_backward_bf16(const void* g, const void* idx,
     return (int)cudaErrorInvalidValue;
   }
   const int elems = vec8 ? c / 8 : c;
-  if (elems > kBwdMaxElems) return (int)cudaErrorInvalidValue;
   if (b == 0) return (int)cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* it = static_cast<const int*>(idx);

@@ -34,6 +34,21 @@
 //    heads (five xor shuffles) pop the k best in order: ascending d^2, ties
 //    to the lower index (lax.top_k semantics).  Lane t keeps slots t and
 //    t + 32 and the warp stores them together.
+//  * kNN past k = 64 (knn_select_kernel): one block per query.  Each point's
+//    key is (d^2 bits << 32 | j): a distance is >= 0, so its bits order as
+//    the floats do, and the keys are distinct and order as lax.top_k does
+//    (ascending d^2, ties to the lower index, invalid points at BIG last in
+//    index order).  The block computes the row's distances once into shared
+//    memory (up to kSelStage points; past that it computes them again on
+//    every pass).  The k smallest keys go out in windows of kSelWindow
+//    ranks: for a window's upper end r, a radix select on the key, eight
+//    bits a pass from the top (a shared-memory histogram, a warp's scan of
+//    its 256 bins), finds a bound with exactly r keys below it; it stops as
+//    soon as the rank falls on the first key of a bin (after the distance's
+//    four bytes when that distance is unique), and otherwise goes on into
+//    the index's bytes.  The keys between the window's two bounds (exactly
+//    its ranks) are gathered into shared memory, sorted there (bitonic) and
+//    stored.  k <= 64 takes the warp per query above.
 //
 // Squared distances must be bit-identical to the plain PyTorch version and to
 // the JAX package: cross = (x*x' + y*y') + z*z', d = max((-2*cross + q2) + p2,
@@ -49,6 +64,9 @@ constexpr float kBig = 1e10f;   // distance of an invalid point (pointops._BIG)
 constexpr int kWarps = 8;       // queries per block, one warp each
 constexpr int kMaxScales = 4;   // radii per ball-query launch
 constexpr int kTile = 2048;     // points staged in shared memory at a time
+constexpr int kSelThreads = 256;   // threads of a kNN-select block (a query)
+constexpr int kSelWindow = 2048;   // ranks sorted in shared memory at a time
+constexpr int kSelStage = 16384;   // distances kept in shared memory (64 KB)
 
 struct Scales {
   int count;
@@ -290,6 +308,167 @@ __global__ void __launch_bounds__(kWarps * 32)
   if (lane + 32 < k) out[row * k + lane + 32] = slot_hi;
 }
 
+// A bound on the kNN-select keys: the keys below it are those whose top
+// 64 - shift bits are less than `prefix`; shift -1 has no key below it
+// and shift 64 every key.
+struct Bound {
+  unsigned long long prefix;
+  int shift;
+};
+
+__device__ __forceinline__ bool below(unsigned long long key, Bound bd) {
+  if (bd.shift < 0) return false;
+  if (bd.shift >= 64) return true;
+  return (key >> bd.shift) < bd.prefix;
+}
+
+// The row's squared distance of point i: staged in shared memory, or from
+// the cloud (the same operations as stage_tile and sqdist).
+__device__ __forceinline__ float select_dist(
+    const float* __restrict__ points, const uint8_t* __restrict__ valid,
+    int b, int n, const float* sd, int i, float qx, float qy, float qz,
+    float q2) {
+  if (sd != nullptr) return sd[i];
+  const int64_t j = (int64_t)b * n + i;
+  if (valid != nullptr && !valid[j]) return kBig;
+  const float* p = points + j * 3;
+  const float x = p[0], y = p[1], z = p[2];
+  return sqdist(qx, qy, qz, q2, make_float4(x, y, z, norm2(x, y, z)));
+}
+
+__device__ __forceinline__ unsigned long long select_key(float d, int i) {
+  return ((unsigned long long)__float_as_uint(d) << 32) | (unsigned)i;
+}
+
+// One block per (query q = blockIdx.x, element b = blockIdx.y): the k
+// nearest points, k > 64.  Dynamic shared memory: the window's keys
+// (pow2 >= min(k, kSelWindow) of them), then the row's distances when
+// n <= kSelStage.
+__global__ void __launch_bounds__(kSelThreads)
+    knn_select_kernel(const float* __restrict__ points,
+                      const float* __restrict__ query,
+                      const uint8_t* __restrict__ valid, int n, int s, int k,
+                      int window, int* __restrict__ out) {
+  extern __shared__ unsigned long long skeys[];
+  __shared__ unsigned hist[256];
+  __shared__ unsigned s_digit, s_below, s_count;
+  float* sd = n <= kSelStage ? reinterpret_cast<float*>(skeys + window)
+                             : nullptr;
+  const int b = blockIdx.y, q = blockIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int64_t row = (int64_t)b * s + q;
+  const float qx = query[row * 3], qy = query[row * 3 + 1],
+              qz = query[row * 3 + 2];
+  const float q2 = norm2(qx, qy, qz);
+  if (sd != nullptr) {
+    for (int i = tid; i < n; i += kSelThreads) {
+      sd[i] = select_dist(points, valid, b, n, nullptr, i, qx, qy, qz, q2);
+    }
+  }
+  __syncthreads();
+  // the index's bytes that can be non-zero: j < n
+  int jbits = 8;
+  while (jbits < 32 && (n - 1) >> jbits) jbits += 8;
+
+  Bound lo = {0ull, -1};
+  for (int r0 = 0; r0 < k; r0 += kSelWindow) {
+    const int r1 = min(r0 + kSelWindow, k);
+    // the bound with exactly r1 keys below it
+    Bound hi = {0ull, 64};
+    if (r1 < n) {
+      unsigned long long prefix = 0ull;
+      int shift = 64;
+      unsigned need = (unsigned)r1;  // rank among the keys under `prefix`
+      while (true) {
+        // after the distance's bytes, only the index's low jbits remain
+        const int next = shift == 32 ? jbits - 8 : shift - 8;
+        if (shift == 32) prefix <<= 32 - jbits;
+        shift = next;
+        for (int i = tid; i < 256; i += kSelThreads) hist[i] = 0u;
+        __syncthreads();
+        for (int i = tid; i < n; i += kSelThreads) {
+          const unsigned long long key = select_key(
+              select_dist(points, valid, b, n, sd, i, qx, qy, qz, q2), i);
+          if (shift + 8 >= 64 || (key >> (shift + 8)) == prefix) {
+            atomicAdd(&hist[(unsigned)(key >> shift) & 255u], 1u);
+          }
+        }
+        __syncthreads();
+        // the bin in which rank `need` falls, by warp 0: lane l scans bins
+        // 8l .. 8l + 7 after the counts of the lanes below it
+        if (tid < 32) {
+          unsigned c[8], sum = 0u;
+#pragma unroll
+          for (int u = 0; u < 8; ++u) {
+            c[u] = hist[8 * lane + u];
+            sum += c[u];
+          }
+          unsigned inc = sum;
+#pragma unroll
+          for (int off = 1; off < 32; off <<= 1) {
+            const unsigned v = __shfl_up_sync(0xffffffffu, inc, off);
+            if (lane >= off) inc += v;
+          }
+          unsigned run = inc - sum;
+          if (run <= need && need < inc) {
+#pragma unroll
+            for (int u = 0; u < 8; ++u) {
+              if (run <= need && need < run + c[u]) {
+                s_digit = 8 * lane + u;
+                s_below = run;
+              }
+              run += c[u];
+            }
+          }
+        }
+        __syncthreads();
+        prefix = (prefix << 8) | s_digit;
+        need -= s_below;
+        // need == 0: the bound is the least key under `prefix`, and the
+        // keys below it are exactly those whose prefix is smaller
+        if (need == 0u) break;
+      }
+      hi = Bound{prefix, shift};
+    }
+    // the keys in [lo, hi), exactly ranks r0 .. r1 - 1, in any order
+    if (tid == 0) s_count = 0u;
+    __syncthreads();
+    for (int i = tid; i < n; i += kSelThreads) {
+      const unsigned long long key = select_key(
+          select_dist(points, valid, b, n, sd, i, qx, qy, qz, q2), i);
+      if (below(key, hi) && !below(key, lo)) {
+        skeys[atomicAdd(&s_count, 1u)] = key;
+      }
+    }
+    const int w = r1 - r0;
+    int size = 1;
+    while (size < w) size <<= 1;
+    __syncthreads();
+    for (int i = w + tid; i < size; i += kSelThreads) skeys[i] = ~0ull;
+    __syncthreads();
+    // bitonic sort of `size` keys, ascending
+    for (int len = 2; len <= size; len <<= 1) {
+      for (int stride = len >> 1; stride > 0; stride >>= 1) {
+        for (int t = tid; t < size / 2; t += kSelThreads) {
+          const int i = 2 * t - (t & (stride - 1));
+          const int j = i + stride;
+          const unsigned long long a = skeys[i], c = skeys[j];
+          if ((a > c) == ((i & len) == 0)) {
+            skeys[i] = c;
+            skeys[j] = a;
+          }
+        }
+        __syncthreads();
+      }
+    }
+    for (int t = tid; t < w; t += kSelThreads) {
+      out[row * k + r0 + t] = (int)(unsigned)(skeys[t] & 0xffffffffull);
+    }
+    __syncthreads();  // the window's keys are read before the next's land
+    lo = hi;
+  }
+}
+
 size_t tile_smem_bytes(int n) {
   const size_t tile = (size_t)(n < kTile ? n : kTile);
   return tile * sizeof(float4) + tile * sizeof(uint8_t);
@@ -309,7 +488,8 @@ cudaError_t launch_knn(const float* points, const float* query,
 
 extern "C" {
 
-// Ball query for up to four radii in one scan.
+// Ball query for up to four radii in one scan (the wrapper launches once
+// per four radii: eight in one scan took 64 registers against 40).
 //   points [B,N,3] f32, query [B,S,3] f32, valid [B,N] u8 or null,
 //   radii2[i] = r_i * r_i rounded to f32, ks[i] = slots of radius i,
 //   outs[i] = [B,S,ks[i]] int32.  Returns a cudaError_t.
@@ -335,11 +515,12 @@ int cmflow_ball_query(const void* points, const void* query, const void* valid,
   return (int)cudaGetLastError();
 }
 
-// Exact kNN, k <= 64: out [B,S,k] int32, ascending d^2, ties to the lower
-// index.  Returns a cudaError_t.
+// Exact kNN, 1 <= k <= n: out [B,S,k] int32, ascending d^2, ties to the
+// lower index; k <= 64 a warp per query, above a block per query
+// (knn_select_kernel).  Returns a cudaError_t.
 int cmflow_knn(const void* points, const void* query, const void* valid,
                int b, int n, int s, int k, void* out, void* stream) {
-  if (k < 1 || k > 64 || k > n) {
+  if (k < 1 || k > n) {
     return (int)cudaErrorInvalidValue;
   }
   if (b == 0 || s == 0) return (int)cudaSuccess;
@@ -349,6 +530,21 @@ int cmflow_knn(const void* points, const void* query, const void* valid,
   int* o = static_cast<int*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
+  if (k > 64) {
+    int window = 1;
+    while (window < k && window < kSelWindow) window <<= 1;
+    const size_t smem = (size_t)window * sizeof(unsigned long long) +
+                        (n <= kSelStage ? (size_t)n * sizeof(float) : 0);
+    if (smem > 48 * 1024) {
+      err = cudaFuncSetAttribute(knn_select_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)smem);
+      if (err != cudaSuccess) return (int)err;
+    }
+    knn_select_kernel<<<dim3(s, b), kSelThreads, smem, st>>>(p, q, v, n, s, k,
+                                                             window, o);
+    return (int)cudaGetLastError();
+  }
   if (k <= 8) {
     err = launch_knn<8>(p, q, v, b, n, s, k, o, st);
   } else if (k <= 16) {

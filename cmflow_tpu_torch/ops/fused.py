@@ -255,10 +255,6 @@ gather_rows.launches_bf16 = 0
 # K7: the row gather's backward
 # ---------------------------------------------------------------------------
 
-# widest row the K7 kernels take: 512 elements of their load type, float4
-# (2048 channels) or 8 bf16 (4096) on the vector paths, one channel on the
-# scalar ones
-GATHER_BWD_MAX_ELEMS = 512
 # sorted entries per warp of K7's sum kernel (``csrc/gather.cu::kPiece``)
 GATHER_BWD_PIECE = 32
 
@@ -353,7 +349,9 @@ def gather_rows_backward(g: Tensor, idx: Tensor, n: int) -> Tensor:
     exact, the float32 arm's order) and rounds each row to bf16 once.
 
     Args:
-      g: ``[B, M, C]`` float32 or bfloat16 cotangent rows.
+      g: ``[B, M, C]`` float32 or bfloat16 cotangent rows, any ``C`` (a
+        piece's rows are summed by one warp per 64 elements of the load
+        type, each column in the same order whatever the width).
       idx: ``[B, M]`` int32; an index outside ``[0, N)`` contributes nothing.
       n: ``N``, the number of rows of the gathered tensor.
     Returns:
@@ -371,9 +369,6 @@ def gather_rows_backward(g: Tensor, idx: Tensor, n: int) -> Tensor:
     bf16 = g.dtype == torch.bfloat16
     lanes = 8 if bf16 else 4  # elements of the 16-byte load
     vec = c % lanes == 0 and g.data_ptr() % 16 == 0
-    if c > GATHER_BWD_MAX_ELEMS * (lanes if vec else 1):
-        raise ValueError(f"gather_rows_backward: C={c} is wider than the "
-                         f"kernel takes")
     if not g.is_contiguous():
         raise ValueError("gather_rows_backward: the CUDA kernel takes "
                          "contiguous tensors")

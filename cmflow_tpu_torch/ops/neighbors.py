@@ -1,9 +1,12 @@
 """Neighbour search: multi-radius ball query and exact kNN.
 
 Each function is a wrapper around a CUDA kernel (``csrc/neighbors.cu``) with
-its plain PyTorch version beside it.  The kernels stage the cloud through
-shared memory in tiles of 2048 points, so a cloud may have any size.  A
-CUDA tensor goes to the kernel; a CPU tensor goes to the plain version.
+its plain PyTorch version beside it.  The ball query and the kNN for
+k <= 64 stage the cloud through shared memory in tiles of 2048 points; the
+kNN for larger k keeps a query's distances there (up to 16,384 points, then
+computes them again each pass), so a cloud may have any size, and any
+number of radii and any k up to N are taken.  A CUDA tensor goes to the
+kernel; a CPU tensor goes to the plain version.
 Both compute squared distances in the same
 float32 operation order as the JAX package (``cross = (x*x' + y*y') + z*z'``,
 ``d = max((-2*cross + q2) + p2, 0)``), so their neighbour indices are
@@ -28,7 +31,11 @@ Tensor = torch.Tensor
 
 # A finite "infinity" for masked squared distances (pointops._BIG).
 BIG = 1e10
+# radii the ball-query kernel fills in one scan: more go to one launch per
+# group of this many
 MAX_RADII = 4
+# the largest k of the kNN kernel's warp per query; above it a block per
+# query selects the k nearest (``csrc/neighbors.cu::knn_select_kernel``)
 MAX_K = 64
 
 _P = ctypes.c_void_p
@@ -153,15 +160,16 @@ def ball_query_multi(radii: Sequence[float], nsamples: Sequence[int],
     never hits.
 
     Args:
-      radii / nsamples: up to four (radius, K) pairs.
+      radii / nsamples: one or more (radius, K) pairs.  Up to MAX_RADII of
+        them are one launch; more are one launch per group of MAX_RADII.
       points: ``[B, N, 3]`` float32 searched cloud.
       query: ``[B, S, 3]`` float32 ball centres.
       points_valid: optional ``[B, N]`` bool.
     Returns:
       one ``[B, S, K_s]`` int32 tensor per radius.
     """
-    if len(radii) != len(nsamples) or not 1 <= len(radii) <= MAX_RADII:
-        raise ValueError(f"need 1..{MAX_RADII} (radius, K) pairs, got "
+    if len(radii) != len(nsamples) or not radii:
+        raise ValueError(f"need one or more (radius, K) pairs, got "
                          f"{len(radii)} radii and {len(nsamples)} Ks")
     if any(k < 1 for k in nsamples):
         raise ValueError(f"every K must be positive, got {nsamples}")
@@ -173,16 +181,19 @@ def ball_query_multi(radii: Sequence[float], nsamples: Sequence[int],
     s = query.shape[1]
     outs = tuple(torch.empty((b, s, k), dtype=torch.int32,
                              device=points.device) for k in nsamples)
-    count = len(radii)
     lib = build.load("neighbors", _SIGNATURES)
-    code = lib.cmflow_ball_query(
-        points.data_ptr(), query.data_ptr(), _ptr(points_valid), b, n, s,
-        count, (ctypes.c_float * count)(*[radius_sq(r) for r in radii]),
-        (ctypes.c_int * count)(*nsamples),
-        (ctypes.c_void_p * count)(*[o.data_ptr() for o in outs]),
-        torch.cuda.current_stream(points.device).cuda_stream)
-    build.check(lib, code, "ball_query_multi")
-    ball_query_multi.launches += 1
+    for g in range(0, len(radii), MAX_RADII):
+        group = range(g, min(g + MAX_RADII, len(radii)))
+        count = len(group)
+        code = lib.cmflow_ball_query(
+            points.data_ptr(), query.data_ptr(), _ptr(points_valid), b, n, s,
+            count,
+            (ctypes.c_float * count)(*[radius_sq(radii[i]) for i in group]),
+            (ctypes.c_int * count)(*[nsamples[i] for i in group]),
+            (ctypes.c_void_p * count)(*[outs[i].data_ptr() for i in group]),
+            torch.cuda.current_stream(points.device).cuda_stream)
+        build.check(lib, code, "ball_query_multi")
+        ball_query_multi.launches += 1
     return outs
 
 
@@ -193,11 +204,13 @@ def knn(k: int, query: Tensor, points: Tensor,
         points_valid: Optional[Tensor] = None) -> Tensor:
     """Exact k nearest neighbours: ``[B, S, k]`` int32 indices into
     ``points``, ascending squared distance, ties to the lower index; invalid
-    points sit at distance BIG (so they come last, in index order)."""
+    points sit at distance BIG (so they come last, in index order).  Any
+    ``1 <= k <= N``: up to MAX_K a warp per query, above a block per
+    query."""
     _check_cloud(points, query, points_valid)
     n = points.shape[1]
-    if not 1 <= k <= min(n, MAX_K):
-        raise ValueError(f"k must be in [1, min(N, {MAX_K})], got k={k}, N={n}")
+    if not 1 <= k <= n:
+        raise ValueError(f"k must be in [1, N], got k={k}, N={n}")
     if points.device.type == "cpu":
         return knn_plain(k, query, points, points_valid)
     b = points.shape[0]

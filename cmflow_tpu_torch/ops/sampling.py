@@ -26,8 +26,9 @@ INIT_DIST = 1e10
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "cmflow_fps": (_P, _I, _I, _I, _P, _P, _P),
-    "cmflow_fps_register_points": (),
+    "cmflow_fps": (_P, _I, _I, _I, _I, _P, _P, _P),
+    "cmflow_fps_warps": (_I,),
+    "cmflow_fps_register_points": (_I,),
 }
 
 
@@ -53,7 +54,8 @@ def farthest_point_sample(xyz: Tensor, npoint: int) -> Tensor:
     """Iterative farthest-point sampling seeded at index 0: ``[B, npoint]``
     int32 indices into ``xyz`` ``[B, N, 3]`` float32.  Each sample is the
     point farthest from all earlier ones (ties to the lowest index); past N
-    samples the rest repeat index 0, as in the JAX package."""
+    samples the rest repeat index 0, as in the JAX package.  The kernel's
+    warps a cloud are picked by N (``cmflow_fps_warps``)."""
     if xyz.dim() != 3 or xyz.shape[-1] != 3:
         raise ValueError(f"xyz must be [B, N, 3], got {tuple(xyz.shape)}")
     if xyz.dtype != torch.float32:
@@ -69,12 +71,13 @@ def farthest_point_sample(xyz: Tensor, npoint: int) -> Tensor:
     if not xyz.is_contiguous():
         raise ValueError("the CUDA kernel takes a contiguous xyz")
     lib = build.load("sampling", _SIGNATURES)
+    warps = lib.cmflow_fps_warps(n)
     scratch = None
-    if n > lib.cmflow_fps_register_points():
+    if n > lib.cmflow_fps_register_points(warps):
         scratch = torch.empty((b, n), dtype=torch.float32, device=xyz.device)
     out = torch.empty((b, npoint), dtype=torch.int32, device=xyz.device)
     code = lib.cmflow_fps(
-        xyz.data_ptr(), b, n, npoint,
+        xyz.data_ptr(), b, n, npoint, warps,
         None if scratch is None else scratch.data_ptr(), out.data_ptr(),
         torch.cuda.current_stream(xyz.device).cuda_stream)
     build.check(lib, code, "farthest_point_sample")

@@ -337,6 +337,29 @@ def test_gather_backward_widths_and_worst_skew(dev, rs, c):
             assert (got[:2, 1:] == 0).all()
 
 
+# K7 past its old row width of 512 elements of the load type: C=515 on the
+# scalar path (9 column slices of 64), 2052 and 4096 on the float4 path
+# (513 and 1024 float4), with the worst skew and indices outside [0, N):
+# within its bar of the plain version, the same bits twice, the plain
+# version's bits on exact cotangents, two kernels a call
+@pytest.mark.parametrize("c", [515, 2052, 4096])
+def test_gather_backward_any_width(dev, rs, c):
+    b, n, m = 2, 96, 700
+    g = torch.from_numpy(rs.randn(b, m, c).astype(np.float32)).to(dev)
+    idx = skewed_indices(rs, dev, b, n, m)
+    idx[1] = 0  # one row named by every entry, over 22 pieces
+    before = fused.gather_rows_backward.launches
+    got = same_twice(lambda: fused.gather_rows_backward(g, idx, n))
+    assert fused.gather_rows_backward.launches == before + 2
+    near_plain(got, fused.gather_rows_backward_plain(g, idx, n))
+    assert (got[0, 3] == 0).all() and (got[1, 1:] == 0).all()
+    g = exact_cotangents(rs, dev, g.shape)
+    same(fused.gather_rows_backward(g, idx, n),
+         fused.gather_rows_backward_plain(g, idx, n))
+    assert kernels_per_call(
+        lambda: fused.gather_rows_backward(g, idx, n)) == 2
+
+
 def skewed_indices(rs, dev, b, n, m):
     """Indices in [-2, N + 2), a third of them on row 0, row 3 never."""
     idx = rs.randint(-2, n + 2, (b, m)).astype(np.int32)
@@ -475,10 +498,13 @@ def test_gather_backward_bf16_widths_and_worst_skew(dev, rs, c):
         assert (got[2:, 3] == 0).all()
         if m == 8192:
             assert (got[:2, 1:] == 0).all()
-    with pytest.raises(ValueError, match="wider"):
-        fused.gather_rows_backward(
-            torch.zeros((1, 8, 8192), dtype=torch.bfloat16, device=dev),
-            torch.zeros((1, 8), dtype=torch.int32, device=dev), 4)
+    # past the 4,096 bf16 the kernel once took: one warp per 512 bf16 of
+    # the row (8 a lane), the same order in every column
+    g = torch.from_numpy(rs.randn(1, 300, 8192).astype(np.float32)).to(
+        dev).to(torch.bfloat16)
+    idx = skewed_indices(rs, dev, 1, 64, 300)
+    got = same_twice(lambda: fused.gather_rows_backward(g, idx, 64))
+    within_one_bf16_ulp(got, fused.gather_rows_backward_plain(g, idx, 64))
 
 
 def test_group_points_bf16_autograd_on_card(dev, rs):
@@ -570,6 +596,70 @@ def test_neighbors_above_one_tile(dev, rs, n, masked):
         got = neighbors.ball_query_multi(*args)
         for g, w in zip(got, neighbors.ball_query_multi_plain(*args)):
             same(g, w)
+
+
+# K2 past k = 64 (a block per query selects the k nearest): masked clouds
+# (an invalid tail: many keys at BIG) with the query cloud a part of the
+# searched one (zero distances), N above and below the 16,384 distances a
+# block keeps in shared memory, k across its 2,048-rank window; the same
+# bits twice, one kernel a call
+@pytest.mark.parametrize("k", [65, 128, 256])
+@pytest.mark.parametrize("n", [256, 1024, 3000])
+def test_knn_large_k(dev, rs, n, k):
+    p = cloud(rs, 4, n, dev)
+    v = valid_mask(rs, 4, n, dev)
+    q = p[:, ::3].contiguous()
+    before = neighbors.knn.launches
+    got = same_twice(lambda: neighbors.knn(k, q, p, v))
+    assert neighbors.knn.launches == before + 2
+    same(got, neighbors.knn_plain(k, q, p, v))
+    same(neighbors.knn(k, q, p), neighbors.knn_plain(k, q, p))
+    assert kernels_per_call(lambda: neighbors.knn(k, q, p, v)) == 1
+
+
+@pytest.mark.parametrize("n, k", [(200, 200), (3000, 2048), (3000, 2049),
+                                  (3000, 3000), (20000, 100)])
+def test_knn_large_k_windows_and_unstaged(dev, rs, n, k):
+    """k = N (no select), k over one window and one rank past it, all of a
+    3,000-point cloud (two windows), and a cloud whose distances a block
+    computes again each pass (past 16,384 points); planted ties."""
+    p = cloud(rs, 2, n, dev)
+    p[:, n // 2:n // 2 + 50] = p[:, :50]
+    v = valid_mask(rs, 2, n, dev)
+    q = p[:, :97].contiguous()
+    for mask in (None, v):
+        same(neighbors.knn(k, q, p, mask), neighbors.knn_plain(k, q, p, mask))
+    with pytest.raises(ValueError):
+        neighbors.knn(n + 1, q, p)
+
+
+def test_knn_large_k_ties(dev, rs):
+    for case in ("ties", "invalid_tail", "ragged"):
+        q, p, v = knn_clouds(rs, dev, case)
+        k = min(p.shape[1], 100)
+        same(neighbors.knn(k, q, p, v), neighbors.knn_plain(k, q, p, v))
+
+
+# K1 with more radii than one scan fills (MAX_RADII = 4): one launch per
+# group of four
+@pytest.mark.parametrize("count", [5, 6, 7, 8])
+def test_ball_query_many_radii(dev, rs, count):
+    radii = (0.7, 1.5, 2.0, 3.0, 4.0, 6.0, 8.0, 16.0)[:count]
+    ks = (3, 4, 8, 16, 32, 40, 64, 80)[:count]
+    p = cloud(rs, 16, 384, dev)
+    v = valid_mask(rs, 16, 384, dev)
+    q = p[:, :256].contiguous()
+    before = neighbors.ball_query_multi.launches
+    got = neighbors.ball_query_multi(radii, ks, p, q, v)
+    assert neighbors.ball_query_multi.launches == before + 2
+    again = neighbors.ball_query_multi(radii, ks, p, q, v)
+    want = neighbors.ball_query_multi_plain(radii, ks, p, q, v)
+    assert len(got) == count
+    for g, a, w in zip(got, again, want):
+        same(g, w)
+        same(a, w)
+    assert kernels_per_call(
+        lambda: neighbors.ball_query_multi(radii, ks, p, q, v)) == 2
 
 
 def test_rejects_non_contiguous(dev, rs):
@@ -1301,12 +1391,13 @@ def unit_sphere(rs, b, n, dev):
 
 
 @pytest.mark.parametrize("b,n,npoint", [
-    (16, 1024, 512), (16, 256, 64), (3, 50, 128), (2, 2048, 300),
-    (2, 5000, 200), (1, 1, 4), (4, 700, 700)])
+    (16, 1024, 512), (16, 256, 64), (16, 512, 128), (3, 50, 128),
+    (2, 2048, 300), (2, 5000, 200), (1, 1, 4), (4, 700, 700)])
 def test_farthest_point_sample(dev, rs, b, n, npoint):
     """Bit for bit against the plain version, in and past the register
-    capacity (2,048 points a block, then global scratch), with more samples
-    than points; one kernel a call; the same bits twice."""
+    capacity of the default block (1,024 points a warp, 8,192 with 8
+    warps, then global scratch), with more samples than points; one kernel
+    a call; the same bits twice."""
     from cmflow_tpu_torch.ops import sampling
 
     xyz = unit_sphere(rs, b, n, dev)
@@ -1318,6 +1409,43 @@ def test_farthest_point_sample(dev, rs, b, n, npoint):
     assert got.dtype == torch.int32 and got.shape == (b, npoint)
     assert kernels_per_call(
         lambda: sampling.farthest_point_sample(xyz, npoint)) == 1
+
+
+def fps_with_warps(xyz, npoint, warps):
+    """The FPS kernel with ``warps`` warps a cloud, whatever its N."""
+    from cmflow_tpu_torch.native import build
+    from cmflow_tpu_torch.ops import sampling
+
+    b, n, _ = xyz.shape
+    lib = build.load("sampling", sampling._SIGNATURES)
+    scratch = None
+    if n > lib.cmflow_fps_register_points(warps):
+        scratch = torch.empty((b, n), dtype=torch.float32, device=xyz.device)
+    out = torch.empty((b, npoint), dtype=torch.int32, device=xyz.device)
+    build.check(lib, lib.cmflow_fps(
+        xyz.data_ptr(), b, n, npoint, warps,
+        None if scratch is None else scratch.data_ptr(), out.data_ptr(),
+        torch.cuda.current_stream().cuda_stream), "fps")
+    return out
+
+
+# every block size at N from one point to past 8 warps' registers and
+# past the shared memory's cloud (12,288 points: the winner read from the
+# cloud), npoint to N + 2, with exact ties; the same bits for every size
+@pytest.mark.parametrize("n", [1, 31, 256, 1024, 2048, 2049, 5000, 13000])
+def test_farthest_point_sample_every_block_size(dev, rs, n):
+    from cmflow_tpu_torch.ops import sampling
+
+    xyz = unit_sphere(rs, 3, n, dev)
+    if n > 8:
+        xyz[:, n // 2:n // 2 + 5] = xyz[:, 2:7]
+    npoint = n + 2 if n <= 256 else 64
+    want = sampling.farthest_point_sample_plain(xyz, npoint)
+    same(sampling.farthest_point_sample(xyz, npoint), want)
+    for warps in (1, 2, 4, 8):
+        same(fps_with_warps(xyz, npoint, warps), want)
+    if npoint > n:
+        assert (want[:, n:] == 0).all()
 
 
 def test_farthest_point_sample_ties(dev):

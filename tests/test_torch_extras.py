@@ -104,6 +104,23 @@ def test_farthest_point_sample_ties_and_duplicates():
     assert got[0, 1] == 3
 
 
+# N from one point up past a warp's 32 lanes and past the card kernel's
+# register capacity of a 4-warp block (1,024), npoint past N (index 0
+# repeats), on clouds with duplicated points
+@pytest.mark.parametrize("n,npoint", [(1, 3), (31, 33), (300, 302),
+                                      (2049, 96)])
+def test_farthest_point_sample_any_n_matches_jax(n, npoint):
+    rs = np.random.RandomState(n)
+    xyz = unit_sphere(rs, 2, n)
+    if n > 8:
+        xyz[:, n // 2:n // 2 + 4] = xyz[:, 1:5]  # exact ties
+    want = np.asarray(jpo.farthest_point_sample(jnp.asarray(xyz), npoint))
+    got = ops.farthest_point_sample(t(xyz), npoint)
+    np.testing.assert_array_equal(got.numpy(), want)
+    if npoint > n:
+        assert (want[:, n:] == 0).all()
+
+
 def test_farthest_point_sample_rejects():
     with pytest.raises(ValueError):
         ops.farthest_point_sample(torch.zeros(2, 5, 2), 3)
@@ -133,6 +150,22 @@ def test_query_and_group_and_gather_points(with_features):
     np.testing.assert_array_equal(
         ops.gather_points(t(xyz), t(idx)).numpy(),
         np.asarray(jpo.gather_points(jnp.asarray(xyz), jnp.asarray(idx))))
+
+
+def test_large_k_and_nsample_match_jax():
+    """``knn_with_dists`` past k = 64 and ``query_and_group`` past 64
+    samples a ball, bit for bit."""
+    rs = np.random.RandomState(5)
+    xyz = unit_sphere(rs, 2, 160)
+    xyz[:, 100:120] = xyz[:, 10:30]  # exact ties
+    q = xyz[:, :40]
+    d, idx = ops.knn_with_dists(100, t(q), t(xyz))
+    jd, jidx = jpo.knn_with_dists(100, jnp.asarray(q), jnp.asarray(xyz))
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
+    np.testing.assert_array_equal(d.numpy(), np.asarray(jd))
+    got = ops.query_and_group(1.0, 80, t(xyz), t(q))
+    want = jpo.query_and_group(1.0, 80, jnp.asarray(xyz), jnp.asarray(q))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 def test_sqrt_rn_is_correctly_rounded():

@@ -66,6 +66,24 @@ port's plain versions:
   largest magnitude to the plain bf16 version (indices outside [0, N)
   included) and to the JAX kernel in bf16 in interpret mode.
 
+* (g) K2 past k = 64 (``csrc/neighbors.cu::knn_select_kernel``): keys
+  (d^2 bits << 32 | j), windows of ``kSelWindow`` ranks (read from the
+  source, and 32 to cut k into several), each window's upper bound by a
+  radix select eight bits a pass that stops once the rank falls on a bin's
+  first key (and otherwise goes on into the index's low bytes), the keys
+  between two bounds gathered and sorted.  Bit-identical to ``knn_plain``
+  and to JAX's ``pointops.knn`` at k = 65, 100, 128 and k = N, with exact
+  ties and an invalid tail (many keys at BIG); on distinct distances the
+  select stops within the distance's four bytes.
+
+* (h) FPS (``csrc/sampling.cu``): a block of W warps, R points a thread
+  in registers (j = t + r * 32W) and the rest past them in ascending j, a
+  tree argmax over r, the warp's argmax as a max of the distance's bits
+  then a min of the index over the lanes holding it, the same over the
+  warps' slots.  Bit-identical to the plain version and to JAX's
+  ``farthest_point_sample`` for W in {1, 2, 4, 8}, N from 1 to 5000,
+  with exact ties and npoint past N.
+
 And the lifted point limit: the port's ``knn`` and ``ball_query_multi`` at
 N=2500 against ``cmflow_tpu.ops.pointops`` (its XLA route on the CPU).
 """
@@ -84,7 +102,7 @@ from cmflow_tpu.ops.fused import mxu_group_points
 from cmflow_tpu.ops.neighbors import knn_pallas
 from cmflow_tpu_torch.data.synthetic import make_train_batch
 from cmflow_tpu_torch.native import build
-from cmflow_tpu_torch.ops import fused, neighbors
+from cmflow_tpu_torch.ops import fused, neighbors, sampling
 
 L = fused.GATHER_BWD_PIECE
 F32 = np.float32
@@ -951,6 +969,168 @@ def test_mse_bf16_first_layer_against_pallas(rs):
         j(feats).astype(jnp.bfloat16), [j(i) for i in idx], j(xyz), jpacked,
         ks, True, fused.MSE_WIDTHS[2])
     bf16_close(got, want)
+
+
+# ---------------------------------------------------------------------------
+# (g) K2 past k = 64: a radix select of the window bounds, then a sort
+# ---------------------------------------------------------------------------
+
+def neighbors_constant(name):
+    text = (build.CSRC / "neighbors.cu").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+
+def below(key, bound):
+    """The keys below a (prefix, shift) bound; None: none, "all": all."""
+    if bound is None:
+        return np.zeros(key.shape, bool)
+    if bound == "all":
+        return np.ones(key.shape, bool)
+    prefix, shift = bound
+    return (key >> np.uint64(shift)) < np.uint64(prefix)
+
+
+def knn_select_model(k, dist, window):
+    """knn_select_kernel on ``dist`` [Q, N]: (indices [Q, k], the radix
+    passes of every select)."""
+    q, n = dist.shape
+    keys = ((dist.astype(F32).view(np.uint32).astype(np.uint64)
+             << np.uint64(32)) | np.arange(n, dtype=np.uint64))
+    jbits = 8
+    while jbits < 32 and (n - 1) >> jbits:
+        jbits += 8
+    out = np.zeros((q, k), np.int32)
+    passes = []
+    for row in range(q):
+        key = keys[row]
+        lo = None
+        for r0 in range(0, k, window):
+            r1 = min(r0 + window, k)
+            hi = "all"
+            if r1 < n:
+                prefix, shift, need, count = 0, 64, r1, 0
+                while True:
+                    nxt = jbits - 8 if shift == 32 else shift - 8
+                    if shift == 32:
+                        prefix <<= 32 - jbits
+                    shift = nxt
+                    if shift + 8 >= 64:
+                        match = np.ones(n, bool)
+                    else:
+                        match = (key >> np.uint64(shift + 8)) == np.uint64(
+                            prefix)
+                    digits = ((key[match] >> np.uint64(shift))
+                              & np.uint64(255)).astype(np.int64)
+                    hist = np.bincount(digits, minlength=256)
+                    cum = np.cumsum(hist)
+                    d = int(np.searchsorted(cum, need, side="right"))
+                    prefix = (prefix << 8) | d
+                    need -= int(cum[d] - hist[d])
+                    count += 1
+                    if need == 0:
+                        break
+                hi = (prefix, shift)
+                passes.append(count)
+            chosen = np.sort(key[below(key, hi) & ~below(key, lo)])
+            assert len(chosen) == r1 - r0  # exactly the window's ranks
+            out[row, r0:r1] = (chosen & np.uint64(0xffffffff)).astype(
+                np.int32)
+            lo = hi
+    return out, passes
+
+
+@pytest.mark.parametrize("window", ["source", 32])
+@pytest.mark.parametrize("k", [65, 100, 128])
+@pytest.mark.parametrize("case", ["random", "ties", "invalid_tail"])
+def test_knn_select_model(rs, case, k, window):
+    if case == "random":
+        q, p, v = (rs.rand(1, 24, 3) * 20).astype(F32), \
+            (rs.rand(1, 300, 3) * 20).astype(F32), None
+    else:
+        q, p, v = knn_case(rs, case)
+        q = q[:, :24].copy()
+    window = neighbors_constant("kSelWindow") if window == "source" else window
+    b, s, _ = q.shape
+    tv = None if v is None else t(v)
+    dist = neighbors.masked_square_distance(t(q), t(p), tv).numpy()
+    got, passes = knn_select_model(k, dist.reshape(b * s, -1), window)
+    got = got.reshape(b, s, k)
+    np.testing.assert_array_equal(got, neighbors.knn_plain(
+        k, t(q), t(p), tv).numpy())
+    np.testing.assert_array_equal(got, jpo.knn(k, j(q), j(p), j(v)))
+    if case == "random":  # distinct distances: the select ends in d's bytes
+        assert max(passes) <= 4, passes
+    else:  # k == N: no select at all
+        n = p.shape[1]
+        got, passes = knn_select_model(n, dist.reshape(b * s, -1), window)
+        np.testing.assert_array_equal(got.reshape(b, s, n), jpo.knn(
+            n, j(q), j(p), j(v)))
+        assert len(passes) == b * s * (-(-n // window) - 1)
+
+
+# ---------------------------------------------------------------------------
+# (h) FPS: registers, a tree argmax, redux over lanes and warps
+# ---------------------------------------------------------------------------
+
+def fps_model(xyz, npoint, warps):
+    """csrc/sampling.cu's fps_kernel on one cloud ``xyz`` [N, 3]."""
+    n = xyz.shape[0]
+    r = 1
+    while r < 32 and 32 * warps * r < n:
+        r *= 2
+    threads = 32 * warps
+    none = np.uint32(0xffffffff)
+    dist = np.full(n, 1e10, F32)
+    out = np.zeros(npoint, np.int32)
+    cur = 0
+    # the thread and slot of each point: j = t + r * T in registers, the
+    # rest past R * T in ascending j per thread
+    for i in range(npoint):
+        out[i] = cur
+        dx, dy, dz = (xyz - xyz[cur]).T
+        dist = np.minimum(dist, (dx * dx + dy * dy) + dz * dz)
+        regs = min(n, r * threads)
+        vals = np.full((r, threads), -1.0, F32)
+        vals.reshape(-1)[:regs] = dist[:regs]
+        vals, slot = vals.T.copy(), np.tile(np.arange(r), (threads, 1))
+        step = 1
+        while step < r:  # the tree: the lower r keeps a tie
+            for a in range(0, r - step, 2 * step):
+                take = vals[:, a + step] > vals[:, a]
+                vals[:, a] = np.where(take, vals[:, a + step], vals[:, a])
+                slot[:, a] = np.where(take, slot[:, a + step], slot[:, a])
+            step *= 2
+        best = vals[:, 0].copy()
+        best_j = (np.arange(threads) + slot[:, 0] * threads).astype(np.int64)
+        for j0 in range(r * threads, n, threads):  # past the registers
+            jj = np.arange(j0, min(j0 + threads, n))
+            d = dist[jj]
+            take = d > best[:len(jj)]
+            best[:len(jj)] = np.where(take, d, best[:len(jj)])
+            best_j[:len(jj)] = np.where(take, jj, best_j[:len(jj)])
+        key = np.where(best < 0, 0, best).astype(F32).view(np.uint32)
+        bj = np.where(best < 0, none, best_j).astype(np.uint32)
+        key, bj = key.reshape(warps, 32), bj.reshape(warps, 32)
+        wkey = key.max(axis=1)
+        wj = np.where(key == wkey[:, None], bj, none).min(axis=1)
+        cur = int(np.where(wkey == wkey.max(), wj, none).min())
+    return out
+
+
+@pytest.mark.parametrize("warps", [1, 2, 4, 8])
+@pytest.mark.parametrize("n,npoint", [(1, 3), (31, 33), (256, 64),
+                                      (1024, 40), (2049, 20), (5000, 12)])
+def test_fps_model(n, npoint, warps):
+    rs = np.random.RandomState(n)
+    xyz = rs.randn(n, 3).astype(F32)
+    xyz /= np.linalg.norm(xyz, axis=-1, keepdims=True)
+    if n > 8:
+        xyz[n // 2:n // 2 + 5] = xyz[2:7]  # exact ties
+    got = fps_model(xyz, npoint, warps)
+    want = jpo.farthest_point_sample(j(xyz[None]), npoint)
+    np.testing.assert_array_equal(got, np.asarray(want)[0])
+    np.testing.assert_array_equal(
+        got, sampling.farthest_point_sample_plain(t(xyz[None]), npoint)[0])
 
 
 # ---------------------------------------------------------------------------

@@ -134,6 +134,25 @@ class TestBallQuery:
         got = pointops.ball_query(3.0, 32, t(p), t(p))
         assert_same(got, jpo._ball_query_xla(3.0, 32, j(p), j(p)))
 
+    # more radii than the kernel fills in one scan (MAX_RADII = 4): the
+    # card takes one launch per group of four, JAX one Pallas kernel
+    @pytest.mark.parametrize("masked", [False, True])
+    @pytest.mark.parametrize("count", [5, 8])
+    def test_more_than_four_radii(self, rs, count, masked):
+        radii = (0.7, 1.5, 2.0, 3.0, 4.0, 6.0, 8.0, 16.0)[:count]
+        ks = (3, 4, 8, 16, 32, 40, 64, 80)[:count]
+        p, q = cloud(rs, 2, 256), cloud(rs, 2, 128)
+        valid = valid_mask(rs, 2, 256) if masked else None
+        got = neighbors.ball_query_multi(radii, ks, t(p), t(q),
+                                         None if valid is None else t(valid))
+        pallas = jax_ball_query_multi(radii, ks, j(p), j(q), True,
+                                      points_valid=j(valid))
+        assert len(got) == len(pallas) == count
+        for r, k, g, pk in zip(radii, ks, got, pallas):
+            assert g.shape == (2, 128, k)
+            assert_same(g, pk)
+            assert_same(g, jpo._ball_query_xla(r, k, j(p), j(q), j(valid)))
+
 
 class TestKnn:
     @pytest.mark.parametrize("masked", [False, True])
@@ -165,6 +184,32 @@ class TestKnn:
     def test_other_k(self, rs, k):
         q, p = cloud(rs, 1, 128), cloud(rs, 1, 128)
         assert_same(neighbors.knn(k, t(q), t(p)), jpo._knn_xla(k, j(q), j(p)))
+
+    # past the warp-per-query kernel's k <= 64 (the card selects the k
+    # nearest with a block per query): random clouds with holes and an
+    # invalid tail (many keys at BIG), and planted ties (every point four
+    # times, so distances tie at the k-th key)
+    @pytest.mark.parametrize("case", ["masked", "ties"])
+    @pytest.mark.parametrize("k", [65, 100, 128])
+    def test_large_k(self, rs, k, case):
+        if case == "masked":
+            q, p = cloud(rs, 2, 128), cloud(rs, 2, 256)
+            valid = valid_mask(rs, 2, 256)
+        else:
+            q = cloud(rs, 2, 128)
+            p = np.tile(cloud(rs, 2, 48), (1, 4, 1))  # 192 points
+            q[:, :48] = p[:, :48]
+            valid = None
+        got = neighbors.knn(k, t(q), t(p), None if valid is None else t(valid))
+        assert got.shape == (2, 128, k)
+        assert_same(got, jpo.knn(k, j(q), j(p), j(valid)))
+        assert_same(got, jpo._knn_xla(k, j(q), j(p), j(valid)))
+
+    def test_k_equals_n(self, rs):
+        q, p = cloud(rs, 1, 128), cloud(rs, 1, 130)
+        valid = valid_mask(rs, 1, 130)
+        got = neighbors.knn(130, t(q), t(p), t(valid))
+        assert_same(got, jpo.knn(130, j(q), j(p), j(valid)))
 
     def test_knn_with_dists(self, rs):
         q, p = cloud(rs, 2, 128), cloud(rs, 2, 256)
@@ -327,10 +372,22 @@ class TestWrappers:
         with pytest.raises(ValueError):
             fused.gather_rows_backward(g, torch.zeros((1, 5), dtype=torch.int32),
                                        8)
+        # five radii are taken (one launch per four on the card) and equal
+        # JAX's; no radius at all, or a K per radius missing, is refused
+        got = neighbors.ball_query_multi((1.0,) * 5, (4,) * 5, p, p)
+        want = jax_ball_query_multi((1.0,) * 5, (4,) * 5, j(p.numpy()),
+                                    j(p.numpy()), True)
+        assert len(got) == 5
+        for g, w in zip(got, want):
+            assert_same(g, w)
         with pytest.raises(ValueError):
-            neighbors.ball_query_multi((1.0,) * 5, (4,) * 5, p, p)
+            neighbors.ball_query_multi((), (), p, p)
         with pytest.raises(ValueError):
-            neighbors.knn(129, p, p)
+            neighbors.ball_query_multi((1.0,) * 5, (4,) * 4, p, p)
+        with pytest.raises(ValueError):
+            neighbors.knn(129, p, p)  # k > N, as lax.top_k refuses
+        with pytest.raises(ValueError):
+            neighbors.knn(0, p, p)
         with pytest.raises(ValueError):
             neighbors.knn(8, p[:, :, :2], p[:, :, :2])
         with pytest.raises(ValueError):

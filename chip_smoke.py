@@ -61,9 +61,9 @@ Run from the repository root on a machine with a CUDA GPU and nvcc.  Steps:
    (989 TFLOP/s); require a tensor-core instruction of a bf16 type in their
    SASS (``HGMMA.*BF16``, ``HMMA.*BF16``), and no note of ptxas's that it
    serialises the ``wgmma``s of the propagation encoder's and the cost
-   volume's first bf16 arms; hold those two arms past the neighbour counts
-   their float32 siblings take (K=129 and k=65, a query's rows over two
-   tiles) to their plain versions and to themselves; measure, without a
+   volume's first bf16 arms; hold those two arms past one row tile (K=129
+   and k=65, a query's rows over two tiles) to their plain versions and to
+   themselves; measure, without a
    bar, how far the bf16 forward of this model with random weights lies
    from its float32 one (far, in JAX as here: ROADMAP Queue 3); time one
    whole fused forward in each dtype (device time and CUDA operations);
@@ -80,15 +80,41 @@ Run from the repository root on a machine with a CUDA GPU and nvcc.  Steps:
    one B=16 cloud of 4,096 points, masked and not (two staged tiles; not
    timed), and the cost volume's second kernel, both arms, to its plain
    version and to itself bit for bit at one B=16, N=384 cloud with k=33,
-   past the first kernel's K <= 32, masked, some indices out of range (not
-   timed).  Past the limits these kernels once had (no route reaches
-   them): kNN at k = 65 and 128 (a block per query; beside ``torch.topk``
-   at the same k), the ball query with eight radii (two launches), the
-   gather's backward at C = 515 and 2,052 in float32 and 8,192 in bf16
-   (beside ``index_add_``): each held to its plain version at its bar and
-   to itself bit for bit, its launches a call counted, and timed by CUDA
+   masked, some indices out of range (not timed).  Past the limits these
+   kernels once had (no route of the default config reaches them): kNN at
+   k = 65 and 128 (a block per query; beside ``torch.topk`` at the same
+   k), the ball query with eight radii (two launches), the gather's
+   backward at C = 515 and 2,052 in float32 and 8,192 in bf16 (beside
+   ``index_add_``): each held to its plain version at its bar and to
+   itself bit for bit, its launches a call counted, and timed by CUDA
    graph replays; printed on a ``lifted`` line and in its kernel's row of
    the kernels line;
+6b. the fused kernels past their limits, in a process of their own, last
+   (``shapes_process``): the sa encoder at K = 48 and 100 in both arms,
+   the cost volume's first kernel at k = 48 and 100 and the propagation
+   encoder at K = 65, 128 and 160 in float32; the generic kernel
+   (``csrc/chain.cu``) at widths no tuned kernel takes (the sa encoder at
+   (24, 40, 56) with 7 features and ten scales, the propagation encoder's
+   chains (200, 100, 36) and (96, 64, 48, 32), both cost-volume kernels at
+   C = 100 and 768) and at each tuned kernel's own shape beside it, through
+   its private route: held and counted as above, timed with their plain
+   versions by CUDA-graph replays, on a ``lifted_fused`` line and in the
+   kernels' rows; then other backbone configurations: CMFlow built with
+   config A (``sa_nsamples`` (8, 16, 32, 64), ``fc_nsample`` 64: the tuned
+   kernels at K=64), and CMFlow, RaFlow and CMFlow_T with config B (three
+   radii,
+   ``sa_mlp`` (64, 64, 128), ``sa_mlp2`` (128, 128, 128), ``fc_nsample``
+   16: every fused wrapper on the generic kernel), seeded weights and
+   BatchNorm statistics, serve one B=16, N=256 request each through
+   ``make_eval_step`` in float32 and bf16, launches exact (the generic
+   arm's too); float32 held to the module route and, on four elements, to
+   the CPU at the serving bars; CMFlow after eight train steps in bf16 to
+   the CPU's bf16 route at the JAX bf16 bars; the fused kernels held to
+   their plain versions at CMFlow's shapes, config B's generic arms timed
+   (their rows of the kernels line, ``mse.generic`` ...
+   ``cv_agg.generic.bf16``) (run in the main process before its train
+   phases, 6b left its profiler dropping the first kernel of every later
+   window);
 7. train: a full-width CMFlow with seeded random weights takes train steps
    (``make_train_step``) on one synthetic B=16, N=256 batch
    (``make_train_batch``, VoD calibration).  The first step is taken on the
@@ -277,11 +303,21 @@ from cmflow_tpu_torch.data.packed import PackedVodDataset, pack_split
 from cmflow_tpu_torch.data.vod import VOD_CAMERA_PROJECTION, VOD_T_CAMERA_RADAR
 from cmflow_tpu_torch.evaluation import device_metrics, metrics
 from cmflow_tpu_torch.losses import radar_loss
-from cmflow_tpu_torch.models import build_model, inference
+from cmflow_tpu_torch.models import (
+    CMFlow,
+    CMFlowT,
+    RaFlow,
+    build_model,
+    inference,
+)
+from cmflow_tpu_torch.models.backbone import BackboneConfig
 from cmflow_tpu_torch.models.convert import export_flax_variables
 from cmflow_tpu_torch.native import build, codec
 from cmflow_tpu_torch.nn.blocks import (
     BatchNorm,
+    FeatureCorrelator,
+    MultiScaleEncoder,
+    PointLocalFeature,
     init_parameters,
     masked_global_max,
 )
@@ -361,7 +397,7 @@ BF16_RTOL = 1e-2
 # exactly, its WeightNet and sums in float32), held at FUSED_ATOL and
 # FUSED_RTOL: it reads ~1.3e-7 of the largest magnitude, where a last layer
 # in one TF32 pass read 2.5e-4 (PERF.md)
-F32_ACCURATE_ARMS = ("cv_agg.bf16",)
+F32_ACCURATE_ARMS = ("cv_agg.bf16", "cv_agg.generic.bf16")
 # the JAX package's bf16 serving bars (scripts/parity_tpu.py:41,
 # tests/test_fused.py:139-148): stat_cls and pre_trans absolute, masks
 # agreeing, sf_agg within flow * max(|sf|, 1)
@@ -373,6 +409,14 @@ BF16_RNE_RTOL = 0.05
 # ``launches`` and its bf16 arm's also in ``launches_bf16``
 GATHER_ARMS = {"gather.bf16": "gather", "gather_bwd.bf16": "gather_bwd"}
 COUNTERS = (*WRAPPERS, *GATHER_ARMS)
+# the generic kernel (csrc/chain.cu) behind each fused wrapper, in float32
+# and bf16: the wrapper picks it by shape alone (ops/fused.py::*_arm) and
+# counts each of its launches (K3's, one a scale) in ``launches`` and
+# ``launches_generic``
+GENERIC_ARMS = {"mse.generic": "mse", "plf.generic": "plf",
+                "cv.generic": "cv", "cv_agg.generic": "cv_agg"}
+GENERIC_BF16_ARMS = {f"{k}.bf16": v for k, v in GENERIC_ARMS.items()}
+GENERIC = {**GENERIC_ARMS, **GENERIC_BF16_ARMS}
 # one bf16 train step of the card against the same step on the CPU: the
 # bars of tests/test_torch_bf16_train.py (on random weights bf16's rounding
 # flips maxima and masks through the step; JAX's own bf16 step lies 0.69-
@@ -383,7 +427,7 @@ BF16_TRAIN_BARS = {"loss_rtol": 0.1, "stats_atol": 1e-2,
                    "params_atol": 5e-3}
 # held to themselves bit for bit across two runs
 SAME_BITS = ("gather_bwd", "cv_agg", *TC_KERNELS, *BF16_ARMS,
-             "gather_bwd.bf16", "fps")
+             "gather_bwd.bf16", "fps", *GENERIC)
 LAUNCHES = {
     "fused": {"ball_query": 2, "knn": 2, "gather": 0, "mse": 2, "cv": 1,
               "cv_agg": 1, "plf": 4, "gather_bwd": 0},
@@ -428,6 +472,8 @@ DEVICE_NAMES = {"ball_query": ("ball_query_kernel",), "knn": ("knn_kernel",),
                 "fps": ("fps_kernel",)}
 for _arm, _sibling in GATHER_ARMS.items():
     DEVICE_NAMES[_arm] = DEVICE_NAMES[_sibling]
+for _arm in GENERIC:
+    DEVICE_NAMES[_arm] = ("chain_kernel",)
 # the CUDA kernels one call of a wrapper may launch, where that is bounded:
 # K7 its CSR build and its sum (exactly), K3's bf16 arm the centroids' mean
 # and the kernel (at most)
@@ -445,6 +491,21 @@ LIFTED_RADII = ((0.5, 1.0, 2.0, 3.0, 4.0, 6.0, 8.0, 16.0),
                 (4, 4, 8, 8, 16, 16, 32, 32))
 LIFTED_BWD = ((515, torch.float32, 16), (2052, torch.float32, 16),
               (8192, BF16, 4))
+# the tuned fused kernels past the K they once took (K3 and K4a 32, K5 64),
+# at B=16, N=256 on seeded random neighbours, some outside [0, N): (kernel,
+# K); K5 past 128 runs a query over several 128-row tiles
+LIFTED_TUNED = (("mse", 48), ("mse", 100), ("mse.bf16", 48),
+                ("mse.bf16", 100), ("cv", 48), ("cv", 100), ("plf", 65),
+                ("plf", 128), ("plf", 160))
+# the generic kernel at widths no tuned kernel takes: K3 at (C1, C2, C3)
+# with Cf features and ten scales (K each); K5's chains; K4a and K4b at C
+# (at 826 K4a's activations go to device scratch: in shared memory they
+# would pass the opt-in limit beside the kernel's static 768 bytes); each
+# at LIFTED_GENERIC_K neighbours but K3
+LIFTED_MSE = ((24, 40, 56), 7, (4, 8, 16, 32, 48, 4, 8, 16, 32, 64))
+LIFTED_PLF = ((200, 100, 36), (96, 64, 48, 32))
+LIFTED_CV = (100, 768, 826)
+LIFTED_GENERIC_K = 16
 # the route whose forward (train step) each kernel's summary describes
 SUMMARY_PATH = {"ball_query": "fused", "knn": "fused", "gather": "module",
                 "mse": "fused", "cv": "fused", "cv_agg": "fused",
@@ -482,6 +543,11 @@ SOURCES = {
     "fps": ("cmflow_tpu_torch/csrc/sampling.cu",
             "cmflow_tpu/ops/pointops.py:270"),
 }
+# the generic arms replace their wrappers' Pallas kernels at every width
+for _arm, _sibling in GENERIC.items():
+    SOURCES[_arm] = ("cmflow_tpu_torch/csrc/chain.cu",
+                     SOURCES[f"{_sibling}.bf16" if _arm in GENERIC_BF16_ARMS
+                             else _sibling][1])
 
 
 def require(cond: bool, msg: str) -> None:
@@ -496,6 +562,8 @@ def emit(obj) -> None:
 def zero_counts() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
+    for arm in set(GENERIC_ARMS.values()):
+        WRAPPERS[arm].launches_generic = 0
     for arm in GATHER_ARMS.values():
         WRAPPERS[arm].launches_bf16 = 0
 
@@ -508,8 +576,9 @@ def counts_now() -> dict:
 
 
 def wrapper_of(name: str):
-    """A kernel's wrapper (a bf16 arm's is its float32 sibling's)."""
-    return WRAPPERS[{**BF16_ARMS, **GATHER_ARMS}.get(name, name)]
+    """A kernel's wrapper (a bf16 or generic arm's is its float32 tuned
+    sibling's)."""
+    return WRAPPERS[{**BF16_ARMS, **GATHER_ARMS, **GENERIC}.get(name, name)]
 
 
 def event_ms(fn, iters: int) -> float:
@@ -639,7 +708,10 @@ def bound_ms(nbytes: float, flops: float, peak: float = F32_FLOP_PER_S):
 
 def bounds(name: str, nbytes: float, flops: float) -> dict:
     """The bound of a kernel's work at its arithmetic's peak, with the
-    float32 bound beside it for the 3xTF32 tensor-core kernels."""
+    float32 bound beside it for the 3xTF32 tensor-core kernels.  A generic
+    arm is held to its tuned sibling's bound (``mse.generic.bf16`` to
+    ``mse.bf16``'s): the card runs the same work at that rate."""
+    name = name.replace(".generic", "")
     if name in BF16_TC_KERNELS:
         ms, by = bound_ms(nbytes, flops, BF16_FLOP_PER_S)
         return dict(bound_ms=ms, bound_by=by, bound_arith="bf16")
@@ -784,14 +856,61 @@ def module_cases(req: dict, dev, gen: torch.Generator):
     return cases
 
 
-def fused_cases(model, req: dict, dev):
+def arm_names(model) -> dict:
+    """Each fused wrapper's case name for ``model``'s widths: the wrapper's
+    own (its tuned kernel), or ``<wrapper>.generic`` where its arm choice
+    (``ops/fused.py``) takes the generic kernel."""
+    w = model_widths(model)
+    arms = {"mse": fused.mse_arm(w["mse"], len(w["ks"]), 3),
+            "plf": fused.plf_arm(w["plf"]),
+            "cv": fused.cv_p2p_arm(w["cv"]),
+            "cv_agg": fused.cv_agg_arm(w["cv"][-1])}
+    return {k: k if arm == fused.TUNED else f"{k}.generic"
+            for k, arm in arms.items()}
+
+
+def model_widths(model) -> dict:
+    """The fused kernels' widths in ``model``: K3's (C1, C2, C3), K5's chain,
+    K4a's (C, C1, C2), the ball query's K and kNN's k."""
+    cfg = model.trunk.cfg
+    packed, _ = fused.mse_narrow_params_from_variables(model.trunk.mse_layer)
+    chain = fused.plf_params_from_variables(model.trunk.mse_layer2.scale_0)[0]
+    dense = fused.cv_params_from_variables(model.trunk.fc_layer)[0]
+    return dict(mse=(packed[4].shape[1], packed[4].shape[2],
+                     packed[7].shape[2]),
+                plf=(chain[0].shape[1],) + tuple(w.shape[1]
+                                                 for w in chain[3::3]),
+                cv=(dense[0].shape[1], dense[2].shape[1], dense[4].shape[1]),
+                ks=tuple(cfg.sa_nsamples), k=cfg.fc_nsample,
+                radii=tuple(cfg.sa_radii))
+
+
+def chain_flops(rows: int, k: int, widths) -> int:
+    """Operations of a grouped chain's products over ``rows * k`` rows."""
+    return 2 * rows * k * sum(a * b for a, b in zip(widths, widths[1:]))
+
+
+def unit(x):
+    """``x`` scaled to a largest magnitude of one, in its dtype."""
+    return (x.float() / x.float().abs().max()).to(x.dtype)
+
+
+def fused_cases(model, req: dict, dev, path: str = "fused",
+                unit_cost: bool = False):
     """Every shape of the fused route's forward on this request, with the
     model's packed weights and the forward's own intermediates as inputs;
-    the kNN shapes are shared with the module route."""
+    the kNN shapes are shared with the module route.  Widths, K and k are
+    the model's; a wrapper whose arm is the generic kernel names its cases
+    ``<wrapper>.generic``.  With ``unit_cost`` the cost volume's kernels
+    take their inputs (``f1c``, ``f2c``; the point-to-patch cost) scaled to
+    a largest magnitude of one: with random weights their sums over k
+    neighbours reach thousands (1,712 at k=64), where a float32 ulp passes
+    the 1e-4 bar whatever the order of the sum."""
     pc1, pc2, ft1, ft2, v1, v2 = request_tensors(req, dev)
     b, n, _ = pc1.shape
-    cfg = model.trunk.cfg
-    radii, ks = tuple(cfg.sa_radii), tuple(cfg.sa_nsamples)
+    w = model_widths(model)
+    names = arm_names(model)
+    radii, ks, k = w["radii"], w["ks"], w["k"]
     rows = b * n
     cloud_bytes = rows * (3 * 4 + 1)
     cases = []
@@ -808,7 +927,7 @@ def fused_cases(model, req: dict, dev):
     for name, pc, v in (("pc1", pc1, v1), ("pc2", pc2, v2)):
         idx[name] = inference._ball_query_all(radii, ks, pc, v)
         cases.append(dict(
-            kernel="ball_query", path="fused",
+            kernel="ball_query", path=path,
             shape=f"B={b} N={n} all radii K={ks} {name} masked", mult=1,
             run=lambda pc=pc, v=v: neighbors.ball_query_multi(
                 radii, ks, pc, pc, v),
@@ -816,27 +935,27 @@ def fused_cases(model, req: dict, dev):
                 radii, ks, pc, pc, v),
             nbytes=cloud_bytes + rows * sum(ks) * 4,
             flops=PAIR_FLOPS * ball_scan_pairs(radii, ks, pc, v)))
-    knn2 = neighbors.knn(8, pc1, pc2, v2)
-    knn1 = neighbors.knn(8, pc1, pc1, v1)
+    knn2 = neighbors.knn(k, pc1, pc2, v2)
+    knn1 = neighbors.knn(k, pc1, pc1, v1)
     for name, pts, valid in (("pc1->pc2", pc2, v2), ("pc1->pc1", pc1, v1)):
         dist = neighbors.masked_square_distance(pc1, pts, valid)
         cases.append(dict(
-            kernel="knn", path="fused", shape=f"B={b} N={n} k=8 {name} masked",
+            kernel="knn", path=path, shape=f"B={b} N={n} k={k} {name} masked",
             mult=1,
-            run=lambda pts=pts, valid=valid: neighbors.knn(8, pc1, pts, valid),
+            run=lambda pts=pts, valid=valid: neighbors.knn(k, pc1, pts, valid),
             plain=lambda pts=pts, valid=valid: neighbors.knn_plain(
-                8, pc1, pts, valid),
-            library=lambda dist=dist: torch.topk(dist, 8, largest=False),
-            nbytes=cloud_bytes * (1 if pts is pc1 else 2) + rows * 8 * 4,
+                k, pc1, pts, valid),
+            library=lambda dist=dist: torch.topk(dist, k, largest=False),
+            nbytes=cloud_bytes * (1 if pts is pc1 else 2) + rows * k * 4,
             flops=PAIR_FLOPS * b * n * n))
 
     mse = model.trunk.mse_layer
     packed, _ = fused.mse_narrow_params_from_variables(mse)
-    c1, c2, c3 = fused.MSE_WIDTHS
+    c1, c2, c3 = w["mse"]
     s_cnt = len(ks)
     for name, pc, ft in (("pc1", pc1, ft1), ("pc2", pc2, ft2)):
         cases.append(dict(
-            kernel="mse", path="fused",
+            kernel=names["mse"], path=path,
             shape=f"B={b} N={n} K={ks} {name} masked", mult=1,
             run=lambda pc=pc, ft=ft, i=idx[name]:
                 fused.fused_multi_scale_encoder(ft, i, pc, packed),
@@ -852,25 +971,29 @@ def fused_cases(model, req: dict, dev):
     f2 = inference._mse_fused(mse, pc2, ft2, v2, idx["pc2"])
     g1, g2 = masked_global_max(f1, v1), masked_global_max(f2, v2)
     fc = model.trunk.fc_layer
-    d = cfg.fc_inch
+    d = model.trunk.cfg.fc_inch
     f1t = inference._fanin_dot((f1, g1), fc.w0[:d])
     f2t = inference._fanin_dot((f2, g2), fc.w0[d:2 * d])
     dense, wn1, wn2 = fused.cv_params_from_variables(fc)
     f1c, f2c, z1, z2, zq = fused.cost_volume_folds(
         f1t, f2t, pc1, pc2, dense[0], wn1[0], wn2[0])
-    c, k, h = fused.CV_WIDTH, fc.nsample, fused.WEIGHTNET_HIDDEN
+    if unit_cost:
+        f1c, f2c = unit(f1c), unit(f2c)
+    c, h = w["cv"][-1], fused.WEIGHTNET_HIDDEN
     cv_args = (f1c, f2c, knn2, z1, z2, dense[1:], wn1[1:])
     cases.append(dict(
-        kernel="cv", path="fused", shape=f"B={b} N={n} C={c} k={k} masked",
+        kernel=names["cv"], path=path,
+        shape=f"B={b} N={n} C={c} k={k} masked",
         mult=1, run=lambda: fused.cost_volume_p2p(*cv_args),
         plain=lambda: fused.cost_volume_p2p_plain(*cv_args),
-        cublas=yardstick(k, (c, c, c)),
+        cublas=yardstick(k, w["cv"]),
         nbytes=4 * (rows * (3 * c + k + 2 * h) + numel(dense[1:] + wn1[1:])),
-        flops=2 * rows * k * (2 * c * c + h * h + h * c)))
+        flops=chain_flops(rows, k, w["cv"]) + 2 * rows * k * (h * h + h * c)))
     p2p = fused.cost_volume_p2p(*cv_args)
-    agg_args = (p2p, knn1, zq, wn2[1:])
+    agg_args = (unit(p2p) if unit_cost else p2p, knn1, zq, wn2[1:])
     cases.append(dict(
-        kernel="cv_agg", path="fused", shape=f"B={b} N={n} C={c} k={k} masked",
+        kernel=names["cv_agg"], path=path,
+        shape=f"B={b} N={n} C={c} k={k} masked",
         mult=1, run=lambda: fused.cost_volume_agg(*agg_args),
         plain=lambda: fused.cost_volume_agg_plain(*agg_args),
         nbytes=4 * (rows * (2 * c + k + h) + numel(wn2[1:])),
@@ -878,21 +1001,22 @@ def fused_cases(model, req: dict, dev):
     cor = fused.cost_volume_agg(*agg_args)
 
     parts = (ft1, f1, g1, cor)
-    w1, w2, w3 = fused.PLF_WIDTHS
+    widths = w["plf"]
     for s, scale in enumerate(inference._scales(model.trunk.mse_layer2)):
         chain, feat_w, _ = fused.plf_params_from_variables(scale)
         feat_tx = inference._fanin_dot(parts, feat_w)
         kk = ks[s]
         plf_args = (feat_tx, idx["pc1"][s], pc1, chain)
         cases.append(dict(
-            kernel="plf", path="fused", shape=f"B={b} N={n} K={kk} masked",
+            kernel=names["plf"], path=path, shape=f"B={b} N={n} K={kk} masked",
             mult=1, run=lambda a=plf_args: fused.fused_point_local_feature(*a),
             plain=lambda a=plf_args:
                 fused.fused_point_local_feature_plain(*a),
-            cublas=yardstick(kk, fused.PLF_WIDTHS),
-            nbytes=4 * (rows * (w1 + kk + 3 + w3) + numel(chain)),
+            cublas=yardstick(kk, widths),
+            nbytes=4 * (rows * (widths[0] + kk + 3 + widths[-1])
+                        + numel(chain)),
             # the folded first layer, then the chain per (query, neighbour)
-            flops=2 * (rows * w1 * 6 + rows * kk * (w1 * w2 + w2 * w3))))
+            flops=2 * rows * widths[0] * 6 + chain_flops(rows, kk, widths)))
     return cases
 
 
@@ -906,17 +1030,21 @@ def nbytes(*tensors) -> int:
     return out
 
 
-def bf16_cases(model, req: dict, dev):
+def bf16_cases(model, req: dict, dev, path: str = "bf16",
+               unit_cost: bool = False):
     """Every shape of the bf16 fused forward (``compute_dtype`` bfloat16)
     on this request: the bf16 arms of K3, K4a, K4b and K5 on the forward's
     own bf16 operands, with the same operation counts as their float32
     siblings and the bytes of their own inputs and outputs; beside K4a and
     K5, cuBLAS on bf16 operands with float32 sums (``torch.mm(...,
-    out_dtype=)``, as ``_dot32`` calls it) on their products alone."""
+    out_dtype=)``, as ``_dot32`` calls it) on their products alone.  A
+    wrapper whose arm is the generic kernel names its cases
+    ``<wrapper>.generic.bf16``; ``unit_cost`` as :func:`fused_cases`."""
     pc1, pc2, ft1, ft2, v1, v2 = request_tensors(req, dev)
     b, n, _ = pc1.shape
-    cfg = model.trunk.cfg
-    radii, ks = tuple(cfg.sa_radii), tuple(cfg.sa_nsamples)
+    w = model_widths(model)
+    names = {k: f"{v}.bf16" for k, v in arm_names(model).items()}
+    radii, ks, k = w["radii"], w["ks"], w["k"]
     rows = b * n
     cases = []
 
@@ -932,12 +1060,12 @@ def bf16_cases(model, req: dict, dev):
            for name, pc, v in (("pc1", pc1, v1), ("pc2", pc2, v2))}
     mse = model.trunk.mse_layer
     packed, _ = fused.mse_narrow_params_from_variables(mse, BF16)
-    c1, c2, c3 = fused.MSE_WIDTHS
+    c1, c2, c3 = w["mse"]
     s_cnt = len(ks)
     for name, pc, ft in (("pc1", pc1, ft1), ("pc2", pc2, ft2)):
         ftb = ft.to(BF16)
         cases.append(dict(
-            kernel="mse.bf16", path="bf16",
+            kernel=names["mse"], path=path,
             shape=f"B={b} N={n} K={ks} {name} masked", mult=1,
             run=lambda pc=pc, ft=ftb, i=idx[name]:
                 fused.fused_multi_scale_encoder(ft, i, pc, packed),
@@ -954,29 +1082,31 @@ def bf16_cases(model, req: dict, dev):
     f2 = inference._mse_fused(mse, pc2, ft2, v2, idx["pc2"], BF16)
     g1, g2 = masked_global_max(f1, v1), masked_global_max(f2, v2)
     fc = model.trunk.fc_layer
-    d = cfg.fc_inch
+    d = model.trunk.cfg.fc_inch
     f1t = inference._fanin_dot((f1, g1), fc.w0[:d], BF16).to(BF16)
     f2t = inference._fanin_dot((f2, g2), fc.w0[d:2 * d], BF16).to(BF16)
     dense, wn1, wn2 = fused.cv_params_from_variables(fc)
     dense = [t.to(BF16) if i % 2 == 0 else t for i, t in enumerate(dense)]
-    knn2 = neighbors.knn(8, pc1, pc2, v2)
-    knn1 = neighbors.knn(8, pc1, pc1, v1)
+    knn2 = neighbors.knn(k, pc1, pc2, v2)
+    knn1 = neighbors.knn(k, pc1, pc1, v1)
     f1c, f2c, z1, z2, zq = fused.cost_volume_folds(
         f1t, f2t, pc1, pc2, dense[0], wn1[0], wn2[0], BF16)
-    c, k, h = fused.CV_WIDTH, fc.nsample, fused.WEIGHTNET_HIDDEN
+    if unit_cost:
+        f1c, f2c = unit(f1c), unit(f2c)
+    c, h = w["cv"][-1], fused.WEIGHTNET_HIDDEN
     cv_args = (f1c, f2c, knn2, z1, z2, dense[1:], wn1[1:])
     cases.append(dict(
-        kernel="cv.bf16", path="bf16",
+        kernel=names["cv"], path=path,
         shape=f"B={b} N={n} C={c} k={k} masked", mult=1,
         run=lambda: fused.cost_volume_p2p(*cv_args),
         plain=lambda: fused.cost_volume_p2p_plain(*cv_args),
-        cublas=yardstick(k, (c, c, c)),
+        cublas=yardstick(k, w["cv"]),
         nbytes=nbytes(cv_args) + rows * c * 2,
-        flops=2 * rows * k * (2 * c * c + h * h + h * c)))
+        flops=chain_flops(rows, k, w["cv"]) + 2 * rows * k * (h * h + h * c)))
     p2p = fused.cost_volume_p2p(*cv_args)
-    agg_args = (p2p, knn1, zq, wn2[1:])
+    agg_args = (unit(p2p) if unit_cost else p2p, knn1, zq, wn2[1:])
     cases.append(dict(
-        kernel="cv_agg.bf16", path="bf16",
+        kernel=names["cv_agg"], path=path,
         shape=f"B={b} N={n} C={c} k={k} masked", mult=1,
         run=lambda: fused.cost_volume_agg(*agg_args),
         plain=lambda: fused.cost_volume_agg_plain(*agg_args),
@@ -985,7 +1115,7 @@ def bf16_cases(model, req: dict, dev):
     cor = fused.cost_volume_agg(*agg_args)
 
     parts = (ft1, f1, g1, cor)
-    w1, w2, w3 = fused.PLF_WIDTHS
+    widths = w["plf"]
     for s, scale in enumerate(inference._scales(model.trunk.mse_layer2)):
         chain, feat_w, _ = fused.plf_params_from_variables(scale)
         chain = inference._cast_chain(chain, BF16)
@@ -993,13 +1123,14 @@ def bf16_cases(model, req: dict, dev):
         kk = ks[s]
         plf_args = (feat_tx, idx["pc1"][s], pc1, chain)
         cases.append(dict(
-            kernel="plf.bf16", path="bf16", shape=f"B={b} N={n} K={kk} masked",
+            kernel=names["plf"], path=path,
+            shape=f"B={b} N={n} K={kk} masked",
             mult=1, run=lambda a=plf_args: fused.fused_point_local_feature(*a),
             plain=lambda a=plf_args:
                 fused.fused_point_local_feature_plain(*a),
-            cublas=yardstick(kk, fused.PLF_WIDTHS),
-            nbytes=nbytes(plf_args) + rows * w3 * 4,
-            flops=2 * (rows * w1 * 6 + rows * kk * (w1 * w2 + w2 * w3))))
+            cublas=yardstick(kk, widths),
+            nbytes=nbytes(plf_args) + rows * widths[-1] * 4,
+            flops=2 * rows * widths[0] * 6 + chain_flops(rows, kk, widths)))
     return cases
 
 
@@ -1086,8 +1217,8 @@ def check_large_cloud(dev, gen: torch.Generator) -> None:
 
 
 def check_cv_agg_any_k(model, dev, gen: torch.Generator) -> None:
-    """K4b at one B=16, N=384 cloud with k=33 neighbours, past K4a's
-    K <= 32, in both arms: masked kNN indices, three of them out of range,
+    """K4b at one B=16, N=384 cloud with k=33 neighbours, in both arms:
+    masked kNN indices, three of them out of range,
     seeded p2p (float32, and rounded to bf16 for the bf16 arm) and zq, the
     model's WeightNet; each held to its plain version at FUSED_ATOL and
     FUSED_RTOL and to itself bit for bit; not part of any route's time."""
@@ -1220,10 +1351,147 @@ def lifted_cases(dev, gen: torch.Generator) -> list:
     return cases
 
 
-def check_lifted(dev, gen: torch.Generator) -> dict:
-    """Every LIFTED_* case: its wrapper's launches a call, then
-    check_kernels; prints a ``lifted`` line; returns {kernel: rows}."""
-    cases = lifted_cases(dev, gen)
+def seeded_module(module, gen: torch.Generator, dev):
+    """``module`` with seeded weights and BatchNorm statistics near the
+    identity (activations of order one), on ``dev``."""
+    init_parameters(module, gen)
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, BatchNorm):
+                m.weight.uniform_(0.7, 1.3, generator=gen)
+                m.bias.uniform_(-0.2, 0.2, generator=gen)
+                m.running_mean.uniform_(-0.1, 0.1, generator=gen)
+                m.running_var.uniform_(0.5, 2.0, generator=gen)
+    return module.to(dev)
+
+
+def fused_lifted_cases(dev, gen: torch.Generator) -> list:
+    """LIFTED_TUNED, LIFTED_MSE, LIFTED_PLF and LIFTED_CV as check_kernels
+    cases, and each generic arm at the tuned kernel's own shape (the
+    fused route's widths, K3 at its four scales, the others at
+    LIFTED_GENERIC_K) through its private route, the tuned arm beside it
+    on the same inputs.  Every generic launch counts as its wrapper's, a
+    launch a scale for K3.  B=16, N=256, seeded random inputs."""
+    b, n = B, 256
+    rows = b * n
+    h = fused.WEIGHTNET_HIDDEN
+    pc = (20.0 * torch.rand((b, n, 3), generator=gen)).to(dev)
+    cases = []
+
+    def rand(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen).to(dev).to(dtype)
+
+    def idx_of(k):
+        return torch.randint(-2, n + 2, (b, n, k), generator=gen,
+                             dtype=torch.int32).to(dev)
+
+    def case(kernel, shape, run, plain, nbytes_, flops, launches):
+        # the generic arm and the tuned arms past their old K take
+        # milliseconds a call: five calls a timing window
+        return dict(kernel=kernel, path="lifted", shape=shape, mult=0,
+                    run=run, plain=plain, nbytes=nbytes_, flops=flops,
+                    graph_timed=True, graph_references=True, same_bits=True,
+                    launches=launches, iters=5)
+
+    def mse_cases(widths, cf, ks, dtype, names):
+        radii = tuple(2.0 * (i + 1) for i in range(len(ks)))
+        mse = seeded_module(MultiScaleEncoder(radii, ks, cf, widths,
+                                              (16,)), gen, dev)
+        with torch.no_grad():
+            packed, _ = fused.mse_narrow_params_from_variables(mse, dtype)
+        feats = rand(b, cf, n, dtype=dtype).transpose(1, 2)
+        idx = [idx_of(k) for k in ks]
+        c1, c2, c3 = widths
+        out = []
+        for name, fn, launches in names:
+            out.append(case(
+                name, f"B={b} N={n} K={ks} Cf={cf} widths={widths} {dtype}",
+                lambda fn=fn: fn(feats, idx, pc, packed),
+                lambda: fused.fused_multi_scale_encoder_plain(
+                    feats, idx, pc, packed),
+                nbytes(pc, feats, idx, packed) + rows * len(ks) * c3 * 4,
+                2 * (rows * len(ks) * c1 * (3 + cf)
+                     + rows * sum(ks) * (c1 * c2 + c2 * c3)), launches))
+        return out
+
+    def plf_cases(widths, k, names):
+        plf = seeded_module(PointLocalFeature(8.0, k, 40, widths, (16,)),
+                            gen, dev)
+        with torch.no_grad():
+            chain, _, _ = fused.plf_params_from_variables(plf)
+        feat_tx = rand(b, n, widths[0])
+        idx = idx_of(k)
+        return [case(name, f"B={b} N={n} K={k} chain={widths}",
+                     lambda fn=fn: fn(feat_tx, idx, pc, chain),
+                     lambda: fused.fused_point_local_feature_plain(
+                         feat_tx, idx, pc, chain),
+                     nbytes(feat_tx, idx, pc, chain) + rows * widths[-1] * 4,
+                     2 * rows * widths[0] * 6 + chain_flops(rows, k, widths),
+                     launches)
+                for name, fn, launches in names]
+
+    def cv_cases(c, k, names, agg_names=()):
+        fc = seeded_module(FeatureCorrelator(k, c, c, (c, c, c)), gen, dev)
+        with torch.no_grad():
+            dense, wn1, wn2 = fused.cv_params_from_variables(fc)
+        args = (rand(b, n, c), rand(b, n, c), idx_of(k), rand(b, n, h),
+                rand(b, n, h), dense[1:], wn1[1:])
+        out = [case(name, f"B={b} N={n} C={c} k={k}",
+                    lambda fn=fn: fn(*args),
+                    lambda: fused.cost_volume_p2p_plain(*args),
+                    nbytes(args) + rows * c * 4,
+                    chain_flops(rows, k, (c, c, c))
+                    + 2 * rows * k * (h * h + h * c), launches)
+               for name, fn, launches in names]
+        agg_args = (rand(b, n, c), idx_of(k), rand(b, n, h), wn2[1:])
+        out += [case(name, f"B={b} N={n} C={c} k={k}",
+                     lambda fn=fn: fn(*agg_args),
+                     lambda: fused.cost_volume_agg_plain(*agg_args),
+                     nbytes(agg_args) + rows * c * 4,
+                     2 * rows * k * (h * h + h * c + c), launches)
+                for name, fn, launches in agg_names]
+        return out
+
+    mse_fn, plf_fn = (fused.fused_multi_scale_encoder,
+                      fused.fused_point_local_feature)
+    cv_fn, agg_fn = fused.cost_volume_p2p, fused.cost_volume_agg
+    for name, k in LIFTED_TUNED:
+        if name.startswith("mse"):
+            dtype = BF16 if name.endswith("bf16") else torch.float32
+            cases += mse_cases(fused.MSE_WIDTHS, 3, (k,), dtype,
+                               [(name, mse_fn, 1)])
+        elif name == "cv":
+            cases += cv_cases(fused.CV_WIDTH, k, [(name, cv_fn, 1)])
+        else:
+            cases += plf_cases(fused.PLF_WIDTHS, k, [(name, plf_fn, 1)])
+    widths, cf, ks = LIFTED_MSE
+    cases += mse_cases(widths, cf, ks, torch.float32,
+                       [("mse.generic", mse_fn, len(ks))])
+    for widths in LIFTED_PLF:
+        cases += plf_cases(widths, LIFTED_GENERIC_K,
+                           [("plf.generic", plf_fn, 1)])
+    for c in LIFTED_CV:
+        cases += cv_cases(c, LIFTED_GENERIC_K, [("cv.generic", cv_fn, 1)],
+                          [("cv_agg.generic", agg_fn, 1)])
+    # each generic arm at its tuned sibling's shape, the tuned arm beside
+    cases += mse_cases(fused.MSE_WIDTHS, 3, (4, 8, 16, 32), torch.float32,
+                       [("mse", mse_fn, 1),
+                        ("mse.generic", fused._mse_generic, 4)])
+    cases += plf_cases(fused.PLF_WIDTHS, LIFTED_GENERIC_K,
+                       [("plf", plf_fn, 1),
+                        ("plf.generic", fused._plf_generic, 1)])
+    cases += cv_cases(fused.CV_WIDTH, LIFTED_GENERIC_K,
+                      [("cv", cv_fn, 1),
+                       ("cv.generic", fused._cv_p2p_generic, 1)],
+                      [("cv_agg", agg_fn, 1),
+                       ("cv_agg.generic", fused._cv_agg_generic, 1)])
+    return cases
+
+
+def check_lifted(cases, key: str = "lifted") -> dict:
+    """Each case of :func:`lifted_cases` or :func:`fused_lifted_cases`: its
+    wrapper's launches a call, then check_kernels; prints a ``key`` line;
+    returns {kernel: rows}."""
     for case in cases:
         wrapper = wrapper_of(case["kernel"])
         before = wrapper.launches
@@ -1242,7 +1510,7 @@ def check_lifted(dev, gen: torch.Generator) -> dict:
             bound_ms=row["bound_ms"], bound_by=row["bound_by"],
             share_of_bound=row["share_of_bound"],
             max_abs_err=row["max_abs_err"], same_bits=True))
-    emit(dict(lifted=out))
+    emit({key: out})
     return out
 
 
@@ -1271,7 +1539,8 @@ def hold_to_plain(case) -> tuple:
         require(err <= GATHER_BWD_RTOL * scale,
                 f"{name} {case['shape']}: kernel and plain version "
                 f"differ by {err} at a largest magnitude of {scale}")
-    elif name in BF16_ARMS and name not in F32_ACCURATE_ARMS:
+    elif (name in BF16_ARMS or name in GENERIC_BF16_ARMS) \
+            and name not in F32_ACCURATE_ARMS:
         require(got.dtype == want.dtype and err <= BF16_RTOL * scale,
                 f"{name} {case['shape']}: kernel and plain version "
                 f"differ by {err} at a largest magnitude of {scale}")
@@ -1293,6 +1562,20 @@ def hold_to_plain(case) -> tuple:
     return err, scale
 
 
+def reference_ms(case, key: str, iters: int):
+    """Device ms of one call of a case's plain version or yardstick
+    (``key``), or None where it has none: by ``torch.profiler`` over
+    ``iters`` calls, or, for a case with ``graph_references``, by replays
+    of a CUDA graph of three (a fresh process's profiler dropped a
+    window's first kernel, every window)."""
+    fn = case.get(key)
+    if fn is None:
+        return None
+    if case.get("graph_references"):
+        return graph_ms(fn, 3)[0]
+    return device_ms(fn, iters)[1]
+
+
 def check_kernels(cases, first: bool, per_forward: dict) -> list:
     """Hold each case to its plain version, time it, print it, and sum the
     first request's cases per forward or step of their route into
@@ -1301,10 +1584,10 @@ def check_kernels(cases, first: bool, per_forward: dict) -> list:
     for case in cases:
         name = case["kernel"]
         err, scale = hold_to_plain(case)
-        library = case.get("library")
-        cublas = case.get("cublas")
+        # calls a timing window takes (fewer for the slow generic arms)
+        iters = case.get("iters", 20)
         if case.get("graph_timed"):
-            own, call_kernels = graph_ms(case["run"], 20)
+            own, call_kernels = graph_ms(case["run"], iters)
             wrapper, parts = own, {}
         else:
             before = wrapper_of(name).launches
@@ -1319,19 +1602,20 @@ def check_kernels(cases, first: bool, per_forward: dict) -> list:
         row = dict(kernel=name, path=case["path"], shape=case["shape"],
                    kernel_ms=own, wrapper_device_ms=wrapper,
                    kernels_per_call=call_kernels,
-                   kernel_event_ms=event_ms(case["run"], 50),
-                   plain_ms=device_ms(case["plain"], 5)[1],
-                   library_ms=device_ms(library, 10)[1] if library else None,
+                   kernel_event_ms=event_ms(case["run"], 5 * iters // 2),
+                   plain_ms=reference_ms(case, "plain", 5),
+                   library_ms=reference_ms(case, "library", 10),
                    max_abs_err=err)
         if len(parts) > 1:
             row["kernel_parts_ms"] = parts
         if name not in EXACT:
             row["plain_max_abs"] = scale
-        if cublas:
-            row["cublas_products_ms"] = device_ms(cublas, 10)[1]
+        if "cublas" in case:
+            row["cublas_products_ms"] = reference_ms(case, "cublas", 10)
         row.update(bounds(name, case["nbytes"], case["flops"]))
         row.update(shares(row, row["kernel_ms"]))
-        row["launches_per_forward"] = case["mult"]
+        row["launches_per_forward"] = (case["mult"]
+                                       * case.get("launches_per_call", 1))
         emit(row)
         rows.append(row)
         if not first:
@@ -1537,6 +1821,224 @@ def serve_bf16(name: str, model, cpu_model, requests) -> dict:
         if temporal:
             carry = (out[4],)
     return launches
+
+
+# backbone configurations whose shapes the tuned fused kernels were not
+# written for: A past their old K at the default widths (the tuned arms at
+# K=64), B at other widths (fc_inch 768, ep_mlp (768, 384, 96); every fused
+# wrapper on the generic kernel)
+SHAPE_CONFIGS = {
+    "A": dict(sa_nsamples=(8, 16, 32, 64), fc_nsample=64),
+    "B": dict(sa_radii=(2.0, 4.0, 8.0), sa_nsamples=(16, 32, 64),
+              sa_mlp=(64, 64, 128), sa_mlp2=(128, 128, 128), fc_nsample=16),
+}
+SHAPE_FAMILIES = {"cmflow": CMFlow, "raflow": RaFlow, "cmflow_t": CMFlowT}
+# the families served at each config: all three at B; at A, whose kernels
+# and shapes the three share, CMFlow
+SHAPE_SERVED = {"A": ("cmflow",), "B": tuple(SHAPE_FAMILIES)}
+# the batch elements of each request the CPU's forward is held on (the
+# engines treat each element on its own; a B=16 CPU forward at config B
+# takes seconds)
+SHAPE_CPU_ROWS = 4
+# CMFlow's train steps, from seeded weights and fresh BatchNorm statistics
+# as the CLI's 2-epoch run takes them, before its bf16 forward is held to
+# the CPU's: on random weights (flows of metres, stat_cls near 0.5) bf16
+# flipped 1.3% of config A's masks between the card and the CPU and moved
+# pre_trans 0.034, as bf16 moves JAX's own forward from float32 (ROADMAP
+# Queue 3); the bf16 serving phase holds CLI-trained checkpoints for the
+# same reason
+SHAPE_TRAIN_STEPS = 8
+# the configs at which CMFlow's random-weight model is also served in bf16
+# and measured, not held: the card against the CPU's bf16 route, and each
+# against the CPU's float32 route, a second witness of how far bf16's
+# rounding alone moves the outputs on those weights
+SHAPE_WITNESS = ("A",)
+
+
+def shapes_phase(dev, gen: torch.Generator, per_forward: dict) -> dict:
+    """The families of SHAPE_SERVED built with each of SHAPE_CONFIGS,
+    seeded weights and BatchNorm statistics (randomize_batchnorm), serve
+    one B=16, N=256 request through ``make_eval_step`` on the card in
+    float32 and in bf16, each forward's counters set to 0 just before it
+    and read just after: the fused launches of the default config (the
+    propagation encoder once a scale), of which config B's K3 (a launch a
+    scale), K4a, K4b and K5 on the generic kernel and config A's none.  Float32 is held to the
+    module route on the card and, on its first SHAPE_CPU_ROWS elements, to
+    the CPU's fused route at the serving bars.
+    A CMFlow of the config from seeded weights then takes SHAPE_TRAIN_STEPS
+    train steps on the card (module route, synthetic B=16 batches, as the
+    CLI's 2-epoch run) and its bf16 forward is held to the CPU's bf16 fused
+    route (every kernel's plain version; the same elements) at BF16_BARS
+    (at SHAPE_WITNESS's configs the random-weight CMFlow's bf16 forward is
+    first measured too, :func:`rounding_witness`); every bf16 forward is measured, not held, against the card's float32
+    forward of the same weights (RaFlow's and CMFlow_T's, on random
+    weights, only that: ROADMAP Queue 3); CMFlow's forwards are timed by
+    their device time.  On CMFlow's request the fused
+    kernels are held to their plain versions at the config's shapes in
+    both dtypes (the cost volume's on inputs of unit magnitude,
+    ``fused_cases``' ``unit_cost``): config B's generic arms timed, each
+    call, its plain version and cuBLAS on its products by CUDA-graph
+    replays (their rows of the kernels line, paths ``shapes_B`` and
+    ``shapes_B_bf16``; ``reference_ms``), the rest untimed.
+    Returns {path: each wrapper's generic launches summed over the
+    path's forwards}."""
+    req = make_request(SEED + 70, B, (200, 256))
+    calib = make_request(SEED + 71, B, (200, 256))
+    head = {k: v[:SHAPE_CPU_ROWS] for k, v in req.items()}
+
+    def cut(out):
+        return tuple(x[:SHAPE_CPU_ROWS] for x in out)
+
+    generic = {}
+    t_start = time.perf_counter()
+    for cfg_name, kw in SHAPE_CONFIGS.items():
+        cfg = BackboneConfig(**kw)
+        for fi, family in enumerate(SHAPE_FAMILIES):
+            if family not in SHAPE_SERVED[cfg_name]:
+                continue
+            cls = SHAPE_FAMILIES[family]
+            model = cls(cfg=cfg)
+            init_parameters(model, torch.Generator().manual_seed(
+                SEED + 72 + fi))
+            model = model.to(dev).eval()
+            carry = ((torch.zeros((B, cfg.prop_width), device=dev),)
+                     if family == "cmflow_t" else ())
+            cpu_carry = tuple(c[:SHAPE_CPU_ROWS].cpu() for c in carry)
+            module_step = make_eval_step(family, model, fused="off")
+            randomize_batchnorm(model, lambda r: module_step(r, *carry),
+                                calib, gen)
+            cpu_model = copy.deepcopy(model).to("cpu")
+            if family == "cmflow":
+                with torch.no_grad():
+                    for path, cases in (
+                            (f"shapes_{cfg_name}",
+                             fused_cases(model, req, dev, unit_cost=True)),
+                            (f"shapes_{cfg_name}_bf16",
+                             bf16_cases(model, req, dev, unit_cost=True))):
+                        timed = [c for c in cases if c["kernel"] in GENERIC]
+                        for c in timed:
+                            # K3's generic arm launches once a scale
+                            c.update(path=path, graph_timed=True,
+                                     graph_references=True, iters=5,
+                                     launches_per_call=len(cfg.sa_radii)
+                                     if c["kernel"].startswith("mse")
+                                     else 1)
+                        check_kernels(timed, True, per_forward)
+                        hold_cases([c for c in cases if c not in timed])
+            f32_out = None
+            for dtype in (torch.float32, BF16):
+                bf16 = dtype == BF16
+                path = f"shapes_{cfg_name}{'_bf16' if bf16 else ''}"
+                trained = bf16 and family == "cmflow"
+                witness = (rounding_witness(family, model, cpu_model, req,
+                                            head, cut)
+                           if trained and cfg_name in SHAPE_WITNESS
+                           else None)
+                if trained:
+                    model = shape_trained_cmflow(cfg, cfg_name, dev)
+                    cpu_model = copy.deepcopy(model).to("cpu")
+                    f32_out = make_eval_step(family, model)(req, *carry)
+                step = make_eval_step(family, model, compute_dtype=dtype)
+                require(step.fused, f"{family} config {cfg_name}: the eval "
+                                    f"step on the card must be fused")
+                zero_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = step(req, *carry)
+                torch.cuda.synchronize()
+                latency = time.perf_counter() - t0
+                counts = counts_now()
+                arms = {k: WRAPPERS[k].launches_generic
+                        for k in set(GENERIC_ARMS.values())}
+                want = dict(LAUNCHES["fused"], plf=len(cfg.sa_radii))
+                if cfg_name == "B":  # K3's generic arm: a launch a scale
+                    want["mse"] *= len(cfg.sa_radii)
+                want_arms = {k: want[k] if cfg_name == "B" else 0
+                             for k in arms}
+                require(counts == want and arms == want_arms,
+                        f"{family} config {cfg_name} {dtype}: launches "
+                        f"{counts}, generic {arms}; want {want}, "
+                        f"{want_arms}")
+                require(all(bool(torch.isfinite(x).all())
+                            for x in out if x.is_floating_point()),
+                        f"{family} config {cfg_name} {dtype}: non-finite "
+                        f"output")
+                for k, v in arms.items():
+                    generic.setdefault(path, {}).setdefault(k, 0)
+                    generic[path][k] += v
+                what = f"{family} config {cfg_name} {dtype}"
+                row = dict(config=cfg_name, family=family, dtype=str(dtype),
+                           batch=B, bucket=int(req["pc1"].shape[1]),
+                           latency_ms=1e3 * latency, launches=counts,
+                           generic_launches=arms)
+                cpu_step = make_eval_step(family, cpu_model, fused="on",
+                                          compute_dtype=dtype)
+                if witness:
+                    row["random_weights"] = witness
+                if bf16:
+                    if trained:
+                        row["train_steps"] = SHAPE_TRAIN_STEPS
+                        row["vs_cpu_bf16"] = compare_bf16(
+                            family, head, cut(out),
+                            cpu_step(head, *cpu_carry),
+                            f"{what} vs the CPU's bf16 route")
+                    row["vs_card_float32"] = compare_bf16(
+                        family, req, out, f32_out, what, hold=False)
+                else:
+                    f32_out = out
+                    # the family's comparison at the serving bars
+                    cmp = {"cmflow": compare, "raflow": compare_raflow,
+                           "cmflow_t": compare_temporal}[family]
+                    row["vs_module_route"] = cmp(
+                        req, out, module_step(req, *carry),
+                        f"{what} vs module route")
+                    row["vs_cpu"] = cmp(head, cut(out),
+                                        cpu_step(head, *cpu_carry),
+                                        f"{what} vs CPU")
+                if family == "cmflow":  # the whole forward's device time
+                    _, ms, _, ops = device_ms(lambda: step(req), 3)
+                    row.update(device_ms=ms, cuda_ops_per_forward=ops)
+                row["elapsed_s"] = time.perf_counter() - t_start
+                emit(dict(shapes=row))
+    return generic
+
+
+def rounding_witness(family: str, model, cpu_model, req, head,
+                     cut) -> dict:
+    """``model`` (on the card) and ``cpu_model`` (its copy) in bf16 on
+    ``req``, measured at BF16_BARS' quantities, not held: the card's bf16
+    fused route against the CPU's (``head``, the elements ``cut`` keeps),
+    and each against the CPU's float32 fused route."""
+    card = cut(make_eval_step(family, model, compute_dtype=BF16)(req))
+    cpu_bf16 = make_eval_step(family, cpu_model, fused="on",
+                              compute_dtype=BF16)(head)
+    cpu_f32 = make_eval_step(family, cpu_model, fused="on")(head)
+    what = f"{family} on random weights"
+    return dict(
+        card_bf16_vs_cpu_bf16=compare_bf16(family, head, card, cpu_bf16,
+                                           what, hold=False),
+        cpu_bf16_vs_cpu_float32=compare_bf16(family, head, cpu_bf16,
+                                             cpu_f32, what, hold=False),
+        card_bf16_vs_cpu_float32=compare_bf16(family, head, card, cpu_f32,
+                                              what, hold=False))
+
+
+def shape_trained_cmflow(cfg, cfg_name: str, dev):
+    """A CMFlow of ``cfg`` from seeded weights after SHAPE_TRAIN_STEPS train
+    steps on the card, each on its own synthetic B=16, N=256 batch, every
+    loss item finite; in eval mode."""
+    model = CMFlow(cfg=cfg)
+    init_parameters(model, torch.Generator().manual_seed(SEED + 79))
+    model = model.to(dev)
+    state = create_train_state(model)
+    step = make_train_step("cmflow", model, VOD_CAMERA_PROJECTION,
+                           VOD_T_CAMERA_RADAR)
+    for i in range(SHAPE_TRAIN_STEPS):
+        items = step(state, make_train_batch(SEED + 80 + i, B, 256))
+        require(all(np.isfinite(float(v)) for v in items.values()),
+                f"cmflow config {cfg_name} train step {i}: non-finite "
+                f"loss items")
+    return model.eval()
 
 
 def leaves(tree, prefix=""):
@@ -3351,23 +3853,45 @@ def fresh_phases(card: str) -> None:
                                fps=per_forward[("fps", "extras")])})
 
 
-def run_fresh_phases(card: str) -> dict:
-    """:func:`fresh_phases` in a new process from this checkout (the
+def shapes_process(card: str) -> None:
+    """The fused kernels' shapes past the default configuration in a
+    process of their own: :func:`fused_lifted_cases` (a ``lifted_fused``
+    line) and :func:`shapes_phase`, then one ``{"shapes_process": ...}``
+    line with the generic launches, the lifted rows and the kernels' sums
+    per forward.  ``main`` runs it last: run in the main process before
+    its train phases, these left its profiler dropping the first kernel of
+    every later window (K7's CSR build, K6 bf16; six windows running)."""
+    dev = torch.device("cuda")
+    per_forward = {}
+    with torch.no_grad():
+        lifted = check_lifted(fused_lifted_cases(
+            dev, torch.Generator().manual_seed(SEED + 68)), "lifted_fused")
+    generic = shapes_phase(dev, torch.Generator().manual_seed(SEED + 69),
+                           per_forward)
+    emit({"shapes_process": dict(
+        card=card, generic=generic, lifted=lifted,
+        per_forward={f"{k}|{path}": acc
+                     for (k, path), acc in per_forward.items()})})
+
+
+def run_in_process(name: str, card: str) -> dict:
+    """``chip_smoke.<name>(card)`` (:func:`fresh_phases`,
+    :func:`shapes_process`) in a new process from this checkout (the
     kernels already built), its lines printed here; returns its last
-    line's ``fresh_phases``."""
+    line's ``name``."""
     here = Path(__file__).resolve().parent
     proc = subprocess.run(
         [sys.executable, "-c",
-         f"import chip_smoke; chip_smoke.fresh_phases({card!r})"],
+         f"import chip_smoke; chip_smoke.{name}({card!r})"],
         cwd=here, capture_output=True, text=True, timeout=900)
     sys.stderr.write(proc.stderr)
     lines = proc.stdout.splitlines()
     for line in lines[:-1]:
         print(line, flush=True)
     require(proc.returncode == 0 and lines
-            and lines[-1].startswith('{"fresh_phases"'),
-            f"the fresh-process phases failed (exit {proc.returncode})")
-    return json.loads(lines[-1])["fresh_phases"]
+            and lines[-1].startswith(f'{{"{name}"'),
+            f"{name} in its own process failed (exit {proc.returncode})")
+    return json.loads(lines[-1])[name]
 
 
 def main() -> int:
@@ -3420,7 +3944,7 @@ def main() -> int:
         check_large_cloud(dev, gen)
         check_cv_agg_any_k(model, dev, gen)
         check_bf16_tc_any_k(model, dev, gen)
-        lifted = check_lifted(dev, gen)
+        lifted = check_lifted(lifted_cases(dev, gen))
     emit(dict(kernel_phase_s=time.perf_counter() - t0))
 
     def fused_checks(req, out):
@@ -3459,6 +3983,7 @@ def main() -> int:
         forward[dtype] = dict(device_ms=ms, cuda_ops_per_forward=ops)
     emit(dict(fused_forward_device=dict(batch=B, bucket=256, **forward)))
     emit(dict(bf16_phase_s=time.perf_counter() - t0))
+
 
     t0 = time.perf_counter()
     batch = make_train_batch(SEED, B, 256)
@@ -3534,7 +4059,7 @@ def main() -> int:
     # PointNet++ SSG with FPS, the train step in each remat mode and the
     # debugging switches, in a process of their own (fresh_phases)
     t0 = time.perf_counter()
-    fresh = run_fresh_phases(card)
+    fresh = run_in_process("fresh_phases", card)
     by_path["extras"] = fresh["extras_launches"]
     per_forward[("fps", "extras")] = fresh["fps"]
     remat = fresh["remat"]
@@ -3561,6 +4086,17 @@ def main() -> int:
     preprocess = preprocess_phase(dev)
     emit(dict(preprocess=preprocess, card=card,
               preprocess_phase_s=time.perf_counter() - t0))
+
+    # the fused kernels past their old K and the generic kernel at other
+    # widths (lifted_fused), then other backbone configurations served in
+    # both dtypes; last, in a process of its own (shapes_process)
+    t0 = time.perf_counter()
+    shapes = run_in_process("shapes_process", card)
+    shape_launches = shapes["generic"]
+    lifted.update(shapes["lifted"])
+    per_forward.update({tuple(key.split("|")): acc
+                        for key, acc in shapes["per_forward"].items()})
+    emit(dict(shapes_phase_s=time.perf_counter() - t0))
 
     kernels = []
     for name in (*WRAPPERS, *BF16_ARMS, *GATHER_ARMS):
@@ -3637,6 +4173,28 @@ def main() -> int:
             for p, r in entry["by_route"].items():
                 r.update(shares(r, r["ms"]))
                 emit(dict(kernel=name, route=p, **r))
+        kernels.append(entry)
+    # the generic kernel behind each wrapper, in each dtype: served by the
+    # three families at config B (shapes_phase)
+    for name, sibling in GENERIC.items():
+        source, replaces = SOURCES[name]
+        path = "shapes_B_bf16" if name in GENERIC_BF16_ARMS else "shapes_B"
+        require((name, path) in per_forward,
+                f"{name}: no case on its route {path}")
+        acc = per_forward[(name, path)]
+        entry = dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=shape_launches[path][sibling],
+            max_abs_err=acc["max_abs_err"], ms=acc["ms"],
+            plain_ms=acc["plain_ms"],
+            **bounds(name, acc["nbytes"], acc["flops"]),
+            library_ms=acc["library_ms"] if acc["has_library"] else None,
+            path=path)
+        entry.update(shares(entry, acc["ms"]))
+        if acc["cublas_products_ms"]:
+            entry["cublas_products_ms"] = acc["cublas_products_ms"]
+        if name in lifted:
+            entry["lifted"] = lifted[name]
         kernels.append(entry)
     require(all(k["launches"] > 0 for k in kernels),
             "a kernel was not launched on its route")

@@ -19,7 +19,9 @@
 // 34.6 GFLOP: 0.21 ms at the dense TF32 peak in 3xTF32 (tc_gemm.cuh), with
 // the split weights (4 MB) streamed from L2 once per block beside it.
 // Design: on wgmma (tc_gemm.cuh).  A block takes 64 rows, whole queries (8
-// at k=8): two consumer warpgroups, each on all 64 rows and one half of the
+// at k=8; past k = 64 one query over consecutive tiles of the block, its sums
+// carried in registers, k ascending as in one tile, so k <= 64 keeps its
+// bits): two consumer warpgroups, each on all 64 rows and one half of the
 // 512 columns (a float32 sum in 128 registers a thread, into which the CUDA
 // cores add the tensor cores' sum of each k8 step, 128 columns at a time:
 // tc::promote), and a producer warpgroup (registers handed to the consumers
@@ -113,7 +115,6 @@ namespace tc = cmflow::tc;
 
 constexpr int kC = 512;
 constexpr int kH = 8;        // WeightNet hidden width
-constexpr int kMaxK = 32;    // neighbours per query cv_p2p_kernel takes
 constexpr int kP2pConsumers = 256;  // two warpgroups
 constexpr int kP2pThreads = kP2pConsumers + 128;  // and a producer warpgroup
 constexpr int kP2pRows = 64;  // (query, neighbour) rows per block
@@ -220,7 +221,10 @@ __device__ __forceinline__ void p2p_step(float (&acc)[128], float (&part)[64],
   }
 }
 
-// wpack from tc_weights
+// wpack from tc_weights.  kTiles: a query's rows may span several tiles
+// (k > kP2pRows); without it the block is one tile of whole queries, the
+// tile loop and the carried sums compiled out.
+template <bool kTiles>
 __global__ void __launch_bounds__(kP2pThreads, 1)
     cv_p2p_kernel(const float* __restrict__ f1c,  // [B*N, kC]
                   const float* __restrict__ f2c,  // [B*N, kC]
@@ -239,26 +243,36 @@ __global__ void __launch_bounds__(kP2pThreads, 1)
   // x1, then w * x2, in A-fragment order: step S (8 channels), then the
   // warpgroup's 128 threads, a float4 each
   float4* xbuf = reinterpret_cast<float4*>(smem + kP2pStages * kStage);
+  // a query's sums over the tiles before, of the thread's columns
+  // threadIdx.x and threadIdx.x + 256 (one query where a query spans tiles)
+  static_assert(kC == 2 * kP2pConsumers, "two columns a thread");
+  float carry0 = 0.0f, carry1 = 0.0f;
   __shared__ int row_j[kP2pRows];  // neighbour row in f2c, or -1
   __shared__ int row_q[kP2pRows];  // query, or -1 for an unused row
   __shared__ __align__(8) uint64_t full[kP2pStages];
   __shared__ __align__(8) uint64_t empty[kP2pStages];
   const tc::Ring<kP2pStages, kStage> ring{smem, full, empty};
 
-  const int qpb = kP2pRows / k;
+  // the block's work: qpb whole queries, qpb * k rows in `tiles` tiles of
+  // kP2pRows (one tile of whole queries where k <= kP2pRows, else one query)
+  const int qpb = kTiles ? 1 : kP2pRows / k;
+  const int rows = qpb * k;
+  const int tiles = kTiles ? (rows + kP2pRows - 1) / kP2pRows : 1;
   const int q0 = blockIdx.x * qpb;
-  if (threadIdx.x < kP2pRows) {
+  auto set_rows = [&](int tile) {
     const int r = threadIdx.x;
-    const int q = q0 + r / k;
+    const int rg = tile * kP2pRows + r;  // row of the block's work
+    const int q = q0 + rg / k;
     int j = -1, qq = -1;
-    if (r < qpb * k && q < total) {
+    if (rg < rows && q < total) {
       qq = q;
-      const int jj = idx[(int64_t)q * k + r % k];
+      const int jj = idx[(int64_t)q * k + rg % k];
       if (jj >= 0 && jj < n) j = (q / n) * n + jj;
     }
     row_j[r] = j;
     row_q[r] = qq;
-  }
+  };
+  if (threadIdx.x < kP2pRows) set_rows(0);
   if (threadIdx.x == 0) ring.init(kP2pConsumers / 32);
   __syncthreads();
 
@@ -266,7 +280,7 @@ __global__ void __launch_bounds__(kP2pThreads, 1)
     tc::producer_registers();
     if (threadIdx.x == kP2pConsumers) {
       const char* w = static_cast<const char*>(wpack);
-      ring.produce(w, w + kPackHalf * 4, 2 * kSteps);
+      ring.produce(w, w + kPackHalf * 4, 2 * kSteps, tiles);
     }
     return;
   }
@@ -281,125 +295,146 @@ __global__ void __launch_bounds__(kP2pThreads, 1)
   const int ra = 16 * warp + g, rb = ra + 8;
   const uint32_t half = 8192 * wg;  // the warpgroup's columns in a B tile
   constexpr int C4 = kC / 4;
-  const int qa = row_q[ra], qb = row_q[rb];
-  const int ja = row_j[ra], jb = row_j[rb];
   const Row4* f14 = reinterpret_cast<const Row4*>(f1c);
   const Row4* f24 = reinterpret_cast<const Row4*>(f2c);
   const float4* b04 = reinterpret_cast<const float4*>(b0);
-  const Row4* p1a = qa >= 0 ? f14 + (int64_t)qa * C4 : nullptr;
-  const Row4* p1b = qb >= 0 ? f14 + (int64_t)qb * C4 : nullptr;
-  const Row4* p2a = qa >= 0 && ja >= 0 ? f24 + (int64_t)ja * C4 : nullptr;
-  const Row4* p2b = qb >= 0 && jb >= 0 ? f24 + (int64_t)jb * C4 : nullptr;
 
-  // x0 = LeakyReLU(f1c[q] + f2c[j] + b0) at channels 4*c4 .. 4*c4 + 3 of
-  // rows ra (xa) and rb (xb)
-  auto first_layer = [&](int c4, float4& xa, float4& xb) {
-    const float4 bb = __ldg(b04 + c4);
-    const float4 f1a = load_or_zero(p1a, c4), f2a = load_or_zero(p2a, c4);
-    const float4 f1b = load_or_zero(p1b, c4), f2b = load_or_zero(p2b, c4);
-    xa = qa >= 0 ? leaky4(make_float4((f1a.x + f2a.x) + bb.x,
-                                      (f1a.y + f2a.y) + bb.y,
-                                      (f1a.z + f2a.z) + bb.z,
-                                      (f1a.w + f2a.w) + bb.w))
-                 : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    xb = qb >= 0 ? leaky4(make_float4((f1b.x + f2b.x) + bb.x,
-                                      (f1b.y + f2b.y) + bb.y,
-                                      (f1b.z + f2b.z) + bb.z,
-                                      (f1b.w + f2b.w) + bb.w))
-                 : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  };
+  for (int tile = 0; tile < tiles; ++tile) {
+    if (tile > 0) {
+      tc::consumer_sync<kP2pConsumers>();  // the last tile's rows and sums
+      if (threadIdx.x < kP2pRows) set_rows(tile);
+      tc::consumer_sync<kP2pConsumers>();
+    }
+    const int c0 = tile * 2 * kSteps;
+    const int qa = row_q[ra], qb = row_q[rb];
+    const int ja = row_j[ra], jb = row_j[rb];
+    const Row4* p1a = qa >= 0 ? f14 + (int64_t)qa * C4 : nullptr;
+    const Row4* p1b = qb >= 0 ? f14 + (int64_t)qb * C4 : nullptr;
+    const Row4* p2a = qa >= 0 && ja >= 0 ? f24 + (int64_t)ja * C4 : nullptr;
+    const Row4* p2b = qb >= 0 && jb >= 0 ? f24 + (int64_t)jb * C4 : nullptr;
 
-  float acc[128];
+    // x0 = LeakyReLU(f1c[q] + f2c[j] + b0) at channels 4*c4 .. 4*c4 + 3 of
+    // rows ra (xa) and rb (xb)
+    auto first_layer = [&](int c4, float4& xa, float4& xb) {
+      const float4 bb = __ldg(b04 + c4);
+      const float4 f1a = load_or_zero(p1a, c4), f2a = load_or_zero(p2a, c4);
+      const float4 f1b = load_or_zero(p1b, c4), f2b = load_or_zero(p2b, c4);
+      xa = qa >= 0 ? leaky4(make_float4((f1a.x + f2a.x) + bb.x,
+                                        (f1a.y + f2a.y) + bb.y,
+                                        (f1a.z + f2a.z) + bb.z,
+                                        (f1a.w + f2a.w) + bb.w))
+                   : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      xb = qb >= 0 ? leaky4(make_float4((f1b.x + f2b.x) + bb.x,
+                                        (f1b.y + f2b.y) + bb.y,
+                                        (f1b.z + f2b.z) + bb.z,
+                                        (f1b.w + f2b.w) + bb.w))
+                   : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    };
+
+    float acc[128];
 #pragma unroll
-  for (int i = 0; i < 128; ++i) acc[i] = 0.0f;
-  {
-    float part[64];
-    // x1 = x0 @ W1.  Step 2c + e, position p is channel 16c + 4*(p%4) + 2e
-    // + p/4, so the float4 at channels 16c + 4t holds the thread's A values
-    // of steps 2c and 2c + 1.
-    for (int c = 0; c < kSteps / 2; ++c) {
-      float4 xa, xb;
-      first_layer(4 * c + t, xa, xb);
-      p2p_step(acc, part, tc::split4(xa.x, xb.x, xa.y, xb.y),
-               ring.acquire(2 * c), half);
-      ring.release(2 * c);
-      p2p_step(acc, part, tc::split4(xa.z, xb.z, xa.w, xb.w),
-               ring.acquire(2 * c + 1), half);
-      ring.release(2 * c + 1);
+    for (int i = 0; i < 128; ++i) acc[i] = 0.0f;
+    {
+      float part[64];
+      // x1 = x0 @ W1.  Step 2c + e, position p is channel 16c + 4*(p%4) +
+      // 2e + p/4, so the float4 at channels 16c + 4t holds the thread's A
+      // values of steps 2c and 2c + 1.
+      for (int c = 0; c < kSteps / 2; ++c) {
+        float4 xa, xb;
+        first_layer(4 * c + t, xa, xb);
+        p2p_step(acc, part, tc::split4(xa.x, xb.x, xa.y, xb.y),
+                 ring.acquire(c0 + 2 * c), half);
+        ring.release(c0 + 2 * c);
+        p2p_step(acc, part, tc::split4(xa.z, xb.z, xa.w, xb.w),
+                 ring.acquire(c0 + 2 * c + 1), half);
+        ring.release(c0 + 2 * c + 1);
+      }
+
+      // x1 = LeakyReLU(acc + b1) into shared memory, already in the
+      // A-fragment order of the second product: acc[4j + e] is (row ra or
+      // rb, column 256*wg + 8j + 2t + e%2), which step S = 32*wg + j takes
+      // at positions t and t + 4.
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        const int col = 256 * wg + 8 * j + 2 * t;
+        const float2 b = __ldg(reinterpret_cast<const float2*>(b1 + col));
+        xbuf[(32 * wg + j) * 128 + tid] = make_float4(
+            leaky(acc[4 * j] + b.x), leaky(acc[4 * j + 2] + b.x),
+            leaky(acc[4 * j + 1] + b.y), leaky(acc[4 * j + 3] + b.y));
+      }
+      tc::consumer_sync<kP2pConsumers>();
+
+      // x2 = x1 @ W2: step S, position p is channel 8S + 2*(p%4) + p/4
+#pragma unroll
+      for (int i = 0; i < 128; ++i) acc[i] = 0.0f;
+      float4 xn = xbuf[tid];
+      for (int s = 0; s < kSteps; ++s) {
+        const float4 x = xn;
+        if (s + 1 < kSteps) xn = xbuf[(s + 1) * 128 + tid];
+        p2p_step(acc, part, tc::split4(x.x, x.y, x.z, x.w),
+                 ring.acquire(c0 + kSteps + s), half);
+        ring.release(c0 + kSteps + s);
+      }
     }
 
-    // x1 = LeakyReLU(acc + b1) into shared memory, already in the
-    // A-fragment order of the second product: acc[4j + e] is (row ra or rb,
-    // column 256*wg + 8j + 2t + e%2), which step S = 32*wg + j takes at
-    // positions t and t + 4.
+    // w * LeakyReLU(acc + b2), w the WeightNet of z2[j] - z1[q], over x1
+    float ha[kH], hb[kH];
+    {
+      float da[kH], db[kH];
+#pragma unroll
+      for (int m = 0; m < kH; ++m) {
+        da[m] = (ja >= 0 ? z2[(int64_t)ja * kH + m] : 0.0f) -
+                (qa >= 0 ? z1[(int64_t)qa * kH + m] : 0.0f);
+        db[m] = (jb >= 0 ? z2[(int64_t)jb * kH + m] : 0.0f) -
+                (qb >= 0 ? z1[(int64_t)qb * kH + m] : 0.0f);
+      }
+      weightnet_hidden(da, wn.b0, wn.w1, wn.b1, ha);
+      weightnet_hidden(db, wn.b0, wn.w1, wn.b1, hb);
+    }
+    tc::consumer_sync<kP2pConsumers>();  // every thread has read x1
 #pragma unroll
     for (int j = 0; j < 32; ++j) {
       const int col = 256 * wg + 8 * j + 2 * t;
-      const float2 b = __ldg(reinterpret_cast<const float2*>(b1 + col));
-      xbuf[(32 * wg + j) * 128 + tid] = make_float4(
-          leaky(acc[4 * j] + b.x), leaky(acc[4 * j + 2] + b.x),
-          leaky(acc[4 * j + 1] + b.y), leaky(acc[4 * j + 3] + b.y));
+      const float2 b = __ldg(reinterpret_cast<const float2*>(b2 + col));
+      const float2 wa = weightnet_out2(ha, wn.w2, wn.b2, col);
+      const float2 wb = weightnet_out2(hb, wn.w2, wn.b2, col);
+      xbuf[(32 * wg + j) * 128 + tid] =
+          make_float4(wa.x * leaky(acc[4 * j] + b.x),
+                      wb.x * leaky(acc[4 * j + 2] + b.x),
+                      wa.y * leaky(acc[4 * j + 1] + b.y),
+                      wb.y * leaky(acc[4 * j + 3] + b.y));
     }
     tc::consumer_sync<kP2pConsumers>();
 
-    // x2 = x1 @ W2: step S, position p is channel 8S + 2*(p%4) + p/4
-#pragma unroll
-    for (int i = 0; i < 128; ++i) acc[i] = 0.0f;
-    float4 xn = xbuf[tid];
-    for (int s = 0; s < kSteps; ++s) {
-      const float4 x = xn;
-      if (s + 1 < kSteps) xn = xbuf[(s + 1) * 128 + tid];
-      p2p_step(acc, part, tc::split4(x.x, x.y, x.z, x.w),
-               ring.acquire(kSteps + s), half);
-      ring.release(kSteps + s);
+    // sum over each query's rows in this tile, k ascending, on from the
+    // running sum of the tiles before; (row r, column c) lies in step c/8,
+    // warp r/16, lane 4*(r%8) + (c%8)/2, float (r%16)/8 + 2*(c%2)
+    const float* xs = reinterpret_cast<const float*>(xbuf);
+    for (int e = threadIdx.x; e < qpb * kC; e += kP2pConsumers) {
+      const int qi = e / kC, c = e % kC;
+      const int q = q0 + qi;
+      if (q >= total) continue;
+      const int cbase = (c / 8) * 512 + ((c % 8) / 2) * 4 + 2 * (c % 2);
+      // the query's rows in this tile (all of them without kTiles)
+      const int lo = kTiles ? max(qi * k, tile * kP2pRows) : qi * k;
+      const int hi = kTiles ? min(qi * k + k, (tile + 1) * kP2pRows)
+                            : qi * k + k;
+      const bool first = e < kP2pConsumers;  // of the thread's two columns
+      float s = tile == 0 ? 0.0f : first ? carry0 : carry1;
+      for (int rg = lo; rg < hi; ++rg) {
+        const int r = rg - tile * kP2pRows;
+        const float v =
+            xs[cbase + (r / 16) * 128 + (r % 8) * 16 + (r % 16) / 8];
+        s = rg == qi * k ? v : s + v;
+      }
+      if (tile + 1 == tiles) {
+        store_out(out, (int64_t)q * kC + c, s);
+      } else if (first) {
+        carry0 = s;
+      } else {
+        carry1 = s;
+      }
     }
-  }
-
-  // w * LeakyReLU(acc + b2), w the WeightNet of z2[j] - z1[q], over x1
-  float ha[kH], hb[kH];
-  {
-    float da[kH], db[kH];
-#pragma unroll
-    for (int m = 0; m < kH; ++m) {
-      da[m] = (ja >= 0 ? z2[(int64_t)ja * kH + m] : 0.0f) -
-              (qa >= 0 ? z1[(int64_t)qa * kH + m] : 0.0f);
-      db[m] = (jb >= 0 ? z2[(int64_t)jb * kH + m] : 0.0f) -
-              (qb >= 0 ? z1[(int64_t)qb * kH + m] : 0.0f);
-    }
-    weightnet_hidden(da, wn.b0, wn.w1, wn.b1, ha);
-    weightnet_hidden(db, wn.b0, wn.w1, wn.b1, hb);
-  }
-  tc::consumer_sync<kP2pConsumers>();  // every thread has read x1
-#pragma unroll
-  for (int j = 0; j < 32; ++j) {
-    const int col = 256 * wg + 8 * j + 2 * t;
-    const float2 b = __ldg(reinterpret_cast<const float2*>(b2 + col));
-    const float2 wa = weightnet_out2(ha, wn.w2, wn.b2, col);
-    const float2 wb = weightnet_out2(hb, wn.w2, wn.b2, col);
-    xbuf[(32 * wg + j) * 128 + tid] =
-        make_float4(wa.x * leaky(acc[4 * j] + b.x),
-                    wb.x * leaky(acc[4 * j + 2] + b.x),
-                    wa.y * leaky(acc[4 * j + 1] + b.y),
-                    wb.y * leaky(acc[4 * j + 3] + b.y));
-  }
-  tc::consumer_sync<kP2pConsumers>();
-
-  // sum over each query's k rows, in k order; (row r, column c) lies in
-  // step c/8, warp r/16, lane 4*(r%8) + (c%8)/2, float (r%16)/8 + 2*(c%2)
-  const float* xs = reinterpret_cast<const float*>(xbuf);
-  for (int e = threadIdx.x; e < qpb * kC; e += kP2pConsumers) {
-    const int qi = e / kC, c = e % kC;
-    const int q = q0 + qi;
-    if (q >= total) continue;
-    const int cbase = (c / 8) * 512 + ((c % 8) / 2) * 4 + 2 * (c % 2);
-    float s = 0.0f;
-    for (int kk = 0; kk < k; ++kk) {
-      const int r = qi * k + kk;
-      const float v =
-          xs[cbase + (r / 16) * 128 + (r % 8) * 16 + (r % 16) / 8];
-      s = kk == 0 ? v : s + v;
-    }
-    store_out(out, (int64_t)q * kC + c, s);
   }
 }
 
@@ -952,7 +987,7 @@ int launch_agg(void (*kernel)(const T*, const int*, const float*, WeightNet,
 
 extern "C" {
 
-// f1c/f2c [B,N,512], idx [B,N,k] int32 (1 <= k <= 32), z1/z2 [B,N,8],
+// f1c/f2c [B,N,512], idx [B,N,k] int32 (any k >= 1), z1/z2 [B,N,8],
 // dense b0 [512], wpack from tc_weights (w1 and w2 [512,512], split and
 // ordered for the tensor cores), b1 [512], b2 [512], the WeightNet after its
 // first product wb0 [8], ww1 [8,8], wb1 [8], ww2 [8,512], wb2 [512],
@@ -963,18 +998,18 @@ int cmflow_cv_p2p(const void* f1c, const void* f2c, const void* idx,
                   const void* wb0, const void* ww1, const void* wb1,
                   const void* ww2, const void* wb2, void* out, int b, int n,
                   int k, int c, void* stream) {
-  if (!valid_p2p_shape(b, n, k, c) || k > kMaxK) {
-    return (int)cudaErrorInvalidValue;
-  }
+  if (!valid_p2p_shape(b, n, k, c)) return (int)cudaErrorInvalidValue;
   const int total = b * n;
   if (total == 0) return (int)cudaSuccess;
+  const bool tiles = k > kP2pRows;
+  auto kernel = tiles ? cv_p2p_kernel<true> : cv_p2p_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      cv_p2p_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)kP2pSmemBytes);
   if (err != cudaSuccess) return (int)err;
-  const int qpb = kP2pRows / k;
-  cv_p2p_kernel<<<(total + qpb - 1) / qpb, kP2pThreads, kP2pSmemBytes,
-                  static_cast<cudaStream_t>(stream)>>>(
+  const int qpb = tiles ? 1 : kP2pRows / k;
+  kernel<<<(total + qpb - 1) / qpb, kP2pThreads, kP2pSmemBytes,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(f1c), static_cast<const float*>(f2c),
       static_cast<const int*>(idx), static_cast<const float*>(z1),
       static_cast<const float*>(z2), static_cast<const float*>(b0), wpack,

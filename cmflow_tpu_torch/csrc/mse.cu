@@ -36,6 +36,14 @@
 //   warp tile holds whole queries at every K <= 32 so the max closes in
 //   registers and shuffles, and the warps of a block, each on its own
 //   tiles, never wait for one another.
+// - Past K = 32 (mse_long_kernel, and mse_bf16_long_kernel for the bf16
+//   arm) a warp takes whole queries instead, a query's K rows as 16-row
+//   units one after another (rows past K repeat the first neighbour), each
+//   unit's max closed by the same butterfly and carried in registers from
+//   unit to unit: the max is exact, so any split gives the same bits.  A
+//   launch's scales of each kind take their own kernel, so a call with
+//   both is two launches; the scales of K <= 32 keep their kernel and
+//   bits.
 // - Each thread gathers its two channels (t, t + 4) of its two rows (g,
 //   g + 8) straight into the first product's A fragment; x0 and x1 stay in
 //   the accumulator layout and are the next product's A as they stand (the
@@ -92,7 +100,8 @@ constexpr int kC2 = 32;
 constexpr int kC3 = 64;
 constexpr int kMaxFeats = kC0 - 3;
 constexpr int kMaxScales = 8;
-constexpr int kMaxK = 32;
+constexpr int kMaxK = 32;  // the tile kernels' K; above it the long kernels
+constexpr int kLongUnits = 8;  // 16-row units a warp of a long kernel takes
 constexpr int kWarps = 8;
 constexpr int kTilesPerWarp = 4;
 constexpr int kTileRows = 32;  // two m16 units
@@ -304,6 +313,139 @@ __device__ __forceinline__ void pool_store(float (&v0)[16], float (&v1)[16],
   }
 }
 
+// the scale of this block's tiles
+__device__ __forceinline__ int block_scale(const Scales& sc) {
+  int s = 0;
+  while (s + 1 < sc.count && (int)blockIdx.x >= sc.block0[s + 1]) ++s;
+  return s;
+}
+
+// scale s's B fragments, split into TF32 hi and lo, and its affines into
+// shared memory
+__device__ __forceinline__ void stage_f32(const float* __restrict__ image,
+                                          int s, float4* wsm, float* aff) {
+  const float* img = image + (size_t)s * kImage;
+  const float2* pairs = reinterpret_cast<const float2*>(img);
+  for (int e = threadIdx.x; e < kSlots; e += blockDim.x) {
+    const float2 w = __ldg(pairs + e);
+    const uint32_t h0 = tc::tf32_rna(w.x), h1 = tc::tf32_rna(w.y);
+    wsm[e] = make_float4(
+        __uint_as_float(h0), __uint_as_float(h1),
+        __uint_as_float(tc::tf32_rna(w.x - __uint_as_float(h0))),
+        __uint_as_float(tc::tf32_rna(w.y - __uint_as_float(h1))));
+  }
+  for (int e = threadIdx.x; e < kAffine; e += blockDim.x) {
+    aff[e] = __ldg(img + 2 * kSlots + e);
+  }
+}
+
+// The three products of one 16-row unit from its first layer's gathered
+// inputs (ga of row g, gb of row g + 8): the last product's rows g (v0) and
+// g + 8 (v1), columns 8 nt + 2t, +1 at 2 nt, 2 nt + 1.
+__device__ __forceinline__ void chain_f32(float2 ga, float2 gb,
+                                          const float4* wsm, const float* aff,
+                                          int lane, int t, float (&v0)[16],
+                                          float (&v1)[16]) {
+  // layer 0: one k8 step, input channel p at position p
+  float x[16];
+  {
+    const tc::Split a = tc::split4(ga.x, gb.x, ga.y, gb.y);
+#pragma unroll
+    for (int nt = 0; nt < kC1 / 8; ++nt) {
+      float d[4];
+      mma3(d, a, wsm[nt * 32 + lane]);
+      epilogue(x + 4 * nt, d, aff, kS0, kB0, 8 * nt + 2 * t);
+    }
+  }
+  // layer 1: k8 step j takes x0's n8 tile j
+  float y[16];
+  {
+    tc::Split a[kC1 / 8];
+#pragma unroll
+    for (int j = 0; j < kC1 / 8; ++j) a[j] = chain_a(x + 4 * j);
+#pragma unroll
+    for (int nt = 0; nt < kC2 / 8; ++nt) {
+      float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int j = 0; j < kC1 / 8; ++j) {
+        float d[4];
+        mma3(d, a[j], wsm[kSlots1 + (j * (kC2 / 8) + nt) * 32 + lane]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[i] += d[i];
+      }
+      epilogue(y + 4 * nt, acc, aff, kS1, kB1, 8 * nt + 2 * t);
+    }
+  }
+  // layer 2, then its rows g (v0) and g + 8 (v1)
+  {
+    tc::Split a[kC2 / 8];
+#pragma unroll
+    for (int j = 0; j < kC2 / 8; ++j) a[j] = chain_a(y + 4 * j);
+#pragma unroll
+    for (int nt = 0; nt < kC3 / 8; ++nt) {
+      float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int j = 0; j < kC2 / 8; ++j) {
+        float d[4];
+        mma3(d, a[j], wsm[kSlots2 + (j * (kC3 / 8) + nt) * 32 + lane]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[i] += d[i];
+      }
+      float z[4];
+      epilogue(z, acc, aff, kS2, kB2, 8 * nt + 2 * t);
+      v0[2 * nt] = z[0];
+      v0[2 * nt + 1] = z[1];
+      v1[2 * nt] = z[2];
+      v1[2 * nt + 1] = z[3];
+    }
+  }
+}
+
+// A query's max over its 16-row units, one unit at a time (K > kMaxK): the
+// unit's rows g (v0) and g + 8 (v1) closed by the butterfly of pool_store's
+// P = 16, then carried; the unit `last` stores it.  Lane (g, t) ends with
+// columns 8 nt + 2t, +1, nt = 4 g0 + 2 g1 + g2.
+__device__ __forceinline__ void pool_long(float (&v0)[16], const float (&v1)[16],
+                                          bool first, bool last, int q, int g,
+                                          int t, float* __restrict__ outs,
+                                          int stride, float (&carry)[2]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) v0[i] = fmaxf(v0[i], v1[i]);
+  halve<8>(v0, g & 1, 4);
+  halve<4>(v0, (g >> 1) & 1, 8);
+  halve<2>(v0, (g >> 2) & 1, 16);
+  carry[0] = first ? v0[0] : fmaxf(carry[0], v0[0]);
+  carry[1] = first ? v0[1] : fmaxf(carry[1], v0[1]);
+  if (last) {
+    const int nt = 4 * (g & 1) + ((g >> 1) & 1) * 2 + (g >> 2);
+    store2(outs, q, stride, 8 * nt + 2 * t, carry[0], carry[1]);
+  }
+}
+
+// The rows g and g + 8 of unit u of a query's K rows: its neighbours 16u + g
+// (+ 8); rows past K repeat the first neighbour (the max is unchanged)
+__device__ __forceinline__ Row long_row(const int* __restrict__ idx, int q,
+                                        int u, int plus, int g, int k,
+                                        int total, int n) {
+  Row row{-1, 0, -1};
+  if (q < total) {
+    int kk = 16 * u + g + plus;
+    if (kk >= k) kk = 0;
+    const int j = __ldg(idx + (int64_t)q * k + kk);
+    row.q = q;
+    row.b = q / n;
+    row.j = (j >= 0 && j < n) ? j : -1;
+  }
+  return row;
+}
+
+// queries a warp takes past kMaxK (whole queries of 16-row units, about
+// kLongUnits units a warp)
+__host__ __device__ __forceinline__ int long_queries(int k) {
+  const int units = (k + 15) / 16;
+  return units < kLongUnits ? kLongUnits / units : 1;
+}
+
 __global__ void __launch_bounds__(kWarps * 32, 2)
     mse_kernel(Cloud cloud, const float* __restrict__ image,  // [S, kImage]
                float* __restrict__ out,                      // [B*N, S*kC3]
@@ -311,23 +453,8 @@ __global__ void __launch_bounds__(kWarps * 32, 2)
   __shared__ float4 wsm[kSlots];
   __shared__ __align__(16) float aff[kAffine];
 
-  int s = 0;
-  while (s + 1 < sc.count && (int)blockIdx.x >= sc.block0[s + 1]) ++s;
-  {
-    const float* img = image + (size_t)s * kImage;
-    const float2* pairs = reinterpret_cast<const float2*>(img);
-    for (int e = threadIdx.x; e < kSlots; e += blockDim.x) {
-      const float2 w = __ldg(pairs + e);
-      const uint32_t h0 = tc::tf32_rna(w.x), h1 = tc::tf32_rna(w.y);
-      wsm[e] = make_float4(
-          __uint_as_float(h0), __uint_as_float(h1),
-          __uint_as_float(tc::tf32_rna(w.x - __uint_as_float(h0))),
-          __uint_as_float(tc::tf32_rna(w.y - __uint_as_float(h1))));
-    }
-    for (int e = threadIdx.x; e < kAffine; e += blockDim.x) {
-      aff[e] = __ldg(img + 2 * kSlots + e);
-    }
-  }
+  const int s = block_scale(sc);
+  stage_f32(image, s, wsm, aff);
   __syncthreads();
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -358,64 +485,54 @@ __global__ void __launch_bounds__(kWarps * 32, 2)
       nb = unit_row(idx, first_row(u + 1) + 8, lp, k, total, cloud.n);
     }
 
-    // layer 0: one k8 step, input channel p at position p
-    float x[16];
-    {
-      const tc::Split a = tc::split4(ga.x, gb.x, ga.y, gb.y);
-#pragma unroll
-      for (int nt = 0; nt < kC1 / 8; ++nt) {
-        float d[4];
-        mma3(d, a, wsm[nt * 32 + lane]);
-        epilogue(x + 4 * nt, d, aff, kS0, kB0, 8 * nt + 2 * t);
-      }
-    }
-    // layer 1: k8 step j takes x0's n8 tile j
-    float y[16];
-    {
-      tc::Split a[kC1 / 8];
-#pragma unroll
-      for (int j = 0; j < kC1 / 8; ++j) a[j] = chain_a(x + 4 * j);
-#pragma unroll
-      for (int nt = 0; nt < kC2 / 8; ++nt) {
-        float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-        for (int j = 0; j < kC1 / 8; ++j) {
-          float d[4];
-          mma3(d, a[j], wsm[kSlots1 + (j * (kC2 / 8) + nt) * 32 + lane]);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[i] += d[i];
-        }
-        epilogue(y + 4 * nt, acc, aff, kS1, kB1, 8 * nt + 2 * t);
-      }
-    }
-    // layer 2, then its rows g (v0) and g + 8 (v1)
     float v0[16], v1[16];
-    {
-      tc::Split a[kC2 / 8];
-#pragma unroll
-      for (int j = 0; j < kC2 / 8; ++j) a[j] = chain_a(y + 4 * j);
-#pragma unroll
-      for (int nt = 0; nt < kC3 / 8; ++nt) {
-        float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-        for (int j = 0; j < kC2 / 8; ++j) {
-          float d[4];
-          mma3(d, a[j], wsm[kSlots2 + (j * (kC3 / 8) + nt) * 32 + lane]);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[i] += d[i];
-        }
-        float z[4];
-        epilogue(z, acc, aff, kS2, kB2, 8 * nt + 2 * t);
-        v0[2 * nt] = z[0];
-        v0[2 * nt + 1] = z[1];
-        v1[2 * nt] = z[2];
-        v1[2 * nt + 1] = z[3];
-      }
-    }
+    chain_f32(ga, gb, wsm, aff, lane, t, v0, v1);
 
     pool_store(v0, v1, lp, h, g, t, ra.q, rb.q, outs, stride, carry);
     ra = na;
     rb = nb;
+  }
+}
+
+
+// Scales with K > kMaxK (make_scales gives the others no block): a warp
+// takes long_queries(K) whole queries, one 16-row unit after another, the
+// next unit's indices loaded while the current one computes; each query's
+// max carried in registers across its units (pool_long).
+__global__ void __launch_bounds__(kWarps * 32, 2)
+    mse_long_kernel(Cloud cloud, const float* __restrict__ image,
+                    float* __restrict__ out, int total, Scales sc) {
+  __shared__ float4 wsm[kSlots];
+  __shared__ __align__(16) float aff[kAffine];
+
+  const int s = block_scale(sc);
+  stage_f32(image, s, wsm, aff);
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int k = sc.k[s], units = (k + 15) / 16, qpw = long_queries(k);
+  const int* __restrict__ idx = sc.idx[s];
+  const int q0 = ((blockIdx.x - sc.block0[s]) * kWarps + warp) * qpw;
+  const int stride = sc.count * kC3;
+  float* __restrict__ outs = out + s * kC3;
+  const int steps = qpw * units;  // (query, unit) of the warp, in order
+
+  Row ra = long_row(idx, q0, 0, 0, g, k, total, cloud.n);
+  Row rb = long_row(idx, q0, 0, 8, g, k, total, cloud.n);
+  float carry[2];
+  for (int f = 0; f < steps; ++f) {
+    const int q = q0 + f / units, u = f % units;
+    if (q >= total) break;  // warp-uniform
+    const float2 ga = gather(cloud, ra, t), gb = gather(cloud, rb, t);
+    if (f + 1 < steps) {
+      const int qn = q0 + (f + 1) / units, un = (f + 1) % units;
+      ra = long_row(idx, qn, un, 0, g, k, total, cloud.n);
+      rb = long_row(idx, qn, un, 8, g, k, total, cloud.n);
+    }
+    float v0[16], v1[16];
+    chain_f32(ga, gb, wsm, aff, lane, t, v0, v1);
+    pool_long(v0, v1, u == 0, u + 1 == units, q, g, t, outs, stride, carry);
   }
 }
 
@@ -556,6 +673,118 @@ __device__ __forceinline__ uint2 bf16_slot(const unsigned short* w1,
       (uint32_t)__ldg(col + 8 * cout) | (uint32_t)__ldg(col + 9 * cout) << 16);
 }
 
+// scale s's w1 and w2 as B fragments, and its float32 weights, into
+// shared memory
+__device__ __forceinline__ void stage_bf16(const Bf16Weights& wt, int s,
+                                           int cf, uint2* wsm, float* fsm) {
+  const unsigned short* w1 = wt.w1 + (size_t)s * kC1 * kC2;
+  const unsigned short* w2 = wt.w2 + (size_t)s * kC2 * kC3;
+  for (int e = threadIdx.x; e < kBf16Slots; e += blockDim.x) {
+    wsm[e] = bf16_slot(w1, w2, e);
+  }
+  const float* w0r = wt.w0r[s];
+  const float* w0f = wt.w0f[s];
+  for (int e = threadIdx.x; e < 3 * kC1; e += blockDim.x) {
+    fsm[kW0r + e] = __ldg(w0r + e);
+  }
+  for (int e = threadIdx.x; e < cf * kC1; e += blockDim.x) {
+    fsm[kW0f + e] = __ldg(w0f + e);
+  }
+  // s0, b0 (kC1 each), s1, b1 (kC2), s2, b2 (kC3): this scale's part
+  for (int e = threadIdx.x; e < kAffine; e += blockDim.x) {
+    const int a = e < kS2 ? e / kC1 : 4 + (e - kS2) / kC3;
+    const int width = a < 2 ? kC1 : a < 4 ? kC2 : kC3;
+    const int col = e < kS2 ? e % kC1 : (e - kS2) % kC3;
+    fsm[kBf16Aff + e] = __ldg(wt.aff[a] + s * width + col);
+  }
+}
+
+// the values a row forms its x0 from, without a span: its neighbour's
+// centred point and features, its query's centred point
+struct Gathered {
+  float d[3], f[kMaxFeats], p[3];
+};
+
+__device__ __forceinline__ Gathered gather_bf16(const Bf16Cloud& cloud,
+                                                Row row) {
+  Gathered v{};
+  if (row.q >= 0) {
+    centred(cloud, row.b, row.q - row.b * cloud.n, v.p);
+    if (row.j >= 0) {
+      centred(cloud, row.b, row.j, v.d);
+      features(cloud, row.b, row.j, v.f);
+    }
+  }
+  return v;
+}
+
+// a row's x0 (first_layer_bf16's layout) from its gathered values, its
+// neighbour's base formed and rounded to bf16 here
+__device__ __forceinline__ void x0_from_gathered(Row row, const Gathered& v,
+                                                 int cf, int t,
+                                                 const float* fsm,
+                                                 float (&x)[8]) {
+  const bool in = row.q >= 0 && row.j >= 0;
+  first_layer_bf16(v.p, [&](int w) {
+    return in ? tc::pack_bf16(base_channel(v.f, v.d, cf, 2 * w, fsm),
+                              base_channel(v.f, v.d, cf, 2 * w + 1, fsm))
+              : 0u;
+  }, t, fsm, x);
+}
+
+// The two bf16 products of one 16-row unit from x0 of rows g (xa) and g + 8
+// (xb): the last product's rows g (v0) and g + 8 (v1) as chain_f32 gives
+// them.
+__device__ __forceinline__ void chain_bf16(const float (&xa)[8],
+                                           const float (&xb)[8],
+                                           const uint2* wsm, const float* aff,
+                                           int lane, int t, float (&v0)[16],
+                                           float (&v1)[16]) {
+  // layer 1: k16 step j takes channels 16j .. 16j + 15 of x0
+  float y[16];
+  {
+    uint32_t a[2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) chain_a_bf16(xa + 4 * j, xb + 4 * j, a[j]);
+#pragma unroll
+    for (int nt = 0; nt < kC2 / 8; ++nt) {
+      float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const uint2 w = wsm[(j * (kC2 / 8) + nt) * 32 + lane];
+        tc::mma_sync_bf16(d, a[j], w.x, w.y);
+      }
+      epilogue(y + 4 * nt, d, aff, kS1, kB1, 8 * nt + 2 * t);
+    }
+  }
+  // layer 2: k16 step j takes y's n8 tiles 2j, 2j + 1
+  {
+    uint32_t a[2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const float* yy = y + 8 * j;
+      const float ya[4] = {yy[0], yy[1], yy[4], yy[5]};
+      const float yb[4] = {yy[2], yy[3], yy[6], yy[7]};
+      chain_a_bf16(ya, yb, a[j]);
+    }
+#pragma unroll
+    for (int nt = 0; nt < kC3 / 8; ++nt) {
+      float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const uint2 w = wsm[kBf16Slots1 + (j * (kC3 / 8) + nt) * 32 + lane];
+        tc::mma_sync_bf16(d, a[j], w.x, w.y);
+      }
+      float z[4];
+      epilogue(z, d, aff, kS2, kB2, 8 * nt + 2 * t);
+      v0[2 * nt] = z[0];
+      v0[2 * nt + 1] = z[1];
+      v1[2 * nt] = z[2];
+      v1[2 * nt + 1] = z[3];
+    }
+  }
+}
+
 // the queries [first, last] of the tiles [tile0, tile0 + per_block) of a
 // scale with P = 2^lp rows a query
 __device__ __host__ __forceinline__ int2 block_queries(int64_t tile0,
@@ -580,30 +809,8 @@ __global__ void __launch_bounds__(kBf16Warps * 32, kBf16MinBlocks)
   __shared__ __align__(16) float fsm[kBf16Floats];
   extern __shared__ uint32_t span[];  // [points][kPointWords]
 
-  int s = 0;
-  while (s + 1 < sc.count && (int)blockIdx.x >= sc.block0[s + 1]) ++s;
-  {
-    const unsigned short* w1 = wt.w1 + (size_t)s * kC1 * kC2;
-    const unsigned short* w2 = wt.w2 + (size_t)s * kC2 * kC3;
-    for (int e = threadIdx.x; e < kBf16Slots; e += blockDim.x) {
-      wsm[e] = bf16_slot(w1, w2, e);
-    }
-    const float* w0r = wt.w0r[s];
-    const float* w0f = wt.w0f[s];
-    for (int e = threadIdx.x; e < 3 * kC1; e += blockDim.x) {
-      fsm[kW0r + e] = __ldg(w0r + e);
-    }
-    for (int e = threadIdx.x; e < cloud.cf * kC1; e += blockDim.x) {
-      fsm[kW0f + e] = __ldg(w0f + e);
-    }
-    // s0, b0 (kC1 each), s1, b1 (kC2), s2, b2 (kC3): this scale's part
-    for (int e = threadIdx.x; e < kAffine; e += blockDim.x) {
-      const int a = e < kS2 ? e / kC1 : 4 + (e - kS2) / kC3;
-      const int width = a < 2 ? kC1 : a < 4 ? kC2 : kC3;
-      const int col = e < kS2 ? e % kC1 : (e - kS2) % kC3;
-      fsm[kBf16Aff + e] = __ldg(wt.aff[a] + s * width + col);
-    }
-  }
+  const int s = block_scale(sc);
+  stage_bf16(wt, s, cloud.cf, wsm, fsm);
   __syncthreads();
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -661,30 +868,9 @@ __global__ void __launch_bounds__(kBf16Warps * 32, kBf16MinBlocks)
     const bool in = row.q >= 0 && row.j >= 0;
     first_layer_bf16(p, [&](int w) { return in ? j[w] : 0u; }, t, fsm, x);
   };
-  // the values a row forms its x0 from, without a span: its neighbour's
-  // centred point and features, its query's centred point
-  struct Gathered {
-    float d[3], f[kMaxFeats], p[3];
-  };
-  auto gather = [&](Row row) {
-    Gathered v{};
-    if (row.q >= 0) {
-      centred(cloud, row.b, row.q - row.b * n, v.p);
-      if (row.j >= 0) {
-        centred(cloud, row.b, row.j, v.d);
-        features(cloud, row.b, row.j, v.f);
-      }
-    }
-    return v;
-  };
+  auto gather = [&](Row row) { return gather_bf16(cloud, row); };
   auto x0_gathered = [&](Row row, const Gathered& v, float (&x)[8]) {
-    const bool in = row.q >= 0 && row.j >= 0;
-    first_layer_bf16(v.p, [&](int w) {
-      return in ? tc::pack_bf16(base_channel(v.f, v.d, cloud.cf, 2 * w, fsm),
-                                base_channel(v.f, v.d, cloud.cf, 2 * w + 1,
-                                             fsm))
-                : 0u;
-    }, t, fsm, x);
+    x0_from_gathered(row, v, cloud.cf, t, fsm, x);
   };
 
   Row ra = row_of(0, 0), rb = row_of(0, 8);
@@ -713,50 +899,8 @@ __global__ void __launch_bounds__(kBf16Warps * 32, kBf16MinBlocks)
     // the indices of the unit after the next
     const Row na2 = row_of(u + 2, 0), nb2 = row_of(u + 2, 8);
 
-    // layer 1: k16 step j takes channels 16j .. 16j + 15 of x0
-    float y[16];
-    {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) chain_a_bf16(xa + 4 * j, xb + 4 * j, a[j]);
-#pragma unroll
-      for (int nt = 0; nt < kC2 / 8; ++nt) {
-        float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const uint2 w = wsm[(j * (kC2 / 8) + nt) * 32 + lane];
-          tc::mma_sync_bf16(d, a[j], w.x, w.y);
-        }
-        epilogue(y + 4 * nt, d, aff, kS1, kB1, 8 * nt + 2 * t);
-      }
-    }
-    // layer 2: k16 step j takes y's n8 tiles 2j, 2j + 1
     float v0[16], v1[16];
-    {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const float* yy = y + 8 * j;
-        const float ya[4] = {yy[0], yy[1], yy[4], yy[5]};
-        const float yb[4] = {yy[2], yy[3], yy[6], yy[7]};
-        chain_a_bf16(ya, yb, a[j]);
-      }
-#pragma unroll
-      for (int nt = 0; nt < kC3 / 8; ++nt) {
-        float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const uint2 w = wsm[kBf16Slots1 + (j * (kC3 / 8) + nt) * 32 + lane];
-          tc::mma_sync_bf16(d, a[j], w.x, w.y);
-        }
-        float z[4];
-        epilogue(z, d, aff, kS2, kB2, 8 * nt + 2 * t);
-        v0[2 * nt] = z[0];
-        v0[2 * nt + 1] = z[1];
-        v1[2 * nt] = z[2];
-        v1[2 * nt + 1] = z[3];
-      }
-    }
+    chain_bf16(xa, xb, wsm, aff, lane, t, v0, v1);
     pool_store(v0, v1, lp, h, g, t, ra.q, rb.q, outs, stride, carry);
     ra = na;
     rb = nb;
@@ -765,23 +909,82 @@ __global__ void __launch_bounds__(kBf16Warps * 32, kBf16MinBlocks)
   }
 }
 
+
+// The bf16 arm's scales with K > kMaxK: mse_long_kernel's order of work,
+// each row forming its neighbour's base from the point and features it
+// gathers (the bits of the span's base), the next unit's gathers in flight
+// while the current one computes.
+__global__ void __launch_bounds__(kBf16Warps * 32, kBf16MinBlocks)
+    mse_bf16_long_kernel(Bf16Cloud cloud, Bf16Weights wt,
+                         float* __restrict__ out, int total, Scales sc) {
+  __shared__ uint2 wsm[kBf16Slots];
+  __shared__ __align__(16) float fsm[kBf16Floats];
+
+  const int s = block_scale(sc);
+  stage_bf16(wt, s, cloud.cf, wsm, fsm);
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int k = sc.k[s], units = (k + 15) / 16, qpw = long_queries(k);
+  const int* __restrict__ idx = sc.idx[s];
+  const int q0 = ((blockIdx.x - sc.block0[s]) * kBf16Warps + warp) * qpw;
+  const int stride = sc.count * kC3;
+  float* __restrict__ outs = out + s * kC3;
+  const float* aff = fsm + kBf16Aff;
+  const int steps = qpw * units;
+
+  Row ra = long_row(idx, q0, 0, 0, g, k, total, cloud.n);
+  Row rb = long_row(idx, q0, 0, 8, g, k, total, cloud.n);
+  Gathered va = gather_bf16(cloud, ra), vb = gather_bf16(cloud, rb);
+  float carry[2];
+  for (int f = 0; f < steps; ++f) {
+    const int q = q0 + f / units, u = f % units;
+    if (q >= total) break;  // warp-uniform
+    float xa[8], xb[8];
+    x0_from_gathered(ra, va, cloud.cf, t, fsm, xa);
+    x0_from_gathered(rb, vb, cloud.cf, t, fsm, xb);
+    if (f + 1 < steps) {
+      const int qn = q0 + (f + 1) / units, un = (f + 1) % units;
+      ra = long_row(idx, qn, un, 0, g, k, total, cloud.n);
+      rb = long_row(idx, qn, un, 8, g, k, total, cloud.n);
+      va = gather_bf16(cloud, ra);
+      vb = gather_bf16(cloud, rb);
+    }
+    float v0[16], v1[16];
+    chain_bf16(xa, xb, wsm, aff, lane, t, v0, v1);
+    pool_long(v0, v1, u == 0, u + 1 == units, q, g, t, outs, stride, carry);
+  }
+}
+
 // fills `scales` for count scales of ks[] neighbours and idx[] indices over
-// `total` queries, `per_block` 32-row tiles a block; returns a cudaError_t
+// `total` queries: for the tile kernels (long_scales false) the scales with
+// K <= kMaxK, `per_block` 32-row tiles a block; for the long kernels the
+// others, `per_block` warps a block; a scale of the other kind gets no
+// block.  Returns a cudaError_t.
 int make_scales(void* const* idx, const int* ks, int count, int total,
-                int per_block, Scales& scales) {
+                int per_block, bool long_scales, Scales& scales) {
   scales.count = count;
   scales.block0[0] = 0;
   for (int t = 0; t < kMaxScales; ++t) {
     const bool used = t < count;
     const int k = used ? ks[t] : 1;
-    if (used && (k < 1 || k > kMaxK)) return (int)cudaErrorInvalidValue;
+    if (used && k < 1) return (int)cudaErrorInvalidValue;
     int lp = 0;
     while ((1 << lp) < k) ++lp;
     scales.k[t] = k;
     scales.log2p[t] = lp;
     scales.idx[t] = used ? static_cast<const int*>(idx[t]) : nullptr;
-    const int64_t tiles = (((int64_t)total << lp) + kTileRows - 1) / kTileRows;
-    const int64_t blocks = used ? (tiles + per_block - 1) / per_block : 0;
+    int64_t blocks = 0;
+    if (used && (k > kMaxK) == long_scales) {
+      const int64_t work =
+          long_scales ? (int64_t)per_block * long_queries(k) : per_block;
+      const int64_t units = long_scales
+                                ? total
+                                : (((int64_t)total << lp) + kTileRows - 1) /
+                                      kTileRows;
+      blocks = (units + work - 1) / work;
+    }
     if (scales.block0[t] + blocks > 0x7fffffff) {
       return (int)cudaErrorInvalidValue;
     }
@@ -796,9 +999,10 @@ extern "C" {
 
 // xyz [B,N,3] f32 contiguous; feats [B,N,cf] f32 with element strides
 // (sb, sn, sc), cf <= 5; ctr [B,3] the mean of each cloud over all N;
-// idx[s] [B,N,ks[s]] int32 (1 <= ks[s] <= 32, count <= 8 scales); image
+// idx[s] [B,N,ks[s]] int32 (any ks[s] >= 1, count <= 8 scales); image
 // [count, 3584] from ops/fused.py::mse_tc_weights; out [B,N,count*64].
-// Returns a cudaError_t.
+// The scales with K <= 32 take mse_kernel, the others mse_long_kernel: one
+// launch, or two where both kinds are there.  Returns a cudaError_t.
 int cmflow_mse(const void* xyz, const void* feats, long long sb, long long sn,
                long long sc, int cf, const void* ctr, void* const* idx,
                const int* ks, int count, const void* image, void* out, int b,
@@ -808,21 +1012,34 @@ int cmflow_mse(const void* xyz, const void* feats, long long sb, long long sn,
     return (int)cudaErrorInvalidValue;
   }
   const int total = b * n;
-  Scales scales;
-  const int err =
-      make_scales(idx, ks, count, total, kWarps * kTilesPerWarp, scales);
+  Scales tile_scales, long_scales;
+  int err = make_scales(idx, ks, count, total, kWarps * kTilesPerWarp, false,
+                        tile_scales);
+  if (err == (int)cudaSuccess) {
+    err = make_scales(idx, ks, count, total, kWarps, true, long_scales);
+  }
   if (err != (int)cudaSuccess) return err;
   if (total == 0) return (int)cudaSuccess;
   Cloud cloud{static_cast<const float*>(xyz), static_cast<const float*>(feats),
               sb, sn, sc, cf, static_cast<const float*>(ctr), n};
-  mse_kernel<<<scales.block0[count], kWarps * 32, 0,
-               static_cast<cudaStream_t>(stream)>>>(
-      cloud, static_cast<const float*>(image), static_cast<float*>(out),
-      total, scales);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (tile_scales.block0[count] > 0) {
+    mse_kernel<<<tile_scales.block0[count], kWarps * 32, 0, st>>>(
+        cloud, static_cast<const float*>(image), static_cast<float*>(out),
+        total, tile_scales);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  if (long_scales.block0[count] > 0) {
+    mse_long_kernel<<<long_scales.block0[count], kWarps * 32, 0, st>>>(
+        cloud, static_cast<const float*>(image), static_cast<float*>(out),
+        total, long_scales);
+  }
   return (int)cudaGetLastError();
 }
 
-// The bf16 arm: xyz, ctr, idx and ks as cmflow_mse; feats [B,N,cf] bf16
+// The bf16 arm (mse_bf16_kernel, and mse_bf16_long_kernel for K > 32): xyz,
+// ctr, idx and ks as cmflow_mse; feats [B,N,cf] bf16
 // with element strides (sb, sn, sc); per scale s, w0r[s] [3,32] and w0f[s]
 // [cf,32] f32; w1 [count,32,32] and w2 [count,32,64] bf16; the affines s0,
 // b0 [count*32], s1, b1 [count*32], s2, b2 [count*64] f32 (all contiguous);
@@ -839,9 +1056,12 @@ int cmflow_mse_bf16(const void* xyz, const void* feats, long long sb,
     return (int)cudaErrorInvalidValue;
   }
   const int total = b * n;
-  Scales scales;
-  const int err = make_scales(idx, ks, count, total,
-                              kBf16Warps * kBf16TilesPerWarp, scales);
+  Scales scales, long_scales;
+  int err = make_scales(idx, ks, count, total,
+                        kBf16Warps * kBf16TilesPerWarp, false, scales);
+  if (err == (int)cudaSuccess) {
+    err = make_scales(idx, ks, count, total, kBf16Warps, true, long_scales);
+  }
   if (err != (int)cudaSuccess) return err;
   if (total == 0) return (int)cudaSuccess;
   const Bf16Cloud cloud{static_cast<const float*>(xyz),
@@ -869,7 +1089,9 @@ int cmflow_mse_bf16(const void* xyz, const void* feats, long long sb,
     }
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (points <= kBf16SpanPoints) {
+  if (scales.block0[count] == 0) {
+    // every scale takes the long kernel
+  } else if (points <= kBf16SpanPoints) {
     const int smem = (int)points * kPointWords * (int)sizeof(uint32_t);
     if (smem > 48 * 1024 - (int)(sizeof(uint2) * kBf16Slots +
                                  sizeof(float) * kBf16Floats)) {
@@ -885,7 +1107,14 @@ int cmflow_mse_bf16(const void* xyz, const void* feats, long long sb,
     mse_bf16_kernel<false><<<scales.block0[count], kBf16Warps * 32, 0, st>>>(
         cloud, wt, static_cast<float*>(out), total, scales);
   }
-  return (int)cudaGetLastError();
+  cudaError_t e = cudaGetLastError();
+  if (e == cudaSuccess && long_scales.block0[count] > 0) {
+    mse_bf16_long_kernel<<<long_scales.block0[count], kBf16Warps * 32, 0,
+                           st>>>(cloud, wt, static_cast<float*>(out), total,
+                                 long_scales);
+    e = cudaGetLastError();
+  }
+  return (int)e;
 }
 
 const char* cmflow_error_string(int code) {

@@ -21,7 +21,9 @@
 //
 // Design: a gather-GEMM with a max-pool epilogue on wgmma (tc_gemm.cuh).  A
 // block takes 128 rows made of whole queries (128/K of them), so the max
-// over K closes inside the block: two consumer warpgroups of 64 rows each,
+// over K closes inside the block (past K = 128, one query whose rows run
+// over consecutive tiles of the block, its max carried in shared memory and
+// the weights streamed once a tile): two consumer warpgroups of 64 rows each,
 // and a producer warpgroup (registers handed to the consumers with
 // setmaxnreg) one thread of which streams the packed weights (W1 then W2,
 // TF32 hi and lo, ops/fused.py::tc_weights) through a ring of five 32 KB
@@ -140,20 +142,26 @@ __global__ void __launch_bounds__(kThreads, 1)
   __shared__ int row_j[kRows];  // neighbour row in base, or -1
   __shared__ int row_q[kRows];  // query, or -1 for an unused row
   __shared__ float row_xyz[kRows][3];
+  __shared__ float carry[kC3];  // a query's max over the tiles before
   __shared__ __align__(8) uint64_t full[kStages];
   __shared__ __align__(8) uint64_t empty[kStages];
   const tc::Ring<kStages, kStage> ring{smem, full, empty};
 
-  const int qpb = kRows / k;  // whole queries per block
+  // the block's work: qpb whole queries, qpb * k rows in `tiles` tiles of
+  // kRows (one tile of whole queries where k <= kRows, else one query)
+  const int qpb = max(1, kRows / k);
+  const int rows = qpb * k;
+  const int tiles = (rows + kRows - 1) / kRows;
   const int q0 = blockIdx.x * qpb;
-  if (threadIdx.x < kRows) {
+  auto set_rows = [&](int tile) {
     const int r = threadIdx.x;
-    const int q = q0 + r / k;
+    const int rg = tile * kRows + r;  // row of the block's work
+    const int q = q0 + rg / k;
     int j = -1, qq = -1;
     float x = 0.0f, y = 0.0f, z = 0.0f;
-    if (r < qpb * k && q < total) {
+    if (rg < rows && q < total) {
       qq = q;
-      const int jj = idx[(int64_t)q * k + r % k];
+      const int jj = idx[(int64_t)q * k + rg % k];
       if (jj >= 0 && jj < n) j = (q / n) * n + jj;
       x = xyz[(int64_t)q * 3];
       y = xyz[(int64_t)q * 3 + 1];
@@ -164,7 +172,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     row_xyz[r][0] = x;
     row_xyz[r][1] = y;
     row_xyz[r][2] = z;
-  }
+  };
+  if (threadIdx.x < kRows) set_rows(0);
   if (threadIdx.x == 0) ring.init(kConsumers / 32);
   __syncthreads();
 
@@ -172,7 +181,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     tc::producer_registers();
     if (threadIdx.x == kConsumers) {
       const char* w = reinterpret_cast<const char*>(wpack);
-      ring.produce(w, w + kPackHalf * 4, kChunks1 + kChunks2);
+      ring.produce(w, w + kPackHalf * 4, kChunks1 + kChunks2, tiles);
     }
     return;
   }
@@ -185,144 +194,160 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
   const int ra = 64 * wg + 16 * warp + g, rb = ra + 8;
   constexpr int C4 = kC1 / 4;
-  const bool va = row_q[ra] >= 0, vb = row_q[rb] >= 0;
   const float4* base4 = reinterpret_cast<const float4*>(base);
-  const float4* pa =
-      va && row_j[ra] >= 0 ? base4 + (int64_t)row_j[ra] * C4 : nullptr;
-  const float4* pb =
-      vb && row_j[rb] >= 0 ? base4 + (int64_t)row_j[rb] * C4 : nullptr;
-  const float xa = row_xyz[ra][0], ya = row_xyz[ra][1], za = row_xyz[ra][2];
-  const float xb = row_xyz[rb][0], yb = row_xyz[rb][1], zb = row_xyz[rb][2];
   const float4* wr4 = reinterpret_cast<const float4*>(wrel);
   const float4* s04 = reinterpret_cast<const float4*>(s0);
   const float4* b04 = reinterpret_cast<const float4*>(b0);
 
-  // x0 at the four channels 4*c4 .. 4*c4 + 3 of rows ra (xa4) and rb (xb4)
-  auto first_layer = [&](int c4, float (&xa4)[4], float (&xb4)[4]) {
-    const float4 ga = load_or_zero(pa, c4), gb = load_or_zero(pb, c4);
-    const float4 r0 = __ldg(wr4 + c4), r1 = __ldg(wr4 + C4 + c4),
-                 r2 = __ldg(wr4 + 2 * C4 + c4);
-    const float4 s = __ldg(s04 + c4), b = __ldg(b04 + c4);
-    const float ga4[4] = {ga.x, ga.y, ga.z, ga.w};
-    const float gb4[4] = {gb.x, gb.y, gb.z, gb.w};
-    const float rr0[4] = {r0.x, r0.y, r0.z, r0.w};
-    const float rr1[4] = {r1.x, r1.y, r1.z, r1.w};
-    const float rr2[4] = {r2.x, r2.y, r2.z, r2.w};
-    const float ss[4] = {s.x, s.y, s.z, s.w}, bb[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float offa = fmaf(za, rr2[e], fmaf(ya, rr1[e], xa * rr0[e]));
-      const float offb = fmaf(zb, rr2[e], fmaf(yb, rr1[e], xb * rr0[e]));
-      xa4[e] = va ? relu_affine(ga4[e] - offa, ss[e], bb[e]) : 0.0f;
-      xb4[e] = vb ? relu_affine(gb4[e] - offb, ss[e], bb[e]) : 0.0f;
+  for (int tile = 0; tile < tiles; ++tile) {
+    if (tile > 0) {
+      tc::consumer_sync<kConsumers>();  // the last tile's rows and x2 read
+      if (threadIdx.x < kRows) set_rows(tile);
+      tc::consumer_sync<kConsumers>();
     }
-  };
+    const int c0 = tile * (kChunks1 + kChunks2);
+    const bool va = row_q[ra] >= 0, vb = row_q[rb] >= 0;
+    const float4* pa =
+        va && row_j[ra] >= 0 ? base4 + (int64_t)row_j[ra] * C4 : nullptr;
+    const float4* pb =
+        vb && row_j[rb] >= 0 ? base4 + (int64_t)row_j[rb] * C4 : nullptr;
+    const float xa = row_xyz[ra][0], ya = row_xyz[ra][1], za = row_xyz[ra][2];
+    const float xb = row_xyz[rb][0], yb = row_xyz[rb][1], zb = row_xyz[rb][2];
 
-  // x1 = x0 @ W1
-  float acc[128];
+    // x0 at the four channels 4*c4 .. 4*c4 + 3 of rows ra (xa4) and rb (xb4)
+    auto first_layer = [&](int c4, float (&xa4)[4], float (&xb4)[4]) {
+      const float4 ga = load_or_zero(pa, c4), gb = load_or_zero(pb, c4);
+      const float4 r0 = __ldg(wr4 + c4), r1 = __ldg(wr4 + C4 + c4),
+                   r2 = __ldg(wr4 + 2 * C4 + c4);
+      const float4 s = __ldg(s04 + c4), b = __ldg(b04 + c4);
+      const float ga4[4] = {ga.x, ga.y, ga.z, ga.w};
+      const float gb4[4] = {gb.x, gb.y, gb.z, gb.w};
+      const float rr0[4] = {r0.x, r0.y, r0.z, r0.w};
+      const float rr1[4] = {r1.x, r1.y, r1.z, r1.w};
+      const float rr2[4] = {r2.x, r2.y, r2.z, r2.w};
+      const float ss[4] = {s.x, s.y, s.z, s.w}, bb[4] = {b.x, b.y, b.z, b.w};
 #pragma unroll
-  for (int i = 0; i < 128; ++i) acc[i] = 0.0f;
-  {
-    // Stage c holds k8 steps 2c and 2c+1: their hi tiles (8 KB each), then
-    // their lo tiles.  Step 2c + e, position p is channel 16c + 4*(p%4) +
-    // 2e + p/4, so the channels 16c + 4t .. +3 a thread loads as one float4
-    // are its A values of both steps.  The tensor cores sum each stage's
-    // products for 128 columns at a time in `part`, which is then added to
-    // `acc` (tc::promote).
-    float part[64];
-    for (int c = 0; c < kChunks1; ++c) {
-      float xa4[4], xb4[4];
-      first_layer(4 * c + t, xa4, xb4);
-      const tc::Split a0 = tc::split4(xa4[0], xb4[0], xa4[1], xb4[1]);
-      const tc::Split a1 = tc::split4(xa4[2], xb4[2], xa4[3], xb4[3]);
-      const uint32_t st = ring.acquire(c);
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {  // columns 128h .. 128h + 127
-        tc::fence();
-        tc::mma3(part, a0, st + 4096 * h, st + 16384 + 4096 * h, 0);
-        tc::mma3(part, a1, st + 8192 + 4096 * h, st + 24576 + 4096 * h, 1);
-        tc::commit();
-        tc::wait_all();
-        tc::fence_regs(part);
-        if (h == 0) {
-          tc::promote<0>(acc, part);
-        } else {
-          tc::promote<64>(acc, part);
-        }
+      for (int e = 0; e < 4; ++e) {
+        const float offa = fmaf(za, rr2[e], fmaf(ya, rr1[e], xa * rr0[e]));
+        const float offb = fmaf(zb, rr2[e], fmaf(yb, rr1[e], xb * rr0[e]));
+        xa4[e] = va ? relu_affine(ga4[e] - offa, ss[e], bb[e]) : 0.0f;
+        xb4[e] = vb ? relu_affine(gb4[e] - offb, ss[e], bb[e]) : 0.0f;
       }
-      ring.release(c);
-    }
-  }
+    };
 
-  // x1 = ReLU(acc * s1 + b1), in place: acc[4j + e] is column 8j + 2t + e%2
+    // x1 = x0 @ W1
+    float acc[128];
 #pragma unroll
-  for (int j = 0; j < kC2 / 8; ++j) {
-    const int col = 8 * j + 2 * t;
-    const float2 s = __ldg(reinterpret_cast<const float2*>(s1 + col));
-    const float2 b = __ldg(reinterpret_cast<const float2*>(b1 + col));
-    acc[4 * j] = relu_affine(acc[4 * j], s.x, b.x);
-    acc[4 * j + 1] = relu_affine(acc[4 * j + 1], s.y, b.y);
-    acc[4 * j + 2] = relu_affine(acc[4 * j + 2], s.x, b.x);
-    acc[4 * j + 3] = relu_affine(acc[4 * j + 3], s.y, b.y);
-  }
-
-  // x2 = x1 @ W2
-  float acc2[32];
+    for (int i = 0; i < 128; ++i) acc[i] = 0.0f;
+    {
+      // Stage c holds k8 steps 2c and 2c+1: their hi tiles (8 KB each), then
+      // their lo tiles.  Step 2c + e, position p is channel 16c + 4*(p%4) +
+      // 2e + p/4, so the channels 16c + 4t .. +3 a thread loads as one float4
+      // are its A values of both steps.  The tensor cores sum each stage's
+      // products for 128 columns at a time in `part`, which is then added to
+      // `acc` (tc::promote).
+      float part[64];
+      for (int c = 0; c < kChunks1; ++c) {
+        float xa4[4], xb4[4];
+        first_layer(4 * c + t, xa4, xb4);
+        const tc::Split a0 = tc::split4(xa4[0], xb4[0], xa4[1], xb4[1]);
+        const tc::Split a1 = tc::split4(xa4[2], xb4[2], xa4[3], xb4[3]);
+        const uint32_t st = ring.acquire(c0 + c);
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc2[i] = 0.0f;
-  {
-    // Stage c holds k8 steps 8c .. 8c+7: their hi tiles (2 KB each), then
-    // their lo tiles.  Step j, position p is channel 8j + 2*(p%4) + p/4,
-    // the columns 8j + 2t (p = t) and 8j + 2t + 1 (p = t + 4) the thread
-    // already holds.  Two steps at a time are summed in `part2`, then added
-    // to `acc2`.
-    float part2[32];
-#pragma unroll
-    for (int c = 0; c < kChunks2; ++c) {
-      const uint32_t st = ring.acquire(kChunks1 + c);
-#pragma unroll
-      for (int jj = 0; jj < 8; ++jj) {
-        const int j = 8 * c + jj;
-        const tc::Split a = tc::split4(acc[4 * j], acc[4 * j + 2],
-                                       acc[4 * j + 1], acc[4 * j + 3]);
-        tc::fence();
-        tc::mma3(part2, a, st + 2048 * jj, st + 16384 + 2048 * jj, jj % 2);
-        if (jj % 2 == 1) {
+        for (int h = 0; h < 2; ++h) {  // columns 128h .. 128h + 127
+          tc::fence();
+          tc::mma3(part, a0, st + 4096 * h, st + 16384 + 4096 * h, 0);
+          tc::mma3(part, a1, st + 8192 + 4096 * h, st + 24576 + 4096 * h, 1);
           tc::commit();
           tc::wait_all();
-          tc::fence_regs(part2);
-          tc::promote<0>(acc2, part2);
+          tc::fence_regs(part);
+          if (h == 0) {
+            tc::promote<0>(acc, part);
+          } else {
+            tc::promote<64>(acc, part);
+          }
         }
+        ring.release(c0 + c);
       }
-      ring.release(kChunks1 + c);
     }
-  }
 
-  // x2 = ReLU(acc2 * s2 + b2) into shared memory
+    // x1 = ReLU(acc * s1 + b1), in place: acc[4j + e] is column 8j + 2t + e%2
 #pragma unroll
-  for (int j = 0; j < kC3 / 8; ++j) {
-    const int col = 8 * j + 2 * t;
-    const float2 s = __ldg(reinterpret_cast<const float2*>(s2 + col));
-    const float2 b = __ldg(reinterpret_cast<const float2*>(b2 + col));
-    *reinterpret_cast<float2*>(x2s + ra * kX2Stride + col) =
-        make_float2(relu_affine(acc2[4 * j], s.x, b.x),
-                    relu_affine(acc2[4 * j + 1], s.y, b.y));
-    *reinterpret_cast<float2*>(x2s + rb * kX2Stride + col) =
-        make_float2(relu_affine(acc2[4 * j + 2], s.x, b.x),
-                    relu_affine(acc2[4 * j + 3], s.y, b.y));
-  }
-  tc::consumer_sync<kConsumers>();
-
-  // max over each query's k rows
-  for (int e = threadIdx.x; e < qpb * kC3; e += kConsumers) {
-    const int qi = e / kC3, c = e % kC3;
-    const int q = q0 + qi;
-    if (q >= total) continue;
-    float m = -INFINITY;
-    for (int kk = 0; kk < k; ++kk) {
-      m = fmaxf(m, x2s[(qi * k + kk) * kX2Stride + c]);
+    for (int j = 0; j < kC2 / 8; ++j) {
+      const int col = 8 * j + 2 * t;
+      const float2 s = __ldg(reinterpret_cast<const float2*>(s1 + col));
+      const float2 b = __ldg(reinterpret_cast<const float2*>(b1 + col));
+      acc[4 * j] = relu_affine(acc[4 * j], s.x, b.x);
+      acc[4 * j + 1] = relu_affine(acc[4 * j + 1], s.y, b.y);
+      acc[4 * j + 2] = relu_affine(acc[4 * j + 2], s.x, b.x);
+      acc[4 * j + 3] = relu_affine(acc[4 * j + 3], s.y, b.y);
     }
-    out[(int64_t)q * kC3 + c] = m;
+
+    // x2 = x1 @ W2
+    float acc2[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc2[i] = 0.0f;
+    {
+      // Stage c holds k8 steps 8c .. 8c+7: their hi tiles (2 KB each), then
+      // their lo tiles.  Step j, position p is channel 8j + 2*(p%4) + p/4,
+      // the columns 8j + 2t (p = t) and 8j + 2t + 1 (p = t + 4) the thread
+      // already holds.  Two steps at a time are summed in `part2`, then added
+      // to `acc2`.
+      float part2[32];
+#pragma unroll
+      for (int c = 0; c < kChunks2; ++c) {
+        const uint32_t st = ring.acquire(c0 + kChunks1 + c);
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          const int j = 8 * c + jj;
+          const tc::Split a = tc::split4(acc[4 * j], acc[4 * j + 2],
+                                         acc[4 * j + 1], acc[4 * j + 3]);
+          tc::fence();
+          tc::mma3(part2, a, st + 2048 * jj, st + 16384 + 2048 * jj, jj % 2);
+          if (jj % 2 == 1) {
+            tc::commit();
+            tc::wait_all();
+            tc::fence_regs(part2);
+            tc::promote<0>(acc2, part2);
+          }
+        }
+        ring.release(c0 + kChunks1 + c);
+      }
+    }
+
+    // x2 = ReLU(acc2 * s2 + b2) into shared memory
+#pragma unroll
+    for (int j = 0; j < kC3 / 8; ++j) {
+      const int col = 8 * j + 2 * t;
+      const float2 s = __ldg(reinterpret_cast<const float2*>(s2 + col));
+      const float2 b = __ldg(reinterpret_cast<const float2*>(b2 + col));
+      *reinterpret_cast<float2*>(x2s + ra * kX2Stride + col) =
+          make_float2(relu_affine(acc2[4 * j], s.x, b.x),
+                      relu_affine(acc2[4 * j + 1], s.y, b.y));
+      *reinterpret_cast<float2*>(x2s + rb * kX2Stride + col) =
+          make_float2(relu_affine(acc2[4 * j + 2], s.x, b.x),
+                      relu_affine(acc2[4 * j + 3], s.y, b.y));
+    }
+    tc::consumer_sync<kConsumers>();
+
+    // max over each query's rows in this tile, k ascending, on from the
+    // running max of the tiles before
+    for (int e = threadIdx.x; e < qpb * kC3; e += kConsumers) {
+      const int qi = e / kC3, c = e % kC3;
+      const int q = q0 + qi;
+      if (q >= total) continue;
+      const int lo = max(qi * k, tile * kRows);
+      const int hi = min(qi * k + k, (tile + 1) * kRows);
+      float m = tile == 0 ? -INFINITY : carry[c];
+      for (int rg = lo; rg < hi; ++rg) {
+        m = fmaxf(m, x2s[(rg - tile * kRows) * kX2Stride + c]);
+      }
+      if (tile + 1 == tiles) {
+        out[(int64_t)q * kC3 + c] = m;
+      } else {
+        carry[c] = m;
+      }
+    }
   }
 }
 
@@ -631,7 +656,7 @@ int check_shape(int n, int k, int c1) {
 
 extern "C" {
 
-// base [B,N,512] f32, idx [B,N,k] int32 (1 <= k <= 128), xyz [B,N,3]
+// base [B,N,512] f32, idx [B,N,k] int32 (any k >= 1), xyz [B,N,3]
 // centred, wrel [3,512], s0/b0 [512], wpack from tc_weights (W1 [512,256]
 // and W2 [256,64], split and ordered for the tensor cores), s1/b1 [256],
 // s2/b2 [64], out [B,N,64]; c1 must be 512.  Returns a cudaError_t.
@@ -640,14 +665,14 @@ int cmflow_plf(const void* base, const void* idx, const void* xyz,
                const void* wpack, const void* s1, const void* b1,
                const void* s2, const void* b2, void* out, int b, int n, int k,
                int c1, void* stream) {
-  if (check_shape(n, k, c1) || k > kRows) return (int)cudaErrorInvalidValue;
+  if (check_shape(n, k, c1)) return (int)cudaErrorInvalidValue;
   const int total = b * n;
   if (total == 0) return (int)cudaSuccess;
   const size_t smem = smem_bytes();
   cudaError_t err = cudaFuncSetAttribute(
       plf_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int qpb = kRows / k;
+  const int qpb = k < kRows ? kRows / k : 1;
   const int blocks = (total + qpb - 1) / qpb;
   plf_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(base), static_cast<const int*>(idx),

@@ -376,31 +376,37 @@ struct Ring {
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
 
-  // the producer thread: for c in [0, chunks), once the consumers have
-  // released buffer c % STAGES, copy chunk c of the hi array into its first
-  // half and chunk c of the lo array into its second half
-  __device__ void produce(const char* hi, const char* lo, int chunks) const {
+  // the producer thread: `passes` times over, for each chunk i in [0,
+  // chunks), once the consumers have released buffer c % STAGES (c counts
+  // the chunks copied), copy chunk i of the hi array into its first half
+  // and chunk i of the lo array into its second half.  One pass is the
+  // loop a single-pass kernel had, so its timing holds.
+  __device__ void produce(const char* hi, const char* lo, int chunks,
+                          int passes) const {
     constexpr int kHalf = BYTES / 2;
-    for (int c = 0; c < chunks; ++c) {
-      const int s = c % STAGES;
-      if (c >= STAGES) mbar_wait(&empty[s], ((c / STAGES) - 1) & 1);
-      const uint32_t bar = smem_addr(&full[s]);
-      asm volatile(
-          "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-              bar),
-          "r"(BYTES)
-          : "memory");
-      const uint32_t dst = smem_addr(buf + s * BYTES);
-      asm volatile(
-          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-          "[%0], [%1], %2, [%3];\n" ::"r"(dst),
-          "l"(hi + (size_t)c * kHalf), "r"(kHalf), "r"(bar)
-          : "memory");
-      asm volatile(
-          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-          "[%0], [%1], %2, [%3];\n" ::"r"(dst + kHalf),
-          "l"(lo + (size_t)c * kHalf), "r"(kHalf), "r"(bar)
-          : "memory");
+    for (int pass = 0; pass < passes; ++pass) {
+      for (int i = 0; i < chunks; ++i) {
+        const int c = pass * chunks + i;
+        const int s = c % STAGES;
+        if (c >= STAGES) mbar_wait(&empty[s], ((c / STAGES) - 1) & 1);
+        const uint32_t bar = smem_addr(&full[s]);
+        asm volatile(
+            "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                bar),
+            "r"(BYTES)
+            : "memory");
+        const uint32_t dst = smem_addr(buf + s * BYTES);
+        asm volatile(
+            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::"
+            "bytes [%0], [%1], %2, [%3];\n" ::"r"(dst),
+            "l"(hi + (size_t)i * kHalf), "r"(kHalf), "r"(bar)
+            : "memory");
+        asm volatile(
+            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::"
+            "bytes [%0], [%1], %2, [%3];\n" ::"r"(dst + kHalf),
+            "l"(lo + (size_t)i * kHalf), "r"(kHalf), "r"(bar)
+            : "memory");
+      }
     }
   }
 

@@ -36,6 +36,18 @@ The packers read the port's modules (``nn/blocks.py``), which
 ``models/convert.py`` fills from flax variables.  Dense kernels come out
 ``[in, out]``, as the flax trees hold them.
 
+Each of K3, K4a, K4b and K5 takes any K and, on the card, picks its kernel
+by shape alone (:func:`mse_arm`, :func:`plf_arm`, :func:`cv_p2p_arm`,
+:func:`cv_agg_arm`): the tuned kernel at the widths it is written for
+(``MSE_WIDTHS``, ``PLF_WIDTHS``, ``CV_WIDTH``), else the generic kernel
+(``csrc/chain.cu``: a grouped chain of any widths and depth, max or
+WeightNet-weighted sum over K, float32 FMAs), whose every launch
+:func:`_chain` counts in its wrapper's ``launches`` and
+``launches_generic`` (K3's generic arm launches once a scale).  The only
+shapes that raise are those the JAX package does not take either: a
+WeightNet whose hidden width is not 8, and a narrow sa mlp that is not 3
+layers.
+
 K3, K4a and K5 each have two arms, picked by the dtype of their operands:
 the gathered bases (K3, K5), ``f1c``/``f2c`` (K4a), the point-to-patch cost
 (K4b) and the Dense weights.
@@ -60,7 +72,7 @@ the gathered bases (K3, K5), ``f1c``/``f2c`` (K4a), the point-to-patch cost
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -103,17 +115,28 @@ _SIGNATURES = {
         **{name: (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)
            for name in ("cmflow_cv_agg", "cmflow_cv_agg_bf16")},
     },
+    "chain": {
+        "cmflow_chain_scratch": (_I, _I, ctypes.POINTER(ctypes.c_int), _L,
+                                 _I),
+        "cmflow_chain": (_I, _I, _P, _I, _I, _I, _P, _L, _P, _P, _P, _P, _P,
+                         _I, _I, ctypes.POINTER(ctypes.c_void_p),
+                         ctypes.POINTER(ctypes.c_void_p),
+                         ctypes.POINTER(ctypes.c_void_p),
+                         ctypes.POINTER(ctypes.c_int), _P, _P, _P, _P, _P,
+                         _P, _P, _P, _L, _P, _P),
+    },
 }
 
-# widths the CUDA kernels are written for (the CMFlow sa encoder, the
-# propagation encoder and the cost volume); the plain versions take any
+# widths the tuned CUDA kernels are written for (the CMFlow sa encoder, the
+# propagation encoder and the cost volume); every other width takes the
+# generic kernel (csrc/chain.cu), and the plain versions take any
 MSE_WIDTHS = (32, 32, 64)
 MSE_MAX_SCALES = 8
 MSE_MAX_FEATS = 5  # the sa encoder's first layer: 3 + Cf inputs, at most 8
 PLF_WIDTHS = (512, 256, 64)
 CV_WIDTH = 512
-WEIGHTNET_HIDDEN = 8
-MAX_K = 32  # K3 and K4a's float32 arm (K5's: twice it); the rest any K
+WEIGHTNET_HIDDEN = 8  # fixed in the JAX package too (its zpk operand)
+CHAIN_MAX_LAYERS = 32  # the generic kernel's Dense layers after the first
 
 
 # ---------------------------------------------------------------------------
@@ -685,6 +708,101 @@ def make_mse_base(feats: Tensor, xyz: Tensor, w0rel_list: Sequence[Tensor],
 
 
 # ---------------------------------------------------------------------------
+# the arms: tuned kernels at the widths they are written for, the generic
+# kernel (csrc/chain.cu) at every other
+# ---------------------------------------------------------------------------
+
+TUNED, GENERIC = "tuned", "generic"
+
+
+def mse_arm(widths: Sequence[int], scales: int, cf: int) -> str:
+    """K3's kernel for a narrow encoder of 3-layer ``widths`` (C1, C2, C3),
+    ``scales`` scales and ``cf`` features: ``csrc/mse.cu`` (any K) where it
+    is written for them, else the generic kernel, one launch a scale."""
+    return (TUNED if tuple(widths) == MSE_WIDTHS and scales <= MSE_MAX_SCALES
+            and cf <= MSE_MAX_FEATS else GENERIC)
+
+
+def plf_arm(widths: Sequence[int]) -> str:
+    """K5's kernel for a chain of ``widths`` (C1, then each Dense layer's
+    output): ``csrc/plf.cu`` (any K) at ``PLF_WIDTHS``, else the generic
+    kernel."""
+    return TUNED if tuple(widths) == PLF_WIDTHS else GENERIC
+
+
+def cv_p2p_arm(widths: Sequence[int]) -> str:
+    """K4a's kernel for a dense chain of ``widths`` (C0, C1, C2):
+    ``csrc/cost_volume.cu`` (any K) at C = ``CV_WIDTH`` throughout, else the
+    generic kernel."""
+    return TUNED if tuple(widths) == (CV_WIDTH,) * 3 else GENERIC
+
+
+def cv_agg_arm(c: int) -> str:
+    """K4b's kernel for a cost of width ``c``: ``csrc/cost_volume.cu`` at
+    ``CV_WIDTH``, else the generic kernel."""
+    return TUNED if c == CV_WIDTH else GENERIC
+
+
+_CHAIN_KINDS = {"max": 0, "p2p": 1, "agg": 2}
+
+
+def _ptr(t) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def _chain(wrapper, kind: str, idx: Tensor, src: Tensor, out: Tensor, *,
+           layers: Sequence[Tuple[Tensor, Tensor, Tensor]] = (),
+           f1c: Tensor = None, xyz: Tensor = None, wrel: Tensor = None,
+           s0: Tensor = None, b0: Tensor = None, z1: Tensor = None,
+           z2: Tensor = None, wn: Sequence[Tensor] = ()) -> None:
+    """One launch of the generic kernel (``csrc/chain.cu``) on the card,
+    counted in ``wrapper``'s ``launches`` and ``launches_generic``.
+
+    ``src`` (the gathered rows: base, ``f2c`` or the point-to-patch cost)
+    and ``out`` are ``[B, N, C]`` views whose rows may be strided (a channel
+    block of a wider tensor); ``f1c`` shares ``src``'s row stride.
+    ``layers`` are ``(w [cin, cout], s or None, b)``; the rest as
+    ``cmflow_chain`` takes them (``csrc/chain.cu``).  Raises for a chain
+    deeper than ``CHAIN_MAX_LAYERS``."""
+    b, n, c0 = src.shape
+    k = idx.shape[2]
+    if len(layers) > CHAIN_MAX_LAYERS:
+        raise ValueError(f"the generic kernel takes at most "
+                         f"{CHAIN_MAX_LAYERS} Dense layers, got "
+                         f"{len(layers)}")
+    if (src.stride(2) != 1 or out.stride(2) != 1
+            or src.stride(0) != n * src.stride(1)
+            or out.stride(0) != n * out.stride(1)
+            or (f1c is not None and f1c.stride() != src.stride())):
+        raise ValueError("the generic kernel takes rows of unit stride")
+    lib = build.load("chain", _SIGNATURES["chain"])
+    widths = (ctypes.c_int * max(len(layers), 1))(
+        *[w.shape[1] for w, _, _ in layers])
+    floats = lib.cmflow_chain_scratch(c0, len(layers), widths, b * n, k)
+    if floats < 0:
+        raise ValueError(f"the generic kernel does not take C0={c0}, widths "
+                         f"{[w.shape[1] for w, _, _ in layers]}, K={k}")
+    scratch = (torch.empty(floats, dtype=torch.float32, device=src.device)
+               if floats else None)
+    count = max(len(layers), 1)
+
+    def ptrs(ts):
+        return (ctypes.c_void_p * count)(*[_ptr(t) for t in ts])
+
+    code = lib.cmflow_chain(
+        _CHAIN_KINDS[kind], int(src.dtype == torch.bfloat16), idx.data_ptr(),
+        b, n, k, src.data_ptr(), src.stride(1), _ptr(f1c), _ptr(xyz),
+        _ptr(wrel), _ptr(s0), _ptr(b0), c0, len(layers),
+        ptrs([w for w, _, _ in layers]), ptrs([s for _, s, _ in layers]),
+        ptrs([bb for _, _, bb in layers]), widths, _ptr(z1), _ptr(z2),
+        *[_ptr(t) for t in (wn or (None,) * 5)], out.data_ptr(),
+        out.stride(1), _ptr(scratch), _stream(src))
+    build.check(lib, code, f"the generic kernel ({kind})")
+    wrapper.launches += 1
+    wrapper.launches_generic += 1
+
+
+# ---------------------------------------------------------------------------
 # K3: the narrow multi-scale encoder
 # ---------------------------------------------------------------------------
 
@@ -712,17 +830,21 @@ def fused_multi_scale_encoder(feats: Tensor, idx_list: Sequence[Tensor],
     """All scales of a narrow ``MultiScaleEncoder``, before mlp2: per scale
     s, gather ``feats @ w0f_s + xyz_c @ w0r_s`` at the ball indices, minus
     ``xyz_c @ w0r_s`` of the query, then three [affine -> ReLU -> Dense]
-    layers and the max over that scale's ``K_s`` neighbours.  (Both arms'
-    kernels form the first layer of each row themselves, from the gathered
-    point and features; the bf16 arm rounds each gathered row's base to
-    bf16 once, as the JAX package's base is rounded per point.  Each call
-    is two launches, the clouds' centroids and the kernel.  See
-    ``csrc/mse.cu``.)
+    layers and the max over that scale's ``K_s`` neighbours.  (At the
+    tuned widths both arms' kernels form the first layer of each row
+    themselves, from the gathered point and features; the bf16 arm rounds
+    each gathered row's base to bf16 once, as the JAX package's base is
+    rounded per point.  Such a call is two launches, the clouds' centroids
+    and the kernel, or three where scales of K <= 32 and of K > 32 mix; see
+    ``csrc/mse.cu``.  At any other widths, more than 8 scales or more than
+    5 features (:func:`mse_arm`) the generic kernel runs once a scale on the
+    folded base, formed outside as the JAX package forms it.)
 
     Args:
       feats: ``[B, N, Cf]`` per-point features, any strides: float32, or
         bfloat16 for the bf16 arm (with ``w1``/``w2`` in bfloat16).
-      idx_list: per scale, ``[B, N, K_s]`` int32 ball-query indices.
+      idx_list: per scale, ``[B, N, K_s]`` int32 ball-query indices, any
+        K_s >= 1.
       xyz: ``[B, N, 3]`` float32 coordinates.
       packed: from :func:`mse_narrow_params_from_variables`.
     Returns:
@@ -736,33 +858,31 @@ def fused_multi_scale_encoder(feats: Tensor, idx_list: Sequence[Tensor],
     b, n, _ = xyz.shape
     s_cnt = len(idx_list)
     cf = feats.shape[2]
-    if tuple(w1.shape[1:]) + (w2.shape[2],) != MSE_WIDTHS:
-        raise ValueError(f"the CUDA kernel takes widths {MSE_WIDTHS}, got "
-                         f"{tuple(w1.shape[1:]) + (w2.shape[2],)}")
+    c1, c2, c3 = widths = (w1.shape[1], w1.shape[2], w2.shape[2])
     ks = [i.shape[2] for i in idx_list]
-    if (not 1 <= s_cnt <= MSE_MAX_SCALES or len(w0rel) != s_cnt
-            or not all(1 <= k <= MAX_K for k in ks)):
-        raise ValueError(f"the CUDA kernel takes 1..{MSE_MAX_SCALES} scales "
-                         f"of K in [1, {MAX_K}], got K={ks} and "
-                         f"{len(w0rel)} scales of weights")
-    if tuple(feats.shape[:2]) != (b, n) or cf > MSE_MAX_FEATS:
-        raise ValueError(f"the CUDA kernel takes feats [B, N, Cf] with Cf <= "
-                         f"{MSE_MAX_FEATS}, got {tuple(feats.shape)}")
+    if (s_cnt < 1 or len(w0rel) != s_cnt or len(w0feat) != s_cnt
+            or tuple(w1.shape) != (s_cnt, c1, c2)
+            or tuple(w2.shape) != (s_cnt, c2, c3) or min(ks) < 1):
+        raise ValueError(f"need w1 [S, C1, C2], w2 [S, C2, C3] and S scales "
+                         f"of K >= 1, got K={ks}, w1 {tuple(w1.shape)}, w2 "
+                         f"{tuple(w2.shape)} and {len(w0rel)} scales of "
+                         f"weights")
+    if tuple(feats.shape[:2]) != (b, n):
+        raise ValueError(f"need feats [B, N, Cf], got {tuple(feats.shape)}")
     if any(tuple(i.shape[:2]) != (b, n) for i in idx_list):
         raise ValueError("every idx must be [B, N, K_s]")
-    c1 = MSE_WIDTHS[0]
     if (any(tuple(w.shape) != (3, c1) for w in w0rel)
             or any(tuple(w.shape) != (cf, c1) for w in w0feat)
             or any(a.numel() != s_cnt * w for a, w in zip(
-                (s0, b0, s1, b1, s2, b2),
-                (c1, c1) + MSE_WIDTHS[1:2] * 2 + MSE_WIDTHS[2:] * 2))):
-        raise ValueError(f"the CUDA kernel takes per scale w0rel [3, {c1}], "
-                         f"w0feat [{cf}, {c1}] and the affines of every "
-                         f"scale")
+                (s0, b0, s1, b1, s2, b2), (c1, c1, c2, c2, c3, c3)))):
+        raise ValueError(f"need per scale w0rel [3, {c1}], w0feat [{cf}, "
+                         f"{c1}] and the affines of every scale")
     if not all(i.is_contiguous() for i in idx_list):
         raise ValueError("fused_multi_scale_encoder: the CUDA kernel takes "
                          "contiguous indices")
-    out = torch.empty((b, n, s_cnt * MSE_WIDTHS[2]), dtype=torch.float32,
+    if mse_arm(widths, s_cnt, cf) == GENERIC:
+        return _mse_generic(feats, idx_list, xyz, packed)
+    out = torch.empty((b, n, s_cnt * c3), dtype=torch.float32,
                       device=xyz.device)
     idx_ptrs = (ctypes.c_void_p * s_cnt)(*[i.data_ptr() for i in idx_list])
     lib = build.load("mse", _SIGNATURES["mse"])
@@ -792,7 +912,33 @@ def fused_multi_scale_encoder(feats: Tensor, idx_list: Sequence[Tensor],
     return out
 
 
+def _mse_generic(feats: Tensor, idx_list: Sequence[Tensor], xyz: Tensor,
+                 packed: tuple) -> Tensor:
+    """K3 on the generic kernel, whatever its shapes (the wrapper's
+    generic arm; the checks are the wrapper's): every scale's folded first
+    layer as one base outside (:func:`make_mse_base`, as the JAX package
+    forms it, in ``feats``' dtype), then one launch a scale into its channel
+    block of the output."""
+    w0rel, w0feat, s0, b0, w1, s1, b1, w2, s2, b2 = packed
+    c1, c2, c3 = w1.shape[1], w1.shape[2], w2.shape[2]
+    b, n, _ = xyz.shape
+    xyz_c = center_xyz(xyz).contiguous()
+    base = make_mse_base(feats, xyz_c, w0rel, w0feat, feats.dtype)
+    out = torch.empty((b, n, len(idx_list) * c3), dtype=torch.float32,
+                      device=xyz.device)
+    for s, idx in enumerate(idx_list):
+        r1, r2, r3 = (slice(s * c, (s + 1) * c) for c in (c1, c2, c3))
+        _chain(fused_multi_scale_encoder, "max", idx, base[..., r1],
+               out[..., r3], layers=[(w1[s].contiguous(), s1[r2], b1[r2]),
+                                     (w2[s].contiguous(), s2[r3], b2[r3])],
+               xyz=xyz_c, wrel=w0rel[s].float().contiguous(), s0=s0[r1],
+               b0=b0[r1])
+    return out
+
+
+# every launch, and those of the generic arm (counted in :func:`_chain`)
 fused_multi_scale_encoder.launches = 0
+fused_multi_scale_encoder.launches_generic = 0
 
 
 # ---------------------------------------------------------------------------
@@ -815,15 +961,16 @@ def fused_point_local_feature_plain(feat_tx: Tensor, idx: Tensor, xyz: Tensor,
 
 def fused_point_local_feature(feat_tx: Tensor, idx: Tensor, xyz: Tensor,
                               params: Sequence[Tensor]) -> Tensor:
-    """Grouped mlp and max-pool over ball-query neighbourhoods, before mlp2.
+    """Grouped mlp and max-pool over ball-query neighbourhoods, before mlp2:
+    ``csrc/plf.cu`` at ``PLF_WIDTHS``, the generic kernel at any other chain
+    (any depth; :func:`plf_arm`).
 
     Args:
       feat_tx: ``[B, N, C1]`` per-point features after the factored first
         layer's feature transform (``features @ w0[3:]``): float32, or
         bfloat16 for the bf16 arm, whose base ``feat_tx + xyz_c @ wrel`` is
         rounded to bf16 once per point.
-      idx: ``[B, N, K]`` int32 ball-query indices: K <= 64 for the
-        float32 arm's kernel, any K >= 1 for the bf16 arm's.
+      idx: ``[B, N, K]`` int32 ball-query indices, any K >= 1.
       xyz: ``[B, N, 3]`` float32 coordinates.
       params: ``(wrel, s0, b0, w1, s1, b1, ...)`` from
         :func:`plf_params_from_variables`; ``wrel`` and the Dense kernels in
@@ -839,26 +986,27 @@ def fused_point_local_feature(feat_tx: Tensor, idx: Tensor, xyz: Tensor,
     b, n, c1 = feat_tx.shape
     k = idx.shape[2]
     widths = (c1,) + tuple(w.shape[1] for w in params[3::3])
-    if widths != PLF_WIDTHS:
-        raise ValueError(f"the CUDA kernel takes a {PLF_WIDTHS} chain, got "
-                         f"{widths}")
-    bf16 = feat_tx.dtype == torch.bfloat16
-    k_max = None if bf16 else 2 * MAX_K  # the bf16 arm takes any K
-    if tuple(idx.shape[:2]) != (b, n) or k < 1 or (k_max and k > k_max):
-        raise ValueError(f"idx must be [B, N, K] with 1 <= K"
-                         f"{f' <= {k_max}' if k_max else ''}, got "
+    if (len(params) % 3 or tuple(params[0].shape) != (3, c1)
+            or any(w.shape[0] != c for w, c in zip(params[3::3], widths))):
+        raise ValueError(f"need a chain (wrel [3, C1], s0, b0, w1, s1, b1, "
+                         f"...) of chained widths, got widths {widths}")
+    if tuple(idx.shape[:2]) != (b, n) or k < 1:
+        raise ValueError(f"idx must be [B, N, K] with K >= 1, got "
                          f"{tuple(idx.shape)}")
-    wrel, s0, b0, w1, s1, b1, w2, s2, b2 = params
+    if plf_arm(widths) == GENERIC:
+        return _plf_generic(feat_tx, idx, xyz, params)
+    bf16 = feat_tx.dtype == torch.bfloat16
     xyz_c = center_xyz(xyz).contiguous()
-    base = make_plf_base(feat_tx, xyz_c, wrel, feat_tx.dtype).contiguous()
-    wrel = wrel.float().contiguous()  # the offset stays float32
+    base = make_plf_base(feat_tx, xyz_c, params[0], feat_tx.dtype).contiguous()
+    wrel = params[0].float().contiguous()  # the offset stays float32
+    out = torch.empty((b, n, widths[-1]), dtype=torch.float32,
+                      device=xyz.device)
+    _, s0, b0, w1, s1, b1, w2, s2, b2 = params
     wpack = (tc_weights_bf16(w1, w2, from_rows=True) if bf16
              else tc_weights(w1, w2))
     _check_kernel_args("fused_point_local_feature",
                        [base, idx, xyz_c, wrel, s0, b0, wpack, s1, b1, s2,
                         b2])
-    out = torch.empty((b, n, PLF_WIDTHS[2]), dtype=torch.float32,
-                      device=xyz.device)
     lib = build.load("plf", _SIGNATURES["plf"])
     code = (lib.cmflow_plf_bf16 if bf16 else lib.cmflow_plf)(
         base.data_ptr(), idx.data_ptr(), xyz_c.data_ptr(), wrel.data_ptr(),
@@ -870,7 +1018,27 @@ def fused_point_local_feature(feat_tx: Tensor, idx: Tensor, xyz: Tensor,
     return out
 
 
+def _plf_generic(feat_tx: Tensor, idx: Tensor, xyz: Tensor,
+                 params: Sequence[Tensor]) -> Tensor:
+    """K5 on the generic kernel, whatever its widths (the wrapper's generic
+    arm; the checks are the wrapper's): the base folded outside as the
+    tuned arm's, then one launch."""
+    b, n, _ = feat_tx.shape
+    xyz_c = center_xyz(xyz).contiguous()
+    base = make_plf_base(feat_tx, xyz_c, params[0], feat_tx.dtype).contiguous()
+    c_last = params[-3].shape[1] if len(params) > 3 else feat_tx.shape[2]
+    out = torch.empty((b, n, c_last), dtype=torch.float32, device=xyz.device)
+    _chain(fused_point_local_feature, "max", idx.contiguous(), base, out,
+           layers=[(w.contiguous(), sc, bi) for w, sc, bi in zip(
+               params[3::3], params[4::3], params[5::3])],
+           xyz=xyz_c, wrel=params[0].float().contiguous(), s0=params[1],
+           b0=params[2])
+    return out
+
+
+# every launch, and those of the generic arm (counted in :func:`_chain`)
 fused_point_local_feature.launches = 0
+fused_point_local_feature.launches_generic = 0
 
 
 # ---------------------------------------------------------------------------
@@ -910,15 +1078,16 @@ def cost_volume_p2p(f1c: Tensor, f2c: Tensor, idx: Tensor, z1: Tensor,
     Args:
       f1c / f2c: ``[B, N, C]`` folded frame-1 / frame-2 features, float32,
         or bfloat16 for the bf16 arm (with ``w1``/``w2`` in bfloat16).
-      idx: ``[B, N, K]`` int32 frame-2 kNN indices: K <= 32 for the
-        float32 arm's kernel, any K >= 1 for the bf16 arm's.
+      idx: ``[B, N, K]`` int32 frame-2 kNN indices, any K >= 1.
       z1 / z2: ``[B, N, H]`` float32, the WeightNet's first product of the
         centred frame-1 / frame-2 coordinates.
-      dense: ``(b0, w1, b1, w2, b2)``, the biases float32.
+      dense: ``(b0, w1, b1, w2, b2)``, the biases float32; ``w1 [C, C1]``,
+        ``w2 [C1, C2]``: ``csrc/cost_volume.cu`` at C = C1 = C2 =
+        ``CV_WIDTH``, the generic kernel at any other (:func:`cv_p2p_arm`).
       wn: the WeightNet after its first product, ``(b0, w1, b1, w2, b2)``,
         float32.
     Returns:
-      ``[B, N, C]`` in ``f1c``'s dtype: the bf16 arm stores the sum of its
+      ``[B, N, C2]`` in ``f1c``'s dtype: the bf16 arm stores the sum of its
       float32 terms rounded to bf16.
     """
     dense, wn = list(dense), list(wn)
@@ -929,10 +1098,15 @@ def cost_volume_p2p(f1c: Tensor, f2c: Tensor, idx: Tensor, z1: Tensor,
     b, n, c = f1c.shape
     k = idx.shape[2]
     bf16 = f1c.dtype == torch.bfloat16
-    # the bf16 arm takes any K, the float32 arm K <= MAX_K
-    (_check_cv_agg if bf16 else _check_cv)(b, n, c, k, idx, z1, wn)
-    if f2c.shape != f1c.shape or z2.shape != z1.shape:
-        raise ValueError("frame 2 must have frame 1's shapes")
+    widths = (c, w1.shape[1], w2.shape[1])
+    _check_cv(b, n, widths[-1], k, idx, z1, wn)
+    if (f2c.shape != f1c.shape or z2.shape != z1.shape
+            or tuple(w1.shape) != widths[:2] or w2.shape[0] != widths[1]
+            or b0.numel() != c):
+        raise ValueError("frame 2 must have frame 1's shapes, and the dense "
+                         "chain chained widths")
+    if cv_p2p_arm(widths) == GENERIC:
+        return _cv_p2p_generic(f1c, f2c, idx, z1, z2, dense, wn)
     wpack = tc_weights_bf16(w1, w2) if bf16 else tc_weights(w1, w2)
     _check_kernel_args("cost_volume_p2p",
                        [f1c, f2c, idx, z1, z2, b0, wpack, b1, b2, *wn])
@@ -948,7 +1122,24 @@ def cost_volume_p2p(f1c: Tensor, f2c: Tensor, idx: Tensor, z1: Tensor,
     return out
 
 
+def _cv_p2p_generic(f1c: Tensor, f2c: Tensor, idx: Tensor, z1: Tensor,
+                    z2: Tensor, dense: Sequence[Tensor],
+                    wn: Sequence[Tensor]) -> Tensor:
+    """K4a on the generic kernel, whatever its widths (the wrapper's generic
+    arm; the checks are the wrapper's): one launch."""
+    b0, w1, b1, w2, b2 = dense
+    b, n, _ = f1c.shape
+    out = torch.empty((b, n, w2.shape[1]), dtype=f1c.dtype, device=f1c.device)
+    _chain(cost_volume_p2p, "p2p", idx.contiguous(), f2c.contiguous(), out,
+           f1c=f1c.contiguous(), b0=b0,
+           layers=[(w1.contiguous(), None, b1), (w2.contiguous(), None, b2)],
+           z1=z1.contiguous(), z2=z2.contiguous(), wn=wn)
+    return out
+
+
+# every launch, and those of the generic arm (counted in :func:`_chain`)
 cost_volume_p2p.launches = 0
+cost_volume_p2p.launches_generic = 0
 
 
 def cost_volume_agg_plain(p2p: Tensor, idx: Tensor, zq: Tensor,
@@ -979,9 +1170,11 @@ def cost_volume_agg(p2p: Tensor, idx: Tensor, zq: Tensor,
         return cost_volume_agg_plain(p2p, idx, zq, wn)
     b, n, c = p2p.shape
     k = idx.shape[2]
-    _check_cv_agg(b, n, c, k, idx, zq, wn)
-    _check_kernel_args("cost_volume_agg", [p2p, idx, zq, *wn])
+    _check_cv(b, n, c, k, idx, zq, wn)
+    if cv_agg_arm(c) == GENERIC:
+        return _cv_agg_generic(p2p, idx, zq, wn)
     out = torch.empty((b, n, c), dtype=torch.float32, device=p2p.device)
+    _check_kernel_args("cost_volume_agg", [p2p, idx, zq, *wn])
     lib = build.load("cost_volume", _SIGNATURES["cost_volume"])
     bf16 = p2p.dtype == torch.bfloat16
     code = (lib.cmflow_cv_agg_bf16 if bf16 else lib.cmflow_cv_agg)(
@@ -993,28 +1186,33 @@ def cost_volume_agg(p2p: Tensor, idx: Tensor, zq: Tensor,
     return out
 
 
+def _cv_agg_generic(p2p: Tensor, idx: Tensor, zq: Tensor,
+                    wn: Sequence[Tensor]) -> Tensor:
+    """K4b on the generic kernel, whatever its width (the wrapper's generic
+    arm; the checks are the wrapper's): one launch."""
+    out = torch.empty(p2p.shape, dtype=torch.float32, device=p2p.device)
+    zq = zq.contiguous()
+    _chain(cost_volume_agg, "agg", idx.contiguous(), p2p.contiguous(), out,
+           z1=zq, z2=zq, wn=wn)
+    return out
+
+
+# every launch, and those of the generic arm (counted in :func:`_chain`)
 cost_volume_agg.launches = 0
-
-
-def _check_cv_agg(b: int, n: int, c: int, k: int, idx: Tensor, z: Tensor,
-                  wn: Sequence[Tensor]) -> None:
-    """The shapes K4b takes: C=512, a WeightNet 8->8->512, any K >= 1."""
-    h = WEIGHTNET_HIDDEN
-    if c != CV_WIDTH or tuple(z.shape) != (b, n, h) or wn[3].shape != (h, c):
-        raise ValueError(f"the CUDA kernels take C={CV_WIDTH} and a "
-                         f"WeightNet {h}->{h}->{CV_WIDTH}, got C={c}, "
-                         f"z {tuple(z.shape)}, w2 {tuple(wn[3].shape)}")
-    if tuple(idx.shape[:2]) != (b, n) or k < 1:
-        raise ValueError(f"idx must be [B, N, K] with K >= 1, got "
-                         f"{tuple(idx.shape)}")
+cost_volume_agg.launches_generic = 0
 
 
 def _check_cv(b: int, n: int, c: int, k: int, idx: Tensor, z: Tensor,
               wn: Sequence[Tensor]) -> None:
-    """The shapes K4a's float32 arm takes: K4b's, with K <= MAX_K."""
-    _check_cv_agg(b, n, c, k, idx, z, wn)
-    if k > MAX_K:
-        raise ValueError(f"idx must be [B, N, K] with K <= {MAX_K}, got "
+    """The shapes K4a and K4b take, any C and any K >= 1: a WeightNet
+    8 -> 8 -> C (its hidden width is fixed, as in the JAX package)."""
+    h = WEIGHTNET_HIDDEN
+    if tuple(z.shape) != (b, n, h) or tuple(wn[3].shape) != (h, c):
+        raise ValueError(f"the CUDA kernels take a WeightNet {h}->{h}->C, "
+                         f"got C={c}, z {tuple(z.shape)}, w2 "
+                         f"{tuple(wn[3].shape)}")
+    if tuple(idx.shape[:2]) != (b, n) or k < 1:
+        raise ValueError(f"idx must be [B, N, K] with K >= 1, got "
                          f"{tuple(idx.shape)}")
 
 

@@ -1176,15 +1176,226 @@ def test_fused_route_bf16(dev):
 
 
 def test_fused_kernels_reject_other_widths(dev, rs):
+    """A chain the tuned K5 is not written for, (128, 64, 32), no longer
+    raises: it takes the generic kernel (one launch, counted as the
+    generic arm's) and meets its plain version."""
     plf = seeded(blocks.PointLocalFeature(4.0, 8, 64, (128, 64, 32),
                                           (32, 32, 32)), dev, 5)
     pc = cloud(rs, 2, 64, dev)
     idx = neighbors.ball_query_multi((4.0,), (8,), pc, pc)[0]
-    feat_tx = torch.zeros((2, 64, 128), device=dev)
+    feat_tx = torch.from_numpy(rs.randn(2, 64, 128).astype(np.float32)).to(
+        dev)
     with torch.no_grad():
         chain, _, _ = fused.plf_params_from_variables(plf)
-        with pytest.raises(ValueError, match="chain"):
-            fused.fused_point_local_feature(feat_tx, idx, pc, chain)
+        assert fused.plf_arm((128, 64, 32)) == fused.GENERIC
+        before = (fused.fused_point_local_feature.launches,
+                  fused.fused_point_local_feature.launches_generic)
+        got = fused.fused_point_local_feature(feat_tx, idx, pc, chain)
+        assert (fused.fused_point_local_feature.launches,
+                fused.fused_point_local_feature.launches_generic) == (
+                    before[0] + 1, before[1] + 1)
+        near(got, fused.fused_point_local_feature_plain(feat_tx, idx, pc,
+                                                        chain))
+
+
+# ---------------------------------------------------------------------------
+# every shape the JAX package takes: the tuned arms past their old K, and
+# the generic kernel (csrc/chain.cu) at every other width
+# ---------------------------------------------------------------------------
+
+DTYPES = [torch.float32, BF16]
+
+
+def near_arm(got, want, dtype):
+    """The bars of the arm of ``dtype``: float32 (1e-4, 1e-5 of the largest
+    magnitude), or bf16 (1e-2 of it)."""
+    (near if dtype == torch.float32 else near_bf16)(got, want)
+
+
+def mse_encoder(dev, ks, widths, cf, dtype, seed):
+    radii = tuple(2.0 * (i + 1) for i in range(len(ks)))
+    mse = seeded(blocks.MultiScaleEncoder(radii, ks, cf, widths,
+                                          (64, 64, 64)), dev, seed)
+    with torch.no_grad():
+        packed, _ = fused.mse_narrow_params_from_variables(mse, dtype)
+    return packed
+
+
+def random_idx(rs, b, n, k, dev):
+    """``[B, N, K]`` random neighbours, some outside [0, N)."""
+    return torch.from_numpy(rs.randint(-2, n + 2, (b, n, k)).astype(
+        np.int32)).to(dev)
+
+
+# K3 past K = 32, both arms: a query's rows in 16-row units one after
+# another; mixed with K <= 32 scales (two launches in one call) and alone
+@pytest.mark.parametrize("ks", [(8, 16, 32, 64), (48,), (100,),
+                                (33, 1, 200)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_mse_kernel_past_k(dev, rs, dtype, ks):
+    b, n = 16, 256
+    pc = cloud(rs, b, n, dev)
+    feats = strided_feats(rs, b, n, dev).to(dtype)
+    packed = mse_encoder(dev, ks, (32, 32, 64), 3, dtype, 9)
+    idx = [random_idx(rs, b, n, k, dev) for k in ks]
+    assert fused.mse_arm((32, 32, 64), len(ks), 3) == fused.TUNED
+    with torch.no_grad():
+        before = fused.fused_multi_scale_encoder.launches_generic
+        got = same_twice(lambda: fused.fused_multi_scale_encoder(
+            feats, idx, pc, packed))
+        assert fused.fused_multi_scale_encoder.launches_generic == before
+        near_arm(got, fused.fused_multi_scale_encoder_plain(
+            feats, idx, pc, packed), dtype)
+
+
+@pytest.mark.parametrize("k", [65, 128, 129, 160, 300])
+def test_plf_kernel_past_k(dev, rs, k):
+    """K5's float32 arm past its old K <= 64: 128-row tiles of one query
+    above 64 (up to 128) and a query over several tiles above 128, its max
+    carried; the same bits twice."""
+    b, n = 16, 256
+    pc = cloud(rs, b, n, dev)
+    plf = seeded(blocks.PointLocalFeature(8.0, k, 1027, (512, 256, 64),
+                                          (64, 64, 64)), dev, 6)
+    feat_tx = torch.from_numpy(rs.randn(b, n, 512).astype(np.float32)).to(dev)
+    idx = random_idx(rs, b, n, k, dev)
+    with torch.no_grad():
+        chain, _, _ = fused.plf_params_from_variables(plf)
+        got = same_twice(lambda: fused.fused_point_local_feature(
+            feat_tx, idx, pc, chain))
+        near(got, fused.fused_point_local_feature_plain(feat_tx, idx, pc,
+                                                        chain))
+
+
+@pytest.mark.parametrize("k", [33, 48, 64, 65, 100, 129])
+def test_cost_volume_p2p_past_k(dev, rs, k):
+    """K4a's float32 arm past its old K <= 32: one query a 64-row tile up
+    to 64, over several tiles above, its sums carried in registers; the
+    same bits twice."""
+    shape = (16, 256, True)
+    f, _, _, z, dense, wn1, _ = cost_volume_inputs(rs, shape, dev)
+    idx2 = p2p_indices(rs, shape, k, dev)
+    args = (f[0], f[1], idx2, z[0], z[1], dense[1:], wn1[1:])
+    with torch.no_grad():
+        got = same_twice(lambda: fused.cost_volume_p2p(*args))
+        near(got, fused.cost_volume_p2p_plain(*args))
+
+
+# the generic kernel: K3 at other widths, more features and more scales
+# than the tuned arm takes, at K below and past 32
+@pytest.mark.parametrize("case", [((24, 40, 56), 7, (4, 8, 16, 33, 5, 6, 7,
+                                                      8, 9, 64)),
+                                  ((64, 64, 128), 3, (16, 32, 64)),
+                                  ((32, 32, 64), 3, (4, 8, 16, 32))])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_mse_generic(dev, rs, dtype, case):
+    widths, cf, ks = case
+    b, n = 16, 256
+    pc = cloud(rs, b, n, dev)
+    feats = torch.from_numpy(rs.randn(b, cf, n).astype(np.float32)).to(
+        dev).to(dtype).transpose(1, 2)
+    packed = mse_encoder(dev, ks, widths, cf, dtype, 10)
+    idx = [random_idx(rs, b, n, k, dev) for k in ks]
+    counts = (lambda: (fused.fused_multi_scale_encoder.launches,
+                       fused.fused_multi_scale_encoder.launches_generic))
+    with torch.no_grad():
+        want = fused.fused_multi_scale_encoder_plain(feats, idx, pc, packed)
+        if fused.mse_arm(widths, len(ks), cf) == fused.TUNED:
+            # the default shape: the generic route beside the tuned one
+            near_arm(fused.fused_multi_scale_encoder(feats, idx, pc, packed),
+                     want, dtype)
+            fn = (lambda: fused._mse_generic(feats, idx, pc, packed))
+        else:
+            fn = (lambda: fused.fused_multi_scale_encoder(feats, idx, pc,
+                                                          packed))
+        before = counts()
+        got = same_twice(fn)
+        # a launch a scale, each counted where it launches
+        assert counts() == (before[0] + 2 * len(ks),
+                            before[1] + 2 * len(ks))
+        near_arm(got, want, dtype)
+
+
+@pytest.mark.parametrize("widths", [(200, 100, 36), (96, 64, 48, 32),
+                                    (768, 384, 96), (130,), (512, 256, 64)])
+@pytest.mark.parametrize("k", [5, 16, 33])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_plf_generic(dev, rs, dtype, k, widths):
+    """K5's generic arm: chains of other widths and depths (none past the
+    first layer at (130,)), K within a 32-row tile and over two; the
+    default widths through the private route beside the tuned arm."""
+    b, n = 16, 256
+    pc = cloud(rs, b, n, dev)
+    plf = seeded(blocks.PointLocalFeature(8.0, k, 40, widths, (16,)), dev,
+                 11)
+    feat_tx = torch.from_numpy(rs.randn(b, n, widths[0]).astype(
+        np.float32)).to(dev).to(dtype)
+    idx = random_idx(rs, b, n, k, dev)
+    with torch.no_grad():
+        chain, _, _ = fused.plf_params_from_variables(plf)
+        chain = [t.to(dtype) if i % 3 == 0 else t
+                 for i, t in enumerate(chain)]
+        want = fused.fused_point_local_feature_plain(feat_tx, idx, pc, chain)
+        if fused.plf_arm(widths) == fused.TUNED:
+            near_arm(fused.fused_point_local_feature(feat_tx, idx, pc, chain),
+                     want, dtype)
+        before = fused.fused_point_local_feature.launches_generic
+        got = same_twice(lambda: fused._plf_generic(feat_tx, idx, pc, chain))
+        assert fused.fused_point_local_feature.launches_generic == before + 2
+        near_arm(got, want, dtype)
+
+
+def generic_cost_volume_inputs(rs, c, dev, dtype):
+    b, n = 16, 256
+    fc = seeded(blocks.FeatureCorrelator(8, c, c, (c, c, c)), dev, 12)
+    f = [torch.from_numpy(rs.randn(b, n, c).astype(np.float32)).to(
+        dev).to(dtype) for _ in range(2)]
+    z = [torch.from_numpy(rs.randn(b, n, 8).astype(np.float32)).to(dev)
+         for _ in range(2)]
+    with torch.no_grad():
+        dense, wn1, wn2 = fused.cv_params_from_variables(fc)
+    dense = [t.to(dtype) if i % 2 == 0 else t for i, t in enumerate(dense)]
+    return f, z, dense, wn1, wn2
+
+
+@pytest.mark.parametrize("k", [8, 33, 100])
+@pytest.mark.parametrize("c", [100, 512, 768, 826])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cost_volume_generic(dev, rs, dtype, c, k):
+    """K4a's and K4b's generic arm at C = 100, 768 and 826 through the
+    wrappers, and at 512 through the private routes beside the tuned arms:
+    random neighbours, some outside [0, N), K4b on a seeded cost; K4b's bf16
+    arm at the float32 bars (its arithmetic is float32).  At C = 826 K4a's
+    activations (232,176 bytes with the block's other buffers) fit the
+    dynamic shared memory's opt-in limit but not beside the kernel's static
+    768 bytes: they go to device scratch."""
+    f, z, dense, wn1, wn2 = generic_cost_volume_inputs(rs, c, dev, dtype)
+    b, n = f[0].shape[:2]
+    idx2, idx1 = (random_idx(rs, b, n, k, dev) for _ in range(2))
+    args = (f[0], f[1], idx2, z[0], z[1], dense[1:], wn1[1:])
+    tuned = fused.cv_p2p_arm((c, c, c)) == fused.TUNED
+    assert tuned == (fused.cv_agg_arm(c) == fused.TUNED) == (c == 512)
+    with torch.no_grad():
+        before = (fused.cost_volume_p2p.launches_generic,
+                  fused.cost_volume_agg.launches_generic)
+        p2p_fn = (lambda: fused._cv_p2p_generic(*args)) if tuned else (
+            lambda: fused.cost_volume_p2p(*args))
+        p2p = same_twice(p2p_fn)
+        assert p2p.dtype == dtype
+        near_arm(p2p, fused.cost_volume_p2p_plain(*args), dtype)
+        # K4b on a cost of order one (K4a's sum over k = 100 neighbours
+        # grows to hundreds, where a float32 ulp passes the 1e-4 bar)
+        cost = torch.from_numpy(rs.randn(b, n, c).astype(np.float32)).to(
+            dev).to(dtype)
+        agg_args = (cost, idx1, z[0], wn2[1:])
+        agg_fn = (lambda: fused._cv_agg_generic(*agg_args)) if tuned else (
+            lambda: fused.cost_volume_agg(*agg_args))
+        agg = same_twice(agg_fn)
+        near(agg, fused.cost_volume_agg_plain(*agg_args))
+        # the private routes count too, where they launch
+        assert (fused.cost_volume_p2p.launches_generic,
+                fused.cost_volume_agg.launches_generic) == (
+                    before[0] + 2, before[1] + 2)
 
 
 # ---------------------------------------------------------------------------

@@ -341,22 +341,25 @@ def test_cv_packer_matches_jax(correlator):
 
 @pytest.mark.parametrize("k", [1, 32, 33, 64])
 def test_cost_volume_shape_checks(k):
-    """K4b's check takes any K >= 1; K4a's still stops at MAX_K."""
-    b, n, c, h = 2, 5, fused.CV_WIDTH, fused.WEIGHTNET_HIDDEN
+    """K4a's and K4b's check takes any K >= 1 and any C (the tuned kernels
+    at C=512, the generic one at every other); it raises only for K < 1 and
+    a WeightNet whose hidden width is not 8, which the JAX package fixes
+    too."""
+    b, n, h = 2, 5, fused.WEIGHTNET_HIDDEN
     idx = torch.zeros((b, n, k), dtype=torch.int32)
     z = torch.zeros((b, n, h))
-    wn = [torch.zeros(h), torch.zeros((h, h)), torch.zeros(h),
-          torch.zeros((h, c)), torch.zeros(c)]
-    fused._check_cv_agg(b, n, c, k, idx, z, wn)
-    if k <= fused.MAX_K:
+    for c in (64, fused.CV_WIDTH, 768):
+        wn = [torch.zeros(h), torch.zeros((h, h)), torch.zeros(h),
+              torch.zeros((h, c)), torch.zeros(c)]
         fused._check_cv(b, n, c, k, idx, z, wn)
-    else:
-        with pytest.raises(ValueError, match=f"K <= {fused.MAX_K}"):
-            fused._check_cv(b, n, c, k, idx, z, wn)
+        arm = fused.TUNED if c == fused.CV_WIDTH else fused.GENERIC
+        assert fused.cv_agg_arm(c) == fused.cv_p2p_arm((c, c, c)) == arm
     with pytest.raises(ValueError, match="K >= 1"):
-        fused._check_cv_agg(b, n, c, 0, idx[..., :0], z, wn)
-    with pytest.raises(ValueError, match=f"C={c}"):
-        fused._check_cv_agg(b, n, 64, k, idx, z, wn)
+        fused._check_cv(b, n, c, 0, idx[..., :0], z, wn)
+    with pytest.raises(ValueError, match=f"WeightNet {h}->{h}->C"):
+        fused._check_cv(b, n, c, k, idx, torch.zeros((b, n, 4)), wn)
+    with pytest.raises(ValueError, match=f"WeightNet {h}->{h}->C"):
+        fused._check_cv(b, n, 64, k, idx, z, wn)
 
 
 # ---------------------------------------------------------------------------

@@ -96,10 +96,19 @@ Run from the repository root on a machine with a CUDA GPU and nvcc.  Steps:
    (``csrc/chain.cu``) at widths no tuned kernel takes (the sa encoder at
    (24, 40, 56) with 7 features and ten scales, the propagation encoder's
    chains (200, 100, 36) and (96, 64, 48, 32), both cost-volume kernels at
-   C = 100 and 768) and at each tuned kernel's own shape beside it, through
-   its private route: held and counted as above, timed with their plain
-   versions by CUDA-graph replays, on a ``lifted_fused`` line and in the
-   kernels' rows; then other backbone configurations: CMFlow built with
+   C = 100 and 768), a K5 chain of 40 Dense layers 64 wide in float32
+   (dense kernels) and bf16 (two nonzero weights a column), and at each
+   tuned kernel's own shape beside it, through its private route: held and
+   counted as above, timed with their plain versions by CUDA-graph
+   replays, on a ``lifted_fused`` line and in the kernels' rows; the
+   40-layer chain in bf16 with dense kernels measured against its plain
+   version, not held (a ``deep_bf16_witness`` line: bf16 roundings flipped
+   by sums in another order compound through the layers); the tensor-core
+   generic kernel's plan at config B beside the card's count of blocks an
+   SM and its static shared memory (a ``chain_tc`` line, failing where the
+   card holds fewer blocks than planned); its four instantiations must
+   hold HGMMA of their type (.TF32, .BF16) in the ``{"sass": ...}`` line;
+   then other backbone configurations: CMFlow built with
    config A (``sa_nsamples`` (8, 16, 32, 64), ``fc_nsample`` 64: the tuned
    kernels at K=64), and CMFlow, RaFlow and CMFlow_T with config B (three
    radii,
@@ -111,6 +120,7 @@ Run from the repository root on a machine with a CUDA GPU and nvcc.  Steps:
    the CPU at the serving bars; CMFlow after eight train steps in bf16 to
    the CPU's bf16 route at the JAX bf16 bars; the fused kernels held to
    their plain versions at CMFlow's shapes, config B's generic arms timed
+   beside cuBLAS on their products (K3's too: each scale's two products)
    (their rows of the kernels line, ``mse.generic`` ...
    ``cv_agg.generic.bf16``) (run in the main process before its train
    phases, 6b left its profiler dropping the first kernel of every later
@@ -386,6 +396,16 @@ BF16_TC_KERNELS = {"mse.bf16": ("mse", "mse_bf16_kernel", "HMMA"),
                    "cv.bf16": ("cost_volume", "cv_p2p_bf16_kernel", "HGMMA"),
                    "plf.bf16": ("plf", "plf_bf16_kernel", "HGMMA")}
 BF16_FLOP_PER_S = 989e12  # dense, tensor cores
+# the generic kernel's tensor-core arm (csrc/chain.cu::chain_tc_kernel),
+# kinds max (K3, K5) and p2p (K4a), float32 (3xTF32) and bf16: its
+# instantiations, each required to hold HGMMA of its type (.TF32, .BF16)
+GENERIC_TC_KERNELS = {
+    "plf.generic": ("chain", "chain_tc_kernelILNS_4KindE0ELb0E", "HGMMA"),
+    "cv.generic": ("chain", "chain_tc_kernelILNS_4KindE1ELb0E", "HGMMA"),
+    "plf.generic.bf16": ("chain", "chain_tc_kernelILNS_4KindE0ELb1E",
+                         "HGMMA"),
+    "cv.generic.bf16": ("chain", "chain_tc_kernelILNS_4KindE1ELb1E",
+                        "HGMMA")}
 # the arms whose wgmmas ptxas must not serialise (no register of an operand
 # or the accumulator is touched while their products run)
 WGMMA_UNSERIALIZED = ("plf.bf16", "cv.bf16")
@@ -506,6 +526,8 @@ LIFTED_MSE = ((24, 40, 56), 7, (4, 8, 16, 32, 48, 4, 8, 16, 32, 64))
 LIFTED_PLF = ((200, 100, 36), (96, 64, 48, 32))
 LIFTED_CV = (100, 768, 826)
 LIFTED_GENERIC_K = 16
+# a K5 chain of this many Dense layers, this wide, on the generic kernel
+LIFTED_DEPTH, LIFTED_DEPTH_WIDTH = 40, 64
 # the route whose forward (train step) each kernel's summary describes
 SUMMARY_PATH = {"ball_query": "fused", "knn": "fused", "gather": "module",
                 "mse": "fused", "cv": "fused", "cv_agg": "fused",
@@ -740,7 +762,8 @@ def sass_report(libs: dict) -> dict:
     ptxas log; the arms in WGMMA_UNSERIALIZED must have no such note."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     report = {}
-    for name, (lib, fn, tc_op) in {**TC_KERNELS, **BF16_TC_KERNELS}.items():
+    for name, (lib, fn, tc_op) in {**TC_KERNELS, **BF16_TC_KERNELS,
+                                   **GENERIC_TC_KERNELS}.items():
         sass = subprocess.run([tool, "-sass", str(libs[lib])], check=True,
                               capture_output=True, text=True).stdout
         body = next(part for part in sass.split("Function : ")[1:]
@@ -755,8 +778,10 @@ def sass_report(libs: dict) -> dict:
         serialized = [line.strip() for line in log.splitlines()
                       if "wgmma" in line and "serializ" in line
                       and fn in line]
-        if name in BF16_TC_KERNELS:
+        if name in BF16_TC_KERNELS or name in GENERIC_BF16_ARMS:
             key, pattern = f"{tc_op.lower()}_bf16", rf"\b{tc_op}\.\S*BF16\b"
+        elif name in GENERIC_ARMS:
+            key, pattern = f"{tc_op.lower()}_tf32", rf"\b{tc_op}\.\S*TF32\b"
         else:
             key, pattern = tc_op.lower(), rf"\b{tc_op}\b"
         count = len(re.findall(pattern, body))
@@ -961,6 +986,7 @@ def fused_cases(model, req: dict, dev, path: str = "fused",
                 fused.fused_multi_scale_encoder(ft, i, pc, packed),
             plain=lambda pc=pc, ft=ft, i=idx[name]:
                 fused.fused_multi_scale_encoder_plain(ft, i, pc, packed),
+            **mse_yardstick(names["mse"], ks, w["mse"], yardstick),
             nbytes=4 * (rows * (6 + sum(ks) + s_cnt * c3)
                         + numel(packed[0] + packed[1] + packed[2:])),
             # the folded first layer, then the chain per (query, neighbour)
@@ -1020,6 +1046,16 @@ def fused_cases(model, req: dict, dev, path: str = "fused",
     return cases
 
 
+def mse_yardstick(name: str, ks, widths, yardstick) -> dict:
+    """K3's generic arm's ``cublas`` yardstick: cuBLAS on each scale's two
+    products, K_s rows a query (``yardstick`` of the case's dtype); none for
+    the tuned arm, whose first layer is part of its kernel."""
+    if ".generic" not in name:
+        return {}
+    runs = [yardstick(k, widths) for k in ks]
+    return dict(cublas=lambda: [run() for run in runs])
+
+
 def nbytes(*tensors) -> int:
     """Bytes of ``tensors`` (nested sequences flattened), each read or
     written once."""
@@ -1071,6 +1107,7 @@ def bf16_cases(model, req: dict, dev, path: str = "bf16",
                 fused.fused_multi_scale_encoder(ft, i, pc, packed),
             plain=lambda pc=pc, ft=ftb, i=idx[name]:
                 fused.fused_multi_scale_encoder_plain(ft, i, pc, packed),
+            **mse_yardstick(names["mse"], ks, w["mse"], yardstick),
             # the points, the bf16 features, the indices and the weights
             # in, the float32 output back
             nbytes=(nbytes(pc, ftb, idx[name], packed)
@@ -1473,6 +1510,24 @@ def fused_lifted_cases(dev, gen: torch.Generator) -> list:
     for c in LIFTED_CV:
         cases += cv_cases(c, LIFTED_GENERIC_K, [("cv.generic", cv_fn, 1)],
                           [("cv_agg.generic", agg_fn, 1)])
+    # a K5 chain of LIFTED_DEPTH Dense layers (the generic kernel's layer
+    # table is a device array: no limit), float32 and bf16
+    widths = (LIFTED_DEPTH_WIDTH,) * (LIFTED_DEPTH + 1)
+    for dtype in (torch.float32, BF16):
+        chain = deep_chain(gen, LIFTED_DEPTH_WIDTH, LIFTED_DEPTH, dtype, dev,
+                           two_terms=dtype == BF16)
+        feat_tx = rand(b, n, widths[0], dtype=dtype)
+        idx = idx_of(LIFTED_GENERIC_K)
+        cases.append(case(
+            "plf.generic" + (".bf16" if dtype == BF16 else ""),
+            f"B={b} N={n} K={LIFTED_GENERIC_K} chain=({widths[0]},)*"
+            f"{len(widths)} {dtype}",
+            lambda fn=plf_fn, a=(feat_tx, idx, pc, chain): fn(*a),
+            lambda a=(feat_tx, idx, pc, chain):
+                fused.fused_point_local_feature_plain(*a),
+            nbytes(feat_tx, idx, pc, chain) + rows * widths[-1] * 4,
+            2 * rows * widths[0] * 6
+            + chain_flops(rows, LIFTED_GENERIC_K, widths), 1))
     # each generic arm at its tuned sibling's shape, the tuned arm beside
     cases += mse_cases(fused.MSE_WIDTHS, 3, (4, 8, 16, 32), torch.float32,
                        [("mse", mse_fn, 1),
@@ -1486,6 +1541,94 @@ def fused_lifted_cases(dev, gen: torch.Generator) -> list:
                       [("cv_agg", agg_fn, 1),
                        ("cv_agg.generic", fused._cv_agg_generic, 1)])
     return cases
+
+
+def deep_chain(gen: torch.Generator, width: int, depth: int, dtype, dev,
+               two_terms: bool = False) -> list:
+    """A K5 chain ``(wrel, s0, b0, w1, s1, b1, ...)`` of ``depth`` Dense
+    layers ``width`` wide: He-scaled kernels in ``dtype``, affines near the
+    identity, so activations stay of order one at any depth.  With
+    ``two_terms`` each output column has two nonzero weights (0.75, 1 or
+    1.25 and +-0.5, exact in bf16): every float32 sum of a product then has
+    two terms, the same in any order, and two bf16 chains that sum in other
+    orders do not drift apart through the layers (deep_bf16_witness)."""
+    def uniform(lo, hi, *shape):
+        return lo + (hi - lo) * torch.rand(shape, generator=gen)
+
+    c = width
+    chain = [torch.randn((3, c), generator=gen) * 0.3, uniform(0.8, 1.2, c),
+             uniform(-0.1, 0.1, c)]
+    cols = torch.arange(c)
+    for _ in range(depth):
+        if two_terms:
+            w = torch.zeros((c, c))
+            pick = torch.stack([torch.randperm(c, generator=gen)[:2]
+                                for _ in range(c)])
+            w[pick[:, 0], cols] = torch.tensor([0.75, 1.0, 1.25])[
+                torch.randint(0, 3, (c,), generator=gen)]
+            w[pick[:, 1], cols] = torch.where(
+                torch.rand(c, generator=gen) < 0.5, -0.5, 0.5)
+        else:
+            w = torch.randn((c, c), generator=gen) * math.sqrt(2.0 / c)
+        chain += [w, uniform(0.8, 1.2, c), uniform(-0.1, 0.1, c)]
+    return [(t.to(dtype) if i % 3 == 0 else t).to(dev)
+            for i, t in enumerate(chain)]
+
+
+def deep_bf16_witness(dev, gen: torch.Generator) -> dict:
+    """The depth-LIFTED_DEPTH chain in bf16 with dense He-scaled kernels,
+    the generic kernel against its plain version, measured and not held:
+    bf16 roundings that a float32 sum in another order flips compound
+    through the layers (any two implementations drift apart so, the JAX
+    kernel's too); float32 at that depth is held (lifted_fused)."""
+    b, n = B, 256
+    chain = deep_chain(gen, LIFTED_DEPTH_WIDTH, LIFTED_DEPTH, BF16, dev)
+    feat_tx = torch.randn((b, n, LIFTED_DEPTH_WIDTH), generator=gen).to(
+        dev).to(BF16)
+    idx = torch.randint(-2, n + 2, (b, n, LIFTED_GENERIC_K), generator=gen,
+                        dtype=torch.int32).to(dev)
+    pc = (20.0 * torch.rand((b, n, 3), generator=gen)).to(dev)
+    got = fused.fused_point_local_feature(feat_tx, idx, pc, chain)
+    want = fused.fused_point_local_feature_plain(feat_tx, idx, pc, chain)
+    err, scale = errors(got, want)
+    out = dict(depth=LIFTED_DEPTH, width=LIFTED_DEPTH_WIDTH,
+               k=LIFTED_GENERIC_K, max_abs_err=err, plain_max_abs=scale,
+               rel_err=err / scale, bar=BF16_RTOL, held=False)
+    emit({"deep_bf16_witness": out})
+    return out
+
+
+def chain_tc_report() -> dict:
+    """The tensor-core generic kernel's plan at config B's chains (K=16,
+    B=16, N=256) beside the card's own count of blocks an SM at its shared
+    memory, and each instantiation's static shared memory against the
+    plan's bound; fails where the card holds fewer blocks than planned."""
+    out = {}
+    for kind in ("max", "p2p"):
+        for bf16 in (False, True):
+            got = fused.chain_tc_static_smem(kind, bf16)
+            require(0 < got <= fused.CHAIN_TC_STATIC_SMEM,
+                    f"chain_tc {kind} bf16={bf16}: {got} bytes of static "
+                    f"shared memory, the plan counts "
+                    f"{fused.CHAIN_TC_STATIC_SMEM}")
+            out[f"static_smem_{kind}{'_bf16' if bf16 else ''}"] = got
+    for name, kind, c0, widths in (("K5", "max", 768, (384, 96)),
+                                   ("K4a", "p2p", 768, (768, 768)),
+                                   ("K3", "max", 64, (64, 128))):
+        for bf16 in (False, True):
+            plan = fused.chain_tc_plan(bf16, c0, widths, 16, B * 256)
+            card = fused.chain_tc_occupancy(kind, bf16, plan["smem"])
+            require(card >= plan["blocks_per_sm"],
+                    f"chain_tc {name} bf16={bf16}: the card holds {card} "
+                    f"blocks an SM, the plan {plan['blocks_per_sm']}")
+            out[f"{name}{'_bf16' if bf16 else ''}"] = dict(
+                smem=plan["smem"], blocks_per_sm_planned=plan[
+                    "blocks_per_sm"], blocks_per_sm_card=card,
+                x_global=plan["x_global"], y_global=plan["y_global"],
+                grid=plan["grid"], iters=plan["iters"],
+                period=plan["period"])
+    emit({"chain_tc": out})
+    return out
 
 
 def check_lifted(cases, key: str = "lifted") -> dict:
@@ -3866,10 +4009,14 @@ def shapes_process(card: str) -> None:
     with torch.no_grad():
         lifted = check_lifted(fused_lifted_cases(
             dev, torch.Generator().manual_seed(SEED + 68)), "lifted_fused")
+        witness = deep_bf16_witness(dev, torch.Generator().manual_seed(
+            SEED + 67))
+    plan = chain_tc_report()
     generic = shapes_phase(dev, torch.Generator().manual_seed(SEED + 69),
                            per_forward)
     emit({"shapes_process": dict(
-        card=card, generic=generic, lifted=lifted,
+        card=card, generic=generic, lifted=lifted, chain_tc=plan,
+        deep_bf16_witness=witness,
         per_forward={f"{k}|{path}": acc
                      for (k, path), acc in per_forward.items()})})
 

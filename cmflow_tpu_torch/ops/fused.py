@@ -41,7 +41,10 @@ by shape alone (:func:`mse_arm`, :func:`plf_arm`, :func:`cv_p2p_arm`,
 :func:`cv_agg_arm`): the tuned kernel at the widths it is written for
 (``MSE_WIDTHS``, ``PLF_WIDTHS``, ``CV_WIDTH``), else the generic kernel
 (``csrc/chain.cu``: a grouped chain of any widths and depth, max or
-WeightNet-weighted sum over K, float32 FMAs), whose every launch
+WeightNet-weighted sum over K; its products on the tensor cores in 3xTF32
+or bf16, with weights packed per call by :func:`chain_tc_weights` and a
+launch planned from the shapes by :func:`chain_tc_plan`; a chain with no
+product, K4b's, in float32 FMAs), whose every launch
 :func:`_chain` counts in its wrapper's ``launches`` and
 ``launches_generic`` (K3's generic arm launches once a scale).  The only
 shapes that raise are those the JAX package does not take either: a
@@ -116,14 +119,12 @@ _SIGNATURES = {
            for name in ("cmflow_cv_agg", "cmflow_cv_agg_bf16")},
     },
     "chain": {
-        "cmflow_chain_scratch": (_I, _I, ctypes.POINTER(ctypes.c_int), _L,
-                                 _I),
-        "cmflow_chain": (_I, _I, _P, _I, _I, _I, _P, _L, _P, _P, _P, _P, _P,
-                         _I, _I, ctypes.POINTER(ctypes.c_void_p),
-                         ctypes.POINTER(ctypes.c_void_p),
-                         ctypes.POINTER(ctypes.c_void_p),
-                         ctypes.POINTER(ctypes.c_int), _P, _P, _P, _P, _P,
-                         _P, _P, _P, _L, _P, _P),
+        "cmflow_chain": (_I, _I, _P, _I, _I, _I, _P, _L, _P, _P, _P, _P, _I,
+                         _P, _P, _P, _P, _P, _P, _P, _L, _P),
+        "cmflow_chain_tc": (_I, _I, ctypes.POINTER(ctypes.c_longlong), _P,
+                            _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P),
+        "cmflow_chain_tc_static_smem": (_I, _I),
+        "cmflow_chain_tc_occupancy": (_I, _I, _I),
     },
 }
 
@@ -136,7 +137,6 @@ MSE_MAX_FEATS = 5  # the sa encoder's first layer: 3 + Cf inputs, at most 8
 PLF_WIDTHS = (512, 256, 64)
 CV_WIDTH = 512
 WEIGHTNET_HIDDEN = 8  # fixed in the JAX package too (its zpk operand)
-CHAIN_MAX_LAYERS = 32  # the generic kernel's Dense layers after the first
 
 
 # ---------------------------------------------------------------------------
@@ -745,6 +745,251 @@ def cv_agg_arm(c: int) -> str:
 
 _CHAIN_KINDS = {"max": 0, "p2p": 1, "agg": 2}
 
+# The generic kernel's tensor-core kernel (csrc/chain.cu::chain_tc_kernel,
+# kinds max and p2p with at least one layer): its constants, and the plan of
+# a launch, a function of the shapes alone.
+CHAIN_TC_ROWS = 64  # rows of a tile: one consumer warpgroup
+CHAIN_TC_SUB = 64  # columns of one wgmma; every layer's width padded to it
+CHAIN_TC_STAGE = 16384  # bytes of a weight stage
+CHAIN_TC_STAGES = 3  # stages of the ring
+CHAIN_TC_CLUSTER = 2  # blocks that share each weight stage (multicast)
+CHAIN_TC_BLOCKS = 2  # blocks an SM its registers allow (its launch bound)
+# its static shared memory, at most: the rows' query, neighbour, point and
+# WeightNet hidden layer (64 x (4 + 8 + 12 + 32) bytes) and the ring's 6
+# mbarriers (the build keeps only the arrays a kind uses: 1,664 bytes for
+# max, 2,944 for p2p on the card); chip_smoke.py holds the card's count to it
+CHAIN_TC_STATIC_SMEM = 3632
+CHAIN_TC_PAD = 16  # elements a middle activation row is padded by (banks)
+SMEM_BLOCK = 232448  # shared memory a block may take (opt-in)
+SMEM_SM = 233472  # an SM's
+SMEM_RESERVED = 1024  # the system's share of each block
+H100_SMS = 132
+# the plan's fields in the order cmflow_chain_tc reads them (PlanField)
+CHAIN_TC_PLAN = ("n", "k", "total", "src_stride", "out_stride", "c0",
+                 "c_last", "layers", "span", "qpt", "tiles", "works",
+                 "iters", "period", "xw", "yw", "x_global", "y_global",
+                 "x_off", "y_off", "red_off", "carry_off", "scratch_block",
+                 "grid", "smem")
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def chain_tc_arm(bf16: bool) -> Tuple[int, int]:
+    """(input channels of a weight stage, output columns of a block pass):
+    two k8 steps of 128 columns in float32 (TF32 hi and lo), two k16 steps
+    of 256 columns in bf16."""
+    return (32, 256) if bf16 else (16, 128)
+
+
+def chain_tc_widths(c0: int, widths: Sequence[int], bf16: bool
+                    ) -> Tuple[List[int], List[int]]:
+    """Each layer's padded input and output widths: outputs to a multiple of
+    64 (a wgmma's columns), the first input to a multiple of a stage's
+    channels; a later input is the padded output before it."""
+    couts = [_round_up(w, CHAIN_TC_SUB) for w in widths]
+    return [_round_up(c0, chain_tc_arm(bf16)[0])] + couts[:-1], couts
+
+
+def chain_tc_plan(bf16: bool, c0: int, widths: Sequence[int], k: int,
+                  total: int, sms: int = H100_SMS) -> Dict[str, int]:
+    """The tensor-core kernel's launch at these shapes (``c0`` the first
+    activation's width, ``widths`` each Dense layer's output, ``k``
+    neighbours, ``total = B * N`` queries), from the shapes alone:
+
+    * rows: a query takes ``span`` rows, the power of two at or above K, and
+      a 64-row tile ``qpt = 64 / span`` queries; past K = 64 one query runs
+      over ``tiles`` tiles, its max or sum carried;
+    * the weight stages a tile streams (``period``) and the ring;
+    * the two middle activation buffers (X takes the outputs of even
+      layers, Y of odd ones; rows of ``xw``, ``yw`` elements), each in
+      shared memory or in device scratch: in shared memory unless that
+      leaves fewer than ``CHAIN_TC_BLOCKS`` blocks an SM (then the wider
+      goes to scratch, then both), or does not fit at all;
+    * the shared-memory layout and bytes, blocks an SM, and a persistent
+      grid of whole clusters with ``iters`` work items a block."""
+    chans, cols = chain_tc_arm(bf16)
+    cins, couts = chain_tc_widths(c0, widths, bf16)
+    period = sum(-(-co // cols) * (ci // chans) for ci, co in zip(cins, couts))
+    middles = couts[:-1]
+    xw, yw = (w + CHAIN_TC_PAD if w else 0
+              for w in (max(middles[0::2], default=0),
+                        max(middles[1::2], default=0)))
+    elt = 2 if bf16 else 4
+    if k <= CHAIN_TC_ROWS:
+        span = 1 << (k - 1).bit_length()
+        qpt, tiles = CHAIN_TC_ROWS // span, 1
+        works = -(-total // qpt)
+    else:
+        span, qpt, works = CHAIN_TC_ROWS, 1, total
+        tiles = -(-k // CHAIN_TC_ROWS)
+    # a query over several warps sums their parts in shared memory
+    red = 4 * cols * 4 if span >= 32 else 0
+    carry = couts[-1] * 4 if tiles > 1 else 0
+
+    def layout(x_global: bool, y_global: bool) -> Dict[str, int]:
+        at = CHAIN_TC_STAGES * CHAIN_TC_STAGE
+        out = dict(x_global=int(x_global), y_global=int(y_global), x_off=at)
+        at += 0 if x_global else CHAIN_TC_ROWS * xw * elt
+        out["y_off"] = at
+        at += 0 if y_global else CHAIN_TC_ROWS * yw * elt
+        out.update(red_off=at, carry_off=at + red, smem=at + red + carry)
+        held = out["smem"] + CHAIN_TC_STATIC_SMEM
+        out["blocks_per_sm"] = (0 if held > SMEM_BLOCK else min(
+            CHAIN_TC_BLOCKS, SMEM_SM // (held + SMEM_RESERVED)))
+        return out
+
+    options = [layout(False, False)]
+    if xw or yw:
+        options.append(layout(xw >= yw, yw > xw))
+        options.append(layout(bool(xw), bool(yw)))
+    fits = [o for o in options if o["blocks_per_sm"] >= 1]
+    if not fits:
+        raise ValueError(f"the generic kernel does not fit C0={c0}, widths "
+                         f"{list(widths)}, K={k} in shared memory")
+    best = max(o["blocks_per_sm"] for o in fits)
+    plan = next(o for o in fits if o["blocks_per_sm"] == best)
+    grid = (_round_up(min(works, sms * plan["blocks_per_sm"]),
+                      CHAIN_TC_CLUSTER) if works else 0)
+    scratch_block = CHAIN_TC_ROWS * (xw * plan["x_global"]
+                                     + yw * plan["y_global"])
+    plan.update(total=total, c0=c0, c_last=widths[-1], layers=len(widths),
+                span=span, qpt=qpt, tiles=tiles, works=works,
+                iters=-(-works // grid) if grid else 0, period=period,
+                xw=xw, yw=yw, scratch_block=scratch_block, grid=grid,
+                scratch=grid * scratch_block)
+    return plan
+
+
+def chain_tc_table(kind: str, bf16: bool, c0: int, widths: Sequence[int]
+                   ) -> Tuple[List[int], int]:
+    """The layer table of ``csrc/chain.cu`` (a header ``[c0_p, wrel, s0, b0,
+    ww2, wb2, wn, c_last_p]``, then ``[cin_p, cout_p, s, b]`` a layer: the
+    padded widths and each parameter's offset in floats, -1 for none) and
+    the floats of the parameter array :func:`chain_tc_params` lays out in
+    that order: for ``max`` wrel ``[3, c0_p]``, s0, b0, then each layer's
+    scale and bias; for ``p2p`` b0, each layer's bias, then the WeightNet's
+    ww2 ``[8, c_last_p]``, wb2 and wn (wb0 [8], ww1 [8, 8], wb1 [8])."""
+    cins, couts = chain_tc_widths(c0, widths, bf16)
+    head = [cins[0], -1, -1, -1, -1, -1, -1, couts[-1]]
+    at = 0
+
+    def take(n: int) -> int:
+        nonlocal at
+        at += n
+        return at - n
+
+    if kind == "max":
+        head[1], head[2], head[3] = take(3 * cins[0]), take(cins[0]), take(
+            cins[0])
+    else:
+        head[3] = take(cins[0])
+    rows = []
+    for ci, co in zip(cins, couts):
+        s_off = take(co) if kind == "max" else -1
+        rows += [ci, co, s_off, take(co)]
+    if kind == "p2p":
+        h = WEIGHTNET_HIDDEN
+        head[4], head[5] = take(h * couts[-1]), take(couts[-1])
+        head[6] = take(2 * h + h * h)
+    return head + rows, at
+
+
+def chain_tc_params(kind: str, c0: int,
+                    layers: Sequence[Tuple[Tensor, Optional[Tensor], Tensor]],
+                    wrel: Tensor = None, s0: Tensor = None,
+                    b0: Tensor = None, wn: Sequence[Tensor] = ()) -> Tensor:
+    """The float32 parameter array of :func:`chain_tc_table`, every piece
+    zero-padded to its padded width (so padded channels stay zero through
+    each affine and activation)."""
+    bf16 = layers[0][0].dtype == torch.bfloat16
+    cins, couts = chain_tc_widths(c0, [w.shape[1] for w, _, _ in layers],
+                                  bf16)
+    pad = torch.nn.functional.pad
+
+    def flat(x: Tensor, n: int) -> Tensor:
+        x = x.float().reshape(-1)
+        return pad(x, (0, n - x.numel()))
+
+    if kind == "max":
+        pieces = [pad(wrel.float(), (0, cins[0] - c0)).reshape(-1),
+                  flat(s0, cins[0]), flat(b0, cins[0])]
+    else:
+        pieces = [flat(b0, cins[0])]
+    for (_, s, b), co in zip(layers, couts):
+        if kind == "max":
+            pieces.append(flat(s, co))
+        pieces.append(flat(b, co))
+    if kind == "p2p":
+        wb0, ww1, wb1, ww2, wb2 = wn
+        pieces += [pad(ww2.float(), (0, couts[-1] - ww2.shape[1])).reshape(-1),
+                   flat(wb2, couts[-1]), *[t.float().reshape(-1)
+                                           for t in (wb0, ww1, wb1)]]
+    return torch.cat(pieces)
+
+
+def chain_tc_weights(ws: Sequence[Tensor], c0: int) -> Tensor:
+    """A chain's Dense kernels ``w_l [cin, cout]`` as the one array of 16 KB
+    weight stages the tensor-core kernel streams, in the order it takes
+    them: per layer, per block of output columns (:func:`chain_tc_arm`),
+    per two k steps.  Each layer is zero-padded to its padded widths
+    (:func:`chain_tc_widths`) and its last column block to whole.  The K
+    order of every product is ``from_rows``' (its A made from four
+    consecutive channels of a row).
+    * float32: a stage is the TF32 hi tiles (:func:`tf32_split`) of its two
+      k8 steps of 128 columns (:func:`_tc_operand`, 4 KB each), then their
+      lo tiles;
+    * bf16: its two k16 steps of 256 columns (:func:`_tc_operand_bf16`,
+      8 KB each)."""
+    bf16 = ws[0].dtype == torch.bfloat16
+    chans, cols = chain_tc_arm(bf16)
+    cins, couts = chain_tc_widths(c0, [w.shape[1] for w in ws], bf16)
+    parts = []
+    for w, ci, co in zip(ws, cins, couts):
+        blocks = -(-co // cols)
+        wp = torch.nn.functional.pad(
+            w, (0, blocks * cols - w.shape[1], 0, ci - w.shape[0]))
+        if bf16:  # (stage, step, block, tile) -> (block, stage, step, tile)
+            v = _tc_operand_bf16(wp, from_rows=True).reshape(
+                ci // chans, 2, blocks, cols * 16)
+            parts.append(v.permute(2, 0, 1, 3).reshape(-1))
+        else:  # (part, stage, step, block, tile) -> (block, stage, part, ...)
+            hi, lo = tf32_split(_tc_operand(wp, from_rows=True))
+            v = torch.stack((hi, lo)).reshape(2, ci // chans, 2, blocks,
+                                              cols * 8)
+            parts.append(v.permute(3, 1, 0, 2, 4).reshape(-1))
+    return torch.cat(parts)
+
+
+# the layer tables on the device, by (kind, arm, c0, widths, device): made
+# once a shape, so a launch copies nothing from the host
+_CHAIN_TABLES: Dict[tuple, Tensor] = {}
+
+
+def _chain_table(kind: str, bf16: bool, c0: int, widths: Sequence[int],
+                 device: torch.device) -> Tensor:
+    key = (kind, bf16, c0, tuple(widths), device)
+    if key not in _CHAIN_TABLES:
+        ints, _ = chain_tc_table(kind, bf16, c0, widths)
+        _CHAIN_TABLES[key] = torch.tensor(ints, dtype=torch.int32).pin_memory(
+        ).to(device, non_blocking=True)
+    return _CHAIN_TABLES[key]
+
+
+def chain_tc_occupancy(kind: str, bf16: bool, smem: int) -> int:
+    """Blocks of the tensor-core kernel an SM of this card holds at ``smem``
+    bytes of dynamic shared memory (the card's count)."""
+    lib = build.load("chain", _SIGNATURES["chain"])
+    return lib.cmflow_chain_tc_occupancy(_CHAIN_KINDS[kind], int(bf16), smem)
+
+
+def chain_tc_static_smem(kind: str, bf16: bool) -> int:
+    """The tensor-core kernel's static shared memory, as this card's build
+    reports it."""
+    lib = build.load("chain", _SIGNATURES["chain"])
+    return lib.cmflow_chain_tc_static_smem(_CHAIN_KINDS[kind], int(bf16))
+
 
 def _ptr(t) -> Optional[int]:
     return None if t is None else t.data_ptr()
@@ -756,50 +1001,73 @@ def _chain(wrapper, kind: str, idx: Tensor, src: Tensor, out: Tensor, *,
            s0: Tensor = None, b0: Tensor = None, z1: Tensor = None,
            z2: Tensor = None, wn: Sequence[Tensor] = ()) -> None:
     """One launch of the generic kernel (``csrc/chain.cu``) on the card,
-    counted in ``wrapper``'s ``launches`` and ``launches_generic``.
+    counted in ``wrapper``'s ``launches`` and ``launches_generic``: a chain
+    with layers on the tensor cores (``chain_tc_kernel``; its weights,
+    parameters and plan made here), one without on ``chain_kernel``.
 
     ``src`` (the gathered rows: base, ``f2c`` or the point-to-patch cost)
     and ``out`` are ``[B, N, C]`` views whose rows may be strided (a channel
     block of a wider tensor); ``f1c`` shares ``src``'s row stride.
-    ``layers`` are ``(w [cin, cout], s or None, b)``; the rest as
-    ``cmflow_chain`` takes them (``csrc/chain.cu``).  Raises for a chain
-    deeper than ``CHAIN_MAX_LAYERS``."""
+    ``layers`` are ``(w [cin, cout], s or None, b)``, any number; the rest as
+    ``csrc/chain.cu`` takes them."""
     b, n, c0 = src.shape
     k = idx.shape[2]
-    if len(layers) > CHAIN_MAX_LAYERS:
-        raise ValueError(f"the generic kernel takes at most "
-                         f"{CHAIN_MAX_LAYERS} Dense layers, got "
-                         f"{len(layers)}")
     if (src.stride(2) != 1 or out.stride(2) != 1
             or src.stride(0) != n * src.stride(1)
             or out.stride(0) != n * out.stride(1)
             or (f1c is not None and f1c.stride() != src.stride())):
         raise ValueError("the generic kernel takes rows of unit stride")
     lib = build.load("chain", _SIGNATURES["chain"])
-    widths = (ctypes.c_int * max(len(layers), 1))(
-        *[w.shape[1] for w, _, _ in layers])
-    floats = lib.cmflow_chain_scratch(c0, len(layers), widths, b * n, k)
-    if floats < 0:
-        raise ValueError(f"the generic kernel does not take C0={c0}, widths "
-                         f"{[w.shape[1] for w, _, _ in layers]}, K={k}")
-    scratch = (torch.empty(floats, dtype=torch.float32, device=src.device)
-               if floats else None)
-    count = max(len(layers), 1)
-
-    def ptrs(ts):
-        return (ctypes.c_void_p * count)(*[_ptr(t) for t in ts])
-
-    code = lib.cmflow_chain(
-        _CHAIN_KINDS[kind], int(src.dtype == torch.bfloat16), idx.data_ptr(),
-        b, n, k, src.data_ptr(), src.stride(1), _ptr(f1c), _ptr(xyz),
-        _ptr(wrel), _ptr(s0), _ptr(b0), c0, len(layers),
-        ptrs([w for w, _, _ in layers]), ptrs([s for _, s, _ in layers]),
-        ptrs([bb for _, _, bb in layers]), widths, _ptr(z1), _ptr(z2),
-        *[_ptr(t) for t in (wn or (None,) * 5)], out.data_ptr(),
-        out.stride(1), _ptr(scratch), _stream(src))
+    bf16 = src.dtype == torch.bfloat16
+    if layers:
+        widths = [w.shape[1] for w, _, _ in layers]
+        plan = chain_tc_plan(bf16, c0, widths, k, b * n,
+                             _sms(src.device))
+        plan.update(n=n, k=k, src_stride=src.stride(1),
+                    out_stride=out.stride(1))
+        table = _chain_table(kind, bf16, c0, widths, src.device)
+        prm = chain_tc_params(kind, c0, layers, wrel, s0, b0, wn)
+        wimg = chain_tc_weights([w for w, _, _ in layers], c0)
+        scratch = (torch.empty(plan["scratch"], dtype=src.dtype,
+                               device=src.device) if plan["scratch"] else None)
+        code = lib.cmflow_chain_tc(
+            _CHAIN_KINDS[kind], int(bf16),
+            (ctypes.c_longlong * len(CHAIN_TC_PLAN))(
+                *[plan[f] for f in CHAIN_TC_PLAN]),
+            idx.data_ptr(), src.data_ptr(), _ptr(f1c), _ptr(xyz), _ptr(z1),
+            _ptr(z2), wimg.data_ptr(), prm.data_ptr(), table.data_ptr(),
+            out.data_ptr(), _ptr(scratch), int(_whole_rows(src, f1c, c0)),
+            _stream(src))
+    else:
+        code = lib.cmflow_chain(
+            _CHAIN_KINDS[kind], int(bf16), idx.data_ptr(), b, n, k,
+            src.data_ptr(), src.stride(1), _ptr(xyz), _ptr(wrel), _ptr(s0),
+            _ptr(b0), c0, _ptr(z1), *[_ptr(t) for t in (wn or (None,) * 5)],
+            out.data_ptr(), out.stride(1), _stream(src))
     build.check(lib, code, f"the generic kernel ({kind})")
     wrapper.launches += 1
     wrapper.launches_generic += 1
+
+
+def _whole_rows(src: Tensor, f1c: Optional[Tensor], c0: int) -> bool:
+    """Whether the kernel may read a gathered row's four consecutive
+    channels (bf16) or two (float32) in one 8-byte load: rows 8-byte
+    aligned, and C0 a multiple of 4 (so no such group straddles it)."""
+    elt = src.element_size()
+    return (c0 % 4 == 0 and (src.stride(1) * elt) % 8 == 0
+            and all(t.data_ptr() % 8 == 0 for t in (src, f1c)
+                    if t is not None))
+
+
+_SMS: Dict[torch.device, int] = {}
+
+
+def _sms(device: torch.device) -> int:
+    """The card's SMs (the persistent grid's width)."""
+    if device not in _SMS:
+        _SMS[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _SMS[device]
 
 
 # ---------------------------------------------------------------------------

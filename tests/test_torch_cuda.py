@@ -1322,8 +1322,9 @@ def test_mse_generic(dev, rs, dtype, case):
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_plf_generic(dev, rs, dtype, k, widths):
     """K5's generic arm: chains of other widths and depths (none past the
-    first layer at (130,)), K within a 32-row tile and over two; the
-    default widths through the private route beside the tuned arm."""
+    first layer at (130,): the FMA kernel; the others on the tensor
+    cores), queries of 8, 16 and 64 rows; the default widths through the
+    private route beside the tuned arm."""
     b, n = 16, 256
     pc = cloud(rs, b, n, dev)
     plf = seeded(blocks.PointLocalFeature(8.0, k, 40, widths, (16,)), dev,
@@ -1365,10 +1366,10 @@ def test_cost_volume_generic(dev, rs, dtype, c, k):
     """K4a's and K4b's generic arm at C = 100, 768 and 826 through the
     wrappers, and at 512 through the private routes beside the tuned arms:
     random neighbours, some outside [0, N), K4b on a seeded cost; K4b's bf16
-    arm at the float32 bars (its arithmetic is float32).  At C = 826 K4a's
-    activations (232,176 bytes with the block's other buffers) fit the
-    dynamic shared memory's opt-in limit but not beside the kernel's static
-    768 bytes: they go to device scratch."""
+    arm at the float32 bars (its arithmetic is float32).  At C = 768 and
+    826 K4a's middle activation goes to device scratch
+    (``fused.chain_tc_plan``: in shared memory it would leave one block an
+    SM, or not fit)."""
     f, z, dense, wn1, wn2 = generic_cost_volume_inputs(rs, c, dev, dtype)
     b, n = f[0].shape[:2]
     idx2, idx1 = (random_idx(rs, b, n, k, dev) for _ in range(2))
@@ -1396,6 +1397,166 @@ def test_cost_volume_generic(dev, rs, dtype, c, k):
         assert (fused.cost_volume_p2p.launches_generic,
                 fused.cost_volume_agg.launches_generic) == (
                     before[0] + 2, before[1] + 2)
+
+
+# ---------------------------------------------------------------------------
+# the generic kernel's tensor-core arm (csrc/chain.cu::chain_tc_kernel):
+# K5's and K3's chains (kind max) and K4a's (kind p2p) at any widths and
+# depth, in both dtypes
+# ---------------------------------------------------------------------------
+
+def chain_params(rs, widths, dev, dtype, two_terms=False):
+    """A K5 chain ``(wrel, s0, b0, w1, s1, b1, ...)`` of ``widths`` (C1 and
+    each Dense layer's output): He-scaled Dense kernels in ``dtype``,
+    affines near the identity, so activations stay of order one at any
+    depth.  With ``two_terms`` each output column of a Dense kernel has two
+    nonzero weights (0.75, 1 or 1.25 and +-0.5, exact in bf16), so every
+    float32 sum of a product has two terms and the same value in any
+    order."""
+    c1 = widths[0]
+    out = [torch.from_numpy(rs.randn(3, c1).astype(np.float32) * 0.3),
+           torch.from_numpy(rs.uniform(0.8, 1.2, c1).astype(np.float32)),
+           torch.from_numpy(rs.uniform(-0.1, 0.1, c1).astype(np.float32))]
+    for cin, cout in zip(widths[:-1], widths[1:]):
+        if two_terms:
+            w = np.zeros((cin, cout), np.float32)
+            for col in range(cout):
+                a, b = rs.choice(cin, 2, replace=False)
+                w[a, col] = rs.choice([0.75, 1.0, 1.25])
+                w[b, col] = rs.choice([-0.5, 0.5])
+        else:
+            w = (rs.randn(cin, cout) * np.sqrt(2.0 / cin)).astype(np.float32)
+        out += [torch.from_numpy(w).to(dtype),
+                torch.from_numpy(rs.uniform(0.8, 1.2, cout).astype(
+                    np.float32)),
+                torch.from_numpy(rs.uniform(-0.1, 0.1, cout).astype(
+                    np.float32))]
+    out[0] = out[0].to(dtype)
+    return [t.to(dev) for t in out]
+
+
+# (widths, K): config B's K5; odd widths (none a multiple of 8); C = 100
+# and 826; a query of 1, 8, 16, 32 and 64 rows and one over two tiles
+# (K = 100); depth 40
+CHAIN_TC_MAX = [((768, 384, 96), 16), ((37, 45, 19), 1), ((37, 45, 19), 5),
+                ((100, 100, 100), 33), ((826, 200, 826), 16),
+                ((200, 100, 36), 100), ((96, 64, 48, 32), 64),
+                ((23,) * 41, 16), ((40,) * 41, 100)]
+
+
+@pytest.mark.parametrize("case", CHAIN_TC_MAX)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_chain_tc_max(dev, rs, dtype, case):
+    """K5's generic arm on the tensor cores through the wrapper: held to
+    its plain version at the arm's bars, the same bits twice, one launch a
+    call counted as the generic arm's; neighbour indices out of range.
+
+    At depth 40 in bf16 the Dense kernels have two terms a column
+    (``chain_params``): with dense random kernels any two bf16 chains that
+    sum in other orders drift apart as rounding flips compound through the
+    layers (the kernel against its plain version: 1.13% of the largest
+    magnitude at (23,) * 41, K=16, on an H100, past the 1e-2 bar; float32
+    stays within its bars at that depth, held here with dense kernels)."""
+    widths, k = case
+    b, n = 16, 256
+    pc = cloud(rs, b, n, dev)
+    chain = chain_params(rs, widths, dev, dtype,
+                         two_terms=dtype == BF16 and len(widths) > 10)
+    feat_tx = torch.from_numpy(rs.randn(b, n, widths[0]).astype(
+        np.float32)).to(dev).to(dtype)
+    idx = random_idx(rs, b, n, k, dev)
+    assert fused.plf_arm(widths) == fused.GENERIC
+    with torch.no_grad():
+        before = (fused.fused_point_local_feature.launches,
+                  fused.fused_point_local_feature.launches_generic)
+        got = same_twice(lambda: fused.fused_point_local_feature(
+            feat_tx, idx, pc, chain))
+        assert (fused.fused_point_local_feature.launches,
+                fused.fused_point_local_feature.launches_generic) == (
+                    before[0] + 2, before[1] + 2)
+        near_arm(got, fused.fused_point_local_feature_plain(
+            feat_tx, idx, pc, chain), dtype)
+
+
+@pytest.mark.parametrize("k", [1, 16, 100])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_chain_tc_tuned_widths(dev, rs, dtype, k):
+    """At the tuned kernels' own widths the tensor-core generic arm is held
+    to its plain version and to the tuned kernel's output (K5 (512, 256,
+    64), K4a C = 512), at the arm's bars."""
+    b, n = 16, 256
+    pc = cloud(rs, b, n, dev)
+    chain = chain_params(rs, fused.PLF_WIDTHS, dev, dtype)
+    feat_tx = torch.from_numpy(rs.randn(b, n, 512).astype(np.float32)).to(
+        dev).to(dtype)
+    idx = random_idx(rs, b, n, k, dev)
+    f, z, dense, wn1, _ = generic_cost_volume_inputs(rs, 512, dev, dtype)
+    args = (f[0], f[1], random_idx(rs, b, n, k, dev), z[0], z[1], dense[1:],
+            wn1[1:])
+    with torch.no_grad():
+        got = same_twice(lambda: fused._plf_generic(feat_tx, idx, pc, chain))
+        near_arm(got, fused.fused_point_local_feature_plain(
+            feat_tx, idx, pc, chain), dtype)
+        near_arm(got, fused.fused_point_local_feature(feat_tx, idx, pc,
+                                                      chain), dtype)
+        p2p = same_twice(lambda: fused._cv_p2p_generic(*args))
+        near_arm(p2p, fused.cost_volume_p2p_plain(*args), dtype)
+        near_arm(p2p, fused.cost_volume_p2p(*args), dtype)
+
+
+@pytest.mark.parametrize("case", [(37, 1), (100, 16), (826, 16), (45, 100),
+                                  (768, 33)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_chain_tc_p2p(dev, rs, dtype, case):
+    """K4a's generic arm on the tensor cores: C not a multiple of 8, 100,
+    768 and 826; K of one, a query of 16 or 64 rows and one over two tiles;
+    indices out of range; the same bits twice."""
+    c, k = case
+    f, z, dense, wn1, _ = generic_cost_volume_inputs(rs, c, dev, dtype)
+    b, n = f[0].shape[:2]
+    args = (f[0], f[1], random_idx(rs, b, n, k, dev), z[0], z[1], dense[1:],
+            wn1[1:])
+    with torch.no_grad():
+        before = fused.cost_volume_p2p.launches_generic
+        got = same_twice(lambda: fused.cost_volume_p2p(*args))
+        assert fused.cost_volume_p2p.launches_generic == before + 2
+        near_arm(got, fused.cost_volume_p2p_plain(*args), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_chain_tc_empty_batch(dev, rs, dtype):
+    """B = 0: no launch of a kernel, empty outputs of the right shapes."""
+    chain = chain_params(rs, (37, 45, 19), dev, dtype)
+    feat_tx = torch.empty((0, 64, 37), dtype=dtype, device=dev)
+    idx = torch.empty((0, 64, 8), dtype=torch.int32, device=dev)
+    pc = torch.empty((0, 64, 3), device=dev)
+    with torch.no_grad():
+        out = fused.fused_point_local_feature(feat_tx, idx, pc, chain)
+        f, z, dense, wn1, _ = generic_cost_volume_inputs(rs, 37, dev, dtype)
+        empty = [t[:0] for t in (f[0], f[1], z[0], z[1])]
+        idx2 = torch.empty((0, f[0].shape[1], 8), dtype=torch.int32,
+                           device=dev)
+        p2p = fused.cost_volume_p2p(*empty[:2], idx2, *empty[2:], dense[1:],
+                                    wn1[1:])
+    torch.cuda.synchronize()
+    assert out.shape == (0, 64, 19) and p2p.shape == (0, 256, 37)
+
+
+def test_chain_tc_plan_on_card(dev):
+    """The plan's count of the kernel's static shared memory bounds the
+    card's, and the card holds as many blocks an SM as the plan says at
+    config B (both dtypes)."""
+    for kind in ("max", "p2p"):
+        for bf16 in (False, True):
+            assert 0 < fused.chain_tc_static_smem(kind, bf16) <= (
+                fused.CHAIN_TC_STATIC_SMEM)
+    for kind, c0, widths in (("max", 768, (384, 96)),
+                             ("p2p", 768, (768, 768)),
+                             ("max", 64, (64, 128))):
+        for bf16 in (False, True):
+            plan = fused.chain_tc_plan(bf16, c0, widths, 16, 4096)
+            assert fused.chain_tc_occupancy(kind, bf16, plan["smem"]) >= (
+                plan["blocks_per_sm"])
 
 
 # ---------------------------------------------------------------------------

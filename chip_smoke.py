@@ -28,9 +28,10 @@ Run from the repository root on a machine with a CUDA GPU and nvcc.  Steps:
    it stand the device time of every
    kernel its wrapper launches (the folds and weight packing included)
    and the CUDA-event time of back-to-back wrapper calls, in the summary
-   where they differ from it by more than 10%.  For the cost volume
-   and the propagation encoder also cuBLAS float32 on the same products
-   alone, a yardstick the port never calls.  For the three tensor-core
+   where they differ from it by more than 10%.  For the sa encoder, both
+   cost-volume kernels (the second's WeightNet) and the propagation
+   encoder also cuBLAS float32 on the same products alone, a yardstick the
+   port never calls.  For the three tensor-core
    kernels a second bound for their arithmetic (3xTF32: three TF32
    products per product); count their tensor-core instructions (``HGMMA``
    for ``wgmma``, ``HMMA`` for the sa encoder's ``mma.sync``) in the built
@@ -90,8 +91,13 @@ Run from the repository root on a machine with a CUDA GPU and nvcc.  Steps:
    graph replays; printed on a ``lifted`` line and in its kernel's row of
    the kernels line;
 6b. the fused kernels past their limits, in a process of their own, last
-   (``shapes_process``): the sa encoder at K = 48 and 100 in both arms,
-   the cost volume's first kernel at k = 48 and 100 and the propagation
+   (``shapes_process``): the sa encoder past K = 32 (its long kernels) at
+   K = 33, 48, 64, 100 and 200 in both arms, each alone (``mse.long``,
+   ``mse.long.bf16``) and beside the four K <= 32 scales in one call (their
+   bits held to a call of them alone), affine scales of both signs, beside
+   cuBLAS on their products, and the long kernels' plan at config A beside
+   the card's count of blocks an SM and static shared memory (an
+   ``mse_long`` line); the cost volume's first kernel at k = 48 and 100 and the propagation
    encoder at K = 65, 128 and 160 in float32; the generic kernel
    (``csrc/chain.cu``) at widths no tuned kernel takes (the sa encoder at
    (24, 40, 56) with 7 features and ten scales, the propagation encoder's
@@ -120,7 +126,10 @@ Run from the repository root on a machine with a CUDA GPU and nvcc.  Steps:
    the CPU at the serving bars; CMFlow after eight train steps in bf16 to
    the CPU's bf16 route at the JAX bf16 bars; the fused kernels held to
    their plain versions at CMFlow's shapes, config B's generic arms timed
-   beside cuBLAS on their products (K3's too: each scale's two products)
+   beside cuBLAS on their products (K3's too: each scale's two products),
+   config A's sa encoder calls and its long kernel alone (the K=64 scale's
+   weights, a call a cloud) timed, each with its share of the forward,
+   every forward's calls of the long kernel counted (config A 2, B 0)
    (their rows of the kernels line, ``mse.generic`` ...
    ``cv_agg.generic.bf16``) (run in the main process before its train
    phases, 6b left its profiler dropping the first kernel of every later
@@ -266,7 +275,9 @@ Run from the repository root on a machine with a CUDA GPU and nvcc.  Steps:
    kernel also with its launches in each CLI run, on the SSG path and in
    each remat mode; FPS's row with the SSG path's launches; the four bf16
    arms as rows of their own, ``mse.bf16``, ``cv.bf16``, ``cv_agg.bf16``,
-   ``plf.bf16``, with the launches of the bf16 serving phase; the gather's
+   ``plf.bf16``, with the launches of the bf16 serving phase; the sa
+   encoder's long kernels as ``mse.long`` and ``mse.long.bf16``, with
+   config A's launches of the ``shapes`` phase; the gather's
    and its backward's bf16 arms as ``gather.bf16`` and ``gather_bwd.bf16``,
    with the launches of the bf16 train phase), then
    ``{"ok": true, "device": ...}`` last.
@@ -282,6 +293,7 @@ from __future__ import annotations
 
 import copy
 import ctypes
+import hashlib
 import json
 import math
 import os
@@ -406,9 +418,17 @@ GENERIC_TC_KERNELS = {
                          "HGMMA"),
     "cv.generic.bf16": ("chain", "chain_tc_kernelILNS_4KindE1ELb1E",
                         "HGMMA")}
+# K3 past K = 32 (csrc/mse.cu::mse_long_kernel, mse_bf16_long_kernel), on
+# wgmma in 3xTF32 and bf16, behind K3's wrapper, which counts every call
+# that launches one also in ``launches_long``: config A's K=64 scale takes
+# them (2 a forward, one a cloud), no scale of the default config or of B
+LONG_ARMS = {"mse.long": "mse", "mse.long.bf16": "mse"}
+LONG_BF16_ARMS = ("mse.long.bf16",)
+LONG_TC_KERNELS = {"mse.long": ("mse", "mse_long_kernel", "HGMMA"),
+                   "mse.long.bf16": ("mse", "mse_bf16_long_kernel", "HGMMA")}
 # the arms whose wgmmas ptxas must not serialise (no register of an operand
 # or the accumulator is touched while their products run)
-WGMMA_UNSERIALIZED = ("plf.bf16", "cv.bf16")
+WGMMA_UNSERIALIZED = ("plf.bf16", "cv.bf16", *LONG_TC_KERNELS)
 # a bf16 arm against its plain version: max abs error over the output's
 # largest magnitude (a float32 sum in another order can flip a bf16
 # rounding by one ulp, 2^-8)
@@ -447,7 +467,7 @@ BF16_TRAIN_BARS = {"loss_rtol": 0.1, "stats_atol": 1e-2,
                    "params_atol": 5e-3}
 # held to themselves bit for bit across two runs
 SAME_BITS = ("gather_bwd", "cv_agg", *TC_KERNELS, *BF16_ARMS,
-             "gather_bwd.bf16", "fps", *GENERIC)
+             "gather_bwd.bf16", "fps", *GENERIC, *LONG_ARMS)
 LAUNCHES = {
     "fused": {"ball_query": 2, "knn": 2, "gather": 0, "mse": 2, "cv": 1,
               "cv_agg": 1, "plf": 4, "gather_bwd": 0},
@@ -494,11 +514,13 @@ for _arm, _sibling in GATHER_ARMS.items():
     DEVICE_NAMES[_arm] = DEVICE_NAMES[_sibling]
 for _arm in GENERIC:
     DEVICE_NAMES[_arm] = ("chain_kernel",)
+for _arm, (_, _fn, _) in LONG_TC_KERNELS.items():
+    DEVICE_NAMES[_arm] = (_fn,)
 # the CUDA kernels one call of a wrapper may launch, where that is bounded:
 # K7 its CSR build and its sum (exactly), K3's bf16 arm the centroids' mean
 # and the kernel (at most)
 KERNELS_PER_CALL = {"gather_bwd": (2, 2), "gather_bwd.bf16": (2, 2),
-                    "mse.bf16": (1, 2)}
+                    "mse.bf16": (1, 2), "mse.long.bf16": (1, 2)}
 # one cloud above the 2048 points the neighbour kernels stage at a time
 LARGE_N = 4096
 # shapes past the limits the kernels once had, which no route reaches: kNN
@@ -514,9 +536,13 @@ LIFTED_BWD = ((515, torch.float32, 16), (2052, torch.float32, 16),
 # the tuned fused kernels past the K they once took (K3 and K4a 32, K5 64),
 # at B=16, N=256 on seeded random neighbours, some outside [0, N): (kernel,
 # K); K5 past 128 runs a query over several 128-row tiles
-LIFTED_TUNED = (("mse", 48), ("mse", 100), ("mse.bf16", 48),
-                ("mse.bf16", 100), ("cv", 48), ("cv", 100), ("plf", 65),
-                ("plf", 128), ("plf", 160))
+LIFTED_TUNED = (("cv", 48), ("cv", 100), ("plf", 65), ("plf", 128),
+                ("plf", 160))
+# K3 past K = 32 at each K, in both dtypes, alone (``mse.long``: only the
+# long kernel) and beside the K <= 32 scales in one call (``mse``: both
+# kernels; the K <= 32 scales' bits held to a call of them alone)
+LIFTED_MSE_K = (33, 48, 64, 100, 200)
+LIFTED_MSE_MIXED = (4, 8, 16, 32)
 # the generic kernel at widths no tuned kernel takes: K3 at (C1, C2, C3)
 # with Cf features and ten scales (K each); K5's chains; K4a and K4b at C
 # (at 826 K4a's activations go to device scratch: in shared memory they
@@ -565,6 +591,8 @@ SOURCES = {
     "fps": ("cmflow_tpu_torch/csrc/sampling.cu",
             "cmflow_tpu/ops/pointops.py:270"),
 }
+SOURCES["mse.long"] = SOURCES["mse"]
+SOURCES["mse.long.bf16"] = SOURCES["mse.bf16"]
 # the generic arms replace their wrappers' Pallas kernels at every width
 for _arm, _sibling in GENERIC.items():
     SOURCES[_arm] = ("cmflow_tpu_torch/csrc/chain.cu",
@@ -584,6 +612,7 @@ def emit(obj) -> None:
 def zero_counts() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
+    WRAPPERS["mse"].launches_long = 0
     for arm in set(GENERIC_ARMS.values()):
         WRAPPERS[arm].launches_generic = 0
     for arm in GATHER_ARMS.values():
@@ -600,7 +629,8 @@ def counts_now() -> dict:
 def wrapper_of(name: str):
     """A kernel's wrapper (a bf16 or generic arm's is its float32 tuned
     sibling's)."""
-    return WRAPPERS[{**BF16_ARMS, **GATHER_ARMS, **GENERIC}.get(name, name)]
+    return WRAPPERS[{**BF16_ARMS, **GATHER_ARMS, **GENERIC,
+                     **LONG_ARMS}.get(name, name)]
 
 
 def event_ms(fn, iters: int) -> float:
@@ -733,7 +763,7 @@ def bounds(name: str, nbytes: float, flops: float) -> dict:
     float32 bound beside it for the 3xTF32 tensor-core kernels.  A generic
     arm is held to its tuned sibling's bound (``mse.generic.bf16`` to
     ``mse.bf16``'s): the card runs the same work at that rate."""
-    name = name.replace(".generic", "")
+    name = name.replace(".generic", "").replace(".long", "")
     if name in BF16_TC_KERNELS:
         ms, by = bound_ms(nbytes, flops, BF16_FLOP_PER_S)
         return dict(bound_ms=ms, bound_by=by, bound_arith="bf16")
@@ -763,7 +793,8 @@ def sass_report(libs: dict) -> dict:
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     report = {}
     for name, (lib, fn, tc_op) in {**TC_KERNELS, **BF16_TC_KERNELS,
-                                   **GENERIC_TC_KERNELS}.items():
+                                   **GENERIC_TC_KERNELS,
+                                   **LONG_TC_KERNELS}.items():
         sass = subprocess.run([tool, "-sass", str(libs[lib])], check=True,
                               capture_output=True, text=True).stdout
         body = next(part for part in sass.split("Function : ")[1:]
@@ -778,9 +809,10 @@ def sass_report(libs: dict) -> dict:
         serialized = [line.strip() for line in log.splitlines()
                       if "wgmma" in line and "serializ" in line
                       and fn in line]
-        if name in BF16_TC_KERNELS or name in GENERIC_BF16_ARMS:
+        if (name in BF16_TC_KERNELS or name in GENERIC_BF16_ARMS
+                or name in LONG_BF16_ARMS):
             key, pattern = f"{tc_op.lower()}_bf16", rf"\b{tc_op}\.\S*BF16\b"
-        elif name in GENERIC_ARMS:
+        elif name in GENERIC_ARMS or name in LONG_ARMS:
             key, pattern = f"{tc_op.lower()}_tf32", rf"\b{tc_op}\.\S*TF32\b"
         else:
             key, pattern = tc_op.lower(), rf"\b{tc_op}\b"
@@ -1022,6 +1054,8 @@ def fused_cases(model, req: dict, dev, path: str = "fused",
         shape=f"B={b} N={n} C={c} k={k} masked",
         mult=1, run=lambda: fused.cost_volume_agg(*agg_args),
         plain=lambda: fused.cost_volume_agg_plain(*agg_args),
+        # its WeightNet's two products (8 -> 8 -> C) at k rows a query
+        cublas=yardstick(k, (h, h, c)),
         nbytes=4 * (rows * (2 * c + k + h) + numel(wn2[1:])),
         flops=2 * rows * k * (h * h + h * c + c)))
     cor = fused.cost_volume_agg(*agg_args)
@@ -1047,13 +1081,59 @@ def fused_cases(model, req: dict, dev, path: str = "fused",
 
 
 def mse_yardstick(name: str, ks, widths, yardstick) -> dict:
-    """K3's generic arm's ``cublas`` yardstick: cuBLAS on each scale's two
-    products, K_s rows a query (``yardstick`` of the case's dtype); none for
-    the tuned arm, whose first layer is part of its kernel."""
-    if ".generic" not in name:
-        return {}
+    """K3's ``cublas`` yardstick: cuBLAS on each scale's two products, K_s
+    rows a query (``yardstick`` of the case's dtype), in either arm (the
+    tuned arm's first layer, part of its kernel, left out)."""
     runs = [yardstick(k, widths) for k in ks]
     return dict(cublas=lambda: [run() for run in runs])
+
+
+def long_cases(model, req: dict, dev, path: str, dtype) -> list:
+    """K3's scales past K = 32 of this request's fused forward alone (the
+    long kernel's launches, one a cloud), in ``dtype``: each cloud's call
+    with those scales' weights on the forward's ball-query indices, timed
+    by the long kernel's own device time, cuBLAS on their two products
+    beside."""
+    pc1, pc2, ft1, ft2, v1, v2 = request_tensors(req, dev)
+    b, n, _ = pc1.shape
+    w = model_widths(model)
+    radii, ks = w["radii"], w["ks"]
+    keep = [s for s, k in enumerate(ks) if k > fused.MSE_TILE_MAX_K]
+    packed, _ = fused.mse_narrow_params_from_variables(
+        model.trunk.mse_layer, dtype)
+    packed = mse_scales(packed, keep)
+    c1, c2, c3 = w["mse"]
+    rows = b * n
+    long_ks = [ks[s] for s in keep]
+    xs = [torch.randn((rows * sum(long_ks), c), device=dev).to(dtype)
+          for c in (c1, c2)]
+    ws = [torch.randn((c, o), device=dev).to(dtype)
+          for c, o in ((c1, c2), (c2, c3))]
+    if dtype == BF16:
+        def cublas():
+            return [torch.mm(x, w, out_dtype=torch.float32)
+                    for x, w in zip(xs, ws)]
+    else:
+        def cublas():
+            return [x @ w for x, w in zip(xs, ws)]
+    cases = []
+    for cloud, pc, ft, v in (("pc1", pc1, ft1, v1), ("pc2", pc2, ft2, v2)):
+        idx = inference._ball_query_all(radii, ks, pc, v)
+        i = [idx[s] for s in keep]
+        f = ft.to(dtype)
+        cases.append(dict(
+            kernel="mse.long" + (".bf16" if dtype == BF16 else ""),
+            path=path, shape=f"B={b} N={n} K={tuple(long_ks)} {cloud} "
+                             f"masked", mult=1,
+            run=lambda pc=pc, f=f, i=i: fused.fused_multi_scale_encoder(
+                f, i, pc, packed),
+            plain=lambda pc=pc, f=f, i=i:
+                fused.fused_multi_scale_encoder_plain(f, i, pc, packed),
+            cublas=cublas,
+            nbytes=nbytes(pc, f, i, packed) + rows * len(keep) * c3 * 4,
+            flops=2 * (rows * len(keep) * c1 * 9
+                       + rows * sum(long_ks) * (c1 * c2 + c2 * c3))))
+    return cases
 
 
 def nbytes(*tensors) -> int:
@@ -1142,11 +1222,15 @@ def bf16_cases(model, req: dict, dev, path: str = "bf16",
         flops=chain_flops(rows, k, w["cv"]) + 2 * rows * k * (h * h + h * c)))
     p2p = fused.cost_volume_p2p(*cv_args)
     agg_args = (unit(p2p) if unit_cost else p2p, knn1, zq, wn2[1:])
+    wn_x = [torch.randn((rows * k, h), device=dev) for _ in range(2)]
+    wn_w = [torch.randn((h, o), device=dev) for o in (h, c)]
     cases.append(dict(
         kernel=names["cv_agg"], path=path,
         shape=f"B={b} N={n} C={c} k={k} masked", mult=1,
         run=lambda: fused.cost_volume_agg(*agg_args),
         plain=lambda: fused.cost_volume_agg_plain(*agg_args),
+        # its WeightNet's two products in float32, as the arm computes them
+        cublas=lambda: [x @ w for x, w in zip(wn_x, wn_w)],
         nbytes=nbytes(agg_args) + rows * c * 4,
         flops=2 * rows * k * (h * h + h * c + c)))
     cor = fused.cost_volume_agg(*agg_args)
@@ -1402,6 +1486,35 @@ def seeded_module(module, gen: torch.Generator, dev):
     return module.to(dev)
 
 
+def mse_scales(packed: tuple, keep) -> tuple:
+    """K3's packed weights of the scales ``keep`` alone, in that order."""
+    w0rel, w0feat, s0, b0, w1, s1, b1, w2, s2, b2 = packed
+    c1, c2, c3 = w1.shape[1], w1.shape[2], w2.shape[2]
+
+    def cols(a, c):
+        return torch.cat([a[s * c:(s + 1) * c] for s in keep])
+
+    return (tuple(w0rel[s] for s in keep), tuple(w0feat[s] for s in keep),
+            cols(s0, c1), cols(b0, c1), w1[list(keep)], cols(s1, c2),
+            cols(b1, c2), w2[list(keep)], cols(s2, c3), cols(b2, c3))
+
+
+def check_tile_bits(feats, idx, pc, packed, tile) -> str:
+    """Hold the scales ``tile`` (K <= 32, the tile kernel's) of a call that
+    also runs the long kernel to a call of those scales alone, bit for
+    bit; returns a digest of their bits."""
+    c3 = packed[7].shape[2]
+    with torch.no_grad():
+        both = fused.fused_multi_scale_encoder(feats, idx, pc, packed)
+        alone = fused.fused_multi_scale_encoder(
+            feats, [idx[s] for s in tile], pc, mse_scales(packed, tile))
+    part = torch.cat([both[..., s * c3:(s + 1) * c3] for s in tile], -1)
+    require(torch.equal(part, alone),
+            f"K3 K={[i.shape[2] for i in idx]}: the K <= 32 scales' bits "
+            f"differ from a call of them alone")
+    return hashlib.sha1(alone.cpu().numpy().tobytes()).hexdigest()
+
+
 def fused_lifted_cases(dev, gen: torch.Generator) -> list:
     """LIFTED_TUNED, LIFTED_MSE, LIFTED_PLF and LIFTED_CV as check_kernels
     cases, and each generic arm at the tuned kernel's own shape (the
@@ -1430,25 +1543,58 @@ def fused_lifted_cases(dev, gen: torch.Generator) -> list:
                     graph_timed=True, graph_references=True, same_bits=True,
                     launches=launches, iters=5)
 
+    def products(rows_k, widths, dtype):
+        """cuBLAS on a chain's products alone at ``rows_k`` rows (bf16
+        operands with float32 sums, as ``_dot32`` calls it)."""
+        xs = [torch.randn((rows_k, c), device=dev).to(dtype)
+              for c in widths[:-1]]
+        ws = [torch.randn((c, o), device=dev).to(dtype)
+              for c, o in zip(widths[:-1], widths[1:])]
+        if dtype == BF16:
+            return lambda: [torch.mm(x, w, out_dtype=torch.float32)
+                            for x, w in zip(xs, ws)]
+        return lambda: [x @ w for x, w in zip(xs, ws)]
+
     def mse_cases(widths, cf, ks, dtype, names):
         radii = tuple(2.0 * (i + 1) for i in range(len(ks)))
         mse = seeded_module(MultiScaleEncoder(radii, ks, cf, widths,
                                               (16,)), gen, dev)
         with torch.no_grad():
             packed, _ = fused.mse_narrow_params_from_variables(mse, dtype)
+        c1, c2, c3 = widths
+        tuned = fused.mse_arm(widths, len(ks), cf) == fused.TUNED
+        if tuned:  # affine scales of both signs (a trained BatchNorm's)
+            packed = list(packed)
+            for slot in (2, 5, 8):
+                sign = torch.where(torch.rand(packed[slot].shape,
+                                              generator=gen) < 0.5, -1.0, 1.0)
+                packed[slot] = packed[slot] * sign.to(dev)
+            packed = tuple(packed)
         feats = rand(b, cf, n, dtype=dtype).transpose(1, 2)
         idx = [idx_of(k) for k in ks]
-        c1, c2, c3 = widths
+        extra = {}
+        if tuned:  # the tuned arm: cuBLAS on every scale's two products
+            extra = dict(cublas=products(rows * sum(ks), widths[1:], dtype),
+                         launches_long=int(max(ks) > fused.MSE_TILE_MAX_K))
+            tile = [s for s, k in enumerate(ks) if k <= fused.MSE_TILE_MAX_K]
+            if tile and len(tile) < len(ks):
+                extra["tile_bits"] = check_tile_bits(feats, idx, pc, packed,
+                                                     tile)
+                # both kernels beside the centroids' mean (and, in float32,
+                # the weight image)
+                extra["kernels_per_call"] = (1, math.inf if dtype !=
+                                             BF16 else 3)
         out = []
         for name, fn, launches in names:
-            out.append(case(
+            out.append(dict(case(
                 name, f"B={b} N={n} K={ks} Cf={cf} widths={widths} {dtype}",
                 lambda fn=fn: fn(feats, idx, pc, packed),
                 lambda: fused.fused_multi_scale_encoder_plain(
                     feats, idx, pc, packed),
                 nbytes(pc, feats, idx, packed) + rows * len(ks) * c3 * 4,
                 2 * (rows * len(ks) * c1 * (3 + cf)
-                     + rows * sum(ks) * (c1 * c2 + c2 * c3)), launches))
+                     + rows * sum(ks) * (c1 * c2 + c2 * c3)), launches),
+                **(extra if fn is mse_fn else {})))
         return out
 
     def plf_cases(widths, k, names):
@@ -1492,12 +1638,15 @@ def fused_lifted_cases(dev, gen: torch.Generator) -> list:
     mse_fn, plf_fn = (fused.fused_multi_scale_encoder,
                       fused.fused_point_local_feature)
     cv_fn, agg_fn = fused.cost_volume_p2p, fused.cost_volume_agg
-    for name, k in LIFTED_TUNED:
-        if name.startswith("mse"):
-            dtype = BF16 if name.endswith("bf16") else torch.float32
+    for dtype in (torch.float32, BF16):
+        sfx = ".bf16" if dtype == BF16 else ""
+        for k in LIFTED_MSE_K:
             cases += mse_cases(fused.MSE_WIDTHS, 3, (k,), dtype,
-                               [(name, mse_fn, 1)])
-        elif name == "cv":
+                               [(f"mse.long{sfx}", mse_fn, 1)])
+            cases += mse_cases(fused.MSE_WIDTHS, 3, LIFTED_MSE_MIXED + (k,),
+                               dtype, [(f"mse{sfx}", mse_fn, 1)])
+    for name, k in LIFTED_TUNED:
+        if name == "cv":
             cases += cv_cases(fused.CV_WIDTH, k, [(name, cv_fn, 1)])
         else:
             cases += plf_cases(fused.PLF_WIDTHS, k, [(name, plf_fn, 1)])
@@ -1631,6 +1780,34 @@ def chain_tc_report() -> dict:
     return out
 
 
+def mse_long_report() -> dict:
+    """K3's long kernels' plan at config A's scales (B=16, N=256) beside
+    the card's own count of blocks an SM at its shared memory and each
+    instantiation's static shared memory; fails where the card holds fewer
+    blocks than planned or more static shared memory than the plan
+    counts."""
+    out = {}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for bf16 in (False, True):
+        plan = fused.mse_long_plan(SHAPE_CONFIGS["A"]["sa_nsamples"],
+                                   B * 256, 256, bf16, sms)
+        card = fused.mse_long_occupancy(bf16, plan["span"], plan["smem"])
+        static = fused.mse_long_static_smem(bf16, plan["span"])
+        require(card >= plan["blocks_per_sm"],
+                f"K3 long bf16={bf16}: the card holds {card} blocks an SM, "
+                f"the plan {plan['blocks_per_sm']}")
+        require(0 < static <= fused.MSE_LONG_STATIC_SMEM[bf16],
+                f"K3 long bf16={bf16}: {static} bytes of static shared "
+                f"memory, the plan counts "
+                f"{fused.MSE_LONG_STATIC_SMEM[bf16]}")
+        out["bf16" if bf16 else "float32"] = dict(
+            grid=plan["grid"], qpb=plan["qpb"], span=plan["span"],
+            smem=plan["smem"], blocks_per_sm_planned=plan["blocks_per_sm"],
+            blocks_per_sm_card=card, static_smem=static)
+    emit({"mse_long": out})
+    return out
+
+
 def check_lifted(cases, key: str = "lifted") -> dict:
     """Each case of :func:`lifted_cases` or :func:`fused_lifted_cases`: its
     wrapper's launches a call, then check_kernels; prints a ``key`` line;
@@ -1638,21 +1815,32 @@ def check_lifted(cases, key: str = "lifted") -> dict:
     for case in cases:
         wrapper = wrapper_of(case["kernel"])
         before = wrapper.launches
+        long_before = getattr(wrapper, "launches_long", 0)
         case["run"]()
         require(wrapper.launches - before == case["launches"],
                 f"{case['kernel']} {case['shape']}: "
                 f"{wrapper.launches - before} launches a call, not "
                 f"{case['launches']}")
+        if "launches_long" in case:  # K3's calls that took the long kernel
+            got = wrapper.launches_long - long_before
+            require(got == case["launches_long"],
+                    f"{case['kernel']} {case['shape']}: {got} calls of the "
+                    f"long kernel, not {case['launches_long']}")
     rows = check_kernels(cases, False, {})
     out = {}
     for case, row in zip(cases, rows):
-        out.setdefault(case["kernel"], []).append(dict(
+        entry = dict(
             shape=row["shape"], launches_per_call=case["launches"],
             kernels_per_call=row["kernels_per_call"], ms=row["kernel_ms"],
             plain_ms=row["plain_ms"], library_ms=row["library_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"],
             share_of_bound=row["share_of_bound"],
-            max_abs_err=row["max_abs_err"], same_bits=True))
+            max_abs_err=row["max_abs_err"],
+            plain_max_abs=row.get("plain_max_abs"), same_bits=True)
+        for extra in ("cublas_products_ms", "tile_bits"):
+            if extra in row or extra in case:
+                entry[extra] = row.get(extra, case.get(extra))
+        out.setdefault(case["kernel"], []).append(entry)
     emit({key: out})
     return out
 
@@ -1682,8 +1870,8 @@ def hold_to_plain(case) -> tuple:
         require(err <= GATHER_BWD_RTOL * scale,
                 f"{name} {case['shape']}: kernel and plain version "
                 f"differ by {err} at a largest magnitude of {scale}")
-    elif (name in BF16_ARMS or name in GENERIC_BF16_ARMS) \
-            and name not in F32_ACCURATE_ARMS:
+    elif (name in BF16_ARMS or name in GENERIC_BF16_ARMS
+          or name in LONG_BF16_ARMS) and name not in F32_ACCURATE_ARMS:
         require(got.dtype == want.dtype and err <= BF16_RTOL * scale,
                 f"{name} {case['shape']}: kernel and plain version "
                 f"differ by {err} at a largest magnitude of {scale}")
@@ -1738,7 +1926,8 @@ def check_kernels(cases, first: bool, per_forward: dict) -> list:
             per_call = wrapper_of(name).launches - before
             own, wrapper, parts, call_kernels = device_ms(
                 case["run"], 20, DEVICE_NAMES[name], per_call)
-        lo, hi = KERNELS_PER_CALL.get(name, (1, math.inf))
+        lo, hi = case.get("kernels_per_call",
+                          KERNELS_PER_CALL.get(name, (1, math.inf)))
         require(lo <= call_kernels <= hi,
                 f"{name} {case['shape']}: {call_kernels} kernels a call, "
                 f"not {lo}..{hi}")
@@ -2023,8 +2212,11 @@ def shapes_phase(dev, gen: torch.Generator, per_forward: dict) -> dict:
     call, its plain version and cuBLAS on its products by CUDA-graph
     replays (their rows of the kernels line, paths ``shapes_B`` and
     ``shapes_B_bf16``; ``reference_ms``), the rest untimed.
-    Returns {path: each wrapper's generic launches summed over the
-    path's forwards}."""
+    At config A K3's calls (both kernels) and its long kernel alone
+    (:func:`long_cases`) are timed too, and each forward's share of them
+    printed; every forward's calls of the long kernel counted (config A 2,
+    B 0).  Returns ({path: each wrapper's generic launches summed over the
+    path's forwards}, {path: the long kernel's calls})."""
     req = make_request(SEED + 70, B, (200, 256))
     calib = make_request(SEED + 71, B, (200, 256))
     head = {k: v[:SHAPE_CPU_ROWS] for k, v in req.items()}
@@ -2032,7 +2224,7 @@ def shapes_phase(dev, gen: torch.Generator, per_forward: dict) -> dict:
     def cut(out):
         return tuple(x[:SHAPE_CPU_ROWS] for x in out)
 
-    generic = {}
+    generic, long_launches = {}, {}
     t_start = time.perf_counter()
     for cfg_name, kw in SHAPE_CONFIGS.items():
         cfg = BackboneConfig(**kw)
@@ -2040,6 +2232,10 @@ def shapes_phase(dev, gen: torch.Generator, per_forward: dict) -> dict:
             if family not in SHAPE_SERVED[cfg_name]:
                 continue
             cls = SHAPE_FAMILIES[family]
+            # K3's tuned arm with a scale past K = 32: its long kernel
+            k3_long = (fused.mse_arm(cfg.sa_mlp, len(cfg.sa_radii), 3)
+                       == fused.TUNED
+                       and max(cfg.sa_nsamples) > fused.MSE_TILE_MAX_K)
             model = cls(cfg=cfg)
             init_parameters(model, torch.Generator().manual_seed(
                 SEED + 72 + fi))
@@ -2058,16 +2254,31 @@ def shapes_phase(dev, gen: torch.Generator, per_forward: dict) -> dict:
                              fused_cases(model, req, dev, unit_cost=True)),
                             (f"shapes_{cfg_name}_bf16",
                              bf16_cases(model, req, dev, unit_cost=True))):
-                        timed = [c for c in cases if c["kernel"] in GENERIC]
+                        # K3's calls timed where a scale is past K = 32,
+                        # and its long kernel alone
+                        if k3_long:
+                            cases = cases + long_cases(
+                                model, req, dev, path,
+                                BF16 if path.endswith("bf16")
+                                else torch.float32)
+                        longs = [c for c in cases if c["kernel"] in LONG_ARMS]
+                        timed = [c for c in cases if c["kernel"] in GENERIC
+                                 or (k3_long and c["kernel"] in (
+                                     "mse", "mse.bf16"))]
+                        check_kernels(longs, True, per_forward)
                         for c in timed:
+                            if c["kernel"] == "mse.bf16":
+                                # both kernels beside the centroids' mean
+                                c["kernels_per_call"] = (1, 3)
                             # K3's generic arm launches once a scale
                             c.update(path=path, graph_timed=True,
                                      graph_references=True, iters=5,
                                      launches_per_call=len(cfg.sa_radii)
-                                     if c["kernel"].startswith("mse")
+                                     if c["kernel"].startswith("mse.gen")
                                      else 1)
                         check_kernels(timed, True, per_forward)
-                        hold_cases([c for c in cases if c not in timed])
+                        hold_cases([c for c in cases
+                                    if c not in timed and c not in longs])
             f32_out = None
             for dtype in (torch.float32, BF16):
                 bf16 = dtype == BF16
@@ -2093,6 +2304,14 @@ def shapes_phase(dev, gen: torch.Generator, per_forward: dict) -> dict:
                 counts = counts_now()
                 arms = {k: WRAPPERS[k].launches_generic
                         for k in set(GENERIC_ARMS.values())}
+                # K3's calls that took the long kernel: one a cloud where a
+                # scale is past K = 32 on the tuned arm
+                n_long = WRAPPERS["mse"].launches_long
+                want_long = 2 if k3_long else 0
+                require(n_long == want_long,
+                        f"{family} config {cfg_name} {dtype}: {n_long} "
+                        f"calls of K3's long kernel, want {want_long}")
+                long_launches[path] = long_launches.get(path, 0) + n_long
                 want = dict(LAUNCHES["fused"], plf=len(cfg.sa_radii))
                 if cfg_name == "B":  # K3's generic arm: a launch a scale
                     want["mse"] *= len(cfg.sa_radii)
@@ -2113,7 +2332,8 @@ def shapes_phase(dev, gen: torch.Generator, per_forward: dict) -> dict:
                 row = dict(config=cfg_name, family=family, dtype=str(dtype),
                            batch=B, bucket=int(req["pc1"].shape[1]),
                            latency_ms=1e3 * latency, launches=counts,
-                           generic_launches=arms)
+                           generic_launches=arms,
+                           mse_long_launches=n_long)
                 cpu_step = make_eval_step(family, cpu_model, fused="on",
                                           compute_dtype=dtype)
                 if witness:
@@ -2141,9 +2361,18 @@ def shapes_phase(dev, gen: torch.Generator, per_forward: dict) -> dict:
                 if family == "cmflow":  # the whole forward's device time
                     _, ms, _, ops = device_ms(lambda: step(req), 3)
                     row.update(device_ms=ms, cuda_ops_per_forward=ops)
+                    # K3's calls and its long kernel, and their shares
+                    sfx = ".bf16" if bf16 else ""
+                    for key, name in (("k3_calls", f"mse{sfx}"),
+                                      ("k3_calls", f"mse.generic{sfx}"),
+                                      ("k3_long_kernel", f"mse.long{sfx}")):
+                        if (name, path) in per_forward:
+                            k3 = per_forward[(name, path)]["ms"]
+                            row[f"{key}_ms"] = k3
+                            row[f"{key}_share"] = k3 / ms
                 row["elapsed_s"] = time.perf_counter() - t_start
                 emit(dict(shapes=row))
-    return generic
+    return generic, long_launches
 
 
 def rounding_witness(family: str, model, cpu_model, req, head,
@@ -4012,10 +4241,12 @@ def shapes_process(card: str) -> None:
         witness = deep_bf16_witness(dev, torch.Generator().manual_seed(
             SEED + 67))
     plan = chain_tc_report()
-    generic = shapes_phase(dev, torch.Generator().manual_seed(SEED + 69),
-                           per_forward)
+    long_plan = mse_long_report()
+    generic, long_launches = shapes_phase(
+        dev, torch.Generator().manual_seed(SEED + 69), per_forward)
     emit({"shapes_process": dict(
-        card=card, generic=generic, lifted=lifted, chain_tc=plan,
+        card=card, generic=generic, long=long_launches, lifted=lifted,
+        chain_tc=plan, mse_long=long_plan,
         deep_bf16_witness=witness,
         per_forward={f"{k}|{path}": acc
                      for (k, path), acc in per_forward.items()})})
@@ -4240,6 +4471,7 @@ def main() -> int:
     t0 = time.perf_counter()
     shapes = run_in_process("shapes_process", card)
     shape_launches = shapes["generic"]
+    shape_long = shapes["long"]
     lifted.update(shapes["lifted"])
     per_forward.update({tuple(key.split("|")): acc
                         for key, acc in shapes["per_forward"].items()})
@@ -4309,7 +4541,8 @@ def main() -> int:
         if name in lifted:  # shapes past the kernel's old limits
             entry["lifted"] = lifted[name]
         # the kernel on each route measured: per forward (per train step)
-        routes = {p: a for (n, p), a in per_forward.items() if n == name}
+        routes = {p: a for (n, p), a in per_forward.items()
+                  if n == name and p in LAUNCHES}
         if len(routes) > 1:
             entry["by_route"] = {
                 p: dict(launches_per_forward=LAUNCHES[p][name],
@@ -4340,6 +4573,26 @@ def main() -> int:
         entry.update(shares(entry, acc["ms"]))
         if acc["cublas_products_ms"]:
             entry["cublas_products_ms"] = acc["cublas_products_ms"]
+        if name in lifted:
+            entry["lifted"] = lifted[name]
+        kernels.append(entry)
+    # K3's long kernel in each dtype: served at config A (shapes_phase)
+    for name in LONG_ARMS:
+        source, replaces = SOURCES[name]
+        path = "shapes_A_bf16" if name in LONG_BF16_ARMS else "shapes_A"
+        require((name, path) in per_forward,
+                f"{name}: no case on its route {path}")
+        acc = per_forward[(name, path)]
+        entry = dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=shape_long[path], max_abs_err=acc["max_abs_err"],
+            ms=acc["ms"], plain_ms=acc["plain_ms"],
+            **bounds(name, acc["nbytes"], acc["flops"]),
+            library_ms=acc["library_ms"] if acc["has_library"] else None,
+            path=path, cublas_products_ms=acc["cublas_products_ms"])
+        entry.update(shares(entry, acc["ms"]))
+        if name in sass:
+            entry["sass"] = sass[name]
         if name in lifted:
             entry["lifted"] = lifted[name]
         kernels.append(entry)

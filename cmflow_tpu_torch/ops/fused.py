@@ -100,14 +100,18 @@ _SIGNATURES = {
                                "cmflow_gather_rows_backward_bf16")}},
     "mse": {"cmflow_mse": (_P, _P, _L, _L, _L, _I, _P,
                            ctypes.POINTER(ctypes.c_void_p),
+                           ctypes.POINTER(ctypes.c_int), _I,
                            ctypes.POINTER(ctypes.c_int), _I, _P, _P, _I, _I,
                            _P),
             "cmflow_mse_bf16": (_P, _P, _L, _L, _L, _I, _P,
                                 ctypes.POINTER(ctypes.c_void_p),
                                 ctypes.POINTER(ctypes.c_int), _I,
+                                ctypes.POINTER(ctypes.c_int), _I,
                                 ctypes.POINTER(ctypes.c_void_p),
                                 ctypes.POINTER(ctypes.c_void_p), _P, _P, _P,
-                                _P, _P, _P, _P, _P, _P, _I, _I, _P)},
+                                _P, _P, _P, _P, _P, _P, _I, _I, _P),
+            "cmflow_mse_long_static_smem": (_I, _I),
+            "cmflow_mse_long_occupancy": (_I, _I, _I)},
     "plf": {name: (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                    _I, _I, _I, _I, _P)
             for name in ("cmflow_plf", "cmflow_plf_bf16")},
@@ -1074,6 +1078,85 @@ def _sms(device: torch.device) -> int:
 # K3: the narrow multi-scale encoder
 # ---------------------------------------------------------------------------
 
+# K3 past K = 32 (csrc/mse.cu::mse_long_kernel, mse_bf16_long_kernel): a
+# scale's queries in quads of four, one a warp of a warpgroup, a step one
+# 16-row unit of each (a 64-row wgmma tile); a block takes consecutive
+# quads of one scale, its warpgroups every MSE_LONG_GROUPS-th.  The
+# constants are the kernels' (kLongGroups, kLongBlocks, kLongBf16Groups,
+# kLongBf16Blocks, kPointFloats, kPointWords, kBf16SpanPoints), by bf16.
+MSE_TILE_MAX_K = 32  # the tile kernels' K; above it the long kernels
+MSE_LONG_UNIT = 16  # rows of a query a warp takes a step
+MSE_LONG_GROUPS = {False: 3, True: 4}  # warpgroups a block
+MSE_LONG_BLOCKS = {False: 1, True: 1}  # blocks an SM (the launch bound)
+MSE_SPAN_POINTS = 2048  # the most points a block's span holds
+# bytes of a point in the span: float32 its coordinates and features (8
+# floats), bf16 its base (16 words) and centred point
+MSE_POINT_BYTES = {False: 4 * 8, True: 4 * (MSE_WIDTHS[0] // 2 + 3)}
+# the long kernels' static shared memory, at most: the weight tiles (26 KB
+# float32 with its 1 KB of affines, 6 KB bf16 with 2 KB of floats) and the
+# warps' prefetch rings (1.5 KB a warp); chip_smoke.py holds the card's
+# count to it
+MSE_LONG_STATIC_SMEM = {False: 46080, True: 32768}
+
+
+def mse_long_plan(ks: Sequence[int], total: int, n: int, bf16: bool,
+                  sms: int = H100_SMS) -> Dict[str, object]:
+    """The launch of K3's long kernel for scales of ``ks`` neighbours over
+    ``total = B * N`` queries of clouds of ``n`` points, from the shapes
+    alone: each scale past ``MSE_TILE_MAX_K`` gets a share of the card's
+    resident blocks (``sms`` times ``MSE_LONG_BLOCKS``) by its steps
+    (quads times 16-row units), and each of its blocks ``qpb`` consecutive
+    quads (0 for the tile kernels' scales); ``grid`` the blocks of all.
+    Each block copies (float32) or forms (bf16: the bases) its span, the
+    points of the elements its queries lie in, whole, into shared memory
+    where it holds at most ``MSE_SPAN_POINTS`` points and keeps
+    ``MSE_LONG_BLOCKS`` blocks an SM: then ``span`` 1 and ``smem`` its
+    bytes, else each row gathers its point from device memory (``span``
+    0)."""
+    quads = -(-total // 4)
+    units = [-(-k // MSE_LONG_UNIT) if k > MSE_TILE_MAX_K else 0 for k in ks]
+    steps = quads * sum(units)
+    cap = sms * MSE_LONG_BLOCKS[bf16]
+    qpb, blocks = [], []
+    for u in units:
+        if not u or not quads:
+            qpb.append(0)
+            blocks.append(0)
+            continue
+        share = max(1, cap * u * quads // steps)
+        qpb.append(-(-quads // share))
+        blocks.append(-(-quads // qpb[-1]))
+    points = 0
+    for q, nb in zip(qpb, blocks):
+        if nb:
+            first = 4 * q * np.arange(nb, dtype=np.int64)
+            last = np.minimum(first + 4 * q, total) - 1
+            points = max(points, int(((last // n - first // n + 1)
+                                      * n).max()))
+    smem = points * MSE_POINT_BYTES[bf16]
+    held = MSE_LONG_STATIC_SMEM[bf16] + smem + SMEM_RESERVED
+    span = bool(points and points <= MSE_SPAN_POINTS
+                and MSE_LONG_BLOCKS[bf16] * held <= SMEM_SM)
+    return dict(qpb=qpb, blocks=blocks, grid=sum(blocks), steps=steps,
+                groups=MSE_LONG_GROUPS[bf16],
+                blocks_per_sm=MSE_LONG_BLOCKS[bf16], span=int(span),
+                span_points=points if span else 0, smem=smem if span else 0)
+
+
+def mse_long_static_smem(bf16: bool, span: bool) -> int:
+    """The long kernel's static shared memory, as this card's build
+    reports it."""
+    lib = build.load("mse", _SIGNATURES["mse"])
+    return lib.cmflow_mse_long_static_smem(int(bf16), int(span))
+
+
+def mse_long_occupancy(bf16: bool, span: bool, smem: int) -> int:
+    """Blocks of the long kernel an SM of this card holds at ``smem`` bytes
+    of dynamic shared memory (the card's count)."""
+    lib = build.load("mse", _SIGNATURES["mse"])
+    return lib.cmflow_mse_long_occupancy(int(bf16), int(span), smem)
+
+
 def fused_multi_scale_encoder_plain(feats: Tensor, idx_list: Sequence[Tensor],
                                     xyz: Tensor, packed: tuple) -> Tensor:
     """Plain version of :func:`fused_multi_scale_encoder`."""
@@ -1104,7 +1187,9 @@ def fused_multi_scale_encoder(feats: Tensor, idx_list: Sequence[Tensor],
     each gathered row's base to bf16 once, as the JAX package's base is
     rounded per point.  Such a call is two launches, the clouds' centroids
     and the kernel, or three where scales of K <= 32 and of K > 32 mix; see
-    ``csrc/mse.cu``.  At any other widths, more than 8 scales or more than
+    ``csrc/mse.cu``.  The scales past K = 32 take the long kernel, its grid
+    planned from the shapes by :func:`mse_long_plan`; a call that launches
+    it also counts in ``launches_long``.  At any other widths, more than 8 scales or more than
     5 features (:func:`mse_arm`) the generic kernel runs once a scale on the
     folded base, formed outside as the JAX package forms it.)
 
@@ -1154,16 +1239,22 @@ def fused_multi_scale_encoder(feats: Tensor, idx_list: Sequence[Tensor],
                       device=xyz.device)
     idx_ptrs = (ctypes.c_void_p * s_cnt)(*[i.data_ptr() for i in idx_list])
     lib = build.load("mse", _SIGNATURES["mse"])
+    bf16 = feats.dtype == torch.bfloat16
+    plan = mse_long_plan(ks, b * n, n, bf16, _sms(xyz.device))
+    qpb = (ctypes.c_int * s_cnt)(*plan["qpb"])
     # the kernels read xyz, ctr, the indices and the bf16 arm's weights by
     # scalar loads
     xyz = xyz.contiguous()
     ctr = xyz.mean(dim=1)
-    if feats.dtype == torch.bfloat16:
+    if bf16:
         w0r, w0f = ([w.contiguous() for w in ws] for ws in (w0rel, w0feat))
-        rest = [t.contiguous() for t in (w1, w2, s0, b0, s1, b1, s2, b2)]
+        # the long kernel reads w1, w2 and s2 16 bytes at a time
+        rest = [_aligned16(t.contiguous())
+                for t in (w1, w2, s0, b0, s1, b1, s2, b2)]
         code = lib.cmflow_mse_bf16(
             xyz.data_ptr(), feats.data_ptr(), *feats.stride(), cf,
             ctr.data_ptr(), idx_ptrs, (ctypes.c_int * s_cnt)(*ks), s_cnt,
+            qpb, plan["smem"],
             (ctypes.c_void_p * s_cnt)(*[w.data_ptr() for w in w0r]),
             (ctypes.c_void_p * s_cnt)(*[w.data_ptr() for w in w0f]),
             *[t.data_ptr() for t in rest], out.data_ptr(), b, n,
@@ -1174,10 +1265,18 @@ def fused_multi_scale_encoder(feats: Tensor, idx_list: Sequence[Tensor],
         code = lib.cmflow_mse(
             xyz.data_ptr(), feats.data_ptr(), *feats.stride(), cf,
             ctr.data_ptr(), idx_ptrs, (ctypes.c_int * s_cnt)(*ks), s_cnt,
-            image.data_ptr(), out.data_ptr(), b, n, _stream(xyz))
+            qpb, plan["smem"], image.data_ptr(), out.data_ptr(), b, n,
+            _stream(xyz))
     build.check(lib, code, "fused_multi_scale_encoder")
     fused_multi_scale_encoder.launches += 1
+    if plan["grid"]:
+        fused_multi_scale_encoder.launches_long += 1
     return out
+
+
+def _aligned16(t: Tensor) -> Tensor:
+    """``t``, or a copy of it where its data is not 16-byte aligned."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _mse_generic(feats: Tensor, idx_list: Sequence[Tensor], xyz: Tensor,
@@ -1207,6 +1306,8 @@ def _mse_generic(feats: Tensor, idx_list: Sequence[Tensor], xyz: Tensor,
 # every launch, and those of the generic arm (counted in :func:`_chain`)
 fused_multi_scale_encoder.launches = 0
 fused_multi_scale_encoder.launches_generic = 0
+# the calls that launched the long kernel (scales past K = 32), of launches
+fused_multi_scale_encoder.launches_long = 0
 
 
 # ---------------------------------------------------------------------------

@@ -437,8 +437,12 @@ def mse_launcher(fn, feats, idx, xyz, packed):
                       n, fused._stream(xyz))
         else:
             ctr = xyz.mean(dim=1)
+            # a tree with K3's long kernel takes its plan (no scale of
+            # these is past K = 32)
+            plan = (((ctypes.c_int * s_cnt)(*[0] * s_cnt), 0)
+                    if len(fn.argtypes) == 26 else ())
             code = fn(xyz.data_ptr(), feats.data_ptr(), *feats.stride(), cf,
-                      ctr.data_ptr(), ptrs, ks, s_cnt,
+                      ctr.data_ptr(), ptrs, ks, s_cnt, *plan,
                       (ctypes.c_void_p * s_cnt)(*[w.data_ptr()
                                                   for w in w0rel]),
                       (ctypes.c_void_p * s_cnt)(*[w.data_ptr()

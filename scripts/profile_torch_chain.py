@@ -20,7 +20,8 @@ scale); K5 (768, 384, 96) at K = 16, 32, 64 (the three scales of a
 forward, a launch each); K4a and K4b at C = 768, k = 16; float32 and bf16,
 random neighbours (some outside [0, N)), seeded inputs.  Each kernel's time
 is its device time from ``torch.profiler`` (kernels whose name holds
-``chain``) over REPEATS calls (default 10), after two warm-up calls; the
+``chain``) over REPEATS calls (default 10), after two warm-up calls, from a
+window that recorded every launch the wrappers counted; the
 wrapper's time, packing included, from CUDA events over the same calls.
 Prints one JSON line a case, then the card's name and power limit.
 
@@ -40,10 +41,13 @@ import ctypes
 import json
 import subprocess
 import sys
+import time
+import warnings
 from pathlib import Path
 
 import numpy as np
 import torch
+from torch.autograd import DeviceType
 
 sys.path.insert(0, ".")
 
@@ -60,19 +64,56 @@ KS = (16, 32, 64)
 BF16 = torch.bfloat16
 
 
+PROFILE_TRIES = 6  # windows traced before device_ms gives up
+SENTINEL = "spin_kernel"  # torch.cuda._sleep's kernel
+
+
+def generic_launches() -> int:
+    """The generic kernel's launches so far, over the four wrappers."""
+    return sum(w.launches_generic for w in (
+        fused.fused_multi_scale_encoder, fused.fused_point_local_feature,
+        fused.cost_volume_p2p, fused.cost_volume_agg))
+
+
 def device_ms(fn, repeats: int) -> float:
-    """Mean device time of the ``chain`` kernels a call launches."""
+    """Mean device time of the ``chain`` kernels a call launches.  The
+    profiler now and then records only part of a window (the first kernel
+    most often, so each window starts with a throwaway one): a window
+    counts only if it recorded the ``chain`` kernels as many times as the
+    wrappers counted their generic launches over its calls, and every
+    kernel a multiple of ``repeats`` times.  A rejected window is printed
+    to stderr and traced again after a pause that doubles, up to
+    ``PROFILE_TRIES`` windows; then this raises."""
     fn()
+    before = generic_launches()
     fn()
+    per_call = generic_launches() - before
     torch.cuda.synchronize()
-    act = [torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=act) as prof:
-        for _ in range(repeats):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.device_time_total for e in prof.key_averages()
-                if "chain" in e.key)
-    return total / 1e3 / repeats
+    for t in range(PROFILE_TRIES):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                torch.cuda._sleep(1)
+                torch.cuda.synchronize()
+                for _ in range(repeats):
+                    fn()
+                torch.cuda.synchronize()
+            events = [e for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA
+                      and SENTINEL not in e.key]
+        named = [e for e in events if "chain" in e.key]
+        if (sum(e.count for e in named) == repeats * per_call
+                and all(e.count % repeats == 0 for e in events)):
+            total = sum(e.self_device_time_total for e in named)
+            return total / 1e3 / repeats
+        print(json.dumps(dict(profiler_window_rejected=dict(
+            per_call=per_call, window=t,
+            counts={e.key[:80]: e.count for e in events}))),
+            file=sys.stderr, flush=True)
+        time.sleep(0.1 * 2 ** t)
+    raise RuntimeError(f"the profiler recorded no whole window of the "
+                       f"generic kernel in {PROFILE_TRIES} tries")
 
 
 def event_ms(fn, repeats: int) -> float:

@@ -1227,23 +1227,60 @@ def random_idx(rs, b, n, k, dev):
         np.int32)).to(dev)
 
 
-# K3 past K = 32, both arms: a query's rows in 16-row units one after
-# another; mixed with K <= 32 scales (two launches in one call) and alone
-@pytest.mark.parametrize("ks", [(8, 16, 32, 64), (48,), (100,),
-                                (33, 1, 200)])
+# K3 past K = 32, both arms (csrc/mse.cu::mse_long_kernel,
+# mse_bf16_long_kernel): a query's rows in 16-row units one after another,
+# four queries a 64-row wgmma step.  (K of each scale, B, N, Cf, the
+# indices: "random" with some outside [0, N), or all "outside", or
+# "signs": random, the affines' scales of both signs, as a trained
+# BatchNorm's may be): mixed with K <= 32 scales (two kernels in one call)
+# and alone, a ragged last quad (B*N not a multiple of 4 queries a block),
+# zero rows only, no features and five, eight scales of both kinds, and a
+# cloud of 4,096 points (no span: each row gathers its point)
+PAST_K = [((8, 16, 32, 64), 16, 256, 3, "random"),
+          ((40,), 1, 4096, 3, "signs"),
+          ((8, 16, 32, 64), 16, 256, 3, "signs"),
+          ((100,), 16, 256, 5, "signs"),
+          ((48,), 16, 256, 3, "random"),
+          ((100,), 16, 256, 3, "random"),
+          ((33, 1, 200), 16, 256, 3, "random"),
+          ((64,), 16, 256, 3, "random"),
+          ((33,), 16, 256, 3, "random"),
+          ((48, 4, 64), 3, 200, 3, "random"),
+          ((64,), 16, 256, 3, "outside"),
+          ((48, 16), 16, 256, 0, "random"),
+          ((64, 8), 16, 256, 5, "random"),
+          ((4, 33, 8, 48, 16, 64, 32, 100), 16, 256, 3, "random")]
+
+
+@pytest.mark.parametrize("case", PAST_K)
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_mse_kernel_past_k(dev, rs, dtype, ks):
-    b, n = 16, 256
+def test_mse_kernel_past_k(dev, rs, dtype, case):
+    ks, b, n, cf, kind = case
     pc = cloud(rs, b, n, dev)
-    feats = strided_feats(rs, b, n, dev).to(dtype)
-    packed = mse_encoder(dev, ks, (32, 32, 64), 3, dtype, 9)
-    idx = [random_idx(rs, b, n, k, dev) for k in ks]
-    assert fused.mse_arm((32, 32, 64), len(ks), 3) == fused.TUNED
+    feats = torch.from_numpy(rs.randn(b, cf, n).astype(np.float32)).to(
+        dev).to(dtype).transpose(1, 2)
+    packed = mse_encoder(dev, ks, (32, 32, 64), cf, dtype, 9)
+    if kind == "signs":
+        packed = tuple(
+            t * torch.from_numpy(rs.choice([-1.0, 1.0], t.shape).astype(
+                np.float32)).to(dev) if i in (2, 5, 8) else t
+            for i, t in enumerate(packed))
+    if kind == "outside":
+        idx = [torch.from_numpy(rs.choice([-2, -1, n, n + 1], (b, n, k))
+                                .astype(np.int32)).to(dev) for k in ks]
+    else:
+        idx = [random_idx(rs, b, n, k, dev) for k in ks]
+    assert fused.mse_arm((32, 32, 64), len(ks), cf) == fused.TUNED
+    wrapper = fused.fused_multi_scale_encoder
     with torch.no_grad():
-        before = fused.fused_multi_scale_encoder.launches_generic
-        got = same_twice(lambda: fused.fused_multi_scale_encoder(
-            feats, idx, pc, packed))
-        assert fused.fused_multi_scale_encoder.launches_generic == before
+        before = (wrapper.launches, wrapper.launches_generic,
+                  wrapper.launches_long)
+        got = same_twice(lambda: wrapper(feats, idx, pc, packed))
+        # two calls, the long kernel in each where a scale is past 32
+        assert (wrapper.launches, wrapper.launches_generic,
+                wrapper.launches_long) == (
+                    before[0] + 2, before[1],
+                    before[2] + 2 * (max(ks) > 32))
         near_arm(got, fused.fused_multi_scale_encoder_plain(
             feats, idx, pc, packed), dtype)
 

@@ -97,12 +97,17 @@ Run from the repository root on a machine with a CUDA GPU and nvcc.  Steps:
    bits held to a call of them alone), affine scales of both signs, beside
    cuBLAS on their products, and the long kernels' plan at config A beside
    the card's count of blocks an SM and static shared memory (an
-   ``mse_long`` line); the cost volume's first kernel at k = 48 and 100 and the propagation
-   encoder at K = 65, 128 and 160 in float32; the generic kernel
-   (``csrc/chain.cu``) at widths no tuned kernel takes (the sa encoder at
-   (24, 40, 56) with 7 features and ten scales, the propagation encoder's
-   chains (200, 100, 36) and (96, 64, 48, 32), both cost-volume kernels at
-   C = 100 and 768), a K5 chain of 40 Dense layers 64 wide in float32
+   ``mse_long`` line); the cost volume's first kernel at k = 48 and 100
+   (its full-tile arm, ``cv_p2p_full_kernel``, each call counted in
+   ``launches_full``) and the propagation encoder at K = 65, 128 and 160
+   in float32; the generic kernel (``csrc/chain.cu``) and the cost
+   volume's second kernel at any C (``cost_volume.cu::cv_agg_any_kernel``)
+   at widths no tuned kernel takes (the sa encoder at (24, 40, 56) with 7
+   features and ten scales, the propagation encoder's chains (200, 100,
+   36) and (96, 64, 48, 32), both cost-volume kernels at C = 100, 768 and
+   826), each lifted row with a digest of its output's bits; the cost
+   volume's kernels' registers and spills from the ptxas log (a
+   ``ptxas_cv`` line); a K5 chain of 40 Dense layers 64 wide in float32
    (dense kernels) and bf16 (two nonzero weights a column), and at each
    tuned kernel's own shape beside it, through its private route: held and
    counted as above, timed with their plain versions by CUDA-graph
@@ -418,6 +423,12 @@ GENERIC_TC_KERNELS = {
                          "HGMMA"),
     "cv.generic.bf16": ("chain", "chain_tc_kernelILNS_4KindE1ELb1E",
                         "HGMMA")}
+# float32 K4a at a k whose whole queries leave an eighth or more of a tile
+# empty (cost_volume.cu's full-tile arm, cv_p2p_full_kernel), behind K4a's
+# wrapper, which counts each call
+# that launches it in ``launches_full``: no served shape takes it (k = 8,
+# 16, 64), the lifted rows do (LIFTED_TUNED)
+FULL_TC_KERNELS = {"cv.full": ("cost_volume", "cv_p2p_full_kernel", "HGMMA")}
 # K3 past K = 32 (csrc/mse.cu::mse_long_kernel, mse_bf16_long_kernel), on
 # wgmma in 3xTF32 and bf16, behind K3's wrapper, which counts every call
 # that launches one also in ``launches_long``: config A's K=64 scale takes
@@ -449,9 +460,10 @@ BF16_RNE_RTOL = 0.05
 # ``launches`` and its bf16 arm's also in ``launches_bf16``
 GATHER_ARMS = {"gather.bf16": "gather", "gather_bwd.bf16": "gather_bwd"}
 COUNTERS = (*WRAPPERS, *GATHER_ARMS)
-# the generic kernel (csrc/chain.cu) behind each fused wrapper, in float32
-# and bf16: the wrapper picks it by shape alone (ops/fused.py::*_arm) and
-# counts each of its launches (K3's, one a scale) in ``launches`` and
+# the generic arm behind each fused wrapper, in float32 and bf16 (K3's, K4a's
+# and K5's on csrc/chain.cu, K4b's on cost_volume.cu::cv_agg_any_kernel):
+# the wrapper picks it by shape alone (ops/fused.py::*_arm) and counts each
+# of its launches (K3's, one a scale) in ``launches`` and
 # ``launches_generic``
 GENERIC_ARMS = {"mse.generic": "mse", "plf.generic": "plf",
                 "cv.generic": "cv", "cv_agg.generic": "cv_agg"}
@@ -513,7 +525,8 @@ DEVICE_NAMES = {"ball_query": ("ball_query_kernel",), "knn": ("knn_kernel",),
 for _arm, _sibling in GATHER_ARMS.items():
     DEVICE_NAMES[_arm] = DEVICE_NAMES[_sibling]
 for _arm in GENERIC:
-    DEVICE_NAMES[_arm] = ("chain_kernel",)
+    DEVICE_NAMES[_arm] = (("cv_agg_any_kernel",) if _arm.startswith("cv_agg")
+                          else ("chain_kernel",))
 for _arm, (_, _fn, _) in LONG_TC_KERNELS.items():
     DEVICE_NAMES[_arm] = (_fn,)
 # the CUDA kernels one call of a wrapper may launch, where that is bounded:
@@ -595,7 +608,9 @@ SOURCES["mse.long"] = SOURCES["mse"]
 SOURCES["mse.long.bf16"] = SOURCES["mse.bf16"]
 # the generic arms replace their wrappers' Pallas kernels at every width
 for _arm, _sibling in GENERIC.items():
-    SOURCES[_arm] = ("cmflow_tpu_torch/csrc/chain.cu",
+    SOURCES[_arm] = ("cmflow_tpu_torch/csrc/" + ("cost_volume.cu"
+                                                 if _sibling == "cv_agg"
+                                                 else "chain.cu"),
                      SOURCES[f"{_sibling}.bf16" if _arm in GENERIC_BF16_ARMS
                              else _sibling][1])
 
@@ -793,8 +808,8 @@ def sass_report(libs: dict) -> dict:
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     report = {}
     for name, (lib, fn, tc_op) in {**TC_KERNELS, **BF16_TC_KERNELS,
-                                   **GENERIC_TC_KERNELS,
-                                   **LONG_TC_KERNELS}.items():
+                                   **GENERIC_TC_KERNELS, **LONG_TC_KERNELS,
+                                   **FULL_TC_KERNELS}.items():
         sass = subprocess.run([tool, "-sass", str(libs[lib])], check=True,
                               capture_output=True, text=True).stdout
         body = next(part for part in sass.split("Function : ")[1:]
@@ -827,6 +842,25 @@ def sass_report(libs: dict) -> dict:
         require(not (serialized and name in WGMMA_UNSERIALIZED),
                 f"{fn}: ptxas serialises its wgmmas: {serialized}")
     return report
+
+
+def ptxas_report(libs: dict, lib: str, pattern: str) -> dict:
+    """Registers, spill stores and static shared memory of each kernel of
+    library ``lib`` whose mangled name matches ``pattern``, from the ptxas
+    log beside it."""
+    log = libs[lib].with_suffix(".log").read_text()
+    out = {}
+    for part in log.split("Compiling entry function")[1:]:
+        name = part.splitlines()[0].split("'")[1]
+        if not re.search(pattern, name):
+            continue
+        regs, smem = re.search(r"Used (\d+) registers.*?(\d+) bytes smem",
+                               part).groups()
+        spill = re.search(r"(\d+) bytes spill stores", part)
+        out[name] = dict(registers=int(regs),
+                         spill_store_bytes=int(spill.group(1)) if spill else 0,
+                         static_smem_bytes=int(smem))
+    return out
 
 
 def numel(tensors) -> int:
@@ -1604,14 +1638,18 @@ def fused_lifted_cases(dev, gen: torch.Generator) -> list:
             chain, _, _ = fused.plf_params_from_variables(plf)
         feat_tx = rand(b, n, widths[0])
         idx = idx_of(k)
-        return [case(name, f"B={b} N={n} K={k} chain={widths}",
-                     lambda fn=fn: fn(feat_tx, idx, pc, chain),
-                     lambda: fused.fused_point_local_feature_plain(
-                         feat_tx, idx, pc, chain),
-                     nbytes(feat_tx, idx, pc, chain) + rows * widths[-1] * 4,
-                     2 * rows * widths[0] * 6 + chain_flops(rows, k, widths),
-                     launches)
-                for name, fn, launches in names]
+        out = [case(name, f"B={b} N={n} K={k} chain={widths}",
+                    lambda fn=fn: fn(feat_tx, idx, pc, chain),
+                    lambda: fused.fused_point_local_feature_plain(
+                        feat_tx, idx, pc, chain),
+                    nbytes(feat_tx, idx, pc, chain) + rows * widths[-1] * 4,
+                    2 * rows * widths[0] * 6 + chain_flops(rows, k, widths),
+                    launches)
+               for name, fn, launches in names]
+        for row in out:  # the tuned arm: cuBLAS on its two products
+            if row["kernel"] == "plf" and tuple(widths) == fused.PLF_WIDTHS:
+                row["cublas"] = products(rows * k, widths, torch.float32)
+        return out
 
     def cv_cases(c, k, names, agg_names=()):
         fc = seeded_module(FeatureCorrelator(k, c, c, (c, c, c)), gen, dev)
@@ -1626,6 +1664,11 @@ def fused_lifted_cases(dev, gen: torch.Generator) -> list:
                     chain_flops(rows, k, (c, c, c))
                     + 2 * rows * k * (h * h + h * c), launches)
                for name, fn, launches in names]
+        for row in out:  # the tuned arm: its calls on its full-tile arm,
+            # and cuBLAS on its two products
+            if row["kernel"] == "cv" and c == fused.CV_WIDTH:
+                row["launches_full"] = int(fused.cv_p2p_full(k))
+                row["cublas"] = products(rows * k, (c, c, c), torch.float32)
         agg_args = (rand(b, n, c), idx_of(k), rand(b, n, h), wn2[1:])
         out += [case(name, f"B={b} N={n} C={c} k={k}",
                      lambda fn=fn: fn(*agg_args),
@@ -1816,6 +1859,7 @@ def check_lifted(cases, key: str = "lifted") -> dict:
         wrapper = wrapper_of(case["kernel"])
         before = wrapper.launches
         long_before = getattr(wrapper, "launches_long", 0)
+        full_before = getattr(wrapper, "launches_full", 0)
         case["run"]()
         require(wrapper.launches - before == case["launches"],
                 f"{case['kernel']} {case['shape']}: "
@@ -1826,8 +1870,20 @@ def check_lifted(cases, key: str = "lifted") -> dict:
             require(got == case["launches_long"],
                     f"{case['kernel']} {case['shape']}: {got} calls of the "
                     f"long kernel, not {case['launches_long']}")
+        if "launches_full" in case:  # K4a's calls on its full-tile arm
+            got = wrapper.launches_full - full_before
+            require(got == case["launches_full"],
+                    f"{case['kernel']} {case['shape']}: {got} calls of the "
+                    f"full-tile arm, not {case['launches_full']}")
     rows = check_kernels(cases, False, {})
     out = {}
+    for case in cases:  # the output's bits, to compare trees
+        got = case["run"]()
+        torch.cuda.synchronize()
+        case["digest"] = hashlib.sha1(b"".join(
+            x.contiguous().view(torch.uint8).cpu().numpy().tobytes()
+            for x in (got if isinstance(got, tuple) else (got,)))
+        ).hexdigest()[:16]
     for case, row in zip(cases, rows):
         entry = dict(
             shape=row["shape"], launches_per_call=case["launches"],
@@ -1836,8 +1892,9 @@ def check_lifted(cases, key: str = "lifted") -> dict:
             bound_ms=row["bound_ms"], bound_by=row["bound_by"],
             share_of_bound=row["share_of_bound"],
             max_abs_err=row["max_abs_err"],
-            plain_max_abs=row.get("plain_max_abs"), same_bits=True)
-        for extra in ("cublas_products_ms", "tile_bits"):
+            plain_max_abs=row.get("plain_max_abs"), same_bits=True,
+            digest=case["digest"])
+        for extra in ("cublas_products_ms", "tile_bits", "launches_full"):
             if extra in row or extra in case:
                 entry[extra] = row.get(extra, case.get(extra))
         out.setdefault(case["kernel"], []).append(entry)
@@ -4297,6 +4354,7 @@ def main() -> int:
               libraries=sorted(p.name for p in libs.values())))
     sass = sass_report(libs)
     emit(dict(sass=sass))
+    emit(dict(ptxas_cv=ptxas_report(libs, "cost_volume", r"cv_(p2p|agg)")))
 
     requests = [make_request(SEED + i, B, (200, 256)) for i in range(3)]
     requests.append(make_request(SEED + 3, B, (300, 384)))

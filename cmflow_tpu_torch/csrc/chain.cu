@@ -5,8 +5,9 @@
 // Replaces, at any widths, the Pallas TPU kernels of
 // cmflow_tpu/ops/fused.py: _mse_kernel (K3, called by
 // fused_multi_scale_encoder) and _plf_kernel (K5, fused_point_local_feature)
-// as Kind kMax; _cv_kernel (K4a) as kP2p and _cv_agg_kernel (K4b) as kAgg,
-// both called by fused_cost_volume.  For each query i and each of its K
+// as Kind kMax, and _cv_kernel (K4a, called by fused_cost_volume) as kP2p.
+// (K4b's _cv_agg_kernel has no product: its arm at any width is
+// cost_volume.cu::cv_agg_any_kernel.)  For each query i and each of its K
 // neighbours j = idx[i, k] (one row per pair):
 //   kMax: x0 = ReLU((base[j] - xyz_c[i] @ wrel) * s0 + b0)
 //         x_{l+1} = ReLU((x_l @ W_l) * s_l + b_l), L >= 0 layers
@@ -14,8 +15,6 @@
 //   kP2p: x0 = LeakyReLU(f1c[i] + f2c[j] + b0)
 //         x_{l+1} = LeakyReLU(x_l @ W_l + b_l), L >= 1 layers
 //         out[i] = sum over k of WeightNet(z2[j] - z1[i]) * x_L
-//   kAgg: x0 = p2p[j], no layers, out[i] = sum over k of
-//         WeightNet(zq[j] - zq[i]) * x0
 // with the WeightNet after its first product, (d + b0) -> ReLU -> 8x8 ->
 // ReLU -> 8xC -> ReLU, its hidden width 8 fixed as in the JAX package.
 // K3's route folds each scale's first layer into a base outside (as the JAX
@@ -23,7 +22,7 @@
 // neighbour index outside [0, N) stands for a zero row.
 //
 // bf16 (T = __nv_bfloat16, the JAX kernels' bf16 serving mode): the base,
-// f1c/f2c, p2p and the Dense weights come in bf16; the offset, the affines
+// f1c/f2c and the Dense weights come in bf16; the offset, the affines
 // and the WeightNet stay float32; each activation is rounded to bf16
 // (nearest even) before the product it feeds, a product of two bf16 values
 // is exact and the sums are float32 (ops/fused.py::_mm); kP2p stores its sum
@@ -84,12 +83,12 @@
 // 2,900 cycles a 16 KB stage against ~250 of tensor-core time at peak, of
 // which two blocks an SM overlap part.
 
-// chain_kernel (kAgg, and kMax with no layer: nothing to multiply).  What
-// bounds it: the gathered bytes (B*N*K rows of C), read from L2.  A block of
-// 256 threads takes a tile of 32 rows made of whole queries, or one query
-// whose rows run over consecutive tiles, its max or sum carried in shared
-// memory; each (query, column) is reduced by one thread, k ascending, x0
-// formed as it is read.
+// chain_kernel (kMax with no layer: nothing to multiply).  What bounds it:
+// the gathered bytes (B*N*K rows of C), read from L2.  A block of 256
+// threads takes a tile of 32 rows made of whole queries, or one query whose
+// rows run over consecutive tiles, its max carried in shared memory; each
+// (query, column) is reduced by one thread, k ascending, x0 formed as it is
+// read.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -104,7 +103,7 @@ namespace {
 
 namespace tc = cmflow::tc;
 
-enum Kind { kMax = 0, kP2p = 1, kAgg = 2 };
+enum Kind { kMax = 0, kP2p = 1 };
 constexpr int kH = 8;  // WeightNet hidden width
 constexpr int kMaxSmem = 232448;  // a block's shared memory (opt-in)
 
@@ -149,7 +148,7 @@ __device__ __forceinline__ void weightnet_hidden(const float (&d)[kH],
 }
 
 // ===========================================================================
-// chain_kernel: kAgg, and kMax with no layer
+// chain_kernel: kMax with no layer
 // ===========================================================================
 
 constexpr int kThreads = 256;
@@ -159,31 +158,24 @@ struct Params {
   const int* idx;  // [B*N, k]
   int n, k;
   int64_t total;
-  const void* src;      // kMax: base; kAgg: p2p; [B*N, src_stride]
+  const void* src;      // the base, [B*N, src_stride]
   int64_t src_stride;
-  const float* xyz;     // kMax: centred points [B*N, 3]
-  const float* wrel;    // kMax: [3, c0]
-  const float* s0;      // kMax: the affine's scale
-  const float* b0;      // kMax: its bias
+  const float* xyz;     // centred points [B*N, 3]
+  const float* wrel;    // [3, c0]
+  const float* s0;      // the affine's scale
+  const float* b0;      // its bias
   int c0;
-  const float* z;       // kAgg: zq [B*N, 8]
-  const float* wb0;     // kAgg: the WeightNet after its first product
-  const float* ww1;
-  const float* wb1;
-  const float* ww2;     // [8, c0]
-  const float* wb2;
   float* out;           // [B*N, out_stride]
   int64_t out_stride;
 };
 
-template <Kind K, typename T>
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
     chain_kernel(const __grid_constant__ Params p) {
   extern __shared__ __align__(16) float carry[];  // [c0], across tiles
   __shared__ int row_q[kRows];      // the row's query, or -1
   __shared__ int64_t row_j[kRows];  // its neighbour's row, or -1
-  // kMax: the query's point; kAgg: the row's WeightNet hidden layer
-  __shared__ float row_v[kRows][kH];
+  __shared__ float row_v[kRows][3];  // the query's point
 
   const int tid = threadIdx.x;
   const int k = p.k;
@@ -209,80 +201,46 @@ __global__ void __launch_bounds__(kThreads)
         }
         row_q[tid] = qq;
         row_j[tid] = j;
-        if constexpr (K == kMax) {
 #pragma unroll
-          for (int a = 0; a < 3; ++a) {
-            row_v[tid][a] = qq >= 0 ? __ldg(p.xyz + q * 3 + a) : 0.0f;
-          }
-        } else {
-          float d[kH], h[kH];
-#pragma unroll
-          for (int m = 0; m < kH; ++m) {
-            d[m] = (j >= 0 ? __ldg(p.z + j * kH + m) : 0.0f) -
-                   (qq >= 0 ? __ldg(p.z + q * kH + m) : 0.0f);
-          }
-          weightnet_hidden(d, p.wb0, p.ww1, p.wb1, h);
-#pragma unroll
-          for (int m = 0; m < kH; ++m) row_v[tid][m] = h[m];
+        for (int a = 0; a < 3; ++a) {
+          row_v[tid][a] = qq >= 0 ? __ldg(p.xyz + q * 3 + a) : 0.0f;
         }
       }
       __syncthreads();
 
-      // each (query, column) of the tile: its rows' max or weighted sum,
-      // k ascending, on from the carry of the tiles before
+      // each (query, column) of the tile: its rows' max, k ascending, on
+      // from the carry of the tiles before
       for (int e = tid; e < qpt * p.c0; e += kThreads) {
         const int qi = e / p.c0, c = e % p.c0;
         const int64_t q = q0 + qi;
         if (q >= p.total) continue;
         const int lo = max(qi * k, tile * kRows);
         const int hi = min(qi * k + k, (tile + 1) * kRows);
-        if constexpr (K == kMax) {
-          const float w0 = __ldg(p.wrel + c), w1 = __ldg(p.wrel + p.c0 + c),
-                      w2 = __ldg(p.wrel + 2 * p.c0 + c);
-          const float s0 = __ldg(p.s0 + c), b0 = __ldg(p.b0 + c);
-          float m = tile == 0 ? -INFINITY : carry[c];
-          for (int rg = lo; rg < hi; ++rg) {
-            const int r = rg - tile * kRows;
-            const int64_t j = row_j[r];
-            const float g = j >= 0 ? load(src, j * p.src_stride + c) : 0.0f;
-            const float off =
-                fmaf(row_v[r][2], w2, fmaf(row_v[r][1], w1, row_v[r][0] * w0));
-            m = fmaxf(m, relu_affine(g - off, s0, b0));
-          }
-          if (tile + 1 == tiles) {
-            p.out[q * p.out_stride + c] = m;
-          } else {
-            carry[c] = m;
-          }
+        const float w0 = __ldg(p.wrel + c), w1 = __ldg(p.wrel + p.c0 + c),
+                    w2 = __ldg(p.wrel + 2 * p.c0 + c);
+        const float s0 = __ldg(p.s0 + c), b0 = __ldg(p.b0 + c);
+        float m = tile == 0 ? -INFINITY : carry[c];
+        for (int rg = lo; rg < hi; ++rg) {
+          const int r = rg - tile * kRows;
+          const int64_t j = row_j[r];
+          const float g = j >= 0 ? load(src, j * p.src_stride + c) : 0.0f;
+          const float off =
+              fmaf(row_v[r][2], w2, fmaf(row_v[r][1], w1, row_v[r][0] * w0));
+          m = fmaxf(m, relu_affine(g - off, s0, b0));
+        }
+        if (tile + 1 == tiles) {
+          p.out[q * p.out_stride + c] = m;
         } else {
-          float w2[kH];
-#pragma unroll
-          for (int m = 0; m < kH; ++m) w2[m] = __ldg(p.ww2 + m * p.c0 + c);
-          const float b2 = __ldg(p.wb2 + c);
-          float s = tile == 0 ? 0.0f : carry[c];
-          for (int rg = lo; rg < hi; ++rg) {
-            const int r = rg - tile * kRows;
-            float t = 0.0f;
-#pragma unroll
-            for (int m = 0; m < kH; ++m) t = fmaf(row_v[r][m], w2[m], t);
-            const float w = fmaxf(t + b2, 0.0f);
-            const int64_t j = row_j[r];
-            s = fmaf(w, j >= 0 ? load(src, j * p.src_stride + c) : 0.0f, s);
-          }
-          if (tile + 1 == tiles) {
-            p.out[q * p.out_stride + c] = s;
-          } else {
-            carry[c] = s;
-          }
+          carry[c] = m;
         }
       }
     }
   }
 }
 
-template <Kind K, typename T>
+template <typename T>
 int launch(const Params& p, void* stream) {
-  auto kernel = chain_kernel<K, T>;
+  auto kernel = chain_kernel<T>;
   const int smem = 4 * ((p.c0 + 3) & ~3);
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -1275,20 +1233,16 @@ auto pick_tc(int kind, int bf16, F f) {
 
 extern "C" {
 
-// kind 0 (max, K3 and K5, with no layer) or 2 (patch-to-patch, K4b); bf16
-// 1 for the bf16 arm.  idx [B,N,k] int32; src the gathered rows (base or
-// p2p, T) with row stride src_stride (elements); xyz [B,N,3] centred, wrel
-// [3,c0], s0, b0 [c0] (kind 0); z [B,N,8] and the WeightNet after its first
-// product wb0 [8], ww1 [8,8], wb1 [8], ww2 [8,c0], wb2 [c0] (kind 2); out
-// [B,N] float32 rows of out_stride elements.  Returns a cudaError_t.
-int cmflow_chain(int kind, int bf16, const void* idx, int b, int n, int k,
+// A max (K3 and K5) with no layer; bf16 1 for the bf16 arm.  idx [B,N,k]
+// int32; src the gathered base (T) with row stride src_stride (elements);
+// xyz [B,N,3] centred, wrel [3,c0], s0, b0 [c0]; out [B,N] float32 rows of
+// out_stride elements.  Returns a cudaError_t.
+int cmflow_chain(int bf16, const void* idx, int b, int n, int k,
                  const void* src, long long src_stride, const void* xyz,
                  const void* wrel, const void* s0, const void* b0, int c0,
-                 const void* z, const void* wb0, const void* ww1,
-                 const void* wb1, const void* ww2, const void* wb2, void* out,
-                 long long out_stride, void* stream) {
+                 void* out, long long out_stride, void* stream) {
   const long long total = (long long)b * n;
-  if ((kind != kMax && kind != kAgg) || n < 1 || b < 0 || k < 1 || c0 < 1 ||
+  if (n < 1 || b < 0 || k < 1 || c0 < 1 ||
       4 * ((c0 + 3) & ~3) > kMaxSmem - 1024) {
     return (int)cudaErrorInvalidValue;
   }
@@ -1305,20 +1259,9 @@ int cmflow_chain(int kind, int bf16, const void* idx, int b, int n, int k,
   p.s0 = static_cast<const float*>(s0);
   p.b0 = static_cast<const float*>(b0);
   p.c0 = c0;
-  p.z = static_cast<const float*>(z);
-  p.wb0 = static_cast<const float*>(wb0);
-  p.ww1 = static_cast<const float*>(ww1);
-  p.wb1 = static_cast<const float*>(wb1);
-  p.ww2 = static_cast<const float*>(ww2);
-  p.wb2 = static_cast<const float*>(wb2);
   p.out = static_cast<float*>(out);
   p.out_stride = out_stride;
-  if (kind == kMax) {
-    return bf16 ? launch<kMax, __nv_bfloat16>(p, stream)
-                : launch<kMax, float>(p, stream);
-  }
-  return bf16 ? launch<kAgg, __nv_bfloat16>(p, stream)
-              : launch<kAgg, float>(p, stream);
+  return bf16 ? launch<__nv_bfloat16>(p, stream) : launch<float>(p, stream);
 }
 
 // kind 0 (max, K3 and K5) or 1 (point-to-patch, K4a), each with at least

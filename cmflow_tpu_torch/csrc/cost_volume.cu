@@ -18,18 +18,31 @@
 // products and the WeightNet); at B=16, N=256, k=8 that is 32,768 rows,
 // 34.6 GFLOP: 0.21 ms at the dense TF32 peak in 3xTF32 (tc_gemm.cuh), with
 // the split weights (4 MB) streamed from L2 once per block beside it.
-// Design: on wgmma (tc_gemm.cuh).  A block takes 64 rows, whole queries (8
-// at k=8; past k = 64 one query over consecutive tiles of the block, its sums
-// carried in registers, k ascending as in one tile, so k <= 64 keeps its
-// bits): two consumer warpgroups, each on all 64 rows and one half of the
-// 512 columns (a float32 sum in 128 registers a thread, into which the CUDA
-// cores add the tensor cores' sum of each k8 step, 128 columns at a time:
-// tc::promote), and a producer warpgroup (registers handed to the consumers
-// with setmaxnreg) one thread of which streams the packed weights (W1 then
-// W2, TF32 hi and lo, ops/fused.py::tc_weights) through a ring of three
-// 32 KB stages, one k8 step each, with cp.async.bulk, completed on
-// mbarriers.  Both warpgroups read each stage, so every weight byte from L2
-// serves 64 rows.
+// Design: on wgmma (tc_gemm.cuh).  A block takes tiles of 64 rows: one
+// tile of 64 / k whole queries (8 at k=8) where those fill at least 7/8 of
+// it (every k that divides 64; 5, 7, 12, ...); at every other k
+// (cv_p2p_full_kernel, the full-tile arm: 24, 33, 48, every k past 64) a
+// run of consecutive whole queries planned by the host
+// (ops/fused.py::cv_p2p_plan: one block an SM, the runs balanced in
+// tiles), their rows one after the other in full tiles across query
+// boundaries, a query's sums carried in registers from one tile to the
+// next, k ascending as in one tile, so every k keeps the bits of one
+// tile's sum.  A tile has two consumer warpgroups, each on all 64 rows and
+// one half of the 512 columns (a float32 sum in 128 registers a thread,
+// into which the CUDA cores add the tensor cores' sum of each k8 step, 128
+// columns at a time: tc::promote), and a producer warpgroup (registers
+// handed to the consumers with setmaxnreg) one thread of which streams the
+// packed weights (W1 then W2, TF32 hi and lo, ops/fused.py::tc_weights)
+// through a ring of three 32 KB stages, one k8 step each, with
+// cp.async.bulk, completed on mbarriers.  Both warpgroups read each stage,
+// so every weight byte from L2 serves 64 rows; in the full-tile arm x0's
+// rows are staged two step pairs ahead by cp.async into x1's buffer.  What
+// holds the full-tile arm (scripts/profile_torch_cv.py ablate, NVIDIA H100
+// 80GB HBM3 at 700 W): the 4 MB of weights each tile brings into its SM;
+// sharing each stage between the two blocks of a cluster by multicast
+// saved nothing (PERF.md §6), without its products a tile still takes 57%
+// of its time, and each product ~88k cycles against ~47k at the 3xTF32
+// peak.
 // - x0 never exists in memory: each thread loads four consecutive channels
 //   of f1c and f2c for its two rows per float4 and splits them into the A
 //   fragments of two k8 steps in registers.
@@ -49,8 +62,8 @@
 // peak).  Each neighbour's 2 KB row is read once per query that names it,
 // 64 MB from L2 at that shape.
 // Design: a block of 256 threads takes kAggQ queries of one batch element;
-// a thread owns one float4 column of the 512 channels for the queries
-// tid / 128, +2, ...  It holds its columns of the last layer (8 float4)
+// a thread owns one float4 cell (four channels) of the 512 for the queries
+// tid / 128, +2, ...  It holds its cell's columns of the last layer (8 float4)
 // and its bias in registers for the whole block; the 8-wide layers sit in
 // shared memory.  The neighbours go in chunks of kAggKc: one thread per
 // (query, neighbour) loads the index and both zq rows and computes the
@@ -65,6 +78,15 @@
 // the same bits.  What holds it (scripts/profile_torch_cv_agg.py): the
 // instructions of the sum, not the loads; leaving out the p2p reads saves
 // ~5%, leaving out the last layer ~30%.
+// cv_agg_any_kernel, the same body at any C: a block takes one chunk of
+// `cells` cells of the row (blockIdx.y) for 256 / cells * per queries, per
+// a thread (both from ops/fused.py::cv_agg_plan, which sizes the grid to
+// the card's waves); the hidden layer is computed again for each chunk.
+// A row whose start is not aligned to a cell (C not a multiple of 4, or p2p
+// a view that starts off a cell) is copied in pieces of 8, 4 or (bf16) 2
+// bytes, the channels past C
+// as zeros; the sums are the same operations in the same order, so each
+// channel's bits are those of any other chunking.
 //
 // All sums are float32.  The kernels' dynamic shared memory (224 KB and
 // 64 KB) needs cudaFuncSetAttribute; a refused launch never runs, so each
@@ -137,6 +159,43 @@ constexpr size_t kBf16SmemBytes = (size_t)kP2pRows * kC * 4 +
                                   (size_t)kP2pRows * kH * 4;
 static_assert(2 * kXTile == kP2pRows * kC * 4, "x0 and x1 fill w * x2's");
 
+// Build switches for scripts/profile_torch_cv.py's ablation copies of the
+// full-tile arm (the package builds with none): CV_P2P_NO_MMA (the
+// products left out, their operands kept live), CV_P2P_X0_DIRECT (x0's
+// rows loaded into
+// registers where they are used, as the whole-query arm does, not staged
+// ahead) and CV_P2P_TIMELINE (block 0's thread 0 stamps its cycle counter
+// at the marks of each tile into cmflow_cv_p2p_timeline's buffer).
+#ifdef CV_P2P_X0_DIRECT
+constexpr bool kX0Staged = false;
+#else
+constexpr bool kX0Staged = true;
+#endif
+constexpr int kX0Ahead = 3;  // the full-tile arm's x0 ring: pairs of steps
+static_assert(kX0Ahead * 4 * kP2pConsumers * 16 <= kP2pRows * kC * 4,
+              "the x0 ring fits in x1's buffer");
+#ifdef CV_P2P_NO_MMA
+constexpr bool kP2pMma = false;
+#else
+constexpr bool kP2pMma = true;
+#endif
+#ifdef CV_P2P_TIMELINE
+constexpr int kStamps = 1 << 14;
+__device__ long long g_stamps[kStamps];
+__device__ int g_stamp_count;
+// 0: a tile's start, 1: its first product done, 2: its second, 3: its sums
+// stored or carried
+__device__ __forceinline__ void stamp(int what) {
+  if (blockIdx.x == 0 && threadIdx.x == 0 && g_stamp_count < kStamps / 2) {
+    g_stamps[2 * g_stamp_count] = clock64();
+    g_stamps[2 * g_stamp_count + 1] = what;
+    ++g_stamp_count;
+  }
+}
+#else
+__device__ __forceinline__ void stamp(int) {}
+#endif
+
 __device__ __forceinline__ float leaky(float x) {
   return x > 0.0f ? x : 0.1f * x;
 }
@@ -169,6 +228,25 @@ struct WeightNet {  // after its first product: (b0, w1, b1, w2, b2)
   const float* w2;
   const float* b2;
 };
+
+// a 16-byte copy from device to shared memory that the issuing thread
+// waits for itself (cp.async.wait_group); `bytes` 0 writes zeros
+__device__ __forceinline__ void copy16(uint32_t dst, const void* src,
+                                       int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void copy_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most `kPending` of the thread's copy groups are in flight
+template <int kPending>
+__device__ __forceinline__ void copy_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
 
 __device__ __forceinline__ float4 load_or_zero(const float4* p, int i) {
   return p ? __ldg(p + i) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
@@ -209,7 +287,18 @@ __device__ __forceinline__ void p2p_step(float (&acc)[128], float (&part)[64],
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     tc::fence();
-    tc::mma3(part, a, st + half + 4096 * h, st + 16384 + half + 4096 * h, 0);
+    if constexpr (kP2pMma) {
+      tc::mma3(part, a, st + half + 4096 * h, st + 16384 + half + 4096 * h,
+               0);
+    } else {  // the ablation: the operands kept live, no product
+      uint32_t ops[2][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        ops[0][i] = a.hi[i];
+        ops[1][i] = a.lo[i];
+      }
+      tc::fence_regs(ops);
+    }
     tc::commit();
     tc::wait_all();
     tc::fence_regs(part);
@@ -221,10 +310,8 @@ __device__ __forceinline__ void p2p_step(float (&acc)[128], float (&part)[64],
   }
 }
 
-// wpack from tc_weights.  kTiles: a query's rows may span several tiles
-// (k > kP2pRows); without it the block is one tile of whole queries, the
-// tile loop and the carried sums compiled out.
-template <bool kTiles>
+// wpack from tc_weights.  The block is one tile of qpb = kP2pRows / k
+// whole queries (k <= kP2pRows; every k that divides kP2pRows fills it).
 __global__ void __launch_bounds__(kP2pThreads, 1)
     cv_p2p_kernel(const float* __restrict__ f1c,  // [B*N, kC]
                   const float* __restrict__ f2c,  // [B*N, kC]
@@ -243,8 +330,201 @@ __global__ void __launch_bounds__(kP2pThreads, 1)
   // x1, then w * x2, in A-fragment order: step S (8 channels), then the
   // warpgroup's 128 threads, a float4 each
   float4* xbuf = reinterpret_cast<float4*>(smem + kP2pStages * kStage);
-  // a query's sums over the tiles before, of the thread's columns
-  // threadIdx.x and threadIdx.x + 256 (one query where a query spans tiles)
+  static_assert(kC == 2 * kP2pConsumers, "two columns a thread");
+  __shared__ int row_j[kP2pRows];  // neighbour row in f2c, or -1
+  __shared__ int row_q[kP2pRows];  // query, or -1 for an unused row
+  __shared__ __align__(8) uint64_t full[kP2pStages];
+  __shared__ __align__(8) uint64_t empty[kP2pStages];
+  const tc::Ring<kP2pStages, kStage> ring{smem, full, empty};
+
+  // the block's work: qpb whole queries, qpb * k rows in one tile
+  const int qpb = kP2pRows / k;
+  const int rows = qpb * k;
+  const int q0 = blockIdx.x * qpb;
+  if (threadIdx.x < kP2pRows) {
+    const int r = threadIdx.x;
+    const int q = q0 + r / k;
+    int j = -1, qq = -1;
+    if (r < rows && q < total) {
+      qq = q;
+      const int jj = idx[(int64_t)q * k + r % k];
+      if (jj >= 0 && jj < n) j = (q / n) * n + jj;
+    }
+    row_j[r] = j;
+    row_q[r] = qq;
+  }
+  if (threadIdx.x == 0) ring.init(kP2pConsumers / 32);
+  __syncthreads();
+
+  if (threadIdx.x >= kP2pConsumers) {  // the producer warpgroup: one thread
+    tc::producer_registers();
+    if (threadIdx.x == kP2pConsumers) {
+      const char* w = static_cast<const char*>(wpack);
+      ring.produce(w, w + kPackHalf * 4, 2 * kSteps, 1);
+    }
+    return;
+  }
+  tc::consumer_registers();
+
+  // warpgroup wg computes columns 256*wg .. +255 of all 64 rows; the
+  // thread's two rows are ra and rb (tc_gemm.cuh, fragment layouts)
+  const int wg = threadIdx.x / 128;
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32;
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int ra = 16 * warp + g, rb = ra + 8;
+  const uint32_t half = 8192 * wg;  // the warpgroup's columns in a B tile
+  constexpr int C4 = kC / 4;
+  const Row4* f14 = reinterpret_cast<const Row4*>(f1c);
+  const Row4* f24 = reinterpret_cast<const Row4*>(f2c);
+  const float4* b04 = reinterpret_cast<const float4*>(b0);
+
+  const int qa = row_q[ra], qb = row_q[rb];
+  const int ja = row_j[ra], jb = row_j[rb];
+  const Row4* p1a = qa >= 0 ? f14 + (int64_t)qa * C4 : nullptr;
+  const Row4* p1b = qb >= 0 ? f14 + (int64_t)qb * C4 : nullptr;
+  const Row4* p2a = qa >= 0 && ja >= 0 ? f24 + (int64_t)ja * C4 : nullptr;
+  const Row4* p2b = qb >= 0 && jb >= 0 ? f24 + (int64_t)jb * C4 : nullptr;
+
+  // x0 = LeakyReLU(f1c[q] + f2c[j] + b0) at channels 4*c4 .. 4*c4 + 3 of
+  // rows ra (xa) and rb (xb)
+  auto first_layer = [&](int c4, float4& xa, float4& xb) {
+    const float4 bb = __ldg(b04 + c4);
+    const float4 f1a = load_or_zero(p1a, c4), f2a = load_or_zero(p2a, c4);
+    const float4 f1b = load_or_zero(p1b, c4), f2b = load_or_zero(p2b, c4);
+    xa = qa >= 0 ? leaky4(make_float4((f1a.x + f2a.x) + bb.x,
+                                      (f1a.y + f2a.y) + bb.y,
+                                      (f1a.z + f2a.z) + bb.z,
+                                      (f1a.w + f2a.w) + bb.w))
+                 : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    xb = qb >= 0 ? leaky4(make_float4((f1b.x + f2b.x) + bb.x,
+                                      (f1b.y + f2b.y) + bb.y,
+                                      (f1b.z + f2b.z) + bb.z,
+                                      (f1b.w + f2b.w) + bb.w))
+                 : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  };
+
+  float acc[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.0f;
+  {
+    float part[64];
+    // x1 = x0 @ W1.  Step 2c + e, position p is channel 16c + 4*(p%4) +
+    // 2e + p/4, so the float4 at channels 16c + 4t holds the thread's A
+    // values of steps 2c and 2c + 1.
+    for (int c = 0; c < kSteps / 2; ++c) {
+      float4 xa, xb;
+      first_layer(4 * c + t, xa, xb);
+      p2p_step(acc, part, tc::split4(xa.x, xb.x, xa.y, xb.y),
+               ring.acquire(2 * c), half);
+      ring.release(2 * c);
+      p2p_step(acc, part, tc::split4(xa.z, xb.z, xa.w, xb.w),
+               ring.acquire(2 * c + 1), half);
+      ring.release(2 * c + 1);
+    }
+
+    // x1 = LeakyReLU(acc + b1) into shared memory, already in the
+    // A-fragment order of the second product: acc[4j + e] is (row ra or
+    // rb, column 256*wg + 8j + 2t + e%2), which step S = 32*wg + j takes
+    // at positions t and t + 4.
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int col = 256 * wg + 8 * j + 2 * t;
+      const float2 b = __ldg(reinterpret_cast<const float2*>(b1 + col));
+      xbuf[(32 * wg + j) * 128 + tid] = make_float4(
+          leaky(acc[4 * j] + b.x), leaky(acc[4 * j + 2] + b.x),
+          leaky(acc[4 * j + 1] + b.y), leaky(acc[4 * j + 3] + b.y));
+    }
+    tc::consumer_sync<kP2pConsumers>();
+
+    // x2 = x1 @ W2: step S, position p is channel 8S + 2*(p%4) + p/4
+#pragma unroll
+    for (int i = 0; i < 128; ++i) acc[i] = 0.0f;
+    float4 xn = xbuf[tid];
+    for (int s = 0; s < kSteps; ++s) {
+      const float4 x = xn;
+      if (s + 1 < kSteps) xn = xbuf[(s + 1) * 128 + tid];
+      p2p_step(acc, part, tc::split4(x.x, x.y, x.z, x.w),
+               ring.acquire(kSteps + s), half);
+      ring.release(kSteps + s);
+    }
+  }
+
+  // w * LeakyReLU(acc + b2), w the WeightNet of z2[j] - z1[q], over x1
+  float ha[kH], hb[kH];
+  {
+    float da[kH], db[kH];
+#pragma unroll
+    for (int m = 0; m < kH; ++m) {
+      da[m] = (ja >= 0 ? z2[(int64_t)ja * kH + m] : 0.0f) -
+              (qa >= 0 ? z1[(int64_t)qa * kH + m] : 0.0f);
+      db[m] = (jb >= 0 ? z2[(int64_t)jb * kH + m] : 0.0f) -
+              (qb >= 0 ? z1[(int64_t)qb * kH + m] : 0.0f);
+    }
+    weightnet_hidden(da, wn.b0, wn.w1, wn.b1, ha);
+    weightnet_hidden(db, wn.b0, wn.w1, wn.b1, hb);
+  }
+  tc::consumer_sync<kP2pConsumers>();  // every thread has read x1
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    const int col = 256 * wg + 8 * j + 2 * t;
+    const float2 b = __ldg(reinterpret_cast<const float2*>(b2 + col));
+    const float2 wa = weightnet_out2(ha, wn.w2, wn.b2, col);
+    const float2 wb = weightnet_out2(hb, wn.w2, wn.b2, col);
+    xbuf[(32 * wg + j) * 128 + tid] =
+        make_float4(wa.x * leaky(acc[4 * j] + b.x),
+                    wb.x * leaky(acc[4 * j + 2] + b.x),
+                    wa.y * leaky(acc[4 * j + 1] + b.y),
+                    wb.y * leaky(acc[4 * j + 3] + b.y));
+  }
+  tc::consumer_sync<kP2pConsumers>();
+
+  // sum over each query's rows, k ascending; (row r, column c) lies in
+  // step c/8, warp r/16, lane 4*(r%8) + (c%8)/2, float (r%16)/8 + 2*(c%2)
+  const float* xs = reinterpret_cast<const float*>(xbuf);
+  for (int e = threadIdx.x; e < qpb * kC; e += kP2pConsumers) {
+    const int qi = e / kC, c = e % kC;
+    const int q = q0 + qi;
+    if (q >= total) continue;
+    const int cbase = (c / 8) * 512 + ((c % 8) / 2) * 4 + 2 * (c % 2);
+    float s = 0.0f;
+    for (int r = qi * k; r < qi * k + k; ++r) {
+      const float v =
+          xs[cbase + (r / 16) * 128 + (r % 8) * 16 + (r % 16) / 8];
+      s = r == qi * k ? v : s + v;
+    }
+    store_out(out, (int64_t)q * kC + c, s);
+  }
+}
+
+// wpack from tc_weights.  The full-tile arm (ops/fused.py sends the k
+// whose tile of whole queries would leave an eighth or more of its rows
+// empty, and every k past kP2pRows): the block takes `qpb` consecutive
+// whole queries, their rows one after the other in `tiles` tiles of
+// kP2pRows rows across query boundaries (full tiles; a query's rows may run
+// over several), each query's sum carried in registers from one tile to
+// the next, k ascending, so its bits are those of a tile of whole queries;
+// x0's rows are staged ahead by cp.async.
+__global__ void __launch_bounds__(kP2pThreads, 1)
+    cv_p2p_full_kernel(const float* __restrict__ f1c,  // [B*N, kC]
+                       const float* __restrict__ f2c,  // [B*N, kC]
+                       const int* __restrict__ idx,    // [B*N, k]
+                       const float* __restrict__ z1,   // [B*N, kH]
+                       const float* __restrict__ z2,   // [B*N, kH]
+                       const float* __restrict__ b0,
+                       const void* __restrict__ wpack,  // tc_weights
+                       const float* __restrict__ b1,
+                       const float* __restrict__ b2, WeightNet wn,
+                       float* __restrict__ out,  // [B*N, kC]
+                       int total, int n, int k, int qpb) {
+  using Row4 = float4;
+  constexpr int kStage = kStageBytes;
+  extern __shared__ __align__(128) char smem[];
+  // x1, then w * x2, in A-fragment order: step S (8 channels), then the
+  // warpgroup's 128 threads, a float4 each
+  float4* xbuf = reinterpret_cast<float4*>(smem + kP2pStages * kStage);
+  // the sums of the query whose rows run on into the next tile, of the
+  // thread's columns threadIdx.x and threadIdx.x + 256
   static_assert(kC == 2 * kP2pConsumers, "two columns a thread");
   float carry0 = 0.0f, carry1 = 0.0f;
   __shared__ int row_j[kP2pRows];  // neighbour row in f2c, or -1
@@ -253,12 +533,11 @@ __global__ void __launch_bounds__(kP2pThreads, 1)
   __shared__ __align__(8) uint64_t empty[kP2pStages];
   const tc::Ring<kP2pStages, kStage> ring{smem, full, empty};
 
-  // the block's work: qpb whole queries, qpb * k rows in `tiles` tiles of
-  // kP2pRows (one tile of whole queries where k <= kP2pRows, else one query)
-  const int qpb = kTiles ? 1 : kP2pRows / k;
-  const int rows = qpb * k;
-  const int tiles = kTiles ? (rows + kP2pRows - 1) / kP2pRows : 1;
+  // the block's work: qpb whole queries from q0 (fewer in the last block),
+  // their rows in `tiles` tiles
   const int q0 = blockIdx.x * qpb;
+  const int rows = min(qpb, total - q0) * k;
+  const int tiles = (rows + kP2pRows - 1) / kP2pRows;
   auto set_rows = [&](int tile) {
     const int r = threadIdx.x;
     const int rg = tile * kP2pRows + r;  // row of the block's work
@@ -305,6 +584,7 @@ __global__ void __launch_bounds__(kP2pThreads, 1)
       if (threadIdx.x < kP2pRows) set_rows(tile);
       tc::consumer_sync<kP2pConsumers>();
     }
+    stamp(0);
     const int c0 = tile * 2 * kSteps;
     const int qa = row_q[ra], qb = row_q[rb];
     const int ja = row_j[ra], jb = row_j[rb];
@@ -314,11 +594,10 @@ __global__ void __launch_bounds__(kP2pThreads, 1)
     const Row4* p2b = qb >= 0 && jb >= 0 ? f24 + (int64_t)jb * C4 : nullptr;
 
     // x0 = LeakyReLU(f1c[q] + f2c[j] + b0) at channels 4*c4 .. 4*c4 + 3 of
-    // rows ra (xa) and rb (xb)
-    auto first_layer = [&](int c4, float4& xa, float4& xb) {
-      const float4 bb = __ldg(b04 + c4);
-      const float4 f1a = load_or_zero(p1a, c4), f2a = load_or_zero(p2a, c4);
-      const float4 f1b = load_or_zero(p1b, c4), f2b = load_or_zero(p2b, c4);
+    // rows ra (xa) and rb (xb), from those channels of the four rows
+    auto form_x0 = [&](const float4& bb, const float4& f1a, const float4& f2a,
+                       const float4& f1b, const float4& f2b, float4& xa,
+                       float4& xb) {
       xa = qa >= 0 ? leaky4(make_float4((f1a.x + f2a.x) + bb.x,
                                         (f1a.y + f2a.y) + bb.y,
                                         (f1a.z + f2a.z) + bb.z,
@@ -330,6 +609,32 @@ __global__ void __launch_bounds__(kP2pThreads, 1)
                                         (f1b.w + f2b.w) + bb.w))
                    : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     };
+    auto first_layer = [&](int c4, float4& xa, float4& xb) {
+      const float4 bb = __ldg(b04 + c4);
+      const float4 f1a = load_or_zero(p1a, c4), f2a = load_or_zero(p2a, c4);
+      const float4 f1b = load_or_zero(p1b, c4), f2b = load_or_zero(p2b, c4);
+      form_x0(bb, f1a, f2a, f1b, f2b, xa, xb);
+    };
+    // the four float4s of f1c and f2c that step pair c takes (rows
+    // ra and rb, channels 16c + 4t ..) are copied kX0Ahead pairs ahead with
+    // cp.async into the thread's own cells of a ring over xbuf (free until
+    // x1 is stored), so no product waits on a gather (zeros for a row of
+    // no query or neighbour, as load_or_zero gives)
+    auto x0_cells = [&](int c) {
+      return xbuf + (c % kX0Ahead) * 4 * kP2pConsumers + threadIdx.x;
+    };
+    auto stage_x0 = [&](int c) {
+      if (c < kSteps / 2) {
+        const uint32_t dst = tc::smem_addr(x0_cells(c));
+        const int c4 = 4 * c + t;
+        constexpr uint32_t kNext = 16 * kP2pConsumers;
+        copy16(dst, (p1a ? p1a : f14) + c4, p1a ? 16 : 0);
+        copy16(dst + kNext, (p2a ? p2a : f24) + c4, p2a ? 16 : 0);
+        copy16(dst + 2 * kNext, (p1b ? p1b : f14) + c4, p1b ? 16 : 0);
+        copy16(dst + 3 * kNext, (p2b ? p2b : f24) + c4, p2b ? 16 : 0);
+      }
+      copy_commit();  // an empty group past the last pair keeps the count
+    };
 
     float acc[128];
 #pragma unroll
@@ -339,9 +644,20 @@ __global__ void __launch_bounds__(kP2pThreads, 1)
       // x1 = x0 @ W1.  Step 2c + e, position p is channel 16c + 4*(p%4) +
       // 2e + p/4, so the float4 at channels 16c + 4t holds the thread's A
       // values of steps 2c and 2c + 1.
+      if constexpr (kX0Staged) {
+        for (int c = 0; c + 1 < kX0Ahead; ++c) stage_x0(c);
+      }
       for (int c = 0; c < kSteps / 2; ++c) {
         float4 xa, xb;
-        first_layer(4 * c + t, xa, xb);
+        if constexpr (kX0Staged) {
+          stage_x0(c + kX0Ahead - 1);
+          copy_wait<kX0Ahead - 1>();  // pair c's rows have landed
+          const float4* x0 = x0_cells(c);
+          form_x0(__ldg(b04 + 4 * c + t), x0[0], x0[kP2pConsumers],
+                  x0[2 * kP2pConsumers], x0[3 * kP2pConsumers], xa, xb);
+        } else {
+          first_layer(4 * c + t, xa, xb);
+        }
         p2p_step(acc, part, tc::split4(xa.x, xb.x, xa.y, xb.y),
                  ring.acquire(c0 + 2 * c), half);
         ring.release(c0 + 2 * c);
@@ -349,6 +665,8 @@ __global__ void __launch_bounds__(kP2pThreads, 1)
                  ring.acquire(c0 + 2 * c + 1), half);
         ring.release(c0 + 2 * c + 1);
       }
+      stamp(1);
+      tc::consumer_sync<kP2pConsumers>();  // x1 goes over the x0 cells
 
       // x1 = LeakyReLU(acc + b1) into shared memory, already in the
       // A-fragment order of the second product: acc[4j + e] is (row ra or
@@ -376,6 +694,7 @@ __global__ void __launch_bounds__(kP2pThreads, 1)
         ring.release(c0 + kSteps + s);
       }
     }
+    stamp(2);
 
     // w * LeakyReLU(acc + b2), w the WeightNet of z2[j] - z1[q], over x1
     float ha[kH], hb[kH];
@@ -408,26 +727,30 @@ __global__ void __launch_bounds__(kP2pThreads, 1)
 
     // sum over each query's rows in this tile, k ascending, on from the
     // running sum of the tiles before; (row r, column c) lies in step c/8,
-    // warp r/16, lane 4*(r%8) + (c%8)/2, float (r%16)/8 + 2*(c%2)
+    // warp r/16, lane 4*(r%8) + (c%8)/2, float (r%16)/8 + 2*(c%2).  The
+    // queries with rows in the tile: from the one holding its first row
+    // (whose sum may come carried) to the one holding its last (whose sum
+    // may run on), each thread taking both its columns of each, in order.
     const float* xs = reinterpret_cast<const float*>(xbuf);
-    for (int e = threadIdx.x; e < qpb * kC; e += kP2pConsumers) {
-      const int qi = e / kC, c = e % kC;
+    const int qfirst = tile * kP2pRows / k;
+    const int qcount =
+        min(((tile + 1) * kP2pRows - 1) / k + 1, rows / k) - qfirst;
+    for (int e = threadIdx.x; e < qcount * kC; e += kP2pConsumers) {
+      const int qi = qfirst + e / kC, c = e % kC;
       const int q = q0 + qi;
-      if (q >= total) continue;
       const int cbase = (c / 8) * 512 + ((c % 8) / 2) * 4 + 2 * (c % 2);
-      // the query's rows in this tile (all of them without kTiles)
-      const int lo = kTiles ? max(qi * k, tile * kP2pRows) : qi * k;
-      const int hi = kTiles ? min(qi * k + k, (tile + 1) * kP2pRows)
-                            : qi * k + k;
-      const bool first = e < kP2pConsumers;  // of the thread's two columns
-      float s = tile == 0 ? 0.0f : first ? carry0 : carry1;
+      // the query's rows in this tile
+      const int lo = max(qi * k, tile * kP2pRows);
+      const int hi = min(qi * k + k, (tile + 1) * kP2pRows);
+      const bool first = c < kP2pConsumers;  // of the thread's two columns
+      float s = lo == qi * k ? 0.0f : first ? carry0 : carry1;
       for (int rg = lo; rg < hi; ++rg) {
         const int r = rg - tile * kP2pRows;
         const float v =
             xs[cbase + (r / 16) * 128 + (r % 8) * 16 + (r % 16) / 8];
         s = rg == qi * k ? v : s + v;
       }
-      if (tile + 1 == tiles) {
+      if (hi == qi * k + k) {
         store_out(out, (int64_t)q * kC + c, s);
       } else if (first) {
         carry0 = s;
@@ -435,6 +758,7 @@ __global__ void __launch_bounds__(kP2pThreads, 1)
         carry1 = s;
       }
     }
+    stamp(3);
   }
 }
 
@@ -722,9 +1046,11 @@ __global__ void __launch_bounds__(kP2pThreads, 1)
 }
 
 constexpr int kAggThreads = 256;
-constexpr int kAggQ = 16;   // queries of a block, all of one batch element
+constexpr int kAggQ = 16;   // queries of a block of the C = 512 kernels
 constexpr int kAggKc = 8;   // neighbours per chunk
 constexpr int kAggDepth = 2;  // queries in the ring of each thread's rows
+constexpr int kAggPer = 8;  // queries a thread takes, at most
+constexpr int kAggMaxPairs = 512;  // (query, neighbour) of a chunk, at most
 // a thread's cell of the ring: four channels of one row, float4 or bf16
 template <bool kBf16>
 constexpr size_t agg_smem_bytes() {
@@ -733,7 +1059,7 @@ constexpr size_t agg_smem_bytes() {
 constexpr int kAggSlots = kAggThreads / (kC / 4);  // queries worked at once
 constexpr int kAggPairs = kAggQ * kAggKc;  // (query, neighbour) of a chunk
 static_assert(kAggPairs <= kAggThreads, "a thread per pair of a chunk");
-static_assert(kAggQ % kAggSlots == 0, "whole query slots");
+static_assert(kAggQ == kAggSlots * kAggPer, "whole query slots");
 static_assert(kAggKc % 4 == 0, "a chunk's rows in int4s");
 
 // weightnet_hidden with (b0, w1, b1) in shared memory as 20 float4s
@@ -765,15 +1091,6 @@ __device__ __forceinline__ float4 fma4(float4 a, float4 b, float4 c) {
                      fmaf(a.z, b.z, c.z), fmaf(a.w, b.w, c.w));
 }
 
-// a 16-byte copy from device to shared memory that the issuing thread
-// waits for itself (cp.async.wait_group); `bytes` 0 writes zeros
-__device__ __forceinline__ void copy16(uint32_t dst, const void* src,
-                                       int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-
 // the same, 8 bytes (cp.async.cg copies 16 only)
 __device__ __forceinline__ void copy8(uint32_t dst, const void* src,
                                       int bytes) {
@@ -782,43 +1099,97 @@ __device__ __forceinline__ void copy8(uint32_t dst, const void* src,
                : "memory");
 }
 
-__device__ __forceinline__ void copy_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+// the same, 4 bytes
+__device__ __forceinline__ void copy4(uint32_t dst, const void* src,
+                                      int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
 }
 
-// wait until at most `kPending` of the thread's copy groups are in flight
-template <int kPending>
-__device__ __forceinline__ void copy_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+// one piece of a cell, kPart bytes, zeros where it is not `valid`: 16, 8 or
+// 4 by cp.async; 2 (a bf16 row of odd C, 2-byte aligned only) by a load and
+// a store, since cp.async copies no less than 4 bytes
+template <int kPart>
+__device__ __forceinline__ void copy_part(uint32_t dst, const char* src,
+                                          bool valid) {
+  if constexpr (kPart == 16) {
+    copy16(dst, src, valid ? 16 : 0);
+  } else if constexpr (kPart == 8) {
+    copy8(dst, src, valid ? 8 : 0);
+  } else if constexpr (kPart == 4) {
+    copy4(dst, src, valid ? 4 : 0);
+  } else {
+    static_assert(kPart == 2, "a piece of 16, 8, 4 or 2 bytes");
+    const unsigned short v =
+        valid ? __ldg(reinterpret_cast<const unsigned short*>(src))
+              : (unsigned short)0;
+    asm volatile("st.shared.u16 [%0], %1;\n" ::"r"(dst), "h"(v) : "memory");
+  }
 }
+
+// four floats from p, those from `width` on (of 4) zero
+__device__ __forceinline__ float4 load4_tail(const float* p, int width) {
+  return make_float4(width > 0 ? __ldg(p) : 0.0f,
+                     width > 1 ? __ldg(p + 1) : 0.0f,
+                     width > 2 ? __ldg(p + 2) : 0.0f,
+                     width > 3 ? __ldg(p + 3) : 0.0f);
+}
+
+// A block's share of the columns: the C = 512 kernels' is the whole row in
+// 16-query blocks (compiled in); the generic kernel's comes from the host's
+// plan (ops/fused.py::cv_agg_plan)
+struct AggChunk {
+  int c;      // channels of a row
+  int cells;  // cells (four channels) of a chunk; blockIdx.y is the chunk
+  int per;    // queries a thread takes (its slot's, `slots` apart)
+  int tiles;  // blocks of each batch element (blockIdx.x = b * tiles + t)
+};
 
 // T the element of p2p: float, or __nv_bfloat16 for the bf16 arm (a
-// thread's four channels of a row one uint2)
-template <typename T>
+// thread's four channels of a row one uint2).  kPart: the bytes of one copy
+// into a cell, the whole cell where every row is aligned to it (always at
+// C = 512), else 8, 4 or 2 bytes of it.  kFixed: the C = 512 kernels,
+// their chunk, slots and queries compiled in.
+template <typename T, int kPart, bool kFixed>
 __device__ __forceinline__ void agg_body(const T* __restrict__ p2p,
                                          const int* __restrict__ idx,
                                          const float* __restrict__ zq,
                                          WeightNet wn,
                                          float* __restrict__ out, int n,
-                                         int k, int tiles) {
+                                         int k, AggChunk ch) {
   constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
   using Cell = typename std::conditional<kBf16, uint2, float4>::type;
   constexpr int kCell = sizeof(Cell);
-  constexpr int C4 = kC / 4;
-  constexpr int kPer = kAggQ / kAggSlots;  // queries of a thread
+  constexpr int kParts = kCell / kPart;  // copies a cell
+  constexpr int kPartCh = kPart / (int)sizeof(T);  // channels a copy
+  static_assert(!kFixed || kParts == 1, "whole cells at C = 512");
+  constexpr int kPairs = kFixed ? kAggPairs : kAggMaxPairs;
+  const int c = kFixed ? kC : ch.c;
+  const int cells = kFixed ? kC / 4 : ch.cells;
+  const int slots = kFixed ? kAggSlots : kAggThreads / cells;
+  const int per = kFixed ? kAggPer : ch.per;
+  const int qb = slots * per;  // queries of the block
+  const int64_t row_bytes = (int64_t)c * sizeof(T);
   // [kAggDepth][kAggKc][kAggThreads] cells
   extern __shared__ __align__(16) char g_raw[];
   const Cell* g_s = reinterpret_cast<const Cell*>(g_raw);
-  __shared__ float4 h_s[kAggPairs][2];  // each pair's hidden layer
+  __shared__ float4 h_s[kPairs][2];  // each pair's hidden layer
   __shared__ float4 wn_s[2 * kH / 4 + kH * kH / 4];  // b0, w1, b1
   // its neighbour's row in p2p, -1 outside [0, N)
-  __shared__ __align__(16) int j_s[kAggPairs];
+  __shared__ __align__(16) int j_s[kPairs];
   const uint32_t ring = tc::smem_addr(g_raw) + kCell * threadIdx.x;
 
   const int tid = threadIdx.x;
-  const int64_t row0 = (int64_t)(blockIdx.x / tiles) * n;
-  const int i0 = (blockIdx.x % tiles) * kAggQ;
-  const int c4 = tid % C4, slot = tid / C4;
+  const int64_t row0 = (int64_t)(blockIdx.x / ch.tiles) * n;
+  const int i0 = (blockIdx.x % ch.tiles) * qb;
+  const int slot = tid / cells;
+  // the thread's cell of the row
+  const int cell = (kFixed ? 0 : blockIdx.y * cells) + tid % cells;
+  const int width = c - 4 * cell;  // its channels in the row, if below 4
+  // a thread with a slot and a cell inside the row (all at C = 512)
+  const bool mine = kFixed || (slot < slots && width > 0);
+  const bool whole = kFixed || (c % 4 == 0 && width >= 4);
   if (tid < 2 * kH / 4 + kH * kH / 4) {  // read after the first barrier
     const float* src = tid < 2 ? wn.b0 + 4 * tid
                        : tid < 18 ? wn.w1 + 4 * (tid - 2)
@@ -826,52 +1197,69 @@ __device__ __forceinline__ void agg_body(const T* __restrict__ p2p,
     wn_s[tid] = __ldg(reinterpret_cast<const float4*>(src));
   }
   float4 w2r[kH];
+  float4 b2r;
+  if (whole) {
 #pragma unroll
-  for (int m = 0; m < kH; ++m) {
-    w2r[m] = __ldg(reinterpret_cast<const float4*>(wn.w2 + m * kC) + c4);
+    for (int m = 0; m < kH; ++m) {
+      w2r[m] = __ldg(reinterpret_cast<const float4*>(wn.w2 + m * c +
+                                                     4 * cell));
+    }
+    b2r = __ldg(reinterpret_cast<const float4*>(wn.b2 + 4 * cell));
+  } else {
+#pragma unroll
+    for (int m = 0; m < kH; ++m) {
+      w2r[m] = load4_tail(wn.w2 + m * c + 4 * cell, width);
+    }
+    b2r = load4_tail(wn.b2 + 4 * cell, width);
   }
-  const float4 b2r = __ldg(reinterpret_cast<const float4*>(wn.b2) + c4);
-  const Cell* p4 = reinterpret_cast<const Cell*>(p2p) + c4;
+  const char* pc =
+      reinterpret_cast<const char*>(p2p) + (size_t)4 * cell * sizeof(T);
   const float4* z4 = reinterpret_cast<const float4*>(zq);
   const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
 
-  float4 acc[kPer];
+  // the hidden layer of pair p of the chunk from neighbour k0
+  auto pair = [&](int p, int k0) {
+    const int i = i0 + p / kAggKc, kk = k0 + p % kAggKc;
+    int j = -1;
+    float h[kH] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    if (i < n && kk < k) {
+      const int jj = __ldg(idx + (row0 + i) * k + kk);
+      const bool inside = jj >= 0 && jj < n;
+      const float4 zi0 = __ldg(z4 + 2 * (row0 + i));
+      const float4 zi1 = __ldg(z4 + 2 * (row0 + i) + 1);
+      const float4 zj0 = inside ? __ldg(z4 + 2 * (row0 + jj)) : zero;
+      const float4 zj1 = inside ? __ldg(z4 + 2 * (row0 + jj) + 1) : zero;
+      const float d[kH] = {zj0.x - zi0.x, zj0.y - zi0.y, zj0.z - zi0.z,
+                           zj0.w - zi0.w, zj1.x - zi1.x, zj1.y - zi1.y,
+                           zj1.z - zi1.z, zj1.w - zi1.w};
+      weightnet_hidden_shared(d, wn_s, h);
+      if (inside) j = (int)(row0 + jj);
+    }
+    h_s[p][0] = make_float4(h[0], h[1], h[2], h[3]);
+    h_s[p][1] = make_float4(h[4], h[5], h[6], h[7]);
+    j_s[p] = j;
+  };
+
+  float4 acc[kAggPer];
 #pragma unroll
-  for (int s = 0; s < kPer; ++s) acc[s] = zero;
-  float4* o4 = reinterpret_cast<float4*>(out);
+  for (int s = 0; s < kAggPer; ++s) acc[s] = zero;
   for (int k0 = 0; k0 < k; k0 += kAggKc) {
     __syncthreads();  // wn_s written, the last chunk's h_s and j_s read
-    if (tid < kAggPairs) {
-      const int i = i0 + tid / kAggKc, kk = k0 + tid % kAggKc;
-      int j = -1;
-      float h[kH] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-      if (i < n && kk < k) {
-        const int jj = __ldg(idx + (row0 + i) * k + kk);
-        const bool inside = jj >= 0 && jj < n;
-        const float4 zi0 = __ldg(z4 + 2 * (row0 + i));
-        const float4 zi1 = __ldg(z4 + 2 * (row0 + i) + 1);
-        const float4 zj0 = inside ? __ldg(z4 + 2 * (row0 + jj)) : zero;
-        const float4 zj1 = inside ? __ldg(z4 + 2 * (row0 + jj) + 1) : zero;
-        const float d[kH] = {zj0.x - zi0.x, zj0.y - zi0.y, zj0.z - zi0.z,
-                             zj0.w - zi0.w, zj1.x - zi1.x, zj1.y - zi1.y,
-                             zj1.z - zi1.z, zj1.w - zi1.w};
-        weightnet_hidden_shared(d, wn_s, h);
-        if (inside) j = (int)(row0 + jj);
-      }
-      h_s[tid][0] = make_float4(h[0], h[1], h[2], h[3]);
-      h_s[tid][1] = make_float4(h[4], h[5], h[6], h[7]);
-      j_s[tid] = j;
+    if constexpr (kFixed) {  // a thread a pair
+      if (tid < kAggPairs) pair(tid, k0);
+    } else {
+      for (int p = tid; p < qb * kAggKc; p += kAggThreads) pair(p, k0);
     }
     __syncthreads();
-    // Each thread copies the p2p columns it alone will read into its own
+    // Each thread copies the p2p cells it alone will read into its own
     // cells of a ring of kAggDepth queries, kAggDepth - 1 queries ahead of
     // its sum, so that the rows stream in while it computes.
     const int kn = min(kAggKc, k - k0);
     const bool last = k0 + kAggKc >= k;
     auto fetch = [&](int s) {  // query s's rows into ring stage s % kAggDepth
-      if (s < kPer) {
+      if (s < per && mine) {
         const int4* rows = reinterpret_cast<const int4*>(
-            j_s + (slot + kAggSlots * s) * kAggKc);
+            j_s + (slot + slots * s) * kAggKc);
 #pragma unroll
         for (int kk = 0; kk < kAggKc; kk += 4) {
           const int4 r4 = rows[kk / 4];  // -1 past kn and past N
@@ -880,25 +1268,27 @@ __device__ __forceinline__ void agg_body(const T* __restrict__ p2p,
           for (int e = 0; e < 4; ++e) {
             const uint32_t dst = ring + ((s % kAggDepth) * kAggKc + kk + e) *
                                             (kAggThreads * kCell);
-            const Cell* src = p4 + (size_t)(unsigned)max(r[e], 0) * C4;
-            if constexpr (kBf16) {
-              copy8(dst, src, r[e] >= 0 ? 8 : 0);
-            } else {
-              copy16(dst, src, r[e] >= 0 ? 16 : 0);
+            const char* src = pc + (size_t)(unsigned)max(r[e], 0) * row_bytes;
+#pragma unroll
+            for (int q = 0; q < kParts; ++q) {
+              copy_part<kPart>(dst + q * kPart, src + q * kPart,
+                               r[e] >= 0 && (kFixed || q * kPartCh < width));
             }
           }
         }
       }
-      copy_commit();  // an empty group past kPer keeps the count
+      copy_commit();  // an empty group past `per` keeps the count
     };
 #pragma unroll
     for (int s = 0; s + 1 < kAggDepth; ++s) fetch(s);
 #pragma unroll
-    for (int s = 0; s < kPer; ++s) {
+    for (int s = 0; s < kAggPer; ++s) {
+      if (s >= per) break;  // never at C = 512
       fetch(s + kAggDepth - 1);
       copy_wait<kAggDepth - 1>();  // query s's rows have landed
-      const int qi = slot + kAggSlots * s;
-      if (i0 + qi >= n) continue;  // the same on every lane of a warp
+      const int qi = slot + slots * s;
+      // the same on every lane of a warp, but at the row's last cells
+      if (!mine || i0 + qi >= n) continue;
       const Cell* g = g_s + (s % kAggDepth) * kAggKc * kAggThreads + tid;
       // no branch inside a step of 4, so that the steps' products overlap
 #pragma unroll 4
@@ -923,7 +1313,18 @@ __device__ __forceinline__ void agg_body(const T* __restrict__ p2p,
         acc[s] = fma4(w, gv, acc[s]);
       }
       // a whole sum goes out at once, under the next query's work
-      if (last) o4[(row0 + i0 + qi) * C4 + c4] = acc[s];
+      if (last) {
+        float* o = out + (row0 + i0 + qi) * c + 4 * cell;
+        if (whole) {
+          *reinterpret_cast<float4*>(o) = acc[s];
+        } else {
+          const float v[4] = {acc[s].x, acc[s].y, acc[s].z, acc[s].w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if (e < width) o[e] = v[e];
+          }
+        }
+      }
     }
   }
 }
@@ -934,7 +1335,8 @@ __global__ void __launch_bounds__(kAggThreads, 2)
                   const float* __restrict__ zq,   // [B*N, kH]
                   WeightNet wn, float* __restrict__ out, int n, int k,
                   int tiles) {
-  agg_body(p2p, idx, zq, wn, out, n, k, tiles);
+  agg_body<float, 16, true>(p2p, idx, zq, wn, out, n, k,
+                            AggChunk{kC, kC / 4, kAggPer, tiles});
 }
 
 __global__ void __launch_bounds__(kAggThreads, 2)
@@ -942,7 +1344,18 @@ __global__ void __launch_bounds__(kAggThreads, 2)
                        const int* __restrict__ idx, const float* __restrict__ zq,
                        WeightNet wn, float* __restrict__ out, int n, int k,
                        int tiles) {
-  agg_body(p2p, idx, zq, wn, out, n, k, tiles);
+  agg_body<__nv_bfloat16, 8, true>(p2p, idx, zq, wn, out, n, k,
+                                   AggChunk{kC, kC / 4, kAggPer, tiles});
+}
+
+// K4b at any C (the wrapper's generic arm): p2p [B*N, C] float32 or bf16,
+// copied kPart bytes at a time
+template <typename T, int kPart>
+__global__ void __launch_bounds__(kAggThreads, 2)
+    cv_agg_any_kernel(const T* __restrict__ p2p, const int* __restrict__ idx,
+                      const float* __restrict__ zq, WeightNet wn,
+                      float* __restrict__ out, int n, int k, AggChunk ch) {
+  agg_body<T, kPart, false>(p2p, idx, zq, wn, out, n, k, ch);
 }
 
 bool valid_p2p_shape(int b, int n, int k, int c) {
@@ -950,7 +1363,7 @@ bool valid_p2p_shape(int b, int n, int k, int c) {
 }
 
 bool valid_agg_shape(int b, int n, int k, int c) {  // rows fit an int
-  return c == kC && n >= 1 && b >= 0 && k >= 1 &&
+  return c >= 1 && n >= 1 && b >= 0 && k >= 1 &&
          (int64_t)b * n <= 0x7fffffff;
 }
 
@@ -970,7 +1383,9 @@ int launch_agg(void (*kernel)(const T*, const int*, const float*, WeightNet,
                const void* wb0, const void* ww1, const void* wb1,
                const void* ww2, const void* wb2, void* out, int b, int n,
                int k, int c, void* stream) {
-  if (!valid_agg_shape(b, n, k, c)) return (int)cudaErrorInvalidValue;
+  if (!valid_agg_shape(b, n, k, c) || c != kC) {
+    return (int)cudaErrorInvalidValue;
+  }
   if (b == 0) return (int)cudaSuccess;
   const int tiles = (n + kAggQ - 1) / kAggQ;  // b * tiles <= b * n fits
   cudaError_t err = cudaFuncSetAttribute(
@@ -983,33 +1398,50 @@ int launch_agg(void (*kernel)(const T*, const int*, const float*, WeightNet,
   return (int)cudaGetLastError();
 }
 
+template <typename T, int kPart>
+int launch_agg_any(dim3 grid, AggChunk ch, const void* p2p, const void* idx,
+                   const void* zq, WeightNet wn, void* out, int n, int k,
+                   void* stream) {
+  auto kernel = cv_agg_any_kernel<T, kPart>;
+  constexpr size_t smem =
+      agg_smem_bytes<std::is_same<T, __nv_bfloat16>::value>();
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, kAggThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(p2p), static_cast<const int*>(idx),
+      static_cast<const float*>(zq), wn, static_cast<float*>(out), n, k, ch);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// f1c/f2c [B,N,512], idx [B,N,k] int32 (any k >= 1), z1/z2 [B,N,8],
-// dense b0 [512], wpack from tc_weights (w1 and w2 [512,512], split and
-// ordered for the tensor cores), b1 [512], b2 [512], the WeightNet after its
-// first product wb0 [8], ww1 [8,8], wb1 [8], ww2 [8,512], wb2 [512],
-// out [B,N,512].  Returns a cudaError_t.
+// f1c/f2c [B,N,512], idx [B,N,k] int32 (1 <= k <= 64; ops/fused.py sends
+// the k that divide 64 here), z1/z2 [B,N,8], dense b0 [512], wpack from
+// tc_weights (w1 and w2 [512,512], split and ordered for the tensor cores),
+// b1 [512], b2 [512], the WeightNet after its first product wb0 [8], ww1
+// [8,8], wb1 [8], ww2 [8,512], wb2 [512], out [B,N,512].  Returns a
+// cudaError_t.
 int cmflow_cv_p2p(const void* f1c, const void* f2c, const void* idx,
                   const void* z1, const void* z2, const void* b0,
                   const void* wpack, const void* b1, const void* b2,
                   const void* wb0, const void* ww1, const void* wb1,
                   const void* ww2, const void* wb2, void* out, int b, int n,
                   int k, int c, void* stream) {
-  if (!valid_p2p_shape(b, n, k, c)) return (int)cudaErrorInvalidValue;
+  if (!valid_p2p_shape(b, n, k, c) || k > kP2pRows) {
+    return (int)cudaErrorInvalidValue;
+  }
   const int total = b * n;
   if (total == 0) return (int)cudaSuccess;
-  const bool tiles = k > kP2pRows;
-  auto kernel = tiles ? cv_p2p_kernel<true> : cv_p2p_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      cv_p2p_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)kP2pSmemBytes);
   if (err != cudaSuccess) return (int)err;
-  const int qpb = tiles ? 1 : kP2pRows / k;
-  kernel<<<(total + qpb - 1) / qpb, kP2pThreads, kP2pSmemBytes,
-           static_cast<cudaStream_t>(stream)>>>(
+  const int qpb = kP2pRows / k;
+  cv_p2p_kernel<<<(total + qpb - 1) / qpb, kP2pThreads, kP2pSmemBytes,
+                  static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(f1c), static_cast<const float*>(f2c),
       static_cast<const int*>(idx), static_cast<const float*>(z1),
       static_cast<const float*>(z2), static_cast<const float*>(b0), wpack,
@@ -1018,6 +1450,54 @@ int cmflow_cv_p2p(const void* f1c, const void* f2c, const void* idx,
       k);
   return (int)cudaGetLastError();
 }
+
+// The full-tile arm (any k >= 1; ops/fused.py sends the k whose tile of
+// whole queries would leave an eighth or more of its rows empty): the
+// arguments of cmflow_cv_p2p, then the plan of ops/fused.py::cv_p2p_plan,
+// `qpb` whole queries a block, their rows in full tiles of 64.  A grid of
+// ceil(B*N / qpb) blocks.
+int cmflow_cv_p2p_full(const void* f1c, const void* f2c, const void* idx,
+                       const void* z1, const void* z2, const void* b0,
+                       const void* wpack, const void* b1, const void* b2,
+                       const void* wb0, const void* ww1, const void* wb1,
+                       const void* ww2, const void* wb2, void* out, int b,
+                       int n, int k, int c, int qpb, void* stream) {
+  if (!valid_p2p_shape(b, n, k, c) || qpb < 1 ||
+      (int64_t)qpb * k + kP2pRows > 0x7fffffff) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int total = b * n;
+  if (total == 0) return (int)cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(
+      cv_p2p_full_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kP2pSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  cv_p2p_full_kernel<<<(total + qpb - 1) / qpb, kP2pThreads, kP2pSmemBytes,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(f1c), static_cast<const float*>(f2c),
+      static_cast<const int*>(idx), static_cast<const float*>(z1),
+      static_cast<const float*>(z2), static_cast<const float*>(b0), wpack,
+      static_cast<const float*>(b1), static_cast<const float*>(b2),
+      weightnet(wb0, ww1, wb1, ww2, wb2), static_cast<float*>(out), total, n,
+      k, qpb);
+  return (int)cudaGetLastError();
+}
+
+#ifdef CV_P2P_TIMELINE
+// block 0's stamps of the last launch (pairs of cycle counter and mark) into
+// `host`, at most n pairs; returns how many, and clears them
+int cmflow_cv_p2p_timeline(long long* host, int n) {
+  int count = 0;
+  cudaMemcpyFromSymbol(&count, g_stamp_count, sizeof(int));
+  count = count < n ? count : n;
+  if (count > 0) {
+    cudaMemcpyFromSymbol(host, g_stamps, 2 * sizeof(long long) * count);
+  }
+  const int zero = 0;
+  cudaMemcpyToSymbol(g_stamp_count, &zero, sizeof(int));
+  return count;
+}
+#endif
 
 // The bf16 arm: f1c/f2c and out [B,N,512] bf16, idx [B,N,k] int32 (any
 // k >= 1), wpack from tc_weights_bf16 (bf16), the rest as cmflow_cv_p2p.
@@ -1066,6 +1546,59 @@ int cmflow_cv_agg_bf16(const void* p2p, const void* idx, const void* zq,
                        int n, int k, int c, void* stream) {
   return launch_agg(cv_agg_bf16_kernel, agg_smem_bytes<true>(), p2p, idx, zq,
                     wb0, ww1, wb1, ww2, wb2, out, b, n, k, c, stream);
+}
+
+// K4b at any C >= 1 (ops/fused.py sends every C but 512 here), bf16 1 for
+// the bf16 arm: the arguments of cmflow_cv_agg (p2p [B,N,C], ww2 [8,C], wb2
+// [C], out [B,N,C]), then the chunk of ops/fused.py::cv_agg_plan: `cells`
+// cells of four channels a block and `per` queries a thread, so 256 /
+// cells * per queries a block.  A grid of B * ceil(N / that) blocks by
+// ceil(ceil(C / 4) / cells) chunks.  Each cell is copied in pieces of the
+// widest size that every row's start allows (p2p's address and its row
+// stride, so p2p may start at any address its elements are aligned to):
+// float32 16, 8 or 4 bytes, bf16 8, 4 or 2.  zq, wb0, ww1, wb1, and ww2
+// and wb2 where C is a multiple of 4, are read as float4s and must be
+// 16-byte aligned.
+int cmflow_cv_agg_any(int bf16, const void* p2p, const void* idx,
+                      const void* zq, const void* wb0, const void* ww1,
+                      const void* wb1, const void* ww2, const void* wb2,
+                      void* out, int b, int n, int k, int c, int cells,
+                      int per, void* stream) {
+  if (!valid_agg_shape(b, n, k, c) || cells < 1 || cells > kAggThreads ||
+      per < 1 || per > kAggPer ||
+      kAggThreads / cells * per * kAggKc > kAggMaxPairs) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int qb = kAggThreads / cells * per;
+  const int64_t tiles = (n + qb - 1) / qb;
+  const int64_t chunks = ((c + 3) / 4 + cells - 1) / cells;
+  if ((int64_t)b * tiles > 0x7fffffff || chunks > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (b == 0) return (int)cudaSuccess;
+  const AggChunk ch{c, cells, per, (int)tiles};
+  const dim3 grid((unsigned)(b * tiles), (unsigned)chunks);
+  const WeightNet wn = weightnet(wb0, ww1, wb1, ww2, wb2);
+  // what every row's start is aligned to: the pointer's and the stride's
+  const uintptr_t at =
+      reinterpret_cast<uintptr_t>(p2p) | ((uintptr_t)c * (bf16 ? 2 : 4));
+  if (bf16) {
+    using T = __nv_bfloat16;
+    return at % 8 == 0 ? launch_agg_any<T, 8>(grid, ch, p2p, idx, zq, wn, out,
+                                              n, k, stream)
+           : at % 4 == 0 ? launch_agg_any<T, 4>(grid, ch, p2p, idx, zq, wn,
+                                                out, n, k, stream)
+           : at % 2 == 0 ? launch_agg_any<T, 2>(grid, ch, p2p, idx, zq, wn,
+                                                out, n, k, stream)
+                         : (int)cudaErrorInvalidValue;
+  }
+  return at % 16 == 0 ? launch_agg_any<float, 16>(grid, ch, p2p, idx, zq, wn,
+                                                  out, n, k, stream)
+         : at % 8 == 0 ? launch_agg_any<float, 8>(grid, ch, p2p, idx, zq, wn,
+                                                  out, n, k, stream)
+         : at % 4 == 0 ? launch_agg_any<float, 4>(grid, ch, p2p, idx, zq, wn,
+                                                  out, n, k, stream)
+                       : (int)cudaErrorInvalidValue;
 }
 
 const char* cmflow_error_string(int code) {

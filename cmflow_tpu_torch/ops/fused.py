@@ -44,9 +44,14 @@ by shape alone (:func:`mse_arm`, :func:`plf_arm`, :func:`cv_p2p_arm`,
 WeightNet-weighted sum over K; its products on the tensor cores in 3xTF32
 or bf16, with weights packed per call by :func:`chain_tc_weights` and a
 launch planned from the shapes by :func:`chain_tc_plan`; a chain with no
-product, K4b's, in float32 FMAs), whose every launch
-:func:`_chain` counts in its wrapper's ``launches`` and
-``launches_generic`` (K3's generic arm launches once a scale).  The only
+product in float32 FMAs), whose every launch :func:`_chain` counts in its
+wrapper's ``launches`` and ``launches_generic`` (K3's generic arm launches
+once a scale).  K4b, which has no product, runs its tuned design at every
+C (``csrc/cost_volume.cu::cv_agg_any_kernel``, in chunks of the row
+planned by :func:`cv_agg_plan`), counted the same way; float32 K4a at a K
+whose whole queries leave an eighth or more of a 64-row tile empty
+(:func:`cv_p2p_full`) runs full tiles across query boundaries
+(:func:`cv_p2p_plan`), counted also in ``launches_full``.  The only
 shapes that raise are those the JAX package does not take either: a
 WeightNet whose hidden width is not 8, and a narrow sa mlp that is not 3
 layers.
@@ -75,6 +80,7 @@ the gathered bases (K3, K5), ``f1c``/``f2c`` (K4a), the point-to-patch cost
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -119,12 +125,16 @@ _SIGNATURES = {
         **{name: (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                   _P, _I, _I, _I, _I, _P)
            for name in ("cmflow_cv_p2p", "cmflow_cv_p2p_bf16")},
+        "cmflow_cv_p2p_full": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                               _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
         **{name: (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)
            for name in ("cmflow_cv_agg", "cmflow_cv_agg_bf16")},
+        "cmflow_cv_agg_any": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                              _I, _I, _I, _I, _I, _P),
     },
     "chain": {
-        "cmflow_chain": (_I, _I, _P, _I, _I, _I, _P, _L, _P, _P, _P, _P, _I,
-                         _P, _P, _P, _P, _P, _P, _P, _L, _P),
+        "cmflow_chain": (_I, _P, _I, _I, _I, _P, _L, _P, _P, _P, _P, _I, _P,
+                         _L, _P),
         "cmflow_chain_tc": (_I, _I, ctypes.POINTER(ctypes.c_longlong), _P,
                             _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P),
         "cmflow_chain_tc_static_smem": (_I, _I),
@@ -188,6 +198,12 @@ def _check_kernel_args(what: str, tensors: Sequence[Tensor]) -> None:
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError(f"{what}: the CUDA kernel needs 16-byte aligned "
                          f"tensors")
+
+
+def _aligned(t: Tensor) -> Tensor:
+    """``t`` contiguous and 16-byte aligned, copied where it is not."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
 
 
 def _group(points: Tensor, idx: Tensor) -> Tensor:
@@ -742,12 +758,13 @@ def cv_p2p_arm(widths: Sequence[int]) -> str:
 
 
 def cv_agg_arm(c: int) -> str:
-    """K4b's kernel for a cost of width ``c``: ``csrc/cost_volume.cu`` at
-    ``CV_WIDTH``, else the generic kernel."""
+    """K4b's kernel for a cost of width ``c``: ``csrc/cost_volume.cu``'s
+    tuned instance at ``CV_WIDTH``, else its generic one (the same design in
+    chunks of the row, :func:`cv_agg_plan`)."""
     return TUNED if c == CV_WIDTH else GENERIC
 
 
-_CHAIN_KINDS = {"max": 0, "p2p": 1, "agg": 2}
+_CHAIN_KINDS = {"max": 0, "p2p": 1}
 
 # The generic kernel's tensor-core kernel (csrc/chain.cu::chain_tc_kernel,
 # kinds max and p2p with at least one layer): its constants, and the plan of
@@ -1007,11 +1024,11 @@ def _chain(wrapper, kind: str, idx: Tensor, src: Tensor, out: Tensor, *,
     """One launch of the generic kernel (``csrc/chain.cu``) on the card,
     counted in ``wrapper``'s ``launches`` and ``launches_generic``: a chain
     with layers on the tensor cores (``chain_tc_kernel``; its weights,
-    parameters and plan made here), one without on ``chain_kernel``.
+    parameters and plan made here), a max with none on ``chain_kernel``.
 
-    ``src`` (the gathered rows: base, ``f2c`` or the point-to-patch cost)
-    and ``out`` are ``[B, N, C]`` views whose rows may be strided (a channel
-    block of a wider tensor); ``f1c`` shares ``src``'s row stride.
+    ``src`` (the gathered rows: base or ``f2c``) and ``out`` are ``[B, N,
+    C]`` views whose rows may be strided (a channel block of a wider
+    tensor); ``f1c`` shares ``src``'s row stride.
     ``layers`` are ``(w [cin, cout], s or None, b)``, any number; the rest as
     ``csrc/chain.cu`` takes them."""
     b, n, c0 = src.shape
@@ -1043,10 +1060,11 @@ def _chain(wrapper, kind: str, idx: Tensor, src: Tensor, out: Tensor, *,
             out.data_ptr(), _ptr(scratch), int(_whole_rows(src, f1c, c0)),
             _stream(src))
     else:
+        if kind != "max":
+            raise ValueError(f"the generic kernel's {kind} takes layers")
         code = lib.cmflow_chain(
-            _CHAIN_KINDS[kind], int(bf16), idx.data_ptr(), b, n, k,
-            src.data_ptr(), src.stride(1), _ptr(xyz), _ptr(wrel), _ptr(s0),
-            _ptr(b0), c0, _ptr(z1), *[_ptr(t) for t in (wn or (None,) * 5)],
+            int(bf16), idx.data_ptr(), b, n, k, src.data_ptr(),
+            src.stride(1), _ptr(xyz), _ptr(wrel), _ptr(s0), _ptr(b0), c0,
             out.data_ptr(), out.stride(1), _stream(src))
     build.check(lib, code, f"the generic kernel ({kind})")
     wrapper.launches += 1
@@ -1414,6 +1432,101 @@ fused_point_local_feature.launches_generic = 0
 # K4a + K4b: the cost volume
 # ---------------------------------------------------------------------------
 
+# K4a (csrc/cost_volume.cu): tiles of CV_P2P_ROWS (query, neighbour) rows
+# (the kernel's kP2pRows); float32 at the K of cv_p2p_full runs the
+# full-tile arm (cv_p2p_full_kernel)
+CV_P2P_ROWS = 64
+# the share of a tile of whole queries below which the full-tile arm takes
+# a k < 64: on the card a full tile costs ~1.13x a tile of whole queries,
+# whose empty rows gather nothing (PERF.md §6)
+CV_P2P_FULL_BELOW = 7 / 8
+
+
+def cv_p2p_full(k: int) -> bool:
+    """Whether float32 K4a at ``k`` neighbours takes the full-tile arm:
+    past ``CV_P2P_ROWS`` every ``k`` (a query's rows over tiles would leave
+    the last one part empty), below it every ``k`` whose tile of whole
+    queries (``CV_P2P_ROWS // k`` of them) is less than
+    ``CV_P2P_FULL_BELOW`` full; the ``k`` that divide ``CV_P2P_ROWS`` fill
+    their tiles and never do."""
+    if k > CV_P2P_ROWS:
+        return True
+    return CV_P2P_ROWS // k * k < CV_P2P_FULL_BELOW * CV_P2P_ROWS
+
+
+def cv_p2p_plan(total: int, k: int, sms: int = H100_SMS) -> Dict[str, float]:
+    """The full-tile arm's launch for ``total = B * N`` queries of ``k``
+    neighbours on a card of ``sms`` SMs (one block an SM), from the shapes
+    alone: each block takes ``qpb`` consecutive whole queries, the fewest
+    with which ``sms`` blocks take them all, their ``qpb * k`` rows one
+    after the other in full tiles across query boundaries, ``tiles`` of
+    them (the last block's rows, fewer, in fewer tiles).  ``blocks``: the
+    grid; ``fill``: the share of the rows run that hold a (query,
+    neighbour)."""
+    if total <= 0:
+        return dict(qpb=0, tiles=0, blocks=0, fill=0.0)
+    qpb = -(-total // max(1, sms))
+    tiles = -(-qpb * k // CV_P2P_ROWS)
+    blocks = -(-total // qpb)
+    last = -(-(total - (blocks - 1) * qpb) * k // CV_P2P_ROWS)
+    return dict(qpb=qpb, tiles=tiles, blocks=blocks,
+                fill=total * k / (((blocks - 1) * tiles + last)
+                                  * CV_P2P_ROWS))
+
+
+# K4b (csrc/cost_volume.cu::cv_agg_kernel and, at any C, cv_agg_any_kernel):
+# blocks of CV_AGG_THREADS threads, each on a cell of four channels of a
+# row for up to CV_AGG_PER queries, the neighbours in chunks of CV_AGG_KC,
+# at most CV_AGG_MAX_PAIRS (query, neighbour) pairs a chunk, CV_AGG_BLOCKS
+# blocks an SM (the launch bound); the kernel's kAggThreads, kAggPer,
+# kAggKc and kAggMaxPairs
+CV_AGG_THREADS = 256
+CV_AGG_PER = 8
+CV_AGG_KC = 8
+CV_AGG_MAX_PAIRS = 512
+CV_AGG_BLOCKS = 2
+
+
+@functools.lru_cache(maxsize=None)
+def cv_agg_plan(c: int, b: int, n: int, sms: int = H100_SMS
+                ) -> Dict[str, int]:
+    """K4b's launch at any C (``cv_agg_any_kernel``) for B clouds of N
+    points, from the shapes alone: a block takes one chunk of ``cells``
+    cells of four channels (``chunks`` chunks cover the row's ``row_cells``)
+    for ``queries = CV_AGG_THREADS // cells * per`` queries of one cloud,
+    ``per`` a thread; ``tiles`` blocks a cloud, ``blocks`` in all.  Of every
+    (cells, per) it takes the one whose waves (``blocks`` over the
+    ``CV_AGG_BLOCKS * sms`` the card runs at once) times a block's work
+    (``per`` queries a thread, and one for the block's fixed cost: the
+    hidden layer, the barriers, the ring's first query) is least; ties go
+    to more queries a thread, then to wider chunks."""
+    row = -(-c // 4)
+    slots_card = CV_AGG_BLOCKS * max(1, sms)
+    best = None
+    # a chunk of fewer than four cells would give a block more queries
+    # than a chunk's pairs hold
+    least = CV_AGG_THREADS * CV_AGG_KC // CV_AGG_MAX_PAIRS
+    for cells in sorted({max(least, -(-row // ch))
+                         for ch in range(1, row + 1)}):
+        if cells > CV_AGG_THREADS:
+            continue
+        slots = CV_AGG_THREADS // cells
+        chunks = -(-row // cells)
+        for per in range(1, CV_AGG_PER + 1):
+            queries = slots * per
+            if queries * CV_AGG_KC > CV_AGG_MAX_PAIRS:
+                break
+            tiles = -(-n // queries)
+            blocks = b * tiles * chunks
+            cost = -(-blocks // slots_card) * (per + 1)
+            key = (cost, -per, -cells)
+            if best is None or key < best[0]:
+                best = (key, dict(row_cells=row, cells=cells, chunks=chunks,
+                                  per=per, queries=queries, tiles=tiles,
+                                  blocks=blocks))
+    return best[1]
+
+
 def _weightnet_tail(z: Tensor, wn: Sequence[Tensor]) -> Tensor:
     """WeightNet after its first product: ``z = d @ w0``, then
     ReLU(z + b0) -> Dense -> ReLU -> Dense -> ReLU."""
@@ -1481,13 +1594,20 @@ def cost_volume_p2p(f1c: Tensor, f2c: Tensor, idx: Tensor, z1: Tensor,
                        [f1c, f2c, idx, z1, z2, b0, wpack, b1, b2, *wn])
     out = torch.empty((b, n, c), dtype=f1c.dtype, device=f1c.device)
     lib = build.load("cost_volume", _SIGNATURES["cost_volume"])
-    code = (lib.cmflow_cv_p2p_bf16 if bf16 else lib.cmflow_cv_p2p)(
-        f1c.data_ptr(), f2c.data_ptr(), idx.data_ptr(), z1.data_ptr(),
-        z2.data_ptr(), b0.data_ptr(), wpack.data_ptr(), b1.data_ptr(),
-        b2.data_ptr(), *[t.data_ptr() for t in wn], out.data_ptr(), b, n, k,
-        c, _stream(f1c))
+    args = (f1c.data_ptr(), f2c.data_ptr(), idx.data_ptr(), z1.data_ptr(),
+            z2.data_ptr(), b0.data_ptr(), wpack.data_ptr(), b1.data_ptr(),
+            b2.data_ptr(), *[t.data_ptr() for t in wn], out.data_ptr(), b, n,
+            k, c)
+    full = not bf16 and cv_p2p_full(k)
+    if full:
+        plan = cv_p2p_plan(b * n, k, _sms(f1c.device))
+        code = lib.cmflow_cv_p2p_full(*args, plan["qpb"], _stream(f1c))
+    else:
+        code = (lib.cmflow_cv_p2p_bf16 if bf16 else lib.cmflow_cv_p2p)(
+            *args, _stream(f1c))
     build.check(lib, code, "cost_volume_p2p")
     cost_volume_p2p.launches += 1
+    cost_volume_p2p.launches_full += int(full)
     return out
 
 
@@ -1506,9 +1626,11 @@ def _cv_p2p_generic(f1c: Tensor, f2c: Tensor, idx: Tensor, z1: Tensor,
     return out
 
 
-# every launch, and those of the generic arm (counted in :func:`_chain`)
+# every launch, those of the generic arm (counted in :func:`_chain`) and
+# those of the full-tile arm
 cost_volume_p2p.launches = 0
 cost_volume_p2p.launches_generic = 0
+cost_volume_p2p.launches_full = 0
 
 
 def cost_volume_agg_plain(p2p: Tensor, idx: Tensor, zq: Tensor,
@@ -1557,16 +1679,31 @@ def cost_volume_agg(p2p: Tensor, idx: Tensor, zq: Tensor,
 
 def _cv_agg_generic(p2p: Tensor, idx: Tensor, zq: Tensor,
                     wn: Sequence[Tensor]) -> Tensor:
-    """K4b on the generic kernel, whatever its width (the wrapper's generic
-    arm; the checks are the wrapper's): one launch."""
-    out = torch.empty(p2p.shape, dtype=torch.float32, device=p2p.device)
-    zq = zq.contiguous()
-    _chain(cost_volume_agg, "agg", idx.contiguous(), p2p.contiguous(), out,
-           z1=zq, z2=zq, wn=wn)
+    """K4b at any width (the wrapper's generic arm; the checks are the
+    wrapper's): one launch of ``cv_agg_any_kernel`` in chunks of the row
+    (:func:`cv_agg_plan`), counted in ``launches`` and
+    ``launches_generic``.  p2p may start anywhere (the kernel copies its
+    rows in pieces their starts allow); the small tensors it reads as
+    float4s are copied where they are not 16-byte aligned."""
+    b, n, c = p2p.shape
+    p2p, idx = p2p.contiguous(), idx.contiguous()
+    zq = _aligned(zq)
+    wn = [_aligned(t) if i < 3 or c % 4 == 0 else t.contiguous()
+          for i, t in enumerate(wn)]
+    plan = cv_agg_plan(c, b, n, _sms(p2p.device))
+    out = torch.empty((b, n, c), dtype=torch.float32, device=p2p.device)
+    lib = build.load("cost_volume", _SIGNATURES["cost_volume"])
+    code = lib.cmflow_cv_agg_any(
+        int(p2p.dtype == torch.bfloat16), p2p.data_ptr(), idx.data_ptr(),
+        zq.data_ptr(), *[t.data_ptr() for t in wn], out.data_ptr(), b, n,
+        idx.shape[2], c, plan["cells"], plan["per"], _stream(p2p))
+    build.check(lib, code, "cost_volume_agg (any C)")
+    cost_volume_agg.launches += 1
+    cost_volume_agg.launches_generic += 1
     return out
 
 
-# every launch, and those of the generic arm (counted in :func:`_chain`)
+# every launch, and those of the generic arm (any C but CV_WIDTH)
 cost_volume_agg.launches = 0
 cost_volume_agg.launches_generic = 0
 

@@ -13,11 +13,13 @@ turns in one call, e.g. the parent unpacked with ``git archive`` into
         (cd $t && python $OLDPWD/scripts/profile_torch_chain.py); done
 
 It uses only the wrappers' private generic routes (``_mse_generic``,
-``_plf_generic``, ``_cv_p2p_generic``, ``_cv_agg_generic``), so it runs on
-any tree that has them.  Config B (``chip_smoke.py``'s ``shapes`` phase):
-B=16, N=256; K3 (64, 64, 128) with 3 features at K = 16, 32, 64 (a launch a
-scale); K5 (768, 384, 96) at K = 16, 32, 64 (the three scales of a
-forward, a launch each); K4a and K4b at C = 768, k = 16; float32 and bf16,
+``_plf_generic``, ``_cv_p2p_generic``), so it runs on any tree that has
+them.  Config B (``chip_smoke.py``'s ``shapes`` phase): B=16, N=256; K3
+(64, 64, 128) with 3 features at K = 16, 32, 64 (a launch a scale); K5
+(768, 384, 96) at K = 16, 32, 64 (the three scales of a forward, a launch
+each); K4a at C = 768, k = 16 (K4b's generic arm is
+``csrc/cost_volume.cu``'s, ``scripts/profile_torch_cv.py``); float32 and
+bf16,
 random neighbours (some outside [0, N)), seeded inputs.  Each kernel's time
 is its device time from ``torch.profiler`` (kernels whose name holds
 ``chain``) over REPEATS calls (default 10), after two warm-up calls, from a
@@ -72,7 +74,7 @@ def generic_launches() -> int:
     """The generic kernel's launches so far, over the four wrappers."""
     return sum(w.launches_generic for w in (
         fused.fused_multi_scale_encoder, fused.fused_point_local_feature,
-        fused.cost_volume_p2p, fused.cost_volume_agg))
+        fused.cost_volume_p2p))
 
 
 def device_ms(fn, repeats: int) -> float:
@@ -195,18 +197,13 @@ def make_cases(dtype, dev, rs, tc_only: bool = False) -> list:
                   2 * rows * sum(KS) * (768 * 384 + 384 * 96)))
     fc = seeded(blocks.FeatureCorrelator(16, 768, 768, (768,) * 3), dev, 3)
     with torch.no_grad():
-        dense, wn1, wn2 = fused.cv_params_from_variables(fc)
+        dense, wn1, _ = fused.cv_params_from_variables(fc)
     dense = [t.to(dtype) if i % 2 == 0 else t for i, t in enumerate(dense)]
     args = (rand(B, N, 768, dtype=dtype), rand(B, N, 768, dtype=dtype),
             idx(16), rand(B, N, 8), rand(B, N, 8), dense[1:], wn1[1:])
     cases.append(("K4a C=768 k=16", lambda: fused._cv_p2p_generic(*args),
                   [cublas([rows * 16] * 2, [768] * 3, dtype, dev)],
                   2 * rows * 16 * 2 * 768 * 768))
-    if not tc_only:
-        agg = (rand(B, N, 768, dtype=dtype), idx(16), rand(B, N, 8),
-               wn2[1:])
-        cases.append(("K4b C=768 k=16",
-                      lambda: fused._cv_agg_generic(*agg), [], 0))
     # the first K5 scale alone (the timeline's call)
     cases.append(("K5 (768, 384, 96) K=16",
                   lambda: fused._plf_generic(feat_tx, pids[0], pc, chain),

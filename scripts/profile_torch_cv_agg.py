@@ -43,15 +43,20 @@ from cmflow_tpu_torch.ops import fused, neighbors  # noqa: E402
 
 OUT = build.BUILD_DIR.parent / "cv_agg_variants"
 KERNEL = "cv_agg_kernel"
-G_LOAD = "r[e] >= 0 ? 16 : 0"
+G_LOAD = "r[e] >= 0 && (kFixed || q * kPartCh < width)"
+BOUND = "__launch_bounds__(kAggThreads, 2)\n    cv_agg_kernel("
 W_LAYER = "t = fma4(make_float4(h[m], h[m], h[m], h[m]), w2r[m], t);"
 HIDDEN = "weightnet_hidden_shared(d, wn_s, h);"
 SUM_LOOP = "#pragma unroll {}\n      for (int kk = 0; kk < kn; ++kk) {{"
+# a block of Q queries takes Q / 2 a thread (two query slots of 128
+# threads)
+PER = [(r"constexpr int kAggPer = \d+;", "constexpr int kAggPer = {};")]
 VARIANTS = {
     **{f"Q={q} kc={kc}": [(r"constexpr int kAggQ = \d+;",
                            f"constexpr int kAggQ = {q};"),
                           (r"constexpr int kAggKc = \d+;",
-                           f"constexpr int kAggKc = {kc};")]
+                           f"constexpr int kAggKc = {kc};"),
+                          *[(pat, repl.format(q // 2)) for pat, repl in PER]]
        for q in (4, 8, 16) for kc in (8, 16)},
     "Q=16 kc=4": [(r"constexpr int kAggKc = \d+;",
                    "constexpr int kAggKc = 4;")],
@@ -61,11 +66,10 @@ VARIANTS = {
                  "constexpr int kAggDepth = 3;")],
     "Q=8 three_blocks_per_sm": [
         (r"constexpr int kAggQ = \d+;", "constexpr int kAggQ = 8;"),
-        (re.escape("__launch_bounds__(kAggThreads, 2)"),
-         "__launch_bounds__(kAggThreads, 3)")],
-    "one_block_per_sm": [(re.escape("__launch_bounds__(kAggThreads, 2)"),
-                          "__launch_bounds__(kAggThreads, 1)")],
-    "no_p2p_loads": [(re.escape(G_LOAD), "0")],
+        *[(pat, repl.format(4)) for pat, repl in PER],
+        (re.escape(BOUND), BOUND.replace("2)", "3)"))],
+    "one_block_per_sm": [(re.escape(BOUND), BOUND.replace("2)", "1)"))],
+    "no_p2p_loads": [(re.escape(G_LOAD), "false")],
     "no_last_layer": [(re.escape(W_LAYER), "")],
     "no_hidden_layer": [(re.escape(HIDDEN), "")],
 }

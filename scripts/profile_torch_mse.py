@@ -282,9 +282,10 @@ def build_variant(name: str) -> Path:
     return so
 
 
-def timeline(lib, run) -> dict:
-    """Median cycles between the marks of block 0's steps in one call."""
-    fn = lib.cmflow_mse_long_timeline
+def timeline(lib, run, name: str = "cmflow_mse_long_timeline") -> dict:
+    """Median cycles between the marks of block 0's steps in one call
+    (``name``: the library's function that hands the stamps over)."""
+    fn = getattr(lib, name)
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int]
     fn(None, 0)  # clear
     run()

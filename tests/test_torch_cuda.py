@@ -1436,6 +1436,145 @@ def test_cost_volume_generic(dev, rs, dtype, c, k):
                     before[0] + 2, before[1] + 2)
 
 
+def p2p_whole_tiles(args):
+    """Float32 K4a on its tile-of-whole-queries arm (``cv_p2p_kernel``,
+    which the wrapper keeps for the k that divide 64), called directly at
+    any k <= 64."""
+    from cmflow_tpu_torch.native import build
+    f1c, f2c, idx, z1, z2, dense, wn = args
+    b0, w1, b1, w2, b2 = dense
+    b, n, c = f1c.shape
+    wpack = fused.tc_weights(w1, w2)
+    out = torch.empty_like(f1c)
+    lib = build.load("cost_volume", fused._SIGNATURES["cost_volume"])
+    code = lib.cmflow_cv_p2p(
+        f1c.data_ptr(), f2c.data_ptr(), idx.data_ptr(), z1.data_ptr(),
+        z2.data_ptr(), b0.data_ptr(), wpack.data_ptr(), b1.data_ptr(),
+        b2.data_ptr(), *[t.data_ptr() for t in wn], out.data_ptr(), b, n,
+        idx.shape[2], c, torch.cuda.current_stream().cuda_stream)
+    build.check(lib, code, "cv_p2p_kernel")
+    return out
+
+
+@pytest.mark.parametrize("k", [5, 33, 48, 65, 100, 130])
+@pytest.mark.parametrize("shape", [(16, 256, True), (3, 200, False)])
+def test_cost_volume_p2p_full_tiles(dev, rs, shape, k):
+    """Float32 K4a at the k that do not divide 64 (all but 5, whose whole
+    queries fill 60 of a tile's 64 rows, run the full-tile arm,
+    ``cv_p2p_full_kernel``: 64-row tiles across query boundaries, a
+    persistent grid from ``cv_p2p_plan``), counted once a call: against
+    its plain version with three
+    neighbours outside [0, N), the same bits twice; below 64 also against
+    the tile-of-whole-queries arm at the same bars."""
+    full = int(fused.cv_p2p_full(k))
+    assert full == (k != 5)
+    f, _, _, z, dense, wn1, _ = cost_volume_inputs(rs, shape, dev)
+    idx2 = p2p_indices(rs, shape, k, dev)
+    args = (f[0], f[1], idx2, z[0], z[1], dense[1:], wn1[1:])
+    with torch.no_grad():
+        before = (fused.cost_volume_p2p.launches,
+                  fused.cost_volume_p2p.launches_full)
+        got = same_twice(lambda: fused.cost_volume_p2p(*args))
+        assert (fused.cost_volume_p2p.launches,
+                fused.cost_volume_p2p.launches_full) == (before[0] + 2,
+                                                         before[1] + 2 * full)
+        near(got, fused.cost_volume_p2p_plain(*args))
+        if k < 64:
+            near(got, p2p_whole_tiles(args))
+
+
+@pytest.mark.parametrize("k", [1, 8, 16, 32, 64])
+def test_cost_volume_p2p_divisors_keep_their_arm(dev, rs, k):
+    """The k that divide 64 keep the tile-of-whole-queries arm: the
+    wrapper's bits are its bits, and no full-tile launch is counted."""
+    shape = (16, 256, True)
+    f, _, _, z, dense, wn1, _ = cost_volume_inputs(rs, shape, dev)
+    idx2 = p2p_indices(rs, shape, k, dev)
+    args = (f[0], f[1], idx2, z[0], z[1], dense[1:], wn1[1:])
+    with torch.no_grad():
+        before = fused.cost_volume_p2p.launches_full
+        got = fused.cost_volume_p2p(*args)
+        assert fused.cost_volume_p2p.launches_full == before
+        same(got, p2p_whole_tiles(args))
+
+
+@pytest.mark.parametrize("k", [5, 16])
+@pytest.mark.parametrize("bn", [(16, 256), (3, 200)])
+@pytest.mark.parametrize("c", [3, 100, 511, 512, 768, 826])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cost_volume_agg_any_c(dev, rs, dtype, c, bn, k):
+    """K4b at any C on the tuned design (``cv_agg_any_kernel``: chunks of
+    the row from ``cv_agg_plan``, cells copied whole or in 8-, 4- or 2-byte
+    pieces where the rows are not aligned to a cell), in both dtypes, N not
+    a multiple of a block's queries, three neighbours outside [0, N):
+    against the plain version at the float32 bars, the same bits twice,
+    counted as a generic launch.  Each channel's bits do not depend on the
+    chunking: at C = 512 they are the tuned kernel's, and another chunk of
+    the row (32 cells, 2 queries a thread) gives the same bits."""
+    b, n = bn
+    h = fused.WEIGHTNET_HIDDEN
+    cost = torch.from_numpy(rs.randn(b, n, c).astype(np.float32)).to(
+        dev).to(dtype)
+    zq = torch.from_numpy(rs.randn(b, n, h).astype(np.float32)).to(dev)
+    idx = random_idx(rs, b, n, k, dev)
+    idx[0, :3, 0] = torch.tensor([-1, n, 4096], dtype=torch.int32)
+    fc = seeded(blocks.FeatureCorrelator(8, c, c, (c, c, c)), dev, 13)
+    with torch.no_grad():
+        wn = fused.cv_params_from_variables(fc)[2][1:]
+        args = (cost, idx, zq, wn)
+        before = (fused.cost_volume_agg.launches,
+                  fused.cost_volume_agg.launches_generic)
+        got = same_twice(lambda: fused._cv_agg_generic(*args))
+        assert (fused.cost_volume_agg.launches,
+                fused.cost_volume_agg.launches_generic) == (
+                    before[0] + 2, before[1] + 2)
+        near(got, fused.cost_volume_agg_plain(*args))
+        if c == fused.CV_WIDTH:
+            same(got, fused.cost_volume_agg(*args))
+        plan = fused.cv_agg_plan
+        try:
+            fused.cv_agg_plan = lambda *a: dict(plan(*a), cells=32, per=2)
+            other = fused._cv_agg_generic(*args)
+        finally:
+            fused.cv_agg_plan = plan
+        same(got, other)
+
+
+def off_cell(t, offset):
+    """A contiguous copy of ``t`` that starts ``offset`` elements into a
+    fresh buffer, so not 16-byte aligned."""
+    flat = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    view = flat[offset:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("offset", [1, 2])
+@pytest.mark.parametrize("c", [100, 768, 826])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cost_volume_agg_any_c_offset_views(dev, rs, dtype, c, offset):
+    """K4b's generic arm on tensors that start off a 16-byte cell: p2p
+    (the kernel copies its rows in the pieces their starts allow), zq and
+    the WeightNet (copied where the kernel reads them as float4s).  The
+    bits are those of the aligned tensors, and within the float32 bars of
+    the plain version."""
+    b, n, k = 3, 200, 16
+    h = fused.WEIGHTNET_HIDDEN
+    cost = torch.from_numpy(rs.randn(b, n, c).astype(np.float32)).to(
+        dev).to(dtype)
+    zq = torch.from_numpy(rs.randn(b, n, h).astype(np.float32)).to(dev)
+    idx = random_idx(rs, b, n, k, dev)
+    fc = seeded(blocks.FeatureCorrelator(8, c, c, (c, c, c)), dev, 13)
+    with torch.no_grad():
+        wn = fused.cv_params_from_variables(fc)[2][1:]
+        args = (off_cell(cost, offset), idx, off_cell(zq, offset),
+                [off_cell(t, offset) for t in wn])
+        assert all(t.data_ptr() % 16 for t in (args[0], args[2], *args[3]))
+        got = same_twice(lambda: fused.cost_volume_agg(*args))
+        near(got, fused.cost_volume_agg_plain(*args))
+        same(got, fused.cost_volume_agg(cost, idx, zq, wn))
+
+
 # ---------------------------------------------------------------------------
 # the generic kernel's tensor-core arm (csrc/chain.cu::chain_tc_kernel):
 # K5's and K3's chains (kind max) and K4a's (kind p2p) at any widths and

@@ -40,7 +40,10 @@ port's plain versions:
   output row written exactly once.  The bf16 arm (``cv_agg_bf16_kernel``)
   runs the same body on bf16 p2p, each value widened to float32 exactly:
   the same model on p2p rounded to bf16 is held to the plain version on
-  the bf16 tensor at the same bars.
+  the bf16 tensor at the same bars.  At any C (``cv_agg_any_kernel``) the
+  same body runs in chunks of the row, the plan's (``cv_agg_plan`` at the
+  served B=16, N=256): at C = 1, 3, 100, 511, 768 and 826, in float32 and
+  on bf16 p2p, every chunk's columns written once, at the same bars.
 
 * (e) the bf16 arms of K5 and K4a (``csrc/plf.cu::plf_bf16_kernel``,
   ``csrc/cost_volume.cu::cv_p2p_bf16_kernel``): tiles of ``kRows`` /
@@ -502,62 +505,82 @@ def cv_agg_constant(name):
     return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
 
 
-def cv_agg_model(p2p, idx, zq, wn):
-    """K4b on numpy float32 arrays, block by block as the kernel runs, its
-    threads' channels vectorised: (out, how often each row was written)."""
+def cv_agg_model(p2p, idx, zq, wn, plan=None):
+    """K4b on numpy float32 arrays, block by block and chunk by chunk as the
+    kernel runs, its threads' channels vectorised: (out, how often each row
+    was written).  ``plan``: ``fused.cv_agg_plan``'s chunk of the kernel at
+    any C (``cv_agg_any_kernel``: ``cells`` cells of four channels a
+    block, ``per`` queries a thread); None for the C = 512 kernel, whose
+    block the source's constants give."""
     threads = cv_agg_constant("kAggThreads")
-    q_tile, kc = cv_agg_constant("kAggQ"), cv_agg_constant("kAggKc")
+    kc = cv_agg_constant("kAggKc")
     b0, w1, b1, w2, b2 = wn
     bsz, n, c = p2p.shape
     k, h = idx.shape[2], zq.shape[2]
-    slots = threads // (c // 4)
-    assert q_tile * kc <= threads and q_tile % slots == 0
+    if plan is None:
+        assert c == fused.CV_WIDTH
+        cells, per = c // 4, cv_agg_constant("kAggPer")
+    else:
+        cells, per = plan["cells"], plan["per"]
+    slots = threads // cells
+    q_tile = slots * per
+    if plan is None:
+        assert q_tile == cv_agg_constant("kAggQ")
+    assert q_tile * kc <= cv_agg_constant("kAggMaxPairs")
+    chunks = -(-(-(-c // 4)) // cells)
     out = np.full(p2p.shape, np.nan, F32)
     writes = np.zeros((bsz, n), np.int64)
     tiles = -(-n // q_tile)
     for blk in range(bsz * tiles):
         e, i0 = blk // tiles, (blk % tiles) * q_tile
-        acc = np.zeros((q_tile, c), F32)
-        for k0 in range(0, k, kc):
-            # a thread per (query, neighbour) of the chunk
-            h_s = np.zeros((q_tile, kc, h), F32)
-            j_s = np.full((q_tile, kc), -1)
+        for chunk in range(chunks):  # blockIdx.y; cells past C stay idle
+            ch = slice(4 * cells * chunk, min(c, 4 * cells * (chunk + 1)))
+            acc = np.zeros((q_tile, ch.stop - ch.start), F32)
+            for k0 in range(0, k, kc):
+                # a thread per (query, neighbour) of the chunk, the hidden
+                # layer again for each chunk of the row
+                h_s = np.zeros((q_tile, kc, h), F32)
+                j_s = np.full((q_tile, kc), -1)
+                for qi in range(q_tile):
+                    for kk in range(kc):
+                        i = i0 + qi
+                        if i >= n or k0 + kk >= k:
+                            continue
+                        jj = idx[e, i, k0 + kk]
+                        inside = 0 <= jj < n
+                        d = ((zq[e, jj] if inside else np.zeros(h, F32))
+                             - zq[e, i])
+                        a = np.maximum(d + b0, F32(0))
+                        hid = np.zeros(h, F32)
+                        for m in range(h):  # ascending m
+                            hid = hid + a[m] * w1[m]
+                        h_s[qi, kk] = np.maximum(hid + b1, F32(0))
+                        j_s[qi, kk] = jj if inside else -1
+                kn = min(kc, k - k0)
+                for s in range(per):
+                    for slot in range(slots):
+                        qi = slot + slots * s
+                        if i0 + qi >= n:
+                            continue
+                        g = [p2p[e, j, ch] if j >= 0
+                             else np.zeros(ch.stop - ch.start, F32)
+                             for j in j_s[qi]]
+                        for kk in range(kn):  # ascending k
+                            t_ = np.zeros(ch.stop - ch.start, F32)
+                            for m in range(h):
+                                t_ = t_ + h_s[qi, kk, m] * w2[m, ch]
+                            acc[qi] = acc[qi] + np.maximum(
+                                t_ + b2[ch], F32(0)) * g[kk]
             for qi in range(q_tile):
-                for kk in range(kc):
-                    i = i0 + qi
-                    if i >= n or k0 + kk >= k:
-                        continue
-                    jj = idx[e, i, k0 + kk]
-                    inside = 0 <= jj < n
-                    d = (zq[e, jj] if inside else np.zeros(h, F32)) - zq[e, i]
-                    a = np.maximum(d + b0, F32(0))
-                    hid = np.zeros(h, F32)
-                    for m in range(h):  # ascending m
-                        hid = hid + a[m] * w1[m]
-                    h_s[qi, kk] = np.maximum(hid + b1, F32(0))
-                    j_s[qi, kk] = jj if inside else -1
-            kn = min(kc, k - k0)
-            for s in range(q_tile // slots):
-                for slot in range(slots):
-                    qi = slot + slots * s
-                    if i0 + qi >= n:
-                        continue
-                    g = [p2p[e, j] if j >= 0 else np.zeros(c, F32)
-                         for j in j_s[qi]]
-                    for kk in range(kn):  # ascending k
-                        t_ = np.zeros(c, F32)
-                        for m in range(h):
-                            t_ = t_ + h_s[qi, kk, m] * w2[m]
-                        acc[qi] = acc[qi] + np.maximum(t_ + b2, F32(0)) * g[kk]
-        for qi in range(q_tile):
-            if i0 + qi < n:
-                out[e, i0 + qi] = acc[qi]
-                writes[e, i0 + qi] += 1
-    return out, writes
+                if i0 + qi < n:
+                    out[e, i0 + qi, ch] = acc[qi]
+                    writes[e, i0 + qi] += 1
+    assert (writes == chunks).all()
+    return out, writes // chunks
 
 
-def check_cv_agg_schedule(rs, k, dtype):
-    b, n, c, h = 2, 37, fused.CV_WIDTH, fused.WEIGHTNET_HIDDEN
+def check_cv_agg_schedule(rs, k, dtype, c=fused.CV_WIDTH, plan=None):
+    b, n, h = 2, 37, fused.WEIGHTNET_HIDDEN
     assert n % cv_agg_constant("kAggQ")  # a ragged last tile
     p2p = t(rs.randn(b, n, c).astype(F32)).to(dtype)
     zq = rs.randn(b, n, h).astype(F32)
@@ -566,7 +589,7 @@ def check_cv_agg_schedule(rs, k, dtype):
     idx[1, -1, -1] = -7
     wn = [(rs.randn(*shape) * 0.5).astype(F32)
           for shape in ((h,), (h, h), (h,), (h, c), (c,))]
-    got, writes = cv_agg_model(p2p.float().numpy(), idx, zq, wn)
+    got, writes = cv_agg_model(p2p.float().numpy(), idx, zq, wn, plan)
     assert (writes == 1).all()
     want = fused.cost_volume_agg_plain(p2p, t(idx), t(zq),
                                        [t(w) for w in wn]).numpy()
@@ -582,6 +605,21 @@ def test_cv_agg_schedule(rs, k):
 @pytest.mark.parametrize("k", [1, 8, 40])
 def test_cv_agg_bf16_schedule(rs, k):
     check_cv_agg_schedule(rs, k, BF16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [1, 3, 100, 511, 768, 826])
+def test_cv_agg_any_c_schedule(rs, c, dtype):
+    """K4b at any C (``cv_agg_any_kernel``) in the chunks its plan gives the
+    served shape (B=16, N=256: config B's C=768 in three chunks of 64 cells,
+    24 queries a block), on two clouds of 37 points: rows whose last cell
+    holds fewer than four channels (C = 1, 3, 511, 826), chunks past the
+    row's cells idle, against the plain version (bf16 p2p widened
+    exactly)."""
+    plan = fused.cv_agg_plan(c, 16, 256)
+    if c == 768:
+        assert (plan["cells"], plan["chunks"], plan["queries"]) == (64, 3, 24)
+    check_cv_agg_schedule(rs, 8, dtype, c, plan)
 
 
 # ---------------------------------------------------------------------------

@@ -111,14 +111,26 @@
 //   wait on a gather and ptxas serialises nothing; each stage's group of
 //   products stays in flight while the next stage's is issued
 //   (tc::wait<1>); 32 KB stages (two k16 steps) in a ring of three, each
-//   half copied by one block of the cluster and multicast to both.  A query
-//   with more than 64 neighbours runs over consecutive tiles of one block,
-//   its running sum carried in registers.
+//   half copied by one block of the cluster and multicast to both.  A
+//   query's running sum is carried in registers from tile to tile.
 //   What held the first design (scripts/profile_torch_bf16_tc.py, NVIDIA
 //   H100 80GB HBM3 at 700 W): its products' issue, each k16 step waited out
 //   before the next gather (left out, they took 39% of its time with them);
 //   without them it still took 61%, streaming its 537 MB of weights at
 //   5.8 TB/s.
+//   Its rows come from a host plan.  Tiles of whole queries leave rows
+//   empty at most k (25% at k = 48, 48% at 33 and 65), and an empty row
+//   still costs its products; so a block takes a run of whole queries
+//   (ops/fused.py::cv_p2p_plan in clusters of two, one block an SM), their
+//   rows in full tiles across query boundaries, each query's float32 sum
+//   carried in registers from tile to tile in k order (the bits of a tile
+//   of whole queries).  Timed against tiles of whole queries
+//   (scripts/profile_torch_cv.py ablate bf16_arms, NVIDIA H100 80GB HBM3 at
+//   700 W), it was faster at every k but 5 (within 3%), the divisors of 64
+//   too.  What holds it (ablate bf16_no_mma, bf16_timeline): not its
+//   products (without them a tile keeps 92% of its time at k = 48), but a
+//   tile's CUDA-core work: of ~42k cycles, 17k to x0 and the first
+//   product, 11k to x1 and the second, 13k to the WeightNet and the sums.
 // - cv_agg_bf16_kernel is cv_agg_kernel with p2p in bf16: each thread's
 //   cells of the ring are 8 bytes (cp.async.ca of 8), half the bytes; the
 //   sums stay float32 and in the same order.  It and cv_agg_kernel share one
@@ -150,7 +162,13 @@ constexpr size_t kP2pSmemBytes =
 // product
 constexpr int kBf16Stage = 2 * 16 * kC * 2;
 constexpr int kBf16Stages = 3;
-constexpr int kBf16Cluster = 2;  // blocks that share each weight stage
+// blocks that share each weight stage (CV_P2P_BF16_CLUSTER builds
+// scripts/profile_torch_cv.py's ablation copy with another)
+#ifdef CV_P2P_BF16_CLUSTER
+constexpr int kBf16Cluster = CV_P2P_BF16_CLUSTER;
+#else
+constexpr int kBf16Cluster = 2;
+#endif
 constexpr int kBf16Chunks1 = kC / 32;  // stages of one product
 constexpr int kC8 = kC / 8;  // 16-byte pieces (8 bf16) of a feature row
 constexpr int kXTile = kP2pRows * kC * 2;  // x0 or x1 of the rows, bf16
@@ -160,12 +178,12 @@ constexpr size_t kBf16SmemBytes = (size_t)kP2pRows * kC * 4 +
 static_assert(2 * kXTile == kP2pRows * kC * 4, "x0 and x1 fill w * x2's");
 
 // Build switches for scripts/profile_torch_cv.py's ablation copies of the
-// full-tile arm (the package builds with none): CV_P2P_NO_MMA (the
-// products left out, their operands kept live), CV_P2P_X0_DIRECT (x0's
-// rows loaded into
-// registers where they are used, as the whole-query arm does, not staged
-// ahead) and CV_P2P_TIMELINE (block 0's thread 0 stamps its cycle counter
-// at the marks of each tile into cmflow_cv_p2p_timeline's buffer).
+// full-tile arms (the package builds with none): CV_P2P_NO_MMA (the
+// products left out, their operands kept live; in bf16 its shared-memory
+// products), CV_P2P_X0_DIRECT (float32 x0's rows loaded into registers
+// where they are used, as the whole-query arm does, not staged ahead) and
+// CV_P2P_TIMELINE (block 0's thread 0 stamps its cycle counter at the
+// marks of each tile into cmflow_cv_p2p_timeline's buffer).
 #ifdef CV_P2P_X0_DIRECT
 constexpr bool kX0Staged = false;
 #else
@@ -179,6 +197,7 @@ constexpr bool kP2pMma = false;
 #else
 constexpr bool kP2pMma = true;
 #endif
+
 #ifdef CV_P2P_TIMELINE
 constexpr int kStamps = 1 << 14;
 __device__ long long g_stamps[kStamps];
@@ -779,8 +798,10 @@ __device__ __forceinline__ void bf16_product(float (&acc)[128],
     tc::fence();
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
-      tc::mma_bf16_ss_n256(acc, tc::desc(a + (2 * c + e) * tc::kAStep),
-                           tc::desc(st + 16384 * e + half), 1);
+      if constexpr (kP2pMma) {
+        tc::mma_bf16_ss_n256(acc, tc::desc(a + (2 * c + e) * tc::kAStep),
+                             tc::desc(st + 16384 * e + half), 1);
+      }
     }
     tc::commit();
     tc::wait<1>();  // the last stage's products are done
@@ -792,10 +813,12 @@ __device__ __forceinline__ void bf16_product(float (&acc)[128],
   ring.release(c0 + kBf16Chunks1 - 1);
 }
 
-// The bf16 arm.  The block's work is qpb = max(1, kP2pRows / k) whole
-// queries, qpb * k rows in `tiles` tiles of kP2pRows: one tile of whole
-// queries where k <= kP2pRows, else one query whose rows span several
-// tiles, its running sum carried in registers.  Per tile:
+// The bf16 arm.  The block takes `qpb` consecutive whole queries, their
+// rows one after the other in `tiles` tiles of kP2pRows across query
+// boundaries (rows past its queries empty), both from the host's plan
+// (ops/fused.py::cv_p2p_plan: one block an SM).  Every block of the grid
+// runs the plan's tiles, so both blocks of a cluster take each weight
+// stage.  Per tile:
 // - all consumers form x0 of the 64 rows (LeakyReLU(f1c[q] + f2c[j] + b0) in
 //   float32, rounded to bf16) in shared memory in the A layout of
 //   tc_gemm.cuh, the loads of eight rows in flight at a time;
@@ -808,20 +831,24 @@ __device__ __forceinline__ void bf16_product(float (&acc)[128],
 // - x2 (LeakyReLU, float32) goes to shared memory over x1, the WeightNet's
 //   8-wide layers run once a row, and each thread takes two of the 512
 //   columns with their last WeightNet layer in registers: w * x2 summed
-//   over each query's rows in ascending k, as the float32 arm sums, and
-//   rounded to bf16 once.
+//   over each query's rows in ascending k, as the float32 arm sums, on from
+//   the sum carried in registers from the tiles before (a thread's columns
+//   are the same in every tile), and stored, rounded to bf16, at the
+//   query's last row; so any plan gives the bits of tiles of whole
+//   queries.
 __global__ void __launch_bounds__(kP2pThreads, 1)
-    cv_p2p_bf16_kernel(const __nv_bfloat16* __restrict__ f1c,  // [B*N, kC]
-                       const __nv_bfloat16* __restrict__ f2c,  // [B*N, kC]
-                       const int* __restrict__ idx,            // [B*N, k]
-                       const float* __restrict__ z1,           // [B*N, kH]
-                       const float* __restrict__ z2,           // [B*N, kH]
-                       const float* __restrict__ b0,
-                       const void* __restrict__ wpack,  // tc_weights_bf16
-                       const float* __restrict__ b1,
-                       const float* __restrict__ b2, WeightNet wn,
-                       __nv_bfloat16* __restrict__ out,  // [B*N, kC]
-                       int total, int n, int k) {
+    cv_p2p_bf16_kernel(
+        const __nv_bfloat16* __restrict__ f1c,  // [B*N, kC]
+        const __nv_bfloat16* __restrict__ f2c,  // [B*N, kC]
+        const int* __restrict__ idx,            // [B*N, k]
+        const float* __restrict__ z1,           // [B*N, kH]
+        const float* __restrict__ z2,           // [B*N, kH]
+        const float* __restrict__ b0,
+        const void* __restrict__ wpack,  // tc_weights_bf16
+        const float* __restrict__ b1, const float* __restrict__ b2,
+        WeightNet wn,
+        __nv_bfloat16* __restrict__ out,  // [B*N, kC]
+        int total, int n, int k, int qpb, int tiles) {
   extern __shared__ __align__(128) char smem[];
   // x0 then x1 of the tile's rows (bf16), later x2 (float32); the ring; the
   // WeightNet's hidden layer of each row
@@ -829,7 +856,10 @@ __global__ void __launch_bounds__(kP2pThreads, 1)
   char* ring_buf = smem + 2 * kXTile;
   float4* h_s =
       reinterpret_cast<float4*>(ring_buf + kBf16Stages * kBf16Stage);
-  float carry[kC / kP2pConsumers] = {};  // a query's sums over its tiles
+  constexpr int kCols = kC / kP2pConsumers;
+  // the sums of the query whose rows run on into the next tile, of the
+  // thread's columns threadIdx.x + kP2pConsumers * i
+  float carry[kCols] = {};
   __shared__ int row_j[kP2pRows];  // neighbour row in f2c, or -1
   __shared__ int row_q[kP2pRows];  // query, or -1 for an unused row
   __shared__ __align__(8) uint64_t full[kBf16Stages];
@@ -837,20 +867,18 @@ __global__ void __launch_bounds__(kP2pThreads, 1)
   const tc::ClusterRing<kBf16Stages, kBf16Stage, kBf16Cluster> ring{
       ring_buf, full, empty};
 
-  const int qpb = max(1, kP2pRows / k);
-  const int rows = qpb * k;
-  const int tiles = (rows + kP2pRows - 1) / kP2pRows;
+  // the block's work: qpb whole queries from q0 (fewer in the last block,
+  // none in a block that pads the grid to whole clusters), `rows` rows
   const int q0 = blockIdx.x * qpb;
-  // the tile's rows: (query, neighbour row in f2c), or -1
+  const int rows = max(0, min(qpb, total - q0)) * k;
   auto set_rows = [&](int tile) {
     const int r = threadIdx.x;
     const int rg = tile * kP2pRows + r;  // row of the block's work
-    const int q = q0 + rg / k;
     int j = -1, qq = -1;
-    if (rg < rows && q < total) {
-      qq = q;
-      const int jj = idx[(int64_t)q * k + rg % k];
-      if (jj >= 0 && jj < n) j = (q / n) * n + jj;
+    if (rg < rows) {
+      qq = q0 + rg / k;
+      const int jj = idx[(int64_t)qq * k + rg % k];
+      if (jj >= 0 && jj < n) j = (qq / n) * n + jj;
     }
     row_j[r] = j;
     row_q[r] = qq;
@@ -869,8 +897,6 @@ __global__ void __launch_bounds__(kP2pThreads, 1)
   }
   tc::consumer_registers();
 
-  // warpgroup wg computes columns 256*wg .. +255 of all 64 rows; the
-  // thread's two rows are ra and rb (tc_gemm.cuh, fragment layouts)
   const int wg = threadIdx.x / 128;
   const int tid = threadIdx.x % 128;
   const int warp = tid / 32;
@@ -890,6 +916,7 @@ __global__ void __launch_bounds__(kP2pThreads, 1)
       if (threadIdx.x < kP2pRows) set_rows(tile);
       tc::consumer_sync<kP2pConsumers>();
     }
+    stamp(0);
 
     // x0 of rows 8rr + rl (rr < 8), channels 8 c8 .. +7 for c8 = cq + 32m:
     // the lanes of a quarter warp hold eight rows of one piece, so their
@@ -947,6 +974,7 @@ __global__ void __launch_bounds__(kP2pThreads, 1)
     const int c0 = tile * 2 * kBf16Chunks1;
     float acc[128];
     bf16_product(acc, ring, x0a, half, c0);
+    stamp(1);
 
     // x1 = LeakyReLU(acc + b1), rounded to bf16, into its A tiles:
     // acc[4j + e] is (row ra or rb, column 256*wg + 8j + 2t + e%2), two
@@ -966,6 +994,7 @@ __global__ void __launch_bounds__(kP2pThreads, 1)
     tc::consumer_sync<kP2pConsumers>();  // x1 is whole
 
     bf16_product(acc, ring, x1a, half, c0 + kBf16Chunks1);
+    stamp(2);
 
     // the WeightNet's two 8-wide layers, once a row: h_s[r] of z2[j] - z1[q]
     if (threadIdx.x < kP2pRows) {
@@ -994,11 +1023,11 @@ __global__ void __launch_bounds__(kP2pThreads, 1)
     }
     tc::consumer_sync<kP2pConsumers>();
 
-    // each thread's columns c = threadIdx.x + 256 i: w * x2 summed over each
-    // query's rows in this tile, k ascending, on from the running sum of the
-    // tiles before, w = ReLU(h_s[r] . w2[:, c] + b2w[c]) (weightnet_out2's
-    // order); the columns' last layer stays in registers
-    constexpr int kCols = kC / kP2pConsumers;
+    // w * x2 summed over each query's rows in this tile, k ascending, on
+    // from the sum carried from the tiles before: the queries from the one
+    // holding the tile's first row to the one holding its last (whose sum
+    // may run on), in order; each thread's columns c = threadIdx.x +
+    // kP2pConsumers * i with their last WeightNet layer in registers
     const float* xs = reinterpret_cast<const float*>(xbuf);
     float w2c[kCols][kH], wb2[kCols];
     int cbase[kCols];
@@ -1010,7 +1039,9 @@ __global__ void __launch_bounds__(kP2pThreads, 1)
       wb2[i] = __ldg(wn.b2 + c);
       cbase[i] = (c / 8) * 512 + ((c % 8) / 2) * 4 + 2 * (c % 2);
     }
-    for (int qi = 0; qi < qpb && q0 + qi < total; ++qi) {
+    const int qfirst = tile * kP2pRows / k;
+    const int qend = min(((tile + 1) * kP2pRows - 1) / k + 1, rows / k);
+    for (int qi = qfirst; qi < qend; ++qi) {
       const int lo = max(qi * k, tile * kP2pRows);
       const int hi = min(qi * k + k, (tile + 1) * kP2pRows);
       float s[kCols];
@@ -1033,14 +1064,15 @@ __global__ void __launch_bounds__(kP2pThreads, 1)
       }
 #pragma unroll
       for (int i = 0; i < kCols; ++i) {
-        if (tile + 1 == tiles) {
+        if (hi == qi * k + k) {
           store_out(out, (int64_t)(q0 + qi) * kC + threadIdx.x +
                              kP2pConsumers * i, s[i]);
         } else {
-          carry[i] = s[i];  // one query: qpb is 1 where a query spans tiles
+          carry[i] = s[i];  // the tile's last query, on into the next
         }
       }
     }
+    stamp(3);
   }
   tc::cluster_sync();  // no block of the cluster signals this one any more
 }
@@ -1462,12 +1494,12 @@ int cmflow_cv_p2p_full(const void* f1c, const void* f2c, const void* idx,
                        const void* wb0, const void* ww1, const void* wb1,
                        const void* ww2, const void* wb2, void* out, int b,
                        int n, int k, int c, int qpb, void* stream) {
-  if (!valid_p2p_shape(b, n, k, c) || qpb < 1 ||
-      (int64_t)qpb * k + kP2pRows > 0x7fffffff) {
-    return (int)cudaErrorInvalidValue;
-  }
+  if (!valid_p2p_shape(b, n, k, c)) return (int)cudaErrorInvalidValue;
   const int total = b * n;
   if (total == 0) return (int)cudaSuccess;
+  if (qpb < 1 || (int64_t)qpb * k + kP2pRows > 0x7fffffff) {
+    return (int)cudaErrorInvalidValue;
+  }
   cudaError_t err = cudaFuncSetAttribute(
       cv_p2p_full_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)kP2pSmemBytes);
@@ -1500,23 +1532,30 @@ int cmflow_cv_p2p_timeline(long long* host, int n) {
 #endif
 
 // The bf16 arm: f1c/f2c and out [B,N,512] bf16, idx [B,N,k] int32 (any
-// k >= 1), wpack from tc_weights_bf16 (bf16), the rest as cmflow_cv_p2p.
-// Launched in clusters of kBf16Cluster blocks (a block past the last query
-// takes part in the weight stages and writes nothing).
+// k >= 1), wpack from tc_weights_bf16 (bf16), the rest as cmflow_cv_p2p;
+// then the plan of ops/fused.py::cv_p2p_plan (or any other), `qpb` whole
+// queries a block, their rows in `tiles` tiles of 64 a block (at least the
+// most any block's rows fill).  A
+// grid of ceil(B*N / qpb) blocks in clusters of kBf16Cluster (a block past
+// the last query takes part in the weight stages and writes nothing).
 int cmflow_cv_p2p_bf16(const void* f1c, const void* f2c, const void* idx,
                        const void* z1, const void* z2, const void* b0,
                        const void* wpack, const void* b1, const void* b2,
                        const void* wb0, const void* ww1, const void* wb1,
                        const void* ww2, const void* wb2, void* out, int b,
-                       int n, int k, int c, void* stream) {
+                       int n, int k, int c, int qpb, int tiles,
+                       void* stream) {
   if (!valid_p2p_shape(b, n, k, c)) return (int)cudaErrorInvalidValue;
   const int total = b * n;
   if (total == 0) return (int)cudaSuccess;
+  if (qpb < 1 || (int64_t)qpb * k > (int64_t)tiles * kP2pRows ||
+      (int64_t)tiles * kP2pRows > 0x7fffffff) {
+    return (int)cudaErrorInvalidValue;
+  }
   cudaError_t err = cudaFuncSetAttribute(
       cv_p2p_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)kBf16SmemBytes);
   if (err != cudaSuccess) return (int)err;
-  const int qpb = k < kP2pRows ? kP2pRows / k : 1;
   const int blocks = (total + qpb - 1) / qpb;
   return (int)tc::launch_cluster<kBf16Cluster>(
       cv_p2p_bf16_kernel,
@@ -1526,7 +1565,32 @@ int cmflow_cv_p2p_bf16(const void* f1c, const void* f2c, const void* idx,
       static_cast<const float*>(z1), static_cast<const float*>(z2),
       static_cast<const float*>(b0), wpack, static_cast<const float*>(b1),
       static_cast<const float*>(b2), weightnet(wb0, ww1, wb1, ww2, wb2),
-      static_cast<__nv_bfloat16*>(out), total, n, k);
+      static_cast<__nv_bfloat16*>(out), total, n, k, qpb, tiles);
+}
+
+// The blocks of the bf16 arm the card runs at once (its clusters of
+// kBf16Cluster that fit, times that), its plan's width; a negative
+// cudaError_t where the card cannot say.
+int cmflow_cv_p2p_bf16_slots() {
+  cudaError_t err = cudaFuncSetAttribute(
+      cv_p2p_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kBf16SmemBytes);
+  if (err != cudaSuccess) return -(int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kBf16Cluster);
+  cfg.blockDim = dim3(kP2pThreads);
+  cfg.dynamicSmemBytes = kBf16SmemBytes;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kBf16Cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, cv_p2p_bf16_kernel, &cfg);
+  if (err != cudaSuccess) return -(int)err;
+  return clusters * kBf16Cluster;
 }
 
 // p2p [B,N,512], idx [B,N,k] int32 (k >= 1), zq [B,N,8], the WeightNet

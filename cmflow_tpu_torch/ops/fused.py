@@ -50,11 +50,12 @@ once a scale).  K4b, which has no product, runs its tuned design at every
 C (``csrc/cost_volume.cu::cv_agg_any_kernel``, in chunks of the row
 planned by :func:`cv_agg_plan`), counted the same way; float32 K4a at a K
 whose whole queries leave an eighth or more of a 64-row tile empty
-(:func:`cv_p2p_full`) runs full tiles across query boundaries
-(:func:`cv_p2p_plan`), counted also in ``launches_full``.  The only
-shapes that raise are those the JAX package does not take either: a
-WeightNet whose hidden width is not 8, and a narrow sa mlp that is not 3
-layers.
+(:func:`cv_p2p_full`), and the bf16 arms of K4a and K5 at every K, run
+full tiles across query boundaries, one block an SM (:func:`cv_p2p_plan`,
+:func:`plf_plan`), counted also in ``launches_full`` (K4a's bf16 ones
+also in ``launches_full_bf16``).  The only shapes that raise are those
+the JAX package does not take either: a WeightNet whose hidden width is
+not 8, and a narrow sa mlp that is not 3 layers.
 
 K3, K4a and K5 each have two arms, picked by the dtype of their operands:
 the gathered bases (K3, K5), ``f1c``/``f2c`` (K4a), the point-to-patch cost
@@ -118,15 +119,18 @@ _SIGNATURES = {
                                 _P, _P, _P, _P, _P, _P, _I, _I, _P),
             "cmflow_mse_long_static_smem": (_I, _I),
             "cmflow_mse_long_occupancy": (_I, _I, _I)},
-    "plf": {name: (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                   _I, _I, _I, _I, _P)
-            for name in ("cmflow_plf", "cmflow_plf_bf16")},
+    "plf": {"cmflow_plf": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                           _I, _I, _I, _I, _P),
+            "cmflow_plf_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                _P, _I, _I, _I, _I, _I, _I, _P)},
     "cost_volume": {
-        **{name: (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                  _P, _I, _I, _I, _I, _P)
-           for name in ("cmflow_cv_p2p", "cmflow_cv_p2p_bf16")},
+        "cmflow_cv_p2p": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                          _P, _P, _P, _I, _I, _I, _I, _P),
         "cmflow_cv_p2p_full": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+        "cmflow_cv_p2p_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                               _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+        "cmflow_cv_p2p_bf16_slots": (),
         **{name: (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)
            for name in ("cmflow_cv_agg", "cmflow_cv_agg_bf16")},
         "cmflow_cv_agg_any": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
@@ -1329,8 +1333,54 @@ fused_multi_scale_encoder.launches_long = 0
 
 
 # ---------------------------------------------------------------------------
+# the full tiles of K4a and K5: a block takes a run of whole queries, their
+# rows in full tiles across query boundaries
+# ---------------------------------------------------------------------------
+
+def full_tile_plan(total: int, k: int, rows: int, sms: int = H100_SMS,
+                   cluster: int = 1) -> Dict[str, float]:
+    """A full-tile arm's launch for ``total = B * N`` queries of ``k``
+    neighbours in tiles of ``rows`` rows on a card that runs ``sms`` blocks
+    at once (one an SM), in clusters of ``cluster``, from the shapes alone:
+    each block takes ``qpb`` consecutive whole queries, the fewest with
+    which the card's whole clusters take them all at once, their ``qpb *
+    k`` rows one after the other in full tiles across query boundaries.
+    ``tiles``: the most any block's rows fill; ``blocks``: those that hold
+    queries; ``grid``: those padded to whole clusters; ``fill``: the share
+    of the rows run that hold a (query, neighbour) where each block runs
+    the tiles its rows fill."""
+    if total <= 0:
+        return dict(qpb=0, tiles=0, blocks=0, grid=0, fill=0.0)
+    cluster = max(1, cluster)
+    qpb = -(-total // max(cluster, sms // cluster * cluster))
+    tiles = -(-qpb * k // rows)
+    blocks = -(-total // qpb)
+    last = -(-(total - (blocks - 1) * qpb) * k // rows)
+    return dict(qpb=qpb, tiles=tiles, blocks=blocks,
+                grid=-(-blocks // cluster) * cluster,
+                fill=total * k / (((blocks - 1) * tiles + last) * rows))
+
+
+# ---------------------------------------------------------------------------
 # K5: one propagation-encoder scale
 # ---------------------------------------------------------------------------
+
+# K5 (csrc/plf.cu): tiles of PLF_ROWS (query, neighbour) rows (the kernel's
+# kRows); bf16 (plf_bf16_kernel, in clusters of PLF_BF16_CLUSTER, the
+# kernel's kBf16Cluster) in full tiles across query boundaries at every K
+PLF_ROWS = 128
+PLF_BF16_CLUSTER = 1
+
+
+def plf_plan(total: int, k: int, sms: int = H100_SMS) -> Dict[str, float]:
+    """bf16 K5's launch (``plf_bf16_kernel``, every block running
+    ``tiles``) at any ``k``: :func:`full_tile_plan` at ``PLF_ROWS`` on
+    ``sms`` blocks in clusters of ``PLF_BF16_CLUSTER``.  (Timed at K =
+    4-200 against tiles of whole queries, full tiles were faster at every
+    K, those that fill their tiles too: one block an SM sets up once;
+    PERF.md §6, PR 23.)"""
+    return full_tile_plan(total, k, PLF_ROWS, sms, PLF_BF16_CLUSTER)
+
 
 def fused_point_local_feature_plain(feat_tx: Tensor, idx: Tensor, xyz: Tensor,
                                     params: Sequence[Tensor]) -> Tensor:
@@ -1395,13 +1445,19 @@ def fused_point_local_feature(feat_tx: Tensor, idx: Tensor, xyz: Tensor,
                        [base, idx, xyz_c, wrel, s0, b0, wpack, s1, b1, s2,
                         b2])
     lib = build.load("plf", _SIGNATURES["plf"])
-    code = (lib.cmflow_plf_bf16 if bf16 else lib.cmflow_plf)(
-        base.data_ptr(), idx.data_ptr(), xyz_c.data_ptr(), wrel.data_ptr(),
-        s0.data_ptr(), b0.data_ptr(), wpack.data_ptr(), s1.data_ptr(),
-        b1.data_ptr(), s2.data_ptr(), b2.data_ptr(), out.data_ptr(), b, n,
-        k, c1, _stream(xyz))
+    args = (base.data_ptr(), idx.data_ptr(), xyz_c.data_ptr(),
+            wrel.data_ptr(), s0.data_ptr(), b0.data_ptr(), wpack.data_ptr(),
+            s1.data_ptr(), b1.data_ptr(), s2.data_ptr(), b2.data_ptr(),
+            out.data_ptr(), b, n, k, c1)
+    if bf16:
+        plan = plf_plan(b * n, k, _sms(xyz.device))
+        code = lib.cmflow_plf_bf16(*args, plan["qpb"], plan["tiles"],
+                                   _stream(xyz))
+    else:
+        code = lib.cmflow_plf(*args, _stream(xyz))
     build.check(lib, code, "fused_point_local_feature")
     fused_point_local_feature.launches += 1
+    fused_point_local_feature.launches_full += int(bf16)
     return out
 
 
@@ -1423,9 +1479,11 @@ def _plf_generic(feat_tx: Tensor, idx: Tensor, xyz: Tensor,
     return out
 
 
-# every launch, and those of the generic arm (counted in :func:`_chain`)
+# every launch, those of the generic arm (counted in :func:`_chain`) and
+# those in full tiles (the bf16 arm's)
 fused_point_local_feature.launches = 0
 fused_point_local_feature.launches_generic = 0
+fused_point_local_feature.launches_full = 0
 
 
 # ---------------------------------------------------------------------------
@@ -1433,12 +1491,17 @@ fused_point_local_feature.launches_generic = 0
 # ---------------------------------------------------------------------------
 
 # K4a (csrc/cost_volume.cu): tiles of CV_P2P_ROWS (query, neighbour) rows
-# (the kernel's kP2pRows); float32 at the K of cv_p2p_full runs the
-# full-tile arm (cv_p2p_full_kernel)
+# (the kernel's kP2pRows); full tiles across query boundaries in float32 at
+# the K of cv_p2p_full (cv_p2p_full_kernel), in bf16 at every K
+# (cv_p2p_bf16_kernel, in clusters of CV_P2P_BF16_CLUSTER blocks, the
+# kernel's kBf16Cluster: timed at k = 5-130 against tiles of whole queries,
+# full tiles were faster or within 3% at every k, the divisors of 64 too,
+# since one block an SM sets up once; PERF.md §6, PR 23)
 CV_P2P_ROWS = 64
-# the share of a tile of whole queries below which the full-tile arm takes
-# a k < 64: on the card a full tile costs ~1.13x a tile of whole queries,
-# whose empty rows gather nothing (PERF.md §6)
+CV_P2P_BF16_CLUSTER = 2
+# the share of a tile of whole queries below which float32 K4a takes its
+# full-tile arm at a k < 64: on the card a full tile costs ~1.13x a tile of
+# whole queries, whose empty rows gather nothing (PERF.md §6)
 CV_P2P_FULL_BELOW = 7 / 8
 
 
@@ -1454,24 +1517,13 @@ def cv_p2p_full(k: int) -> bool:
     return CV_P2P_ROWS // k * k < CV_P2P_FULL_BELOW * CV_P2P_ROWS
 
 
-def cv_p2p_plan(total: int, k: int, sms: int = H100_SMS) -> Dict[str, float]:
-    """The full-tile arm's launch for ``total = B * N`` queries of ``k``
-    neighbours on a card of ``sms`` SMs (one block an SM), from the shapes
-    alone: each block takes ``qpb`` consecutive whole queries, the fewest
-    with which ``sms`` blocks take them all, their ``qpb * k`` rows one
-    after the other in full tiles across query boundaries, ``tiles`` of
-    them (the last block's rows, fewer, in fewer tiles).  ``blocks``: the
-    grid; ``fill``: the share of the rows run that hold a (query,
-    neighbour)."""
-    if total <= 0:
-        return dict(qpb=0, tiles=0, blocks=0, fill=0.0)
-    qpb = -(-total // max(1, sms))
-    tiles = -(-qpb * k // CV_P2P_ROWS)
-    blocks = -(-total // qpb)
-    last = -(-(total - (blocks - 1) * qpb) * k // CV_P2P_ROWS)
-    return dict(qpb=qpb, tiles=tiles, blocks=blocks,
-                fill=total * k / (((blocks - 1) * tiles + last)
-                                  * CV_P2P_ROWS))
+def cv_p2p_plan(total: int, k: int, sms: int = H100_SMS,
+                cluster: int = 1) -> Dict[str, float]:
+    """K4a's full-tile launch (:func:`full_tile_plan` at ``CV_P2P_ROWS``):
+    float32 in clusters of one, each block running the tiles its rows fill;
+    bf16 in clusters of ``CV_P2P_BF16_CLUSTER``, every block running
+    ``tiles`` (both blocks of a cluster take part in every weight stage)."""
+    return full_tile_plan(total, k, CV_P2P_ROWS, sms, cluster)
 
 
 # K4b (csrc/cost_volume.cu::cv_agg_kernel and, at any C, cv_agg_any_kernel):
@@ -1598,17 +1650,39 @@ def cost_volume_p2p(f1c: Tensor, f2c: Tensor, idx: Tensor, z1: Tensor,
             z2.data_ptr(), b0.data_ptr(), wpack.data_ptr(), b1.data_ptr(),
             b2.data_ptr(), *[t.data_ptr() for t in wn], out.data_ptr(), b, n,
             k, c)
-    full = not bf16 and cv_p2p_full(k)
-    if full:
+    full = bf16 or cv_p2p_full(k)
+    if bf16:
+        plan = cv_p2p_plan(b * n, k, _cv_p2p_bf16_slots(lib, f1c.device),
+                           CV_P2P_BF16_CLUSTER)
+        code = lib.cmflow_cv_p2p_bf16(*args, plan["qpb"], plan["tiles"],
+                                      _stream(f1c))
+    elif full:
         plan = cv_p2p_plan(b * n, k, _sms(f1c.device))
         code = lib.cmflow_cv_p2p_full(*args, plan["qpb"], _stream(f1c))
     else:
-        code = (lib.cmflow_cv_p2p_bf16 if bf16 else lib.cmflow_cv_p2p)(
-            *args, _stream(f1c))
+        code = lib.cmflow_cv_p2p(*args, _stream(f1c))
     build.check(lib, code, "cost_volume_p2p")
     cost_volume_p2p.launches += 1
     cost_volume_p2p.launches_full += int(full)
+    cost_volume_p2p.launches_full_bf16 += int(full and bf16)
     return out
+
+
+_CV_P2P_BF16_SLOTS: Dict[torch.device, int] = {}
+
+
+def _cv_p2p_bf16_slots(lib, device: torch.device) -> int:
+    """The blocks of K4a's bf16 arm the card runs at once (its whole
+    clusters): its plan's width."""
+    if device not in _CV_P2P_BF16_SLOTS:
+        with torch.cuda.device(device):
+            slots = lib.cmflow_cv_p2p_bf16_slots()
+        if slots <= 0:
+            build.check(lib, -slots, "cost_volume_p2p (clusters a card)")
+            raise RuntimeError("cost_volume_p2p: the card runs no cluster "
+                               "of the bf16 arm")
+        _CV_P2P_BF16_SLOTS[device] = slots
+    return _CV_P2P_BF16_SLOTS[device]
 
 
 def _cv_p2p_generic(f1c: Tensor, f2c: Tensor, idx: Tensor, z1: Tensor,
@@ -1626,11 +1700,12 @@ def _cv_p2p_generic(f1c: Tensor, f2c: Tensor, idx: Tensor, z1: Tensor,
     return out
 
 
-# every launch, those of the generic arm (counted in :func:`_chain`) and
-# those of the full-tile arm
+# every launch, those of the generic arm (counted in :func:`_chain`), those
+# in full tiles and those of them in bf16
 cost_volume_p2p.launches = 0
 cost_volume_p2p.launches_generic = 0
 cost_volume_p2p.launches_full = 0
+cost_volume_p2p.launches_full_bf16 = 0
 
 
 def cost_volume_agg_plain(p2p: Tensor, idx: Tensor, zq: Tensor,

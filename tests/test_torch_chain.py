@@ -459,3 +459,45 @@ def test_deep_chain_matches_jax():
     assert plan["layers"] == 34
     assert len(fused.chain_tc_table("max", False, 16, widths[1:])[0]) == (
         8 + 4 * 34)
+
+
+@pytest.mark.parametrize("seed", [40, 41])
+def test_deep_bf16_chain_matches_jax(seed):
+    """A K5 chain of 40 Dense layers, 64 wide, with dense He-scaled bf16
+    kernels (B=1, N=32, K=4): the port's plain bf16 version on the CPU
+    against the JAX package's bf16 ``fused_point_local_feature`` in
+    interpret mode, at the bf16 bar (1e-2 of the largest magnitude).  Both
+    round each activation to bf16 where the other does and sum in float32
+    in their own orders, so a rounding that one order flips compounds
+    through the layers; at this size they lie 1.7e-7-1.5e-3 apart, while
+    each lies 2.6-3.0% from its own float32 chain (seeds 40-42), as the
+    card's kernel lies 1.46% from its plain version at B=16, N=256, K=16
+    (``chip_smoke.py``'s ``deep_bf16_witness``)."""
+    rs = np.random.RandomState(seed)
+    widths = (64,) * 41
+    feat, idx, xyz, chain = plf_inputs(rs, 1, 32, 4, widths, torch.float32)
+    idx = torch.from_numpy(rs.randint(0, 32, (1, 32, 4)).astype(np.int32))
+    chain = [t * np.sqrt(2.0) if i >= 3 and i % 3 == 0 else t
+             for i, t in enumerate(chain)]
+    out = {}
+    for dtype, jdtype in ((BF16, jnp.bfloat16), (torch.float32,
+                                                 jnp.float32)):
+        typed = [t.to(dtype) if i % 3 == 0 else t
+                 for i, t in enumerate(chain)]
+        f = feat.to(dtype)
+        out[dtype] = fused.fused_point_local_feature(f, idx, xyz, typed)
+        out[jdtype] = np.asarray(jfused.fused_point_local_feature(
+            jnp.asarray(f.float().numpy()).astype(jdtype),
+            jnp.asarray(idx.numpy()), jnp.asarray(xyz.numpy()),
+            tuple(jnp.asarray(t.float().numpy()).astype(jdtype)
+                  if i % 3 == 0 else jnp.asarray(t.numpy())
+                  for i, t in enumerate(typed)), True), np.float32)
+    got, want = out[BF16].numpy(), out[jnp.bfloat16]
+    assert got.shape == want.shape == (1, 32, 64)
+    top = np.abs(want).max()
+    assert 0.1 < top < 1e3
+    err = np.abs(got - want).max()
+    assert err <= BF16_RTOL * top, (err, top)
+    # JAX's bf16 lies from its own float32 as the port's does from its own
+    drift = np.abs(want - out[jnp.float32]).max() / top
+    assert 1e-3 < drift < 0.1, drift

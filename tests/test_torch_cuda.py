@@ -1090,6 +1090,68 @@ def test_cost_volume_bf16_kernels(dev, rs, shape, k):
                                                     before[1] + 2)
 
 
+def whole_tiles(rows):
+    """A bf16 wrapper's plan replaced by tiles of whole queries (``rows //
+    k`` queries a block, or one query over several tiles), the layout of
+    the bf16 arms before they ran full tiles."""
+    def plan(total, k, *args):
+        qpb = max(1, rows // k)
+        return dict(qpb=qpb, tiles=-(-qpb * k // rows))
+    return plan
+
+
+@pytest.mark.parametrize("k", [5, 8, 12, 33, 48, 64, 65, 100, 130])
+@pytest.mark.parametrize("shape", [(16, 256, True), (3, 201, False)])
+def test_cost_volume_p2p_bf16_full_tiles_keep_the_bits(dev, rs, shape, k,
+                                                       monkeypatch):
+    """K4a's bf16 arm in full tiles (``cv_p2p_bf16_kernel`` on
+    ``cv_p2p_plan``: full 64-row tiles across query boundaries, each
+    query's sums carried from tile to tile) gives the bits of tiles of
+    whole queries at every k, also on a grid padded to whole clusters (603
+    queries), and counts each call in ``launches_full`` and
+    ``launches_full_bf16``."""
+    f, _, _, z, dense, wn1, _ = bf16_cost_volume_inputs(rs, shape, dev)
+    idx2 = p2p_indices(rs, shape, k, dev)
+    args = (f[0], f[1], idx2, z[0], z[1], dense[1:], wn1[1:])
+    wrapper = fused.cost_volume_p2p
+    with torch.no_grad():
+        before = (wrapper.launches_full, wrapper.launches_full_bf16)
+        full = same_twice(lambda: wrapper(*args))
+        assert (wrapper.launches_full, wrapper.launches_full_bf16) == (
+            before[0] + 2, before[1] + 2)
+        monkeypatch.setattr(fused, "cv_p2p_plan",
+                            whole_tiles(fused.CV_P2P_ROWS))
+        assert torch.equal(full, wrapper(*args))
+        near_bf16(full, fused.cost_volume_p2p_plain(*args))
+
+
+@pytest.mark.parametrize("k", [3, 8, 24, 32, 33, 48, 65, 100, 128, 160, 200])
+@pytest.mark.parametrize("shape", [(16, 256, True), (3, 201, False)])
+def test_plf_bf16_full_tiles_keep_the_bits(dev, rs, shape, k, monkeypatch):
+    """K5's bf16 arm in full tiles (``plf_bf16_kernel`` on ``plf_plan``:
+    full 128-row tiles across query boundaries, the running max of the
+    query that runs on carried) gives the bits of tiles of whole queries
+    at every K, and counts each call in ``launches_full``."""
+    b, n, masked = shape
+    pc, _ = clouds(rs, b, n, masked, dev)
+    plf = seeded(blocks.PointLocalFeature(8.0, k, 1027, (512, 256, 64),
+                                          (64, 64, 64)), dev, 3)
+    feat_tx = torch.from_numpy(rs.randn(b, n, 512).astype(np.float32)).to(
+        dev).to(BF16)
+    idx = torch.from_numpy(rs.randint(-2, n + 2, (b, n, k)).astype(
+        np.int32)).to(dev)
+    chain = bf16_chain(plf)
+    wrapper = fused.fused_point_local_feature
+    with torch.no_grad():
+        before = wrapper.launches_full
+        full = same_twice(lambda: wrapper(feat_tx, idx, pc, chain))
+        assert wrapper.launches_full == before + 2
+        monkeypatch.setattr(fused, "plf_plan", whole_tiles(fused.PLF_ROWS))
+        assert torch.equal(full, wrapper(feat_tx, idx, pc, chain))
+        near_bf16(full, fused.fused_point_local_feature_plain(
+            feat_tx, idx, pc, chain))
+
+
 @pytest.mark.parametrize("k", [1, 5, 32, 33, 64, 65, 100])
 @pytest.mark.parametrize("shape", [(16, 256, True), (3, 201, False)])
 def test_cost_volume_p2p_bf16_partial_tiles(dev, rs, shape, k):

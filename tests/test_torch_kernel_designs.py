@@ -46,12 +46,14 @@ port's plain versions:
   on bf16 p2p, every chunk's columns written once, at the same bars.
 
 * (e) the bf16 arms of K5 and K4a (``csrc/plf.cu::plf_bf16_kernel``,
-  ``csrc/cost_volume.cu::cv_p2p_bf16_kernel``): tiles of ``kRows`` /
-  ``kP2pRows`` rows that hold whole queries where K fits, or one query's
-  rows over several tiles with its running max (K5) or sum in ascending k
-  (K4a) carried between them; blocks in clusters of ``kBf16Cluster``, the
-  grid padded to whole clusters, every block of a cluster through the same
-  tiles (the weight stages are shared), a padding block writing nothing;
+  ``csrc/cost_volume.cu::cv_p2p_bf16_kernel``) on their wrappers' plans
+  (``plf_plan``, ``cv_p2p_plan``, here for a card of four blocks): runs of
+  whole queries a block, their rows in full tiles of ``kRows`` /
+  ``kP2pRows`` rows across query boundaries, a query's running max (K5)
+  or sum in ascending k (K4a) carried from tile to tile; blocks in
+  clusters of ``kBf16Cluster``, the grid padded to whole clusters, every
+  block through the plan's tiles (the weight stages are shared), a
+  padding block writing nothing;
   x0 and x1 rounded to bf16 before each product, the products summed in
   float32; the constants read from the CUDA sources.  Every output row
   written exactly once; held within 1e-2 of the output's largest magnitude
@@ -640,28 +642,35 @@ def bf16_round(x):
         ).numpy()
 
 
+# the card the bf16 schedules are planned for here: few blocks, so that a
+# block takes several queries and a query runs over tiles
+BF16_SLOTS = 4
+
+
 def bf16_schedule(source, tile_name, total, k):
-    """The launch and tiles of a bf16 arm: (queries a block, rows of its
-    work, tiles of it, blocks of the grid, rows a tile, blocks a
-    cluster)."""
+    """The launch and tiles of a bf16 arm, from its wrapper's plan on a
+    card of BF16_SLOTS blocks: (queries a block, tiles a block, blocks of
+    the grid, rows a tile, blocks a cluster)."""
     tile_rows = src_constant(source, tile_name)
     cluster = src_constant(source, "kBf16Cluster")
-    qpb = max(1, tile_rows // k)
-    rows = qpb * k
-    tiles = -(-rows // tile_rows)
-    blocks = -(-(-(-total // qpb)) // cluster) * cluster
-    return qpb, rows, tiles, blocks, tile_rows, cluster
+    plan = (fused.plf_plan(total, k, BF16_SLOTS) if source == "plf.cu"
+            else fused.cv_p2p_plan(total, k, BF16_SLOTS, cluster))
+    assert tile_rows == (fused.PLF_ROWS if source == "plf.cu"
+                         else fused.CV_P2P_ROWS)
+    return plan["qpb"], plan["tiles"], plan["grid"], tile_rows, cluster
 
 
 def bf16_arm_model(source, tile_name, idx, n, tile_fn, combine, c_out):
-    """A bf16 arm block by block and tile by tile: ``tile_fn(q, j, used)``
-    gives the tile's rows (query, neighbour row in the batch or -1, used)
-    their values; ``combine(acc, values)`` folds a query's rows of one tile
-    into its running result, ``acc`` None on its first tile.  Returns (out,
-    how often each row was written, tiles each block ran)."""
+    """A bf16 arm block by block and tile by tile, in full tiles across
+    query boundaries: ``tile_fn(q, j, used)`` gives the tile's rows
+    (query, neighbour row in the batch or -1, used) their values;
+    ``combine(acc, values)`` folds a query's rows of one tile into its
+    running result, ``acc`` None on its first tile; a query is written at
+    its last row.  Returns (out, how often each row was written, tiles
+    each block ran, by cluster)."""
     bsz, _, k = idx.shape
     total = bsz * n
-    qpb, rows, tiles, blocks, tile_rows, cluster = bf16_schedule(
+    qpb, tiles, blocks, tile_rows, cluster = bf16_schedule(
         source, tile_name, total, k)
     flat = idx.reshape(total, k)
     out = np.full((total, c_out), np.nan, F32)
@@ -670,25 +679,26 @@ def bf16_arm_model(source, tile_name, idx, n, tile_fn, combine, c_out):
     assert blocks % cluster == 0 and blocks * qpb >= total
     for blk in range(blocks):
         q0 = blk * qpb
-        carry = [None] * qpb
+        rows = max(0, min(qpb, total - q0)) * k
+        carry = {}
         for tile in range(tiles):  # every block, its padding too
             ran[blk] += 1
             rg = tile * tile_rows + np.arange(tile_rows)
-            q = q0 + rg // k
-            used = (rg < rows) & (q < total)
-            jj = np.where(used, flat[np.minimum(q, total - 1), rg % k], -1)
+            used = rg < rows
+            q = np.where(used, q0 + rg // k, 0)
+            jj = np.where(used, flat[q, rg % k], -1)
             inside = used & (jj >= 0) & (jj < n)
             j = np.where(inside, (q // n) * n + jj, -1)
-            vals = tile_fn(np.where(used, q, 0), j, used)
-            for qi in range(qpb):
-                if q0 + qi >= total:
-                    continue
+            vals = tile_fn(q, j, used)
+            qend = min(((tile + 1) * tile_rows - 1) // k + 1, rows // k)
+            for qi in range(tile * tile_rows // k, qend):
                 lo = max(qi * k, tile * tile_rows)
                 hi = min(qi * k + k, (tile + 1) * tile_rows)
-                carry[qi] = combine(carry[qi], vals[lo - tile * tile_rows:
-                                                    hi - tile * tile_rows])
-                if tile + 1 == tiles:
-                    out[q0 + qi] = carry[qi]
+                carry[qi] = combine(carry.get(qi),
+                                    vals[lo - tile * tile_rows:
+                                         hi - tile * tile_rows])
+                if hi == qi * k + k:
+                    out[q0 + qi] = carry.pop(qi)
                     writes[q0 + qi] += 1
     return out, writes, ran.reshape(-1, cluster)
 
@@ -769,9 +779,10 @@ def plf_bf16_case(rs, k, b=1, n=37):
 
 @pytest.mark.parametrize("k", [8, 100, 128, 129, 200])
 def test_plf_bf16_schedule(rs, k):
-    """Whole queries per tile (k=8: 16 a tile, 37 rows in 3 blocks), one
-    query a tile (100, 128), a query over two tiles (129, 200; 37 blocks),
-    each grid padded to whole clusters: against the plain bf16 version."""
+    """37 queries in 4 blocks of 10 (the last 7): a block's rows in one
+    tile (k=8), tiles holding pieces of two queries (100), whole tiles a
+    query (128), queries over two or three tiles (129, 200): against the
+    plain bf16 version."""
     feat, idx, xyz, chain = plf_bf16_case(rs, k)
     tchain = [t(a).to(BF16) if i % 3 == 0 else t(a)
               for i, a in enumerate(chain)]
@@ -851,9 +862,10 @@ def cv_bf16_model_p2p(case):
 
 @pytest.mark.parametrize("k", [8, 33, 64, 65, 100])
 def test_cv_p2p_bf16_schedule(rs, k):
-    """Whole queries per tile (k=8, 33: 37 rows in 5 and 37 blocks padded
-    to 6 and 38), one query a tile (64), a query over two tiles (65, 100):
-    against the plain bf16 version."""
+    """37 queries in 4 blocks of 10 (two clusters; the last block 7): whole
+    queries in a tile (k=8), tiles holding pieces of several queries (33),
+    whole tiles a query (64), queries over two tiles (65, 100): against the
+    plain bf16 version."""
     p2p, writes, ran, args, _ = cv_bf16_model_p2p(cv_bf16_case(rs, k))
     assert (writes == 1).all() and (ran == ran[0, 0]).all()
     want = fused.cost_volume_p2p_plain(*args)
